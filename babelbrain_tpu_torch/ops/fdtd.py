@@ -1,0 +1,358 @@
+"""Fluid (shear-free) staggered-grid FDTD for transcranial ultrasound.
+
+PyTorch counterpart of ``babelbrain_tpu/ops/fdtd.py`` for the CT-mode main
+path. The host numerics (CPML profiles, SLS coefficient tuning, the CFL
+bound, material-field expansion and the reflector fold) are exact numpy
+copies. The time loop is a Python loop over ``ops.fdtd_kernels``: on a CUDA
+device each step is two hand-written kernels (velocity, pressure); on the
+CPU the same step runs as plain PyTorch.
+
+Physics (see the JAX module for the derivations): 4th-order staggered
+differences, CPML with slab-only psi memory, one SLS relaxation mechanism
+tuned exactly at the carrier, a CW plane source with per-pixel amplitude and
+phase, and the carrier DFT accumulated over the sensor window.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+Queue A item): shear media (label mode), point and volumetric sources,
+``sel_maps`` / ``monitor_ijk`` diagnostics and multi-device meshes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .fdtd_kernels import (
+    _C1,
+    _C2,
+    FluidCoeffs,
+    FluidState,
+    fluid_pressure,
+    fluid_velocity,
+)
+
+
+# ---------------------------------------------------------------------------
+# CPML
+# ---------------------------------------------------------------------------
+
+
+def cpml_profiles(n, npml, dx, dt, cmax, reflection_limit=1e-5, m=3.0):
+    """1-D CPML (b, a) coefficient profiles for integer and half positions.
+
+    sigma(d) = sigma_max * (d/L)^m with
+    sigma_max = -(m+1) * cmax * ln(R) / (2 L)   [Roden & Gedney 2000]
+    b = exp(-sigma dt), a = b - 1 (kappa=1, alpha=0).
+    Returns dict with 'b_int', 'a_int', 'b_half', 'a_half' arrays of length n
+    (nonzero only in the first/last npml cells).
+    """
+    L = npml * dx
+    sigma_max = -(m + 1.0) * cmax * np.log(reflection_limit) / (2.0 * L)
+
+    def sigma_at(pos):  # pos: distance from interior edge of PML, in cells
+        d = np.clip(pos, 0.0, npml) / npml
+        return sigma_max * d**m
+
+    out = {}
+    for name, off in (("int", 0.0), ("half", 0.5)):
+        coord = np.arange(n) + off
+        depth_lo = npml - coord  # >0 inside lo PML
+        depth_hi = coord - (n - 1 - npml)
+        sig = sigma_at(depth_lo) + sigma_at(depth_hi)
+        b = np.exp(-sig * dt)
+        a = b - 1.0
+        a[sig == 0] = 0.0
+        out[f"b_{name}"] = b.astype(np.float32)
+        out[f"a_{name}"] = a.astype(np.float32)
+    return out
+
+
+def _build_cpml_profiles_np(shape, npml, dx, dt, cmax, reflection_limit):
+    """Per-axis slab-trimmed (b, a) coefficient sets as numpy arrays."""
+    out = []
+    ns = npml + 2
+    for axis, n in enumerate(shape):
+        prof = cpml_profiles(n, npml, dx, dt, cmax, reflection_limit)
+        entry = {}
+        for stag in ("int", "half"):
+            b = prof[f"b_{stag}"]
+            a = prof[f"a_{stag}"]
+            entry[stag] = {
+                "b_lo": b[:ns], "a_lo": a[:ns], "b_hi": b[-ns:], "a_hi": a[-ns:],
+            }
+        out.append(entry)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SLS (standard linear solid) coefficient tuning
+# ---------------------------------------------------------------------------
+
+
+def sls_coefficients(materials: np.ndarray, frequency: float, dt: float):
+    """Per-material solver coefficients with exact carrier-frequency tuning.
+
+    materials: (M, 5) [rho, c_long, c_shear, att_long (Np/m), att_shear].
+    Returns dict of (M,) float64 arrays:
+      pi_u, mu_u    unrelaxed moduli factors used in the stress update
+      c_rp, c_rs    memory-variable feed coefficients (include dt folding)
+      b_r           memory decay factor
+      rho_inv
+      viscous       True if any material has attenuation
+    """
+    m = np.asarray(materials, np.float64)
+    rho, cl, cs, al, ash = m[:, 0], m[:, 1], m[:, 2], m[:, 3], m[:, 4]
+    omega = 2 * np.pi * frequency
+
+    def modulus(c, alpha):
+        """Complex modulus with loss angle from (c, alpha) at omega."""
+        q = alpha * c / omega
+        s = (1.0 / np.where(c > 0, c, 1.0)) * (1.0 - 1j * q)  # complex slowness
+        M = rho / s**2
+        return np.where(c > 0, M, 0.0)
+
+    Mp = modulus(cl, al)  # P modulus rho*cl^2 e^{i delta_p}
+    Ms = modulus(cs, ash)
+
+    # shared tau_sigma per material from the P loss angle
+    delta_p = np.angle(Mp + (Mp == 0))
+    x = np.tan(np.pi / 4 + delta_p / 2)  # omega*tau_eps_p
+    tau_sig = 1.0 / (omega * x)
+    tau_eps_p = x / omega
+
+    # S relaxation time chosen to hit the S loss angle with shared tau_sigma
+    delta_s = np.angle(Ms + (Ms == 0))
+    tau_eps_s = np.tan(delta_s + np.arctan(omega * tau_sig)) / omega
+    tau_eps_s = np.where(cs > 0, tau_eps_s, tau_sig)
+
+    def relaxed(M_target, tau_eps):
+        F = (1 + 1j * omega * tau_eps) / (1 + 1j * omega * tau_sig)
+        MR = np.real(M_target / F)
+        return MR
+
+    Pi_R = relaxed(Mp, tau_eps_p)
+    Mu_R = relaxed(Ms, tau_eps_s)
+
+    tp = tau_eps_p / tau_sig
+    ts = tau_eps_s / tau_sig
+    pi_u = Pi_R * tp
+    mu_u = Mu_R * ts
+
+    # memory update: r^{n+1} = b_r r^n - a_r * phi,
+    #   phi = c_rp * theta_dot - 2 c_rs * (theta_dot - d v_i/d x_i) etc.
+    half = dt / (2.0 * tau_sig)
+    b_r = (1.0 - half) / (1.0 + half)
+    a_r = dt / (1.0 + half)
+    c_rp = Pi_R * (tp - 1.0) / tau_sig * a_r / dt  # folded so phi*dt later
+    c_rs = Mu_R * (ts - 1.0) / tau_sig * a_r / dt
+    # snap lossless materials to exactly zero feed (kills fp noise from tan(pi/4))
+    c_rp = np.where(al > 0, c_rp, 0.0)
+    c_rs = np.where(ash > 0, c_rs, 0.0)
+
+    return {
+        "pi_u": pi_u,
+        "mu_u": mu_u,
+        "c_rp": c_rp * dt,
+        "c_rs": c_rs * dt,
+        "b_r": b_r,
+        "rho_inv": 1.0 / rho,
+        "viscous": bool(np.any(al > 0) or np.any(ash > 0)),
+    }
+
+
+# ---------------------------------------------------------------------------
+# simulation setup & run
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FDTDGrid:
+    shape: tuple  # (N1, N2, N3)
+    dx: float
+    dt: float
+    n_steps: int
+    frequency: float
+    npml: int = 12
+    reflection_limit: float = 1e-5
+    sensor_start: int = 0  # first step of the DFT window
+    source_plane_z: int = 13  # z-index of the CW source plane
+    source_type: str = "velocity_plane"  # or "stress_point" / "velocity_volume"
+    source_ijk: tuple = (0, 0, 0)  # for stress_point
+    ramp_cycles: float = 4.0
+
+
+def stable_dt(dx: float, cmax: float, cfl: float = 1.0) -> float:
+    """4th-order staggered-grid 3-D stability bound."""
+    return cfl * dx / (cmax * np.sqrt(3.0) * (abs(_C1) + abs(_C2)))
+
+
+def _material_fields(mat_idx, coefs, has_shear=True):
+    """Expand per-material coefficient tables to full-grid f32 fields (host)."""
+    idx = np.asarray(mat_idx)
+    keys = (
+        ("pi_u", "mu_u", "c_rp", "c_rs", "b_r", "rho_inv")
+        if has_shear
+        else ("pi_u", "c_rp", "b_r", "rho_inv")
+    )
+    out = {}
+    for k in keys:
+        out[k] = np.asarray(coefs[k], np.float32)[idx]
+    return out
+
+
+def _fold_reflector(props_np, reflector_mask, has_shear):
+    """Fold a pressure-release reflector mask into the modulus fields.
+
+    The reference passes air cavities as a ``ReflectorMask`` whose voxels are
+    forced to zero stress every step (`BabelIntegrationBASE.py:2365`). With
+    zero initial conditions that is exactly equivalent to zeroing the moduli
+    (pi_u/mu_u) and the relaxation feeds (c_rp/c_rs) at those voxels: stress
+    and pressure then stay identically zero there while velocities still
+    evolve against the zero-stress (pressure-release) surface.
+    """
+    keep = 1.0 - np.asarray(reflector_mask).astype(np.float32)
+    props_np["pi_u"] = props_np["pi_u"] * keep
+    props_np["c_rp"] = props_np["c_rp"] * keep
+    if has_shear:
+        props_np["mu_u"] = props_np["mu_u"] * keep
+        props_np["c_rs"] = props_np["c_rs"] * keep
+
+
+def make_fluid_coeffs(props_np, profiles_np, src_amp, src_phase,
+                      grid: FDTDGrid, viscous: bool, device) -> FluidCoeffs:
+    """Move the step-invariant inputs of the fluid step to ``device``."""
+    dev = torch.device(device)
+    f32 = lambda a: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(a, np.float32), device=dev
+    )
+
+    def pack(stag):
+        return f32(np.stack([
+            np.stack([profiles_np[ax][stag][k]
+                      for k in ("b_lo", "a_lo", "b_hi", "a_hi")])
+            for ax in range(3)
+        ]))
+
+    phase = f32(src_phase)
+    return FluidCoeffs(
+        rho_inv=f32(props_np["rho_inv"]), pi_u=f32(props_np["pi_u"]),
+        c_rp=f32(props_np["c_rp"]), b_r=f32(props_np["b_r"]),
+        cpml_half=pack("half"), cpml_int=pack("int"),
+        src_amp=f32(src_amp), src_cph=torch.cos(phase),
+        src_sph=torch.sin(phase),
+        dt_dx=grid.dt / grid.dx, inv_dx=1.0 / grid.dx, half_dt=grid.dt * 0.5,
+        zsrc=int(grid.source_plane_z), viscous=bool(viscous),
+    )
+
+
+def step_scalars(grid: FDTDGrid, n: int, oz_scale: float):
+    """Host scalars of step ``n``: (s_sin, s_cos, cosw, sinw).
+
+    s_sin / s_cos are sin(wt) / cos(wt) times the half-cosine source ramp
+    and the pressure->velocity scale; cosw / sinw are the carrier DFT
+    weights. Evaluated in float64 (the kernels take them as float32).
+    """
+    omega = 2.0 * np.pi * grid.frequency
+    wt = omega * (n * grid.dt)
+    ramp_steps = grid.ramp_cycles / grid.frequency / grid.dt
+    ramp = 0.5 * (1.0 - np.cos(np.pi * n / ramp_steps)) if n < ramp_steps else 1.0
+    scale = ramp * oz_scale
+    return (float(np.sin(wt) * scale), float(np.cos(wt) * scale),
+            float(np.cos(wt)), float(np.sin(wt)))
+
+
+def fluid_step(st: FluidState, co: FluidCoeffs, grid: FDTDGrid, n: int,
+               oz_scale: float) -> None:
+    """Advance the fluid state by step ``n`` (velocity, then pressure)."""
+    s_sin, s_cos, cosw, sinw = step_scalars(grid, n, oz_scale)
+    fluid_velocity(st, co, s_sin, s_cos)
+    if n >= grid.sensor_start:
+        fluid_pressure(st, co, cosw, sinw)
+    else:
+        # quiet phase: the DFT window is closed, accumulators untouched
+        fluid_pressure(st, co)
+
+
+def run_fdtd(
+    mat_idx: np.ndarray,
+    materials: np.ndarray,
+    grid: FDTDGrid,
+    source_amp: np.ndarray | None = None,
+    source_phase: np.ndarray | None = None,
+    point_amp: float = 0.0,
+    mesh=None,
+    reflector_mask=None,
+    volume_source: dict | None = None,
+    sel_maps: tuple = (),
+    monitor_ijk: np.ndarray | None = None,
+    *,
+    device="cuda",
+):
+    """Run the CW simulation and return carrier amplitude/phase/peak maps.
+
+    Parameters are those of the JAX ``run_fdtd`` for a fluid medium with a
+    ``velocity_plane`` source; ``device`` selects where the state lives
+    (CUDA: the fluid-step kernels; CPU: their plain PyTorch versions).
+
+    Returns dict with 'p_amp' (Pa), 'p_phase' (rad, FFT-bin convention of
+    the reference), 'peak' (Pa), each (N1,N2,N3) float32 numpy arrays.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_fdtd(mesh=...): multi-GPU decomposition is ROADMAP Queue A "
+            "item 16"
+        )
+    if tuple(sel_maps) or monitor_ijk is not None:
+        raise NotImplementedError(
+            "run_fdtd sel_maps/monitor_ijk diagnostics are ROADMAP Queue A "
+            "item 12"
+        )
+    if grid.source_type == "stress_point" or point_amp:
+        raise NotImplementedError(
+            "stress_point sources (refocusing) are ROADMAP Queue A item 9"
+        )
+    if grid.source_type != "velocity_plane" or volume_source is not None:
+        raise NotImplementedError(
+            "velocity_volume sources (dome) are ROADMAP Queue A item 11"
+        )
+    mats = np.asarray(materials, np.float64)
+    if np.any(mats[:, 2] > 0):
+        raise NotImplementedError(
+            "shear media (label-mode viscoelastic FDTD) are ROADMAP Queue A "
+            "item 10"
+        )
+    coefs = sls_coefficients(mats, grid.frequency, grid.dt)
+    props_np = _material_fields(mat_idx, coefs, has_shear=False)
+    if reflector_mask is not None:
+        _fold_reflector(props_np, reflector_mask, False)
+
+    rho0, c0 = mats[0, 0], mats[0, 1]
+    oz_scale = 1.0 / (rho0 * c0)  # pressure -> particle velocity (plane wave)
+    cmax = mats[:, 1].max()
+    profiles = _build_cpml_profiles_np(
+        grid.shape, grid.npml, grid.dx, grid.dt, cmax, grid.reflection_limit
+    )
+    zeros2 = np.zeros(grid.shape[:2])
+    co = make_fluid_coeffs(
+        props_np, profiles,
+        source_amp if source_amp is not None else zeros2,
+        source_phase if source_phase is not None else zeros2,
+        grid, coefs["viscous"], device,
+    )
+    st = FluidState.zeros(grid.shape, grid.npml + 2, device)
+    for n in range(grid.n_steps):
+        fluid_step(st, co, grid, n, oz_scale)
+
+    acc_c = st.acc_cos.cpu().numpy()
+    acc_s = st.acc_sin.cpu().numpy()
+    n_win = grid.n_steps - grid.sensor_start
+    # FFT-bin convention: X = sum p e^{-i w t} = C - iS; amp=2|X|/N
+    amp = 2.0 / n_win * np.sqrt(acc_c**2 + acc_s**2)
+    phase = np.arctan2(-acc_s, acc_c)
+    return {
+        "p_amp": amp.astype(np.float32),
+        "p_phase": phase.astype(np.float32),
+        "peak": st.peak.cpu().numpy(),
+    }

@@ -1,0 +1,267 @@
+"""Fluid FDTD step: CUDA kernels, their wrappers and plain PyTorch versions.
+
+One fluid leapfrog step is two kernels (``csrc/fdtd_fluid.cu``):
+
+* ``fluid_velocity`` — v_i -= dt/dx rho_inv (D+_i p + psi), CPML on all
+  three axes ("half" profiles), then the CW plane source SET into vz at
+  ``zsrc`` where the source amplitude is positive;
+* ``fluid_pressure`` — theta = sum of the CPML'd D-_i v_i ("int" profiles),
+  the SLS memory r, p -= dt/dx pi_u theta + dt (r' + r)/2; with the carrier
+  DFT and |p| peak inside the sensor window (``cosw``/``sinw`` given).
+
+They replace the JAX package's Pallas kernels B1/B3/B4
+(``babelbrain_tpu/ops/fdtd_pallas.py``). The math is the XLA step of
+``babelbrain_tpu/ops/fdtd.py:_make_fluid_step_fn``.
+
+The wrappers dispatch on the device of the state: a CPU state runs the plain
+version (``fluid_velocity_ref`` / ``fluid_pressure_ref``), a CUDA state
+launches the kernel on the current stream (or raises). All state is updated
+in place. ``launches`` counts kernel launches, ``plain_calls`` calls of the
+plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from . import _build
+
+# 4th-order staggered-grid coefficients
+_C1 = 9.0 / 8.0
+_C2 = -1.0 / 24.0
+
+launches = {"fluid_velocity": 0, "fluid_pressure": 0, "fluid_pressure_dft": 0}
+plain_calls = {"fluid_velocity": 0, "fluid_pressure": 0, "fluid_pressure_dft": 0}
+
+
+@dataclass
+class FluidCoeffs:
+    """Step-invariant inputs of the fluid step (all float32, one device).
+
+    ``cpml_half`` / ``cpml_int``: (3, 4, ns) profiles, per axis the rows
+    [b_lo, a_lo, b_hi, a_hi] of the ns-plane slabs. ``src_*``: (N1, N2)
+    source amplitude and cos/sin of its phase.
+    """
+
+    rho_inv: torch.Tensor
+    pi_u: torch.Tensor
+    c_rp: torch.Tensor
+    b_r: torch.Tensor
+    cpml_half: torch.Tensor
+    cpml_int: torch.Tensor
+    src_amp: torch.Tensor
+    src_cph: torch.Tensor
+    src_sph: torch.Tensor
+    dt_dx: float
+    inv_dx: float
+    half_dt: float
+    zsrc: int
+    viscous: bool
+
+
+@dataclass
+class FluidState:
+    """Fields of the fluid system, the CPML psi slabs and the accumulators.
+
+    ``psi_p`` / ``psi_v``: [x_lo, x_hi, y_lo, y_hi, z_lo, z_hi] with shapes
+    (ns, N2, N3), (N1, ns, N3), (N1, N2, ns) for the x, y, z slabs.
+    """
+
+    p: torch.Tensor
+    vx: torch.Tensor
+    vy: torch.Tensor
+    vz: torch.Tensor
+    r: torch.Tensor
+    acc_cos: torch.Tensor
+    acc_sin: torch.Tensor
+    peak: torch.Tensor
+    psi_p: list
+    psi_v: list
+
+    @classmethod
+    def zeros(cls, shape, ns, device) -> "FluidState":
+        n1, n2, n3 = shape
+        z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
+
+        def psi():
+            return [z(ns, n2, n3), z(ns, n2, n3), z(n1, ns, n3), z(n1, ns, n3),
+                    z(n1, n2, ns), z(n1, n2, ns)]
+
+        return cls(p=z(n1, n2, n3), vx=z(n1, n2, n3), vy=z(n1, n2, n3),
+                   vz=z(n1, n2, n3), r=z(n1, n2, n3), acc_cos=z(n1, n2, n3),
+                   acc_sin=z(n1, n2, n3), peak=z(n1, n2, n3),
+                   psi_p=psi(), psi_v=psi())
+
+
+def _check(st: FluidState, co: FluidCoeffs) -> tuple:
+    """Validate device, dtype, shape and contiguity; return (shape, ns)."""
+    shape = tuple(st.p.shape)
+    if len(shape) != 3:
+        raise ValueError(f"fluid state must be 3-D, got {shape}")
+    n1, n2, n3 = shape
+    ns = co.cpml_half.shape[-1]
+    if min(shape) < ns:
+        raise ValueError(f"grid {shape} thinner than the CPML slab ({ns})")
+    dev = st.p.device
+    vols = [st.p, st.vx, st.vy, st.vz, st.r, st.acc_cos, st.acc_sin, st.peak,
+            co.rho_inv, co.pi_u, co.c_rp, co.b_r]
+    psi_shapes = [(ns, n2, n3)] * 2 + [(n1, ns, n3)] * 2 + [(n1, n2, ns)] * 2
+    expect = ([(t, shape) for t in vols]
+              + [(t, s) for t, s in zip(st.psi_p, psi_shapes)]
+              + [(t, s) for t, s in zip(st.psi_v, psi_shapes)]
+              + [(co.cpml_half, (3, 4, ns)), (co.cpml_int, (3, 4, ns))]
+              + [(t, (n1, n2)) for t in (co.src_amp, co.src_cph, co.src_sph)])
+    for t, s in expect:
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(
+                f"fluid step: every tensor must be float32 on {dev}, got "
+                f"{t.dtype} on {t.device}"
+            )
+        if tuple(t.shape) != s or not t.is_contiguous():
+            raise ValueError(
+                f"fluid step: expected a contiguous {s} tensor, got "
+                f"{tuple(t.shape)} (contiguous={t.is_contiguous()})"
+            )
+    if not 0 <= co.zsrc < n3:
+        raise ValueError(f"source plane z={co.zsrc} outside the grid")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"fluid step: unsupported device {dev}")
+    return shape, ns
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def fluid_velocity(st: FluidState, co: FluidCoeffs, s_sin: float,
+                   s_cos: float) -> None:
+    """Velocity half-step in place; ``s_sin``/``s_cos`` are sin(wt) and
+    cos(wt) times the source ramp and the pressure->velocity scale."""
+    (n1, n2, n3), ns = _check(st, co)
+    if st.p.device.type == "cpu":
+        fluid_velocity_ref(st, co, s_sin, s_cos)
+        return
+    lib = _build.library()
+    rc = lib.bb_fluid_velocity(
+        _ptr(st.p), _ptr(st.vx), _ptr(st.vy), _ptr(st.vz), _ptr(co.rho_inv),
+        *(_ptr(t) for t in st.psi_p), _ptr(co.cpml_half), _ptr(co.src_amp),
+        _ptr(co.src_cph), _ptr(co.src_sph), s_sin, s_cos, co.dt_dx,
+        n1, n2, n3, ns, co.zsrc, _stream(),
+    )
+    _build.check(rc, "fluid_velocity_kernel")
+    launches["fluid_velocity"] += 1
+
+
+def fluid_pressure(st: FluidState, co: FluidCoeffs, cosw: float | None = None,
+                   sinw: float | None = None) -> None:
+    """Pressure half-step in place; with ``cosw``/``sinw`` (the carrier
+    cos/sin at this step) it also accumulates the DFT and the |p| peak."""
+    (n1, n2, n3), ns = _check(st, co)
+    with_dft = cosw is not None
+    if st.p.device.type == "cpu":
+        fluid_pressure_ref(st, co, cosw, sinw)
+        return
+    lib = _build.library()
+    rc = lib.bb_fluid_pressure(
+        _ptr(st.vx), _ptr(st.vy), _ptr(st.vz), _ptr(st.p), _ptr(st.r),
+        _ptr(co.pi_u), _ptr(co.c_rp), _ptr(co.b_r), _ptr(st.acc_cos),
+        _ptr(st.acc_sin), _ptr(st.peak), *(_ptr(t) for t in st.psi_v),
+        _ptr(co.cpml_int), co.dt_dx, co.inv_dx, co.half_dt,
+        cosw if with_dft else 0.0, sinw if with_dft else 0.0,
+        n1, n2, n3, ns, int(co.viscous), int(with_dft), _stream(),
+    )
+    _build.check(rc, "fluid_pressure_kernel")
+    launches["fluid_pressure_dft" if with_dft else "fluid_pressure"] += 1
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (same operation order as the kernels)
+# ---------------------------------------------------------------------------
+
+
+def _shift(f, offset, axis):
+    """f shifted so out[i] = f[i+offset], zero-padded."""
+    n = f.shape[axis]
+    out = torch.zeros_like(f)
+    m = n - abs(offset)
+    if m > 0:
+        src = f.narrow(axis, max(offset, 0), m)
+        out.narrow(axis, max(-offset, 0), m).copy_(src)
+    return out
+
+
+def d_plus(f, axis):
+    """Derivative at half point i+1/2 from integer-point samples (x 1/dx)."""
+    return _C1 * (_shift(f, 1, axis) - f) + _C2 * (
+        _shift(f, 2, axis) - _shift(f, -1, axis)
+    )
+
+
+def d_minus(f, axis):
+    """Derivative at integer point i from half-point samples (x 1/dx)."""
+    return _C1 * (f - _shift(f, -1, axis)) + _C2 * (
+        _shift(f, 1, axis) - _shift(f, -2, axis)
+    )
+
+
+def _cpml(D, axis, prof, psi_lo, psi_hi):
+    """Update the psi slabs in place and correct D in place (lo, then hi)."""
+    ns = prof.shape[-1]
+    shape = [1, 1, 1]
+    shape[axis] = ns
+    b_lo, a_lo, b_hi, a_hi = (prof[q].reshape(shape) for q in range(4))
+    d_lo = D.narrow(axis, 0, ns)
+    new_lo = b_lo * psi_lo + a_lo * d_lo
+    psi_lo.copy_(new_lo)
+    d_lo.copy_(d_lo + new_lo)
+    d_hi = D.narrow(axis, D.shape[axis] - ns, ns)
+    new_hi = b_hi * psi_hi + a_hi * d_hi
+    psi_hi.copy_(new_hi)
+    d_hi.copy_(d_hi + new_hi)
+    return D
+
+
+def fluid_velocity_ref(st: FluidState, co: FluidCoeffs, s_sin: float,
+                       s_cos: float) -> None:
+    """Plain version of ``fluid_velocity_kernel`` (in place)."""
+    plain_calls["fluid_velocity"] += 1
+    for axis, v in enumerate((st.vx, st.vy, st.vz)):
+        d = _cpml(d_plus(st.p, axis), axis, co.cpml_half[axis],
+                  st.psi_p[2 * axis], st.psi_p[2 * axis + 1])
+        v.copy_(v - co.dt_dx * co.rho_inv * d)
+    plane = st.vz[:, :, co.zsrc]
+    sval = co.src_amp * (s_sin * co.src_cph + s_cos * co.src_sph)
+    plane.copy_(torch.where(co.src_amp > 0, sval, plane))
+
+
+def fluid_pressure_ref(st: FluidState, co: FluidCoeffs,
+                       cosw: float | None = None,
+                       sinw: float | None = None) -> None:
+    """Plain version of ``fluid_pressure_kernel`` (in place)."""
+    with_dft = cosw is not None
+    plain_calls["fluid_pressure_dft" if with_dft else "fluid_pressure"] += 1
+    dv = [
+        _cpml(d_minus(v, axis), axis, co.cpml_int[axis],
+              st.psi_v[2 * axis], st.psi_v[2 * axis + 1])
+        for axis, v in enumerate((st.vx, st.vy, st.vz))
+    ]
+    theta = dv[0] + dv[1] + dv[2]
+    if co.viscous:
+        new_r = co.b_r * st.r - co.c_rp * theta * co.inv_dx
+        p_new = (st.p - co.dt_dx * co.pi_u * theta
+                 - co.half_dt * (new_r + st.r))
+        st.r.copy_(new_r)
+    else:
+        p_new = st.p - co.dt_dx * co.pi_u * theta
+    st.p.copy_(p_new)
+    if with_dft:
+        st.acc_cos.copy_(st.acc_cos + p_new * cosw)
+        st.acc_sin.copy_(st.acc_sin + p_new * sinw)
+        st.peak.copy_(torch.maximum(st.peak, p_new.abs()))

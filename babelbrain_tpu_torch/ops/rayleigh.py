@@ -1,0 +1,159 @@
+"""Rayleigh-Sommerfeld integral propagator (plain PyTorch).
+
+Computes the monochromatic field radiated by M source patches at P field
+points:
+
+    p(x_p) = (i k / 2 pi) * sum_m  u0_m * ds_m * exp(-i k r_pm) / r_pm
+
+with complex wavenumber ``k = 2 pi f / c + i alpha`` (imaginary part =
+attenuation in Np/m). With ``u0`` in pressure units (rho c v), this
+normalization reproduces the exact on-axis piston solution
+``p(z) = u0 (e^{-ikz} - e^{-ikR})``.
+
+Counterpart of ``babelbrain_tpu/ops/rayleigh.py``, which has no TPU kernel
+(XLA matmuls); this stays plain PyTorch. Differences from the JAX version:
+pair distances are direct coordinate differences (the JAX package expands
+``|p|^2 - 2 p.c + |c|^2`` for the TPU's matrix unit, which cancels in
+float32), and the complex accumulation is a complex64 matrix-vector product
+at full float32 precision (TF32 is switched off for every call: the phases
+reach k r ~ 1e3 rad). Field points are processed in blocks, so memory stays
+at O(point_block * elem_block).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _rayleigh_blocks(kr, ki, centers, w, points, point_block, elem_block):
+    """Blocked evaluation on the tensors' device; returns (P,) complex64."""
+    P = points.shape[0]
+    M = centers.shape[0]
+    out = torch.empty(P, dtype=torch.complex64, device=points.device)
+    for p0 in range(0, P, point_block):
+        pts = points[p0 : p0 + point_block]
+        acc = torch.zeros(pts.shape[0], dtype=torch.complex64,
+                          device=points.device)
+        for e0 in range(0, M, elem_block):
+            c = centers[e0 : e0 + elem_block]
+            r2 = torch.square(pts[:, 0:1] - c[:, 0])
+            r2 += torch.square(pts[:, 1:2] - c[:, 1])
+            r2 += torch.square(pts[:, 2:3] - c[:, 2])
+            r = torch.sqrt(r2.clamp_min_(1e-12))
+            decay = torch.reciprocal(r)
+            if ki != 0.0:
+                decay *= torch.exp(-ki * r)
+            a = torch.polar(decay, r.mul_(-kr))
+            acc += a @ w[e0 : e0 + elem_block]
+        out[p0 : p0 + point_block] = acc
+    return out
+
+
+def rayleigh_field(
+    wavenumber: complex,
+    centers,
+    areas,
+    u0,
+    points,
+    *,
+    point_block: int = 4096,
+    elem_block: int = 8192,
+    mesh=None,
+    device="cuda",
+):
+    """Evaluate the Rayleigh integral at ``points``.
+
+    Parameters
+    ----------
+    wavenumber : complex
+        k = 2 pi f / c + i alpha (alpha in Np/m).
+    centers : (M, 3) source patch centers (m).
+    areas : (M,) patch areas (m^2).
+    u0 : (M,) complex surface pressure amplitudes (Pa).
+    points : (P, 3) field points (m).
+    device : where the evaluation runs.
+
+    Returns
+    -------
+    (P,) complex64 numpy pressure field.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "rayleigh_field(mesh=...): multi-GPU point sharding is ROADMAP "
+            "Queue A item 16"
+        )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kr = float(np.real(wavenumber))
+    ki = float(np.imag(wavenumber))
+    # host-side prep in float64
+    centers = np.asarray(centers, np.float64)
+    points = np.asarray(points, np.float64)
+    u0 = np.asarray(u0, np.complex128).reshape(-1)
+    areas = np.asarray(areas, np.float64).reshape(-1)
+
+    # shift coordinates to the midpoint for f32 conditioning
+    allpts = np.concatenate([centers, points])
+    mid = (allpts.min(0) + allpts.max(0)) * 0.5
+    centers = centers - mid
+    points = points - mid
+
+    # fold the (i k / 2 pi) prefactor and area weights into the source term
+    pref = 1j * (kr + 1j * ki) / (2.0 * np.pi)
+    w = u0 * areas * pref
+    dev = torch.device(device)
+    out = _rayleigh_blocks(
+        kr, ki,
+        torch.as_tensor(centers, dtype=torch.float32, device=dev),
+        torch.as_tensor(w.astype(np.complex64), device=dev),
+        torch.as_tensor(points, dtype=torch.float32, device=dev),
+        point_block, elem_block,
+    )
+    return out.cpu().numpy()
+
+
+def rayleigh_field_volume(wavenumber, tx, u0, x, y, z, **kw):
+    """Evaluate on a full (len(x), len(y), len(z)) grid; returns complex64 volume.
+
+    Grid layout matches the reference's meshgrid ordering
+    (`BabelIntegrationSingle.py:290-297`).
+    """
+    xp, yp, zp = np.meshgrid(
+        np.asarray(x), np.asarray(y), np.asarray(z), indexing="ij"
+    )
+    pts = np.stack([xp.ravel(), yp.ravel(), zp.ravel()], axis=1).astype(np.float32)
+    field = rayleigh_field(wavenumber, tx.centers, tx.areas, u0, pts, **kw)
+    return np.asarray(field).reshape(len(x), len(y), len(z))
+
+
+def steering_phases(
+    wavenumber: complex,
+    elem_centers,
+    target,
+    spatial_step: float = 1e-3,
+    device="cuda",
+):
+    """Conjugate-phase element programming toward ``target``.
+
+    Backward-propagates a virtual point source at the steered target to the
+    element centers and conjugates (`BabelIntegrationCONCAVE_PHASEDARRAY.py:292-314`).
+    Returns complex per-element weights (unit-amplitude phases).
+    """
+    target = np.asarray(target, np.float32).reshape(1, 3)
+    u_back = rayleigh_field(
+        wavenumber,
+        target,
+        np.array([spatial_step**2], np.float32),
+        np.array([1.0 + 0j], np.complex64),
+        np.asarray(elem_centers, np.float32),
+        device=device,
+    )
+    conj = np.conjugate(np.asarray(u_back))
+    return np.exp(1j * np.angle(conj)).astype(np.complex64)
+
+
+def expand_element_weights(tx, elem_weights):
+    """Broadcast per-element complex weights to per-sub-element u0."""
+    ew = np.asarray(elem_weights, np.complex64)
+    return ew[np.asarray(tx.elem_ids)]

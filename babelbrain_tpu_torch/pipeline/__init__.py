@@ -1,0 +1,5 @@
+"""Headless Step 1 -> Step 2 -> Step 3 pipeline (CT-mode main path).
+
+Submodules are imported explicitly, e.g.
+``from babelbrain_tpu_torch.pipeline.runner import CaseConfig, run_case``.
+"""

@@ -1,0 +1,348 @@
+"""Step-2 acoustic simulation pipeline (headless).
+
+Orchestrates the reference's 10-step sequence
+(`TranscranialModeling/BabelIntegrationBASE.py:994-1033`, SURVEY.md
+section 3.2) TPU-natively:
+
+  S1  domain + materials           (pipeline.domain)
+  S2  forward Rayleigh to the source plane          (ops.rayleigh)
+  S3  CW source construction (amplitude/phase plane)
+  S4  FDTD through skull           (ops.fdtd; carrier DFT in-kernel, which
+      merges the reference's S5 phase-extraction FFT pass)
+  S6  backward Rayleigh from the sensor plane -> conjugate element phases
+  S7/8 refocused FDTD + extraction
+  S10 result assembly with the reference's crops/flips and DataForSim keys
+
+The water-only pass defaults to reusing the Rayleigh solution
+(``use_rayleigh_for_water=True``) exactly like the reference's default
+(`BabelBrain/BabelBrain.py:441`, justified by its 308-case study).
+
+Counterpart of ``babelbrain_tpu/pipeline/acoustic.py`` for the single-target
+plane-source path; Rayleigh and FDTD run in PyTorch on ``device``.
+Refocusing (S4b-S8) is ROADMAP Queue A item 9; multipoint steering item 13;
+dome sources item 11.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..ops.fdtd import FDTDGrid, run_fdtd
+from ..ops.rayleigh import (
+    expand_element_weights,
+    rayleigh_field,
+    steering_phases,
+)
+from .domain import Domain
+
+
+@dataclass
+class AcousticResult:
+    """Simulation outputs in the input-mask frame (reference orientation)."""
+
+    p_amp: np.ndarray  # carrier amplitude, full mask grid (flipped back)
+    p_phase: np.ndarray
+    p_amp_refocus: np.ndarray | None
+    rayleigh_field: np.ndarray  # complex, mask grid
+    data_for_sim: dict  # DataForSim.h5 contract keys
+    phased_array_programming: np.ndarray | None = None
+    phased_array_refocus: np.ndarray | None = None
+    meta: dict = field(default_factory=dict)
+    extra_maps: dict = field(default_factory=dict)  # sel_maps / sensor series
+
+
+def _volume_points(dom: Domain):
+    xp, yp, zp = np.meshgrid(dom.x_vec, dom.y_vec, dom.z_vec, indexing="ij")
+    return np.stack([xp.ravel(), yp.ravel(), zp.ravel()], 1).astype(np.float32)
+
+
+def forward_rayleigh(dom: Domain, tx, u0, attenuated_water=0.0, *,
+                     device="cuda"):
+    """Rayleigh field over the whole domain grid (S2)."""
+    k = (
+        2 * np.pi * dom.frequency / dom.materials[0, 1]
+        + 1j * attenuated_water
+    )
+    pts = _volume_points(dom)
+    field_flat = rayleigh_field(k, tx.centers, tx.areas, u0, pts,
+                                device=device)
+    return np.asarray(field_flat).reshape(dom.material_map.shape)
+
+
+def source_plane_from_field(dom: Domain, u2: np.ndarray):
+    """Extract the CW source plane at z = source_z, zeroing the PML skirt
+    (`BabelIntegrationSingle.py:300-304`)."""
+    plane = u2[:, :, dom.source_z].copy()
+    n = dom.npml
+    plane[:n, :] = 0
+    plane[-n:, :] = 0
+    plane[:, :n] = 0
+    plane[:, -n:] = 0
+    return plane
+
+
+def _make_grid(dom: Domain, source_type="velocity_plane", source_ijk=(0, 0, 0)):
+    return FDTDGrid(
+        shape=dom.material_map.shape,
+        dx=dom.dx,
+        dt=dom.dt,
+        n_steps=dom.n_steps,
+        frequency=dom.frequency,
+        npml=dom.npml,
+        sensor_start=dom.sensor_start,
+        source_plane_z=dom.source_z,
+        source_type=source_type,
+        source_ijk=tuple(int(v) for v in source_ijk),
+    )
+
+
+def _source_for_steering(
+    dom: Domain,
+    tx,
+    source_amp_pa: float,
+    steering_target=None,
+    element_weights=None,
+    *,
+    device="cuda",
+):
+    """Element programming + forward Rayleigh + source plane (S2/S3).
+
+    Env hook ``BBT_AVOID_PHASE_PROGRAMMING=1`` disables element phase
+    programming (all elements driven in phase) — the reference's
+    ``BABEL_AVOID_PHASE_PROGRAMING`` test hook
+    (`BabelIntegrationANNULAR_ARRAY.py:389`).
+    """
+    import os
+
+    k_water = 2 * np.pi * dom.frequency / dom.materials[0, 1]
+    programming = None
+    if os.environ.get("BBT_AVOID_PHASE_PROGRAMMING") == "1":
+        steering_target = None
+    if steering_target is not None:
+        programming = steering_phases(
+            k_water, tx.elem_centers, steering_target, device=device
+        )
+        drive = programming
+        if element_weights is not None:
+            # calibrated weights apply ON TOP of the steering phases (the
+            # reference multiplies the steered drive by the optimized
+            # weights, `BabelIntegrationBASE.py:2224-2234,2302`)
+            drive = programming * np.asarray(element_weights, np.complex64)
+        u0 = expand_element_weights(tx, drive) * source_amp_pa
+    elif element_weights is not None:
+        u0 = expand_element_weights(tx, element_weights) * source_amp_pa
+    else:
+        u0 = np.full(tx.num_subelements, source_amp_pa, np.complex64)
+    u2 = forward_rayleigh(dom, tx, u0, device=device)
+    src = source_plane_from_field(dom, u2)
+    return programming, u2, src
+
+
+def run_acoustic_sim(
+    dom: Domain,
+    tx,
+    source_amp_pa: float = 60e3,
+    *,
+    element_weights: np.ndarray | None = None,
+    steering_target=None,
+    do_refocus: bool = False,
+    use_rayleigh_for_water: bool = True,
+    mesh=None,
+    input_source_plane: np.ndarray | None = None,
+    sel_maps: tuple = (),
+    monitor_ijk: np.ndarray | None = None,
+    device="cuda",
+) -> AcousticResult:
+    """Full Step-2 run for one transducer position/steering.
+
+    ``tx`` must already be positioned in domain coordinates (focus-centered
+    axes, transducer below the source plane; see ``position_transducer``).
+
+    ``input_source_plane``: externally supplied complex source plane
+    (N1,N2) replacing the Rayleigh-derived one — the reference's
+    ``InputFocusStart`` hook (`BabelIntegrationSingle.py:306-311`), used to
+    drive the FDTD from a measured/precomputed focal plane. The Rayleigh
+    field is still computed for the water-path shortcut and display.
+
+    ``sel_maps``/``monitor_ijk`` pass through to ``run_fdtd`` (which does
+    not serve them yet, ROADMAP Queue A item 12). ``do_refocus`` is ROADMAP
+    Queue A item 9.
+    """
+    if do_refocus:
+        raise NotImplementedError(
+            "run_acoustic_sim(do_refocus=True) is ROADMAP Queue A item 9"
+        )
+
+    # --- S2/S3: element programming + forward Rayleigh + source plane ---
+    programming, u2, src = _source_for_steering(
+        dom, tx, source_amp_pa, steering_target, element_weights,
+        device=device,
+    )
+    if input_source_plane is not None:
+        src = np.asarray(input_source_plane, np.complex64)
+        if src.shape != dom.material_map.shape[:2]:
+            raise ValueError(
+                f"input_source_plane shape {src.shape} != domain plane "
+                f"{dom.material_map.shape[:2]}"
+            )
+
+    # --- S4: FDTD through skull ---
+    grid = _make_grid(dom)
+    reflector = dom.meta.get("reflector_mask")
+    out = run_fdtd(
+        dom.material_map,
+        dom.materials,
+        grid,
+        source_amp=np.abs(src),
+        source_phase=np.angle(src),
+        mesh=mesh,
+        reflector_mask=reflector,
+        sel_maps=sel_maps,
+        monitor_ijk=monitor_ijk,
+        device=device,
+    )
+
+    refocus_out = None
+    refocus_programming = None
+
+    # --- S10: assemble results in input orientation ---
+    water_p_amp = None
+    if not use_rayleigh_for_water:
+        # full water-only FDTD pass (the reference's bUseRayleighForWater=False
+        # branch, `CalculateFieldProcess.py:55-77`)
+        water_out = run_fdtd(
+            np.zeros_like(dom.material_map),
+            dom.materials[:1],
+            grid,
+            source_amp=np.abs(src),
+            source_phase=np.angle(src),
+            mesh=mesh,
+            device=device,
+        )
+        water_p_amp = water_out["p_amp"]
+    return _assemble_result(
+        dom, u2, src, out,
+        refocus_out=refocus_out,
+        programming=programming,
+        refocus_programming=refocus_programming,
+        water_p_amp=water_p_amp,
+    )
+
+
+def _assemble_result(
+    dom: Domain,
+    u2,
+    src,
+    out,
+    *,
+    refocus_out=None,
+    programming=None,
+    refocus_programming=None,
+    water_p_amp=None,
+    dome=False,
+) -> AcousticResult:
+    """S10: crop/unflip into the input-mask frame and build DataForSim keys.
+
+    ``water_p_amp=None`` selects the Rayleigh-for-water shortcut (the
+    reference default, `BabelBrain/BabelBrain.py:441`).
+
+    ``dome``: the transducer occupies the domain volume, so there is no
+    source plane to blank below (`BabelIntegrationDOME_PHASEDARRAY.py`
+    keeps the full field).
+    """
+
+    def mask_frame(vol):
+        return dom.crop_and_unflip(vol)
+
+    zsrc_blank = 0 if dome else dom.source_z + 1
+    u2_masked = u2.copy()
+    u2_masked[:, :, :zsrc_blank] = 0
+    p_amp_full = out["p_amp"].copy()
+    p_amp_full[:, :, :zsrc_blank] = 0
+    p_phase_full = out["p_phase"].copy()
+    p_phase_full[:, :, :zsrc_blank] = 0
+
+    data = {
+        "p_amp": mask_frame(p_amp_full),
+        "p_complex_re": mask_frame(p_amp_full * np.cos(p_phase_full)),
+        "p_complex_im": mask_frame(p_amp_full * np.sin(p_phase_full)),
+        "MaterialMap": mask_frame(dom.material_map).astype(np.uint32),
+        "Material": dom.materials,
+        "x_vec": dom.x_vec[dom.offsets[0] : -dom.offsets[1]],
+        "y_vec": dom.y_vec[dom.offsets[2] : -dom.offsets[3]],
+        "z_vec": dom.z_vec[dom.offsets[4] : -dom.offsets[5]],
+        "SpatialStep": dom.dx,
+        # cropped MASK-frame index (z un-flipped to match the exported
+        # arrays, like the reference's FocalSpotLocationOrig in DataForSim)
+        "TargetLocation": np.array([
+            dom.focal_idx[0] - dom.offsets[0],
+            dom.focal_idx[1] - dom.offsets[2],
+            dom.mask_shape[2] - 1 - (dom.focal_idx[2] - dom.offsets[4]),
+        ]),
+        "SourcePlane_re": np.real(
+            src[dom.npml : -dom.npml, dom.npml : -dom.npml]
+        ),
+        "SourcePlane_im": np.imag(
+            src[dom.npml : -dom.npml, dom.npml : -dom.npml]
+        ),
+    }
+    if water_p_amp is None:
+        data["p_amp_water"] = np.abs(mask_frame(u2_masked))
+    else:
+        pw = water_p_amp.copy()
+        pw[:, :, :zsrc_blank] = 0
+        data["p_amp_water"] = mask_frame(pw)
+    if refocus_out is not None:
+        pr = refocus_out["p_amp"].copy()
+        pr[:, :, :zsrc_blank] = 0
+        data["p_amp_refocus"] = mask_frame(pr)
+
+    extra = {}
+    for k, v in out.items():
+        if k in ("p_amp", "p_phase", "peak"):
+            continue
+        extra[k] = mask_frame(v) if np.ndim(v) == 3 else v
+
+    return AcousticResult(
+        p_amp=data["p_amp"],
+        p_phase=mask_frame(p_phase_full),
+        p_amp_refocus=data.get("p_amp_refocus"),
+        rayleigh_field=mask_frame(np.abs(u2_masked))
+        * np.exp(1j * mask_frame(np.angle(u2_masked))),
+        data_for_sim=data,
+        phased_array_programming=programming,
+        phased_array_refocus=refocus_programming,
+        meta={"peak": float(out["peak"].max())},
+        extra_maps=extra,
+    )
+
+
+def position_transducer(tx, dom: Domain, focal_length: float, extra_z: float = 0.0,
+                        return_adjustment: bool = False):
+    """Place a transducer built with its focus at the origin so the bowl sits
+    fully below the source plane, mirroring the reference's repositioning
+    loop (`BabelIntegrationSingle.py:256-278`).
+
+    The domain's z axis is zero at the focal spot; the source plane is at
+    z_vec[source_z]. The transducer's natural position puts its focus at
+    z=0 via a +focal_length shift from the apex frame; it is then pushed
+    down until max(center_z) <= source-plane z.
+
+    With ``return_adjustment`` the mechanical z correction applied beyond
+    ``extra_z`` is also returned (meters, negative = pushed away from the
+    head) — the reference reports this back to the user as
+    ``AdjustmentInRAS`` (`_BabelBaseTx.py:407`, DataForSim key §3.2/S10)
+    so the physical positioning can be corrected.
+    """
+    z_plane = dom.z_vec[dom.source_z]
+    shifted = tx.translated([0.0, 0.0, extra_z])
+    over = shifted.centers[:, 2].max() - z_plane
+    adjustment = 0.0
+    if over > 0:
+        adjustment = -(over + 1e-6)
+        shifted = shifted.translated([0.0, 0.0, adjustment])
+    if return_adjustment:
+        return shifted, adjustment
+    return shifted

@@ -1,0 +1,125 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
+
+These kernels have no CPU mode, so every test here needs a CUDA device (and
+nvcc to build ``babelbrain_tpu_torch/csrc``); without one they skip. Run
+them on a GPU machine with
+
+    python -m pytest tests/test_torch_kernels.py -q
+
+``python3 chip_smoke.py`` runs the same comparisons at the main path's full
+shapes. Kernels are built with --fmad=false in the plain versions'
+operation order, so the comparisons are exact (tolerance 0); the CPU tests
+hold the plain versions to the JAX package.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from babelbrain_tpu.materials import build_thermal_material_list, material_array
+from babelbrain_tpu_torch.ops import bhte as B
+from babelbrain_tpu_torch.ops import bhte_kernels
+from babelbrain_tpu_torch.ops import fdtd as F
+from babelbrain_tpu_torch.ops import fdtd_kernels as K
+
+pytestmark = pytest.mark.cuda
+
+F0 = 500e3
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no "
+                    "CPU mode")
+    return torch.device("cuda")
+
+
+def _fluid_setup(device, shape=(36, 40, 56), viscous=True):
+    mats = np.array([[1000.0, 1500.0, 0, 0, 0],
+                     [1900.0, 2800.0, 0, 80.0 if viscous else 0.0, 0]])
+    dx = 1500.0 / F0 / 6
+    ppp = int(np.ceil(1 / F0 / F.stable_dt(dx, 2800.0, 0.5)))
+    dt = 1 / F0 / ppp
+    grid = F.FDTDGrid(shape=shape, dx=dx, dt=dt, n_steps=60, frequency=F0,
+                      sensor_start=40, source_plane_z=13)
+    idx = np.zeros(shape, np.uint8)
+    idx[:, :, 24:30] = 1
+    coefs = F.sls_coefficients(mats, F0, dt)
+    props = F._material_fields(idx, coefs, has_shear=False)
+    prof = F._build_cpml_profiles_np(shape, 12, dx, dt, 2800.0, 1e-5)
+    amp = np.zeros(shape[:2])
+    amp[6:-6, 6:-6] = 60e3
+    ph = np.random.default_rng(0).uniform(-1, 1, shape[:2])
+    co = F.make_fluid_coeffs(props, prof, amp, ph, grid, coefs["viscous"],
+                             device)
+    return grid, co
+
+
+@pytest.mark.parametrize("viscous", [True, False])
+def test_fluid_kernels_match_plain(cuda, viscous):
+    grid, co = _fluid_setup(cuda, viscous=viscous)
+    oz = 1.0 / (1000.0 * 1500.0)
+    st_k = K.FluidState.zeros(grid.shape, 14, cuda)
+    st_p = K.FluidState.zeros(grid.shape, 14, cuda)
+    before = dict(K.launches)
+    for n in range(grid.n_steps):
+        F.fluid_step(st_k, co, grid, n, oz)
+        s_sin, s_cos, cosw, sinw = F.step_scalars(grid, n, oz)
+        K.fluid_velocity_ref(st_p, co, s_sin, s_cos)
+        if n >= grid.sensor_start:
+            K.fluid_pressure_ref(st_p, co, cosw, sinw)
+        else:
+            K.fluid_pressure_ref(st_p, co)
+    torch.cuda.synchronize()
+    assert K.launches["fluid_velocity"] - before["fluid_velocity"] == 60
+    assert K.launches["fluid_pressure"] - before["fluid_pressure"] == 40
+    assert K.launches["fluid_pressure_dft"] - before["fluid_pressure_dft"] == 20
+    assert float(st_p.p.abs().max()) > 0
+    for name in ("p", "vx", "vy", "vz", "r", "acc_cos", "acc_sin", "peak"):
+        torch.testing.assert_close(getattr(st_k, name), getattr(st_p, name),
+                                   rtol=0, atol=0, msg=name)
+    for a, b in zip(st_k.psi_p + st_k.psi_v, st_p.psi_p + st_p.psi_v):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_fluid_wrapper_rejects_mixed_devices(cuda):
+    grid, co = _fluid_setup(cuda)
+    st = K.FluidState.zeros(grid.shape, 14, "cpu")
+    with pytest.raises(ValueError, match="float32 on"):
+        K.fluid_velocity(st, co, 0.0, 0.0)
+
+
+def test_bhte_kernel_matches_plain(cuda):
+    shape = (30, 34, 40)
+    acoustic = material_array(500e3, tissues=("Water", "Skin", "Cortical",
+                                              "Trabecular", "Brain"))
+    mats = build_thermal_material_list(acoustic, ct_mode=False,
+                                       segmented_brain=False)
+    idx = np.zeros(shape, np.uint8)
+    idx[:, :, 10:14] = 1
+    idx[:, :, 14:20] = 2
+    idx[:, :, 20:] = 4
+    p = np.zeros(shape, np.float32)
+    p[10:20, 12:22, 24:32] = 1.2e7
+    co = B.make_bhte_coeffs(B._build_coeff_maps(idx, mats, 5e-4, 0.01), cuda)
+    q = torch.as_tensor(B.absorption_heating(p, idx, mats, 0.5), device=cuda)
+    T0 = torch.full(shape, 37.0, device=cuda)
+    states = []
+    before = bhte_kernels.launches["bhte_step"]
+    for step in (bhte_kernels.bhte_step, None):
+        T, dose = T0.clone(), torch.zeros_like(T0)
+        peak = torch.full_like(T0, -1e9)
+        for n in range(60):
+            qn = q if n < 40 else None
+            if step is None:
+                T = bhte_kernels.bhte_step_ref(T, dose, peak, co, qn, 37.0,
+                                               torch.empty_like(T))
+            else:
+                T = step(T, dose, peak, co, qn, 37.0)
+        states.append((T, dose, peak))
+    torch.cuda.synchronize()
+    assert bhte_kernels.launches["bhte_step"] - before == 60
+    assert float(states[1][2].max()) > 43.0  # both dose branches exercised
+    for a, b in zip(*states):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
