@@ -3,9 +3,9 @@
 The system has no learned weights: its "parameters" are the material
 table, the expanded property volumes, the CPML profiles (all derived from a
 ``Domain`` and an ``FDTDGrid``) and the positioned transducer. These helpers
-take the JAX package's objects (numpy fields only, so nothing here imports
-JAX) and build the port's, so a test can feed the same Step-1 or Step-2
-state to both packages.
+read the JAX package's objects by their fields (numpy arrays and plain
+values, so nothing here imports either JAX or the JAX package) and build the
+port's, so a test can feed the same Step-1 or Step-2 state to both packages.
 """
 
 from __future__ import annotations
@@ -13,10 +13,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-from babelbrain_tpu.tx import Transducer
 
 from .ops.fdtd import FDTDGrid
 from .pipeline.domain import Domain
+from .tx import Transducer
 
 
 def grid_from_reference(grid) -> FDTDGrid:
@@ -40,13 +40,27 @@ def domain_from_reference(dom) -> Domain:
 
 
 def transducer_from_reference(tx) -> Transducer:
-    """A copy of a (positioned) transducer; both packages share the JAX-free
-    ``babelbrain_tpu.tx.Transducer`` class."""
-    return Transducer(
-        centers=np.array(tx.centers),
-        areas=np.array(tx.areas),
-        normals=np.array(tx.normals),
-        elem_ids=np.array(tx.elem_ids),
-        elem_centers=np.array(tx.elem_centers),
-        meta=dict(tx.meta),
-    )
+    """The port's ``Transducer`` with copies of a (positioned) JAX
+    transducer's arrays."""
+    return Transducer(**{
+        f.name: (dict(v) if isinstance(v, dict) else np.array(v))
+        for f in dataclasses.fields(Transducer)
+        for v in (getattr(tx, f.name),)
+    })
+
+
+def indexed_materials_from_reference(mat_idx, mat_table):
+    """The port's indexed materials from the JAX ``_build_indexed_materials``.
+
+    The JAX kernels take an int32 index and an (8, 128) table whose first six
+    rows are [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r] over the first M lanes
+    (materials, then their reflector twins); the lanes past M are padding.
+    Every real material has rho_inv > 0, so M is one past the last lane with
+    a nonzero rho_inv. Returns ``(idx int32 (N1,N2,N3), table (6, M) f32)``.
+    """
+    tab = np.asarray(mat_table, np.float32)
+    m = int(np.nonzero(tab[0])[0].max()) + 1
+    idx = np.ascontiguousarray(np.asarray(mat_idx), np.int32)
+    if idx.max() >= m:
+        raise ValueError(f"material index {idx.max()} beyond the {m} materials")
+    return idx, np.ascontiguousarray(tab[:6, :m])

@@ -1,4 +1,5 @@
-"""Numerical operators: fluid FDTD, Rayleigh integral, BHTE, imaging.
+"""Numerical operators: fluid and viscoelastic FDTD, Rayleigh integral, BHTE,
+imaging.
 
 Submodules are imported explicitly (``from babelbrain_tpu_torch.ops import
 fdtd``); this package initializer imports nothing so that importing one

@@ -1,10 +1,11 @@
 """Build the CUDA kernels of ``babelbrain_tpu_torch/csrc`` and load them.
 
-The sources are compiled on first use with ``nvcc`` into one shared library
-with a plain C interface, which is loaded with ``ctypes`` (no PyTorch headers
-are compiled, so a build takes seconds). The library lands in
-``babelbrain_tpu_torch/_build/``, named by a hash of the sources and flags,
-so an edited source is rebuilt and an unchanged one is reused.
+The sources are compiled on first use with ``nvcc``, one process per source,
+all started together, and linked into one shared library with a plain C
+interface, which is loaded with ``ctypes`` (no PyTorch headers are compiled,
+so a build takes seconds). The library lands in ``babelbrain_tpu_torch/
+_build/``, named by a hash of the sources, headers and flags, so an edited
+source is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import time: only a call that needs a kernel on a CUDA
 tensor builds or loads the library.
@@ -23,13 +24,15 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("fdtd_fluid.cu", "bhte.cu")
+SOURCES = ("fdtd_fluid.cu", "fdtd_visco.cu", "bhte.cu")
+HEADERS = ("fdtd_stencil.cuh",)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --fmad=false: no multiply-add contraction, so each kernel rounds exactly
 # like the sequence of PyTorch elementwise ops in its plain version (the
 # kernels are bound by device-memory traffic, not arithmetic)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+NVCC_FLAGS = ARCH + (
+    "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC",
 )
 
 _LOCK = threading.Lock()
@@ -45,6 +48,8 @@ _SIGNATURES = {
     "bb_fluid_velocity": [_P] * 15 + [_F, _F, _F] + [_I] * 5 + [_P],
     "bb_fluid_pressure": [_P] * 18 + [_F] * 5 + [_I] * 6 + [_P],
     "bb_bhte_step": [_P] * 13 + [_F] + [_I] * 3 + [_P],
+    "bb_visco_velocity": [_P] * 10 + [_F] * 3 + [_I] * 6 + [_P],
+    "bb_visco_stress": [_P] * 11 + [_F] * 5 + [_I] * 7 + [_P],
 }
 
 
@@ -57,7 +62,7 @@ def find_nvcc() -> str | None:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:16]
@@ -82,14 +87,32 @@ def library() -> ctypes.CDLL:
                 )
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-                   *(os.path.join(CSRC, s) for s in SOURCES)]
             t0 = time.time()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+            procs = [
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                     os.path.join(CSRC, src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )
+                for src, obj in zip(SOURCES, objs)
+            ]
+            logs = [proc.communicate()[0] for proc in procs]
+            build_log = "".join(logs)
+            failed = [(src, proc.returncode) for src, proc in zip(SOURCES, procs)
+                      if proc.returncode != 0]
+            if not failed:
+                link = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+                                      capture_output=True, text=True)
+                build_log += link.stdout + link.stderr
+                if link.returncode != 0:
+                    failed = [("link", link.returncode)]
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
             build_seconds = time.time() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+            if failed:
+                raise RuntimeError(f"nvcc failed {failed}:\n{build_log}")
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():

@@ -1,20 +1,23 @@
-"""Fluid (shear-free) staggered-grid FDTD for transcranial ultrasound.
+"""Staggered-grid FDTD for transcranial ultrasound: fluid and viscoelastic.
 
-PyTorch counterpart of ``babelbrain_tpu/ops/fdtd.py`` for the CT-mode main
-path. The host numerics (CPML profiles, SLS coefficient tuning, the CFL
-bound, material-field expansion and the reflector fold) are exact numpy
-copies. The time loop is a Python loop over ``ops.fdtd_kernels``: on a CUDA
-device each step is two hand-written kernels (velocity, pressure); on the
-CPU the same step runs as plain PyTorch.
+PyTorch counterpart of ``babelbrain_tpu/ops/fdtd.py`` for the plane-source
+main paths: CT mode (fluid, shear-free media) and label mode (viscoelastic
+media with shear in the skull). The host numerics (CPML profiles, SLS
+coefficient tuning, the CFL bound, material-field expansion, the indexed
+material table and the reflector fold) are exact numpy copies. The time loop
+is a Python loop over ``ops.fdtd_kernels`` (fluid) or
+``ops.fdtd_visco_kernels`` (viscoelastic): on a CUDA device each step is two
+hand-written kernels (velocity, then pressure or stress); on the CPU the
+same step runs as plain PyTorch.
 
 Physics (see the JAX module for the derivations): 4th-order staggered
 differences, CPML with slab-only psi memory, one SLS relaxation mechanism
-tuned exactly at the carrier, a CW plane source with per-pixel amplitude and
-phase, and the carrier DFT accumulated over the sensor window.
+per modulus tuned exactly at the carrier, a CW plane source with per-pixel
+amplitude and phase, and the carrier DFT accumulated over the sensor window.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-Queue A item): shear media (label mode), point and volumetric sources,
-``sel_maps`` / ``monitor_ijk`` diagnostics and multi-device meshes.
+Queue A item): point and volumetric sources, ``sel_maps`` / ``monitor_ijk``
+diagnostics and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.timing import stage_timer
 from .fdtd_kernels import (
     _C1,
     _C2,
@@ -31,6 +35,12 @@ from .fdtd_kernels import (
     FluidState,
     fluid_pressure,
     fluid_velocity,
+)
+from .fdtd_visco_kernels import (
+    ViscoCoeffs,
+    ViscoState,
+    visco_stress,
+    visco_velocity,
 )
 
 
@@ -220,30 +230,88 @@ def _fold_reflector(props_np, reflector_mask, has_shear):
         props_np["c_rs"] = props_np["c_rs"] * keep
 
 
-def make_fluid_coeffs(props_np, profiles_np, src_amp, src_phase,
-                      grid: FDTDGrid, viscous: bool, device) -> FluidCoeffs:
-    """Move the step-invariant inputs of the fluid step to ``device``."""
+def _build_indexed_materials(coefs, mat_idx, reflector_mask):
+    """Indexed materials of the viscoelastic kernels.
+
+    Returns ``(idx int32 (N1,N2,N3), table (6, M) f32)`` with table rows
+    [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r]. Reflector (air-cavity) voxels get
+    twin materials with zeroed moduli and feeds (the same fold
+    ``_fold_reflector`` applies to expanded volumes, kept per material so the
+    table gather stays exact). The JAX version's 128-lane table cap and z
+    window test are limits of the TPU's gather and do not apply here.
+    """
+    keys = ("rho_inv", "pi_u", "mu_u", "c_rp", "c_rs", "b_r")
+    M = len(np.asarray(coefs["pi_u"]))
+    idx = np.asarray(mat_idx).astype(np.int32)
+    has_refl = reflector_mask is not None and np.asarray(reflector_mask).any()
+    tab = np.zeros((6, 2 * M if has_refl else M), np.float32)
+    for r, k in enumerate(keys):
+        v = np.asarray(coefs[k], np.float32)
+        tab[r, :M] = v
+        if has_refl:
+            tab[r, M:] = v if k in ("rho_inv", "b_r") else 0.0
+    if has_refl:
+        idx = np.where(np.asarray(reflector_mask, bool), idx + M, idx)
+    return idx.astype(np.int32), tab
+
+
+def _to_device(device):
+    """numpy -> contiguous float32 tensor on ``device``."""
     dev = torch.device(device)
-    f32 = lambda a: torch.as_tensor(  # noqa: E731
+    return lambda a: torch.as_tensor(  # noqa: E731
         np.ascontiguousarray(a, np.float32), device=dev
     )
 
-    def pack(stag):
-        return f32(np.stack([
-            np.stack([profiles_np[ax][stag][k]
-                      for k in ("b_lo", "a_lo", "b_hi", "a_hi")])
-            for ax in range(3)
-        ]))
 
+def _pack_profiles(profiles_np, stag, f32):
+    """(3, 4, ns) [b_lo, a_lo, b_hi, a_hi] profiles per axis."""
+    return f32(np.stack([
+        np.stack([profiles_np[ax][stag][k]
+                  for k in ("b_lo", "a_lo", "b_hi", "a_hi")])
+        for ax in range(3)
+    ]))
+
+
+def _step_constants(grid: FDTDGrid, viscous: bool) -> dict:
+    return dict(dt_dx=grid.dt / grid.dx, inv_dx=1.0 / grid.dx,
+                half_dt=grid.dt * 0.5, zsrc=int(grid.source_plane_z),
+                viscous=bool(viscous))
+
+
+def make_fluid_coeffs(props_np, profiles_np, src_amp, src_phase,
+                      grid: FDTDGrid, viscous: bool, device) -> FluidCoeffs:
+    """Move the step-invariant inputs of the fluid step to ``device``."""
+    f32 = _to_device(device)
     phase = f32(src_phase)
     return FluidCoeffs(
         rho_inv=f32(props_np["rho_inv"]), pi_u=f32(props_np["pi_u"]),
         c_rp=f32(props_np["c_rp"]), b_r=f32(props_np["b_r"]),
-        cpml_half=pack("half"), cpml_int=pack("int"),
+        cpml_half=_pack_profiles(profiles_np, "half", f32),
+        cpml_int=_pack_profiles(profiles_np, "int", f32),
         src_amp=f32(src_amp), src_cph=torch.cos(phase),
-        src_sph=torch.sin(phase),
-        dt_dx=grid.dt / grid.dx, inv_dx=1.0 / grid.dx, half_dt=grid.dt * 0.5,
-        zsrc=int(grid.source_plane_z), viscous=bool(viscous),
+        src_sph=torch.sin(phase), **_step_constants(grid, viscous),
+    )
+
+
+def make_visco_coeffs(mat_idx, table, profiles_np, src_amp, src_phase,
+                      grid: FDTDGrid, viscous: bool, device) -> ViscoCoeffs:
+    """Move the step-invariant inputs of the viscoelastic step to
+    ``device``; ``mat_idx``/``table`` as ``_build_indexed_materials``
+    returns them."""
+    f32 = _to_device(device)
+    idx = np.ascontiguousarray(mat_idx, np.int32)
+    if idx.min() < 0 or idx.max() >= table.shape[1]:
+        raise ValueError(
+            f"material index outside the table's {table.shape[1]} materials"
+        )
+    phase = f32(src_phase)
+    return ViscoCoeffs(
+        mat_idx=torch.as_tensor(idx, device=torch.device(device)),
+        table=f32(table),
+        cpml_half=_pack_profiles(profiles_np, "half", f32),
+        cpml_int=_pack_profiles(profiles_np, "int", f32),
+        src_amp=f32(src_amp), src_cph=torch.cos(phase),
+        src_sph=torch.sin(phase), **_step_constants(grid, viscous),
     )
 
 
@@ -275,6 +343,18 @@ def fluid_step(st: FluidState, co: FluidCoeffs, grid: FDTDGrid, n: int,
         fluid_pressure(st, co)
 
 
+def visco_step(st: ViscoState, co: ViscoCoeffs, grid: FDTDGrid, n: int,
+               oz_scale: float) -> None:
+    """Advance the viscoelastic state by step ``n`` (velocity, then
+    stress)."""
+    s_sin, s_cos, cosw, sinw = step_scalars(grid, n, oz_scale)
+    visco_velocity(st, co, s_sin, s_cos)
+    if n >= grid.sensor_start:
+        visco_stress(st, co, cosw, sinw)
+    else:
+        visco_stress(st, co)
+
+
 def run_fdtd(
     mat_idx: np.ndarray,
     materials: np.ndarray,
@@ -292,9 +372,11 @@ def run_fdtd(
 ):
     """Run the CW simulation and return carrier amplitude/phase/peak maps.
 
-    Parameters are those of the JAX ``run_fdtd`` for a fluid medium with a
-    ``velocity_plane`` source; ``device`` selects where the state lives
-    (CUDA: the fluid-step kernels; CPU: their plain PyTorch versions).
+    Parameters are those of the JAX ``run_fdtd`` for a ``velocity_plane``
+    source in fluid or viscoelastic (shear) media; ``device`` selects where
+    the state lives (CUDA: the step kernels; CPU: their plain PyTorch
+    versions). Fluid media keep expanded property volumes; shear media use
+    indexed materials (``_build_indexed_materials``).
 
     Returns dict with 'p_amp' (Pa), 'p_phase' (rad, FFT-bin convention of
     the reference), 'peak' (Pa), each (N1,N2,N3) float32 numpy arrays.
@@ -318,32 +400,38 @@ def run_fdtd(
             "velocity_volume sources (dome) are ROADMAP Queue A item 11"
         )
     mats = np.asarray(materials, np.float64)
-    if np.any(mats[:, 2] > 0):
-        raise NotImplementedError(
-            "shear media (label-mode viscoelastic FDTD) are ROADMAP Queue A "
-            "item 10"
-        )
     coefs = sls_coefficients(mats, grid.frequency, grid.dt)
-    props_np = _material_fields(mat_idx, coefs, has_shear=False)
-    if reflector_mask is not None:
-        _fold_reflector(props_np, reflector_mask, False)
+    has_shear = bool(np.any(mats[:, 2] > 0))
 
     rho0, c0 = mats[0, 0], mats[0, 1]
     oz_scale = 1.0 / (rho0 * c0)  # pressure -> particle velocity (plane wave)
-    cmax = mats[:, 1].max()
+    cmax = max(mats[:, 1].max(), mats[:, 2].max())
     profiles = _build_cpml_profiles_np(
         grid.shape, grid.npml, grid.dx, grid.dt, cmax, grid.reflection_limit
     )
     zeros2 = np.zeros(grid.shape[:2])
-    co = make_fluid_coeffs(
-        props_np, profiles,
-        source_amp if source_amp is not None else zeros2,
-        source_phase if source_phase is not None else zeros2,
-        grid, coefs["viscous"], device,
-    )
-    st = FluidState.zeros(grid.shape, grid.npml + 2, device)
-    for n in range(grid.n_steps):
-        fluid_step(st, co, grid, n, oz_scale)
+    src = (source_amp if source_amp is not None else zeros2,
+           source_phase if source_phase is not None else zeros2)
+    ns = grid.npml + 2
+    if has_shear:
+        idx, table = _build_indexed_materials(coefs, mat_idx, reflector_mask)
+        co = make_visco_coeffs(idx, table, profiles, *src, grid,
+                               coefs["viscous"], device)
+        st = ViscoState.zeros(grid.shape, ns, device)
+        step = visco_step
+    else:
+        props_np = _material_fields(mat_idx, coefs, has_shear=False)
+        if reflector_mask is not None:
+            _fold_reflector(props_np, reflector_mask, False)
+        co = make_fluid_coeffs(props_np, profiles, *src, grid,
+                               coefs["viscous"], device)
+        st = FluidState.zeros(grid.shape, ns, device)
+        step = fluid_step
+    with stage_timer("FDTD time loop", level=3, step=2):
+        for n in range(grid.n_steps):
+            step(st, co, grid, n, oz_scale)
+        if st.peak.device.type == "cuda":
+            torch.cuda.synchronize()  # the readback below waits anyway
 
     acc_c = st.acc_cos.cpu().numpy()
     acc_s = st.acc_sin.cpu().numpy()

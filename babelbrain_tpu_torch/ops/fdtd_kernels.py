@@ -186,28 +186,30 @@ def fluid_pressure(st: FluidState, co: FluidCoeffs, cosw: float | None = None,
 # ---------------------------------------------------------------------------
 
 
-def _shift(f, offset, axis):
-    """f shifted so out[i] = f[i+offset], zero-padded."""
-    n = f.shape[axis]
-    out = torch.zeros_like(f)
-    m = n - abs(offset)
-    if m > 0:
-        src = f.narrow(axis, max(offset, 0), m)
-        out.narrow(axis, max(-offset, 0), m).copy_(src)
-    return out
+def _padded(f, axis, lo, hi):
+    """f zero-padded by ``lo`` cells before and ``hi`` cells after along
+    ``axis`` (one copy; its shifted windows are views)."""
+    pad = [0] * (2 * f.dim())
+    pad[2 * (f.dim() - 1 - axis)] = lo
+    pad[2 * (f.dim() - 1 - axis) + 1] = hi
+    return torch.nn.functional.pad(f, pad)
 
 
 def d_plus(f, axis):
     """Derivative at half point i+1/2 from integer-point samples (x 1/dx)."""
-    return _C1 * (_shift(f, 1, axis) - f) + _C2 * (
-        _shift(f, 2, axis) - _shift(f, -1, axis)
+    n = f.shape[axis]
+    g = _padded(f, axis, 1, 2)  # g[i + 1] = f[i]
+    return _C1 * (g.narrow(axis, 2, n) - f) + _C2 * (
+        g.narrow(axis, 3, n) - g.narrow(axis, 0, n)
     )
 
 
 def d_minus(f, axis):
     """Derivative at integer point i from half-point samples (x 1/dx)."""
-    return _C1 * (f - _shift(f, -1, axis)) + _C2 * (
-        _shift(f, 1, axis) - _shift(f, -2, axis)
+    n = f.shape[axis]
+    g = _padded(f, axis, 2, 1)  # g[i + 2] = f[i]
+    return _C1 * (f - g.narrow(axis, 1, n)) + _C2 * (
+        g.narrow(axis, 3, n) - g.narrow(axis, 0, n)
     )
 
 

@@ -1,7 +1,7 @@
 """Volume image-processing ops of Step 1 (plain PyTorch).
 
-Counterpart of ``babelbrain_tpu/ops/imaging.py`` for the ops the CT-mode
-Step 1 uses. The JAX versions are XLA (no TPU kernels), so these stay plain
+Counterpart of ``babelbrain_tpu/ops/imaging.py`` for the ops Step 1 uses
+(CT and label mode). The JAX versions are XLA (no TPU kernels), so these stay plain
 PyTorch on the given device:
 
   * median_filter3d     <- GPUMedianFilter (3-D median, reflect boundary)

@@ -35,6 +35,7 @@ from ..ops.rayleigh import (
     rayleigh_field,
     steering_phases,
 )
+from ..utils.timing import stage_timer
 from .domain import Domain
 
 
@@ -176,10 +177,11 @@ def run_acoustic_sim(
         )
 
     # --- S2/S3: element programming + forward Rayleigh + source plane ---
-    programming, u2, src = _source_for_steering(
-        dom, tx, source_amp_pa, steering_target, element_weights,
-        device=device,
-    )
+    with stage_timer("Step2 forward Rayleigh", level=3, step=2):
+        programming, u2, src = _source_for_steering(
+            dom, tx, source_amp_pa, steering_target, element_weights,
+            device=device,
+        )
     if input_source_plane is not None:
         src = np.asarray(input_source_plane, np.complex64)
         if src.shape != dom.material_map.shape[:2]:
@@ -191,18 +193,19 @@ def run_acoustic_sim(
     # --- S4: FDTD through skull ---
     grid = _make_grid(dom)
     reflector = dom.meta.get("reflector_mask")
-    out = run_fdtd(
-        dom.material_map,
-        dom.materials,
-        grid,
-        source_amp=np.abs(src),
-        source_phase=np.angle(src),
-        mesh=mesh,
-        reflector_mask=reflector,
-        sel_maps=sel_maps,
-        monitor_ijk=monitor_ijk,
-        device=device,
-    )
+    with stage_timer("Step2 FDTD", level=3, step=2):
+        out = run_fdtd(
+            dom.material_map,
+            dom.materials,
+            grid,
+            source_amp=np.abs(src),
+            source_phase=np.angle(src),
+            mesh=mesh,
+            reflector_mask=reflector,
+            sel_maps=sel_maps,
+            monitor_ijk=monitor_ijk,
+            device=device,
+        )
 
     refocus_out = None
     refocus_programming = None

@@ -28,8 +28,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from babelbrain_tpu.materials import material_array, smallest_sos
-
+from ..materials import material_array, smallest_sos
 from ..ops.fdtd import stable_dt
 
 

@@ -172,7 +172,7 @@ def _write_blosc_dataset(group, name, arr):
     systems, `InformationForDrivingSystems.md:12-16` — decode it)."""
     import h5py
 
-    from babelbrain_tpu.native import blosc_compress
+    from ..native import blosc_compress
 
     arr = np.ascontiguousarray(arr)
     chunk = blosc_compress(arr.tobytes(), typesize=arr.dtype.itemsize)
@@ -242,7 +242,7 @@ def read_h5_dataset(dset) -> "np.ndarray":
     except OSError:
         if "32001" not in dict(getattr(dset, "_filters", {})):
             raise
-        from babelbrain_tpu.native import blosc_decompress
+        from ..native import blosc_decompress
 
         full = np.zeros(dset.shape, dset.dtype)
         cshape = dset.chunks or dset.shape

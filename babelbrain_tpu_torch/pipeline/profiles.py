@@ -356,7 +356,7 @@ def build_transducer(
     ``diameter``/``focal_length`` override the registry values for the
     user-adjustable Single system (`Babel_SingleTx` Foc/Diam spinboxes).
     """
-    from babelbrain_tpu.tx import (
+    from ..tx import (
         TABLE_DEVICES,
         element_table,
         make_annular_array,

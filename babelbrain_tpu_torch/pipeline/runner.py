@@ -6,12 +6,14 @@ is the library-first equivalent: one call runs Step 1 -> Step 2 -> Step 3 on
 a case, with skip-if-output-exists caching like the reference
 (`BabelIntegrationBASE.py:962-966`) and ``CTS:``-style stage timing.
 
-Counterpart of ``babelbrain_tpu/pipeline/runner.py`` for the CT-mode main
-path; every device stage runs on ``CaseConfig.device``. Paths outside it
-raise ``NotImplementedError`` naming their ROADMAP Queue A item: label mode
-(item 10), ZTE/PETRA/Density inputs (item 14), dome transducers (item 11),
-refocusing (item 9), thermal-profile lists and ``run_cases`` (item 13),
-surface meshes (item 14) and device meshes (item 16).
+Counterpart of ``babelbrain_tpu/pipeline/runner.py`` for single-target
+plane-source cases in CT mode (``ct_data`` given: fluid FDTD) and label mode
+(no CT: tissue-label materials, viscoelastic FDTD with shear in the skull);
+every device stage runs on ``CaseConfig.device``. Paths outside them raise
+``NotImplementedError`` naming their ROADMAP Queue A item: ZTE/PETRA/Density
+inputs (item 14), dome transducers (item 11), refocusing (item 9),
+thermal-profile lists and ``run_cases`` (item 13), surface meshes (item 14)
+and device meshes (item 16).
 """
 
 from __future__ import annotations
@@ -22,12 +24,15 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..materials.ct_mapping import map_hu_to_properties
+from ..materials.pseudo_ct import compute_sdr
 from ..utils.timing import stage_timer
 from . import io as pio
 from .acoustic import position_transducer, run_acoustic_sim
 from .domain import (
     build_ct_materials,
     build_domain,
+    build_label_materials,
     fit_domain_offsets,
 )
 from .profiles import (
@@ -39,8 +44,6 @@ from .profiles import (
 )
 from .step1 import Step1Result, generate_mask
 from .thermal import SonicationParams, run_sonication
-from babelbrain_tpu.materials.ct_mapping import map_hu_to_properties
-from babelbrain_tpu.materials.pseudo_ct import compute_sdr
 
 
 def case_hash(**kwargs) -> str:
@@ -273,11 +276,7 @@ def run_case(
     """
     spec = TRANSDUCER_REGISTRY[cfg.tx_system]
     ct_type = cfg.ct_type.upper().replace("REAL ", "")
-    if ct_data is None:
-        raise NotImplementedError(
-            "label mode (shear media, no CT input) is ROADMAP Queue A item 10"
-        )
-    if ct_type != "CT":
+    if ct_data is not None and ct_type != "CT":
         raise NotImplementedError(
             f"{cfg.ct_type} inputs (pseudo-CT / density) are ROADMAP Queue A "
             "item 14"
@@ -452,12 +451,15 @@ def run_case(
     h5_path = out_base + "_DataForSim.h5"
     ct_mode = s1.ct_index is not None
     with stage_timer("Step2 acoustic simulation", level=2, step=2):
-        rho, sos, att = map_hu_to_properties(
-            s1.unique_hu, cfg.frequency, cfg.mapping_method
-        )
-        materials = build_ct_materials(
-            cfg.frequency, cfg.segment_brain, rho, sos, att
-        )
+        if ct_mode:
+            rho, sos, att = map_hu_to_properties(
+                s1.unique_hu, cfg.frequency, cfg.mapping_method
+            )
+            materials = build_ct_materials(
+                cfg.frequency, cfg.segment_brain, rho, sos, att
+            )
+        else:
+            materials = build_label_materials(cfg.frequency, cfg.segment_brain)
         # registry steering semantics: TPO -> ZSteering for ring systems,
         # per-device range enforcement, concave holder-cone mechanical-Z
         steering = np.asarray(cfg.steering, float)
@@ -653,7 +655,7 @@ def run_case(
     # session-level telemetry event (the reference posts per-run CTS events
     # with Tx/frequency metadata, `Telemetry/Telemetry.py:10-109`)
     try:
-        from babelbrain_tpu.utils.telemetry import get_telemetry
+        from ..utils.telemetry import get_telemetry
 
         tel = get_telemetry()
         tel.event(

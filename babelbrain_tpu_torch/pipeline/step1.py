@@ -27,8 +27,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from babelbrain_tpu.materials.ct_mapping import quantize_hu
-
+from ..materials.ct_mapping import quantize_hu
 from ..ops import imaging as im
 
 # SimNIBS charm final_tissues labels -> our categories

@@ -23,11 +23,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from babelbrain_tpu.materials.thermal import (
+from ..materials.thermal import (
     ThermalMaterialList,
     build_thermal_material_list,
 )
-
 from ..ops.bhte import bhte_run
 
 

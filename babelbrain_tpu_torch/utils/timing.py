@@ -40,7 +40,7 @@ def stage_timer(label: str, level: int = 2, step: int | None = None, quiet=False
         if not quiet:
             print(f"{tag} took {dt:.3f} s")
         try:
-            from babelbrain_tpu.utils.telemetry import get_telemetry
+            from .telemetry import get_telemetry
 
             get_telemetry().event(tag, duration_s=dt)
         except Exception:

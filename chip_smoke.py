@@ -9,17 +9,23 @@ Phases (each prints its own lines; any failed check exits nonzero):
 
 1. probe   — torch/CUDA versions, the card, its power limit, and whether
              ``h5py`` / ``yaml`` import;
-2. build   — the CUDA kernels of ``babelbrain_tpu_torch/csrc`` with nvcc;
+2. build   — the CUDA kernels of ``babelbrain_tpu_torch/csrc`` with nvcc
+             (one process per source, in parallel);
 3. kernels — each kernel against its plain PyTorch version on the card at
-             main-path shapes (fluid FDTD pair at 192x192x240 with the
-             1026-material CT table, 200 steps across the DFT window start;
-             BHTE, 500 steps), with times;
-4. slice   — the CT-mode main path (Step 1 -> Rayleigh + fluid FDTD ->
-             BHTE) on a procedural digital head with the CTX_500 transducer
-             at 500 kHz / 6 PPW (Pichardo HU law): through ``run_case``
-             when h5py is installed, else through the stage functions
-             ``run_case`` calls, in its order, writing no files. Every
-             kernel's launch count must equal the step count the run
+             main-path shapes, with times and bounds: the fluid FDTD pair
+             at 192x192x240 with the 1026-material CT table and the
+             viscoelastic pair at the same shape with the label-mode
+             materials (each 200 steps across the DFT window start); the
+             BHTE step, 500 steps;
+4. slices  — the two main paths on a procedural digital head with the
+             CTX_500 transducer at 500 kHz / 6 PPW, each with every kernel
+             count set to 0 just before and read just after:
+             CT mode (Step 1 -> Rayleigh + fluid FDTD -> BHTE, Pichardo HU
+             law) and label mode (no CT: tissue-label materials,
+             Rayleigh + viscoelastic FDTD -> BHTE). Each runs through
+             ``run_case`` when h5py is installed, else through the stage
+             functions ``run_case`` calls, in its order, writing no files.
+             Every kernel's launch count must equal the step count the run
              implies, and no plain version may run.
 
 The last lines are the kernel table (JSON), the card's name and power limit
@@ -44,6 +50,7 @@ F0 = 500e3
 PPW = 6.0
 KERNEL_SHAPE = (192, 192, 240)
 FLUID_STEPS, FLUID_SENSOR_START = 200, 150
+VISCO_STEPS, VISCO_SENSOR_START = 200, 150
 BHTE_STEPS, BHTE_HEAT_STEPS = 500, 300
 # FDTD grid (216, 216, 224) after the transducer-cone fit: the order of the
 # 192x192x240 benchmark grid
@@ -56,6 +63,9 @@ VOX = 2.0  # digital-head voxel size (mm)
 # numerics do the same). Pichardo maps the diploe to 108 Np/m.
 MAPPING = "Pichardo"
 N_HEAD = 96
+# published peaks of one H100 SXM (NVIDIA's data sheet) for the bounds
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 def fail(msg: str):
@@ -114,7 +124,7 @@ def build():
 def ct_table():
     """CT-mode material table: water + skin + brain + 1023 quantized-HU bone
     (the benchmark's configuration)."""
-    from babelbrain_tpu.materials import map_hu_to_properties
+    from babelbrain_tpu_torch.materials import map_hu_to_properties
 
     hu = np.linspace(300.0, 2100.0, 1023)
     rho, sos, att = map_hu_to_properties(hu, F0, "Webb-Marsac")
@@ -154,12 +164,45 @@ def _timed(fn, n, warm=2):
 
 
 def _copy_state(st):
-    from babelbrain_tpu_torch.ops.fdtd_kernels import FluidState
-
-    return FluidState(
+    """A copy of a fluid or visco state (every tensor and psi slab cloned)."""
+    return type(st)(
         **{k: (v.clone() if torch.is_tensor(v) else [t.clone() for t in v])
            for k, v in vars(st).items()}
     )
+
+
+# Work of one launch, counted from the kernel code: float-sized volumes read
+# plus written per cell (the int32 material index counts as one), CPML'd
+# derivatives per axis (each reads and writes a lo and a hi psi slab of ns
+# planes), (N1, N2) source planes read, and float operations per cell. The
+# CPML profiles and the material table (a few hundred bytes) are left out.
+KERNEL_WORK = {
+    "fluid_velocity": dict(volumes=8, derivs_per_axis=1, planes=3, flops=24),
+    "fluid_pressure": dict(volumes=10, derivs_per_axis=1, planes=0, flops=27),
+    "fluid_pressure_dft": dict(volumes=16, derivs_per_axis=1, planes=0,
+                               flops=33),
+    "bhte_step": dict(volumes=15, derivs_per_axis=0, planes=0, flops=30),
+    "visco_velocity": dict(volumes=13, derivs_per_axis=3, planes=3, flops=60),
+    "visco_stress": dict(volumes=28, derivs_per_axis=3, planes=0, flops=134),
+    "visco_stress_dft": dict(volumes=34, derivs_per_axis=3, planes=0,
+                             flops=143),
+}
+
+
+def bound(name, shape, ns=14):
+    """(least ms, "bytes" or "operations") of one launch of ``name`` at
+    ``shape`` on an H100 at its published peaks: each input read once and
+    each output written once over the HBM rate, against the float32
+    operations over the float32 peak."""
+    w = KERNEL_WORK[name]
+    n1, n2, n3 = shape
+    cells = n1 * n2 * n3
+    slab_cells = ns * (n2 * n3 + n1 * n3 + n1 * n2)  # one slab per axis
+    floats = (w["volumes"] * cells + w["derivs_per_axis"] * 2 * 2 * slab_cells
+              + w["planes"] * n1 * n2)
+    t_bytes = 4.0 * floats / HBM_BYTES_PER_S * 1e3
+    t_ops = float(w["flops"]) * cells / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_fluid(shape=KERNEL_SHAPE, n_steps=FLUID_STEPS,
@@ -252,9 +295,121 @@ def check_fluid(shape=KERNEL_SHAPE, n_steps=FLUID_STEPS,
     return errs, times
 
 
+def label_index_volume(shape):
+    """Label-mode material layers along z: water, skin, then a skull of
+    cortical / trabecular / cortical bone, then brain (the layering of the
+    skull_slab_visco regression configuration, at this grid's scale)."""
+    z0 = shape[2] // 4
+    idx = np.zeros(shape, np.uint8)
+    for label, width in ((1, 8), (2, 6), (3, 10), (2, 6)):
+        idx[:, :, z0:z0 + width] = label
+        z0 += width
+    idx[:, :, z0:] = 4
+    return idx
+
+
+def check_visco(shape=KERNEL_SHAPE, n_steps=VISCO_STEPS,
+                sensor_start=VISCO_SENSOR_START, device="cuda"):
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
+    from babelbrain_tpu_torch.pipeline.domain import (
+        build_label_materials,
+        compute_time_stepping,
+    )
+
+    mats = build_label_materials(F0, False)
+    dx, dt, _, _ = compute_time_stepping(mats, F0, PPW)
+    cmax = max(mats[:, 1].max(), mats[:, 2].max())
+    grid = F.FDTDGrid(shape=shape, dx=dx, dt=dt, n_steps=n_steps,
+                      frequency=F0, sensor_start=sensor_start,
+                      source_plane_z=13)
+    coefs = F.sls_coefficients(mats, F0, dt)
+    idx, table = F._build_indexed_materials(coefs, label_index_volume(shape),
+                                            None)
+    prof = F._build_cpml_profiles_np(shape, 12, dx, dt, cmax, 1e-5)
+    amp = np.zeros(shape[:2])
+    m = max(2, shape[0] // 12)
+    amp[m:-m, m:-m] = 60e3
+    ph = np.random.default_rng(1).uniform(-1.0, 1.0, shape[:2])
+    co = F.make_visco_coeffs(idx, table, prof, amp, ph, grid,
+                             coefs["viscous"], device)
+    oz = 1.0 / (mats[0, 0] * mats[0, 1])
+    st_k = V.ViscoState.zeros(shape, 14, device)
+    st_p = V.ViscoState.zeros(shape, 14, device)
+    for n in range(n_steps):
+        F.visco_step(st_k, co, grid, n, oz)
+        s_sin, s_cos, cosw, sinw = F.step_scalars(grid, n, oz)
+        V.visco_velocity_ref(st_p, co, s_sin, s_cos)
+        if n >= sensor_start:
+            V.visco_stress_ref(st_p, co, cosw, sinw)
+        else:
+            V.visco_stress_ref(st_p, co)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    # every field against the plain state, at 1e-4 of the field's own
+    # maximum (the kernels are expected to be bit-equal: --fmad=false and
+    # the plain versions' operation order)
+    groups = {
+        "visco_velocity": ("vx", "vy", "vz", "psi_s"),
+        "visco_stress": V.STRESSES + V.MEMORIES + ("psi_v",),
+        "visco_stress_dft": ("acc_cos", "acc_sin", "peak"),
+    }
+    errs, bad = {}, []
+    for kname, fields in groups.items():
+        errs[kname] = 0.0
+        for f in fields:
+            a, b = getattr(st_k, f), getattr(st_p, f)
+            pairs = zip(a, b) if isinstance(a, list) else [(a, b)]
+            for x, y in pairs:
+                e = float((x - y).abs().max())
+                scale = float(y.abs().max())
+                if not np.isfinite(scale) or e > 1e-4 * scale:
+                    bad.append((f, e, scale))
+                errs[kname] = max(errs[kname], e)
+    pmax = float(st_p.peak.max())
+    print(f"[kernels] visco {shape} {n_steps} steps (window from "
+          f"{sensor_start}), {table.shape[1]} label materials: peak |p| "
+          f"{pmax:.6g} Pa, max|sxx| {float(st_p.sxx.abs().max()):.6g} Pa, "
+          f"max|vz| {float(st_p.vz.abs().max()):.6g} m/s")
+    for name, e in errs.items():
+        print(f"[kernels]   {name}: max abs diff vs plain {e:.6g}")
+    if not np.isfinite(pmax) or pmax <= 0:
+        fail(f"visco plain run has peak |p| = {pmax}")
+    if bad:
+        fail(f"visco kernels disagree with the plain version (field, max "
+             f"abs diff, max |plain|): {bad}")
+
+    times = {}
+    if device == "cuda":
+        s = F.step_scalars(grid, 10, oz)
+        work = _copy_state(st_k)
+        times["visco_velocity"] = (
+            _timed(lambda: V.visco_velocity(work, co, s[0], s[1]), 20),
+            _timed(lambda: V.visco_velocity_ref(work, co, s[0], s[1]), 5),
+        )
+        times["visco_stress"] = (
+            _timed(lambda: V.visco_stress(work, co), 20),
+            _timed(lambda: V.visco_stress_ref(work, co), 5),
+        )
+        times["visco_stress_dft"] = (
+            _timed(lambda: V.visco_stress(work, co, s[2], s[3]), 20),
+            _timed(lambda: V.visco_stress_ref(work, co, s[2], s[3]), 5),
+        )
+        cells = float(np.prod(shape))
+        step_k = times["visco_velocity"][0] + times["visco_stress"][0]
+        step_p = times["visco_velocity"][1] + times["visco_stress"][1]
+        for name, (tk, tp) in times.items():
+            print(f"[kernels]   {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms")
+        print(f"[kernels] visco quiet step: kernel {step_k:.4f} ms/step "
+              f"({cells / step_k / 1e3:.1f} Mcell-updates/s), plain "
+              f"{step_p:.4f} ms/step ({cells / step_p / 1e3:.1f} "
+              f"Mcell-updates/s)")
+    return errs, times
+
+
 def check_bhte(shape=KERNEL_SHAPE, n_steps=BHTE_STEPS,
                heat_steps=BHTE_HEAT_STEPS, device="cuda"):
-    from babelbrain_tpu.materials import build_thermal_material_list
+    from babelbrain_tpu_torch.materials import build_thermal_material_list
     from babelbrain_tpu_torch.ops import bhte as B
     from babelbrain_tpu_torch.ops import bhte_kernels as K
 
@@ -365,27 +520,36 @@ def build_head():
     return labels, ct, aff
 
 
-def reset_counts():
-    from babelbrain_tpu_torch.ops import bhte_kernels, fdtd_kernels
+def _counted_modules():
+    """The kernel modules whose wrappers count launches and plain calls."""
+    from babelbrain_tpu_torch.ops import (
+        bhte_kernels,
+        fdtd_kernels,
+        fdtd_visco_kernels,
+    )
 
-    for mod in (fdtd_kernels, bhte_kernels):
+    return fdtd_kernels, fdtd_visco_kernels, bhte_kernels
+
+
+def reset_counts():
+    for mod in _counted_modules():
         for d in (mod.launches, mod.plain_calls):
             for k in d:
                 d[k] = 0
 
 
 def read_counts():
-    from babelbrain_tpu_torch.ops import bhte_kernels, fdtd_kernels
-
-    launches = {**fdtd_kernels.launches, **bhte_kernels.launches}
-    plain = {**fdtd_kernels.plain_calls, **bhte_kernels.plain_calls}
+    launches, plain = {}, {}
+    for mod in _counted_modules():
+        launches.update(mod.launches)
+        plain.update(mod.plain_calls)
     return launches, plain
 
 
 def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape):
-    """The stage functions ``run_case`` calls, in its order (CT mode, no
-    files written)."""
-    from babelbrain_tpu.materials.ct_mapping import map_hu_to_properties
+    """The stage functions ``run_case`` calls, in its order (no files
+    written): CT mode with a CT volume, label mode with ``ct=None``."""
+    from babelbrain_tpu_torch.materials.ct_mapping import map_hu_to_properties
     from babelbrain_tpu_torch.pipeline.acoustic import (
         position_transducer,
         run_acoustic_sim,
@@ -393,6 +557,7 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape):
     from babelbrain_tpu_torch.pipeline.domain import (
         build_ct_materials,
         build_domain,
+        build_label_materials,
         fit_domain_offsets,
     )
     from babelbrain_tpu_torch.pipeline.profiles import (
@@ -404,27 +569,32 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape):
     from babelbrain_tpu_torch.utils.timing import stage_timer
 
     spec = TRANSDUCER_REGISTRY[cfg.tx_system]
+    ct_mode = ct is not None
     with stage_timer("Step1 domain generation", level=2, step=1):
         s1 = generate_mask(
             labels, aff, target, direction, cfg.frequency, cfg.ppw,
-            shape=mask_shape, ct_data=ct, ct_affine=aff,
+            shape=mask_shape, ct_data=ct, ct_affine=aff if ct_mode else None,
             hu_threshold=cfg.hu_threshold, device=cfg.device,
         )
     with stage_timer("Step2 acoustic simulation", level=2, step=2):
-        rho, sos, att = map_hu_to_properties(
-            s1.unique_hu, cfg.frequency, cfg.mapping_method
-        )
-        materials = build_ct_materials(cfg.frequency, cfg.segment_brain,
-                                       rho, sos, att)
+        if ct_mode:
+            rho, sos, att = map_hu_to_properties(
+                s1.unique_hu, cfg.frequency, cfg.mapping_method
+            )
+            materials = build_ct_materials(cfg.frequency, cfg.segment_brain,
+                                           rho, sos, att)
+        else:
+            materials = build_label_materials(cfg.frequency,
+                                              cfg.segment_brain)
         offsets, shrinks = fit_domain_offsets(
             np.flip(s1.mask, axis=2), s1.dx_mm * 1e-3, spec.diameter,
             spec.focal_length,
         )
-        air = s1.air_mask if s1.air_mask.any() else None
+        air = s1.air_mask if ct_mode and s1.air_mask.any() else None
         dom = build_domain(
             s1.mask, cfg.frequency, cfg.ppw, materials=materials,
-            ct_index_map=s1.ct_index, air_mask=air, offsets=offsets,
-            shrink_cells=shrinks,
+            ct_index_map=s1.ct_index if ct_mode else None, air_mask=air,
+            offsets=offsets, shrink_cells=shrinks,
         )
         tx = build_transducer(spec, cfg.frequency)
         tx = position_transducer(tx, dom, spec.focal_length)
@@ -435,20 +605,25 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape):
         thermal = run_sonication(
             result.p_amp, np.asarray(data["p_amp_water"]),
             data["MaterialMap"], materials, dom.dx, data["TargetLocation"],
-            params, ct_mode=True, segmented=cfg.segment_brain,
+            params, ct_mode=ct_mode, segmented=cfg.segment_brain,
             frequency=cfg.frequency, device=cfg.device,
         )
     return {"step1": s1, "domain": dom, "acoustic": result,
             "thermal": thermal, "data_for_sim": data}
 
 
-def run_slice(have_h5py: bool, mask_shape=MASK_SHAPE, device="cuda",
-              tx_system="CTX_500", params=None):
+def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
+              device="cuda", tx_system="CTX_500", params=None):
+    """One main path on the digital head: ``mode`` "ct" (CT volume given:
+    fluid FDTD) or "label" (labels only: viscoelastic FDTD). Returns the
+    launch counts of the run."""
     from babelbrain_tpu_torch.pipeline.runner import CaseConfig, run_case
     from babelbrain_tpu_torch.pipeline.thermal import SonicationParams
     from babelbrain_tpu_torch.utils.timing import clear_spans, recorded_spans
 
+    tag = f"[slice {mode}]"
     labels, ct, aff = build_head()
+    ct = ct if mode == "ct" else None
     params = params or SonicationParams(
         duration_on=30.0, duration_off=30.0, duty_cycle=0.3, isppa=10.0
     )
@@ -461,12 +636,12 @@ def run_slice(have_h5py: bool, mask_shape=MASK_SHAPE, device="cuda",
         reset_counts()
         t0 = time.time()
         if have_h5py:
-            print("[slice] driving run_case (h5py present)")
+            print(f"{tag} driving run_case (h5py present)")
             res = run_case(cfg, labels, aff, target, direction, ct_data=ct,
-                           ct_affine=aff, thermal_params=params,
-                           mask_shape=mask_shape)
+                           ct_affine=aff if ct is not None else None,
+                           thermal_params=params, mask_shape=mask_shape)
         else:
-            print("[slice] h5py missing: driving the stage functions of "
+            print(f"{tag} h5py missing: driving the stage functions of "
                   "run_case in its order, writing no files")
             res = run_stages(cfg, labels, aff, ct, target, direction, params,
                              mask_shape)
@@ -476,72 +651,79 @@ def run_slice(have_h5py: bool, mask_shape=MASK_SHAPE, device="cuda",
         launches, plain = read_counts()
     spans = recorded_spans()
     dom = res["domain"]
-    print(f"[slice] FDTD grid {dom.material_map.shape} n_steps {dom.n_steps} "
+    shear = int((np.asarray(dom.materials)[:, 2] > 0).sum())
+    print(f"{tag} FDTD grid {dom.material_map.shape} n_steps {dom.n_steps} "
           f"sensor_start {dom.sensor_start} ppp {dom.ppp} "
-          f"materials {len(dom.materials)}; wall {wall:.2f} s")
-    for tag, dt in spans:
-        print(f"[slice] span {tag}: {dt:.3f} s")
+          f"materials {len(dom.materials)} ({shear} with shear); "
+          f"wall {wall:.2f} s")
+    for label, dt in spans:
+        print(f"{tag} span {label}: {dt:.3f} s")
 
     p_amp = np.asarray(res["data_for_sim"]["p_amp"])
     th = res["thermal"]
     if not np.isfinite(p_amp).all() or p_amp.max() <= 0:
-        fail("p_amp not finite or empty")
+        fail(f"{mode}: p_amp not finite or empty")
     for name in ("temperature_end", "temperature_peak", "dose"):
         if not np.isfinite(getattr(th, name)).all():
-            fail(f"thermal {name} not finite")
+            fail(f"{mode}: thermal {name} not finite")
     s1 = res["step1"]
     mask, tgt, dx_mm = s1.mask, np.asarray(s1.target_idx), s1.dx_mm
     pk = np.unravel_index(np.argmax(p_amp), p_amp.shape)
     brain = np.isin(mask, (4, 5))
     fk = np.unravel_index(np.argmax(np.where(brain, p_amp, 0.0)), p_amp.shape)
     off_mm = (np.asarray(fk) - tgt) * dx_mm
-    print(f"[slice] global max p_amp {p_amp.max():.6g} Pa at "
-          f"{tuple(int(v) for v in pk)} label {int(mask[pk])} (coupling "
-          f"water/skin between the source plane and the skull)")
-    print(f"[slice] focal peak in the brain {p_amp[fk]:.6g} Pa at "
-          f"{tuple(int(v) for v in fk)}, offset from the target "
-          f"{tuple(round(float(v), 2) for v in off_mm)} mm; pressure ratio "
-          f"{th.pressure_ratio:.4f}; max T {th.temperature_peak.max():.4f} C; "
-          f"TI {th.metrics['TI']:.4f} TIS {th.metrics['TIS']:.4f} "
-          f"TIC {th.metrics['TIC']:.4f} C")
+    print(f"{tag} global max p_amp {p_amp.max():.6g} Pa at "
+          f"{tuple(int(v) for v in pk)} label {int(mask[pk])}")
+    print(f"{tag} focal peak in the brain {p_amp[fk]:.6g} Pa at "
+          f"{tuple(int(v) for v in fk)} label {int(mask[fk])}, offset from "
+          f"the target {tuple(round(float(v), 2) for v in off_mm)} mm; "
+          f"pressure ratio {th.pressure_ratio:.4f}; max T "
+          f"{th.temperature_peak.max():.4f} C; TI {th.metrics['TI']:.4f} "
+          f"TIS {th.metrics['TIS']:.4f} TIC {th.metrics['TIC']:.4f} C")
     # the focal spot must form inside the brain on the beam axis: within
     # 2 mm of the target laterally and 15 mm along the beam (the focal shift
     # of the 64 mm CTX-500 bowl plus the skull's)
+    if not brain[fk] or p_amp[fk] <= 0:
+        fail(f"{mode}: no focal peak inside the brain")
     if np.hypot(off_mm[0], off_mm[1]) > 2.0 or abs(off_mm[2]) > 15.0:
-        fail(f"focal peak in the brain {off_mm} mm off the target")
+        fail(f"{mode}: focal peak in the brain {off_mm} mm off the target")
 
     n_on = int(round(params.duration_on / 0.01))
     n_off = int(round(params.duration_off / 0.01))
-    expect = {
-        "fluid_velocity": dom.n_steps,
-        "fluid_pressure": dom.sensor_start,
-        "fluid_pressure_dft": dom.n_steps - dom.sensor_start,
+    fdtd, stress = ("fluid", "pressure") if mode == "ct" else ("visco",
+                                                               "stress")
+    expect = dict({k: 0 for k in launches}, **{
+        f"{fdtd}_velocity": dom.n_steps,
+        f"{fdtd}_{stress}": dom.sensor_start,
+        f"{fdtd}_{stress}_dft": dom.n_steps - dom.sensor_start,
         "bhte_step": n_on + n_on + n_off,  # locating run + schedule
-    }
-    print(f"[slice] launches {launches}; plain calls {plain}")
+    })
+    print(f"{tag} launches {launches}; plain calls {plain}")
     if device == "cuda":
         if launches != expect:
-            fail(f"launch counts {launches} != expected {expect}")
+            fail(f"{mode}: launch counts {launches} != expected {expect}")
         if any(plain.values()):
-            fail(f"plain versions ran on the main path: {plain}")
+            fail(f"{mode}: plain versions ran on the main path: {plain}")
     return launches
 
 
 # ---------------------------------------------------------------------------
 
-
+FLUID_CU = "babelbrain_tpu_torch/csrc/fdtd_fluid.cu"
+VISCO_CU = "babelbrain_tpu_torch/csrc/fdtd_visco.cu"
+PALLAS = "babelbrain_tpu/ops/fdtd_pallas.py"
 SOURCES = {
-    "fluid_velocity": ("fluid_velocity_kernel",
-                       "babelbrain_tpu_torch/csrc/fdtd_fluid.cu",
-                       "babelbrain_tpu/ops/fdtd_pallas.py:262"),
-    "fluid_pressure": ("fluid_pressure_kernel",
-                       "babelbrain_tpu_torch/csrc/fdtd_fluid.cu",
-                       "babelbrain_tpu/ops/fdtd_pallas.py:370"),
-    "fluid_pressure_dft": ("fluid_pressure_kernel<WITH_DFT>",
-                           "babelbrain_tpu_torch/csrc/fdtd_fluid.cu",
-                           "babelbrain_tpu/ops/fdtd_pallas.py:370"),
+    "fluid_velocity": ("fluid_velocity_kernel", FLUID_CU, f"{PALLAS}:262"),
+    "fluid_pressure": ("fluid_pressure_kernel", FLUID_CU, f"{PALLAS}:370"),
+    "fluid_pressure_dft": ("fluid_pressure_kernel<WITH_DFT>", FLUID_CU,
+                           f"{PALLAS}:370"),
     "bhte_step": ("bhte_step_kernel", "babelbrain_tpu_torch/csrc/bhte.cu",
                   "babelbrain_tpu/ops/bhte_pallas.py:109"),
+    # B5 vel_kernel / stress_kernel; the same step as B6-B8
+    "visco_velocity": ("visco_velocity_kernel", VISCO_CU, f"{PALLAS}:3025"),
+    "visco_stress": ("visco_stress_kernel", VISCO_CU, f"{PALLAS}:3196"),
+    "visco_stress_dft": ("visco_stress_kernel<WITH_DFT>", VISCO_CU,
+                         f"{PALLAS}:3196"),
 }
 
 
@@ -556,17 +738,26 @@ def main():
     have = probe()
     build()
     errs, times = check_fluid()
-    e2, t2 = check_bhte()
-    errs.update(e2)
-    times.update(t2)
-    launches = run_slice(have["h5py"])
+    for check in (check_visco, check_bhte):
+        e, t = check()
+        errs.update(e)
+        times.update(t)
+    launches = {k: 0 for k in SOURCES}
+    for mode in ("ct", "label"):
+        for k, v in run_slice(have["h5py"], mode).items():
+            launches[k] += v
 
-    table = [
-        {"name": SOURCES[k][0], "route": "cuda", "source": SOURCES[k][1],
-         "replaces": SOURCES[k][2], "launches": int(launches[k]),
-         "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1]}
-        for k in SOURCES
-    ]
+    table = []
+    for k, (name, source, replaces) in SOURCES.items():
+        b_ms, b_by = bound(k, KERNEL_SHAPE)
+        table.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": int(launches[k]),
+            "max_abs_err": errs[k], "ms": times[k][0],
+            "plain_ms": times[k][1], "bound_ms": b_ms, "bound_by": b_by,
+            # no single PyTorch call computes an FDTD or BHTE step
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": table}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -107,3 +107,18 @@ def test_wrapper_rejects_bad_inputs():
         bhte_kernels.bhte_step(Tm.double(), dose, peak, co, None, 37.0)
     with pytest.raises(ValueError, match="contiguous"):
         bhte_kernels.bhte_step(Tm, dose.transpose(0, 1), peak, co, None, 37.0)
+
+
+@pytest.mark.parametrize("ct_mode", [False, True])
+@pytest.mark.parametrize("segmented", [False, True])
+def test_tissue_region_masks_match_jax(ct_mode, segmented):
+    """Step 3's skin / skull / brain masks in label mode and CT mode."""
+    from babelbrain_tpu.pipeline import thermal as JT
+    from babelbrain_tpu_torch.pipeline import thermal as TT
+
+    mm = np.random.default_rng(6).integers(0, 12, (12, 14, 16)).astype(np.uint32)
+    a = JT.tissue_region_masks(mm, ct_mode=ct_mode, segmented=segmented)
+    b = TT.tissue_region_masks(mm, ct_mode=ct_mode, segmented=segmented)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    assert all(m.any() for m in b)

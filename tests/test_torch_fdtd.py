@@ -200,7 +200,7 @@ def test_cpu_run_counts_plain_calls_not_launches():
 
 
 @pytest.mark.parametrize("case", ["mesh", "sel_maps", "monitor", "stress_point",
-                                  "volume", "shear"])
+                                  "volume", "shear_stress_point"])
 def test_paths_outside_the_slice_raise(case):
     idx, mats, g, amp, ph = _config("water_plane")
     g = dict(g, shape=(20, 20, 40), n_steps=4, sensor_start=2)
@@ -215,9 +215,10 @@ def test_paths_outside_the_slice_raise(case):
         g["source_type"] = "stress_point"
     elif case == "volume":
         g["source_type"] = "velocity_volume"
-    else:
+    else:  # shear media serve plane sources only
         mats = np.array([[1000.0, 1500.0, 0, 0, 0],
                          [1900.0, 2500.0, 1500.0, 100.0, 200.0]])
+        g["source_type"] = "stress_point"
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         T.run_fdtd(np.zeros(g["shape"], np.uint8), mats, T.FDTDGrid(**g),
                    device="cpu", **kw)

@@ -9,18 +9,23 @@ them on a GPU machine with
 ``python3 chip_smoke.py`` runs the same comparisons at the main path's full
 shapes. Kernels are built with --fmad=false in the plain versions'
 operation order, so the comparisons are exact (tolerance 0); the CPU tests
-hold the plain versions to the JAX package.
+hold the plain versions to the JAX package. This file imports nothing of
+the JAX package, so it runs where JAX is not installed.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from babelbrain_tpu.materials import build_thermal_material_list, material_array
+from babelbrain_tpu_torch.materials import (
+    build_thermal_material_list,
+    material_array,
+)
 from babelbrain_tpu_torch.ops import bhte as B
 from babelbrain_tpu_torch.ops import bhte_kernels
 from babelbrain_tpu_torch.ops import fdtd as F
 from babelbrain_tpu_torch.ops import fdtd_kernels as K
+from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
 
 pytestmark = pytest.mark.cuda
 
@@ -88,6 +93,63 @@ def test_fluid_wrapper_rejects_mixed_devices(cuda):
     st = K.FluidState.zeros(grid.shape, 14, "cpu")
     with pytest.raises(ValueError, match="float32 on"):
         K.fluid_velocity(st, co, 0.0, 0.0)
+
+
+@pytest.mark.parametrize("viscous,reflector", [(True, False), (True, True),
+                                               (False, False)])
+def test_visco_kernels_match_plain(cuda, viscous, reflector):
+    shape = (36, 40, 56)
+    mats = material_array(F0, tissues=("Water", "Skin", "Cortical",
+                                       "Trabecular", "Brain"))
+    if not viscous:
+        mats[:, 3:] = 0.0
+    dx = 1102.5 / F0 / 6
+    cmax = mats[:, 1].max()
+    ppp = int(np.ceil(1 / F0 / F.stable_dt(dx, cmax, 0.5)))
+    dt = 1 / F0 / ppp
+    grid = F.FDTDGrid(shape=shape, dx=dx, dt=dt, n_steps=60, frequency=F0,
+                      sensor_start=40, source_plane_z=13)
+    idx = np.zeros(shape, np.uint8)
+    for label, (z0, z1) in {1: (18, 22), 2: (22, 25), 3: (25, 30),
+                            4: (33, 56)}.items():
+        idx[:, :, z0:z1] = label
+    idx[:, :, 30:33] = 2
+    refl = None
+    if reflector:
+        refl = np.zeros(shape, bool)
+        refl[14:22, 14:22, 26:29] = True
+    coefs = F.sls_coefficients(mats, F0, dt)
+    mi, table = F._build_indexed_materials(coefs, idx, refl)
+    prof = F._build_cpml_profiles_np(shape, 12, dx, dt, cmax, 1e-5)
+    amp = np.zeros(shape[:2])
+    amp[6:-6, 6:-6] = 60e3
+    ph = np.random.default_rng(0).uniform(-1, 1, shape[:2])
+    co = F.make_visco_coeffs(mi, table, prof, amp, ph, grid, coefs["viscous"],
+                             cuda)
+    oz = 1.0 / (1000.0 * 1500.0)
+    st_k = V.ViscoState.zeros(shape, 14, cuda)
+    st_p = V.ViscoState.zeros(shape, 14, cuda)
+    before = dict(V.launches)
+    for n in range(grid.n_steps):
+        F.visco_step(st_k, co, grid, n, oz)
+        s_sin, s_cos, cosw, sinw = F.step_scalars(grid, n, oz)
+        V.visco_velocity_ref(st_p, co, s_sin, s_cos)
+        if n >= grid.sensor_start:
+            V.visco_stress_ref(st_p, co, cosw, sinw)
+        else:
+            V.visco_stress_ref(st_p, co)
+    torch.cuda.synchronize()
+    assert V.launches["visco_velocity"] - before["visco_velocity"] == 60
+    assert V.launches["visco_stress"] - before["visco_stress"] == 40
+    assert V.launches["visco_stress_dft"] - before["visco_stress_dft"] == 20
+    assert float(st_p.peak.max()) > 0
+    names = ("vx", "vy", "vz") + V.STRESSES + V.MEMORIES + (
+        "acc_cos", "acc_sin", "peak")
+    for name in names:
+        torch.testing.assert_close(getattr(st_k, name), getattr(st_p, name),
+                                   rtol=0, atol=0, msg=name)
+    for a, b in zip(st_k.psi_s + st_k.psi_v, st_p.psi_s + st_p.psi_v):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_bhte_kernel_matches_plain(cuda):

@@ -1,15 +1,18 @@
-"""Port parity of the CT-mode main path: Step 1, Step 2 and the whole slice.
+"""Port parity of the main paths: Step 1, Step 2 and the whole slices.
 
 * ``generate_mask`` (CT branch): mask, CT index, HU table and air mask equal
-  to the JAX package's.
+  to the JAX package's; without CT (label mode) the same mask.
 * ``run_acoustic_sim`` on a domain and transducer built by the JAX package
   and carried over with ``babelbrain_tpu_torch.convert``: the same
   DataForSim keys, fields within the FDTD band (atol 1e-4 peak, rtol 1e-3).
-* The whole slice: JAX ``run_case`` against the port's ``run_case`` (CPU,
+* The whole slices, CT mode (fluid FDTD) and label mode (no CT:
+  viscoelastic FDTD): JAX ``run_case`` against the port's ``run_case`` (CPU,
   i.e. the plain versions of the kernels) on the sphere phantom of
   `tests/test_runner.py`: same focal voxel, peak pressure within 1%, peak
-  temperature within 0.05 C, CEM43 at the target within 1%.
-* The port imports no JAX, and on CPU tensors no kernel launches.
+  temperature within 0.05 C, CEM43 at the target within 1%, the same
+  DataForSim keys.
+* The port imports nothing of JAX or of the JAX package, and on CPU tensors
+  no kernel launches.
 """
 
 import os
@@ -36,6 +39,7 @@ from babelbrain_tpu.pipeline.thermal import SonicationParams as JSon
 from babelbrain_tpu.tx import make_focused_bowl
 from babelbrain_tpu_torch import convert
 from babelbrain_tpu_torch.ops import bhte_kernels, fdtd_kernels
+from babelbrain_tpu_torch.ops import fdtd_visco_kernels as visco_kernels
 from babelbrain_tpu_torch.pipeline import acoustic as TA
 from babelbrain_tpu_torch.pipeline import step1 as TS
 from babelbrain_tpu_torch.pipeline.profiles import (
@@ -105,6 +109,21 @@ def test_generate_mask_ct_matches_jax(phantom):
     np.testing.assert_array_equal(st.target_idx, sj.target_idx)
 
 
+def test_generate_mask_label_matches_jax(phantom):
+    labels, aff, _ = phantom
+    sj = JS.generate_mask(labels, aff, TARGET, DIRECTION, 500e3, 6.0,
+                          shape=MASK_SHAPE)
+    st = TS.generate_mask(labels, aff, TARGET, DIRECTION, 500e3, 6.0,
+                          shape=MASK_SHAPE, device="cpu")
+    assert st.ct_index is None and st.unique_hu is None
+    assert st.air_mask is None and sj.air_mask is None
+    np.testing.assert_array_equal(st.mask, sj.mask)
+    assert {2, 4, 5} <= set(np.unique(st.mask).tolist())  # bone, brain, target
+    np.testing.assert_array_equal(st.affine, sj.affine)
+    np.testing.assert_array_equal(st.target_idx, sj.target_idx)
+    assert st.dx_mm == sj.dx_mm
+
+
 # ---------------------------------------------------------------------------
 # Step 2 on a JAX-built domain
 # ---------------------------------------------------------------------------
@@ -161,33 +180,51 @@ def test_convert_grid_roundtrip():
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def slice_runs(phantom, mini_tx, tmp_path_factory):
-    labels, aff, ct = phantom
-    kw = dict(target_ras=TARGET, direction_ras=DIRECTION, ct_data=ct,
-              ct_affine=aff, mask_shape=MASK_SHAPE)
+_COUNTERS = (fdtd_kernels, visco_kernels, bhte_kernels)
+
+
+def _run_slices(labels, aff, mini_tx, tmp_path_factory, **kw):
+    """(JAX run_case, port run_case, (launches, plain calls) of the port)."""
+    kw.update(target_ras=TARGET, direction_ras=DIRECTION,
+              mask_shape=MASK_SHAPE)
     son = dict(duration_on=0.5, duration_off=0.5, duty_cycle=0.3, isppa=10.0)
     rj = j_run_case(
         JCase(tx_system=mini_tx, frequency=500e3, ppw=6.0,
               output_dir=str(tmp_path_factory.mktemp("jax")), prefix="j"),
         labels, aff, thermal_params=JSon(**son), **kw,
     )
-    for d in (fdtd_kernels.launches, fdtd_kernels.plain_calls,
-              bhte_kernels.launches, bhte_kernels.plain_calls):
-        for k in d:
-            d[k] = 0
+    for mod in _COUNTERS:
+        for d in (mod.launches, mod.plain_calls):
+            for k in d:
+                d[k] = 0
     rt = t_run_case(
         TCase(tx_system=mini_tx, frequency=500e3, ppw=6.0, device="cpu",
               output_dir=str(tmp_path_factory.mktemp("torch")), prefix="t"),
         labels, aff, thermal_params=TSon(**son), **kw,
     )
-    counts = ({**fdtd_kernels.launches, **bhte_kernels.launches},
-              {**fdtd_kernels.plain_calls, **bhte_kernels.plain_calls})
-    return rj, rt, counts
+    launches, plain = {}, {}
+    for mod in _COUNTERS:
+        launches.update(mod.launches)
+        plain.update(mod.plain_calls)
+    return rj, rt, (launches, plain)
 
 
-def test_slice_same_focal_voxel_and_peak(slice_runs):
-    rj, rt, _ = slice_runs
+@pytest.fixture(scope="module")
+def slice_runs(phantom, mini_tx, tmp_path_factory):
+    """The whole slice in CT mode (CT volume given: fluid FDTD)."""
+    labels, aff, ct = phantom
+    return _run_slices(labels, aff, mini_tx, tmp_path_factory, ct_data=ct,
+                       ct_affine=aff)
+
+
+@pytest.fixture(scope="module")
+def label_slice_runs(phantom, mini_tx, tmp_path_factory):
+    """The whole slice in label mode (no CT: viscoelastic FDTD)."""
+    labels, aff, _ = phantom
+    return _run_slices(labels, aff, mini_tx, tmp_path_factory)
+
+
+def _same_focal_voxel_and_peak(rj, rt):
     pj = np.asarray(rj["data_for_sim"]["p_amp"])
     pt = np.asarray(rt["data_for_sim"]["p_amp"])
     assert np.unravel_index(pt.argmax(), pt.shape) == np.unravel_index(
@@ -197,8 +234,7 @@ def test_slice_same_focal_voxel_and_peak(slice_runs):
     assert set(rt["data_for_sim"]) == set(rj["data_for_sim"])
 
 
-def test_slice_thermal_matches(slice_runs):
-    rj, rt, _ = slice_runs
+def _thermal_matches(rj, rt):
     tj, tt = rj["thermal"], rt["thermal"]
     # max temperature within 0.05 C
     assert abs(tt.temperature_peak.max() - tj.temperature_peak.max()) < 0.05
@@ -211,8 +247,7 @@ def test_slice_thermal_matches(slice_runs):
         assert tt.metrics[k] == pytest.approx(tj.metrics[k], rel=0.01, abs=0.05)
 
 
-def test_slice_writes_the_same_files(slice_runs):
-    rj, rt, _ = slice_runs
+def _writes_the_same_files(rj, rt):
     for k in ("mask", "acoustic", "thermal"):
         assert os.path.isfile(rt["files"][k]), k
         assert os.path.basename(rt["files"][k])[1:] == os.path.basename(
@@ -220,13 +255,55 @@ def test_slice_writes_the_same_files(slice_runs):
         )[1:]
 
 
-def test_slice_on_cpu_launches_no_kernel(slice_runs):
-    rj, rt, (launches, plain) = slice_runs
+def _launches_no_kernel(rt, launches, plain, fdtd, stress):
+    """No launch on CPU; the plain calls of the ``fdtd`` step ("fluid" /
+    "visco", with its "pressure" / "stress" half) match the step counts."""
     dom = rt["domain"]
     assert all(v == 0 for v in launches.values()), launches
-    assert plain["fluid_velocity"] == dom.n_steps
-    assert plain["fluid_pressure_dft"] == dom.n_steps - dom.sensor_start
+    assert plain[f"{fdtd}_velocity"] == dom.n_steps
+    assert plain[f"{fdtd}_{stress}"] == dom.sensor_start
+    assert plain[f"{fdtd}_{stress}_dft"] == dom.n_steps - dom.sensor_start
+    other = "visco" if fdtd == "fluid" else "fluid"
+    assert not any(v for k, v in plain.items() if k.startswith(other))
     assert plain["bhte_step"] == 50 + 100  # locating run + on/off schedule
+
+
+def test_slice_same_focal_voxel_and_peak(slice_runs):
+    _same_focal_voxel_and_peak(*slice_runs[:2])
+
+
+def test_slice_thermal_matches(slice_runs):
+    _thermal_matches(*slice_runs[:2])
+
+
+def test_slice_writes_the_same_files(slice_runs):
+    _writes_the_same_files(*slice_runs[:2])
+
+
+def test_slice_on_cpu_launches_no_kernel(slice_runs):
+    _, rt, (launches, plain) = slice_runs
+    _launches_no_kernel(rt, launches, plain, "fluid", "pressure")
+
+
+def test_label_slice_same_focal_voxel_and_peak(label_slice_runs):
+    _same_focal_voxel_and_peak(*label_slice_runs[:2])
+
+
+def test_label_slice_thermal_matches(label_slice_runs):
+    _thermal_matches(*label_slice_runs[:2])
+
+
+def test_label_slice_writes_the_same_files(label_slice_runs):
+    _writes_the_same_files(*label_slice_runs[:2])
+
+
+def test_label_slice_on_cpu_launches_no_kernel(label_slice_runs):
+    _, rt, (launches, plain) = label_slice_runs
+    _launches_no_kernel(rt, launches, plain, "visco", "stress")
+    # tissue-label materials with shear in the skull, and no CT-only keys
+    assert (np.asarray(rt["domain"].materials)[:, 2] > 0).any()
+    assert "SDR" not in rt["data_for_sim"]
+    assert "AirMask" not in rt["data_for_sim"]
 
 
 # ---------------------------------------------------------------------------
@@ -235,22 +312,34 @@ def test_slice_on_cpu_launches_no_kernel(slice_runs):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys; import babelbrain_tpu_torch.pipeline.runner, "
-            "babelbrain_tpu_torch.convert; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax'))")
+    """Every module of the port, and chip_smoke, import with neither JAX nor
+    any module of the JAX package loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import babelbrain_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith(('jax.', 'jaxlib')) or m == 'babelbrain_tpu' "
+        "or m.startswith('babelbrain_tpu.'))\n"
+        "assert not bad, bad\n"
+        "assert len(names) > 20, names\n"
+    )
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("case", ["label", "zte", "refocus", "profile_list"])
+@pytest.mark.parametrize("case", ["dome", "zte", "refocus", "profile_list"])
 def test_run_case_outside_the_slice_raises(phantom, mini_tx, tmp_path, case):
     labels, aff, ct = phantom
     cfg = TCase(tx_system=mini_tx, device="cpu", output_dir=str(tmp_path))
     kw = dict(ct_data=ct, ct_affine=aff)
-    if case == "label":
+    if case == "dome":
+        cfg.tx_system = "DomeTx"
         kw = {}
     elif case == "zte":
         cfg.ct_type = "ZTE"
