@@ -25,6 +25,15 @@
 // window opens) skips the accumulator streams. Temporal blocking, shared-
 // memory tiling and TMA are later work.
 //
+// Point source (refocusing): POINT=true SUBTRACTS sval from the new pressure
+// of the one cell c == pt before the DFT and the peak read it, the XLA order
+// of babelbrain_tpu/ops/fdtd.py:_make_fluid_step_fn (pressure update ->
+// injection -> DFT). It replaces the in-kernel injection of B2/B4
+// (build_fluid_fused_step, build_fluid_fusedK_step) and the post-kernel
+// amendment of the DFT sums (_fluid_point_post), which the TPU needs only
+// because its accumulators leave the kernel before the injection.
+// POINT=false compiles to the plane-source code.
+//
 // Rounding: built with --fmad=false and written in the operation order of
 // the plain PyTorch versions (ops/fdtd_kernels.py fluid_velocity_ref /
 // fluid_pressure_ref), so kernel and plain version round alike.
@@ -83,7 +92,7 @@ __global__ void fluid_velocity_kernel(
   vz[c] = vzn;
 }
 
-template <bool VISCOUS, bool WITH_DFT>
+template <bool VISCOUS, bool WITH_DFT, bool POINT>
 __global__ void fluid_pressure_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy,
     const float* __restrict__ vz, float* __restrict__ p,
@@ -96,7 +105,7 @@ __global__ void fluid_pressure_kernel(
     float* __restrict__ psz_lo, float* __restrict__ psz_hi,
     const float* __restrict__ prof,  // (3, 4, ns) "int" profiles
     float dt_dx, float inv_dx, float half_dt, float cosw, float sinw,
-    int n1, int n2, int n3, int ns) {
+    int n1, int n2, int n3, int ns, long long pt, float sval) {
   const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long sx = (long long)n2 * n3;
   if (c >= sx * n1) return;
@@ -123,6 +132,7 @@ __global__ void fluid_pressure_kernel(
   } else {
     pn = p[c] - dt_dx * pi_u[c] * theta;
   }
+  if (POINT && c == pt) pn = pn - sval;
   p[c] = pn;
   if (WITH_DFT) {
     acc_c[c] = acc_c[c] + pn * cosw;
@@ -158,22 +168,29 @@ int bb_fluid_pressure(const float* vx, const float* vy, const float* vz,
                       float* psz_lo, float* psz_hi, const float* prof,
                       float dt_dx, float inv_dx, float half_dt, float cosw,
                       float sinw, int n1, int n2, int n3, int ns,
-                      int viscous, int with_dft, void* stream) {
+                      int viscous, int with_dft, int point, long long pt,
+                      float sval, void* stream) {
   const unsigned int nb = n_blocks(n1, n2, n3);
   cudaStream_t st = (cudaStream_t)stream;
 #define BB_PRESSURE_ARGS                                                   \
   vx, vy, vz, p, r, pi_u, c_rp, b_r, acc_c, acc_s, peak, psx_lo, psx_hi,  \
       psy_lo, psy_hi, psz_lo, psz_hi, prof, dt_dx, inv_dx, half_dt, cosw, \
-      sinw, n1, n2, n3, ns
+      sinw, n1, n2, n3, ns, pt, sval
+#define BB_GO(V, D, P) \
+  fluid_pressure_kernel<V, D, P><<<nb, kThreads, 0, st>>>(BB_PRESSURE_ARGS)
+#define BB_GO_POINT(V, D) \
+  if (point) BB_GO(V, D, true); else BB_GO(V, D, false)
   if (viscous && with_dft) {
-    fluid_pressure_kernel<true, true><<<nb, kThreads, 0, st>>>(BB_PRESSURE_ARGS);
+    BB_GO_POINT(true, true);
   } else if (viscous) {
-    fluid_pressure_kernel<true, false><<<nb, kThreads, 0, st>>>(BB_PRESSURE_ARGS);
+    BB_GO_POINT(true, false);
   } else if (with_dft) {
-    fluid_pressure_kernel<false, true><<<nb, kThreads, 0, st>>>(BB_PRESSURE_ARGS);
+    BB_GO_POINT(false, true);
   } else {
-    fluid_pressure_kernel<false, false><<<nb, kThreads, 0, st>>>(BB_PRESSURE_ARGS);
+    BB_GO_POINT(false, false);
   }
+#undef BB_GO_POINT
+#undef BB_GO
 #undef BB_PRESSURE_ARGS
   return (int)cudaGetLastError();
 }

@@ -30,6 +30,13 @@
 // axis), in the XLA layout. Shared-memory tiling and temporal blocking are
 // later work.
 //
+// Point source (refocusing): the stress kernel's POINT=true ADDS sval to
+// sxx, syy and szz of the one cell c == pt after their update and before
+// p = -(sxx+syy+szz)/3 feeds the DFT and the peak, the XLA order of
+// babelbrain_tpu/ops/fdtd.py:_make_step_fn. It replaces the in-kernel point
+// injection of B6/B8 (build_visco_fused_step, build_visco_fusedK_step).
+// POINT=false compiles to the plane-source code.
+//
 // Rounding: built with --fmad=false and written in the operation order of
 // the plain PyTorch versions (ops/fdtd_visco_kernels.py visco_velocity_ref /
 // visco_stress_ref), so kernel and plain version round alike.
@@ -147,17 +154,19 @@ __global__ void visco_velocity_kernel(
 }
 
 // Six stresses and six SLS memories from the CPML'd velocity derivatives;
-// with WITH_DFT the carrier DFT and |p| peak of p = -(sxx+syy+szz)/3.
+// with POINT the point source added to the normal stresses of cell pt; with
+// WITH_DFT the carrier DFT and |p| peak of p = -(sxx+syy+szz)/3.
 // v: [vx, vy, vz]; s, r: [xx, yy, zz, xy, xz, yz]; table rows
 // [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r] x n_mat; psi: the derivatives
 // vx_x, vy_y, vz_z, vx_y, vy_x, vx_z, vz_x, vy_z, vz_y.
-template <bool VISCOUS, bool WITH_DFT>
+template <bool VISCOUS, bool WITH_DFT, bool POINT>
 __global__ void visco_stress_kernel(
     Ptr3 v, Ptr6 s, Ptr6 r, const int* __restrict__ idx,
     const float* __restrict__ table, int n_mat, float* __restrict__ acc_c,
     float* __restrict__ acc_s, float* __restrict__ peak, Ptr18 psi,
     const float* __restrict__ prof_half, const float* __restrict__ prof_int,
-    float dt_dx, float inv_dx, float half_dt, float cosw, float sinw, Geo g) {
+    float dt_dx, float inv_dx, float half_dt, float cosw, float sinw, Geo g,
+    long long pt, float sval) {
   extern __shared__ float tab[];  // rows pi_u, mu_u, c_rp, c_rs, b_r
   for (int m = threadIdx.x; m < 5 * n_mat; m += blockDim.x) {
     tab[m] = table[n_mat + m];
@@ -196,6 +205,7 @@ __global__ void visco_stress_kernel(
     } else {
       sn[a] = so + dt_dx * el;
     }
+    if (POINT && c == pt) sn[a] = sn[a] + sval;
     s.p[a][c] = sn[a];
   }
 
@@ -262,7 +272,8 @@ int bb_visco_stress(float* const* v3, float* const* s6, float* const* r6,
                     const float* prof_half, const float* prof_int,
                     float dt_dx, float inv_dx, float half_dt, float cosw,
                     float sinw, int n_mat, int n1, int n2, int n3, int ns,
-                    int viscous, int with_dft, void* stream) {
+                    int viscous, int with_dft, int point, long long pt,
+                    float sval, void* stream) {
   const Geo g{n1, n2, n3, ns};
   const unsigned int nb = n_blocks(n1, n2, n3);
   const size_t smem = 5 * n_mat * sizeof(float);
@@ -270,16 +281,22 @@ int bb_visco_stress(float* const* v3, float* const* s6, float* const* r6,
 #define BB_STRESS_ARGS                                                     \
   gather<3, Ptr3>(v3), gather<6, Ptr6>(s6), gather<6, Ptr6>(r6), idx,      \
       table, n_mat, acc_c, acc_s, peak, gather<18, Ptr18>(psi18),          \
-      prof_half, prof_int, dt_dx, inv_dx, half_dt, cosw, sinw, g
+      prof_half, prof_int, dt_dx, inv_dx, half_dt, cosw, sinw, g, pt, sval
+#define BB_GO(V, D, P) \
+  visco_stress_kernel<V, D, P><<<nb, kThreads, smem, st>>>(BB_STRESS_ARGS)
+#define BB_GO_POINT(V, D) \
+  if (point) BB_GO(V, D, true); else BB_GO(V, D, false)
   if (viscous && with_dft) {
-    visco_stress_kernel<true, true><<<nb, kThreads, smem, st>>>(BB_STRESS_ARGS);
+    BB_GO_POINT(true, true);
   } else if (viscous) {
-    visco_stress_kernel<true, false><<<nb, kThreads, smem, st>>>(BB_STRESS_ARGS);
+    BB_GO_POINT(true, false);
   } else if (with_dft) {
-    visco_stress_kernel<false, true><<<nb, kThreads, smem, st>>>(BB_STRESS_ARGS);
+    BB_GO_POINT(false, true);
   } else {
-    visco_stress_kernel<false, false><<<nb, kThreads, smem, st>>>(BB_STRESS_ARGS);
+    BB_GO_POINT(false, false);
   }
+#undef BB_GO_POINT
+#undef BB_GO
 #undef BB_STRESS_ARGS
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("fdtd_fluid.cu", "fdtd_visco.cu", "bhte.cu")
+SOURCES = ("fdtd_fluid.cu", "fdtd_visco.cu", "fdtd_sources.cu", "bhte.cu")
 HEADERS = ("fdtd_stencil.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --fmad=false: no multiply-add contraction, so each kernel rounds exactly
@@ -43,13 +43,15 @@ build_seconds = 0.0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "bb_fluid_velocity": [_P] * 15 + [_F, _F, _F] + [_I] * 5 + [_P],
-    "bb_fluid_pressure": [_P] * 18 + [_F] * 5 + [_I] * 6 + [_P],
+    "bb_fluid_pressure": [_P] * 18 + [_F] * 5 + [_I] * 7 + [_L, _F, _P],
     "bb_bhte_step": [_P] * 13 + [_F] + [_I] * 3 + [_P],
     "bb_visco_velocity": [_P] * 10 + [_F] * 3 + [_I] * 6 + [_P],
-    "bb_visco_stress": [_P] * 11 + [_F] * 5 + [_I] * 7 + [_P],
+    "bb_visco_stress": [_P] * 11 + [_F] * 5 + [_I] * 8 + [_L, _F, _P],
+    "bb_velocity_volume_source": [_P] * 10 + [_F, _F, _I, _P],
 }
 
 

@@ -1,14 +1,16 @@
 """Staggered-grid FDTD for transcranial ultrasound: fluid and viscoelastic.
 
-PyTorch counterpart of ``babelbrain_tpu/ops/fdtd.py`` for the plane-source
-main paths: CT mode (fluid, shear-free media) and label mode (viscoelastic
-media with shear in the skull). The host numerics (CPML profiles, SLS
-coefficient tuning, the CFL bound, material-field expansion, the indexed
-material table and the reflector fold) are exact numpy copies. The time loop
-is a Python loop over ``ops.fdtd_kernels`` (fluid) or
-``ops.fdtd_visco_kernels`` (viscoelastic): on a CUDA device each step is two
-hand-written kernels (velocity, then pressure or stress); on the CPU the
-same step runs as plain PyTorch.
+PyTorch counterpart of ``babelbrain_tpu/ops/fdtd.py``: CT mode (fluid,
+shear-free media) and label mode (viscoelastic media with shear in the
+skull), driven by a CW plane source, a stress point (refocusing) or a
+volumetric velocity source (dome transducers). The host numerics (CPML
+profiles, SLS coefficient tuning, the CFL bound, material-field expansion,
+the indexed material table and the reflector fold) are exact numpy copies.
+The time loop is a Python loop over ``ops.fdtd_kernels`` (fluid) or
+``ops.fdtd_visco_kernels`` (viscoelastic): on a CUDA device each step is
+two hand-written kernels (velocity, then pressure or stress; a volumetric source
+adds ``ops.fdtd_sources`` between them); on the CPU the same step runs as
+plain PyTorch.
 
 Physics (see the JAX module for the derivations): 4th-order staggered
 differences, CPML with slab-only psi memory, one SLS relaxation mechanism
@@ -16,8 +18,8 @@ per modulus tuned exactly at the carrier, a CW plane source with per-pixel
 amplitude and phase, and the carrier DFT accumulated over the sensor window.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-Queue A item): point and volumetric sources, ``sel_maps`` / ``monitor_ijk``
-diagnostics and multi-device meshes.
+Queue A item): ``sel_maps`` / ``monitor_ijk`` diagnostics and multi-device
+meshes.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ from .fdtd_visco_kernels import (
     visco_stress,
     visco_velocity,
 )
+from .fdtd_sources import VolumeSource, velocity_volume_source
+
+SOURCE_TYPES = ("velocity_plane", "stress_point", "velocity_volume")
 
 
 # ---------------------------------------------------------------------------
@@ -315,12 +320,14 @@ def make_visco_coeffs(mat_idx, table, profiles_np, src_amp, src_phase,
     )
 
 
-def step_scalars(grid: FDTDGrid, n: int, oz_scale: float):
-    """Host scalars of step ``n``: (s_sin, s_cos, cosw, sinw).
+def step_scalars(grid: FDTDGrid, n: int, oz_scale: float,
+                 point_amp: float = 0.0):
+    """Host scalars of step ``n``: (s_sin, s_cos, cosw, sinw, s_point).
 
     s_sin / s_cos are sin(wt) / cos(wt) times the half-cosine source ramp
     and the pressure->velocity scale; cosw / sinw are the carrier DFT
-    weights. Evaluated in float64 (the kernels take them as float32).
+    weights; s_point = point_amp sin(wt) ramp is the stress-point value.
+    Evaluated in float64 (the kernels take them as float32).
     """
     omega = 2.0 * np.pi * grid.frequency
     wt = omega * (n * grid.dt)
@@ -328,31 +335,51 @@ def step_scalars(grid: FDTDGrid, n: int, oz_scale: float):
     ramp = 0.5 * (1.0 - np.cos(np.pi * n / ramp_steps)) if n < ramp_steps else 1.0
     scale = ramp * oz_scale
     return (float(np.sin(wt) * scale), float(np.cos(wt) * scale),
-            float(np.cos(wt)), float(np.sin(wt)))
+            float(np.cos(wt)), float(np.sin(wt)),
+            float(point_amp * np.sin(wt) * ramp))
+
+
+def point_index(grid: FDTDGrid) -> int | None:
+    """C-order linear index of a ``stress_point`` source cell, else None."""
+    if grid.source_type != "stress_point":
+        return None
+    return int(np.ravel_multi_index(tuple(int(v) for v in grid.source_ijk),
+                                    grid.shape))
+
+
+def _advance(velocity, stress, st, co, grid, n, oz_scale, point_amp, vsrc):
+    """One leapfrog step: velocity kernel, volumetric source (if any), then
+    the pressure / stress kernel with the point source (if any) and, inside
+    the sensor window, the DFT."""
+    s_sin, s_cos, cosw, sinw, s_pt = step_scalars(grid, n, oz_scale,
+                                                  point_amp)
+    velocity(st, co, s_sin, s_cos)
+    if vsrc is not None:
+        velocity_volume_source(st.vx, st.vy, st.vz, vsrc, s_sin, s_cos)
+    pt = point_index(grid)
+    point = None if pt is None else (pt, s_pt)
+    if n >= grid.sensor_start:
+        stress(st, co, cosw, sinw, point)
+    else:
+        # quiet phase: the DFT window is closed, accumulators untouched
+        stress(st, co, point=point)
 
 
 def fluid_step(st: FluidState, co: FluidCoeffs, grid: FDTDGrid, n: int,
-               oz_scale: float) -> None:
+               oz_scale: float, point_amp: float = 0.0,
+               vsrc: VolumeSource | None = None) -> None:
     """Advance the fluid state by step ``n`` (velocity, then pressure)."""
-    s_sin, s_cos, cosw, sinw = step_scalars(grid, n, oz_scale)
-    fluid_velocity(st, co, s_sin, s_cos)
-    if n >= grid.sensor_start:
-        fluid_pressure(st, co, cosw, sinw)
-    else:
-        # quiet phase: the DFT window is closed, accumulators untouched
-        fluid_pressure(st, co)
+    _advance(fluid_velocity, fluid_pressure, st, co, grid, n, oz_scale,
+             point_amp, vsrc)
 
 
 def visco_step(st: ViscoState, co: ViscoCoeffs, grid: FDTDGrid, n: int,
-               oz_scale: float) -> None:
+               oz_scale: float, point_amp: float = 0.0,
+               vsrc: VolumeSource | None = None) -> None:
     """Advance the viscoelastic state by step ``n`` (velocity, then
     stress)."""
-    s_sin, s_cos, cosw, sinw = step_scalars(grid, n, oz_scale)
-    visco_velocity(st, co, s_sin, s_cos)
-    if n >= grid.sensor_start:
-        visco_stress(st, co, cosw, sinw)
-    else:
-        visco_stress(st, co)
+    _advance(visco_velocity, visco_stress, st, co, grid, n, oz_scale,
+             point_amp, vsrc)
 
 
 def run_fdtd(
@@ -372,11 +399,15 @@ def run_fdtd(
 ):
     """Run the CW simulation and return carrier amplitude/phase/peak maps.
 
-    Parameters are those of the JAX ``run_fdtd`` for a ``velocity_plane``
-    source in fluid or viscoelastic (shear) media; ``device`` selects where
-    the state lives (CUDA: the step kernels; CPU: their plain PyTorch
-    versions). Fluid media keep expanded property volumes; shear media use
-    indexed materials (``_build_indexed_materials``).
+    Parameters are those of the JAX ``run_fdtd`` in fluid or viscoelastic
+    (shear) media, for each ``grid.source_type``: ``velocity_plane``
+    (``source_amp``/``source_phase``), ``stress_point`` (``point_amp`` at
+    ``grid.source_ijk``) and ``velocity_volume`` (``volume_source``, the
+    dense dict of ``pipeline.acoustic.make_volume_source``, turned into a
+    sparse ``VolumeSource`` here). ``device`` selects where the state lives
+    (CUDA: the step kernels; CPU: their plain PyTorch versions). Fluid media
+    keep expanded property volumes; shear media use indexed materials
+    (``_build_indexed_materials``).
 
     Returns dict with 'p_amp' (Pa), 'p_phase' (rad, FFT-bin convention of
     the reference), 'peak' (Pa), each (N1,N2,N3) float32 numpy arrays.
@@ -391,14 +422,42 @@ def run_fdtd(
             "run_fdtd sel_maps/monitor_ijk diagnostics are ROADMAP Queue A "
             "item 12"
         )
-    if grid.source_type == "stress_point" or point_amp:
-        raise NotImplementedError(
-            "stress_point sources (refocusing) are ROADMAP Queue A item 9"
-        )
-    if grid.source_type != "velocity_plane" or volume_source is not None:
-        raise NotImplementedError(
-            "velocity_volume sources (dome) are ROADMAP Queue A item 11"
-        )
+    step, st, co, oz_scale, vsrc = fdtd_setup(
+        mat_idx, materials, grid, source_amp, source_phase, reflector_mask,
+        volume_source, device=device,
+    )
+    with stage_timer("FDTD time loop", level=3, step=2):
+        for n in range(grid.n_steps):
+            step(st, co, grid, n, oz_scale, point_amp, vsrc)
+        if st.peak.device.type == "cuda":
+            torch.cuda.synchronize()  # the readback below waits anyway
+
+    acc_c = st.acc_cos.cpu().numpy()
+    acc_s = st.acc_sin.cpu().numpy()
+    n_win = grid.n_steps - grid.sensor_start
+    # FFT-bin convention: X = sum p e^{-i w t} = C - iS; amp=2|X|/N
+    amp = 2.0 / n_win * np.sqrt(acc_c**2 + acc_s**2)
+    phase = np.arctan2(-acc_s, acc_c)
+    return {
+        "p_amp": amp.astype(np.float32),
+        "p_phase": phase.astype(np.float32),
+        "peak": st.peak.cpu().numpy(),
+    }
+
+
+def fdtd_setup(mat_idx, materials, grid: FDTDGrid, source_amp=None,
+               source_phase=None, reflector_mask=None,
+               volume_source: dict | None = None, *, device="cuda"):
+    """What ``run_fdtd`` steps with, for the same arguments: (step function,
+    zero state, step-invariant inputs, pressure->velocity scale, sparse
+    volume source or None)."""
+    if grid.source_type not in SOURCE_TYPES:
+        raise ValueError(f"unknown source_type {grid.source_type!r}")
+    vsrc = None
+    if grid.source_type == "velocity_volume":
+        if volume_source is None:
+            raise ValueError("velocity_volume sources need volume_source")
+        vsrc = VolumeSource.from_dense(volume_source, grid.shape, device)
     mats = np.asarray(materials, np.float64)
     coefs = sls_coefficients(mats, grid.frequency, grid.dt)
     has_shear = bool(np.any(mats[:, 2] > 0))
@@ -410,8 +469,9 @@ def run_fdtd(
         grid.shape, grid.npml, grid.dx, grid.dt, cmax, grid.reflection_limit
     )
     zeros2 = np.zeros(grid.shape[:2])
-    src = (source_amp if source_amp is not None else zeros2,
-           source_phase if source_phase is not None else zeros2)
+    plane = grid.source_type == "velocity_plane"  # the only plane drive
+    src = (source_amp if plane and source_amp is not None else zeros2,
+           source_phase if plane and source_phase is not None else zeros2)
     ns = grid.npml + 2
     if has_shear:
         idx, table = _build_indexed_materials(coefs, mat_idx, reflector_mask)
@@ -427,20 +487,4 @@ def run_fdtd(
                                coefs["viscous"], device)
         st = FluidState.zeros(grid.shape, ns, device)
         step = fluid_step
-    with stage_timer("FDTD time loop", level=3, step=2):
-        for n in range(grid.n_steps):
-            step(st, co, grid, n, oz_scale)
-        if st.peak.device.type == "cuda":
-            torch.cuda.synchronize()  # the readback below waits anyway
-
-    acc_c = st.acc_cos.cpu().numpy()
-    acc_s = st.acc_sin.cpu().numpy()
-    n_win = grid.n_steps - grid.sensor_start
-    # FFT-bin convention: X = sum p e^{-i w t} = C - iS; amp=2|X|/N
-    amp = 2.0 / n_win * np.sqrt(acc_c**2 + acc_s**2)
-    phase = np.arctan2(-acc_s, acc_c)
-    return {
-        "p_amp": amp.astype(np.float32),
-        "p_phase": phase.astype(np.float32),
-        "peak": st.peak.cpu().numpy(),
-    }
+    return step, st, co, oz_scale, vsrc

@@ -6,12 +6,15 @@ One fluid leapfrog step is two kernels (``csrc/fdtd_fluid.cu``):
   three axes ("half" profiles), then the CW plane source SET into vz at
   ``zsrc`` where the source amplitude is positive;
 * ``fluid_pressure`` — theta = sum of the CPML'd D-_i v_i ("int" profiles),
-  the SLS memory r, p -= dt/dx pi_u theta + dt (r' + r)/2; with the carrier
-  DFT and |p| peak inside the sensor window (``cosw``/``sinw`` given).
+  the SLS memory r, p -= dt/dx pi_u theta + dt (r' + r)/2; with ``point``
+  the stress-point source (refocusing) subtracted from p at one cell; with
+  the carrier DFT and |p| peak inside the sensor window (``cosw``/``sinw``
+  given).
 
-They replace the JAX package's Pallas kernels B1/B3/B4
+They replace the JAX package's Pallas kernels B1-B4
 (``babelbrain_tpu/ops/fdtd_pallas.py``). The math is the XLA step of
-``babelbrain_tpu/ops/fdtd.py:_make_fluid_step_fn``.
+``babelbrain_tpu/ops/fdtd.py:_make_fluid_step_fn``; a volumetric (dome)
+source is ``ops.fdtd_sources``, launched between the two.
 
 The wrappers dispatch on the device of the state: a CPU state runs the plain
 version (``fluid_velocity_ref`` / ``fluid_pressure_ref``), a CUDA state
@@ -33,8 +36,10 @@ from . import _build
 _C1 = 9.0 / 8.0
 _C2 = -1.0 / 24.0
 
-launches = {"fluid_velocity": 0, "fluid_pressure": 0, "fluid_pressure_dft": 0}
-plain_calls = {"fluid_velocity": 0, "fluid_pressure": 0, "fluid_pressure_dft": 0}
+_KEYS = ("fluid_velocity", "fluid_pressure", "fluid_pressure_dft",
+         "fluid_pressure_point", "fluid_pressure_point_dft")
+launches = dict.fromkeys(_KEYS, 0)
+plain_calls = dict.fromkeys(_KEYS, 0)
 
 
 @dataclass
@@ -132,6 +137,21 @@ def _check(st: FluidState, co: FluidCoeffs) -> tuple:
     return shape, ns
 
 
+def pressure_key(stem: str, with_dft: bool, point) -> str:
+    """Count key of a pressure / stress launch: ``stem`` + "_point" with a
+    point source + "_dft" inside the sensor window."""
+    return stem + ("_point" if point is not None else "") + (
+        "_dft" if with_dft else "")
+
+
+def check_point(point, shape) -> None:
+    """Validate a ``(linear index, value)`` point source against ``shape``."""
+    if point is not None:
+        index, _ = point
+        if not 0 <= index < shape[0] * shape[1] * shape[2]:
+            raise ValueError(f"point source index {index} outside {shape}")
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
@@ -160,14 +180,18 @@ def fluid_velocity(st: FluidState, co: FluidCoeffs, s_sin: float,
 
 
 def fluid_pressure(st: FluidState, co: FluidCoeffs, cosw: float | None = None,
-                   sinw: float | None = None) -> None:
-    """Pressure half-step in place; with ``cosw``/``sinw`` (the carrier
-    cos/sin at this step) it also accumulates the DFT and the |p| peak."""
+                   sinw: float | None = None, point=None) -> None:
+    """Pressure half-step in place; with ``point`` = (linear cell index,
+    value) the point source is subtracted from that cell's new pressure;
+    with ``cosw``/``sinw`` (the carrier cos/sin at this step) it also
+    accumulates the DFT and the |p| peak."""
     (n1, n2, n3), ns = _check(st, co)
+    check_point(point, (n1, n2, n3))
     with_dft = cosw is not None
     if st.p.device.type == "cpu":
-        fluid_pressure_ref(st, co, cosw, sinw)
+        fluid_pressure_ref(st, co, cosw, sinw, point)
         return
+    pt, sval = point if point is not None else (0, 0.0)
     lib = _build.library()
     rc = lib.bb_fluid_pressure(
         _ptr(st.vx), _ptr(st.vy), _ptr(st.vz), _ptr(st.p), _ptr(st.r),
@@ -175,10 +199,11 @@ def fluid_pressure(st: FluidState, co: FluidCoeffs, cosw: float | None = None,
         _ptr(st.acc_sin), _ptr(st.peak), *(_ptr(t) for t in st.psi_v),
         _ptr(co.cpml_int), co.dt_dx, co.inv_dx, co.half_dt,
         cosw if with_dft else 0.0, sinw if with_dft else 0.0,
-        n1, n2, n3, ns, int(co.viscous), int(with_dft), _stream(),
+        n1, n2, n3, ns, int(co.viscous), int(with_dft), int(point is not None),
+        pt, sval, _stream(),
     )
     _build.check(rc, "fluid_pressure_kernel")
-    launches["fluid_pressure_dft" if with_dft else "fluid_pressure"] += 1
+    launches[pressure_key("fluid_pressure", with_dft, point)] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -245,10 +270,10 @@ def fluid_velocity_ref(st: FluidState, co: FluidCoeffs, s_sin: float,
 
 def fluid_pressure_ref(st: FluidState, co: FluidCoeffs,
                        cosw: float | None = None,
-                       sinw: float | None = None) -> None:
+                       sinw: float | None = None, point=None) -> None:
     """Plain version of ``fluid_pressure_kernel`` (in place)."""
     with_dft = cosw is not None
-    plain_calls["fluid_pressure_dft" if with_dft else "fluid_pressure"] += 1
+    plain_calls[pressure_key("fluid_pressure", with_dft, point)] += 1
     dv = [
         _cpml(d_minus(v, axis), axis, co.cpml_int[axis],
               st.psi_v[2 * axis], st.psi_v[2 * axis + 1])
@@ -262,6 +287,10 @@ def fluid_pressure_ref(st: FluidState, co: FluidCoeffs,
         st.r.copy_(new_r)
     else:
         p_new = st.p - co.dt_dx * co.pi_u * theta
+    if point is not None:
+        index, sval = point
+        cell = p_new.view(-1)[index]
+        cell.copy_(cell - sval)
     st.p.copy_(p_new)
     if with_dft:
         st.acc_cos.copy_(st.acc_cos + p_new * cosw)

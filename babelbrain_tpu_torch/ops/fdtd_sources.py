@@ -1,0 +1,143 @@
+"""Volumetric velocity source (dome transducers): CUDA kernel, wrapper and
+plain PyTorch version.
+
+A dome array sits inside the simulation domain and drives particle velocity
+along per-voxel normals. After each velocity update, at every voxel where
+the drive amplitude is positive, the three velocities are SET to
+
+    v_i = amp sin(wt + phase) ramp oz o_i
+        = amp (s_sin cos(phase) + s_cos sin(phase)) o_i
+
+(``babelbrain_tpu/ops/fdtd.py``, ``velocity_volume`` branch of both step
+functions). The JAX package's TPU kernels B2/B4/B6/B8 stream the drive as
+six dense (N1, N2, N3) volumes; here it is a sparse list of the source
+voxels (``VolumeSource``), and ``velocity_volume_source`` scatters it with
+one CUDA thread per voxel (``csrc/fdtd_sources.cu``), between the velocity
+kernel and the pressure/stress kernel of either FDTD family.
+
+The wrapper dispatches on the device of the velocities: CPU tensors run the
+plain version (``velocity_volume_source_ref``, an ``index_put_`` of the
+three velocities), CUDA tensors launch the kernel on the current stream (or
+raise). ``launches`` counts kernel launches, ``plain_calls`` calls of the
+plain version.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from . import _build
+from .fdtd_kernels import _ptr, _stream
+
+launches = {"volume_source": 0}
+plain_calls = {"volume_source": 0}
+
+_FIELDS = ("amp", "cph", "sph", "ox", "oy", "oz")
+
+
+@dataclass
+class VolumeSource:
+    """The source voxels of a volumetric drive, on one device.
+
+    ``index``: int32 (S,) C-order linear voxel index; ``amp``, ``cph``,
+    ``sph`` (amplitude and cos/sin of the phase), ``ox``, ``oy``, ``oz``
+    (unit drive direction): float32 (S,).
+    """
+
+    index: torch.Tensor
+    amp: torch.Tensor
+    cph: torch.Tensor
+    sph: torch.Tensor
+    ox: torch.Tensor
+    oy: torch.Tensor
+    oz: torch.Tensor
+
+    @classmethod
+    def from_dense(cls, volume_source: dict, shape, device) -> "VolumeSource":
+        """Sparse form of the dense dict ``run_fdtd(volume_source=...)``
+        takes (``amp``, ``phase``, ``ox``, ``oy``, ``oz``, each (N1, N2, N3)):
+        the voxels where the float32 amplitude is > 0, the JAX ``on`` mask."""
+        shape = tuple(int(n) for n in shape)
+        if int(np.prod(shape)) >= 2**31:
+            raise ValueError(f"grid {shape} too large for int32 voxel indices")
+        dense = {k: np.asarray(volume_source[k], np.float32)
+                 for k in ("amp", "phase", "ox", "oy", "oz")}
+        for k, v in dense.items():
+            if v.shape != shape:
+                raise ValueError(
+                    f"volume_source[{k!r}] has shape {v.shape}, grid {shape}"
+                )
+        on = np.flatnonzero(dense["amp"] > 0)
+        dev = torch.device(device)
+
+        def sel(k):
+            return torch.as_tensor(dense[k].reshape(-1)[on], device=dev)
+
+        phase = sel("phase")
+        return cls(index=torch.as_tensor(on.astype(np.int32), device=dev),
+                   amp=sel("amp"), cph=torch.cos(phase), sph=torch.sin(phase),
+                   ox=sel("ox"), oy=sel("oy"), oz=sel("oz"))
+
+    @property
+    def n_src(self) -> int:
+        return int(self.index.shape[0])
+
+
+def _check(vx, vy, vz, vs: VolumeSource) -> None:
+    dev = vx.device
+    for v in (vx, vy, vz):
+        if v.device != dev or v.dtype != torch.float32 or not v.is_contiguous():
+            raise ValueError(
+                "volume source: velocities must be contiguous float32 on one "
+                f"device, got {v.dtype} on {v.device}"
+            )
+        if v.shape != vx.shape:
+            raise ValueError("volume source: velocity shapes differ")
+    if vs.index.device != dev or vs.index.dtype != torch.int32:
+        raise ValueError(
+            f"volume source: expected an int32 index on {dev}, got "
+            f"{vs.index.dtype} on {vs.index.device}"
+        )
+    for k in _FIELDS:
+        t = getattr(vs, k)
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != (vs.n_src,) or not t.is_contiguous()):
+            raise ValueError(
+                f"volume source: {k} must be a contiguous float32 ({vs.n_src},)"
+                f" tensor on {dev}"
+            )
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"volume source: unsupported device {dev}")
+
+
+def velocity_volume_source(vx, vy, vz, vs: VolumeSource, s_sin: float,
+                           s_cos: float) -> None:
+    """Set the velocities at the source voxels in place; ``s_sin``/``s_cos``
+    are sin(wt) and cos(wt) times the source ramp and the pressure->velocity
+    scale."""
+    _check(vx, vy, vz, vs)
+    if vx.device.type == "cpu":
+        velocity_volume_source_ref(vx, vy, vz, vs, s_sin, s_cos)
+        return
+    if vs.n_src == 0:
+        return
+    lib = _build.library()
+    rc = lib.bb_velocity_volume_source(
+        _ptr(vs.index), *(_ptr(getattr(vs, k)) for k in _FIELDS),
+        _ptr(vx), _ptr(vy), _ptr(vz), s_sin, s_cos, vs.n_src, _stream(),
+    )
+    _build.check(rc, "velocity_volume_source_kernel")
+    launches["volume_source"] += 1
+
+
+def velocity_volume_source_ref(vx, vy, vz, vs: VolumeSource, s_sin: float,
+                               s_cos: float) -> None:
+    """Plain version of ``velocity_volume_source_kernel`` (in place)."""
+    plain_calls["volume_source"] += 1
+    sv = vs.amp * (s_sin * vs.cph + s_cos * vs.sph)
+    index = (vs.index.long(),)
+    for v, o in ((vx, vs.ox), (vy, vs.oy), (vz, vs.oz)):
+        v.view(-1).index_put_(index, sv * o)

@@ -7,8 +7,10 @@ kernels (``csrc/fdtd_visco.cu``):
   CPML'd stress derivatives, then the CW plane source SET into vz at
   ``zsrc`` where the source amplitude is positive;
 * ``visco_stress`` — six stresses and six SLS memory variables from nine
-  CPML'd velocity derivatives; with the carrier DFT and |p| peak of
-  p = -(sxx+syy+szz)/3 inside the sensor window (``cosw``/``sinw`` given).
+  CPML'd velocity derivatives; with ``point`` the stress-point source
+  (refocusing) added to sxx, syy and szz at one cell; with the carrier DFT
+  and |p| peak of p = -(sxx+syy+szz)/3 inside the sensor window
+  (``cosw``/``sinw`` given).
 
 Materials are indexed: an int32 index volume and a (6, M) float32 table with
 rows [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r] (``ops.fdtd
@@ -16,8 +18,8 @@ rows [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r] (``ops.fdtd
 
 They replace the JAX package's Pallas kernels B5-B8
 (``babelbrain_tpu/ops/fdtd_pallas.py``). The math is the XLA step of
-``babelbrain_tpu/ops/fdtd.py:_make_step_fn`` for a ``velocity_plane``
-source.
+``babelbrain_tpu/ops/fdtd.py:_make_step_fn``; a volumetric (dome) source is
+``ops.fdtd_sources``, launched between the two.
 
 The wrappers dispatch on the device of the state: a CPU state runs the plain
 version (``visco_velocity_ref`` / ``visco_stress_ref``), a CUDA state
@@ -34,10 +36,20 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
-from .fdtd_kernels import _cpml, _ptr, _stream, d_minus, d_plus
+from .fdtd_kernels import (
+    _cpml,
+    _ptr,
+    _stream,
+    check_point,
+    d_minus,
+    d_plus,
+    pressure_key,
+)
 
-launches = {"visco_velocity": 0, "visco_stress": 0, "visco_stress_dft": 0}
-plain_calls = {"visco_velocity": 0, "visco_stress": 0, "visco_stress_dft": 0}
+_KEYS = ("visco_velocity", "visco_stress", "visco_stress_dft",
+         "visco_stress_point", "visco_stress_point_dft")
+launches = dict.fromkeys(_KEYS, 0)
+plain_calls = dict.fromkeys(_KEYS, 0)
 
 # the stress kernel keeps five table rows in (static-size) shared memory
 MAX_MATERIALS = 48 * 1024 // (5 * 4)
@@ -206,14 +218,18 @@ def visco_velocity(st: ViscoState, co: ViscoCoeffs, s_sin: float,
 
 
 def visco_stress(st: ViscoState, co: ViscoCoeffs, cosw: float | None = None,
-                 sinw: float | None = None) -> None:
-    """Stress half-step in place; with ``cosw``/``sinw`` (the carrier
-    cos/sin at this step) it also accumulates the DFT and the |p| peak."""
+                 sinw: float | None = None, point=None) -> None:
+    """Stress half-step in place; with ``point`` = (linear cell index,
+    value) the point source is added to that cell's normal stresses; with
+    ``cosw``/``sinw`` (the carrier cos/sin at this step) it also accumulates
+    the DFT and the |p| peak."""
     (n1, n2, n3), ns = _check(st, co)
+    check_point(point, (n1, n2, n3))
     with_dft = cosw is not None
     if st.vx.device.type == "cpu":
-        visco_stress_ref(st, co, cosw, sinw)
+        visco_stress_ref(st, co, cosw, sinw, point)
         return
+    pt, sval = point if point is not None else (0, 0.0)
     lib = _build.library()
     rc = lib.bb_visco_stress(
         _ptrs(st.fields(("vx", "vy", "vz"))), _ptrs(st.fields(STRESSES)),
@@ -222,10 +238,10 @@ def visco_stress(st: ViscoState, co: ViscoCoeffs, cosw: float | None = None,
         _ptr(co.cpml_half), _ptr(co.cpml_int), co.dt_dx, co.inv_dx,
         co.half_dt, cosw if with_dft else 0.0, sinw if with_dft else 0.0,
         co.table.shape[1], n1, n2, n3, ns, int(co.viscous), int(with_dft),
-        _stream(),
+        int(point is not None), pt, sval, _stream(),
     )
     _build.check(rc, "visco_stress_kernel")
-    launches["visco_stress_dft" if with_dft else "visco_stress"] += 1
+    launches[pressure_key("visco_stress", with_dft, point)] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -265,10 +281,10 @@ def visco_velocity_ref(st: ViscoState, co: ViscoCoeffs, s_sin: float,
 
 def visco_stress_ref(st: ViscoState, co: ViscoCoeffs,
                      cosw: float | None = None,
-                     sinw: float | None = None) -> None:
+                     sinw: float | None = None, point=None) -> None:
     """Plain version of ``visco_stress_kernel`` (in place)."""
     with_dft = cosw is not None
-    plain_calls["visco_stress_dft" if with_dft else "visco_stress"] += 1
+    plain_calls[pressure_key("visco_stress", with_dft, point)] += 1
     pi_u, mu_u, c_rp, c_rs, b_r = (_gather(co, r) for r in range(1, 6))
     d = _derivs(st, co, STRESS_DERIVS, st.psi_v)
     theta = d[0] + d[1] + d[2]
@@ -289,6 +305,11 @@ def visco_stress_ref(st: ViscoState, co: ViscoCoeffs,
             new_s = new_s + co.half_dt * (new_r + r)
             r.copy_(new_r)
         s.copy_(new_s)
+    if point is not None:
+        index, sval = point
+        for s in (st.sxx, st.syy, st.szz):
+            cell = s.view(-1)[index]
+            cell.copy_(cell + sval)
     if with_dft:
         p = -(st.sxx + st.syy + st.szz) * (1.0 / 3.0)
         st.acc_cos.copy_(st.acc_cos + p * cosw)

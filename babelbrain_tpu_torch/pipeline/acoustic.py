@@ -17,10 +17,10 @@ The water-only pass defaults to reusing the Rayleigh solution
 (``use_rayleigh_for_water=True``) exactly like the reference's default
 (`BabelBrain/BabelBrain.py:441`, justified by its 308-case study).
 
-Counterpart of ``babelbrain_tpu/pipeline/acoustic.py`` for the single-target
-plane-source path; Rayleigh and FDTD run in PyTorch on ``device``.
-Refocusing (S4b-S8) is ROADMAP Queue A item 9; multipoint steering item 13;
-dome sources item 11.
+Counterpart of ``babelbrain_tpu/pipeline/acoustic.py`` for one target:
+the plane-source path with optional refocusing (S4b-S8) and dome
+transducers driven volumetrically (``run_dome_sim``); Rayleigh and FDTD run
+in PyTorch on ``device``. Multipoint steering is ROADMAP Queue A item 13.
 """
 
 from __future__ import annotations
@@ -168,13 +168,15 @@ def run_acoustic_sim(
     field is still computed for the water-path shortcut and display.
 
     ``sel_maps``/``monitor_ijk`` pass through to ``run_fdtd`` (which does
-    not serve them yet, ROADMAP Queue A item 12). ``do_refocus`` is ROADMAP
-    Queue A item 9.
+    not serve them yet, ROADMAP Queue A item 12).
+
+    ``do_refocus``: backpropagate from a stress point at the target (S4b),
+    conjugate the sensor-plane field at the elements through a backward
+    Rayleigh (S6) and rerun the forward Rayleigh and the FDTD with those
+    phases (S7/8); the result carries ``p_amp_refocus`` and
+    ``phased_array_refocus``.
     """
-    if do_refocus:
-        raise NotImplementedError(
-            "run_acoustic_sim(do_refocus=True) is ROADMAP Queue A item 9"
-        )
+    k_water = 2 * np.pi * dom.frequency / dom.materials[0, 1]
 
     # --- S2/S3: element programming + forward Rayleigh + source plane ---
     with stage_timer("Step2 forward Rayleigh", level=3, step=2):
@@ -209,6 +211,54 @@ def run_acoustic_sim(
 
     refocus_out = None
     refocus_programming = None
+    if do_refocus:
+        # --- S4b: backpropagate from a stress point at the target ---
+        grid_b = _make_grid(dom, "stress_point", dom.focal_idx)
+        with stage_timer("Step2 refocus backward FDTD", level=3, step=2):
+            back = run_fdtd(
+                dom.material_map,
+                dom.materials,
+                grid_b,
+                point_amp=source_amp_pa,
+                mesh=mesh,
+                reflector_mask=reflector,
+                device=device,
+            )
+        # --- S6: sensor-plane field -> element conjugate phases ---
+        plane_amp = back["p_amp"][:, :, dom.npml]
+        plane_ph = back["p_phase"][:, :, dom.npml]
+        sel = np.abs(src) > 0
+        xp, yp = np.meshgrid(dom.x_vec, dom.y_vec, indexing="ij")
+        centers = np.stack(
+            [xp[sel], yp[sel], np.full(sel.sum(), dom.z_vec[dom.npml])], 1
+        ).astype(np.float32)
+        u_plane = plane_amp[sel] * np.exp(1j * plane_ph[sel])
+        with stage_timer("Step2 refocus Rayleigh", level=3, step=2):
+            u_back = rayleigh_field(
+                k_water,
+                centers,
+                np.full(sel.sum(), dom.dx**2, np.float32),
+                u_plane.astype(np.complex64),
+                tx.elem_centers,
+                device=device,
+            )
+            refocus_programming = np.exp(
+                1j * np.angle(np.conjugate(np.asarray(u_back)))
+            ).astype(np.complex64)
+            u0r = expand_element_weights(tx, refocus_programming) * source_amp_pa
+            u2r = forward_rayleigh(dom, tx, u0r, device=device)
+            srcr = source_plane_from_field(dom, u2r)
+        with stage_timer("Step2 refocus FDTD", level=3, step=2):
+            refocus_out = run_fdtd(
+                dom.material_map,
+                dom.materials,
+                grid,
+                source_amp=np.abs(srcr),
+                source_phase=np.angle(srcr),
+                mesh=mesh,
+                reflector_mask=reflector,
+                device=device,
+            )
 
     # --- S10: assemble results in input orientation ---
     water_p_amp = None
@@ -349,3 +399,120 @@ def position_transducer(tx, dom: Domain, focal_length: float, extra_z: float = 0
     if return_adjustment:
         return shifted, adjustment
     return shifted
+
+
+def make_volume_source(dom: Domain, tx, u0):
+    """Splat transducer sub-elements into a volumetric vector source.
+
+    For dome transducers the whole array sits inside the simulation domain
+    (`BabelIntegrationDOME_PHASEDARRAY.py` capability): each sub-element is
+    deposited on its nearest voxel with its complex drive and unit normal;
+    voxels receiving several sub-elements sum complex amplitudes and average
+    normals. Returns the dense dict ``run_fdtd(volume_source=...)`` consumes
+    (a numpy copy of the JAX version: the same arrays, bit for bit).
+    """
+    shape = dom.material_map.shape
+    centers = np.asarray(tx.centers, np.float64)
+    ijk = np.stack(
+        [
+            np.round((centers[:, 0] - dom.x_vec[0]) / dom.dx),
+            np.round((centers[:, 1] - dom.y_vec[0]) / dom.dx),
+            np.round((centers[:, 2] - dom.z_vec[0]) / dom.dx),
+        ],
+        axis=1,
+    ).astype(int)
+    ok = np.all((ijk >= 0) & (ijk < np.array(shape)), axis=1)
+    ijk = ijk[ok]
+    u = np.asarray(u0, np.complex128).ravel()[ok]
+    nrm = np.asarray(tx.normals, np.float64)[ok]
+
+    ds = np.asarray(tx.areas, np.float64)[ok]
+    lin = np.ravel_multi_index((ijk[:, 0], ijk[:, 1], ijk[:, 2]), shape)
+    # conserve volume-velocity: deposit u*ds and renormalize by the voxel
+    # face area, so a sparse voxel shell radiates like the continuous surface
+    acc = np.zeros(np.prod(shape), np.complex128)
+    np.add.at(acc, lin, u * ds)
+    nacc = np.zeros((np.prod(shape), 3))
+    np.add.at(nacc, lin, nrm * ds[:, None])
+    acc /= dom.dx**2
+    ln = np.linalg.norm(nacc, axis=1)
+    nacc[ln > 0] /= ln[ln > 0, None]
+    return {
+        "amp": np.abs(acc).reshape(shape).astype(np.float32),
+        "phase": np.angle(acc).reshape(shape).astype(np.float32),
+        "ox": nacc[:, 0].reshape(shape).astype(np.float32),
+        "oy": nacc[:, 1].reshape(shape).astype(np.float32),
+        "oz": nacc[:, 2].reshape(shape).astype(np.float32),
+    }
+
+
+def run_dome_sim(
+    dom: Domain,
+    tx,
+    source_amp_pa: float = 60e3,
+    *,
+    steering_target=None,
+    element_weights: np.ndarray | None = None,
+    mesh=None,
+    use_rayleigh_for_water: bool = False,
+    assemble: bool = True,
+    device="cuda",
+):
+    """Acoustic run for a dome transducer fully inside the domain.
+
+    The dome is the reference's ``RUN_SIM`` subclass with overridden
+    sensor/phase/run steps (`BabelIntegrationDOME_PHASEDARRAY.py:344-407`):
+    the whole 1024-element array drives particle velocity volumetrically
+    instead of through a source plane. With ``assemble`` (the runner path)
+    the outputs are packed into a full ``AcousticResult`` with the
+    DataForSim contract keys; ``assemble=False`` returns the raw field dict.
+
+    The water reference field defaults to a second volumetric FDTD pass on
+    a water-only medium: the dome thermal losses are a PEAK ratio at the
+    target (`CalculateTemperatureEffects.py:199-201`), so the water field
+    must share the volumetric-source amplitude convention — the
+    Rayleigh-for-water shortcut (``use_rayleigh_for_water=True``) uses the
+    surface-integral drive instead and systematically overestimates the
+    losses ratio for dome sources.
+    """
+    k_water = 2 * np.pi * dom.frequency / dom.materials[0, 1]
+    programming = None
+    if steering_target is not None:
+        programming = steering_phases(k_water, tx.elem_centers,
+                                      steering_target, device=device)
+        u0 = expand_element_weights(tx, programming) * source_amp_pa
+    elif element_weights is not None:
+        u0 = expand_element_weights(tx, element_weights) * source_amp_pa
+    else:
+        u0 = np.full(tx.num_subelements, source_amp_pa, np.complex64)
+    vsrc = make_volume_source(dom, tx, u0)
+    grid = _make_grid(dom, "velocity_volume")
+    with stage_timer("Step2 FDTD", level=3, step=2):
+        out = run_fdtd(
+            dom.material_map, dom.materials, grid, volume_source=vsrc,
+            mesh=mesh, reflector_mask=dom.meta.get("reflector_mask"),
+            device=device,
+        )
+    out["programming"] = programming
+    if not assemble:
+        return out
+
+    with stage_timer("Step2 forward Rayleigh", level=3, step=2):
+        u2 = forward_rayleigh(dom, tx, u0, device=device)
+    water_p_amp = None
+    if not use_rayleigh_for_water:
+        with stage_timer("Step2 water FDTD", level=3, step=2):
+            water_out = run_fdtd(
+                np.zeros_like(dom.material_map), dom.materials[:1], grid,
+                volume_source=vsrc, mesh=mesh, device=device,
+            )
+        water_p_amp = water_out["p_amp"]
+    src = np.zeros(dom.material_map.shape[:2], np.complex64)
+    res = _assemble_result(
+        dom, u2, src, out,
+        programming=programming,
+        water_p_amp=water_p_amp,
+        dome=True,
+    )
+    res.meta["tx_is_dome"] = True
+    return res

@@ -7,11 +7,12 @@ a case, with skip-if-output-exists caching like the reference
 (`BabelIntegrationBASE.py:962-966`) and ``CTS:``-style stage timing.
 
 Counterpart of ``babelbrain_tpu/pipeline/runner.py`` for single-target
-plane-source cases in CT mode (``ct_data`` given: fluid FDTD) and label mode
-(no CT: tissue-label materials, viscoelastic FDTD with shear in the skull);
-every device stage runs on ``CaseConfig.device``. Paths outside them raise
-``NotImplementedError`` naming their ROADMAP Queue A item: ZTE/PETRA/Density
-inputs (item 14), dome transducers (item 11), refocusing (item 9),
+cases in CT mode (``ct_data`` given: fluid FDTD) and label mode (no CT:
+tissue-label materials, viscoelastic FDTD with shear in the skull), with
+plane-source transducers (optionally refocused, ``CaseConfig.do_refocus``)
+or dome transducers driven volumetrically; every device stage runs on
+``CaseConfig.device``. Paths outside them raise ``NotImplementedError``
+naming their ROADMAP Queue A item: ZTE/PETRA/Density inputs (item 14),
 thermal-profile lists and ``run_cases`` (item 13), surface meshes (item 14)
 and device meshes (item 16).
 """
@@ -28,7 +29,7 @@ from ..materials.ct_mapping import map_hu_to_properties
 from ..materials.pseudo_ct import compute_sdr
 from ..utils.timing import stage_timer
 from . import io as pio
-from .acoustic import position_transducer, run_acoustic_sim
+from .acoustic import position_transducer, run_acoustic_sim, run_dome_sim
 from .domain import (
     build_ct_materials,
     build_domain,
@@ -281,10 +282,6 @@ def run_case(
             f"{cfg.ct_type} inputs (pseudo-CT / density) are ROADMAP Queue A "
             "item 14"
         )
-    if spec.kind == "dome":
-        raise NotImplementedError("dome transducers are ROADMAP Queue A item 11")
-    if cfg.do_refocus:
-        raise NotImplementedError("refocusing is ROADMAP Queue A item 9")
     if cfg.export_meshes:
         raise NotImplementedError(
             "Step-1 surface meshes are ROADMAP Queue A item 14"
@@ -467,6 +464,7 @@ def run_case(
             steering = steering.copy()
             steering[2] = tpo_to_z_steering(spec, cfg.tpo_distance)
         validate_steering(spec, steering)
+        is_dome = spec.kind == "dome"
         # drive amplitude: the calibrated 1 W level when requested
         # (`Babel_DomeTx/default.yaml` Amplitude1W, `amplitude_for_1w`)
         source_amp = cfg.source_amp_pa
@@ -513,6 +511,7 @@ def run_case(
             extra_depth=extra_depth,
             tight_narrow_beam=cfg.tight_narrow_beam,
             z_beyond_focal_m=cfg.z_beyond_focal_m,
+            dome=is_dome,
         )
         dom = build_domain(
             s1.mask,
@@ -532,18 +531,33 @@ def run_case(
             rotation_z=cfg.rotation_z, factor_enlarge=cfg.factor_enlarge,
             diameter=cfg.tx_diameter, focal_length=cfg.tx_focal_length,
         )
-        tx, mech_adjust = position_transducer(
-            tx, dom, eff_focal, extra_z=mech_z,
-            return_adjustment=True,
-        )
-        result = run_acoustic_sim(
-            dom,
-            tx,
-            source_amp,
-            element_weights=elem_weights,
-            steering_target=steering if np.any(steering != 0) else None,
-            device=dev,
-        )
+        if is_dome:
+            # dome dispatch: whole array inside the domain, volumetric
+            # drive, no source-plane repositioning
+            # (`BabelIntegrationDOME_PHASEDARRAY.py:344-407`)
+            mech_adjust = 0.0
+            result = run_dome_sim(
+                dom,
+                tx,
+                source_amp,
+                steering_target=steering if np.any(steering != 0) else None,
+                element_weights=elem_weights,
+                device=dev,
+            )
+        else:
+            tx, mech_adjust = position_transducer(
+                tx, dom, eff_focal, extra_z=mech_z,
+                return_adjustment=True,
+            )
+            result = run_acoustic_sim(
+                dom,
+                tx,
+                source_amp,
+                element_weights=elem_weights,
+                steering_target=steering if np.any(steering != 0) else None,
+                do_refocus=cfg.do_refocus,
+                device=dev,
+            )
         data = dict(result.data_for_sim)
         data["TxSystem"] = cfg.tx_system
         data["Frequency"] = cfg.frequency
@@ -623,6 +637,7 @@ def run_case(
                 ct_mode=ct_mode,
                 segmented=cfg.segment_brain,
                 frequency=cfg.frequency,
+                tx_is_dome=is_dome,
                 device=dev,
             )
             tdict = {

@@ -4,21 +4,27 @@ Host numerics are numpy copies and must be bit-equal. ``run_fdtd`` (CPU,
 i.e. the plain PyTorch versions of the fluid-step kernels) is held to the
 JAX XLA path at the band the JAX package holds its Pallas kernels to
 (`tests/test_fused_kernel.py:61-63`: plane source atol 1e-4 peak, rtol 1e-3;
-reflector 1e-5 peak) and to the committed goldens at the tol_1 bounds of
-`tests/test_regression.py`.
+reflector 1e-5 peak; stress point 1e-6 peak, `:224`; volumetric source 1e-5
+peak, `:328`) and to the committed goldens at the tol_1 bounds of
+`tests/test_regression.py`. The plain step is also held to the JAX
+single-sweep Pallas kernel B2 (``build_fluid_fused_step``) in interpret
+mode, for a point and for a volumetric source.
 """
 
 import functools
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from babelbrain_tpu.materials import map_hu_to_properties
 from babelbrain_tpu.ops import fdtd as J
+from babelbrain_tpu.ops import fdtd_pallas as JP
 from babelbrain_tpu_torch.ops import fdtd as T
-from babelbrain_tpu_torch.ops import fdtd_kernels
+from babelbrain_tpu_torch.ops import fdtd_kernels, fdtd_sources
+from babelbrain_tpu_torch.ops.fdtd_sources import VolumeSource
 
 torch.set_num_threads(2)
 
@@ -196,29 +202,239 @@ def test_cpu_run_counts_plain_calls_not_launches():
     assert all(v == 0 for v in fdtd_kernels.launches.values())
     assert fdtd_kernels.plain_calls == {
         "fluid_velocity": 12, "fluid_pressure": 8, "fluid_pressure_dft": 4,
+        "fluid_pressure_point": 0, "fluid_pressure_point_dft": 0,
     }
 
 
-@pytest.mark.parametrize("case", ["mesh", "sel_maps", "monitor", "stress_point",
-                                  "volume", "shear_stress_point"])
+@pytest.mark.parametrize("case", ["mesh", "sel_maps", "monitor",
+                                  "velocity_sel_maps", "shear_sel_maps",
+                                  "rayleigh_mesh"])
 def test_paths_outside_the_slice_raise(case):
     idx, mats, g, amp, ph = _config("water_plane")
     g = dict(g, shape=(20, 20, 40), n_steps=4, sensor_start=2)
     kw = {}
+    if case == "rayleigh_mesh":
+        from babelbrain_tpu_torch.ops.rayleigh import rayleigh_field
+
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
+            rayleigh_field(1e3, np.zeros((1, 3)), np.ones(1), np.ones(1),
+                           np.ones((2, 3)), mesh=object(), device="cpu")
+        return
     if case == "mesh":
         kw["mesh"] = object()
     elif case == "sel_maps":
         kw["sel_maps"] = ("Pressure_rms",)
     elif case == "monitor":
         kw["monitor_ijk"] = np.zeros((1, 3), int)
-    elif case == "stress_point":
-        g["source_type"] = "stress_point"
-    elif case == "volume":
-        g["source_type"] = "velocity_volume"
-    else:  # shear media serve plane sources only
+    elif case == "velocity_sel_maps":
+        kw["sel_maps"] = ("Vx_rms", "Vz_peak")
+    else:  # stress maps of shear media
         mats = np.array([[1000.0, 1500.0, 0, 0, 0],
                          [1900.0, 2500.0, 1500.0, 100.0, 200.0]])
-        g["source_type"] = "stress_point"
+        kw["sel_maps"] = ("Sigmaxx_peak",)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         T.run_fdtd(np.zeros(g["shape"], np.uint8), mats, T.FDTDGrid(**g),
                    device="cpu", **kw)
+
+
+# ---------------------------------------------------------------------------
+# stress-point (refocusing) and volumetric (dome) sources
+# ---------------------------------------------------------------------------
+
+
+def _point_config(n_periods=4):
+    """The fluid stress-point configuration of
+    `tests/test_fused_kernel.py:192-206` (32x32x64 water, point at
+    (17, 15, 40), amplitude 50 kPa)."""
+    C = 1500.0
+    shape = (32, 32, 64)
+    dx = C / F0 / 9
+    ppp = int(np.ceil(1 / F0 / J.stable_dt(dx, C, 0.9)))
+    ns = ppp * n_periods
+    g = dict(shape=shape, dx=dx, dt=1 / F0 / ppp, n_steps=ns, frequency=F0,
+             sensor_start=ns - min(2, n_periods - 1) * ppp,
+             source_plane_z=13, source_type="stress_point",
+             source_ijk=(17, 15, 40))
+    mats = np.array([[1000.0, C, 0.0, 20.0, 0.0]])
+    return np.zeros(shape, np.uint8), mats, g, 50e3
+
+
+def _shell_source(n, scale=1.0):
+    """The hemispherical dome shell of `tests/test_fused_kernel.py:311-323`
+    on an n^3 grid (radii 14-16 of 48, scaled with n): amplitude 60 kPa,
+    random phase (seed 4), inward normals."""
+    rng = np.random.default_rng(4)
+    c = n / 2.0
+    ii, jj, kk = np.mgrid[0:n, 0:n, 0:n]
+    r = np.sqrt((ii - c) ** 2 + (jj - c) ** 2 + (kk - c) ** 2)
+    shell = (r > 14 * n / 48 * scale) & (r < 16 * n / 48 * scale) & (kk < c)
+    rr = np.maximum(r, 1e-6)
+    return dict(
+        amp=np.where(shell, 60e3, 0.0).astype(np.float32),
+        phase=(rng.uniform(-2, 2, r.shape) * shell).astype(np.float32),
+        ox=((c - ii) / rr).astype(np.float32),
+        oy=((c - jj) / rr).astype(np.float32),
+        oz=((c - kk) / rr).astype(np.float32),
+    )
+
+
+def _volume_config(n=48):
+    """The zero-shear dome configuration of
+    `tests/test_fused_kernel.py:294-324` (water + a shear-free bone slab)."""
+    C = 1500.0
+    dx = C / F0 / 9
+    ppp = int(np.ceil(1 / F0 / J.stable_dt(dx, 2494.0, 0.9)))
+    ns = ppp * 3
+    g = dict(shape=(n, n, n), dx=dx, dt=1 / F0 / ppp, n_steps=ns,
+             frequency=F0, sensor_start=ns - 2 * ppp,
+             source_type="velocity_volume")
+    mats = np.array([[1000.0, C, 0.0, 20.0, 0.0],
+                     [1896.0, 2494.0, 0.0, 150.0, 0.0]])
+    idx = np.zeros((n, n, n), np.uint8)
+    idx[:, :, 30 * n // 48:36 * n // 48] = 1
+    return idx, mats, g, _shell_source(n)
+
+
+def test_stress_point_matches_jax_xla():
+    idx, mats, g, pamp = _point_config()
+    oj = J.run_fdtd(idx, mats, J.FDTDGrid(**g), point_amp=pamp, backend="xla")
+    ot = T.run_fdtd(idx, mats, T.FDTDGrid(**g), point_amp=pamp, device="cpu")
+    scale = oj["p_amp"].max()
+    assert scale > 0
+    # JAX's own point band (`tests/test_fused_kernel.py:224`): 1e-6 peak
+    np.testing.assert_allclose(ot["p_amp"], oj["p_amp"], atol=1e-6 * scale)
+    np.testing.assert_allclose(ot["peak"], oj["peak"], atol=1e-6 * scale)
+    # the source cell carries the drive
+    i, j, k = g["source_ijk"]
+    assert ot["p_amp"][i, j, k] == ot["p_amp"].max()
+
+
+def test_velocity_volume_matches_jax_xla():
+    idx, mats, g, vs = _volume_config()
+    oj = J.run_fdtd(idx, mats, J.FDTDGrid(**g), volume_source=vs,
+                    backend="xla")
+    ot = T.run_fdtd(idx, mats, T.FDTDGrid(**g), volume_source=vs,
+                    device="cpu")
+    scale = oj["p_amp"].max()
+    assert scale > 0
+    # the band of `tests/test_fused_kernel.py:328`: 1e-5 peak
+    np.testing.assert_allclose(ot["p_amp"], oj["p_amp"], atol=1e-5 * scale)
+    np.testing.assert_allclose(ot["peak"], oj["peak"], atol=1e-5 * scale)
+
+
+def _b2_only(monkeypatch):
+    """Count the JAX kernel builders that run: B2 must, B1/B3/B4 must not."""
+    built = {}
+    for name in ("build_fluid_fused_step", "build_fluid_pallas_step",
+                 "build_fluid_fused2_step", "build_fluid_fusedK_step"):
+        fn = getattr(JP, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            built[_name] = built.get(_name, 0) + 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(JP, name, counted)
+    return built
+
+
+@pytest.mark.parametrize("source", ["stress_point", "velocity_volume"])
+def test_plain_step_matches_jax_b2_interpret(source, monkeypatch):
+    """The plain step against B2 itself: ``simulate_fluid_pallas`` with
+    ``fuse_steps=1`` and x-slabs of 8 planes (too few slabs for the 2-step
+    kernel B3) runs ``build_fluid_fused_step`` for every step."""
+    if source == "stress_point":
+        idx, mats, g, pamp = _point_config(n_periods=2)
+        vs = None
+    else:
+        idx, mats, g, vs = _volume_config(n=32)
+        g = dict(g, n_steps=g["n_steps"] * 2 // 3,
+                 sensor_start=g["sensor_start"] * 2 // 3)
+        pamp = 0.0
+    grid_j = J.FDTDGrid(**g)
+    coefs = J.sls_coefficients(mats, F0, g["dt"])
+    props = {k: jnp.asarray(v) for k, v in
+             J._material_fields(idx, coefs, has_shear=False).items()}
+    cmax = mats[:, 1].max()
+    prof = J._build_cpml_profiles_np(g["shape"], 12, g["dx"], g["dt"], cmax,
+                                     1e-5)
+    z2 = jnp.zeros(g["shape"][:2], jnp.float32)
+    built = _b2_only(monkeypatch)
+    acc_c, acc_s, peak_j = (np.asarray(o) for o in JP.simulate_fluid_pallas(
+        props, z2, z2, jnp.float32(pamp), grid=grid_j, profiles_np=prof,
+        viscous=coefs["viscous"], oz_scale=1.0 / (mats[0, 0] * mats[0, 1]),
+        nb=8, interpret=True, fuse_steps=1, volume_source=vs,
+    ))
+    assert set(built) == {"build_fluid_fused_step"}, built
+
+    ot = T.run_fdtd(idx, mats, T.FDTDGrid(**g), point_amp=pamp,
+                    volume_source=vs, device="cpu")
+    n_win = g["n_steps"] - g["sensor_start"]
+    pj = 2.0 / n_win * np.sqrt(acc_c**2 + acc_s**2)
+    scale = pj.max()
+    assert scale > 0
+    np.testing.assert_allclose(ot["p_amp"], pj, atol=1e-5 * scale)
+    np.testing.assert_allclose(ot["peak"], peak_j, atol=1e-5 * scale)
+
+
+def test_volume_source_is_the_positive_amplitude_voxels():
+    _, _, g, vs = _volume_config(n=24)
+    sparse = VolumeSource.from_dense(vs, g["shape"], "cpu")
+    on = np.flatnonzero(vs["amp"] > 0)
+    assert sparse.n_src == on.size > 0
+    np.testing.assert_array_equal(sparse.index.numpy(), on.astype(np.int32))
+    for k in ("amp", "ox", "oy", "oz"):
+        np.testing.assert_array_equal(getattr(sparse, k).numpy(),
+                                      vs[k].reshape(-1)[on])
+    # the plain scatter SETS the three velocities at exactly those voxels
+    v = [torch.full(g["shape"], 7.0) for _ in range(3)]
+    fdtd_sources.velocity_volume_source(*v, sparse, 0.3, -0.2)
+    sv = vs["amp"] * (np.float32(0.3) * np.cos(vs["phase"])
+                      + np.float32(-0.2) * np.sin(vs["phase"]))
+    for t, o in zip(v, ("ox", "oy", "oz")):
+        got = t.numpy().reshape(-1)
+        np.testing.assert_allclose(got[on], (sv * vs[o]).reshape(-1)[on],
+                                   rtol=1e-6, atol=1e-3)
+        assert (np.delete(got, on) == 7.0).all()
+
+
+@pytest.mark.parametrize("case", ["unknown_type", "missing_volume",
+                                  "volume_shape", "point_outside"])
+def test_source_inputs_are_checked(case):
+    idx, mats, g, _ = _point_config(n_periods=2)
+    g = dict(g, shape=(20, 20, 40), n_steps=4, sensor_start=2)
+    kw = {}
+    if case == "unknown_type":
+        g["source_type"] = "velocity_line"
+    elif case == "missing_volume":
+        g["source_type"] = "velocity_volume"
+    elif case == "volume_shape":
+        g["source_type"] = "velocity_volume"
+        kw["volume_source"] = _shell_source(24)
+    else:
+        g["source_ijk"] = (25, 0, 0)
+    with pytest.raises(ValueError):
+        T.run_fdtd(np.zeros(g["shape"], np.uint8), mats, T.FDTDGrid(**g),
+                   point_amp=1e3, device="cpu", **kw)
+
+
+def test_point_and_volume_runs_count_their_plain_calls():
+    idx, mats, g, pamp = _point_config(n_periods=2)
+    g = dict(g, shape=(20, 20, 20), n_steps=12, sensor_start=8,
+             source_ijk=(10, 10, 10))
+    for mod in (fdtd_kernels, fdtd_sources):
+        for d in (mod.launches, mod.plain_calls):
+            for k in d:
+                d[k] = 0
+    T.run_fdtd(np.zeros(g["shape"], np.uint8), mats, T.FDTDGrid(**g),
+               point_amp=pamp, device="cpu")
+    assert fdtd_kernels.plain_calls == {
+        "fluid_velocity": 12, "fluid_pressure": 0, "fluid_pressure_dft": 0,
+        "fluid_pressure_point": 8, "fluid_pressure_point_dft": 4,
+    }
+    g = dict(g, source_type="velocity_volume")
+    T.run_fdtd(np.zeros(g["shape"], np.uint8), mats, T.FDTDGrid(**g),
+               volume_source=_shell_source(20), device="cpu")
+    assert fdtd_sources.plain_calls == {"volume_source": 12}
+    assert fdtd_kernels.plain_calls["fluid_pressure"] == 8
+    assert not any(fdtd_kernels.launches.values())
+    assert not any(fdtd_sources.launches.values())

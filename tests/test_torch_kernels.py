@@ -25,6 +25,7 @@ from babelbrain_tpu_torch.ops import bhte as B
 from babelbrain_tpu_torch.ops import bhte_kernels
 from babelbrain_tpu_torch.ops import fdtd as F
 from babelbrain_tpu_torch.ops import fdtd_kernels as K
+from babelbrain_tpu_torch.ops import fdtd_sources as S
 from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
 
 pytestmark = pytest.mark.cuda
@@ -40,21 +41,24 @@ def cuda():
     return torch.device("cuda")
 
 
-def _fluid_setup(device, shape=(36, 40, 56), viscous=True):
+def _fluid_setup(device, shape=(36, 40, 56), viscous=True,
+                 source_type="velocity_plane"):
     mats = np.array([[1000.0, 1500.0, 0, 0, 0],
                      [1900.0, 2800.0, 0, 80.0 if viscous else 0.0, 0]])
     dx = 1500.0 / F0 / 6
     ppp = int(np.ceil(1 / F0 / F.stable_dt(dx, 2800.0, 0.5)))
     dt = 1 / F0 / ppp
     grid = F.FDTDGrid(shape=shape, dx=dx, dt=dt, n_steps=60, frequency=F0,
-                      sensor_start=40, source_plane_z=13)
+                      sensor_start=40, source_plane_z=13,
+                      source_type=source_type, source_ijk=(17, 21, 34))
     idx = np.zeros(shape, np.uint8)
     idx[:, :, 24:30] = 1
     coefs = F.sls_coefficients(mats, F0, dt)
     props = F._material_fields(idx, coefs, has_shear=False)
     prof = F._build_cpml_profiles_np(shape, 12, dx, dt, 2800.0, 1e-5)
     amp = np.zeros(shape[:2])
-    amp[6:-6, 6:-6] = 60e3
+    if source_type == "velocity_plane":
+        amp[6:-6, 6:-6] = 60e3
     ph = np.random.default_rng(0).uniform(-1, 1, shape[:2])
     co = F.make_fluid_coeffs(props, prof, amp, ph, grid, coefs["viscous"],
                              device)
@@ -70,7 +74,7 @@ def test_fluid_kernels_match_plain(cuda, viscous):
     before = dict(K.launches)
     for n in range(grid.n_steps):
         F.fluid_step(st_k, co, grid, n, oz)
-        s_sin, s_cos, cosw, sinw = F.step_scalars(grid, n, oz)
+        s_sin, s_cos, cosw, sinw, _ = F.step_scalars(grid, n, oz)
         K.fluid_velocity_ref(st_p, co, s_sin, s_cos)
         if n >= grid.sensor_start:
             K.fluid_pressure_ref(st_p, co, cosw, sinw)
@@ -132,7 +136,7 @@ def test_visco_kernels_match_plain(cuda, viscous, reflector):
     before = dict(V.launches)
     for n in range(grid.n_steps):
         F.visco_step(st_k, co, grid, n, oz)
-        s_sin, s_cos, cosw, sinw = F.step_scalars(grid, n, oz)
+        s_sin, s_cos, cosw, sinw, _ = F.step_scalars(grid, n, oz)
         V.visco_velocity_ref(st_p, co, s_sin, s_cos)
         if n >= grid.sensor_start:
             V.visco_stress_ref(st_p, co, cosw, sinw)
@@ -150,6 +154,125 @@ def test_visco_kernels_match_plain(cuda, viscous, reflector):
                                    rtol=0, atol=0, msg=name)
     for a, b in zip(st_k.psi_s + st_k.psi_v, st_p.psi_s + st_p.psi_v):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _shell(shape, device):
+    """A hemispherical shell of source voxels (radius ~0.3 of the grid)
+    with random phases and inward normals, as a ``VolumeSource``."""
+    c = [n / 2.0 for n in shape]
+    ii, jj, kk = np.meshgrid(*(np.arange(n) for n in shape), indexing="ij")
+    r = np.sqrt((ii - c[0]) ** 2 + (jj - c[1]) ** 2 + (kk - c[2]) ** 2)
+    r0 = 0.3 * min(shape)
+    shell = (r > r0 - 1) & (r < r0 + 1) & (kk < c[2])
+    rr = np.maximum(r, 1e-6)
+    rng = np.random.default_rng(4)
+    return S.VolumeSource.from_dense(dict(
+        amp=np.where(shell, 60e3, 0.0), phase=rng.uniform(-2, 2, shape),
+        ox=(c[0] - ii) / rr, oy=(c[1] - jj) / rr, oz=(c[2] - kk) / rr,
+    ), shape, device)
+
+
+def _fields_equal(st_k, st_p, names, psi):
+    for name in names:
+        torch.testing.assert_close(getattr(st_k, name), getattr(st_p, name),
+                                   rtol=0, atol=0, msg=name)
+    for a, b in zip(*(sum((getattr(st, f) for f in psi), [])
+                      for st in (st_k, st_p))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("source", ["stress_point", "velocity_volume"])
+def test_fluid_point_and_volume_kernels_match_plain(cuda, source):
+    grid, co = _fluid_setup(cuda, source_type=source)
+    vsrc = _shell(grid.shape, cuda) if source == "velocity_volume" else None
+    pamp = 50e3 if source == "stress_point" else 0.0
+    pt = F.point_index(grid)
+    oz = 1.0 / (1000.0 * 1500.0)
+    st_k = K.FluidState.zeros(grid.shape, 14, cuda)
+    st_p = K.FluidState.zeros(grid.shape, 14, cuda)
+    before = {**K.launches, **S.launches}
+    for n in range(grid.n_steps):
+        F.fluid_step(st_k, co, grid, n, oz, pamp, vsrc)
+        s_sin, s_cos, cosw, sinw, s_pt = F.step_scalars(grid, n, oz, pamp)
+        K.fluid_velocity_ref(st_p, co, s_sin, s_cos)
+        if vsrc is not None:
+            S.velocity_volume_source_ref(st_p.vx, st_p.vy, st_p.vz, vsrc,
+                                         s_sin, s_cos)
+        point = None if pt is None else (pt, s_pt)
+        if n >= grid.sensor_start:
+            K.fluid_pressure_ref(st_p, co, cosw, sinw, point)
+        else:
+            K.fluid_pressure_ref(st_p, co, point=point)
+    torch.cuda.synchronize()
+    after = {**K.launches, **S.launches}
+    grew = {k: after[k] - before[k] for k in after}
+    if source == "stress_point":
+        assert grew["fluid_pressure_point"] == 40
+        assert grew["fluid_pressure_point_dft"] == 20
+        assert grew["volume_source"] == 0
+    else:
+        assert grew["volume_source"] == 60 and grew["fluid_pressure"] == 40
+    assert float(st_p.p.abs().max()) > 0
+    _fields_equal(st_k, st_p, ("p", "vx", "vy", "vz", "r", "acc_cos",
+                               "acc_sin", "peak"), ("psi_p", "psi_v"))
+
+
+@pytest.mark.parametrize("source", ["stress_point", "velocity_volume"])
+def test_visco_point_and_volume_kernels_match_plain(cuda, source):
+    shape = (36, 40, 56)
+    mats = material_array(F0, tissues=("Water", "Skin", "Cortical",
+                                       "Trabecular", "Brain"))
+    dx = 1102.5 / F0 / 6
+    cmax = mats[:, 1].max()
+    ppp = int(np.ceil(1 / F0 / F.stable_dt(dx, cmax, 0.5)))
+    grid = F.FDTDGrid(shape=shape, dx=dx, dt=1 / F0 / ppp, n_steps=60,
+                      frequency=F0, sensor_start=40, source_type=source,
+                      source_ijk=(17, 21, 40))
+    idx = np.zeros(shape, np.uint8)
+    idx[:, :, 25:32] = 2
+    coefs = F.sls_coefficients(mats, F0, grid.dt)
+    mi, table = F._build_indexed_materials(coefs, idx, None)
+    prof = F._build_cpml_profiles_np(shape, 12, dx, grid.dt, cmax, 1e-5)
+    z2 = np.zeros(shape[:2])
+    co = F.make_visco_coeffs(mi, table, prof, z2, z2, grid, coefs["viscous"],
+                             cuda)
+    vsrc = _shell(shape, cuda) if source == "velocity_volume" else None
+    pamp = 50e3 if source == "stress_point" else 0.0
+    pt = F.point_index(grid)
+    oz = 1.0 / (1000.0 * 1500.0)
+    st_k = V.ViscoState.zeros(shape, 14, cuda)
+    st_p = V.ViscoState.zeros(shape, 14, cuda)
+    before = {**V.launches, **S.launches}
+    for n in range(grid.n_steps):
+        F.visco_step(st_k, co, grid, n, oz, pamp, vsrc)
+        s_sin, s_cos, cosw, sinw, s_pt = F.step_scalars(grid, n, oz, pamp)
+        V.visco_velocity_ref(st_p, co, s_sin, s_cos)
+        if vsrc is not None:
+            S.velocity_volume_source_ref(st_p.vx, st_p.vy, st_p.vz, vsrc,
+                                         s_sin, s_cos)
+        point = None if pt is None else (pt, s_pt)
+        if n >= grid.sensor_start:
+            V.visco_stress_ref(st_p, co, cosw, sinw, point)
+        else:
+            V.visco_stress_ref(st_p, co, point=point)
+    torch.cuda.synchronize()
+    after = {**V.launches, **S.launches}
+    grew = {k: after[k] - before[k] for k in after}
+    if source == "stress_point":
+        assert grew["visco_stress_point"] == 40
+        assert grew["visco_stress_point_dft"] == 20
+    else:
+        assert grew["volume_source"] == 60 and grew["visco_stress"] == 40
+    assert float(st_p.peak.max()) > 0
+    _fields_equal(st_k, st_p, ("vx", "vy", "vz") + V.STRESSES + V.MEMORIES
+                  + ("acc_cos", "acc_sin", "peak"), ("psi_s", "psi_v"))
+
+
+def test_volume_source_wrapper_rejects_mixed_devices(cuda):
+    vs = _shell((20, 20, 20), "cpu")
+    v = [torch.zeros((20, 20, 20), device=cuda) for _ in range(3)]
+    with pytest.raises(ValueError, match="int32 index"):
+        S.velocity_volume_source(*v, vs, 0.0, 0.0)
 
 
 def test_bhte_kernel_matches_plain(cuda):

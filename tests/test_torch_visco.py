@@ -11,6 +11,11 @@
   ``convert.indexed_materials_from_reference``) against JAX
   ``simulate_visco_pallas`` in interpret mode with ``fuse_steps=2`` (the
   B8 kernel), at the band of `tests/test_fused_kernel.py:172-174`.
+* Stress-point (refocusing) and volumetric (dome) sources in shear media
+  against JAX ``run_fdtd(backend="xla")`` at the visco plane band (atol
+  1e-4 peak, rtol 1e-3), on the dome configuration of
+  `tests/test_fused_kernel.py:340-369` and a cortical-bone slab with a point
+  source behind it.
 * A CPU run counts plain calls and launches no kernel.
 """
 
@@ -225,6 +230,63 @@ def test_plain_step_matches_jax_indexed_pallas_interpret():
 
 
 # ---------------------------------------------------------------------------
+# stress-point and volumetric sources in shear media
+# ---------------------------------------------------------------------------
+
+
+def _shear_source_config(source):
+    """The 48^3 shear dome configuration of
+    `tests/test_fused_kernel.py:340-369` (water + a bone slab with shear),
+    driven by its hemispherical shell (``velocity_volume``) or by a 50 kPa
+    stress point at (24, 22, 40), beyond the slab (``stress_point``)."""
+    C = 1500.0
+    n = 48
+    dx = C / F0 / 9
+    ppp = int(np.ceil(1 / F0 / J.stable_dt(dx, 2494.0, 0.9)))
+    ns = ppp * 3
+    g = dict(shape=(n, n, n), dx=dx, dt=1 / F0 / ppp, n_steps=ns,
+             frequency=F0, sensor_start=ns - 2 * ppp, source_type=source,
+             source_ijk=(24, 22, 40))
+    mats = np.array([[1000.0, C, 0.0, 20.0, 0.0],
+                     [1896.0, 2494.0, 1500.0, 150.0, 300.0]])
+    idx = np.zeros(g["shape"], np.uint8)
+    idx[:, :, 30:36] = 1
+    kw = {}
+    if source == "velocity_volume":
+        rng = np.random.default_rng(4)
+        ii, jj, kk = np.mgrid[0:n, 0:n, 0:n]
+        r = np.sqrt((ii - 24.0) ** 2 + (jj - 24.0) ** 2 + (kk - 24.0) ** 2)
+        shell = (r > 14) & (r < 16) & (kk < 24)
+        rr = np.maximum(r, 1e-6)
+        kw["volume_source"] = dict(
+            amp=np.where(shell, 60e3, 0.0).astype(np.float32),
+            phase=(rng.uniform(-2, 2, r.shape) * shell).astype(np.float32),
+            ox=((24.0 - ii) / rr).astype(np.float32),
+            oy=((24.0 - jj) / rr).astype(np.float32),
+            oz=((24.0 - kk) / rr).astype(np.float32),
+        )
+    else:
+        kw["point_amp"] = 50e3
+    return idx, mats, g, kw
+
+
+@pytest.mark.parametrize("source", ["stress_point", "velocity_volume"])
+def test_shear_sources_match_jax_xla(source):
+    idx, mats, g, kw = _shear_source_config(source)
+    oj = J.run_fdtd(idx, mats, J.FDTDGrid(**g), backend="xla", **kw)
+    ot = T.run_fdtd(idx, mats, T.FDTDGrid(**g), device="cpu", **kw)
+    peak = oj["p_amp"].max()
+    assert peak > 0
+    # the visco plane band: atol 1e-4 peak, rtol 1e-3
+    np.testing.assert_allclose(ot["p_amp"], oj["p_amp"], atol=1e-4 * peak,
+                               rtol=1e-3)
+    np.testing.assert_allclose(ot["peak"], oj["peak"],
+                               atol=1e-4 * oj["peak"].max(), rtol=1e-3)
+    # the field crosses the shear slab in both directions
+    assert ot["p_amp"][:, :, 30:36].max() > 1e-3 * peak
+
+
+# ---------------------------------------------------------------------------
 # dispatch and counters
 # ---------------------------------------------------------------------------
 
@@ -241,6 +303,7 @@ def test_cpu_run_counts_plain_calls_not_launches():
     assert all(v == 0 for v in V.launches.values())
     assert V.plain_calls == {
         "visco_velocity": 12, "visco_stress": 8, "visco_stress_dft": 4,
+        "visco_stress_point": 0, "visco_stress_point_dft": 0,
     }
     assert np.isfinite(out["p_amp"]).all() and out["p_amp"].max() > 0
 
