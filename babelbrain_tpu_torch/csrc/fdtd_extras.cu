@@ -1,0 +1,149 @@
+// FDTD diagnostics for NVIDIA Hopper (sm_90a): the RMS / peak maps and the
+// pressure series at monitor voxels (and the raw capture), in either FDTD
+// family.
+//
+// Replaces (TPU kernels of the JAX package, babelbrain_tpu/ops/fdtd_pallas.py):
+//   the with_p2 accumulator of build_fluid_fusedK_step (B4, the acc_p2 slab
+//   that sums p^2 beside the DFT and the peak over every step of a sweep,
+//   :2288-2304, serving sel_maps=("Pressure_rms",)), and the monitor capture
+//   of its driver simulate_fluid_pallas (p at K voxels once per sweep,
+//   :2891-2901). Both are generalised to what the XLA path serves
+//   (babelbrain_tpu/ops/fdtd.py _update_extras, _monitor_gather and the
+//   capture segment of _simulate_local): the 14 maps <Field>_rms /
+//   <Field>_peak over Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy, Sigmazz in fluid
+//   and viscoelastic media, and the pressure at every sample step, not once
+//   per fused sweep.
+//
+// extras_accumulate_kernel<VISCO>: one pass after the pressure / stress
+// kernel at each step of the sensor window. A bitmask says which of the 14
+// accumulators are held (bit 2f: <Field f>_rms, bit 2f+1: <Field f>_peak);
+// rms adds v*v, peak keeps fmaxf(acc, |v|) (the convention of the DFT peak in
+// fdtd_fluid.cu). Fluid reads p, vx, vy, vz (Sigma_ii = -p); visco reads sxx,
+// syy, szz, vx, vy, vz, with Pressure = -(sxx+syy+szz) * (float)(1/3) in the
+// operation order of visco_stress_kernel.
+//
+// monitor_gather_kernel<VISCO>: one thread per point writes the pressure at
+// a voxel into row m of a preallocated (n_samples, K) device buffer, so a
+// run syncs with the host once, at the end. A null index gathers every voxel
+// in C order (the full-volume capture).
+//
+// What bounds them on this card: device-memory traffic. The extras pass
+// reads the fields it needs and reads and writes each held accumulator: with
+// all 14 maps a fluid cell moves 16 B of fields and 8 accumulators (the
+// wrapper holds one accumulator for Pressure and the three Sigma maps of a
+// fluid run, which are equal bit for bit), 80 B; a visco cell 24 B of fields
+// and 14 accumulators, 136 B. One FLOP or so per 4 bytes: far below the
+// card's balance. The design: one thread per cell, threadIdx.x along z (the
+// contiguous axis), so every stream is read and written in 128-byte lines;
+// the mask branch is uniform across the grid. Fusing the pass into the
+// pressure / stress kernel (as B4 fuses acc_p2 into its sweep) saves the
+// re-read of the fields and is later perf work. The gather moves 4 B of index
+// and 4 B of output a point plus one 32-byte sector per field read: latency,
+// not bandwidth, bounds a few thousand points.
+//
+// Rounding: built with --fmad=false and written in the operation order of
+// the plain PyTorch versions (ops/fdtd_extras.py extras_accumulate_ref,
+// monitor_gather_ref), so kernel and plain version round alike.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr float kThird = (float)(1.0 / 3.0);
+constexpr int kFields = 7;  // Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy, Sigmazz
+
+// fluid: p, vx, vy, vz (the last two unused); visco: sxx, syy, szz, vx, vy, vz
+struct Fields { const float* f[6]; };
+// the 14 accumulators in sel_maps order; null where not held
+struct Accs { float* a[2 * kFields]; };
+
+template <bool VISCO>
+__device__ __forceinline__ float pressure_at(const Fields& F, long long c) {
+  if (VISCO) return -(F.f[0][c] + F.f[1][c] + F.f[2][c]) * kThird;
+  return F.f[0][c];
+}
+
+// value of field f (Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy, Sigmazz) at c
+template <bool VISCO>
+__device__ __forceinline__ float field_at(const Fields& F, int f,
+                                          long long c) {
+  if (f == 0) return pressure_at<VISCO>(F, c);
+  if (f < 4) return F.f[VISCO ? f + 2 : f][c];
+  return VISCO ? F.f[f - 4][c] : -F.f[0][c];
+}
+
+template <bool VISCO>
+__global__ void extras_accumulate_kernel(Fields F, Accs A, int mask,
+                                         long long n) {
+  const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (c >= n) return;
+#pragma unroll
+  for (int f = 0; f < kFields; ++f) {
+    if (!(mask & (3 << (2 * f)))) continue;
+    const float v = field_at<VISCO>(F, f, c);
+    if (mask & (1 << (2 * f))) {
+      float* acc = A.a[2 * f];
+      acc[c] = acc[c] + v * v;
+    }
+    if (mask & (2 << (2 * f))) {
+      float* acc = A.a[2 * f + 1];
+      acc[c] = fmaxf(acc[c], fabsf(v));
+    }
+  }
+}
+
+template <bool VISCO>
+__global__ void monitor_gather_kernel(Fields F, const int* __restrict__ idx,
+                                      float* __restrict__ out, int k) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= k) return;
+  const long long c = idx ? (long long)idx[q] : (long long)q;
+  out[q] = pressure_at<VISCO>(F, c);
+}
+
+Fields fields_of(const float* const* host) {
+  Fields F;
+  for (int a = 0; a < 6; ++a) F.f[a] = host[a];
+  return F;
+}
+
+}  // namespace
+
+extern "C" {
+
+// fields: host array of 6 device pointers (see Fields); accs: host array of
+// 14 device pointers (see Accs); mask: the held accumulators; n: cells
+int bb_extras_accumulate(const float* const* fields, float* const* accs,
+                         int mask, int visco, long long n, void* stream) {
+  Accs A;
+  for (int a = 0; a < 2 * kFields; ++a) A.a[a] = accs[a];
+  const unsigned int nb = (unsigned int)((n + kThreads - 1) / kThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (visco) {
+    extras_accumulate_kernel<true><<<nb, kThreads, 0, st>>>(
+        fields_of(fields), A, mask, n);
+  } else {
+    extras_accumulate_kernel<false><<<nb, kThreads, 0, st>>>(
+        fields_of(fields), A, mask, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// idx: int32 linear voxel indices of the k points, or null for every voxel;
+// out: the k floats of this sample's row
+int bb_monitor_gather(const float* const* fields, const int* idx, float* out,
+                      int k, int visco, void* stream) {
+  const unsigned int nb = (unsigned int)((k + kThreads - 1) / kThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (visco) {
+    monitor_gather_kernel<true><<<nb, kThreads, 0, st>>>(fields_of(fields),
+                                                         idx, out, k);
+  } else {
+    monitor_gather_kernel<false><<<nb, kThreads, 0, st>>>(fields_of(fields),
+                                                          idx, out, k);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -24,7 +24,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("fdtd_fluid.cu", "fdtd_visco.cu", "fdtd_sources.cu", "bhte.cu")
+SOURCES = ("fdtd_fluid.cu", "fdtd_visco.cu", "fdtd_sources.cu", "bhte.cu",
+           "fdtd_extras.cu", "probes.cu")
 HEADERS = ("fdtd_stencil.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --fmad=false: no multiply-add contraction, so each kernel rounds exactly
@@ -52,6 +53,11 @@ _SIGNATURES = {
     "bb_visco_velocity": [_P] * 10 + [_F] * 3 + [_I] * 6 + [_P],
     "bb_visco_stress": [_P] * 11 + [_F] * 5 + [_I] * 8 + [_L, _F, _P],
     "bb_velocity_volume_source": [_P] * 10 + [_F, _F, _I, _P],
+    "bb_extras_accumulate": [_P, _P, _I, _I, _L, _P],
+    "bb_monitor_gather": [_P, _P, _P, _I, _I, _P],
+    "bb_stream": [_P, _P, _L, _P],
+    "bb_fma_chain": [_P, _P, _P, _I, _I, _P],
+    "bb_table_gather": [_P, _P, _P, _I, _I, _L, _I, _P],
 }
 
 

@@ -17,9 +17,13 @@ differences, CPML with slab-only psi memory, one SLS relaxation mechanism
 per modulus tuned exactly at the carrier, a CW plane source with per-pixel
 amplitude and phase, and the carrier DFT accumulated over the sensor window.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-Queue A item): ``sel_maps`` / ``monitor_ijk`` diagnostics and multi-device
-meshes.
+Diagnostics (``ops.fdtd_extras``, two more kernels after the step): the 14
+``sel_maps`` RMS / peak maps, the pressure series at ``monitor_ijk`` voxels
+every ``sensor_subsampling`` steps of the window, and the raw pressure
+capture of ``run_fdtd_capture``.
+
+Not ported yet: multi-device meshes (``NotImplementedError`` naming ROADMAP
+Queue A item 16).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from .fdtd_visco_kernels import (
     visco_stress,
     visco_velocity,
 )
+from .fdtd_extras import Diagnostics, check_sel_maps, monitor_index
 from .fdtd_sources import VolumeSource, velocity_volume_source
 
 SOURCE_TYPES = ("velocity_plane", "stress_point", "velocity_volume")
@@ -394,6 +399,7 @@ def run_fdtd(
     volume_source: dict | None = None,
     sel_maps: tuple = (),
     monitor_ijk: np.ndarray | None = None,
+    sensor_subsampling: int = 1,
     *,
     device="cuda",
 ):
@@ -409,29 +415,67 @@ def run_fdtd(
     keep expanded property volumes; shear media use indexed materials
     (``_build_indexed_materials``).
 
+    ``sel_maps``: extra maps named ``<Field>_rms`` / ``<Field>_peak``, Field
+    in Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy, Sigmazz, accumulated over
+    the sensor window. ``monitor_ijk``: (K, 3) voxels whose pressure is kept
+    at steps ``sensor_start, sensor_start + sensor_subsampling, ...``. The
+    JAX Pallas path samples at its fused depth instead; the values here are
+    those of its XLA path.
+
     Returns dict with 'p_amp' (Pa), 'p_phase' (rad, FFT-bin convention of
-    the reference), 'peak' (Pa), each (N1,N2,N3) float32 numpy arrays.
+    the reference), 'peak' (Pa), each (N1,N2,N3) float32 numpy arrays; plus
+    one entry per ``sel_maps`` name, and 'sensor_series' (K, nT) float32 +
+    'sensor_times' (nT,) float32 when ``monitor_ijk`` is given.
     """
     if mesh is not None:
         raise NotImplementedError(
             "run_fdtd(mesh=...): multi-GPU decomposition is ROADMAP Queue A "
             "item 16"
         )
-    if tuple(sel_maps) or monitor_ijk is not None:
-        raise NotImplementedError(
-            "run_fdtd sel_maps/monitor_ijk diagnostics are ROADMAP Queue A "
-            "item 12"
-        )
+    sel_maps = check_sel_maps(sel_maps)
+    if int(sensor_subsampling) < 1:
+        raise ValueError(f"sensor_subsampling={sensor_subsampling} < 1")
     step, st, co, oz_scale, vsrc = fdtd_setup(
         mat_idx, materials, grid, source_amp, source_phase, reflector_mask,
         volume_source, device=device,
     )
+    sel = np.arange(grid.sensor_start, grid.n_steps, int(sensor_subsampling))
+    diag = None
+    if sel_maps or monitor_ijk is not None:
+        with_series = monitor_ijk is not None
+        diag = Diagnostics.create(
+            st, grid.sensor_start, sel_maps,
+            sample_steps=sel if with_series else (),
+            index=(monitor_index(monitor_ijk, grid.shape, device)
+                   if with_series else None),
+        )
+    _time_loop(step, st, co, grid, oz_scale, point_amp, vsrc, diag)
+
+    result = _carrier(st, grid)
+    if diag is not None and diag.extras is not None:
+        result.update(diag.extras.read(grid.n_steps - grid.sensor_start))
+    if monitor_ijk is not None:
+        k = int(diag.index.shape[0])
+        series = (diag.series.cpu().numpy() if diag.series is not None
+                  else np.zeros((0, k), np.float32))
+        result["sensor_series"] = series.T.astype(np.float32)
+        result["sensor_times"] = (sel * grid.dt).astype(np.float32)
+    return result
+
+
+def _time_loop(step, st, co, grid, oz_scale, point_amp, vsrc, diag=None):
+    """Steps 0..n_steps-1, each followed by the diagnostics (if any)."""
     with stage_timer("FDTD time loop", level=3, step=2):
         for n in range(grid.n_steps):
             step(st, co, grid, n, oz_scale, point_amp, vsrc)
+            if diag is not None:
+                diag.record(st, n)
         if st.peak.device.type == "cuda":
             torch.cuda.synchronize()  # the readback below waits anyway
 
+
+def _carrier(st, grid: FDTDGrid) -> dict:
+    """'p_amp', 'p_phase' and 'peak' from the DFT accumulators."""
     acc_c = st.acc_cos.cpu().numpy()
     acc_s = st.acc_sin.cpu().numpy()
     n_win = grid.n_steps - grid.sensor_start
@@ -443,6 +487,73 @@ def run_fdtd(
         "p_phase": phase.astype(np.float32),
         "peak": st.peak.cpu().numpy(),
     }
+
+
+def run_fdtd_capture(
+    mat_idx: np.ndarray,
+    materials: np.ndarray,
+    grid: FDTDGrid,
+    source_amp: np.ndarray | None = None,
+    source_phase: np.ndarray | None = None,
+    point_amp: float = 0.0,
+    *,
+    t_start: int = 0,
+    t_end: int | None = None,
+    subsample: int = 1,
+    sensor_mask: np.ndarray | None = None,
+    reflector_mask=None,
+    device="cuda",
+):
+    """Raw pressure time-series capture (transient / non-CW analysis).
+
+    The run of ``run_fdtd`` (plane or stress-point source, fluid or shear
+    media) that also keeps the pressure after steps
+    ``t_start + (m+1)*subsample - 1`` of [t_start, t_end), at the voxels of
+    ``sensor_mask`` (bool volume) or, with None, at every voxel. The samples
+    go into one device buffer of ``n_samples * n_sensors * 4`` bytes, read
+    back once at the end.
+
+    Returns dict with 'series' (n_samples, n_sensors) float32 in
+    ``np.argwhere`` order (or (n_samples,) + grid.shape without a mask),
+    'times' (s), 'sensor_ijk' (n_sensors, 3) with a mask, and the
+    'p_amp'/'p_phase'/'peak' carrier outputs of the same run.
+    """
+    t_end = int(t_end if t_end is not None else grid.n_steps)
+    t_start = int(t_start)
+    sub = int(subsample)
+    if not (0 <= t_start < t_end <= grid.n_steps) or sub < 1:
+        raise ValueError("capture window must satisfy "
+                         "0 <= t_start < t_end <= n_steps, subsample >= 1")
+    if grid.source_type not in ("velocity_plane", "stress_point"):
+        raise ValueError(
+            f"run_fdtd_capture drives plane and point sources, not "
+            f"{grid.source_type!r}"
+        )
+    step, st, co, oz_scale, vsrc = fdtd_setup(
+        mat_idx, materials, grid, source_amp, source_phase, reflector_mask,
+        device=device,
+    )
+    ijk = None
+    if sensor_mask is not None:
+        ijk = np.argwhere(np.asarray(sensor_mask, bool))
+    n_groups = (t_end - t_start) // sub
+    steps = t_start + (np.arange(n_groups) + 1) * sub - 1
+    diag = Diagnostics.create(
+        st, grid.sensor_start, sample_steps=steps,
+        index=None if ijk is None else monitor_index(ijk, grid.shape, device),
+    )
+    _time_loop(step, st, co, grid, oz_scale, point_amp, vsrc, diag)
+
+    out = _carrier(st, grid)
+    k = int(np.prod(grid.shape)) if ijk is None else len(ijk)
+    series = (diag.series.cpu().numpy() if diag.series is not None
+              else np.zeros((0, k), np.float32))
+    out["series"] = (series if ijk is not None
+                     else series.reshape((n_groups,) + tuple(grid.shape)))
+    out["times"] = (steps * grid.dt).astype(np.float32)
+    if ijk is not None:
+        out["sensor_ijk"] = ijk
+    return out
 
 
 def fdtd_setup(mat_idx, materials, grid: FDTDGrid, source_amp=None,

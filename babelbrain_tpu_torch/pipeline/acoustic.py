@@ -167,8 +167,10 @@ def run_acoustic_sim(
     drive the FDTD from a measured/precomputed focal plane. The Rayleigh
     field is still computed for the water-path shortcut and display.
 
-    ``sel_maps``/``monitor_ijk`` pass through to ``run_fdtd`` (which does
-    not serve them yet, ROADMAP Queue A item 12).
+    ``sel_maps``/``monitor_ijk`` pass through to ``run_fdtd`` (RMS/peak map
+    selection and the pressure series at monitor voxels, sampled every
+    step of the sensor window); the extra maps land in
+    ``AcousticResult.extra_maps`` cropped to the mask frame.
 
     ``do_refocus``: backpropagate from a stress point at the target (S4b),
     conjugate the sensor-plane field at the elements through a backward

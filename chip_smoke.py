@@ -20,7 +20,13 @@ Phases (each prints its own lines; any failed check exits nonzero):
              variants) and a hemispherical shell of source voxels (the
              volumetric scatter, timed from a CUDA graph of its launches:
              it runs for a few microseconds, less than a call costs the
-             host); the BHTE step, 500 steps;
+             host); the BHTE step, 500 steps; the diagnostics (all 14
+             RMS / peak maps and the monitor gather at 4096 seeded voxels
+             and over every voxel) on the fluid and visco plane-source
+             states; the probe kernels (stream over 128 MB, the FMA chain,
+             the CT table's gather over every voxel). Kernels of a few
+             microseconds are timed from a CUDA graph; where one PyTorch
+             call computes the same function it is timed beside them;
 4. slices  — the main paths on a procedural digital head, each with every
              kernel count set to 0 just before and read just after: with
              the CTX_500 transducer at 500 kHz / 6 PPW, CT mode (Step 1 ->
@@ -30,15 +36,26 @@ Phases (each prints its own lines; any failed check exits nonzero):
              from a stress point at the target, backward Rayleigh,
              refocused forward run); and the 1024-element DomeTx at
              220 kHz / 6 PPW in CT mode at its 1 W drive (volumetric FDTD
-             over a 392x392x337 grid, forward Rayleigh, water pass, BHTE).
-             Each runs through ``run_case`` when h5py is installed, else
+             over a 392x392x337 grid, forward Rayleigh, water pass, BHTE);
+             and diag-ct / diag-label, the CT and label slices asking
+             ``run_acoustic_sim`` for all 14 ``sel_maps`` and the pressure
+             series along the beam axis through the target, after which
+             diag-ct runs ``run_fdtd_capture`` on its inputs at a 5x5x5
+             mask and over the full volume. Each runs through ``run_case``
+             when h5py is installed (the diag slices always through the
+             stage functions: ``run_case`` takes no ``sel_maps``), else
              through the stage functions ``run_case`` calls, in its order,
              writing no files. Every kernel's launch count must equal the
              step count the run implies, and no plain version may run.
-             After a refocus or dome slice, the kernels and their plain
-             versions run 40 steps across the window start on that slice's
-             own domain and its stress point or volumetric source, and
-             every field must agree bit for bit.
+             The diag slices' maps and series are held to the steady-state
+             anchors and to each other, the capture to the series, bit for
+             bit. After a refocus, dome or diag slice, the kernels and
+             their plain versions run 40 steps across the window start on
+             that slice's own domain and its stress point, volumetric or
+             plane source (the diag slices with every map and monitor), and
+             every field must agree bit for bit;
+5. probes  — ``babelbrain_tpu_torch.probes.run_probes``: the card's stream
+             rate, FP32 FMA rate and table-gather cost (P1, P2).
 
 The last lines are the kernel table (JSON), the card's name and power limit
 (``nvidia-smi``), and ``{"ok": true, "device": {...}}``. The script never
@@ -251,6 +268,17 @@ KERNEL_WORK.update({
 # z, so neighbouring writes share sectors); 6 float operations.
 SCATTER_BYTES_PER_SOURCE = 4 + 6 * 4 + 3 * 4
 SCATTER_FLOPS_PER_SOURCE = 6
+# seeded voxels of the kernel phase's monitor gather
+MONITOR_POINTS = 4096
+
+
+def roofline(nbytes, flops):
+    """(least ms, "bytes" or "operations") of work that moves ``nbytes``
+    and does ``flops`` float32 operations, on an H100 at its published
+    peaks."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def bound(name, shape, ns=14, n_src=0):
@@ -260,19 +288,15 @@ def bound(name, shape, ns=14, n_src=0):
     written once over the HBM rate, against the float32 operations over the
     float32 peak."""
     if name == "volume_source":
-        t_bytes = n_src * SCATTER_BYTES_PER_SOURCE / HBM_BYTES_PER_S * 1e3
-        t_ops = n_src * SCATTER_FLOPS_PER_SOURCE / FP32_FLOP_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                            "operations")
+        return roofline(n_src * SCATTER_BYTES_PER_SOURCE,
+                        n_src * SCATTER_FLOPS_PER_SOURCE)
     w = KERNEL_WORK[name]
     n1, n2, n3 = shape
     cells = n1 * n2 * n3
     slab_cells = ns * (n2 * n3 + n1 * n3 + n1 * n2)  # one slab per axis
     floats = (w["volumes"] * cells + w["derivs_per_axis"] * 2 * 2 * slab_cells
               + w["planes"] * n1 * n2)
-    t_bytes = 4.0 * floats / HBM_BYTES_PER_S * 1e3
-    t_ops = float(w["flops"]) * cells / FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline(4.0 * floats, float(w["flops"]) * cells)
 
 
 def shell_source(shape):
@@ -309,15 +333,11 @@ def _sources(shape, source, device):
     return (POINT_AMP if source == "point" else 0.0), vsrc
 
 
-def check_fluid(shape=KERNEL_SHAPE, n_steps=FLUID_STEPS,
-                sensor_start=FLUID_SENSOR_START, device="cuda",
-                source="plane"):
-    """The fluid kernels against their plain versions over ``n_steps``
-    steps with a ``source`` ("plane", "point" or "volume") drive; returns
-    (errors, times) keyed by kernel row."""
+def fluid_case(shape, n_steps, sensor_start, source, device):
+    """(grid, coefficients, point amplitude, volume source, oz) of the
+    kernel phase's fluid runs: the 1026-material CT table and a ``source``
+    ("plane", "point" or "volume") drive."""
     from babelbrain_tpu_torch.ops import fdtd as F
-    from babelbrain_tpu_torch.ops import fdtd_kernels as K
-    from babelbrain_tpu_torch.ops import fdtd_sources as S
 
     mats = ct_table()
     cmax = mats[:, 1].max()
@@ -339,8 +359,22 @@ def check_fluid(shape=KERNEL_SHAPE, n_steps=FLUID_STEPS,
     co = F.make_fluid_coeffs(props, prof, amp, ph, grid, coefs["viscous"],
                              device)
     pamp, vsrc = _sources(shape, source, device)
+    return grid, co, pamp, vsrc, 1.0 / (1000.0 * 1500.0)
+
+
+def check_fluid(shape=KERNEL_SHAPE, n_steps=FLUID_STEPS,
+                sensor_start=FLUID_SENSOR_START, device="cuda",
+                source="plane"):
+    """The fluid kernels against their plain versions over ``n_steps``
+    steps with a ``source`` ("plane", "point" or "volume") drive; returns
+    (errors, times) keyed by kernel row."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
+    from babelbrain_tpu_torch.ops import fdtd_sources as S
+
+    grid, co, pamp, vsrc, oz = fluid_case(shape, n_steps, sensor_start,
+                                          source, device)
     pt = F.point_index(grid)
-    oz = 1.0 / (1000.0 * 1500.0)
     st_k = K.FluidState.zeros(shape, 14, device)
     st_p = K.FluidState.zeros(shape, 14, device)
     for n in range(n_steps):
@@ -446,14 +480,11 @@ def label_index_volume(shape):
     return idx
 
 
-def check_visco(shape=KERNEL_SHAPE, n_steps=VISCO_STEPS,
-                sensor_start=VISCO_SENSOR_START, device="cuda",
-                source="plane"):
-    """The viscoelastic kernels against their plain versions over
-    ``n_steps`` steps with a ``source`` ("plane", "point" or "volume")
-    drive; returns (errors, times) keyed by kernel row."""
+def visco_case(shape, n_steps, sensor_start, source, device):
+    """(grid, coefficients, point amplitude, volume source, oz, number of
+    materials) of the kernel phase's viscoelastic runs: the label-mode
+    materials in layers and a ``source`` drive."""
     from babelbrain_tpu_torch.ops import fdtd as F
-    from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
     from babelbrain_tpu_torch.pipeline.domain import (
         build_label_materials,
         compute_time_stepping,
@@ -478,8 +509,22 @@ def check_visco(shape=KERNEL_SHAPE, n_steps=VISCO_STEPS,
     co = F.make_visco_coeffs(idx, table, prof, amp, ph, grid,
                              coefs["viscous"], device)
     pamp, vsrc = _sources(shape, source, device)
+    return (grid, co, pamp, vsrc, 1.0 / (mats[0, 0] * mats[0, 1]),
+            table.shape[1])
+
+
+def check_visco(shape=KERNEL_SHAPE, n_steps=VISCO_STEPS,
+                sensor_start=VISCO_SENSOR_START, device="cuda",
+                source="plane"):
+    """The viscoelastic kernels against their plain versions over
+    ``n_steps`` steps with a ``source`` ("plane", "point" or "volume")
+    drive; returns (errors, times) keyed by kernel row."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
+
+    grid, co, pamp, vsrc, oz, n_mats = visco_case(shape, n_steps,
+                                                  sensor_start, source, device)
     pt = F.point_index(grid)
-    oz = 1.0 / (mats[0, 0] * mats[0, 1])
     st_k = V.ViscoState.zeros(shape, 14, device)
     st_p = V.ViscoState.zeros(shape, 14, device)
     for n in range(n_steps):
@@ -515,7 +560,7 @@ def check_visco(shape=KERNEL_SHAPE, n_steps=VISCO_STEPS,
     pmax = float(st_p.peak.max())
     extra = f", {vsrc.n_src} source voxels" if vsrc is not None else ""
     print(f"[kernels] visco {shape} {n_steps} steps (window from "
-          f"{sensor_start}), {table.shape[1]} label materials, {source} "
+          f"{sensor_start}), {n_mats} label materials, {source} "
           f"source{extra}: peak |p| {pmax:.6g} Pa, max|sxx| "
           f"{float(st_p.sxx.abs().max()):.6g} Pa, max|vz| "
           f"{float(st_p.vz.abs().max()):.6g} m/s")
@@ -619,6 +664,186 @@ def check_bhte(shape=KERNEL_SHAPE, n_steps=BHTE_STEPS,
     return {"bhte_step": max(dT, dpeak)}, times
 
 
+def _equal(a, b) -> float:
+    """0.0 when ``a`` and ``b`` are equal bit for bit (NaNs included), else
+    their largest absolute difference (inf when NaNs differ)."""
+    if torch.equal(a, b):
+        return 0.0
+    d = float((a - b).abs().max())
+    return d if d > 0 else float("inf")
+
+
+def check_diagnostics(family, shape=KERNEL_SHAPE, device="cuda"):
+    """The diagnostics kernels against their plain versions on the states of
+    a plane-source run (fluid: CT table; visco: label materials), both fed
+    the same state after every step: the extras pass with all 14 maps at
+    every window step, the monitor gather at ``MONITOR_POINTS`` seeded
+    voxels at every window step and once over every voxel (the raw capture).
+    Returns (errors, times, bounds) keyed by kernel row; a time is (kernel
+    ms, plain ms, library ms or None)."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_extras as E
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
+    from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
+
+    visco = family == "visco"
+    if visco:
+        grid, co, _, _, oz, _ = visco_case(shape, VISCO_STEPS,
+                                           VISCO_SENSOR_START, "plane", device)
+        st, step = V.ViscoState.zeros(shape, 14, device), F.visco_step
+    else:
+        grid, co, _, _, oz = fluid_case(shape, FLUID_STEPS,
+                                        FLUID_SENSOR_START, "plane", device)
+        st, step = K.FluidState.zeros(shape, 14, device), F.fluid_step
+    rng = np.random.default_rng(5)
+    ijk = np.stack([rng.integers(0, n, MONITOR_POINTS) for n in shape], 1)
+    index = E.monitor_index(ijk, shape, device)
+    window = range(grid.sensor_start, grid.n_steps)
+    diag_k, diag_p = (E.Diagnostics.create(st, grid.sensor_start, E.SEL_MAPS,
+                                           sample_steps=window, index=index)
+                      for _ in range(2))
+    for n in range(grid.n_steps):
+        step(st, co, grid, n, oz)
+        diag_k.record(st, n)
+        diag_p.record(st, n, plain=True)
+    full_k, full_p = (torch.empty((1, st.vx.numel()), device=device)
+                      for _ in range(2))
+    E.monitor_gather(st, None, full_k, 0)
+    E.monitor_gather_ref(st, None, full_p, 0)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    acc_err = {k: _equal(a, diag_p.extras.acc[k])
+               for k, a in diag_k.extras.acc.items()}
+    series_err = max(_equal(diag_k.series, diag_p.series),
+                     _equal(full_k, full_p))
+    amax = {k: float(a.abs().max()) for k, a in diag_p.extras.acc.items()}
+    smax = float(diag_p.series.abs().max())
+    ex, mon = f"extras_{family}", f"monitor_{family}"
+    print(f"[kernels] {family} diagnostics {shape}, {len(window)} window "
+          f"steps of a plane-source run: {len(amax)} accumulators for the 14 "
+          f"maps (max {min(amax.values()):.6g} .. {max(amax.values()):.6g}), "
+          f"{MONITOR_POINTS} monitor voxels (max|p| {smax:.6g} Pa)")
+    print(f"[kernels]   {ex}: max abs diff vs plain {max(acc_err.values())}; "
+          f"{mon} (points and full volume): {series_err}")
+    if any(acc_err.values()) or series_err:
+        fail(f"{family} diagnostics kernels disagree with their plain "
+             f"versions: {acc_err}, series {series_err}")
+    if not all(np.isfinite(v) and v > 0 for v in amax.values()) or smax <= 0:
+        fail(f"{family} diagnostics: an accumulator or the series is empty "
+             f"or not finite: {amax}, {smax}")
+
+    cells = float(np.prod(shape))
+    # extras: every field read once, every held accumulator read and
+    # written; 4 operations a map pair (v*v, +, |v|, max) for each distinct
+    # field (fluid: p, vx, vy, vz; visco: seven), and the visco pressure's 4
+    # (two adds, a negation, a multiply). Monitor: per point the int32
+    # index, the output and the fields read (fluid p; visco sxx, syy, szz)
+    n_read, n_fields = (6, 7) if visco else (4, 4)
+    per_point = 4 + 4 + 4 * (3 if visco else 1)
+    bounds = {
+        ex: roofline(cells * (4 * n_read + 8 * len(diag_k.extras.acc)),
+                     cells * (4 * n_fields + (4 if visco else 0))),
+        mon: roofline(MONITOR_POINTS * per_point,
+                      MONITOR_POINTS * (4 if visco else 0)),
+    }
+    errs = {ex: max(acc_err.values()), mon: series_err}
+    if device != "cuda":
+        return errs, {}, bounds
+    acc = diag_k.extras
+    t_ex = (_timed(lambda: E.extras_accumulate(st, acc), 20),
+            _timed(lambda: E.extras_accumulate_ref(st, acc), 5),
+            # no single PyTorch call adds v*v into one map and keeps max|v|
+            # in another, over seven fields
+            None)
+    buf = diag_k.series
+    lib = None
+    if not visco:  # the fluid gather is one index_select of p
+        flat = st.p.view(-1)
+        lib = _timed_graph(
+            lambda: torch.index_select(flat, 0, index, out=buf[0]), 50)
+    # (the visco pressure is -(sxx+syy+szz)/3 at the points: several calls)
+    t_mon = (_timed_graph(lambda: E.monitor_gather(st, index, buf, 0), 50),
+             _timed_graph(lambda: E.monitor_gather_ref(st, index, buf, 0), 50),
+             lib)
+    for name, (tk, tp, tl) in ((ex, t_ex), (mon, t_mon)):
+        print(f"[kernels]   {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms"
+              + ("" if tl is None else f", library {tl:.4f} ms"))
+    return errs, {ex: t_ex, mon: t_mon}, bounds
+
+
+def check_probe_kernels(device="cuda"):
+    """The probe kernels against their plain versions, bit for bit: stream
+    over ``probes.STREAM_BYTES``, the FMA chain on the P1 block at the
+    smaller repetition count, the table gather of the CT table's four
+    coefficients over every voxel of the kernel shape. Returns (errors,
+    times, bounds) as ``check_diagnostics``."""
+    from babelbrain_tpu_torch import probes as P
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    n = P.STREAM_BYTES // 4
+    x = torch.rand(n, generator=gen, device=device)
+    y_k, y_p = torch.empty_like(x), torch.empty_like(x)
+    P.stream(x, y_k)
+    P.stream_ref(x, y_p)
+
+    rep = P.FMA_REPS[0]
+    rng = np.random.default_rng(0)
+    xf = torch.as_tensor(rng.uniform(1, 2, P.FMA_BLOCK).astype(np.float32),
+                         device=device)
+    scale = torch.as_tensor(P.FMA_SCALE, device=device)
+    f_k, f_p = torch.empty_like(xf), torch.empty_like(xf)
+    P.fma_chain(xf, scale, f_k, rep)
+    P.fma_chain_ref(xf, scale, f_p, rep)
+
+    n_coef, m = 4, 1026
+    idx, tab = P.gather_inputs(KERNEL_SHAPE, m, n_coef, seed=7, device=device)
+    g_k = torch.empty((n_coef,) + KERNEL_SHAPE, device=device)
+    g_p = torch.empty_like(g_k)
+    P.table_gather(idx, tab, g_k)
+    P.table_gather_ref(idx, tab, g_p)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    errs = {"stream": _equal(y_k, y_p), "fma_chain": _equal(f_k, f_p),
+            "table_gather": _equal(g_k, g_p)}
+    print(f"[kernels] probes: stream {n} floats, fma_chain {P.FMA_BLOCK} x "
+          f"{P.FMA_CHAINS} chains x {rep} steps, table_gather ({n_coef}, "
+          f"{m}) table over {KERNEL_SHAPE}: max abs diff vs plain {errs}")
+    if any(errs.values()):
+        fail(f"probe kernels disagree with their plain versions: {errs}")
+
+    cells = idx.numel()
+    fma_ops = xf.numel() * (P.FMA_CHAINS * (1 + 2 * rep) + P.FMA_CHAINS - 1)
+    bounds = {
+        "stream": roofline(8 * n, n),
+        "fma_chain": roofline(8 * xf.numel() + 4 * P.FMA_CHAINS, fma_ops),
+        "table_gather": roofline(4 * cells * (1 + n_coef) + 4 * n_coef * m,
+                                 0),
+    }
+    if device != "cuda":
+        return errs, {}, bounds
+    take_idx = (idx.long().unsqueeze(0)
+                + m * torch.arange(n_coef, device=device).view(-1, 1, 1, 1))
+    times = {
+        "stream": (_timed(lambda: P.stream(x, y_k), 20),
+                   _timed(lambda: P.stream_ref(x, y_p), 5),
+                   _timed(lambda: torch.add(x, 1.0, out=y_p), 20)),
+        "fma_chain": (_timed_graph(lambda: P.fma_chain(xf, scale, f_k, rep),
+                                   20),
+                      _timed_graph(lambda: P.fma_chain_ref(xf, scale, f_p,
+                                                           rep), 1),
+                      # no PyTorch call runs a chain of dependent FMAs
+                      None),
+        "table_gather": (
+            _timed_graph(lambda: P.table_gather(idx, tab, g_k), 20),
+            _timed_graph(lambda: P.table_gather_ref(idx, tab, g_p), 20),
+            _timed(lambda: torch.take(tab, take_idx), 20)),
+    }
+    for name, (tk, tp, tl) in times.items():
+        print(f"[kernels]   {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms"
+              + ("" if tl is None else f", library {tl:.4f} ms"))
+    return errs, times, bounds
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the CT-mode slice
 # ---------------------------------------------------------------------------
@@ -674,14 +899,17 @@ def build_head():
 
 def _counted_modules():
     """The kernel modules whose wrappers count launches and plain calls."""
+    from babelbrain_tpu_torch import probes
     from babelbrain_tpu_torch.ops import (
         bhte_kernels,
+        fdtd_extras,
         fdtd_kernels,
         fdtd_sources,
         fdtd_visco_kernels,
     )
 
-    return fdtd_kernels, fdtd_visco_kernels, fdtd_sources, bhte_kernels
+    return (fdtd_kernels, fdtd_visco_kernels, fdtd_sources, bhte_kernels,
+            fdtd_extras, probes)
 
 
 def reset_counts():
@@ -733,39 +961,63 @@ def slice_source(cfg, dom):
 
 
 def check_slice_inputs(tag, dom, grid, point_amp=0.0, volume_source=None,
-                       device="cuda"):
+                       source_plane=None, monitor_ijk=None, device="cuda"):
     """The kernels against their plain versions on the card, on the inputs a
     slice's FDTD pass gave them: its domain, materials and grid, with its
-    stress point or its volumetric source. Both run ``SLICE_CHECK_STEPS``
+    stress point, its volumetric source or its complex ``source_plane``;
+    with ``monitor_ijk`` also the diagnostics (all 14 maps and the series
+    at those voxels, every window step). Both run ``SLICE_CHECK_STEPS``
     steps across the window's start; every field (velocities, pressure or
-    stresses, memories, psi slabs, accumulators, peak) must be equal bit for
-    bit. Returns the difference (0) keyed by the kernel rows that ran."""
+    stresses, memories, psi slabs, accumulators, peak, maps, series) must be
+    equal bit for bit. Returns the difference (0) keyed by the kernel rows
+    that ran."""
     from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_extras as E
 
+    plane = (None, None) if source_plane is None else (np.abs(source_plane),
+                                                        np.angle(source_plane))
     step, st_k, co, oz, vsrc = F.fdtd_setup(
-        dom.material_map, dom.materials, grid,
+        dom.material_map, dom.materials, grid, *plane,
         reflector_mask=dom.meta.get("reflector_mask"),
         volume_source=volume_source, device=device,
     )
     st_p = _copy_state(st_k)
     n0 = max(0, grid.sensor_start - SLICE_CHECK_STEPS // 2)
+    diags = ()
+    if monitor_ijk is not None:
+        index = E.monitor_index(monitor_ijk, grid.shape, device)
+        steps = range(grid.sensor_start, n0 + SLICE_CHECK_STEPS)
+        diags = [E.Diagnostics.create(st, grid.sensor_start, E.SEL_MAPS,
+                                      sample_steps=steps, index=index)
+                 for st in (st_k, st_p)]
     reset_counts()
     for n in range(n0, n0 + SLICE_CHECK_STEPS):
         step(st_k, co, grid, n, oz, point_amp, vsrc)
         plain_step(st_p, co, grid, n, oz, point_amp, vsrc)
+        if diags:
+            diags[0].record(st_k, n)
+            diags[1].record(st_p, n, plain=True)
     if device == "cuda":
         torch.cuda.synchronize()
     launches, _ = read_counts()
+    pairs = [(name, a, getattr(st_p, name)) for name, a in vars(st_k).items()]
+    if diags:
+        pairs += [(k, a, diags[1].extras.acc[k])
+                  for k, a in diags[0].extras.acc.items()]
+        pairs.append(("sensor_series", diags[0].series, diags[1].series))
     bad = []
-    for name, a in vars(st_k).items():
-        b = getattr(st_p, name)
+    for name, a, b in pairs:
         for x, y in (zip(a, b) if isinstance(a, list) else [(a, b)]):
-            e = float((x - y).abs().max())
-            if not e == 0.0:
+            e = _equal(x, y)
+            if e:
                 bad.append((name, e))
     peak = float(st_p.peak.max())
     what = (f"{vsrc.n_src} source voxels" if vsrc is not None
-            else f"stress point at {grid.source_ijk}")
+            else f"stress point at {grid.source_ijk}" if point_amp
+            else "plane source")
+    if diags:
+        what += (f", 14 maps and {len(monitor_ijk)} monitors over steps "
+                 f"{grid.sensor_start}-{n0 + SLICE_CHECK_STEPS - 1}")
     ran = sorted(k for k, v in launches.items() if v)
     print(f"{tag} kernels vs plain on this slice's inputs: grid {grid.shape},"
           f" {what}, steps {n0}-{n0 + SLICE_CHECK_STEPS - 1} (window from "
@@ -777,11 +1029,32 @@ def check_slice_inputs(tag, dom, grid, point_amp=0.0, volume_source=None,
     return {k: 0.0 for k in ran}
 
 
-def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape):
+def beam_axis_monitors(dom):
+    """(K, 3) FDTD-grid voxels: the target, then the beam axis through it
+    (along z) over the mask frame's z range."""
+    fi, fj, fk = (int(v) for v in dom.focal_idx)
+    zl, zr = dom.offsets[4:]
+    ks = np.arange(zl, dom.material_map.shape[2] - zr)
+    return np.array([[fi, fj, fk]] + [[fi, fj, k] for k in ks])
+
+
+def to_mask_frame(dom, ijk):
+    """(K, 3) FDTD-grid voxels -> their indices in the mask frame of the
+    exported arrays (``crop_and_unflip``, as ``TargetLocation``)."""
+    ijk = np.asarray(ijk)
+    xl, _, yl, _, zl, _ = dom.offsets
+    return np.stack([ijk[:, 0] - xl, ijk[:, 1] - yl,
+                     dom.mask_shape[2] - 1 - (ijk[:, 2] - zl)], 1)
+
+
+def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
+               diagnostics=False):
     """The stage functions ``run_case`` calls, in its order (no files
     written): CT mode with a CT volume, label mode with ``ct=None``; a dome
     transducer runs ``run_dome_sim``, any other ``run_acoustic_sim`` with
-    ``cfg.do_refocus``."""
+    ``cfg.do_refocus`` and, with ``diagnostics``, all 14 ``sel_maps`` and
+    the pressure series at ``beam_axis_monitors``."""
+    from babelbrain_tpu_torch.ops.fdtd_extras import SEL_MAPS
     from babelbrain_tpu_torch.materials.ct_mapping import map_hu_to_properties
     from babelbrain_tpu_torch.pipeline.acoustic import (
         position_transducer,
@@ -836,13 +1109,16 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape):
             offsets=offsets, shrink_cells=shrinks,
         )
         tx = build_transducer(spec, cfg.frequency)
+        monitors = beam_axis_monitors(dom) if diagnostics else None
         if is_dome:
             result = run_dome_sim(dom, tx, source_amp, device=cfg.device)
         else:
             tx = position_transducer(tx, dom, spec.focal_length)
+            diag = (dict(sel_maps=SEL_MAPS, monitor_ijk=monitors)
+                    if diagnostics else {})
             result = run_acoustic_sim(dom, tx, source_amp,
                                       do_refocus=cfg.do_refocus,
-                                      device=cfg.device)
+                                      device=cfg.device, **diag)
     data = result.data_for_sim
     with stage_timer("Step3 thermal simulation", level=2, step=3):
         thermal = run_sonication(
@@ -852,14 +1128,17 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape):
             frequency=cfg.frequency, tx_is_dome=is_dome, device=cfg.device,
         )
     return {"step1": s1, "domain": dom, "acoustic": result,
-            "thermal": thermal, "data_for_sim": data}
+            "thermal": thermal, "data_for_sim": data, "monitor_ijk": monitors}
 
 
 # the slices of phase 4: (CT volume given?, transducer, frequency,
-# refocusing?, 1 W calibrated drive?)
+# refocusing?, 1 W calibrated drive?); a "diag" slice asks for every
+# diagnostic (the 14 maps and the beam-axis series)
 SLICES = {
     "ct": (True, "CTX_500", F0, False, False),
     "label": (False, "CTX_500", F0, False, False),
+    "diag-ct": (True, "CTX_500", F0, False, False),
+    "diag-label": (False, "CTX_500", F0, False, False),
     "refocus-ct": (True, "CTX_500", F0, True, False),
     "refocus-label": (False, "CTX_500", F0, True, False),
     # the DomeTx's other published frequency: at 670 kHz the dome-fitted
@@ -872,14 +1151,17 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
               device="cuda", params=None):
     """One main path on the digital head (``SLICES[mode]``): CT mode (CT
     volume given: fluid FDTD) or label mode (labels only: viscoelastic
-    FDTD), with refocusing, or with the DomeTx driven volumetrically.
-    Returns the launch counts of the run."""
+    FDTD), with refocusing, with the DomeTx driven volumetrically, or with
+    every diagnostic (and, in CT mode, the raw capture after it). Returns
+    the launch counts of the run."""
+    from babelbrain_tpu_torch.pipeline.acoustic import _make_grid
     from babelbrain_tpu_torch.pipeline.runner import CaseConfig, run_case
     from babelbrain_tpu_torch.pipeline.thermal import SonicationParams
     from babelbrain_tpu_torch.utils.timing import clear_spans, recorded_spans
 
     with_ct, tx_system, freq, refocus, drive_1w = SLICES[mode]
     dome = mode.startswith("dome")
+    diag = mode.startswith("diag")
     tag = f"[slice {mode}]"
     labels, ct, aff = build_head()
     ct = ct if with_ct else None
@@ -895,16 +1177,18 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
         clear_spans()
         reset_counts()
         t0 = time.time()
-        if have_h5py:
+        if have_h5py and not diag:
             print(f"{tag} driving run_case (h5py present)")
             res = run_case(cfg, labels, aff, target, direction, ct_data=ct,
                            ct_affine=aff if ct is not None else None,
                            thermal_params=params, mask_shape=mask_shape)
         else:
-            print(f"{tag} h5py missing: driving the stage functions of "
-                  "run_case in its order, writing no files")
+            print(f"{tag} driving the stage functions of run_case in its "
+                  "order, writing no files ("
+                  + ("run_case takes no sel_maps)" if diag
+                     else "h5py missing)"))
             res = run_stages(cfg, labels, aff, ct, target, direction, params,
-                             mask_shape)
+                             mask_shape, diagnostics=diag)
         if device == "cuda":
             torch.cuda.synchronize()
         wall = time.time() - t0
@@ -994,6 +1278,9 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
         expect[f"{fdtd}_{stress}_point_dft"] = n - s
     if dome:  # the tissue and the water pass, both volumetric
         expect["volume_source"] = 2 * n
+    if diag:  # every window step: the maps, and the series (subsampling 1)
+        expect[f"extras_{fdtd}"] = n - s
+        expect[f"monitor_{fdtd}"] = len(range(s, n, 1))
     print(f"{tag} launches {launches}; plain calls {plain}")
     errs = {}
     if device == "cuda":
@@ -1004,7 +1291,162 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
     if refocus or dome:
         errs = check_slice_inputs(tag, dom, *slice_source(cfg, dom),
                                   device=device)
+    if diag:
+        check_diagnostic_outputs(tag, res, brain, fk, fluid=with_ct)
+        src = source_plane_of(res["data_for_sim"], dom)
+        if with_ct:
+            counts = check_capture(tag, res, src, device=device)
+            launches = {k: v + counts[k] for k, v in launches.items()}
+        errs = check_slice_inputs(tag, dom, _make_grid(dom),
+                                  source_plane=src,
+                                  monitor_ijk=res["monitor_ijk"],
+                                  device=device)
     return launches, errs
+
+
+def source_plane_of(data, dom):
+    """The complex source plane of a slice's FDTD pass, rebuilt from its
+    DataForSim ``SourcePlane_re`` / ``_im`` (the plane inside the PML skirt,
+    outside which ``source_plane_from_field`` zeroes it)."""
+    n = dom.npml
+    src = np.zeros(dom.material_map.shape[:2], np.complex64)
+    src[n:-n, n:-n] = data["SourcePlane_re"] + 1j * data["SourcePlane_im"]
+    return src
+
+
+def check_diagnostic_outputs(tag, res, brain, fk, fluid):
+    """What a diag slice's ``extra_maps`` must hold: the 14 maps in the mask
+    frame, finite and not empty; the sample times of every window step; at
+    every monitor voxel the largest |p| of the series equal to the
+    ``Pressure_peak`` map there, bit for bit; in a fluid, each Sigma map
+    equal to the Pressure map of its kind, bit for bit; at the brain focus
+    ``fk`` Pressure_rms / p_amp within 5% of 1/sqrt(2), and at the brain
+    focus on the monitored beam axis max|series| within 3% of p_amp (the
+    steady-state anchors of `tests/test_fdtd.py:395-428`)."""
+    from babelbrain_tpu_torch.ops.fdtd_extras import SEL_MAPS
+
+    dom, ex = res["domain"], res["acoustic"].extra_maps
+    p_amp = np.asarray(res["data_for_sim"]["p_amp"])
+    if set(ex) != set(SEL_MAPS) | {"sensor_series", "sensor_times"}:
+        fail(f"{tag}: extra_maps keys {sorted(ex)}")
+    for name in SEL_MAPS:
+        v = ex[name]
+        if (v.shape != p_amp.shape or v.dtype != np.float32
+                or not np.isfinite(v).all() or not v.max() > 0):
+            fail(f"{tag}: map {name} {v.shape} {v.dtype} max {v.max()}")
+    n, s = dom.n_steps, dom.sensor_start
+    series, times = ex["sensor_series"], ex["sensor_times"]
+    mon = res["monitor_ijk"]
+    if series.shape != (len(mon), n - s) or not np.isfinite(series).all():
+        fail(f"{tag}: sensor_series {series.shape}, want ({len(mon)}, "
+             f"{n - s}), finite")
+    if not np.array_equal(times, (np.arange(s, n) * dom.dt).astype(np.float32)):
+        fail(f"{tag}: sensor_times are not the window's steps")
+    mf = to_mask_frame(dom, mon)
+    peak_at = ex["Pressure_peak"][tuple(mf.T)]
+    if not np.array_equal(np.abs(series).max(1), peak_at):
+        fail(f"{tag}: max|series| differs from Pressure_peak at the monitors")
+    if fluid:
+        for kind in ("rms", "peak"):
+            for f in ("Sigmaxx", "Sigmayy", "Sigmazz"):
+                if not np.array_equal(ex[f"{f}_{kind}"],
+                                      ex[f"Pressure_{kind}"]):
+                    fail(f"{tag}: {f}_{kind} != Pressure_{kind} in a fluid")
+    rms_ratio = float(ex["Pressure_rms"][fk] / p_amp[fk])
+    on_axis = brain[tuple(mf[1:].T)]  # the line (the target comes first)
+    if not on_axis.any():
+        fail(f"{tag}: no monitor of the beam axis lies in the brain")
+    line = np.flatnonzero(on_axis) + 1
+    a = line[np.argmax(p_amp[tuple(mf[line].T)])]
+    amp_ratio = float(np.abs(series[a]).max() / p_amp[tuple(mf[a])])
+    print(f"{tag} diagnostics: 14 maps in the mask frame {p_amp.shape}; "
+          f"{len(mon)} monitors x {n - s} samples; Pressure_rms / p_amp at the "
+          f"brain focus {rms_ratio:.5f} (1/sqrt 2 = {1 / np.sqrt(2):.5f}); "
+          f"max|series| / p_amp at the beam axis's brain focus "
+          f"{tuple(int(v) for v in mf[a])}: {amp_ratio:.5f}; max|series| == "
+          f"Pressure_peak at every monitor"
+          + ("; Sigma maps == Pressure maps" if fluid else ""))
+    if abs(rms_ratio * np.sqrt(2) - 1) > 0.05:
+        fail(f"{tag}: Pressure_rms / p_amp {rms_ratio} not within 5% of "
+             "1/sqrt(2)")
+    if abs(amp_ratio - 1) > 0.03:
+        fail(f"{tag}: max|series| / p_amp {amp_ratio} not within 3% of 1")
+
+
+# samples of the full-volume capture, every CAPTURE_SUBSAMPLE-th step of the
+# run's last CAPTURE_SAMPLES * CAPTURE_SUBSAMPLE
+CAPTURE_SAMPLES, CAPTURE_SUBSAMPLE = 3, 10
+
+
+def check_capture(tag, res, src, device="cuda"):
+    """``run_fdtd_capture`` on a diag slice's FDTD inputs, twice: at a 5x5x5
+    mask around the target over the sensor window, and over the full volume
+    for ``CAPTURE_SAMPLES`` samples. Each launches what its steps imply; the
+    samples equal the slice's monitor series at the same voxels and steps,
+    its carrier outputs the slice's (p_amp and, in the mask frame, the peak
+    equal to the Pressure and Sigma peak maps), bit for bit. Returns the
+    launch counts of the two runs."""
+    from babelbrain_tpu_torch.ops.fdtd import run_fdtd_capture
+    from babelbrain_tpu_torch.pipeline.acoustic import _make_grid
+
+    dom, ex = res["domain"], res["acoustic"].extra_maps
+    grid = _make_grid(dom)
+    n, s = grid.n_steps, grid.sensor_start
+    kw = dict(source_amp=np.abs(src), source_phase=np.angle(src),
+              reflector_mask=dom.meta.get("reflector_mask"), device=device)
+    fi, fj, fk = (int(v) for v in dom.focal_idx)
+    mask = np.zeros(grid.shape, bool)
+    mask[fi - 2:fi + 3, fj - 2:fj + 3, fk - 2:fk + 3] = True
+    t0 = time.time()
+    reset_counts()
+    cap = run_fdtd_capture(dom.material_map, dom.materials, grid,
+                           t_start=s, sensor_mask=mask, **kw)
+    t_vol = n - CAPTURE_SAMPLES * CAPTURE_SUBSAMPLE
+    vol = run_fdtd_capture(dom.material_map, dom.materials, grid,
+                           t_start=t_vol, subsample=CAPTURE_SUBSAMPLE, **kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, plain = read_counts()
+    # off the card (a rehearsal) the plain calls take the launches' place
+    ran, other = (launches, plain) if device == "cuda" else (plain, launches)
+    expect = dict({k: 0 for k in launches}, fluid_velocity=2 * n,
+                  fluid_pressure=2 * s, fluid_pressure_dft=2 * (n - s),
+                  monitor_fluid=(n - s) + CAPTURE_SAMPLES)
+    print(f"{tag} capture: 5x5x5 mask x {n - s} samples and the full volume x "
+          f"{CAPTURE_SAMPLES} samples (every {CAPTURE_SUBSAMPLE}th step from "
+          f"{t_vol}) in {wall:.2f} s; launches {launches}")
+    if ran != expect or any(other.values()):
+        fail(f"{tag}: capture launches {launches} (plain {plain}), expected "
+             f"{expect}")
+
+    mon, series = res["monitor_ijk"], ex["sensor_series"]
+    col = {tuple(v): c for c, v in enumerate(cap["sensor_ijk"])}
+    in_mask = [(i, col[tuple(v)]) for i, v in enumerate(mon) if tuple(v) in col]
+    rows = np.arange(CAPTURE_SAMPLES) * CAPTURE_SUBSAMPLE + (
+        t_vol + CAPTURE_SUBSAMPLE - 1 - s)
+    zsrc = dom.source_z + 1
+    p_amp = cap["p_amp"].copy()
+    p_amp[:, :, :zsrc] = 0
+    bad = [what for what, ok in (
+        ("mask times", np.array_equal(cap["times"], ex["sensor_times"])),
+        ("mask series", len(in_mask) >= 5 and all(
+            np.array_equal(cap["series"][:, c], series[i])
+            for i, c in in_mask)),
+        ("volume series", np.array_equal(
+            vol["series"][(slice(None),) + tuple(mon.T)], series[:, rows].T)),
+        ("p_amp", np.array_equal(dom.crop_and_unflip(p_amp),
+                                 res["data_for_sim"]["p_amp"])),
+        ("peak", np.array_equal(dom.crop_and_unflip(cap["peak"]),
+                                ex["Pressure_peak"])),
+        ("volume carrier", all(np.array_equal(vol[k], cap[k])
+                               for k in ("p_amp", "p_phase", "peak"))),
+    ) if not ok]
+    print(f"{tag} capture vs the slice: {len(in_mask)} monitors in the mask "
+          f"and {len(mon)} in the volume samples; differing {bad}")
+    if bad:
+        fail(f"{tag}: the capture differs from the slice's run: {bad}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1012,6 +1454,8 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
 FLUID_CU = "babelbrain_tpu_torch/csrc/fdtd_fluid.cu"
 VISCO_CU = "babelbrain_tpu_torch/csrc/fdtd_visco.cu"
 SOURCES_CU = "babelbrain_tpu_torch/csrc/fdtd_sources.cu"
+EXTRAS_CU = "babelbrain_tpu_torch/csrc/fdtd_extras.cu"
+PROBES_CU = "babelbrain_tpu_torch/csrc/probes.cu"
 PALLAS = "babelbrain_tpu/ops/fdtd_pallas.py"
 SOURCES = {
     "fluid_velocity": ("fluid_velocity_kernel", FLUID_CU, f"{PALLAS}:262"),
@@ -1038,7 +1482,44 @@ SOURCES = {
                            f"{PALLAS}:3780"),
     "visco_stress_point_dft": ("visco_stress_kernel<WITH_DFT, POINT>",
                                VISCO_CU, f"{PALLAS}:3780"),
+    # B4's with_p2 accumulator (the running sum of p^2 of its sweeps),
+    # generalised to the 14 maps of the XLA path in either family
+    "extras_fluid": ("extras_accumulate_kernel", EXTRAS_CU, f"{PALLAS}:2288"),
+    "extras_visco": ("extras_accumulate_kernel<VISCO>", EXTRAS_CU,
+                     f"{PALLAS}:2288"),
+    # the monitor capture of B4's driver simulate_fluid_pallas
+    "monitor_fluid": ("monitor_gather_kernel", EXTRAS_CU, f"{PALLAS}:2891"),
+    "monitor_visco": ("monitor_gather_kernel<VISCO>", EXTRAS_CU,
+                      f"{PALLAS}:2891"),
+    # P1 (and P2's table gathers, tools/probe_gather.py:46)
+    "stream": ("stream_kernel", PROBES_CU, "tools/probe_roofline.py:75"),
+    "fma_chain": ("fma_chain_kernel", PROBES_CU, "tools/probe_roofline.py:90"),
+    "table_gather": ("table_gather_kernel", PROBES_CU,
+                     "tools/probe_roofline.py:213"),
 }
+
+
+def run_probes():
+    """The probe phase: ``probes.run_probes`` on the card (P1's stream, FMA
+    and table-gather probes, P2's gather cases and cost probe), each kernel
+    exact; returns its launch counts."""
+    from babelbrain_tpu_torch import probes as P
+
+    reset_counts()
+    t0 = time.time()
+    res = P.run_probes(device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, _ = read_counts()
+    counts = {k: launches[k] for k in P.launches}
+    for r in res:
+        print(f"[probes] {json.dumps(r)}")
+    print(f"[probes] {wall:.2f} s; launches {counts}")
+    bad = [r["probe"] for r in res
+           if not r.get("exact", True) or r.get("wrong")]
+    if bad:
+        fail(f"probes not exact: {bad}")
+    return counts
 
 
 def main():
@@ -1052,7 +1533,7 @@ def main():
     t_start = time.time()
     have = probe()
     build()
-    errs, times = {}, {}
+    errs, times, bounds = {}, {}, {}
     for check, source in ((check_fluid, "plane"), (check_fluid, "point"),
                           (check_fluid, "volume"), (check_visco, "plane"),
                           (check_visco, "point"), (check_visco, "volume"),
@@ -1061,6 +1542,11 @@ def main():
         for k, v in e.items():  # the scatter is checked in both families
             errs[k] = max(errs.get(k, 0.0), v)
         times.update(t)
+    for e, t, b in (check_diagnostics("fluid"), check_diagnostics("visco"),
+                    check_probe_kernels()):
+        errs.update(e)
+        times.update(t)
+        bounds.update(b)
     n_shell = int((shell_source(KERNEL_SHAPE)["amp"] > 0).sum())
     launches = {k: 0 for k in SOURCES}
     for mode in SLICES:
@@ -1069,19 +1555,25 @@ def main():
             launches[k] += v
         for k, v in slice_errs.items():
             errs[k] = max(errs[k], v)
+    for k, v in run_probes().items():
+        launches[k] += v
 
     table = []
     for k, (name, source, replaces) in SOURCES.items():
-        b_ms, b_by = bound(k, KERNEL_SHAPE, n_src=n_shell)
+        b_ms, b_by = bounds.get(k) or bound(k, KERNEL_SHAPE, n_src=n_shell)
+        ms, plain_ms, *lib = times[k]
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": int(launches[k]),
-            "max_abs_err": errs[k], "ms": times[k][0],
-            "plain_ms": times[k][1], "bound_ms": b_ms, "bound_by": b_by,
-            # no single PyTorch call computes an FDTD or BHTE step, or sets
-            # three scattered velocity volumes from the dome drive
-            "library_ms": None,
+            "max_abs_err": errs[k], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            # the FDTD and BHTE rows: no single PyTorch call computes an
+            # FDTD or BHTE step, or sets three scattered velocity volumes
+            # from the dome drive (the other rows give theirs or say why not)
+            "library_ms": lib[0] if lib else None,
         })
+        if launches[k] <= 0:
+            fail(f"{name} was never launched on its path")
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(nvidia_smi_line())

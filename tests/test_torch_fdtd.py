@@ -9,6 +9,12 @@ peak, `:328`) and to the committed goldens at the tol_1 bounds of
 `tests/test_regression.py`. The plain step is also held to the JAX
 single-sweep Pallas kernel B2 (``build_fluid_fused_step``) in interpret
 mode, for a point and for a volumetric source.
+
+Diagnostics: the 14 ``sel_maps``, the monitor series and
+``run_fdtd_capture`` against the JAX XLA path (plane band 1e-4 of each
+map's maximum with rtol 1e-3; point 1e-6; volumetric 1e-5; sample times
+exactly equal), and ``Pressure_rms`` / ``Pressure_peak`` / the series
+against the B4 kernel's ``with_p2`` and monitor capture in interpret mode.
 """
 
 import functools
@@ -23,7 +29,7 @@ from babelbrain_tpu.materials import map_hu_to_properties
 from babelbrain_tpu.ops import fdtd as J
 from babelbrain_tpu.ops import fdtd_pallas as JP
 from babelbrain_tpu_torch.ops import fdtd as T
-from babelbrain_tpu_torch.ops import fdtd_kernels, fdtd_sources
+from babelbrain_tpu_torch.ops import fdtd_extras, fdtd_kernels, fdtd_sources
 from babelbrain_tpu_torch.ops.fdtd_sources import VolumeSource
 
 torch.set_num_threads(2)
@@ -206,13 +212,10 @@ def test_cpu_run_counts_plain_calls_not_launches():
     }
 
 
-@pytest.mark.parametrize("case", ["mesh", "sel_maps", "monitor",
-                                  "velocity_sel_maps", "shear_sel_maps",
-                                  "rayleigh_mesh"])
+@pytest.mark.parametrize("case", ["mesh", "rayleigh_mesh"])
 def test_paths_outside_the_slice_raise(case):
     idx, mats, g, amp, ph = _config("water_plane")
     g = dict(g, shape=(20, 20, 40), n_steps=4, sensor_start=2)
-    kw = {}
     if case == "rayleigh_mesh":
         from babelbrain_tpu_torch.ops.rayleigh import rayleigh_field
 
@@ -220,21 +223,9 @@ def test_paths_outside_the_slice_raise(case):
             rayleigh_field(1e3, np.zeros((1, 3)), np.ones(1), np.ones(1),
                            np.ones((2, 3)), mesh=object(), device="cpu")
         return
-    if case == "mesh":
-        kw["mesh"] = object()
-    elif case == "sel_maps":
-        kw["sel_maps"] = ("Pressure_rms",)
-    elif case == "monitor":
-        kw["monitor_ijk"] = np.zeros((1, 3), int)
-    elif case == "velocity_sel_maps":
-        kw["sel_maps"] = ("Vx_rms", "Vz_peak")
-    else:  # stress maps of shear media
-        mats = np.array([[1000.0, 1500.0, 0, 0, 0],
-                         [1900.0, 2500.0, 1500.0, 100.0, 200.0]])
-        kw["sel_maps"] = ("Sigmaxx_peak",)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         T.run_fdtd(np.zeros(g["shape"], np.uint8), mats, T.FDTDGrid(**g),
-                   device="cpu", **kw)
+                   device="cpu", mesh=object())
 
 
 # ---------------------------------------------------------------------------
@@ -438,3 +429,247 @@ def test_point_and_volume_runs_count_their_plain_calls():
     assert fdtd_kernels.plain_calls["fluid_pressure"] == 8
     assert not any(fdtd_kernels.launches.values())
     assert not any(fdtd_sources.launches.values())
+
+
+# ---------------------------------------------------------------------------
+# diagnostics: sel_maps, monitor series, raw capture
+# ---------------------------------------------------------------------------
+
+
+ALL_MAPS = fdtd_extras.SEL_MAPS
+
+
+def _water_grid(shape, cycles, cfl=0.9, **kw):
+    """The water grid of `tests/test_fdtd.py:22-38` (9 PPW, a 2-period
+    window)."""
+    dx = 1500.0 / F0 / 9
+    ppp = int(np.ceil(1 / F0 / J.stable_dt(dx, 1500.0, cfl)))
+    ns = ppp * cycles
+    return dict(shape=shape, dx=dx, dt=1 / F0 / ppp, n_steps=ns, frequency=F0,
+                sensor_start=ns - 2 * ppp, source_plane_z=13, **kw)
+
+
+def _maps_match(ot, oj, names, band, rtol=0.0, series_band=None):
+    """Each map of ``names`` and the monitor series within ``band`` (the
+    series: ``series_band``, default ``band``) x its own maximum (and
+    ``rtol``); the sample times exactly equal."""
+    assert set(ot) == set(oj)
+    bands = dict.fromkeys(names, band)
+    if "sensor_series" in oj:
+        bands["sensor_series"] = series_band or band
+    for name, b in bands.items():
+        scale = np.abs(oj[name]).max()
+        assert scale > 0, name
+        assert ot[name].dtype == np.float32 and ot[name].shape == oj[name].shape
+        np.testing.assert_allclose(ot[name], oj[name], atol=b * scale,
+                                   rtol=rtol, err_msg=name)
+    if "sensor_times" in oj:
+        np.testing.assert_array_equal(ot["sensor_times"], oj["sensor_times"])
+
+
+def test_water_maps_and_monitors_match_jax_xla():
+    """The `TestSelMapsAndSensors` water case (`tests/test_fdtd.py:381-393`)
+    with all 14 maps, two monitors and subsampling 2: plane band (1e-4 of
+    each map's maximum, rtol 1e-3)."""
+    g = _water_grid((24, 24, 96), cycles=18)
+    mats = np.array([[1000.0, 1500.0, 0.0, 0.0, 0.0]])
+    idx = np.zeros(g["shape"], np.uint8)
+    kw = dict(source_amp=np.full(g["shape"][:2], 60e3), sel_maps=ALL_MAPS,
+              monitor_ijk=np.array([[12, 12, 40], [12, 12, 55]]),
+              sensor_subsampling=2)
+    oj = J.run_fdtd(idx, mats, J.FDTDGrid(**g), backend="xla", **kw)
+    ot = T.run_fdtd(idx, mats, T.FDTDGrid(**g), device="cpu", **kw)
+    _maps_match(ot, oj, ALL_MAPS, 1e-4, rtol=1e-3)
+    assert ot["sensor_series"].shape == (
+        2, len(range(g["sensor_start"], g["n_steps"], 2)))
+    # fluid: sigma_ii = -p, so the Sigma maps are the Pressure maps
+    for kind in ("rms", "peak"):
+        for s in ("Sigmaxx", "Sigmayy", "Sigmazz"):
+            np.testing.assert_array_equal(ot[f"{s}_{kind}"],
+                                          ot[f"Pressure_{kind}"])
+    np.testing.assert_array_equal(ot["Pressure_peak"], ot["peak"])
+    rms = ot["Pressure_rms"][12, 12, 30:70] / ot["p_amp"][12, 12, 30:70]
+    np.testing.assert_allclose(rms, 1 / np.sqrt(2), rtol=0.03)
+
+
+@pytest.mark.parametrize("source", ["stress_point", "velocity_volume"])
+def test_point_and_volume_maps_match_jax_xla(source):
+    """All 14 maps and two monitors with a stress point (band 1e-6 of each
+    map's maximum) and with a volumetric shell (1e-5, the volumetric band
+    of `tests/test_fused_kernel.py:328`). The series of the point run is
+    held at 1e-5: an instantaneous sample carries the phase of JAX's
+    float32 source scalar (omega t rounded in float32, ~1e-6 rad after four
+    periods) against the port's float64 one, which the window sums of the
+    maps average out."""
+    if source == "stress_point":
+        idx, mats, g, pamp = _point_config()
+        kw, band = dict(point_amp=pamp), 1e-6
+        mon = np.array([[17, 15, 40], [17, 15, 50]])
+    else:
+        idx, mats, g, vs = _volume_config(n=32)
+        kw, band = dict(volume_source=vs), 1e-5
+        mon = np.array([[16, 16, 16], [16, 16, 24]])
+    kw.update(sel_maps=ALL_MAPS, monitor_ijk=mon)
+    oj = J.run_fdtd(idx, mats, J.FDTDGrid(**g), backend="xla", **kw)
+    ot = T.run_fdtd(idx, mats, T.FDTDGrid(**g), device="cpu", **kw)
+    _maps_match(ot, oj, ALL_MAPS, band, series_band=1e-5)
+
+
+def _b4_config():
+    """The B4 Pressure-map and monitor configuration of
+    `tests/test_fused_kernel.py:525-556` (64x32x64 water, a window of 21
+    steps, two monitors)."""
+    C = 1500.0
+    shape = (64, 32, 64)
+    dx = C / F0 / 9
+    ppp = int(np.ceil(1 / F0 / J.stable_dt(dx, C, 0.9)))
+    n_win = (ppp // 3) * 3
+    ns = ppp * 2 + n_win
+    g = dict(shape=shape, dx=dx, dt=1 / F0 / ppp, n_steps=ns, frequency=F0,
+             sensor_start=ns - n_win, source_plane_z=13)
+    mats = np.array([[1000.0, C, 0.0, 20.0, 0.0]])
+    amp = np.zeros(shape[:2])
+    amp[8:-8, 8:-8] = 60e3
+    kw = dict(source_amp=amp, sel_maps=("Pressure_rms", "Pressure_peak"),
+              monitor_ijk=np.array([[32, 16, 40], [20, 10, 30]]))
+    return np.zeros(shape, np.uint8), mats, g, kw
+
+
+def test_pressure_maps_and_monitor_match_jax_b4_interpret():
+    """The port against B4 itself (``build_fluid_fusedK_step`` with
+    ``with_p2`` and its driver's monitor capture), run by the JAX Pallas
+    path in interpret mode: ``Pressure_rms`` and ``Pressure_peak`` at the
+    plane band, and the series at B4's sample steps (every fused depth)."""
+    idx, mats, g, kw = _b4_config()
+    oj = J.run_fdtd(idx, mats, J.FDTDGrid(**g), backend="pallas", **kw)
+    ot = T.run_fdtd(idx, mats, T.FDTDGrid(**g), device="cpu", **kw)
+    steps_j = np.round(oj["sensor_times"] / g["dt"]).astype(int)
+    steps_t = np.round(ot["sensor_times"] / g["dt"]).astype(int)
+    # the port samples every step of the window, B4 once per sweep
+    np.testing.assert_array_equal(steps_t, np.arange(g["sensor_start"],
+                                                     g["n_steps"]))
+    assert 0 < len(steps_j) < len(steps_t)
+    pos = np.searchsorted(steps_t, steps_j)
+    np.testing.assert_array_equal(steps_t[pos], steps_j)
+    ot = dict(ot, sensor_series=ot["sensor_series"][:, pos],
+              sensor_times=ot["sensor_times"][pos])
+    _maps_match(ot, oj, ("Pressure_rms", "Pressure_peak"), 1e-4, rtol=1e-3)
+
+
+def _capture_config():
+    """A small water + attenuating-slab plane-source case and a 3x3x3 mask
+    in the slab's shadow."""
+    g = _water_grid((20, 20, 64), cycles=6)
+    mats = np.array([[1000.0, 1500.0, 0, 0, 0], [1050.0, 1600.0, 0, 5.0, 0]])
+    idx = np.zeros(g["shape"], np.uint8)
+    idx[:, :, 30:36] = 1
+    amp = np.zeros(g["shape"][:2])
+    amp[4:-4, 4:-4] = 60e3
+    mask = np.zeros(g["shape"], bool)
+    mask[9:12, 9:12, 40:43] = True
+    return idx, mats, g, dict(source_amp=amp), mask
+
+
+@pytest.mark.parametrize("where", ["mask", "volume"])
+def test_capture_matches_jax_and_the_monitor_series(where):
+    """``run_fdtd_capture`` against JAX (plane band), with a mask over the
+    whole sensor window and over the full volume every 5th step of the last
+    20; the samples equal the port's own monitor series bit for bit, and the
+    carrier outputs its ``run_fdtd``'s."""
+    idx, mats, g, kw, mask = _capture_config()
+    if where == "mask":
+        cap = dict(t_start=g["sensor_start"], sensor_mask=mask)
+    else:
+        cap = dict(t_start=g["n_steps"] - 20, subsample=5)
+    oj = J.run_fdtd_capture(idx, mats, J.FDTDGrid(**g), **kw, **cap)
+    ot = T.run_fdtd_capture(idx, mats, T.FDTDGrid(**g), **kw, **cap,
+                            device="cpu")
+    assert set(ot) == set(oj)
+    np.testing.assert_array_equal(ot["times"], oj["times"])
+    scale = np.abs(oj["series"]).max()
+    assert scale > 0 and ot["series"].shape == oj["series"].shape
+    np.testing.assert_allclose(ot["series"], oj["series"], atol=1e-4 * scale,
+                               rtol=1e-3)
+    ijk = np.argwhere(mask)
+    if where == "mask":
+        np.testing.assert_array_equal(ot["sensor_ijk"], oj["sensor_ijk"])
+    mon = T.run_fdtd(idx, mats, T.FDTDGrid(**g), **kw, monitor_ijk=ijk,
+                     device="cpu")
+    rows = np.round(ot["times"] / g["dt"]).astype(int) - g["sensor_start"]
+    series = (ot["series"] if where == "mask"
+              else ot["series"][:, ijk[:, 0], ijk[:, 1], ijk[:, 2]])
+    np.testing.assert_array_equal(series, mon["sensor_series"][:, rows].T)
+    for k in ("p_amp", "p_phase", "peak"):
+        np.testing.assert_array_equal(ot[k], mon[k])
+
+
+def test_shear_point_capture_matches_jax():
+    """A stress point behind a shear slab, captured at a mask: JAX's band
+    for visco point runs (1e-4 of the maximum, rtol 1e-3)."""
+    g = _water_grid((20, 20, 48), cycles=3, cfl=0.5,
+                    source_type="stress_point", source_ijk=(10, 9, 30))
+    mats = np.array([[1000.0, 1500.0, 0, 0, 0],
+                     [1800.0, 2400.0, 1200.0, 50.0, 80.0]])
+    idx = np.zeros(g["shape"], np.uint8)
+    idx[:, :, 20:24] = 1
+    mask = np.zeros(g["shape"], bool)
+    mask[10, 9, 14:18] = True
+    cap = dict(point_amp=50e3, t_start=g["sensor_start"], subsample=3,
+               sensor_mask=mask)
+    oj = J.run_fdtd_capture(idx, mats, J.FDTDGrid(**g), **cap)
+    ot = T.run_fdtd_capture(idx, mats, T.FDTDGrid(**g), **cap, device="cpu")
+    scale = np.abs(oj["series"]).max()
+    assert scale > 0
+    np.testing.assert_array_equal(ot["times"], oj["times"])
+    np.testing.assert_allclose(ot["series"], oj["series"], atol=1e-4 * scale,
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("case", ["unknown_map", "capture_window",
+                                  "subsampling", "monitor_outside",
+                                  "capture_volume_source"])
+def test_diagnostic_inputs_are_checked(case):
+    """JAX's two errors (unknown map names, a capture window outside the
+    run) with its messages, and the port's own checks."""
+    g = _water_grid((16, 16, 40), cycles=2)
+    mats = np.array([[1000.0, 1500.0, 0, 0, 0]])
+    idx = np.zeros(g["shape"], np.uint8)
+    if case == "unknown_map":
+        with pytest.raises(ValueError, match="unknown sel_maps entries"):
+            T.run_fdtd(idx, mats, T.FDTDGrid(**g), sel_maps=("Bogus_rms",),
+                       device="cpu")
+    elif case == "capture_window":
+        with pytest.raises(ValueError, match="capture window"):
+            T.run_fdtd_capture(idx, mats, T.FDTDGrid(**g), t_start=5,
+                               t_end=5, device="cpu")
+    elif case == "subsampling":
+        with pytest.raises(ValueError, match="sensor_subsampling"):
+            T.run_fdtd(idx, mats, T.FDTDGrid(**g), sensor_subsampling=0,
+                       monitor_ijk=np.zeros((1, 3), int), device="cpu")
+    elif case == "monitor_outside":
+        with pytest.raises(ValueError, match="outside the grid"):
+            T.run_fdtd(idx, mats, T.FDTDGrid(**g),
+                       monitor_ijk=np.array([[0, 0, 40]]), device="cpu")
+    else:
+        g["source_type"] = "velocity_volume"
+        with pytest.raises(ValueError, match="plane and point"):
+            T.run_fdtd_capture(idx, mats, T.FDTDGrid(**g), device="cpu")
+
+
+def test_diagnostics_count_their_plain_calls():
+    """One extras pass a window step, one gather a sample step, no launch."""
+    g = _water_grid((20, 20, 40), cycles=2)
+    g = dict(g, n_steps=30, sensor_start=17)
+    for d in (fdtd_extras.launches, fdtd_extras.plain_calls):
+        for k in d:
+            d[k] = 0
+    T.run_fdtd(np.zeros(g["shape"], np.uint8),
+               np.array([[1000.0, 1500.0, 0, 0, 0]]), T.FDTDGrid(**g),
+               source_amp=np.full((20, 20), 1e3), sel_maps=("Vz_rms",),
+               monitor_ijk=np.array([[10, 10, 20]]), sensor_subsampling=4,
+               device="cpu")
+    assert fdtd_extras.plain_calls == {
+        "extras_fluid": 13, "extras_visco": 0,
+        "monitor_fluid": len(range(17, 30, 4)), "monitor_visco": 0,
+    }
+    assert not any(fdtd_extras.launches.values())

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from babelbrain_tpu_torch import probes as P
 from babelbrain_tpu_torch.materials import (
     build_thermal_material_list,
     material_array,
@@ -24,6 +25,7 @@ from babelbrain_tpu_torch.materials import (
 from babelbrain_tpu_torch.ops import bhte as B
 from babelbrain_tpu_torch.ops import bhte_kernels
 from babelbrain_tpu_torch.ops import fdtd as F
+from babelbrain_tpu_torch.ops import fdtd_extras as E
 from babelbrain_tpu_torch.ops import fdtd_kernels as K
 from babelbrain_tpu_torch.ops import fdtd_sources as S
 from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
@@ -308,3 +310,125 @@ def test_bhte_kernel_matches_plain(cuda):
     assert float(states[1][2].max()) > 43.0  # both dose branches exercised
     for a, b in zip(*states):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _visco_setup(device, shape=(36, 40, 56)):
+    """Label-mode layers along z with a plane source (as in
+    ``test_visco_kernels_match_plain``)."""
+    mats = material_array(F0, tissues=("Water", "Skin", "Cortical",
+                                       "Trabecular", "Brain"))
+    dx = 1102.5 / F0 / 6
+    cmax = mats[:, 1].max()
+    ppp = int(np.ceil(1 / F0 / F.stable_dt(dx, cmax, 0.5)))
+    grid = F.FDTDGrid(shape=shape, dx=dx, dt=1 / F0 / ppp, n_steps=60,
+                      frequency=F0, sensor_start=40, source_plane_z=13)
+    idx = np.zeros(shape, np.uint8)
+    for label, (z0, z1) in {1: (18, 22), 2: (22, 25), 3: (25, 30),
+                            4: (33, 56)}.items():
+        idx[:, :, z0:z1] = label
+    coefs = F.sls_coefficients(mats, F0, grid.dt)
+    mi, table = F._build_indexed_materials(coefs, idx, None)
+    prof = F._build_cpml_profiles_np(shape, 12, dx, grid.dt, cmax, 1e-5)
+    amp = np.zeros(shape[:2])
+    amp[6:-6, 6:-6] = 60e3
+    ph = np.random.default_rng(0).uniform(-1, 1, shape[:2])
+    co = F.make_visco_coeffs(mi, table, prof, amp, ph, grid, coefs["viscous"],
+                             device)
+    return grid, co
+
+
+SUBSET_MAPS = ("Pressure_rms", "Vy_peak", "Sigmazz_rms", "Sigmaxx_peak")
+
+
+@pytest.mark.parametrize("family", ["fluid", "visco"])
+@pytest.mark.parametrize("maps", ["all", "subset"])
+def test_extras_and_monitor_kernels_match_plain(cuda, family, maps):
+    """The extras pass and the monitor gather (at 64 voxels and at every
+    voxel) against their plain versions on the same states, bit for bit."""
+    if family == "fluid":
+        grid, co = _fluid_setup(cuda)
+        st = K.FluidState.zeros(grid.shape, 14, cuda)
+        step = F.fluid_step
+    else:
+        grid, co = _visco_setup(cuda)
+        st = V.ViscoState.zeros(grid.shape, 14, cuda)
+        step = F.visco_step
+    names = E.SEL_MAPS if maps == "all" else SUBSET_MAPS
+    rng = np.random.default_rng(2)
+    ijk = np.stack([rng.integers(0, n, 64) for n in grid.shape], 1)
+    index = E.monitor_index(ijk, grid.shape, cuda)
+    window = range(grid.sensor_start, grid.n_steps)
+    diag_k, diag_p = (E.Diagnostics.create(st, grid.sensor_start, names,
+                                           sample_steps=window, index=index)
+                      for _ in range(2))
+    full_k, full_p = (torch.zeros((2, st.vx.numel()), device=cuda)
+                      for _ in range(2))
+    before = dict(E.launches)
+    oz = 1.0 / (1000.0 * 1500.0)
+    for n in range(grid.n_steps):
+        step(st, co, grid, n, oz)
+        diag_k.record(st, n)
+        diag_p.record(st, n, plain=True)
+        if n in (grid.sensor_start, grid.n_steps - 1):
+            row = int(n != grid.sensor_start)
+            E.monitor_gather(st, None, full_k, row)
+            E.monitor_gather_ref(st, None, full_p, row)
+    torch.cuda.synchronize()
+    grew = {k: E.launches[k] - before[k] for k in E.launches}
+    assert grew[f"extras_{family}"] == len(window)
+    assert grew[f"monitor_{family}"] == len(window) + 2
+    assert set(diag_k.extras.acc) == set(diag_p.extras.acc)
+    if family == "fluid":  # Sigma maps ride on the Pressure accumulators
+        assert not any(k.startswith("Sigma") for k in diag_k.extras.acc)
+    for k, a in diag_k.extras.acc.items():
+        assert float(a.abs().max()) > 0, k
+        torch.testing.assert_close(a, diag_p.extras.acc[k], rtol=0, atol=0,
+                                   msg=k)
+    assert float(diag_p.series.abs().max()) > 0
+    torch.testing.assert_close(diag_k.series, diag_p.series, rtol=0, atol=0)
+    torch.testing.assert_close(full_k, full_p, rtol=0, atol=0)
+
+
+def test_extras_wrapper_rejects_mixed_devices(cuda):
+    grid, co = _fluid_setup(cuda)
+    st = K.FluidState.zeros(grid.shape, 14, cuda)
+    ex = E.Extras.zeros(("Vx_rms",), grid.shape, "cpu", visco=False)
+    with pytest.raises(ValueError, match="float32 on"):
+        E.extras_accumulate(st, ex)
+    out = torch.zeros((1, 3), device=cuda)
+    with pytest.raises(ValueError, match="int32 index"):
+        E.monitor_gather(st, torch.zeros(3, dtype=torch.int32), out, 0)
+
+
+def test_probe_kernels_match_plain(cuda):
+    """stream, the FMA chain and the table gather (the CT table over a
+    (2, 192, 240) slab and P2's cost case) against their plain versions,
+    bit for bit."""
+    before = dict(P.launches)
+    x = torch.rand(1 << 20, device=cuda)
+    y_k, y_p = torch.empty_like(x), torch.empty_like(x)
+    P.stream(x, y_k)
+    P.stream_ref(x, y_p)
+    rng = np.random.default_rng(0)
+    xf = torch.as_tensor(rng.uniform(1, 2, P.FMA_BLOCK).astype(np.float32),
+                         device=cuda)
+    scale = torch.as_tensor(P.FMA_SCALE, device=cuda)
+    f_k, f_p = torch.empty_like(xf), torch.empty_like(xf)
+    P.fma_chain(xf, scale, f_k, 200)
+    P.fma_chain_ref(xf, scale, f_p, 200)
+    gathers = []
+    for shape, m, n_coef in ((P.GATHER_SLAB, 1026, 4),
+                             (P.P2_COST[:2], P.P2_COST[2], 1)):
+        idx, tab = P.gather_inputs(shape, m, n_coef, device=cuda)
+        g_k = torch.empty((n_coef,) + tuple(shape), device=cuda)
+        g_p = torch.empty_like(g_k)
+        P.table_gather(idx, tab, g_k)
+        P.table_gather_ref(idx, tab, g_p)
+        gathers.append((g_k, g_p))
+    torch.cuda.synchronize()
+    assert {k: P.launches[k] - before[k] for k in P.launches} == {
+        "stream": 1, "fma_chain": 1, "table_gather": 2}
+    torch.testing.assert_close(y_k, y_p, rtol=0, atol=0)
+    torch.testing.assert_close(f_k, f_p, rtol=0, atol=0)
+    for g_k, g_p in gathers:
+        torch.testing.assert_close(g_k, g_p, rtol=0, atol=0)

@@ -149,7 +149,8 @@ def test_generate_mask_label_matches_jax(phantom):
 # ---------------------------------------------------------------------------
 
 
-def test_run_acoustic_sim_on_jax_domain_matches():
+def _jax_domain_case():
+    """A CT-mode domain and a 12 mm bowl built by the JAX package."""
     f0 = 500e3
     mask = np.zeros((24, 24, 40), np.uint8)
     mask[:, :, 30:36] = 1  # skin (NIfTI orientation: transducer at high z)
@@ -165,6 +166,11 @@ def test_run_acoustic_sim_on_jax_domain_matches():
     tx_j = JA.position_transducer(
         make_focused_bowl(f0, 12e-3, 8e-3, 1500.0), dom_j, 12e-3
     )
+    return dom_j, tx_j
+
+
+def test_run_acoustic_sim_on_jax_domain_matches():
+    dom_j, tx_j = _jax_domain_case()
     rj = JA.run_acoustic_sim(dom_j, tx_j, 60e3)
     rt = TA.run_acoustic_sim(convert.domain_from_reference(dom_j),
                              convert.transducer_from_reference(tx_j), 60e3,
@@ -183,6 +189,44 @@ def test_run_acoustic_sim_on_jax_domain_matches():
     assert peak > 0
     for k in ("p_amp", "p_complex_re", "p_complex_im"):
         np.testing.assert_allclose(dt[k], dj[k], rtol=1e-3, atol=1e-4 * peak)
+
+
+def test_run_acoustic_sim_diagnostics_match_jax():
+    """All 14 ``sel_maps`` and a monitor line along the beam axis through
+    the target (plus the target): the same ``extra_maps`` keys, the maps in
+    the mask frame within the plane band (1e-4 of each map's maximum, rtol
+    1e-3), the sample times exactly."""
+    dom_j, tx_j = _jax_domain_case()
+    fi, fj, fk = (int(v) for v in dom_j.focal_idx)
+    nz = dom_j.material_map.shape[2]
+    mon = np.array([[fi, fj, fk]] + [[fi, fj, k] for k in range(nz)])
+    names = tuple(f"{f}_{k}" for f in ("Pressure", "Vx", "Vy", "Vz",
+                                       "Sigmaxx", "Sigmayy", "Sigmazz")
+                  for k in ("rms", "peak"))
+    kw = dict(sel_maps=names, monitor_ijk=mon)
+    rj = JA.run_acoustic_sim(dom_j, tx_j, 60e3, **kw)
+    rt = TA.run_acoustic_sim(convert.domain_from_reference(dom_j),
+                             convert.transducer_from_reference(tx_j), 60e3,
+                             device="cpu", **kw)
+    ej, et = rj.extra_maps, rt.extra_maps
+    assert set(et) == set(ej) == set(names) | {"sensor_series",
+                                               "sensor_times"}
+    for name in names:
+        assert et[name].shape == rt.p_amp.shape == ej[name].shape, name
+        scale = np.abs(ej[name]).max()
+        assert scale > 0, name
+        np.testing.assert_allclose(et[name], ej[name], atol=1e-4 * scale,
+                                   rtol=1e-3, err_msg=name)
+    assert et["sensor_series"].shape == (len(mon), dom_j.n_steps
+                                         - dom_j.sensor_start)
+    s = np.abs(ej["sensor_series"]).max()
+    np.testing.assert_allclose(et["sensor_series"], ej["sensor_series"],
+                               atol=1e-4 * s, rtol=1e-3)
+    np.testing.assert_array_equal(et["sensor_times"], ej["sensor_times"])
+    # the first monitor is the target, sampled at every window step: its
+    # largest |p| is the peak map there (mask frame), bit for bit
+    t = tuple(rt.data_for_sim["TargetLocation"])
+    assert np.abs(et["sensor_series"][0]).max() == et["Pressure_peak"][t]
 
 
 # ---------------------------------------------------------------------------
@@ -624,6 +668,8 @@ def test_port_imports_no_jax():
         "or m.startswith('babelbrain_tpu.'))\n"
         "assert not bad, bad\n"
         "assert len(names) > 20, names\n"
+        "assert {'babelbrain_tpu_torch.ops.fdtd_extras', "
+        "'babelbrain_tpu_torch.probes'} <= set(names), names\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -16,6 +16,8 @@
   1e-4 peak, rtol 1e-3), on the dome configuration of
   `tests/test_fused_kernel.py:340-369` and a cortical-bone slab with a point
   source behind it.
+* The 14 ``sel_maps`` and a monitor series in shear media against JAX XLA
+  on the shear case of `tests/test_fdtd.py:430-452`.
 * A CPU run counts plain calls and launches no kernel.
 """
 
@@ -284,6 +286,61 @@ def test_shear_sources_match_jax_xla(source):
                                atol=1e-4 * oj["peak"].max(), rtol=1e-3)
     # the field crosses the shear slab in both directions
     assert ot["p_amp"][:, :, 30:36].max() > 1e-3 * peak
+
+
+# ---------------------------------------------------------------------------
+# diagnostics in shear media
+# ---------------------------------------------------------------------------
+
+
+def _shear_extras_config():
+    """The shear case of `tests/test_fdtd.py:430-452`: 20x20x72 water with
+    a 4-cell lossless shear slab at CFL 0.5, a full plane source and one
+    monitor in front of the slab; 8 periods instead of 12. The slab crosses
+    the CPML, where a mode grows from rounding noise in both packages
+    (max p_amp 47.8 kPa at 4 periods, 145.7 kPa at 12, 9.8e9 Pa at 20): at
+    12 periods the two runs differ by 0.85% of the peak at the slab, at 8 by
+    4e-6."""
+    shape = (20, 20, 72)
+    dx = 1500.0 / F0 / 9
+    ppp = int(np.ceil(1 / F0 / J.stable_dt(dx, 1500.0, 0.5)))
+    ns = ppp * 8
+    g = dict(shape=shape, dx=dx, dt=1 / F0 / ppp, n_steps=ns, frequency=F0,
+             sensor_start=ns - 2 * ppp, source_plane_z=13)
+    mats = np.array([[1000.0, 1500.0, 0.0, 0.0, 0.0],
+                     [1800.0, 2400.0, 1200.0, 0.0, 0.0]])
+    idx = np.zeros(shape, np.uint8)
+    idx[:, :, 40:44] = 1
+    return idx, mats, g, np.full(shape[:2], 60e3)
+
+
+def test_shear_maps_and_monitor_match_jax_xla():
+    """All 14 maps and a monitor in shear media against JAX XLA at the
+    visco plane band (1e-4 of each map's maximum, rtol 1e-3), the sample
+    times exactly; Pressure is -(sxx+syy+szz)/3, so its peak map is the
+    DFT's peak bit for bit."""
+    idx, mats, g, amp = _shear_extras_config()
+    names = tuple(f"{f}_{k}" for f in ("Pressure", "Vx", "Vy", "Vz",
+                                       "Sigmaxx", "Sigmayy", "Sigmazz")
+                  for k in ("rms", "peak"))
+    kw = dict(source_amp=amp, sel_maps=names,
+              monitor_ijk=np.array([[10, 10, 30]]))
+    oj = J.run_fdtd(idx, mats, J.FDTDGrid(**g), backend="xla", **kw)
+    ot = T.run_fdtd(idx, mats, T.FDTDGrid(**g), device="cpu", **kw)
+    assert set(ot) == set(oj)
+    for name in names + ("sensor_series",):
+        scale = np.abs(oj[name]).max()
+        assert scale > 0, name
+        np.testing.assert_allclose(ot[name], oj[name], atol=1e-4 * scale,
+                                   rtol=1e-3, err_msg=name)
+    np.testing.assert_array_equal(ot["sensor_times"], oj["sensor_times"])
+    np.testing.assert_array_equal(ot["Pressure_peak"], ot["peak"])
+    # the normal stresses differ from -p in a shear medium
+    assert not np.array_equal(ot["Sigmaxx_peak"], ot["Pressure_peak"])
+    pre = slice(22, 36)
+    assert (ot["Pressure_rms"][10, 10, pre].mean()
+            / ot["p_amp"][10, 10, pre].mean()) == pytest.approx(
+                1 / np.sqrt(2), rel=0.08)
 
 
 # ---------------------------------------------------------------------------
