@@ -16,19 +16,39 @@
 // 6 stresses, 6 SLS memories and the index and writes 6 stresses and 6
 // memories (28), plus 3 reads and 3 writes of the DFT accumulators and the
 // peak inside the sensor window (34). A few flops per byte: far below the
-// card's flop/byte balance.
+// card's flop/byte balance. What keeps a kernel from that bound here is
+// latency: a cell needs ~30 loads (nine CPML'd 4th-order derivatives), and
+// with 64-80 registers a thread (1024 or 768 threads an SM) too few loads
+// are in flight to cover the time its cells take to arrive from memory.
 //
-// What the design does about it: one thread per cell, threadIdx.x along z
-// (the contiguous axis), so every warp reads and writes contiguous 128-byte
-// lines; stencil neighbours come from global memory through L1/L2. The five
-// material property volumes of the XLA layout are replaced by one int32
-// index volume and a (6, M) table that each block copies into shared memory:
-// neighbouring voxels hit different rows, which constant memory would
-// serialise, while a shared-memory gather is one conflict-free read for
-// label mode's few materials. State is updated in place; the CPML psi
+// What the design does about it: a block of 32 x 8 threads owns a (y, z)
+// tile of columns (threadIdx.x along z, so each warp reads and writes 128
+// contiguous bytes) and marches along x over a segment of planes [i0, i1);
+// the grid is (z-tiles, y-tiles, x-segments), with segments short enough
+// that the grid holds several waves of blocks for the 132 SMs (the sizes
+// come from ops/fdtd_visco_kernels.py visco_launch_geometry). Each thread
+// walks its (j, k) column:
+//   - while it computes plane i it prefetches (into L2) its cells of plane
+//     i + 1 of every volume it reads, so their trip from memory overlaps the
+//     work of a plane;
+//   - the fields with x-derivatives keep their x-window (four planes) in
+//     registers and load each value once, as it enters the window;
+//   - y/z neighbours come through L1 (a block's warps load each other's rows;
+//     shared-memory tiles of them, copied with cp.async a plane ahead, were
+//     measured slower: PERF.md);
+//   - the x-CPML test (i < ns, i >= N1 - ns) is uniform over the block and
+//     the y-test over a warp; all indices are 32-bit in-plane offsets plus a
+//     plane offset, formed only for planes inside the grid (the wrapper keeps
+//     N1 N2 N3 below 2^31): no division.
+// __launch_bounds__ caps the registers so that 1024 (velocity) and 768
+// (stress) threads fit on an SM without spilling. The material index
+// selects a row of the (6, M) table, which each block copies into shared
+// memory: neighbouring voxels hit different rows, which constant memory would
+// serialise. State is updated in place: the velocity kernel reads only the
+// stresses (and its own cell of v and of its psi slabs), the stress kernel
+// only the velocities (and its own cells of s, r and psi). The CPML psi
 // memory lives only in the boundary slabs (ns = npml + 2 planes per side and
-// axis), in the XLA layout. Shared-memory tiling and temporal blocking are
-// later work.
+// axis), in the XLA layout.
 //
 // Point source (refocusing): the stress kernel's POINT=true ADDS sval to
 // sxx, syy and szz of the one cell c == pt after their update and before
@@ -47,110 +67,220 @@
 
 namespace {
 
-using bb::kThreads;
-using bb::n_blocks;
+using bb::cpml;
+using bb::kC1;
+using bb::kC2;
 
 constexpr float kThird = (float)(1.0 / 3.0);
+constexpr int kTileZ = 32;  // threads along z: a warp covers 32 floats
+constexpr int kTileY = 8;   // threads along y
+constexpr int kThreads = kTileZ * kTileY;
+constexpr int kVelocityMinBlocks = 4;  // 1024 threads an SM: 64 registers
+constexpr int kStressMinBlocks = 3;    // 768 threads an SM: 80 registers
 
 struct Ptr3 { float* p[3]; };
 struct Ptr6 { float* p[6]; };
 struct Ptr18 { float* p[18]; };  // 9 CPML'd derivatives: [lo, hi] each
 
-struct Cell {
-  long long c, ij, sx;
-  int i, j, k;
-};
-
 struct Geo {
-  int n1, n2, n3, ns;
+  int n1, n2, n3, ns, seg;
 };
 
-__device__ __forceinline__ bool locate(Cell& q, const Geo& g) {
-  q.c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  q.sx = (long long)g.n2 * g.n3;
-  if (q.c >= q.sx * g.n1) return false;
-  q.k = (int)(q.c % g.n3);
-  q.ij = q.c / g.n3;
-  q.j = (int)(q.ij % g.n2);
-  q.i = (int)(q.ij / g.n2);
-  return true;
+// This thread's column (j, k) and the x-planes [i0, i1) of its block
+struct Col {
+  int j, k, jk, plane, i0, i1;
+};
+
+// the column of this thread; false outside the grid
+__device__ __forceinline__ bool column(Col& q, const Geo& g) {
+  q.k = blockIdx.x * kTileZ + threadIdx.x;
+  q.j = blockIdx.y * kTileY + threadIdx.y;
+  q.jk = q.j * g.n3 + q.k;
+  q.plane = g.n2 * g.n3;
+  q.i0 = blockIdx.z * g.seg;
+  q.i1 = min(q.i0 + g.seg, g.n1);
+  return q.j < g.n2 && q.k < g.n3;
 }
 
-// CPML'd 4th-order staggered derivative of f along AXIS: forward (d_plus,
-// "half" profiles) or backward (d_minus, "int" profiles); fc = f[c]
-template <int AXIS, bool PLUS>
-__device__ __forceinline__ float deriv(const float* __restrict__ f, float fc,
-                                       const Cell& q, const Geo& g,
-                                       const float* __restrict__ prof_half,
-                                       const float* __restrict__ prof_int,
-                                       float* __restrict__ lo,
-                                       float* __restrict__ hi) {
-  const float* prof = (PLUS ? prof_half : prof_int) + AXIS * 4 * g.ns;
-  if constexpr (AXIS == 0) {
-    const float d = PLUS ? bb::d_plus(f, q.c, q.i, g.n1, q.sx, fc)
-                         : bb::d_minus(f, q.c, q.i, g.n1, q.sx, fc);
-    return bb::cpml(d, q.i, g.n1, g.ns, prof, lo, hi,
-                    (long long)q.j * g.n3 + q.k, q.sx);
-  } else if constexpr (AXIS == 1) {
-    const float d = PLUS ? bb::d_plus(f, q.c, q.j, g.n2, g.n3, fc)
-                         : bb::d_minus(f, q.c, q.j, g.n2, g.n3, fc);
-    return bb::cpml(d, q.j, g.n2, g.ns, prof, lo, hi,
-                    (long long)q.i * g.ns * g.n3 + q.k, g.n3);
-  } else {
-    const float d = PLUS ? bb::d_plus(f, q.c, q.k, g.n3, 1, fc)
-                         : bb::d_minus(f, q.c, q.k, g.n3, 1, fc);
-    return bb::cpml(d, q.k, g.n3, g.ns, prof, lo, hi, q.ij * g.ns, 1);
+// start f at plane i of column q (if inside the grid) on its way to L2
+__device__ __forceinline__ void prefetch(const void* f, int i, const Col& q,
+                                         int n1) {
+  if (i < n1) {
+    const float* p = static_cast<const float*>(f) + (i * q.plane + q.jk);
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
   }
 }
 
-// CPML'd derivative number Q of the kernel's psi list (both kernels name
-// their locals q, g, prof_half, prof_int and psi)
-#define BB_D(AX, PL, F, FC, Q) \
-  deriv<AX, PL>(F, FC, q, g, prof_half, prof_int, psi.p[2 * (Q)], psi.p[2 * (Q) + 1])
+// the 4th-order staggered difference from four consecutive samples
+// f0..f3: forward at i+1/2 from f(i-1..i+2), backward at i from f(i-2..i+1)
+// (the plain versions' d_plus / d_minus, zero outside the grid)
+__device__ __forceinline__ float stencil(float f0, float f1, float f2,
+                                         float f3) {
+  return kC1 * (f2 - f1) + kC2 * (f3 - f0);
+}
+
+// f at plane i of column q, 0 outside [0, n1) (a read-only field)
+__device__ __forceinline__ float at_x(const float* f, int i, const Col& q,
+                                      int n1) {
+  return (unsigned)i < (unsigned)n1 ? __ldg(f + (i * q.plane + q.jk)) : 0.0f;
+}
+
+// A read-only field's x-window at planes i+LO .. i+LO+3 of a column (LO =
+// -1 for a forward difference, -2 for a backward one), in registers: each
+// plane is loaded once, as it enters.
+template <int LO>
+struct XWin {
+  float w[4];
+  __device__ __forceinline__ void start(const float* f, const Col& q, int n1) {
+#pragma unroll
+    for (int m = 1; m < 4; ++m) w[m] = at_x(f, q.i0 + LO + m - 1, q, n1);
+  }
+  __device__ __forceinline__ void advance(const float* f, int i, const Col& q,
+                                          int n1) {
+    w[0] = w[1];
+    w[1] = w[2];
+    w[2] = w[3];
+    w[3] = at_x(f, i + LO + 3, q, n1);
+  }
+  __device__ __forceinline__ float diff() const {
+    return stencil(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// a read-only field around cell c in its plane, for the y/z neighbours
+// (through L1; 0 outside the grid)
+struct Plane {
+  const float* f;
+  int c, j, k, n2, n3;
+  __device__ __forceinline__ float operator()(int dy, int dz) const {
+    return ((unsigned)(j + dy) < (unsigned)n2 &&
+            (unsigned)(k + dz) < (unsigned)n3)
+               ? __ldg(f + (c + dy * n3 + dz))
+               : 0.0f;
+  }
+};
+
+// the difference along y (AXIS 1) or z (AXIS 2): forward (PLUS) or backward
+template <int AXIS, bool PLUS>
+__device__ __forceinline__ float diff_yz(const Plane& f) {
+  constexpr int lo = PLUS ? -1 : -2;
+  constexpr int dy = AXIS == 1 ? 1 : 0;
+  constexpr int dz = AXIS == 2 ? 1 : 0;
+  return stencil(f(lo * dy, lo * dz), f((lo + 1) * dy, (lo + 1) * dz),
+                 f((lo + 2) * dy, (lo + 2) * dz),
+                 f((lo + 3) * dy, (lo + 3) * dz));
+}
+
+// The CPML'd derivative number Q of a kernel's psi list, along AXIS at cell
+// (i, q.j, q.k): psi slabs (ns, N2, N3), (N1, ns, N3) or (N1, N2, ns)
+struct Cpml {
+  const Ptr18& psi;
+  const float* prof_half;  // forward differences
+  const float* prof_int;   // backward differences
+  const Geo& g;
+  const Col& q;
+  int i;
+  template <int AXIS, bool PLUS, int Q>
+  __device__ __forceinline__ float apply(float d) const {
+    const float* prof = (PLUS ? prof_half : prof_int) + AXIS * 4 * g.ns;
+    float* lo = psi.p[2 * Q];
+    float* hi = psi.p[2 * Q + 1];
+    if constexpr (AXIS == 0) {
+      return cpml(d, i, g.n1, g.ns, prof, lo, hi, q.jk, q.plane);
+    } else if constexpr (AXIS == 1) {
+      return cpml(d, q.j, g.n2, g.ns, prof, lo, hi, i * g.ns * g.n3 + q.k,
+                  g.n3);
+    } else {
+      return cpml(d, q.k, g.n3, g.ns, prof, lo, hi, (i * g.n2 + q.j) * g.ns,
+                  1);
+    }
+  }
+};
 
 // v_i += dt/dx rho_inv (sum_j D sigma_ij); then the CW plane source SETS vz
 // at zsrc where the plane amplitude is positive.
 // s: [sxx, syy, szz, sxy, sxz, syz]; v: [vx, vy, vz]; psi: the derivatives
 // sxx_x, sxy_y, sxz_z, sxy_x, syy_y, syz_z, sxz_x, syz_y, szz_z.
-__global__ void visco_velocity_kernel(
-    Ptr6 s, Ptr3 v, const int* __restrict__ idx,
-    const float* __restrict__ rho_inv_row, int n_mat, Ptr18 psi,
-    const float* __restrict__ prof_half, const float* __restrict__ prof_int,
-    const float* __restrict__ amp, const float* __restrict__ cph,
-    const float* __restrict__ sph, float s_sin, float s_cos, float dt_dx,
-    Geo g, int zsrc) {
+__global__ void __launch_bounds__(kThreads, kVelocityMinBlocks)
+    visco_velocity_kernel(Ptr6 s, Ptr3 v, const int* __restrict__ idx,
+                          const float* __restrict__ rho_inv_row, int n_mat,
+                          Ptr18 psi, const float* __restrict__ prof_half,
+                          const float* __restrict__ prof_int,
+                          const float* __restrict__ amp,
+                          const float* __restrict__ cph,
+                          const float* __restrict__ sph, float s_sin,
+                          float s_cos, float dt_dx, Geo g, int zsrc) {
   extern __shared__ float tab[];  // rho_inv of every material
-  for (int m = threadIdx.x; m < n_mat; m += blockDim.x) tab[m] = rho_inv_row[m];
+  for (int m = threadIdx.y * kTileZ + threadIdx.x; m < n_mat; m += kThreads) {
+    tab[m] = rho_inv_row[m];
+  }
   __syncthreads();
-  Cell q;
-  if (!locate(q, g)) return;
+  Col q;
+  if (!column(q, g)) return;
   const float* sxx = s.p[0];
   const float* syy = s.p[1];
   const float* szz = s.p[2];
   const float* sxy = s.p[3];
   const float* sxz = s.p[4];
   const float* syz = s.p[5];
-  const long long c = q.c;
-  const float ri = tab[idx[c]];
-  const float sxy_c = sxy[c], sxz_c = sxz[c], syz_c = syz[c];
-  const float dsxx_x = BB_D(0, true, sxx, sxx[c], 0);
-  const float dsxy_y = BB_D(1, false, sxy, sxy_c, 1);
-  const float dsxz_z = BB_D(2, false, sxz, sxz_c, 2);
-  v.p[0][c] = v.p[0][c] + dt_dx * ri * (dsxx_x + dsxy_y + dsxz_z);
-  const float dsxy_x = BB_D(0, false, sxy, sxy_c, 3);
-  const float dsyy_y = BB_D(1, true, syy, syy[c], 4);
-  const float dsyz_z = BB_D(2, false, syz, syz_c, 5);
-  v.p[1][c] = v.p[1][c] + dt_dx * ri * (dsxy_x + dsyy_y + dsyz_z);
-  const float dsxz_x = BB_D(0, false, sxz, sxz_c, 6);
-  const float dsyz_y = BB_D(1, false, syz, syz_c, 7);
-  const float dszz_z = BB_D(2, true, szz, szz[c], 8);
-  float vzn = v.p[2][c] + dt_dx * ri * (dsxz_x + dsyz_y + dszz_z);
-  if (q.k == zsrc) {
-    // amp sin(wt + phase) ramp oz = amp (sin(wt) cos(ph) + cos(wt) sin(ph))
-    const float a = amp[q.ij];
-    if (a > 0.0f) vzn = a * (s_sin * cph[q.ij] + s_cos * sph[q.ij]);
+  XWin<-1> wxx;  // sxx: forward along x
+  XWin<-2> wxy;  // sxy, sxz: backward along x
+  XWin<-2> wxz;
+  wxx.start(sxx, q, g.n1);
+  wxy.start(sxy, q, g.n1);
+  wxz.start(sxz, q, g.n1);
+  for (int i = q.i0; i < q.i1; ++i) {
+    // the next plane's cells (the windows' next entries) set off now
+    prefetch(sxx, i + 3, q, g.n1);
+    prefetch(sxy, i + 2, q, g.n1);
+    prefetch(sxz, i + 2, q, g.n1);
+    prefetch(syy, i + 1, q, g.n1);
+    prefetch(szz, i + 1, q, g.n1);
+    prefetch(syz, i + 1, q, g.n1);
+    prefetch(idx, i + 1, q, g.n1);
+#pragma unroll
+    for (int m = 0; m < 3; ++m) prefetch(v.p[m], i + 1, q, g.n1);
+    wxx.advance(sxx, i, q, g.n1);
+    wxy.advance(sxy, i, q, g.n1);
+    wxz.advance(sxz, i, q, g.n1);
+    const int c = i * q.plane + q.jk;
+    const float ri = tab[__ldg(idx + c)];
+    // the velocities first: nothing below writes them
+    const float vx = v.p[0][c], vy = v.p[1][c], vz = v.p[2][c];
+    const auto at = [&](const float* f) {
+      return Plane{f, c, q.j, q.k, g.n2, g.n3};
+    };
+    // every difference before the first psi store, so that all loads of
+    // the plane can be in flight together
+    const float dsxy_y = diff_yz<1, false>(at(sxy));
+    const float dsxz_z = diff_yz<2, false>(at(sxz));
+    const float dsyy_y = diff_yz<1, true>(at(syy));
+    const float dsyz_z = diff_yz<2, false>(at(syz));
+    const float dsyz_y = diff_yz<1, false>(at(syz));
+    const float dszz_z = diff_yz<2, true>(at(szz));
+    const Cpml cp{psi, prof_half, prof_int, g, q, i};
+    const float d0 = cp.apply<0, true, 0>(wxx.diff());
+    const float d1 = cp.apply<1, false, 1>(dsxy_y);
+    const float d2 = cp.apply<2, false, 2>(dsxz_z);
+    const float d3 = cp.apply<0, false, 3>(wxy.diff());
+    const float d4 = cp.apply<1, true, 4>(dsyy_y);
+    const float d5 = cp.apply<2, false, 5>(dsyz_z);
+    const float d6 = cp.apply<0, false, 6>(wxz.diff());
+    const float d7 = cp.apply<1, false, 7>(dsyz_y);
+    const float d8 = cp.apply<2, true, 8>(dszz_z);
+    float vzn = vz + dt_dx * ri * (d6 + d7 + d8);
+    if (q.k == zsrc) {
+      // amp sin(wt + phase) ramp oz = amp (sin(wt) cos(ph) + cos(wt) sin(ph))
+      const int ij = i * g.n2 + q.j;
+      const float a = __ldg(amp + ij);
+      if (a > 0.0f) {
+        vzn = a * (s_sin * __ldg(cph + ij) + s_cos * __ldg(sph + ij));
+      }
+    }
+    v.p[0][c] = vx + dt_dx * ri * (d0 + d1 + d2);
+    v.p[1][c] = vy + dt_dx * ri * (d3 + d4 + d5);
+    v.p[2][c] = vzn;
   }
-  v.p[2][c] = vzn;
 }
 
 // Six stresses and six SLS memories from the CPML'd velocity derivatives;
@@ -160,83 +290,125 @@ __global__ void visco_velocity_kernel(
 // [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r] x n_mat; psi: the derivatives
 // vx_x, vy_y, vz_z, vx_y, vy_x, vx_z, vz_x, vy_z, vz_y.
 template <bool VISCOUS, bool WITH_DFT, bool POINT>
-__global__ void visco_stress_kernel(
-    Ptr3 v, Ptr6 s, Ptr6 r, const int* __restrict__ idx,
-    const float* __restrict__ table, int n_mat, float* __restrict__ acc_c,
-    float* __restrict__ acc_s, float* __restrict__ peak, Ptr18 psi,
-    const float* __restrict__ prof_half, const float* __restrict__ prof_int,
-    float dt_dx, float inv_dx, float half_dt, float cosw, float sinw, Geo g,
-    long long pt, float sval) {
+__global__ void __launch_bounds__(kThreads, kStressMinBlocks)
+    visco_stress_kernel(Ptr3 v, Ptr6 s, Ptr6 r, const int* __restrict__ idx,
+                        const float* __restrict__ table, int n_mat,
+                        float* __restrict__ acc_c, float* __restrict__ acc_s,
+                        float* __restrict__ peak, Ptr18 psi,
+                        const float* __restrict__ prof_half,
+                        const float* __restrict__ prof_int, float dt_dx,
+                        float inv_dx, float half_dt, float cosw, float sinw,
+                        Geo g, int pt, float sval) {
   extern __shared__ float tab[];  // rows pi_u, mu_u, c_rp, c_rs, b_r
-  for (int m = threadIdx.x; m < 5 * n_mat; m += blockDim.x) {
+  for (int m = threadIdx.y * kTileZ + threadIdx.x; m < 5 * n_mat;
+       m += kThreads) {
     tab[m] = table[n_mat + m];
   }
   __syncthreads();
-  Cell q;
-  if (!locate(q, g)) return;
+  Col q;
+  if (!column(q, g)) return;
   const float* vx = v.p[0];
   const float* vy = v.p[1];
   const float* vz = v.p[2];
-  const long long c = q.c;
-  const int mi = idx[c];
-  const float pi_u = tab[mi];
-  const float mu_u = tab[n_mat + mi];
-  const float c_rp = tab[2 * n_mat + mi];
-  const float c_rs = tab[3 * n_mat + mi];
-  const float b_r = tab[4 * n_mat + mi];
-  const float vx_c = vx[c], vy_c = vy[c], vz_c = vz[c];
-
-  const float dvx_x = BB_D(0, false, vx, vx_c, 0);
-  const float dvy_y = BB_D(1, false, vy, vy_c, 1);
-  const float dvz_z = BB_D(2, false, vz, vz_c, 2);
-  const float theta = dvx_x + dvy_y + dvz_z;
-  const float dii[3] = {dvx_x, dvy_y, dvz_z};
-  float sn[6];
+  XWin<-2> wvx;  // vx: backward along x
+  XWin<-1> wvy;  // vy, vz: forward along x
+  XWin<-1> wvz;
+  wvx.start(vx, q, g.n1);
+  wvy.start(vy, q, g.n1);
+  wvz.start(vz, q, g.n1);
+  for (int i = q.i0; i < q.i1; ++i) {
+    // the next plane's cells (the windows' next entries) set off now
+    prefetch(vx, i + 2, q, g.n1);
+    prefetch(vy, i + 3, q, g.n1);
+    prefetch(vz, i + 3, q, g.n1);
+    prefetch(idx, i + 1, q, g.n1);
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float so = s.p[a][c];
-    const float el = pi_u * theta - 2.0f * mu_u * (theta - dii[a]);
-    if (VISCOUS) {
-      const float ro = r.p[a][c];
-      const float phi = c_rp * theta - 2.0f * c_rs * (theta - dii[a]);
-      const float rn = b_r * ro - phi * inv_dx;
-      sn[a] = so + dt_dx * el + half_dt * (rn + ro);
-      r.p[a][c] = rn;
-    } else {
-      sn[a] = so + dt_dx * el;
+    for (int m = 0; m < 6; ++m) {
+      prefetch(s.p[m], i + 1, q, g.n1);
+      if (VISCOUS) prefetch(r.p[m], i + 1, q, g.n1);
     }
-    if (POINT && c == pt) sn[a] = sn[a] + sval;
-    s.p[a][c] = sn[a];
-  }
-
-  const float dvx_y = BB_D(1, true, vx, vx_c, 3);
-  const float dvy_x = BB_D(0, true, vy, vy_c, 4);
-  const float dvx_z = BB_D(2, true, vx, vx_c, 5);
-  const float dvz_x = BB_D(0, true, vz, vz_c, 6);
-  const float dvy_z = BB_D(2, true, vy, vy_c, 7);
-  const float dvz_y = BB_D(1, true, vz, vz_c, 8);
-  const float e[3] = {dvx_y + dvy_x, dvx_z + dvz_x, dvy_z + dvz_y};
+    if (WITH_DFT) {
+      prefetch(acc_c, i + 1, q, g.n1);
+      prefetch(acc_s, i + 1, q, g.n1);
+      prefetch(peak, i + 1, q, g.n1);
+    }
+    wvx.advance(vx, i, q, g.n1);
+    wvy.advance(vy, i, q, g.n1);
+    wvz.advance(vz, i, q, g.n1);
+    const int c = i * q.plane + q.jk;
+    const int mi = __ldg(idx + c);
+    const float pi_u = tab[mi];
+    const float mu_u = tab[n_mat + mi];
+    const float c_rp = tab[2 * n_mat + mi];
+    const float c_rs = tab[3 * n_mat + mi];
+    const float b_r = tab[4 * n_mat + mi];
+    // every load of the plane before the first store, so that they can be
+    // in flight together: the old state, then the differences
+    float so[6], ro[6], ac = 0.0f, as = 0.0f, pk = 0.0f;
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float so = s.p[3 + a][c];
-    if (VISCOUS) {
-      const float ro = r.p[3 + a][c];
-      const float rn = b_r * ro - c_rs * e[a] * inv_dx;
-      sn[3 + a] = so + dt_dx * mu_u * e[a] + half_dt * (rn + ro);
-      r.p[3 + a][c] = rn;
-    } else {
-      sn[3 + a] = so + dt_dx * mu_u * e[a];
+    for (int a = 0; a < 6; ++a) {
+      so[a] = s.p[a][c];
+      if (VISCOUS) ro[a] = r.p[a][c];
     }
-    s.p[3 + a][c] = sn[3 + a];
-  }
-  if (WITH_DFT) {
-    const float p = -(sn[0] + sn[1] + sn[2]) * kThird;
-    acc_c[c] = acc_c[c] + p * cosw;
-    acc_s[c] = acc_s[c] + p * sinw;
-    peak[c] = fmaxf(peak[c], fabsf(p));
+    if (WITH_DFT) {
+      ac = acc_c[c];
+      as = acc_s[c];
+      pk = peak[c];
+    }
+    const auto at = [&](const float* f) {
+      return Plane{f, c, q.j, q.k, g.n2, g.n3};
+    };
+    const float dvy_y = diff_yz<1, false>(at(vy));
+    const float dvz_z = diff_yz<2, false>(at(vz));
+    const float dvx_y = diff_yz<1, true>(at(vx));
+    const float dvx_z = diff_yz<2, true>(at(vx));
+    const float dvy_z = diff_yz<2, true>(at(vy));
+    const float dvz_y = diff_yz<1, true>(at(vz));
+    const Cpml cp{psi, prof_half, prof_int, g, q, i};
+    const float dii[3] = {cp.apply<0, false, 0>(wvx.diff()),
+                          cp.apply<1, false, 1>(dvy_y),
+                          cp.apply<2, false, 2>(dvz_z)};
+    // shear strains: exy, exz, eyz
+    const float e[3] = {
+        cp.apply<1, true, 3>(dvx_y) + cp.apply<0, true, 4>(wvy.diff()),
+        cp.apply<2, true, 5>(dvx_z) + cp.apply<0, true, 6>(wvz.diff()),
+        cp.apply<2, true, 7>(dvy_z) + cp.apply<1, true, 8>(dvz_y)};
+    const float theta = dii[0] + dii[1] + dii[2];
+    float sn[6];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float el = pi_u * theta - 2.0f * mu_u * (theta - dii[a]);
+      if (VISCOUS) {
+        const float phi = c_rp * theta - 2.0f * c_rs * (theta - dii[a]);
+        const float rn = b_r * ro[a] - phi * inv_dx;
+        sn[a] = so[a] + dt_dx * el + half_dt * (rn + ro[a]);
+        r.p[a][c] = rn;
+      } else {
+        sn[a] = so[a] + dt_dx * el;
+      }
+      if (POINT && c == pt) sn[a] = sn[a] + sval;
+      s.p[a][c] = sn[a];
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      if (VISCOUS) {
+        const float rn = b_r * ro[3 + a] - c_rs * e[a] * inv_dx;
+        sn[3 + a] =
+            so[3 + a] + dt_dx * mu_u * e[a] + half_dt * (rn + ro[3 + a]);
+        r.p[3 + a][c] = rn;
+      } else {
+        sn[3 + a] = so[3 + a] + dt_dx * mu_u * e[a];
+      }
+      s.p[3 + a][c] = sn[3 + a];
+    }
+    if (WITH_DFT) {
+      const float p = -(sn[0] + sn[1] + sn[2]) * kThird;
+      acc_c[c] = ac + p * cosw;
+      acc_s[c] = as + p * sinw;
+      peak[c] = fmaxf(pk, fabsf(p));
+    }
   }
 }
-#undef BB_D
 
 template <int N, typename T>
 T gather(float* const* host) {
@@ -245,20 +417,47 @@ T gather(float* const* host) {
   return out;
 }
 
+// true if `blocks` tiles of `tile` cells cover [0, n) and each holds a cell
+bool covers(int blocks, int tile, int n) {
+  return blocks >= 1 && (long long)blocks * tile >= n &&
+         (long long)(blocks - 1) * tile < n;
+}
+
+// the launch grid (z-tiles, y-tiles, x-segments) the wrapper chose, or false
+// if it does not cover the grid once with the compiled tile or the grid
+// holds too many cells for 32-bit offsets
+bool launch_grid(const Geo& g, int tile_y, int gz, int gy, int gx,
+                 dim3& grid) {
+  if ((long long)g.n1 * g.n2 * g.n3 >= (1LL << 31)) return false;
+  if (tile_y != kTileY || g.seg < 1 || !covers(gz, kTileZ, g.n3) ||
+      !covers(gy, kTileY, g.n2) || !covers(gx, g.seg, g.n1)) {
+    return false;
+  }
+  grid = dim3(gz, gy, gx);
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
 
-// s6, v3, psi18: host arrays of device pointers (see the kernels)
+// s6, v3, psi18: host arrays of device pointers (see the kernels); tile_y,
+// seg and the grid (gz, gy, gx) blocks along (z, y, x): the launch geometry
+// (ops/fdtd_visco_kernels.py visco_launch_geometry; tile_y must be the
+// compiled 8)
 int bb_visco_velocity(float* const* s6, float* const* v3, const int* idx,
                       const float* table, float* const* psi18,
                       const float* prof_half, const float* prof_int,
                       const float* amp, const float* cph, const float* sph,
                       float s_sin, float s_cos, float dt_dx, int n_mat,
-                      int n1, int n2, int n3, int ns, int zsrc,
-                      void* stream) {
-  const Geo g{n1, n2, n3, ns};
-  visco_velocity_kernel<<<n_blocks(n1, n2, n3), kThreads,
+                      int n1, int n2, int n3, int ns, int zsrc, int tile_y,
+                      int seg, int gz, int gy, int gx, void* stream) {
+  const Geo g{n1, n2, n3, ns, seg};
+  dim3 grid;
+  if (!launch_grid(g, tile_y, gz, gy, gx, grid)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  visco_velocity_kernel<<<grid, dim3(kTileZ, kTileY),
                           n_mat * sizeof(float), (cudaStream_t)stream>>>(
       gather<6, Ptr6>(s6), gather<3, Ptr3>(v3), idx, table, n_mat,
       gather<18, Ptr18>(psi18), prof_half, prof_int, amp, cph, sph, s_sin,
@@ -273,17 +472,23 @@ int bb_visco_stress(float* const* v3, float* const* s6, float* const* r6,
                     float dt_dx, float inv_dx, float half_dt, float cosw,
                     float sinw, int n_mat, int n1, int n2, int n3, int ns,
                     int viscous, int with_dft, int point, long long pt,
-                    float sval, void* stream) {
-  const Geo g{n1, n2, n3, ns};
-  const unsigned int nb = n_blocks(n1, n2, n3);
+                    float sval, int tile_y, int seg, int gz, int gy, int gx,
+                    void* stream) {
+  const Geo g{n1, n2, n3, ns, seg};
+  dim3 grid;
+  if (!launch_grid(g, tile_y, gz, gy, gx, grid)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 block(kTileZ, kTileY);
   const size_t smem = 5 * n_mat * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
 #define BB_STRESS_ARGS                                                     \
   gather<3, Ptr3>(v3), gather<6, Ptr6>(s6), gather<6, Ptr6>(r6), idx,      \
       table, n_mat, acc_c, acc_s, peak, gather<18, Ptr18>(psi18),          \
-      prof_half, prof_int, dt_dx, inv_dx, half_dt, cosw, sinw, g, pt, sval
+      prof_half, prof_int, dt_dx, inv_dx, half_dt, cosw, sinw, g, (int)pt, \
+      sval
 #define BB_GO(V, D, P) \
-  visco_stress_kernel<V, D, P><<<nb, kThreads, smem, st>>>(BB_STRESS_ARGS)
+  visco_stress_kernel<V, D, P><<<grid, block, smem, st>>>(BB_STRESS_ARGS)
 #define BB_GO_POINT(V, D) \
   if (point) BB_GO(V, D, true); else BB_GO(V, D, false)
   if (viscous && with_dft) {

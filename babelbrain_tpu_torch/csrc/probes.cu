@@ -14,7 +14,10 @@
 //     (:75, y = x + 1)                         -> stream_kernel.
 //
 // What bounds them: stream_kernel is the HBM bound itself (4 B read and 4 B
-// written an element, coalesced). fma_chain_kernel is bound by FP32
+// written an element). Each thread moves kStreamVec float4s, 16-byte loads
+// and stores at a stride of the block (coalesced), all loads issued before
+// the first store, so few threads keep many bytes in flight; the n mod 4
+// tail goes element by element. fma_chain_kernel is bound by FP32
 // operations: eight independent chains a thread give the FMA pipe enough
 // independent work to hide its latency, and __fmaf_rn is written out because
 // the library is built with --fmad=false, which would otherwise split
@@ -32,13 +35,34 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kStreamVec = 4;  // float4s a thread
 constexpr int kChains = 8;
 constexpr float kMul = 1.000001f;
 
+// y = x + 1 over n floats; x and y 16-byte aligned
 __global__ void stream_kernel(const float* __restrict__ x,
                               float* __restrict__ y, long long n) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < n) y[i] = x[i] + 1.0f;
+  const long long n4 = n / 4;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* y4 = reinterpret_cast<float4*>(y);
+  const long long e0 =
+      (long long)blockIdx.x * kThreads * kStreamVec + threadIdx.x;
+  float4 v[kStreamVec];
+#pragma unroll
+  for (int u = 0; u < kStreamVec; ++u) {
+    const long long e = e0 + u * kThreads;
+    if (e < n4) v[u] = x4[e];
+  }
+#pragma unroll
+  for (int u = 0; u < kStreamVec; ++u) {
+    const long long e = e0 + u * kThreads;
+    if (e < n4) {
+      y4[e] = make_float4(v[u].x + 1.0f, v[u].y + 1.0f, v[u].z + 1.0f,
+                          v[u].w + 1.0f);
+    }
+  }
+  const long long t = 4 * n4 + e0;  // the tail, in block 0
+  if (blockIdx.x == 0 && t < n) y[t] = x[t] + 1.0f;
 }
 
 // a_j = x * scale[j]; rep times a_j = fma(a_j, 1.000001f, x); out = sum a_j
@@ -81,9 +105,12 @@ __global__ void table_gather_kernel(const int* __restrict__ idx,
 
 extern "C" {
 
+// x, y: 16-byte aligned (the wrapper checks)
 int bb_stream(const float* x, float* y, long long n, void* stream) {
-  const unsigned int nb = (unsigned int)((n + kThreads - 1) / kThreads);
-  stream_kernel<<<nb, kThreads, 0, (cudaStream_t)stream>>>(x, y, n);
+  const long long per_block = kThreads * kStreamVec;  // float4s
+  const long long nb = (n / 4 + per_block - 1) / per_block;
+  stream_kernel<<<(unsigned int)(nb > 0 ? nb : 1), kThreads, 0,
+                  (cudaStream_t)stream>>>(x, y, n);
   return (int)cudaGetLastError();
 }
 

@@ -50,8 +50,9 @@ _SIGNATURES = {
     "bb_fluid_velocity": [_P] * 15 + [_F, _F, _F] + [_I] * 5 + [_P],
     "bb_fluid_pressure": [_P] * 18 + [_F] * 5 + [_I] * 7 + [_L, _F, _P],
     "bb_bhte_step": [_P] * 13 + [_F] + [_I] * 3 + [_P],
-    "bb_visco_velocity": [_P] * 10 + [_F] * 3 + [_I] * 6 + [_P],
-    "bb_visco_stress": [_P] * 11 + [_F] * 5 + [_I] * 8 + [_L, _F, _P],
+    "bb_visco_velocity": [_P] * 10 + [_F] * 3 + [_I] * 11 + [_P],
+    "bb_visco_stress": [_P] * 11 + [_F] * 5 + [_I] * 8 + [_L, _F] + [_I] * 5
+    + [_P],
     "bb_velocity_volume_source": [_P] * 10 + [_F, _F, _I, _P],
     "bb_extras_accumulate": [_P, _P, _I, _I, _L, _P],
     "bb_monitor_gather": [_P, _P, _P, _I, _I, _P],

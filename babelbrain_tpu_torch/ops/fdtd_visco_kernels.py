@@ -54,6 +54,44 @@ plain_calls = dict.fromkeys(_KEYS, 0)
 # the stress kernel keeps five table rows in (static-size) shared memory
 MAX_MATERIALS = 48 * 1024 // (5 * 4)
 
+# Launch geometry of the kernels (csrc/fdtd_visco.cu): a block of TILE_Z x
+# TILE_Y threads owns a (y, z) tile of columns and marches along x over a
+# segment of at most SEGMENT_PLANES planes. TILE_Z is one warp along z (128
+# contiguous bytes); TILE_Y is compiled into the kernels; SEGMENT_PLANES was
+# chosen on an H100 (PERF.md): short segments give the grid many waves of
+# blocks.
+TILE_Z = 32
+TILE_Y = 8
+SEGMENT_PLANES = 8
+
+
+@dataclass(frozen=True)
+class LaunchGeometry:
+    """``tile_y`` threads along y (and ``TILE_Z`` along z) a block;
+    ``segment`` x-planes a block marches; ``grid`` the blocks along
+    (z, y, x), as the wrappers launch it."""
+
+    tile_y: int
+    segment: int
+    grid: tuple
+
+    def planes(self, s: int, n1: int) -> range:
+        """The x-planes segment ``s`` updates."""
+        return range(s * self.segment, min((s + 1) * self.segment, n1))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def visco_launch_geometry(shape) -> LaunchGeometry:
+    """The launch geometry of both kernels on an (N1, N2, N3) grid."""
+    n1, n2, n3 = shape
+    seg = _cdiv(n1, _cdiv(n1, SEGMENT_PLANES))  # shortest for that many
+    return LaunchGeometry(TILE_Y, seg,
+                          (_cdiv(n3, TILE_Z), _cdiv(n2, TILE_Y), _cdiv(n1, seg)))
+
+
 # CPML'd derivatives of each kernel, as (field, axis, forward?): a forward
 # difference (d_plus) takes the "half" profiles, a backward one the "int"
 VELOCITY_DERIVS = (
@@ -192,6 +230,15 @@ def _check(st: ViscoState, co: ViscoCoeffs) -> tuple:
     return shape, ns
 
 
+def _check_size(shape) -> None:
+    """The kernels index cells with 32-bit offsets (the plain versions have
+    no such limit)."""
+    n1, n2, n3 = shape
+    if n1 * n2 * n3 >= 2**31:
+        raise ValueError(f"visco step: grid {tuple(shape)} too large for "
+                         "the kernels' 32-bit cell offsets")
+
+
 def _ptrs(tensors) -> ctypes.Array:
     """Host array of device pointers (the kernels' pointer-list arguments)."""
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
@@ -205,13 +252,16 @@ def visco_velocity(st: ViscoState, co: ViscoCoeffs, s_sin: float,
     if st.vx.device.type == "cpu":
         visco_velocity_ref(st, co, s_sin, s_cos)
         return
+    _check_size((n1, n2, n3))
+    geo = visco_launch_geometry((n1, n2, n3))
     lib = _build.library()
     rc = lib.bb_visco_velocity(
         _ptrs(st.fields(STRESSES)), _ptrs(st.fields(("vx", "vy", "vz"))),
         _ptr(co.mat_idx), _ptr(co.table), _ptrs(st.psi_s),
         _ptr(co.cpml_half), _ptr(co.cpml_int), _ptr(co.src_amp),
         _ptr(co.src_cph), _ptr(co.src_sph), s_sin, s_cos, co.dt_dx,
-        co.table.shape[1], n1, n2, n3, ns, co.zsrc, _stream(),
+        co.table.shape[1], n1, n2, n3, ns, co.zsrc, geo.tile_y, geo.segment,
+        *geo.grid, _stream(),
     )
     _build.check(rc, "visco_velocity_kernel")
     launches["visco_velocity"] += 1
@@ -229,7 +279,9 @@ def visco_stress(st: ViscoState, co: ViscoCoeffs, cosw: float | None = None,
     if st.vx.device.type == "cpu":
         visco_stress_ref(st, co, cosw, sinw, point)
         return
+    _check_size((n1, n2, n3))
     pt, sval = point if point is not None else (0, 0.0)
+    geo = visco_launch_geometry((n1, n2, n3))
     lib = _build.library()
     rc = lib.bb_visco_stress(
         _ptrs(st.fields(("vx", "vy", "vz"))), _ptrs(st.fields(STRESSES)),
@@ -238,7 +290,8 @@ def visco_stress(st: ViscoState, co: ViscoCoeffs, cosw: float | None = None,
         _ptr(co.cpml_half), _ptr(co.cpml_int), co.dt_dx, co.inv_dx,
         co.half_dt, cosw if with_dft else 0.0, sinw if with_dft else 0.0,
         co.table.shape[1], n1, n2, n3, ns, int(co.viscous), int(with_dft),
-        int(point is not None), pt, sval, _stream(),
+        int(point is not None), pt, sval, geo.tile_y, geo.segment,
+        *geo.grid, _stream(),
     )
     _build.check(rc, "visco_stress_kernel")
     launches[pressure_key("visco_stress", with_dft, point)] += 1

@@ -77,6 +77,9 @@ def stream(x: torch.Tensor, out: torch.Tensor) -> None:
     if dev.type == "cpu":
         stream_ref(x, out)
         return
+    if x.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("stream: the kernel moves 16-byte vectors; x and "
+                         "out must be 16-byte aligned")
     rc = _build.library().bb_stream(_ptr(x), _ptr(out), x.numel(), _stream())
     _build.check(rc, "stream_kernel")
     launches["stream"] += 1

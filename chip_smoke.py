@@ -24,9 +24,12 @@ Phases (each prints its own lines; any failed check exits nonzero):
              RMS / peak maps and the monitor gather at 4096 seeded voxels
              and over every voxel) on the fluid and visco plane-source
              states; the probe kernels (stream over 128 MB, the FMA chain,
-             the CT table's gather over every voxel). Kernels of a few
-             microseconds are timed from a CUDA graph; where one PyTorch
-             call computes the same function it is timed beside them;
+             the CT table's gather over every voxel), and the
+             viscoelastic pair again, bit for bit in every field, for 40
+             steps on a ragged 27x45x47 grid (see ``RAGGED_SHAPE``).
+             Kernels of a few microseconds are timed from a CUDA graph;
+             where one PyTorch call computes the same function it is
+             timed beside them;
 4. slices  — the main paths on a procedural digital head, each with every
              kernel count set to 0 just before and read just after: with
              the CTX_500 transducer at 500 kHz / 6 PPW, CT mode (Step 1 ->
@@ -143,6 +146,45 @@ def build():
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[build] {line.strip()}")
+    for name, res in visco_resources(_build.build_log):
+        print(f"[build] {name}: {res['registers']} registers, "
+              f"{res['spill']} bytes spilled (stores + loads), "
+              f"{res['stack']} bytes stack, {res['smem']} bytes static shared "
+              f"memory (+ the material table, dynamic)")
+
+
+def visco_resources(log):
+    """[(kernel<template arguments>, {registers, spill, stack, smem})] of
+    the visco kernels, from nvcc's ``-Xptxas -v`` log."""
+    import re
+
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(visco_[a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?",
+                          m.group(1))
+            name = k and k.group(1) + (
+                "<" + ", ".join(re.findall(r"L[ib](\d+)E", k.group(2))) + ">"
+                if k.group(2) else "")
+            if name:
+                out.append((name, dict(registers=None, spill=0, stack=0,
+                                       smem=0)))
+            continue
+        if name is None:
+            continue
+        res = out[-1][1]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            res["stack"] = int(m.group(1))
+            res["spill"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            res["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            res["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -480,10 +522,12 @@ def label_index_volume(shape):
     return idx
 
 
-def visco_case(shape, n_steps, sensor_start, source, device):
+def visco_case(shape, n_steps, sensor_start, source, device, zsrc=13,
+               source_ijk=None):
     """(grid, coefficients, point amplitude, volume source, oz, number of
     materials) of the kernel phase's viscoelastic runs: the label-mode
-    materials in layers and a ``source`` drive."""
+    materials in layers and a ``source`` drive (the plane at ``zsrc``, the
+    point at ``source_ijk``, by default the centre)."""
     from babelbrain_tpu_torch.ops import fdtd as F
     from babelbrain_tpu_torch.pipeline.domain import (
         build_label_materials,
@@ -495,8 +539,8 @@ def visco_case(shape, n_steps, sensor_start, source, device):
     cmax = max(mats[:, 1].max(), mats[:, 2].max())
     grid = F.FDTDGrid(shape=shape, dx=dx, dt=dt, n_steps=n_steps,
                       frequency=F0, sensor_start=sensor_start,
-                      source_plane_z=13, source_type=SOURCE_TYPES[source],
-                      source_ijk=tuple(n // 2 for n in shape))
+                      source_plane_z=zsrc, source_type=SOURCE_TYPES[source],
+                      source_ijk=source_ijk or tuple(n // 2 for n in shape))
     coefs = F.sls_coefficients(mats, F0, dt)
     idx, table = F._build_indexed_materials(coefs, label_index_volume(shape),
                                             None)
@@ -602,6 +646,64 @@ def check_visco(shape=KERNEL_SHAPE, n_steps=VISCO_STEPS,
                   f"{step_p:.4f} ms/step ({cells / step_p / 1e3:.1f} "
                   f"Mcell-updates/s)")
     return errs, times
+
+
+# A ragged grid for the visco kernels' tiling: N3 not a multiple of the
+# 32-wide z-tile, N2 not one of the y-tile, N1 < 2 ns (the lo and hi x-CPML
+# slabs overlap inside a segment); RAGGED_STEPS steps across the window start
+RAGGED_SHAPE = (27, 45, 47)
+RAGGED_STEPS, RAGGED_SENSOR_START = 40, 20
+
+
+def state_diff(st_k, st_p):
+    """(field, max abs diff) of every tensor and psi slab of two fluid or
+    visco states that differ bit for bit."""
+    bad = []
+    for name, a in vars(st_k).items():
+        b = getattr(st_p, name)
+        for x, y in (zip(a, b) if isinstance(a, list) else [(a, b)]):
+            e = _equal(x, y)
+            if e:
+                bad.append((name, e))
+    return bad
+
+
+def check_visco_ragged(device="cuda"):
+    """The visco kernels against their plain versions at ``RAGGED_SHAPE``,
+    bit for bit in every field: a plane source at z = 32 (a z-tile edge),
+    then a stress point on a (y, z) tile corner at the first plane of the
+    second x-segment. Returns the difference (0) keyed by kernel row."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
+
+    geo = V.visco_launch_geometry(RAGGED_SHAPE)
+    corner = (geo.segment, geo.tile_y, V.TILE_Z)
+    rows = {"plane": ("visco_velocity", "visco_stress", "visco_stress_dft"),
+            "point": ("visco_stress_point", "visco_stress_point_dft")}
+    errs = {}
+    for source, names in rows.items():
+        grid, co, pamp, _, oz, _ = visco_case(
+            RAGGED_SHAPE, RAGGED_STEPS, RAGGED_SENSOR_START, source, device,
+            zsrc=V.TILE_Z, source_ijk=corner)
+        st_k = V.ViscoState.zeros(RAGGED_SHAPE, 14, device)
+        st_p = V.ViscoState.zeros(RAGGED_SHAPE, 14, device)
+        for n in range(RAGGED_STEPS):
+            F.visco_step(st_k, co, grid, n, oz, pamp)
+            plain_step(st_p, co, grid, n, oz, pamp)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        bad = state_diff(st_k, st_p)
+        peak = float(st_p.peak.max())
+        what = (f"stress point at {corner}" if source == "point"
+                else f"plane source at z = {V.TILE_Z}")
+        print(f"[kernels] visco {RAGGED_SHAPE} (launch {geo}), {what}, "
+              f"{RAGGED_STEPS} steps (window from {RAGGED_SENSOR_START}): "
+              f"peak |p| {peak:.6g} Pa; fields differing from plain {bad}")
+        if bad or not np.isfinite(peak) or peak <= 0:
+            fail(f"visco kernels at {RAGGED_SHAPE} ({source} source) differ "
+                 f"from their plain versions: {bad}; peak {peak}")
+        errs.update(dict.fromkeys(names, 0.0))
+    return errs, {}
 
 
 def check_bhte(shape=KERNEL_SHAPE, n_steps=BHTE_STEPS,
@@ -1000,17 +1102,12 @@ def check_slice_inputs(tag, dom, grid, point_amp=0.0, volume_source=None,
     if device == "cuda":
         torch.cuda.synchronize()
     launches, _ = read_counts()
-    pairs = [(name, a, getattr(st_p, name)) for name, a in vars(st_k).items()]
+    bad = state_diff(st_k, st_p)
     if diags:
-        pairs += [(k, a, diags[1].extras.acc[k])
-                  for k, a in diags[0].extras.acc.items()]
+        pairs = [(k, a, diags[1].extras.acc[k])
+                 for k, a in diags[0].extras.acc.items()]
         pairs.append(("sensor_series", diags[0].series, diags[1].series))
-    bad = []
-    for name, a, b in pairs:
-        for x, y in (zip(a, b) if isinstance(a, list) else [(a, b)]):
-            e = _equal(x, y)
-            if e:
-                bad.append((name, e))
+        bad += [(name, e) for name, a, b in pairs if (e := _equal(a, b))]
     peak = float(st_p.peak.max())
     what = (f"{vsrc.n_src} source voxels" if vsrc is not None
             else f"stress point at {grid.source_ijk}" if point_amp
@@ -1537,7 +1634,7 @@ def main():
     for check, source in ((check_fluid, "plane"), (check_fluid, "point"),
                           (check_fluid, "volume"), (check_visco, "plane"),
                           (check_visco, "point"), (check_visco, "volume"),
-                          (check_bhte, None)):
+                          (check_visco_ragged, None), (check_bhte, None)):
         e, t = check() if source is None else check(source=source)
         for k, v in e.items():  # the scatter is checked in both families
             errs[k] = max(errs.get(k, 0.0), v)

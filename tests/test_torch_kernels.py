@@ -101,10 +101,26 @@ def test_fluid_wrapper_rejects_mixed_devices(cuda):
         K.fluid_velocity(st, co, 0.0, 0.0)
 
 
+# Grids for the visco kernels' tiling (TILE_Z x TILE_Y columns a block,
+# segments of x-planes), with the plane source's z: the grid of the other
+# tests; N3 and N2 off the tile sizes, N1 = 27 < 2 ns (the lo and hi x-CPML
+# slabs overlap inside a segment) and the plane on a z-tile edge; N1 = 37,
+# which no segment length divides, and the plane on the other side of it.
+VISCO_GRIDS = [((36, 40, 56), 13), ((27, 45, 47), V.TILE_Z),
+               ((37, 41, 57), V.TILE_Z - 1)]
+
+
+def _tile_corner(shape):
+    """A cell on a (y, z) tile corner at the first plane of the second
+    x-segment of the kernels' launch geometry."""
+    geo = V.visco_launch_geometry(shape)
+    return (geo.segment, geo.tile_y, V.TILE_Z)
+
+
+@pytest.mark.parametrize("shape,zsrc", VISCO_GRIDS)
 @pytest.mark.parametrize("viscous,reflector", [(True, False), (True, True),
                                                (False, False)])
-def test_visco_kernels_match_plain(cuda, viscous, reflector):
-    shape = (36, 40, 56)
+def test_visco_kernels_match_plain(cuda, viscous, reflector, shape, zsrc):
     mats = material_array(F0, tissues=("Water", "Skin", "Cortical",
                                        "Trabecular", "Brain"))
     if not viscous:
@@ -114,10 +130,10 @@ def test_visco_kernels_match_plain(cuda, viscous, reflector):
     ppp = int(np.ceil(1 / F0 / F.stable_dt(dx, cmax, 0.5)))
     dt = 1 / F0 / ppp
     grid = F.FDTDGrid(shape=shape, dx=dx, dt=dt, n_steps=60, frequency=F0,
-                      sensor_start=40, source_plane_z=13)
+                      sensor_start=40, source_plane_z=zsrc)
     idx = np.zeros(shape, np.uint8)
     for label, (z0, z1) in {1: (18, 22), 2: (22, 25), 3: (25, 30),
-                            4: (33, 56)}.items():
+                            4: (33, shape[2])}.items():
         idx[:, :, z0:z1] = label
     idx[:, :, 30:33] = 2
     refl = None
@@ -156,6 +172,39 @@ def test_visco_kernels_match_plain(cuda, viscous, reflector):
                                    rtol=0, atol=0, msg=name)
     for a, b in zip(st_k.psi_s + st_k.psi_v, st_p.psi_s + st_p.psi_v):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_visco_entry_points_refuse_a_grid_off_the_volume(cuda, monkeypatch):
+    """The kernels launch the grid the wrapper passes; one that leaves cells
+    out or holds a block without a cell is refused before any launch."""
+    shape = (27, 45, 47)
+    mats = material_array(F0, tissues=("Water", "Skin", "Cortical",
+                                       "Trabecular", "Brain"))
+    dx = 1102.5 / F0 / 6
+    cmax = mats[:, 1].max()
+    dt = 1 / F0 / int(np.ceil(1 / F0 / F.stable_dt(dx, cmax, 0.5)))
+    grid = F.FDTDGrid(shape=shape, dx=dx, dt=dt, n_steps=10, frequency=F0,
+                      sensor_start=5, source_plane_z=13)
+    coefs = F.sls_coefficients(mats, F0, dt)
+    mi, table = F._build_indexed_materials(coefs, np.zeros(shape, np.uint8),
+                                           None)
+    prof = F._build_cpml_profiles_np(shape, 12, dx, dt, cmax, 1e-5)
+    plane = np.zeros(shape[:2])
+    co = F.make_visco_coeffs(mi, table, prof, plane, plane, grid,
+                             coefs["viscous"], cuda)
+    st = V.ViscoState.zeros(shape, 14, cuda)
+    good = V.visco_launch_geometry(shape)
+    nz, ny, nx = good.grid
+    before = dict(V.launches)
+    for bad in ((nz, ny, nx - 1), (nz, ny - 1, nx), (nz + 1, ny, nx),
+                (nz, ny, nx + 1)):
+        geo = V.LaunchGeometry(good.tile_y, good.segment, bad)
+        monkeypatch.setattr(V, "visco_launch_geometry", lambda s, g=geo: g)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            V.visco_velocity(st, co, 0.0, 0.0)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            V.visco_stress(st, co)
+    assert V.launches == before
 
 
 def _shell(shape, device):
@@ -219,17 +268,21 @@ def test_fluid_point_and_volume_kernels_match_plain(cuda, source):
                                "acc_sin", "peak"), ("psi_p", "psi_v"))
 
 
+@pytest.mark.parametrize("shape", [(36, 40, 56), (27, 45, 47),
+                                   (37, 41, 57)])
 @pytest.mark.parametrize("source", ["stress_point", "velocity_volume"])
-def test_visco_point_and_volume_kernels_match_plain(cuda, source):
-    shape = (36, 40, 56)
+def test_visco_point_and_volume_kernels_match_plain(cuda, source, shape):
+    """On the first grid the point sits inside a tile; on the ragged ones
+    on a (y, z) tile corner at an x-segment boundary."""
     mats = material_array(F0, tissues=("Water", "Skin", "Cortical",
                                        "Trabecular", "Brain"))
     dx = 1102.5 / F0 / 6
     cmax = mats[:, 1].max()
     ppp = int(np.ceil(1 / F0 / F.stable_dt(dx, cmax, 0.5)))
+    ijk = (17, 21, 40) if shape == (36, 40, 56) else _tile_corner(shape)
     grid = F.FDTDGrid(shape=shape, dx=dx, dt=1 / F0 / ppp, n_steps=60,
                       frequency=F0, sensor_start=40, source_type=source,
-                      source_ijk=(17, 21, 40))
+                      source_ijk=ijk)
     idx = np.zeros(shape, np.uint8)
     idx[:, :, 25:32] = 2
     coefs = F.sls_coefficients(mats, F0, grid.dt)
@@ -432,3 +485,17 @@ def test_probe_kernels_match_plain(cuda):
     torch.testing.assert_close(f_k, f_p, rtol=0, atol=0)
     for g_k, g_p in gathers:
         torch.testing.assert_close(g_k, g_p, rtol=0, atol=0)
+
+
+def test_stream_kernel_ragged_length_and_alignment(cuda):
+    """The vectorised stream kernel on a length that is no multiple of its
+    float4s or of a block's share (the tail element by element), bit for
+    bit; a view off 16-byte alignment is refused before any launch."""
+    x = torch.rand((1 << 20) + 4 * 1000 + 3, device=cuda)
+    y_k, y_p = torch.empty_like(x), torch.empty_like(x)
+    P.stream(x, y_k)
+    P.stream_ref(x, y_p)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y_k, y_p, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="16-byte"):
+        P.stream(x[1:], y_k[1:])
