@@ -1,29 +1,53 @@
-// Fluid (shear-free) FDTD leapfrog step for NVIDIA Hopper (sm_90a).
+// Fluid (shear-free) FDTD leapfrog step for NVIDIA Hopper (sm_90a), with
+// indexed materials: CT mode.
 //
 // Replaces (TPU kernels of the JAX package):
 //   babelbrain_tpu/ops/fdtd_pallas.py build_fluid_pallas_step: vel_kernel
 //   and press_kernel (B1), and the velocity / pressure stages of
-//   build_fluid_fused2_step (B3) and build_fluid_fusedK_step (B4). B3 and
-//   B4 only block B1's update in time; K fused TPU steps are K launches of
-//   this pair here.
+//   build_fluid_fused_step (B2), build_fluid_fused2_step (B3) and
+//   build_fluid_fusedK_step (B4). B3 and B4 only block B1's update in time;
+//   K fused TPU steps are K launches of this pair here. The math is the XLA
+//   step of babelbrain_tpu/ops/fdtd.py:_make_fluid_step_fn.
 //
-// What bounds it on this card: device-memory traffic. Per cell and step the
-// velocity kernel reads p (+4 neighbours, mostly cache hits), rho_inv and the
-// three velocities and writes the velocities; the pressure kernel reads the
-// velocities (+ neighbours), p, r and three property volumes and writes p
-// and r, plus the DFT accumulators and the peak in the sensor window. That is
-// about 12 float volumes (quiet step) to 18 (window step) per step against a
-// handful of flops per byte: far below the card's flop/byte balance.
+// What bounds it on this card: device-memory traffic. Per cell and step,
+// counted from the code and leaving out the CPML psi slabs: the velocity
+// kernel reads p, the int32 material index and the three velocities and
+// writes the velocities (8 float-sized volumes); the pressure kernel reads
+// the velocities, the index, p and the SLS memory r and writes p and r (8),
+// plus 3 reads and 3 writes of the DFT accumulators and the peak inside the
+// sensor window (14). A handful of flops per byte: far below the card's
+// flop/byte balance.
 //
-// What the design does about it: one thread per cell, threadIdx.x along z
-// (the contiguous axis) so every warp reads and writes contiguous 128-byte
-// lines; neighbours come from global memory and the x/y neighbour planes of
-// a block are shared with nearby blocks through L1/L2. State is updated in
-// place (no second copy of any volume). The CPML psi memory lives only in
-// the boundary slabs (ns = npml + 2 planes per side and axis), as in the XLA
-// layout, so its traffic is O(npml / N). The quiet variant (before the DFT
-// window opens) skips the accumulator streams. Temporal blocking, shared-
-// memory tiling and TMA are later work.
+// What the design does about it (the visco pair's, with the helpers of
+// fdtd_stencil.cuh): a block of 32 x 8 threads owns a (y, z) tile of
+// columns and marches along x over a segment of two planes (the card's
+// choice: PERF.md); the grid is (z-tiles, y-tiles, x-segments) from
+// ops/fdtd_kernels.py fluid_launch_geometry. Each thread walks its (j, k)
+// column:
+//   - its own cells of plane i + 1 (index, velocities or p, r and the
+//     accumulators) and the x-window's next entry are loaded into registers
+//     while it computes plane i, before any store of plane i: latency
+//     rather than bytes held the first version of this design (the visco
+//     pair's, with an L2 prefetch of plane i + 1 instead) to 55% of its
+//     bound; an L2 prefetch on top of the register loads was measured
+//     slower at two-plane segments and is left out;
+//   - p (velocity kernel, forward) and vx (pressure kernel, backward) keep
+//     their x-window of four planes in registers; y/z neighbours come
+//     through L1; read-only fields through __ldg;
+//   - 32-bit in-plane offsets plus a plane offset; no division.
+// __launch_bounds__ caps the registers at 40 (1536 threads an SM; the
+// inviscid pressure kernels 32, with the DFT 48) without spills; 64 (1024
+// threads) was slower, 32 spills the viscous DFT variants.
+// z-neighbours from warp shuffles instead of L1 loads were slower too.
+//
+// Materials: the int32 index selects a column of the (6, M) table [rho_inv,
+// pi_u, mu_u, c_rp, c_rs, b_r] (reflector twins included), read through
+// __ldg (L1): the velocity kernel reads rho_inv, the pressure kernel pi_u
+// (and c_rp, b_r when viscous). Any table size the JAX path runs is taken.
+// A copy of those rows into shared memory at the start of each block was
+// measured slower at every register cap and segment length tried
+// (PERF.md): the copy per block and the L1 it takes cost more than the
+// gathers from L1 save.
 //
 // Point source (refocusing): POINT=true SUBTRACTS sval from the new pressure
 // of the one cell c == pt before the DFT and the peak read it, the XLA order
@@ -44,100 +68,153 @@
 
 namespace {
 
-using bb::cpml;
-using bb::d_minus;
-using bb::d_plus;
-using bb::kThreads;
-using bb::n_blocks;
+using namespace bb;
 
-__global__ void fluid_velocity_kernel(
-    const float* __restrict__ p, float* __restrict__ vx,
-    float* __restrict__ vy, float* __restrict__ vz,
-    const float* __restrict__ rho_inv,
-    float* __restrict__ psx_lo, float* __restrict__ psx_hi,
-    float* __restrict__ psy_lo, float* __restrict__ psy_hi,
-    float* __restrict__ psz_lo, float* __restrict__ psz_hi,
-    const float* __restrict__ prof,  // (3, 4, ns) "half" profiles
-    const float* __restrict__ amp, const float* __restrict__ cph,
-    const float* __restrict__ sph,  // (n1, n2) source planes
-    float s_sin, float s_cos, float dt_dx,
-    int n1, int n2, int n3, int ns, int zsrc) {
-  const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long sx = (long long)n2 * n3;
-  if (c >= sx * n1) return;
-  const int k = (int)(c % n3);
-  const long long ij = c / n3;
-  const int j = (int)(ij % n2);
-  const int i = (int)(ij / n2);
+constexpr int kMinBlocks = 6;  // 1536 threads an SM: 40 registers
+// the inviscid pressure kernels: without the DFT 2048 threads an SM (32
+// registers, no spills; faster than 40), with it 1280 (48: at 40 they
+// spill 16 bytes, the viscous ones do not)
+constexpr int kMinBlocksInviscid = 8;
+constexpr int kMinBlocksInviscidDft = 5;
 
-  const float pc = p[c];
-  float dx = d_plus(p, c, i, n1, sx, pc);
-  float dy = d_plus(p, c, j, n2, n3, pc);
-  float dz = d_plus(p, c, k, n3, 1, pc);
-  dx = cpml(dx, i, n1, ns, prof, psx_lo, psx_hi, (long long)j * n3 + k, sx);
-  dy = cpml(dy, j, n2, ns, prof + 4 * ns, psy_lo, psy_hi,
-            (long long)i * ns * n3 + k, n3);
-  dz = cpml(dz, k, n3, ns, prof + 8 * ns, psz_lo, psz_hi, ij * ns, 1);
+// table rows (ops/fdtd.py _build_indexed_materials)
+constexpr int kRhoInv = 0, kPiU = 1, kCRp = 3, kBR = 5;
 
-  const float ri = rho_inv[c];
-  vx[c] = vx[c] - dt_dx * ri * dx;
-  vy[c] = vy[c] - dt_dx * ri * dy;
-  float vzn = vz[c] - dt_dx * ri * dz;
-  if (k == zsrc) {
-    // CW plane source SETS vz where the plane amplitude is positive:
-    // amp sin(wt + phase) ramp oz = amp (sin(wt) cos(ph) + cos(wt) sin(ph))
-    const float a = amp[ij];
-    if (a > 0.0f) vzn = a * (s_sin * cph[ij] + s_cos * sph[ij]);
+// v_i -= dt/dx rho_inv (D+_i p + psi); then the CW plane source SETS vz at
+// zsrc where the plane amplitude is positive.
+// v: [vx, vy, vz]; psi: [lo, hi] of the derivatives p_x, p_y, p_z.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    fluid_velocity_kernel(const float* __restrict__ p, Ptr3 v,
+                          const int* __restrict__ idx,
+                          const float* __restrict__ table, int n_mat,
+                          Ptr6 psi, const float* __restrict__ prof_half,
+                          const float* __restrict__ amp,
+                          const float* __restrict__ cph,
+                          const float* __restrict__ sph, float s_sin,
+                          float s_cos, float dt_dx, Geo g, int zsrc) {
+  Col q;
+  if (!column(q, g)) return;
+  XWinAhead<-1> wp;  // p: forward along x
+  wp.start(p, q, g.n1);
+  // this column's own inputs of the next plane, loaded a plane ahead
+  int c = q.i0 * q.plane + q.jk;
+  int mi_n = __ldg(idx + c);
+  float vx_n = v.p[0][c], vy_n = v.p[1][c], vz_n = v.p[2][c];
+  for (int i = q.i0; i < q.i1; ++i) {
+    c = i * q.plane + q.jk;
+    const int mi = mi_n;
+    const float vx = vx_n, vy = vy_n, vz = vz_n;
+    if (i + 1 < q.i1) {  // every load of plane i + 1 before the stores of i
+      const int cn = c + q.plane;
+      mi_n = __ldg(idx + cn);
+      vx_n = v.p[0][cn];
+      vy_n = v.p[1][cn];
+      vz_n = v.p[2][cn];
+    }
+    wp.advance(p, i, q, g.n1);
+    const Plane pp{p, c, q.j, q.k, g.n2, g.n3};
+    const float dpy = diff_yz<1, true>(pp);
+    const float dpz = diff_yz<2, true>(pp);
+    const float ri = __ldg(table + kRhoInv * n_mat + mi);
+    const Cpml<Ptr6> cp{psi, prof_half, nullptr, g, q, i};
+    const float dx = cp.apply<0, true, 0>(wp.diff());
+    const float dy = cp.apply<1, true, 1>(dpy);
+    const float dz = cp.apply<2, true, 2>(dpz);
+    float vzn = vz - dt_dx * ri * dz;
+    if (q.k == zsrc) {
+      // amp sin(wt + phase) ramp oz = amp (sin(wt) cos(ph) + cos(wt) sin(ph))
+      const int ij = i * g.n2 + q.j;
+      const float a = __ldg(amp + ij);
+      if (a > 0.0f) {
+        vzn = a * (s_sin * __ldg(cph + ij) + s_cos * __ldg(sph + ij));
+      }
+    }
+    v.p[0][c] = vx - dt_dx * ri * dx;
+    v.p[1][c] = vy - dt_dx * ri * dy;
+    v.p[2][c] = vzn;
   }
-  vz[c] = vzn;
 }
 
-template <bool VISCOUS, bool WITH_DFT, bool POINT>
-__global__ void fluid_pressure_kernel(
-    const float* __restrict__ vx, const float* __restrict__ vy,
-    const float* __restrict__ vz, float* __restrict__ p,
-    float* __restrict__ r, const float* __restrict__ pi_u,
-    const float* __restrict__ c_rp, const float* __restrict__ b_r,
-    float* __restrict__ acc_c, float* __restrict__ acc_s,
-    float* __restrict__ peak,
-    float* __restrict__ psx_lo, float* __restrict__ psx_hi,
-    float* __restrict__ psy_lo, float* __restrict__ psy_hi,
-    float* __restrict__ psz_lo, float* __restrict__ psz_hi,
-    const float* __restrict__ prof,  // (3, 4, ns) "int" profiles
-    float dt_dx, float inv_dx, float half_dt, float cosw, float sinw,
-    int n1, int n2, int n3, int ns, long long pt, float sval) {
-  const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long sx = (long long)n2 * n3;
-  if (c >= sx * n1) return;
-  const int k = (int)(c % n3);
-  const long long ij = c / n3;
-  const int j = (int)(ij % n2);
-  const int i = (int)(ij / n2);
-
-  float dvx = d_minus(vx, c, i, n1, sx, vx[c]);
-  float dvy = d_minus(vy, c, j, n2, n3, vy[c]);
-  float dvz = d_minus(vz, c, k, n3, 1, vz[c]);
-  dvx = cpml(dvx, i, n1, ns, prof, psx_lo, psx_hi, (long long)j * n3 + k, sx);
-  dvy = cpml(dvy, j, n2, ns, prof + 4 * ns, psy_lo, psy_hi,
-             (long long)i * ns * n3 + k, n3);
-  dvz = cpml(dvz, k, n3, ns, prof + 8 * ns, psz_lo, psz_hi, ij * ns, 1);
-  const float theta = dvx + dvy + dvz;
-
-  float pn;
-  if (VISCOUS) {
-    const float ro = r[c];
-    const float rn = b_r[c] * ro - c_rp[c] * theta * inv_dx;
-    pn = p[c] - dt_dx * pi_u[c] * theta - half_dt * (rn + ro);
-    r[c] = rn;
-  } else {
-    pn = p[c] - dt_dx * pi_u[c] * theta;
+// the pressure kernel's inputs at one cell of a column, besides the
+// velocities: material index, p, r and the accumulators (as used)
+struct Own {
+  int mi;
+  float po, ro, ac, as, pk;
+  template <bool VISCOUS, bool WITH_DFT>
+  __device__ __forceinline__ void load(int c, const int* __restrict__ idx,
+                                       const float* p, const float* r,
+                                       const float* acc_c, const float* acc_s,
+                                       const float* peak) {
+    mi = __ldg(idx + c);
+    po = p[c];
+    ro = VISCOUS ? r[c] : 0.0f;
+    ac = WITH_DFT ? acc_c[c] : 0.0f;
+    as = WITH_DFT ? acc_s[c] : 0.0f;
+    pk = WITH_DFT ? peak[c] : 0.0f;
   }
-  if (POINT && c == pt) pn = pn - sval;
-  p[c] = pn;
-  if (WITH_DFT) {
-    acc_c[c] = acc_c[c] + pn * cosw;
-    acc_s[c] = acc_s[c] + pn * sinw;
-    peak[c] = fmaxf(peak[c], fabsf(pn));
+};
+
+// theta = sum of the CPML'd D-_i v_i; the SLS memory r (VISCOUS) and
+// p -= dt/dx pi_u theta + dt (r' + r)/2; with POINT the point source
+// subtracted from p at cell pt; with WITH_DFT the carrier DFT and |p| peak.
+// v: [vx, vy, vz]; psi: [lo, hi] of the derivatives vx_x, vy_y, vz_z.
+template <bool VISCOUS, bool WITH_DFT, bool POINT>
+__global__ void __launch_bounds__(
+    kThreads, VISCOUS ? kMinBlocks
+                      : WITH_DFT ? kMinBlocksInviscidDft : kMinBlocksInviscid)
+    fluid_pressure_kernel(Ptr3 v, float* __restrict__ p,
+                          float* __restrict__ r, const int* __restrict__ idx,
+                          const float* __restrict__ table, int n_mat,
+                          float* __restrict__ acc_c, float* __restrict__ acc_s,
+                          float* __restrict__ peak, Ptr6 psi,
+                          const float* __restrict__ prof_int, float dt_dx,
+                          float inv_dx, float half_dt, float cosw, float sinw,
+                          Geo g, int pt, float sval) {
+  Col q;
+  if (!column(q, g)) return;
+  const float* vx = v.p[0];
+  const float* vy = v.p[1];
+  const float* vz = v.p[2];
+  XWinAhead<-2> wvx;  // vx: backward along x
+  wvx.start(vx, q, g.n1);
+  // this column's own state of the next plane, loaded a plane ahead
+  Own nxt;
+  nxt.load<VISCOUS, WITH_DFT>(q.i0 * q.plane + q.jk, idx, p, r, acc_c, acc_s,
+                              peak);
+  for (int i = q.i0; i < q.i1; ++i) {
+    const int c = i * q.plane + q.jk;
+    const Own cur = nxt;
+    if (i + 1 < q.i1) {  // every load of plane i + 1 before the stores of i
+      nxt.load<VISCOUS, WITH_DFT>(c + q.plane, idx, p, r, acc_c, acc_s,
+                                  peak);
+    }
+    wvx.advance(vx, i, q, g.n1);
+    const float dvy = diff_yz<1, false>(Plane{vy, c, q.j, q.k, g.n2, g.n3});
+    const float dvz = diff_yz<2, false>(Plane{vz, c, q.j, q.k, g.n2, g.n3});
+    const int mi = cur.mi;
+    const float pi_u = __ldg(table + kPiU * n_mat + mi);
+    const Cpml<Ptr6> cp{psi, nullptr, prof_int, g, q, i};
+    const float dx = cp.apply<0, false, 0>(wvx.diff());
+    const float dy = cp.apply<1, false, 1>(dvy);
+    const float dz = cp.apply<2, false, 2>(dvz);
+    const float theta = dx + dy + dz;
+    float pn;
+    if (VISCOUS) {
+      const float c_rp = __ldg(table + kCRp * n_mat + mi);
+      const float b_r = __ldg(table + kBR * n_mat + mi);
+      const float rn = b_r * cur.ro - c_rp * theta * inv_dx;
+      pn = cur.po - dt_dx * pi_u * theta - half_dt * (rn + cur.ro);
+      r[c] = rn;
+    } else {
+      pn = cur.po - dt_dx * pi_u * theta;
+    }
+    if (POINT && c == pt) pn = pn - sval;
+    p[c] = pn;
+    if (WITH_DFT) {
+      acc_c[c] = cur.ac + pn * cosw;
+      acc_s[c] = cur.as + pn * sinw;
+      peak[c] = fmaxf(cur.pk, fabsf(pn));
+    }
   }
 }
 
@@ -145,39 +222,50 @@ __global__ void fluid_pressure_kernel(
 
 extern "C" {
 
-int bb_fluid_velocity(const float* p, float* vx, float* vy, float* vz,
-                      const float* rho_inv, float* psx_lo, float* psx_hi,
-                      float* psy_lo, float* psy_hi, float* psz_lo,
-                      float* psz_hi, const float* prof, const float* amp,
+// v3, psi6: host arrays of device pointers (see the kernels); tile_y, seg
+// and the grid (gz, gy, gx) blocks along (z, y, x): the launch geometry
+// (ops/fdtd_kernels.py fluid_launch_geometry; tile_y must be the compiled 8)
+int bb_fluid_velocity(const float* p, float* const* v3, const int* idx,
+                      const float* table, float* const* psi6,
+                      const float* prof_half, const float* amp,
                       const float* cph, const float* sph, float s_sin,
-                      float s_cos, float dt_dx, int n1, int n2, int n3,
-                      int ns, int zsrc, void* stream) {
-  fluid_velocity_kernel<<<n_blocks(n1, n2, n3), kThreads, 0,
+                      float s_cos, float dt_dx, int n_mat, int n1, int n2,
+                      int n3, int ns, int zsrc, int tile_y, int seg, int gz,
+                      int gy, int gx, void* stream) {
+  const Geo g{n1, n2, n3, ns, seg};
+  dim3 grid;
+  if (!launch_grid(g, tile_y, gz, gy, gx, grid)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  fluid_velocity_kernel<<<grid, dim3(kTileZ, kTileY), 0,
                           (cudaStream_t)stream>>>(
-      p, vx, vy, vz, rho_inv, psx_lo, psx_hi, psy_lo, psy_hi, psz_lo,
-      psz_hi, prof, amp, cph, sph, s_sin, s_cos, dt_dx, n1, n2, n3, ns,
-      zsrc);
+      p, gather<3, Ptr3>(v3), idx, table, n_mat, gather<6, Ptr6>(psi6),
+      prof_half, amp, cph, sph, s_sin, s_cos, dt_dx, g, zsrc);
   return (int)cudaGetLastError();
 }
 
-int bb_fluid_pressure(const float* vx, const float* vy, const float* vz,
-                      float* p, float* r, const float* pi_u,
-                      const float* c_rp, const float* b_r, float* acc_c,
-                      float* acc_s, float* peak, float* psx_lo,
-                      float* psx_hi, float* psy_lo, float* psy_hi,
-                      float* psz_lo, float* psz_hi, const float* prof,
+// as bb_fluid_velocity; the table rows pi_u (and c_rp, b_r when viscous)
+int bb_fluid_pressure(float* const* v3, float* p, float* r, const int* idx,
+                      const float* table, float* acc_c, float* acc_s,
+                      float* peak, float* const* psi6, const float* prof_int,
                       float dt_dx, float inv_dx, float half_dt, float cosw,
-                      float sinw, int n1, int n2, int n3, int ns,
+                      float sinw, int n_mat, int n1, int n2, int n3, int ns,
                       int viscous, int with_dft, int point, long long pt,
-                      float sval, void* stream) {
-  const unsigned int nb = n_blocks(n1, n2, n3);
+                      float sval, int tile_y, int seg, int gz, int gy, int gx,
+                      void* stream) {
+  const Geo g{n1, n2, n3, ns, seg};
+  dim3 grid;
+  if (!launch_grid(g, tile_y, gz, gy, gx, grid)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 block(kTileZ, kTileY);
   cudaStream_t st = (cudaStream_t)stream;
 #define BB_PRESSURE_ARGS                                                   \
-  vx, vy, vz, p, r, pi_u, c_rp, b_r, acc_c, acc_s, peak, psx_lo, psx_hi,  \
-      psy_lo, psy_hi, psz_lo, psz_hi, prof, dt_dx, inv_dx, half_dt, cosw, \
-      sinw, n1, n2, n3, ns, pt, sval
+  gather<3, Ptr3>(v3), p, r, idx, table, n_mat, acc_c, acc_s, peak,        \
+      gather<6, Ptr6>(psi6), prof_int, dt_dx, inv_dx, half_dt, cosw, sinw, \
+      g, (int)pt, sval
 #define BB_GO(V, D, P) \
-  fluid_pressure_kernel<V, D, P><<<nb, kThreads, 0, st>>>(BB_PRESSURE_ARGS)
+  fluid_pressure_kernel<V, D, P><<<grid, block, 0, st>>>(BB_PRESSURE_ARGS)
 #define BB_GO_POINT(V, D) \
   if (point) BB_GO(V, D, true); else BB_GO(V, D, false)
   if (viscous && with_dft) {

@@ -1,14 +1,149 @@
-// Stencil helpers shared by the FDTD kernels (fdtd_fluid.cu, fdtd_visco.cu):
-// the 4th-order staggered differences and the CPML slab correction, in the
-// operation order of the plain PyTorch versions (ops/fdtd_kernels.py d_plus,
-// d_minus, _cpml).
+// Device helpers shared by the FDTD kernels (fdtd_fluid.cu, fdtd_visco.cu):
+// the x-marching tile geometry, the 4th-order staggered differences from
+// register windows (x) and L1 loads (y, z), the CPML slab correction, and
+// the check of the launch grid the wrapper chose. Everything is written in
+// the operation order of the plain PyTorch versions (ops/fdtd_kernels.py
+// d_plus, d_minus, _cpml), so kernel and plain version round alike.
+//
+// Geometry: a block of kTileZ x kTileY threads owns a (y, z) tile of
+// columns (threadIdx.x along z, so each warp reads and writes 128
+// contiguous bytes) and marches along x over a segment of planes [i0, i1);
+// the grid is (z-tiles, y-tiles, x-segments), chosen by ops/fdtd_kernels.py
+// launch_geometry. Cells are addressed by 32-bit in-plane offsets plus a
+// plane offset, formed only for planes inside the grid (the wrappers keep
+// N1 N2 N3 below 2^31): no division.
 #pragma once
+
+#include <cuda_runtime.h>
 
 namespace bb {
 
 constexpr float kC1 = 1.125f;                 // 9/8
 constexpr float kC2 = -0.041666666666666664f;  // -1/24
-constexpr int kThreads = 256;
+constexpr int kTileZ = 32;  // threads along z: a warp covers 32 floats
+constexpr int kTileY = 8;   // threads along y
+constexpr int kThreads = kTileZ * kTileY;
+
+struct Ptr3 { float* p[3]; };
+struct Ptr6 { float* p[6]; };
+struct Ptr18 { float* p[18]; };  // 9 CPML'd derivatives: [lo, hi] each
+
+// a pointer list from a host array of device pointers
+template <int N, typename T>
+T gather(float* const* host) {
+  T out;
+  for (int a = 0; a < N; ++a) out.p[a] = host[a];
+  return out;
+}
+
+struct Geo {
+  int n1, n2, n3, ns, seg;
+};
+
+// This thread's column (j, k) and the x-planes [i0, i1) of its block
+struct Col {
+  int j, k, jk, plane, i0, i1;
+};
+
+// the column of this thread; false outside the grid
+__device__ __forceinline__ bool column(Col& q, const Geo& g) {
+  q.k = blockIdx.x * kTileZ + threadIdx.x;
+  q.j = blockIdx.y * kTileY + threadIdx.y;
+  q.jk = q.j * g.n3 + q.k;
+  q.plane = g.n2 * g.n3;
+  q.i0 = blockIdx.z * g.seg;
+  q.i1 = min(q.i0 + g.seg, g.n1);
+  return q.j < g.n2 && q.k < g.n3;
+}
+
+// start f at plane i of column q (if inside the grid) on its way to L2
+__device__ __forceinline__ void prefetch(const void* f, int i, const Col& q,
+                                         int n1) {
+  if (i < n1) {
+    const float* p = static_cast<const float*>(f) + (i * q.plane + q.jk);
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+  }
+}
+
+// the 4th-order staggered difference from four consecutive samples
+// f0..f3: forward at i+1/2 from f(i-1..i+2), backward at i from f(i-2..i+1)
+// (the plain versions' d_plus / d_minus, zero outside the grid)
+__device__ __forceinline__ float stencil(float f0, float f1, float f2,
+                                         float f3) {
+  return kC1 * (f2 - f1) + kC2 * (f3 - f0);
+}
+
+// f at plane i of column q, 0 outside [0, n1) (a read-only field)
+__device__ __forceinline__ float at_x(const float* f, int i, const Col& q,
+                                      int n1) {
+  return (unsigned)i < (unsigned)n1 ? __ldg(f + (i * q.plane + q.jk)) : 0.0f;
+}
+
+// A read-only field's x-window at planes i+LO .. i+LO+3 of a column (LO =
+// -1 for a forward difference, -2 for a backward one), in registers: each
+// plane is loaded once, as it enters.
+template <int LO>
+struct XWin {
+  float w[4];
+  __device__ __forceinline__ void start(const float* f, const Col& q, int n1) {
+#pragma unroll
+    for (int m = 1; m < 4; ++m) w[m] = at_x(f, q.i0 + LO + m - 1, q, n1);
+  }
+  __device__ __forceinline__ void advance(const float* f, int i, const Col& q,
+                                          int n1) {
+    w[0] = w[1];
+    w[1] = w[2];
+    w[2] = w[3];
+    w[3] = at_x(f, i + LO + 3, q, n1);
+  }
+  __device__ __forceinline__ float diff() const {
+    return stencil(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// XWin with its next entry loaded a plane early: advance() at plane i
+// shifts in the value loaded at plane i - 1 and issues the load of the
+// entry plane i + 1 needs
+template <int LO>
+struct XWinAhead : XWin<LO> {
+  float ahead;
+  __device__ __forceinline__ void start(const float* f, const Col& q, int n1) {
+    XWin<LO>::start(f, q, n1);
+    ahead = at_x(f, q.i0 + LO + 3, q, n1);
+  }
+  __device__ __forceinline__ void advance(const float* f, int i, const Col& q,
+                                          int n1) {
+    this->w[0] = this->w[1];
+    this->w[1] = this->w[2];
+    this->w[2] = this->w[3];
+    this->w[3] = ahead;
+    ahead = at_x(f, i + LO + 4, q, n1);
+  }
+};
+
+// a read-only field around cell c in its plane, for the y/z neighbours
+// (through L1; 0 outside the grid)
+struct Plane {
+  const float* f;
+  int c, j, k, n2, n3;
+  __device__ __forceinline__ float operator()(int dy, int dz) const {
+    return ((unsigned)(j + dy) < (unsigned)n2 &&
+            (unsigned)(k + dz) < (unsigned)n3)
+               ? __ldg(f + (c + dy * n3 + dz))
+               : 0.0f;
+  }
+};
+
+// the difference along y (AXIS 1) or z (AXIS 2): forward (PLUS) or backward
+template <int AXIS, bool PLUS>
+__device__ __forceinline__ float diff_yz(const Plane& f) {
+  constexpr int lo = PLUS ? -1 : -2;
+  constexpr int dy = AXIS == 1 ? 1 : 0;
+  constexpr int dz = AXIS == 2 ? 1 : 0;
+  return stencil(f(lo * dy, lo * dz), f((lo + 1) * dy, (lo + 1) * dz),
+                 f((lo + 2) * dy, (lo + 2) * dz),
+                 f((lo + 3) * dy, (lo + 3) * dz));
+}
 
 // CPML correction of derivative d at slab position pos along an axis of n
 // cells: psi' = b psi + a d; d += psi'. The lo slab is applied before the
@@ -18,17 +153,17 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ float cpml(float d, int pos, int n, int ns,
                                       const float* __restrict__ prof,
                                       float* __restrict__ psi_lo,
-                                      float* __restrict__ psi_hi,
-                                      long long base, long long stride) {
+                                      float* __restrict__ psi_hi, int base,
+                                      int stride) {
   if (pos < ns) {
-    const long long s = base + pos * stride;
+    const int s = base + pos * stride;
     const float nw = prof[pos] * psi_lo[s] + prof[ns + pos] * d;
     psi_lo[s] = nw;
     d = d + nw;
   }
   const int q = pos - (n - ns);
   if (q >= 0) {
-    const long long s = base + q * stride;
+    const int s = base + q * stride;
     const float nw = prof[2 * ns + q] * psi_hi[s] + prof[3 * ns + q] * d;
     psi_hi[s] = nw;
     d = d + nw;
@@ -36,29 +171,54 @@ __device__ __forceinline__ float cpml(float d, int pos, int n, int ns,
   return d;
 }
 
-// forward 4th-order staggered difference at i+1/2, zero outside [0, n)
-__device__ __forceinline__ float d_plus(const float* __restrict__ f,
-                                        long long c, int pos, int n,
-                                        long long stride, float fc) {
-  const float f1 = (pos + 1 < n) ? f[c + stride] : 0.0f;
-  const float f2 = (pos + 2 < n) ? f[c + 2 * stride] : 0.0f;
-  const float fm = (pos >= 1) ? f[c - stride] : 0.0f;
-  return kC1 * (f1 - fc) + kC2 * (f2 - fm);
+// The CPML'd derivative number Q of a kernel's psi list (PSI: Ptr6 or
+// Ptr18, slabs [lo, hi] of each derivative in turn), along AXIS at cell
+// (i, q.j, q.k): psi slabs (ns, N2, N3), (N1, ns, N3) or (N1, N2, ns).
+// Forward differences take the "half" profiles, backward ones the "int"
+// profiles (a kernel without one of the two passes nullptr for it).
+template <typename PSI>
+struct Cpml {
+  const PSI& psi;
+  const float* prof_half;  // forward differences
+  const float* prof_int;   // backward differences
+  const Geo& g;
+  const Col& q;
+  int i;
+  template <int AXIS, bool PLUS, int Q>
+  __device__ __forceinline__ float apply(float d) const {
+    const float* prof = (PLUS ? prof_half : prof_int) + AXIS * 4 * g.ns;
+    float* lo = psi.p[2 * Q];
+    float* hi = psi.p[2 * Q + 1];
+    if constexpr (AXIS == 0) {
+      return cpml(d, i, g.n1, g.ns, prof, lo, hi, q.jk, q.plane);
+    } else if constexpr (AXIS == 1) {
+      return cpml(d, q.j, g.n2, g.ns, prof, lo, hi, i * g.ns * g.n3 + q.k,
+                  g.n3);
+    } else {
+      return cpml(d, q.k, g.n3, g.ns, prof, lo, hi, (i * g.n2 + q.j) * g.ns,
+                  1);
+    }
+  }
+};
+
+// true if `blocks` tiles of `tile` cells cover [0, n) and each holds a cell
+inline bool covers(int blocks, int tile, int n) {
+  return blocks >= 1 && (long long)blocks * tile >= n &&
+         (long long)(blocks - 1) * tile < n;
 }
 
-// backward 4th-order staggered difference at i, zero outside [0, n)
-__device__ __forceinline__ float d_minus(const float* __restrict__ f,
-                                         long long c, int pos, int n,
-                                         long long stride, float fc) {
-  const float fm1 = (pos >= 1) ? f[c - stride] : 0.0f;
-  const float fm2 = (pos >= 2) ? f[c - 2 * stride] : 0.0f;
-  const float f1 = (pos + 1 < n) ? f[c + stride] : 0.0f;
-  return kC1 * (fc - fm1) + kC2 * (f1 - fm2);
-}
-
-inline unsigned int n_blocks(int n1, int n2, int n3) {
-  const long long total = (long long)n1 * n2 * n3;
-  return (unsigned int)((total + kThreads - 1) / kThreads);
+// the launch grid (z-tiles, y-tiles, x-segments) the wrapper chose, or false
+// if it does not cover the grid once with the compiled tile or the grid
+// holds too many cells for 32-bit offsets
+inline bool launch_grid(const Geo& g, int tile_y, int gz, int gy, int gx,
+                        dim3& grid) {
+  if ((long long)g.n1 * g.n2 * g.n3 >= (1LL << 31)) return false;
+  if (tile_y != kTileY || g.seg < 1 || !covers(gz, kTileZ, g.n3) ||
+      !covers(gy, kTileY, g.n2) || !covers(gx, g.seg, g.n1)) {
+    return false;
+  }
+  grid = dim3(gz, gy, gx);
+  return true;
 }
 
 }  // namespace bb

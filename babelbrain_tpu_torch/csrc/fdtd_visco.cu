@@ -21,7 +21,9 @@
 // with 64-80 registers a thread (1024 or 768 threads an SM) too few loads
 // are in flight to cover the time its cells take to arrive from memory.
 //
-// What the design does about it: a block of 32 x 8 threads owns a (y, z)
+// What the design does about it (the tile geometry, difference and CPML
+// helpers are fdtd_stencil.cuh's, shared with the fluid pair): a block of
+// 32 x 8 threads owns a (y, z)
 // tile of columns (threadIdx.x along z, so each warp reads and writes 128
 // contiguous bytes) and marches along x over a segment of planes [i0, i1);
 // the grid is (z-tiles, y-tiles, x-segments), with segments short enough
@@ -67,135 +69,11 @@
 
 namespace {
 
-using bb::cpml;
-using bb::kC1;
-using bb::kC2;
+using namespace bb;
 
 constexpr float kThird = (float)(1.0 / 3.0);
-constexpr int kTileZ = 32;  // threads along z: a warp covers 32 floats
-constexpr int kTileY = 8;   // threads along y
-constexpr int kThreads = kTileZ * kTileY;
 constexpr int kVelocityMinBlocks = 4;  // 1024 threads an SM: 64 registers
 constexpr int kStressMinBlocks = 3;    // 768 threads an SM: 80 registers
-
-struct Ptr3 { float* p[3]; };
-struct Ptr6 { float* p[6]; };
-struct Ptr18 { float* p[18]; };  // 9 CPML'd derivatives: [lo, hi] each
-
-struct Geo {
-  int n1, n2, n3, ns, seg;
-};
-
-// This thread's column (j, k) and the x-planes [i0, i1) of its block
-struct Col {
-  int j, k, jk, plane, i0, i1;
-};
-
-// the column of this thread; false outside the grid
-__device__ __forceinline__ bool column(Col& q, const Geo& g) {
-  q.k = blockIdx.x * kTileZ + threadIdx.x;
-  q.j = blockIdx.y * kTileY + threadIdx.y;
-  q.jk = q.j * g.n3 + q.k;
-  q.plane = g.n2 * g.n3;
-  q.i0 = blockIdx.z * g.seg;
-  q.i1 = min(q.i0 + g.seg, g.n1);
-  return q.j < g.n2 && q.k < g.n3;
-}
-
-// start f at plane i of column q (if inside the grid) on its way to L2
-__device__ __forceinline__ void prefetch(const void* f, int i, const Col& q,
-                                         int n1) {
-  if (i < n1) {
-    const float* p = static_cast<const float*>(f) + (i * q.plane + q.jk);
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
-  }
-}
-
-// the 4th-order staggered difference from four consecutive samples
-// f0..f3: forward at i+1/2 from f(i-1..i+2), backward at i from f(i-2..i+1)
-// (the plain versions' d_plus / d_minus, zero outside the grid)
-__device__ __forceinline__ float stencil(float f0, float f1, float f2,
-                                         float f3) {
-  return kC1 * (f2 - f1) + kC2 * (f3 - f0);
-}
-
-// f at plane i of column q, 0 outside [0, n1) (a read-only field)
-__device__ __forceinline__ float at_x(const float* f, int i, const Col& q,
-                                      int n1) {
-  return (unsigned)i < (unsigned)n1 ? __ldg(f + (i * q.plane + q.jk)) : 0.0f;
-}
-
-// A read-only field's x-window at planes i+LO .. i+LO+3 of a column (LO =
-// -1 for a forward difference, -2 for a backward one), in registers: each
-// plane is loaded once, as it enters.
-template <int LO>
-struct XWin {
-  float w[4];
-  __device__ __forceinline__ void start(const float* f, const Col& q, int n1) {
-#pragma unroll
-    for (int m = 1; m < 4; ++m) w[m] = at_x(f, q.i0 + LO + m - 1, q, n1);
-  }
-  __device__ __forceinline__ void advance(const float* f, int i, const Col& q,
-                                          int n1) {
-    w[0] = w[1];
-    w[1] = w[2];
-    w[2] = w[3];
-    w[3] = at_x(f, i + LO + 3, q, n1);
-  }
-  __device__ __forceinline__ float diff() const {
-    return stencil(w[0], w[1], w[2], w[3]);
-  }
-};
-
-// a read-only field around cell c in its plane, for the y/z neighbours
-// (through L1; 0 outside the grid)
-struct Plane {
-  const float* f;
-  int c, j, k, n2, n3;
-  __device__ __forceinline__ float operator()(int dy, int dz) const {
-    return ((unsigned)(j + dy) < (unsigned)n2 &&
-            (unsigned)(k + dz) < (unsigned)n3)
-               ? __ldg(f + (c + dy * n3 + dz))
-               : 0.0f;
-  }
-};
-
-// the difference along y (AXIS 1) or z (AXIS 2): forward (PLUS) or backward
-template <int AXIS, bool PLUS>
-__device__ __forceinline__ float diff_yz(const Plane& f) {
-  constexpr int lo = PLUS ? -1 : -2;
-  constexpr int dy = AXIS == 1 ? 1 : 0;
-  constexpr int dz = AXIS == 2 ? 1 : 0;
-  return stencil(f(lo * dy, lo * dz), f((lo + 1) * dy, (lo + 1) * dz),
-                 f((lo + 2) * dy, (lo + 2) * dz),
-                 f((lo + 3) * dy, (lo + 3) * dz));
-}
-
-// The CPML'd derivative number Q of a kernel's psi list, along AXIS at cell
-// (i, q.j, q.k): psi slabs (ns, N2, N3), (N1, ns, N3) or (N1, N2, ns)
-struct Cpml {
-  const Ptr18& psi;
-  const float* prof_half;  // forward differences
-  const float* prof_int;   // backward differences
-  const Geo& g;
-  const Col& q;
-  int i;
-  template <int AXIS, bool PLUS, int Q>
-  __device__ __forceinline__ float apply(float d) const {
-    const float* prof = (PLUS ? prof_half : prof_int) + AXIS * 4 * g.ns;
-    float* lo = psi.p[2 * Q];
-    float* hi = psi.p[2 * Q + 1];
-    if constexpr (AXIS == 0) {
-      return cpml(d, i, g.n1, g.ns, prof, lo, hi, q.jk, q.plane);
-    } else if constexpr (AXIS == 1) {
-      return cpml(d, q.j, g.n2, g.ns, prof, lo, hi, i * g.ns * g.n3 + q.k,
-                  g.n3);
-    } else {
-      return cpml(d, q.k, g.n3, g.ns, prof, lo, hi, (i * g.n2 + q.j) * g.ns,
-                  1);
-    }
-  }
-};
 
 // v_i += dt/dx rho_inv (sum_j D sigma_ij); then the CW plane source SETS vz
 // at zsrc where the plane amplitude is positive.
@@ -258,7 +136,7 @@ __global__ void __launch_bounds__(kThreads, kVelocityMinBlocks)
     const float dsyz_z = diff_yz<2, false>(at(syz));
     const float dsyz_y = diff_yz<1, false>(at(syz));
     const float dszz_z = diff_yz<2, true>(at(szz));
-    const Cpml cp{psi, prof_half, prof_int, g, q, i};
+    const Cpml<Ptr18> cp{psi, prof_half, prof_int, g, q, i};
     const float d0 = cp.apply<0, true, 0>(wxx.diff());
     const float d1 = cp.apply<1, false, 1>(dsxy_y);
     const float d2 = cp.apply<2, false, 2>(dsxz_z);
@@ -364,7 +242,7 @@ __global__ void __launch_bounds__(kThreads, kStressMinBlocks)
     const float dvx_z = diff_yz<2, true>(at(vx));
     const float dvy_z = diff_yz<2, true>(at(vy));
     const float dvz_y = diff_yz<1, true>(at(vz));
-    const Cpml cp{psi, prof_half, prof_int, g, q, i};
+    const Cpml<Ptr18> cp{psi, prof_half, prof_int, g, q, i};
     const float dii[3] = {cp.apply<0, false, 0>(wvx.diff()),
                           cp.apply<1, false, 1>(dvy_y),
                           cp.apply<2, false, 2>(dvz_z)};
@@ -408,33 +286,6 @@ __global__ void __launch_bounds__(kThreads, kStressMinBlocks)
       peak[c] = fmaxf(pk, fabsf(p));
     }
   }
-}
-
-template <int N, typename T>
-T gather(float* const* host) {
-  T out;
-  for (int a = 0; a < N; ++a) out.p[a] = host[a];
-  return out;
-}
-
-// true if `blocks` tiles of `tile` cells cover [0, n) and each holds a cell
-bool covers(int blocks, int tile, int n) {
-  return blocks >= 1 && (long long)blocks * tile >= n &&
-         (long long)(blocks - 1) * tile < n;
-}
-
-// the launch grid (z-tiles, y-tiles, x-segments) the wrapper chose, or false
-// if it does not cover the grid once with the compiled tile or the grid
-// holds too many cells for 32-bit offsets
-bool launch_grid(const Geo& g, int tile_y, int gz, int gy, int gx,
-                 dim3& grid) {
-  if ((long long)g.n1 * g.n2 * g.n3 >= (1LL << 31)) return false;
-  if (tile_y != kTileY || g.seg < 1 || !covers(gz, kTileZ, g.n3) ||
-      !covers(gy, kTileY, g.n2) || !covers(gx, g.seg, g.n1)) {
-    return false;
-  }
-  grid = dim3(gz, gy, gx);
-  return true;
 }
 
 }  // namespace

@@ -47,8 +47,9 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C entry points: argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
-    "bb_fluid_velocity": [_P] * 15 + [_F, _F, _F] + [_I] * 5 + [_P],
-    "bb_fluid_pressure": [_P] * 18 + [_F] * 5 + [_I] * 7 + [_L, _F, _P],
+    "bb_fluid_velocity": [_P] * 9 + [_F] * 3 + [_I] * 11 + [_P],
+    "bb_fluid_pressure": [_P] * 10 + [_F] * 5 + [_I] * 8 + [_L, _F] + [_I] * 5
+    + [_P],
     "bb_bhte_step": [_P] * 13 + [_F] + [_I] * 3 + [_P],
     "bb_visco_velocity": [_P] * 10 + [_F] * 3 + [_I] * 11 + [_P],
     "bb_visco_stress": [_P] * 11 + [_F] * 5 + [_I] * 8 + [_L, _F] + [_I] * 5

@@ -4,8 +4,10 @@ PyTorch counterpart of ``babelbrain_tpu/ops/fdtd.py``: CT mode (fluid,
 shear-free media) and label mode (viscoelastic media with shear in the
 skull), driven by a CW plane source, a stress point (refocusing) or a
 volumetric velocity source (dome transducers). The host numerics (CPML
-profiles, SLS coefficient tuning, the CFL bound, material-field expansion,
-the indexed material table and the reflector fold) are exact numpy copies.
+profiles, SLS coefficient tuning, the CFL bound, the indexed material
+table and the reflector fold) are exact numpy copies. Both media gather
+their properties per voxel from the indexed table; the JAX XLA path expands
+them into volumes, with the same float32 values.
 The time loop is a Python loop over ``ops.fdtd_kernels`` (fluid) or
 ``ops.fdtd_visco_kernels`` (viscoelastic): on a CUDA device each step is
 two hand-written kernels (velocity, then pressure or stress; a volumetric source
@@ -208,47 +210,19 @@ def stable_dt(dx: float, cmax: float, cfl: float = 1.0) -> float:
     return cfl * dx / (cmax * np.sqrt(3.0) * (abs(_C1) + abs(_C2)))
 
 
-def _material_fields(mat_idx, coefs, has_shear=True):
-    """Expand per-material coefficient tables to full-grid f32 fields (host)."""
-    idx = np.asarray(mat_idx)
-    keys = (
-        ("pi_u", "mu_u", "c_rp", "c_rs", "b_r", "rho_inv")
-        if has_shear
-        else ("pi_u", "c_rp", "b_r", "rho_inv")
-    )
-    out = {}
-    for k in keys:
-        out[k] = np.asarray(coefs[k], np.float32)[idx]
-    return out
-
-
-def _fold_reflector(props_np, reflector_mask, has_shear):
-    """Fold a pressure-release reflector mask into the modulus fields.
-
-    The reference passes air cavities as a ``ReflectorMask`` whose voxels are
-    forced to zero stress every step (`BabelIntegrationBASE.py:2365`). With
-    zero initial conditions that is exactly equivalent to zeroing the moduli
-    (pi_u/mu_u) and the relaxation feeds (c_rp/c_rs) at those voxels: stress
-    and pressure then stay identically zero there while velocities still
-    evolve against the zero-stress (pressure-release) surface.
-    """
-    keep = 1.0 - np.asarray(reflector_mask).astype(np.float32)
-    props_np["pi_u"] = props_np["pi_u"] * keep
-    props_np["c_rp"] = props_np["c_rp"] * keep
-    if has_shear:
-        props_np["mu_u"] = props_np["mu_u"] * keep
-        props_np["c_rs"] = props_np["c_rs"] * keep
-
-
 def _build_indexed_materials(coefs, mat_idx, reflector_mask):
-    """Indexed materials of the viscoelastic kernels.
+    """Indexed materials of the FDTD kernels (fluid and viscoelastic).
 
     Returns ``(idx int32 (N1,N2,N3), table (6, M) f32)`` with table rows
     [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r]. Reflector (air-cavity) voxels get
-    twin materials with zeroed moduli and feeds (the same fold
-    ``_fold_reflector`` applies to expanded volumes, kept per material so the
-    table gather stays exact). The JAX version's 128-lane table cap and z
-    window test are limits of the TPU's gather and do not apply here.
+    twin materials with zeroed moduli and feeds: the pressure-release fold
+    of the JAX ``_fold_reflector`` (the reference passes air cavities as a
+    ``ReflectorMask`` forced to zero stress every step,
+    `BabelIntegrationBASE.py:2365`; with zero initial conditions that equals
+    zeroing pi_u, mu_u, c_rp and c_rs there), kept per material so the table
+    gather gives the folded volumes' values exactly. The JAX version's
+    128-lane table cap and z window test are limits of the TPU's gather and
+    do not apply here.
     """
     keys = ("rho_inv", "pi_u", "mu_u", "c_rp", "c_rs", "b_r")
     M = len(np.asarray(coefs["pi_u"]))
@@ -288,25 +262,10 @@ def _step_constants(grid: FDTDGrid, viscous: bool) -> dict:
                 viscous=bool(viscous))
 
 
-def make_fluid_coeffs(props_np, profiles_np, src_amp, src_phase,
-                      grid: FDTDGrid, viscous: bool, device) -> FluidCoeffs:
-    """Move the step-invariant inputs of the fluid step to ``device``."""
-    f32 = _to_device(device)
-    phase = f32(src_phase)
-    return FluidCoeffs(
-        rho_inv=f32(props_np["rho_inv"]), pi_u=f32(props_np["pi_u"]),
-        c_rp=f32(props_np["c_rp"]), b_r=f32(props_np["b_r"]),
-        cpml_half=_pack_profiles(profiles_np, "half", f32),
-        cpml_int=_pack_profiles(profiles_np, "int", f32),
-        src_amp=f32(src_amp), src_cph=torch.cos(phase),
-        src_sph=torch.sin(phase), **_step_constants(grid, viscous),
-    )
-
-
-def make_visco_coeffs(mat_idx, table, profiles_np, src_amp, src_phase,
-                      grid: FDTDGrid, viscous: bool, device) -> ViscoCoeffs:
-    """Move the step-invariant inputs of the viscoelastic step to
-    ``device``; ``mat_idx``/``table`` as ``_build_indexed_materials``
+def _make_coeffs(cls, mat_idx, table, profiles_np, src_amp, src_phase,
+                 grid: FDTDGrid, viscous: bool, device):
+    """``cls`` (FluidCoeffs or ViscoCoeffs) with the step-invariant inputs
+    on ``device``; ``mat_idx``/``table`` as ``_build_indexed_materials``
     returns them."""
     f32 = _to_device(device)
     idx = np.ascontiguousarray(mat_idx, np.int32)
@@ -315,7 +274,7 @@ def make_visco_coeffs(mat_idx, table, profiles_np, src_amp, src_phase,
             f"material index outside the table's {table.shape[1]} materials"
         )
     phase = f32(src_phase)
-    return ViscoCoeffs(
+    return cls(
         mat_idx=torch.as_tensor(idx, device=torch.device(device)),
         table=f32(table),
         cpml_half=_pack_profiles(profiles_np, "half", f32),
@@ -323,6 +282,20 @@ def make_visco_coeffs(mat_idx, table, profiles_np, src_amp, src_phase,
         src_amp=f32(src_amp), src_cph=torch.cos(phase),
         src_sph=torch.sin(phase), **_step_constants(grid, viscous),
     )
+
+
+def make_fluid_coeffs(mat_idx, table, profiles_np, src_amp, src_phase,
+                      grid: FDTDGrid, viscous: bool, device) -> FluidCoeffs:
+    """The step-invariant inputs of the fluid step on ``device``."""
+    return _make_coeffs(FluidCoeffs, mat_idx, table, profiles_np, src_amp,
+                        src_phase, grid, viscous, device)
+
+
+def make_visco_coeffs(mat_idx, table, profiles_np, src_amp, src_phase,
+                      grid: FDTDGrid, viscous: bool, device) -> ViscoCoeffs:
+    """The step-invariant inputs of the viscoelastic step on ``device``."""
+    return _make_coeffs(ViscoCoeffs, mat_idx, table, profiles_np, src_amp,
+                        src_phase, grid, viscous, device)
 
 
 def step_scalars(grid: FDTDGrid, n: int, oz_scale: float,
@@ -411,9 +384,8 @@ def run_fdtd(
     ``grid.source_ijk``) and ``velocity_volume`` (``volume_source``, the
     dense dict of ``pipeline.acoustic.make_volume_source``, turned into a
     sparse ``VolumeSource`` here). ``device`` selects where the state lives
-    (CUDA: the step kernels; CPU: their plain PyTorch versions). Fluid media
-    keep expanded property volumes; shear media use indexed materials
-    (``_build_indexed_materials``).
+    (CUDA: the step kernels; CPU: their plain PyTorch versions). Both
+    media use indexed materials (``_build_indexed_materials``).
 
     ``sel_maps``: extra maps named ``<Field>_rms`` / ``<Field>_peak``, Field
     in Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy, Sigmazz, accumulated over
@@ -435,10 +407,11 @@ def run_fdtd(
     sel_maps = check_sel_maps(sel_maps)
     if int(sensor_subsampling) < 1:
         raise ValueError(f"sensor_subsampling={sensor_subsampling} < 1")
-    step, st, co, oz_scale, vsrc = fdtd_setup(
-        mat_idx, materials, grid, source_amp, source_phase, reflector_mask,
-        volume_source, device=device,
-    )
+    with stage_timer("FDTD setup", level=3, step=2):
+        step, st, co, oz_scale, vsrc = fdtd_setup(
+            mat_idx, materials, grid, source_amp, source_phase,
+            reflector_mask, volume_source, device=device,
+        )
     sel = np.arange(grid.sensor_start, grid.n_steps, int(sensor_subsampling))
     diag = None
     if sel_maps or monitor_ijk is not None:
@@ -529,10 +502,11 @@ def run_fdtd_capture(
             f"run_fdtd_capture drives plane and point sources, not "
             f"{grid.source_type!r}"
         )
-    step, st, co, oz_scale, vsrc = fdtd_setup(
-        mat_idx, materials, grid, source_amp, source_phase, reflector_mask,
-        device=device,
-    )
+    with stage_timer("FDTD setup", level=3, step=2):
+        step, st, co, oz_scale, vsrc = fdtd_setup(
+            mat_idx, materials, grid, source_amp, source_phase,
+            reflector_mask, device=device,
+        )
     ijk = None
     if sensor_mask is not None:
         ijk = np.argwhere(np.asarray(sensor_mask, bool))
@@ -584,18 +558,9 @@ def fdtd_setup(mat_idx, materials, grid: FDTDGrid, source_amp=None,
     src = (source_amp if plane and source_amp is not None else zeros2,
            source_phase if plane and source_phase is not None else zeros2)
     ns = grid.npml + 2
-    if has_shear:
-        idx, table = _build_indexed_materials(coefs, mat_idx, reflector_mask)
-        co = make_visco_coeffs(idx, table, profiles, *src, grid,
-                               coefs["viscous"], device)
-        st = ViscoState.zeros(grid.shape, ns, device)
-        step = visco_step
-    else:
-        props_np = _material_fields(mat_idx, coefs, has_shear=False)
-        if reflector_mask is not None:
-            _fold_reflector(props_np, reflector_mask, False)
-        co = make_fluid_coeffs(props_np, profiles, *src, grid,
-                               coefs["viscous"], device)
-        st = FluidState.zeros(grid.shape, ns, device)
-        step = fluid_step
-    return step, st, co, oz_scale, vsrc
+    idx, table = _build_indexed_materials(coefs, mat_idx, reflector_mask)
+    make, state, step = ((make_visco_coeffs, ViscoState, visco_step)
+                         if has_shear else
+                         (make_fluid_coeffs, FluidState, fluid_step))
+    co = make(idx, table, profiles, *src, grid, coefs["viscous"], device)
+    return step, state.zeros(grid.shape, ns, device), co, oz_scale, vsrc

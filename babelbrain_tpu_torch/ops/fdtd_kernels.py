@@ -11,10 +11,20 @@ One fluid leapfrog step is two kernels (``csrc/fdtd_fluid.cu``):
   the carrier DFT and |p| peak inside the sensor window (``cosw``/``sinw``
   given).
 
+Materials are indexed: an int32 index volume and the (6, M) float32 table
+of ``ops.fdtd._build_indexed_materials`` (rows [rho_inv, pi_u, mu_u, c_rp,
+c_rs, b_r], reflector twins included); the fluid step reads rows 0, 1, 3
+and 5, the kernels through the read-only data path (any table size).
+
 They replace the JAX package's Pallas kernels B1-B4
 (``babelbrain_tpu/ops/fdtd_pallas.py``). The math is the XLA step of
 ``babelbrain_tpu/ops/fdtd.py:_make_fluid_step_fn``; a volumetric (dome)
 source is ``ops.fdtd_sources``, launched between the two.
+
+Launch geometry (both FDTD families, ``launch_geometry``): blocks of
+``TILE_Z`` x ``TILE_Y`` threads own (y, z) tiles of columns and march along
+x over segments of planes; the wrappers pass the grid to the C entry
+points, which refuse one that does not cover the volume once.
 
 The wrappers dispatch on the device of the state: a CPU state runs the plain
 version (``fluid_velocity_ref`` / ``fluid_pressure_ref``), a CUDA state
@@ -42,19 +52,64 @@ launches = dict.fromkeys(_KEYS, 0)
 plain_calls = dict.fromkeys(_KEYS, 0)
 
 
+# Launch geometry of the FDTD kernels (csrc/fdtd_stencil.cuh): a block of
+# TILE_Z x TILE_Y threads owns a (y, z) tile of columns and marches along x
+# over a segment of at most a family's segment length in planes. TILE_Z is
+# one warp along z (128 contiguous bytes); TILE_Y is compiled into the
+# kernels; the segment lengths were chosen on an H100 (PERF.md): short
+# segments give the grid many waves of blocks. SEGMENT_PLANES is the fluid
+# family's (ops.fdtd_visco_kernels has its own).
+TILE_Z = 32
+TILE_Y = 8
+SEGMENT_PLANES = 2
+
+
+@dataclass(frozen=True)
+class LaunchGeometry:
+    """``tile_y`` threads along y (and ``TILE_Z`` along z) a block;
+    ``segment`` x-planes a block marches; ``grid`` the blocks along
+    (z, y, x), as the wrappers launch it."""
+
+    tile_y: int
+    segment: int
+    grid: tuple
+
+    def planes(self, s: int, n1: int) -> range:
+        """The x-planes segment ``s`` updates."""
+        return range(s * self.segment, min((s + 1) * self.segment, n1))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_geometry(shape, segment_planes: int) -> LaunchGeometry:
+    """The launch geometry on an (N1, N2, N3) grid with segments of at most
+    ``segment_planes`` planes (the shortest segments for that many)."""
+    n1, n2, n3 = shape
+    seg = _cdiv(n1, _cdiv(n1, segment_planes))
+    return LaunchGeometry(TILE_Y, seg,
+                          (_cdiv(n3, TILE_Z), _cdiv(n2, TILE_Y), _cdiv(n1, seg)))
+
+
+def fluid_launch_geometry(shape) -> LaunchGeometry:
+    """The launch geometry of both fluid kernels on an (N1, N2, N3) grid."""
+    return launch_geometry(shape, SEGMENT_PLANES)
+
+
 @dataclass
 class FluidCoeffs:
-    """Step-invariant inputs of the fluid step (all float32, one device).
+    """Step-invariant inputs of the fluid step (one device).
 
-    ``cpml_half`` / ``cpml_int``: (3, 4, ns) profiles, per axis the rows
-    [b_lo, a_lo, b_hi, a_hi] of the ns-plane slabs. ``src_*``: (N1, N2)
-    source amplitude and cos/sin of its phase.
+    ``mat_idx``: int32 (N1, N2, N3) material index; ``table``: float32
+    (6, M) rows [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r]. ``cpml_half`` /
+    ``cpml_int``: (3, 4, ns) profiles, per axis the rows [b_lo, a_lo, b_hi,
+    a_hi] of the ns-plane slabs. ``src_*``: (N1, N2) source amplitude and
+    cos/sin of its phase.
     """
 
-    rho_inv: torch.Tensor
-    pi_u: torch.Tensor
-    c_rp: torch.Tensor
-    b_r: torch.Tensor
+    mat_idx: torch.Tensor
+    table: torch.Tensor
     cpml_half: torch.Tensor
     cpml_int: torch.Tensor
     src_amp: torch.Tensor
@@ -102,7 +157,9 @@ class FluidState:
 
 
 def _check(st: FluidState, co: FluidCoeffs) -> tuple:
-    """Validate device, dtype, shape and contiguity; return (shape, ns)."""
+    """Validate device, dtype, shape and contiguity, the material index
+    against the table and, on the CUDA route, the grid against the kernels'
+    32-bit offsets; return (shape, ns)."""
     shape = tuple(st.p.shape)
     if len(shape) != 3:
         raise ValueError(f"fluid state must be 3-D, got {shape}")
@@ -111,30 +168,62 @@ def _check(st: FluidState, co: FluidCoeffs) -> tuple:
     if min(shape) < ns:
         raise ValueError(f"grid {shape} thinner than the CPML slab ({ns})")
     dev = st.p.device
-    vols = [st.p, st.vx, st.vy, st.vz, st.r, st.acc_cos, st.acc_sin, st.peak,
-            co.rho_inv, co.pi_u, co.c_rp, co.b_r]
+    n_mat = co.table.shape[-1]
+    vols = [st.p, st.vx, st.vy, st.vz, st.r, st.acc_cos, st.acc_sin, st.peak]
     psi_shapes = [(ns, n2, n3)] * 2 + [(n1, ns, n3)] * 2 + [(n1, n2, ns)] * 2
-    expect = ([(t, shape) for t in vols]
-              + [(t, s) for t, s in zip(st.psi_p, psi_shapes)]
-              + [(t, s) for t, s in zip(st.psi_v, psi_shapes)]
-              + [(co.cpml_half, (3, 4, ns)), (co.cpml_int, (3, 4, ns))]
-              + [(t, (n1, n2)) for t in (co.src_amp, co.src_cph, co.src_sph)])
-    for t, s in expect:
-        if t.device != dev or t.dtype != torch.float32:
+    f32 = torch.float32
+    expect = ([(t, shape, f32) for t in vols]
+              + [(t, s, f32) for t, s in zip(st.psi_p, psi_shapes)]
+              + [(t, s, f32) for t, s in zip(st.psi_v, psi_shapes)]
+              + [(co.cpml_half, (3, 4, ns), f32), (co.cpml_int, (3, 4, ns), f32)]
+              + [(t, (n1, n2), f32)
+                 for t in (co.src_amp, co.src_cph, co.src_sph)]
+              + [(co.table, (6, n_mat), f32), (co.mat_idx, shape, torch.int32)])
+    for t, s, dtype in expect:
+        if t.device != dev or t.dtype != dtype:
             raise ValueError(
-                f"fluid step: every tensor must be float32 on {dev}, got "
-                f"{t.dtype} on {t.device}"
+                f"fluid step: expected {dtype} on {dev}, got {t.dtype} on "
+                f"{t.device}"
             )
         if tuple(t.shape) != s or not t.is_contiguous():
             raise ValueError(
                 f"fluid step: expected a contiguous {s} tensor, got "
                 f"{tuple(t.shape)} (contiguous={t.is_contiguous()})"
             )
+    if n_mat < 1:
+        raise ValueError("fluid step: the material table is empty")
     if not 0 <= co.zsrc < n3:
         raise ValueError(f"source plane z={co.zsrc} outside the grid")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"fluid step: unsupported device {dev}")
+    if dev.type == "cuda":
+        _check_size(shape, "fluid step")
+    _check_index(co)
     return shape, ns
+
+
+def _check_size(shape, what: str = "FDTD step") -> None:
+    """The kernels index cells with 32-bit offsets (the plain versions have
+    no such limit)."""
+    n1, n2, n3 = shape
+    if n1 * n2 * n3 >= 2**31:
+        raise ValueError(f"{what}: grid {tuple(shape)} too large for the "
+                         "kernels' 32-bit cell offsets")
+
+
+def _check_index(co) -> None:
+    """Every material index lies in the table. Checked once per version of
+    the index tensor (on the card the check waits for the device)."""
+    key = (co.mat_idx.data_ptr(), co.mat_idx._version, co.table.shape[-1])
+    if getattr(co, "_index_checked", None) == key:
+        return
+    lo, hi = (int(v) for v in torch.aminmax(co.mat_idx))
+    if lo < 0 or hi >= co.table.shape[-1]:
+        raise ValueError(
+            f"material index {lo}..{hi} outside the table's "
+            f"{co.table.shape[-1]} materials"
+        )
+    co._index_checked = key
 
 
 def pressure_key(stem: str, with_dft: bool, point) -> str:
@@ -156,6 +245,11 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _ptrs(tensors) -> ctypes.Array:
+    """Host array of device pointers (the kernels' pointer-list arguments)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
 def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
@@ -168,12 +262,14 @@ def fluid_velocity(st: FluidState, co: FluidCoeffs, s_sin: float,
     if st.p.device.type == "cpu":
         fluid_velocity_ref(st, co, s_sin, s_cos)
         return
+    geo = fluid_launch_geometry((n1, n2, n3))
     lib = _build.library()
     rc = lib.bb_fluid_velocity(
-        _ptr(st.p), _ptr(st.vx), _ptr(st.vy), _ptr(st.vz), _ptr(co.rho_inv),
-        *(_ptr(t) for t in st.psi_p), _ptr(co.cpml_half), _ptr(co.src_amp),
-        _ptr(co.src_cph), _ptr(co.src_sph), s_sin, s_cos, co.dt_dx,
-        n1, n2, n3, ns, co.zsrc, _stream(),
+        _ptr(st.p), _ptrs([st.vx, st.vy, st.vz]), _ptr(co.mat_idx),
+        _ptr(co.table), _ptrs(st.psi_p), _ptr(co.cpml_half),
+        _ptr(co.src_amp), _ptr(co.src_cph), _ptr(co.src_sph), s_sin, s_cos,
+        co.dt_dx, co.table.shape[1], n1, n2, n3, ns, co.zsrc, geo.tile_y,
+        geo.segment, *geo.grid, _stream(),
     )
     _build.check(rc, "fluid_velocity_kernel")
     launches["fluid_velocity"] += 1
@@ -192,15 +288,16 @@ def fluid_pressure(st: FluidState, co: FluidCoeffs, cosw: float | None = None,
         fluid_pressure_ref(st, co, cosw, sinw, point)
         return
     pt, sval = point if point is not None else (0, 0.0)
+    geo = fluid_launch_geometry((n1, n2, n3))
     lib = _build.library()
     rc = lib.bb_fluid_pressure(
-        _ptr(st.vx), _ptr(st.vy), _ptr(st.vz), _ptr(st.p), _ptr(st.r),
-        _ptr(co.pi_u), _ptr(co.c_rp), _ptr(co.b_r), _ptr(st.acc_cos),
-        _ptr(st.acc_sin), _ptr(st.peak), *(_ptr(t) for t in st.psi_v),
-        _ptr(co.cpml_int), co.dt_dx, co.inv_dx, co.half_dt,
-        cosw if with_dft else 0.0, sinw if with_dft else 0.0,
-        n1, n2, n3, ns, int(co.viscous), int(with_dft), int(point is not None),
-        pt, sval, _stream(),
+        _ptrs([st.vx, st.vy, st.vz]), _ptr(st.p), _ptr(st.r),
+        _ptr(co.mat_idx), _ptr(co.table), _ptr(st.acc_cos), _ptr(st.acc_sin),
+        _ptr(st.peak), _ptrs(st.psi_v), _ptr(co.cpml_int), co.dt_dx,
+        co.inv_dx, co.half_dt, cosw if with_dft else 0.0,
+        sinw if with_dft else 0.0, co.table.shape[1], n1, n2, n3, ns,
+        int(co.viscous), int(with_dft), int(point is not None), pt, sval,
+        geo.tile_y, geo.segment, *geo.grid, _stream(),
     )
     _build.check(rc, "fluid_pressure_kernel")
     launches[pressure_key("fluid_pressure", with_dft, point)] += 1
@@ -255,14 +352,21 @@ def _cpml(D, axis, prof, psi_lo, psi_hi):
     return D
 
 
+def _gather(co, row: int) -> torch.Tensor:
+    """Table row ``row`` at every voxel (the kernels' table gather)."""
+    idx = co.mat_idx
+    return co.table[row].index_select(0, idx.reshape(-1)).reshape(idx.shape)
+
+
 def fluid_velocity_ref(st: FluidState, co: FluidCoeffs, s_sin: float,
                        s_cos: float) -> None:
     """Plain version of ``fluid_velocity_kernel`` (in place)."""
     plain_calls["fluid_velocity"] += 1
+    rho_inv = _gather(co, 0)
     for axis, v in enumerate((st.vx, st.vy, st.vz)):
         d = _cpml(d_plus(st.p, axis), axis, co.cpml_half[axis],
                   st.psi_p[2 * axis], st.psi_p[2 * axis + 1])
-        v.copy_(v - co.dt_dx * co.rho_inv * d)
+        v.copy_(v - co.dt_dx * rho_inv * d)
     plane = st.vz[:, :, co.zsrc]
     sval = co.src_amp * (s_sin * co.src_cph + s_cos * co.src_sph)
     plane.copy_(torch.where(co.src_amp > 0, sval, plane))
@@ -280,13 +384,15 @@ def fluid_pressure_ref(st: FluidState, co: FluidCoeffs,
         for axis, v in enumerate((st.vx, st.vy, st.vz))
     ]
     theta = dv[0] + dv[1] + dv[2]
+    pi_u = _gather(co, 1)
     if co.viscous:
-        new_r = co.b_r * st.r - co.c_rp * theta * co.inv_dx
-        p_new = (st.p - co.dt_dx * co.pi_u * theta
+        c_rp, b_r = _gather(co, 3), _gather(co, 5)
+        new_r = b_r * st.r - c_rp * theta * co.inv_dx
+        p_new = (st.p - co.dt_dx * pi_u * theta
                  - co.half_dt * (new_r + st.r))
         st.r.copy_(new_r)
     else:
-        p_new = st.p - co.dt_dx * co.pi_u * theta
+        p_new = st.p - co.dt_dx * pi_u * theta
     if point is not None:
         index, sval = point
         cell = p_new.view(-1)[index]

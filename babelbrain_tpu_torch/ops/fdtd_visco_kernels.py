@@ -37,12 +37,17 @@ import torch
 
 from . import _build
 from .fdtd_kernels import (
+    LaunchGeometry,
+    _check_size,
     _cpml,
+    _gather,
     _ptr,
+    _ptrs,
     _stream,
     check_point,
     d_minus,
     d_plus,
+    launch_geometry,
     pressure_key,
 )
 
@@ -54,42 +59,14 @@ plain_calls = dict.fromkeys(_KEYS, 0)
 # the stress kernel keeps five table rows in (static-size) shared memory
 MAX_MATERIALS = 48 * 1024 // (5 * 4)
 
-# Launch geometry of the kernels (csrc/fdtd_visco.cu): a block of TILE_Z x
-# TILE_Y threads owns a (y, z) tile of columns and marches along x over a
-# segment of at most SEGMENT_PLANES planes. TILE_Z is one warp along z (128
-# contiguous bytes); TILE_Y is compiled into the kernels; SEGMENT_PLANES was
-# chosen on an H100 (PERF.md): short segments give the grid many waves of
-# blocks.
-TILE_Z = 32
-TILE_Y = 8
+# x-planes a block of the visco kernels marches at most (the launch geometry
+# of ops.fdtd_kernels.launch_geometry), chosen on an H100 (PERF.md)
 SEGMENT_PLANES = 8
-
-
-@dataclass(frozen=True)
-class LaunchGeometry:
-    """``tile_y`` threads along y (and ``TILE_Z`` along z) a block;
-    ``segment`` x-planes a block marches; ``grid`` the blocks along
-    (z, y, x), as the wrappers launch it."""
-
-    tile_y: int
-    segment: int
-    grid: tuple
-
-    def planes(self, s: int, n1: int) -> range:
-        """The x-planes segment ``s`` updates."""
-        return range(s * self.segment, min((s + 1) * self.segment, n1))
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def visco_launch_geometry(shape) -> LaunchGeometry:
     """The launch geometry of both kernels on an (N1, N2, N3) grid."""
-    n1, n2, n3 = shape
-    seg = _cdiv(n1, _cdiv(n1, SEGMENT_PLANES))  # shortest for that many
-    return LaunchGeometry(TILE_Y, seg,
-                          (_cdiv(n3, TILE_Z), _cdiv(n2, TILE_Y), _cdiv(n1, seg)))
+    return launch_geometry(shape, SEGMENT_PLANES)
 
 
 # CPML'd derivatives of each kernel, as (field, axis, forward?): a forward
@@ -230,20 +207,6 @@ def _check(st: ViscoState, co: ViscoCoeffs) -> tuple:
     return shape, ns
 
 
-def _check_size(shape) -> None:
-    """The kernels index cells with 32-bit offsets (the plain versions have
-    no such limit)."""
-    n1, n2, n3 = shape
-    if n1 * n2 * n3 >= 2**31:
-        raise ValueError(f"visco step: grid {tuple(shape)} too large for "
-                         "the kernels' 32-bit cell offsets")
-
-
-def _ptrs(tensors) -> ctypes.Array:
-    """Host array of device pointers (the kernels' pointer-list arguments)."""
-    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
-
-
 def visco_velocity(st: ViscoState, co: ViscoCoeffs, s_sin: float,
                    s_cos: float) -> None:
     """Velocity half-step in place; ``s_sin``/``s_cos`` are sin(wt) and
@@ -252,7 +215,7 @@ def visco_velocity(st: ViscoState, co: ViscoCoeffs, s_sin: float,
     if st.vx.device.type == "cpu":
         visco_velocity_ref(st, co, s_sin, s_cos)
         return
-    _check_size((n1, n2, n3))
+    _check_size((n1, n2, n3), "visco step")
     geo = visco_launch_geometry((n1, n2, n3))
     lib = _build.library()
     rc = lib.bb_visco_velocity(
@@ -279,7 +242,7 @@ def visco_stress(st: ViscoState, co: ViscoCoeffs, cosw: float | None = None,
     if st.vx.device.type == "cpu":
         visco_stress_ref(st, co, cosw, sinw, point)
         return
-    _check_size((n1, n2, n3))
+    _check_size((n1, n2, n3), "visco step")
     pt, sval = point if point is not None else (0, 0.0)
     geo = visco_launch_geometry((n1, n2, n3))
     lib = _build.library()
@@ -300,12 +263,6 @@ def visco_stress(st: ViscoState, co: ViscoCoeffs, cosw: float | None = None,
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (same operation order as the kernels)
 # ---------------------------------------------------------------------------
-
-
-def _gather(co: ViscoCoeffs, row: int) -> torch.Tensor:
-    """Table row ``row`` at every voxel (the kernels' shared-memory gather)."""
-    idx = co.mat_idx
-    return co.table[row].index_select(0, idx.reshape(-1)).reshape(idx.shape)
 
 
 def _derivs(st: ViscoState, co: ViscoCoeffs, derivs, psi) -> list:

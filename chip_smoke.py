@@ -26,10 +26,17 @@ Phases (each prints its own lines; any failed check exits nonzero):
              states; the probe kernels (stream over 128 MB, the FMA chain,
              the CT table's gather over every voxel), and the
              viscoelastic pair again, bit for bit in every field, for 40
-             steps on a ragged 27x45x47 grid (see ``RAGGED_SHAPE``).
-             Kernels of a few microseconds are timed from a CUDA graph;
-             where one PyTorch call computes the same function it is
-             timed beside them;
+             steps on a ragged 27x45x47 grid (see ``RAGGED_SHAPE``), and
+             the fluid pair there too (a plane with an air pocket, whose
+             reflector twins double the table; without attenuation; a
+             point), then at 192x192x240 with a 65539-material table (a
+             16-bit HU quantisation, beyond what shared memory holds).
+             Every kernel is timed from a CUDA graph of captured calls:
+             the card's own time, without the host's work per call. The
+             plain versions of the FDTD, BHTE and stream rows, which run
+             far longer than that work, are timed from back-to-back
+             calls. Where one PyTorch call computes the same function it
+             is timed beside them;
 4. slices  — the main paths on a procedural digital head, each with every
              kernel count set to 0 just before and read just after: with
              the CTX_500 transducer at 500 kHz / 6 PPW, CT mode (Step 1 ->
@@ -146,24 +153,25 @@ def build():
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[build] {line.strip()}")
-    for name, res in visco_resources(_build.build_log):
+    for name, res in fdtd_resources(_build.build_log):
         print(f"[build] {name}: {res['registers']} registers, "
               f"{res['spill']} bytes spilled (stores + loads), "
               f"{res['stack']} bytes stack, {res['smem']} bytes static shared "
               f"memory (+ the material table, dynamic)")
 
 
-def visco_resources(log):
+def fdtd_resources(log):
     """[(kernel<template arguments>, {registers, spill, stack, smem})] of
-    the visco kernels, from nvcc's ``-Xptxas -v`` log."""
+    the fluid and visco kernels, from nvcc's ``-Xptxas -v`` log."""
     import re
 
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(visco_[a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?",
-                          m.group(1))
+            k = re.search(
+                r"((?:visco|fluid)_[a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?",
+                m.group(1))
             name = k and k.group(1) + (
                 "<" + ", ".join(re.findall(r"L[ib](\d+)E", k.group(2))) + ">"
                 if k.group(2) else "")
@@ -192,14 +200,14 @@ def visco_resources(log):
 # ---------------------------------------------------------------------------
 
 
-def ct_table():
-    """CT-mode material table: water + skin + brain + 1023 quantized-HU bone
-    (the benchmark's configuration)."""
+def ct_table(n_bone=1023):
+    """CT-mode material table: water + skin + brain + ``n_bone``
+    quantized-HU bone (1023: the benchmark's configuration)."""
     from babelbrain_tpu_torch.materials import map_hu_to_properties
 
-    hu = np.linspace(300.0, 2100.0, 1023)
+    hu = np.linspace(300.0, 2100.0, n_bone)
     rho, sos, att = map_hu_to_properties(hu, F0, "Webb-Marsac")
-    mats = np.zeros((1026, 5))
+    mats = np.zeros((n_bone + 3, 5))
     mats[0] = [1000.0, 1500.0, 0, 0, 0]
     mats[1] = [1116.0, 1537.0, 0, 2.99, 0]
     mats[2] = [1041.0, 1562.0, 0, 4.49, 0]
@@ -209,14 +217,14 @@ def ct_table():
     return mats
 
 
-def ct_index_volume(shape, seed=0):
+def ct_index_volume(shape, seed=0, n_mat=1026):
     """Skin slab, random quantized-HU bone slab, brain (seeded)."""
     n1, n2, n3 = shape
     z0 = n3 // 4
-    idx = np.zeros(shape, np.uint16)
+    idx = np.zeros(shape, np.int32)
     rng = np.random.default_rng(seed)
     idx[:, :, z0:z0 + 10] = 1
-    idx[:, :, z0 + 10:z0 + 28] = rng.integers(3, 1026, (n1, n2, 18))
+    idx[:, :, z0 + 10:z0 + 28] = rng.integers(3, n_mat, (n1, n2, 18))
     idx[:, :, z0 + 28:] = 2
     return idx
 
@@ -237,7 +245,9 @@ def _timed(fn, n, warm=2):
 def _timed_graph(fn, n):
     """ms of one ``fn()`` on the card alone: ``n`` calls captured in one CUDA
     graph and replayed, so the host's per-call work (argument checks, the
-    ctypes call) is not in the time."""
+    ctypes call) is not in the time. Ten replays warm the card up first:
+    after the plain versions' stretch of small launches two were too few
+    (one 0.216 ms kernel read 0.255 ms)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -247,7 +257,7 @@ def _timed_graph(fn, n):
     with torch.cuda.graph(graph):
         for _ in range(n):
             fn()
-    return _timed(graph.replay, 5) / n
+    return _timed(graph.replay, 5, warm=10) / n
 
 
 def _copy_state(st):
@@ -285,13 +295,16 @@ def plain_step(st, co, grid, n, oz, pamp=0.0, vsrc=None):
 # plus written per cell (the int32 material index counts as one), CPML'd
 # derivatives per axis (each reads and writes a lo and a hi psi slab of ns
 # planes), (N1, N2) source planes read, and float operations per cell. The
-# CPML profiles and the material table (a few hundred bytes) are left out.
-# A point-source variant does the work of its plane-source twin (one cell
-# more is a sub-byte change).
+# CPML profiles and the material table (a few hundred bytes to a few tens
+# of KB) are left out. A point-source variant does the work of its
+# plane-source twin (one cell more is a sub-byte change). The fluid rows
+# are the viscous CT case: velocity p, index, 3 velocities read and
+# written; pressure 3 velocities, index, p and r read, p and r written
+# (+ 3 accumulators read and written in the window).
 KERNEL_WORK = {
     "fluid_velocity": dict(volumes=8, derivs_per_axis=1, planes=3, flops=24),
-    "fluid_pressure": dict(volumes=10, derivs_per_axis=1, planes=0, flops=27),
-    "fluid_pressure_dft": dict(volumes=16, derivs_per_axis=1, planes=0,
+    "fluid_pressure": dict(volumes=8, derivs_per_axis=1, planes=0, flops=27),
+    "fluid_pressure_dft": dict(volumes=14, derivs_per_axis=1, planes=0,
                                flops=33),
     "bhte_step": dict(volumes=15, derivs_per_axis=0, planes=0, flops=30),
     "visco_velocity": dict(volumes=13, derivs_per_axis=3, planes=3, flops=60),
@@ -375,30 +388,43 @@ def _sources(shape, source, device):
     return (POINT_AMP if source == "point" else 0.0), vsrc
 
 
-def fluid_case(shape, n_steps, sensor_start, source, device):
+def fluid_case(shape, n_steps, sensor_start, source, device, zsrc=13,
+               source_ijk=None, n_bone=1023, reflector=False, viscous=True):
     """(grid, coefficients, point amplitude, volume source, oz) of the
-    kernel phase's fluid runs: the 1026-material CT table and a ``source``
-    ("plane", "point" or "volume") drive."""
+    kernel phase's fluid runs: the CT table (water, skin, brain and
+    ``n_bone`` quantized-HU bones; inviscid unless ``viscous``), with an
+    air pocket in the bone (reflector twins) if ``reflector``, and a
+    ``source`` drive (the plane at ``zsrc``, the point at ``source_ijk``,
+    by default the centre)."""
     from babelbrain_tpu_torch.ops import fdtd as F
 
-    mats = ct_table()
+    mats = ct_table(n_bone)
+    if not viscous:
+        mats[:, 3:] = 0.0
     cmax = mats[:, 1].max()
     dx = 1482.3 / F0 / PPW
     ppp = int(np.ceil(1 / F0 / F.stable_dt(dx, cmax, cfl=0.5)))
     dt = 1 / F0 / ppp
     grid = F.FDTDGrid(shape=shape, dx=dx, dt=dt, n_steps=n_steps,
                       frequency=F0, sensor_start=sensor_start,
-                      source_plane_z=13, source_type=SOURCE_TYPES[source],
-                      source_ijk=tuple(n // 2 for n in shape))
+                      source_plane_z=zsrc, source_type=SOURCE_TYPES[source],
+                      source_ijk=source_ijk or tuple(n // 2 for n in shape))
     coefs = F.sls_coefficients(mats, F0, dt)
-    props = F._material_fields(ct_index_volume(shape), coefs, has_shear=False)
+    idx = ct_index_volume(shape, n_mat=len(mats))
+    refl = None
+    if reflector:  # a cube of air in the middle of the bone slab
+        refl = np.zeros(shape, bool)
+        z = shape[2] // 4 + 19
+        c = [n // 2 for n in shape[:2]]
+        refl[c[0] - 4:c[0] + 4, c[1] - 4:c[1] + 4, z - 3:z + 3] = True
+    mi, table = F._build_indexed_materials(coefs, idx, refl)
     prof = F._build_cpml_profiles_np(shape, 12, dx, dt, cmax, 1e-5)
     amp = np.zeros(shape[:2])
     m = max(2, shape[0] // 12)  # 16 cells at the benchmark shape
     if source == "plane":
         amp[m:-m, m:-m] = 60e3
     ph = np.random.default_rng(1).uniform(-1.0, 1.0, shape[:2])
-    co = F.make_fluid_coeffs(props, prof, amp, ph, grid, coefs["viscous"],
+    co = F.make_fluid_coeffs(mi, table, prof, amp, ph, grid, coefs["viscous"],
                              device)
     pamp, vsrc = _sources(shape, source, device)
     return grid, co, pamp, vsrc, 1.0 / (1000.0 * 1500.0)
@@ -427,37 +453,32 @@ def check_fluid(shape=KERNEL_SHAPE, n_steps=FLUID_STEPS,
     pmax = float(st_p.p.abs().max())
     if not np.isfinite(pmax) or pmax <= 0:
         fail(f"fluid plain run ({source} source) has max|p| = {pmax}")
-    tol = 1e-4 * pmax
-    err = lambda a, b: float((a - b).abs().max())  # noqa: E731
-    velocity_err = max(err(st_k.vx, st_p.vx), err(st_k.vy, st_p.vy),
-                       err(st_k.vz, st_p.vz))
-    pressure_err = max(err(st_k.p, st_p.p), err(st_k.r, st_p.r))
-    dft_err = max(err(st_k.acc_cos, st_p.acc_cos),
-                  err(st_k.acc_sin, st_p.acc_sin), err(st_k.peak, st_p.peak))
-    # the rows this source exercises: (velocity, pressure, pressure + DFT)
+    # every field and psi slab against the plain state, bit for bit (the
+    # kernels are built with --fmad=false in the plain versions' operation
+    # order); the rows this source exercises: (velocity, pressure,
+    # pressure + DFT) and the fields each writes
+    diff = {}
+    for name, e in state_diff(st_k, st_p):
+        diff[name] = max(diff.get(name, 0.0), e)
+    groups = (("vx", "vy", "vz", "psi_p"), ("p", "r", "psi_v"),
+              ("acc_cos", "acc_sin", "peak"))
+    errs_of = [max([diff.get(f, 0.0) for f in fields]) for fields in groups]
+    velocity_err, pressure_err, dft_err = errs_of
     rows = {
         "plane": ("fluid_velocity", "fluid_pressure", "fluid_pressure_dft"),
         "point": (None, "fluid_pressure_point", "fluid_pressure_point_dft"),
         "volume": ("volume_source", None, None),
     }[source]
-    errs = {k: e for k, e in zip(rows, (velocity_err, pressure_err, dft_err))
-            if k is not None}
+    errs = {k: e for k, e in zip(rows, errs_of) if k is not None}
     extra = f", {vsrc.n_src} source voxels" if vsrc is not None else ""
     print(f"[kernels] fluid {shape} {n_steps} steps (window from "
           f"{sensor_start}), {source} source{extra}: max|p| {pmax:.6g} Pa, "
-          f"tolerance {tol:.6g} (1e-4 max|p|)")
+          f"tolerance 0 (bit for bit, every field and psi slab)")
     print(f"[kernels]   velocity / pressure / DFT fields: max abs diff vs "
           f"plain {velocity_err:.6g} / {pressure_err:.6g} / {dft_err:.6g}")
-    if max(pressure_err, dft_err) > tol:
-        fail(f"fluid kernels ({source} source) disagree with the plain "
-             f"version: {errs}")
-    # velocities are compared at the same relative band (|v| ~ |p| oz)
-    vmax = float(max(st_p.vx.abs().max(), st_p.vy.abs().max(),
-                     st_p.vz.abs().max()))
-    if velocity_err > 1e-4 * vmax:
-        fail(f"fluid velocity ({source} source) disagrees: {velocity_err} > "
-             f"1e-4 * {vmax}")
-
+    if diff:
+        fail(f"fluid kernels ({source} source) differ from the plain "
+             f"version (field, max abs diff): {sorted(diff.items())}")
     times = {}
     if device == "cuda":
         s = F.step_scalars(grid, 10, oz, pamp)
@@ -465,18 +486,20 @@ def check_fluid(shape=KERNEL_SHAPE, n_steps=FLUID_STEPS,
         work = _copy_state(st_k)
         if source == "plane":
             times["fluid_velocity"] = (
-                _timed(lambda: K.fluid_velocity(work, co, s[0], s[1]), 20),
+                _timed_graph(lambda: K.fluid_velocity(work, co, s[0], s[1]),
+                             20),
                 _timed(lambda: K.fluid_velocity_ref(work, co, s[0], s[1]), 5),
             )
         if source in ("plane", "point"):
             q, d = rows[1:]
             times[q] = (
-                _timed(lambda: K.fluid_pressure(work, co, point=point), 20),
+                _timed_graph(lambda: K.fluid_pressure(work, co, point=point),
+                             20),
                 _timed(lambda: K.fluid_pressure_ref(work, co, point=point), 5),
             )
             times[d] = (
-                _timed(lambda: K.fluid_pressure(work, co, s[2], s[3], point),
-                       20),
+                _timed_graph(lambda: K.fluid_pressure(work, co, s[2], s[3],
+                                                      point), 20),
                 _timed(lambda: K.fluid_pressure_ref(work, co, s[2], s[3],
                                                     point), 5),
             )
@@ -623,16 +646,18 @@ def check_visco(shape=KERNEL_SHAPE, n_steps=VISCO_STEPS,
         work = _copy_state(st_k)
         if source == "plane":
             times["visco_velocity"] = (
-                _timed(lambda: V.visco_velocity(work, co, s[0], s[1]), 20),
+                _timed_graph(lambda: V.visco_velocity(work, co, s[0], s[1]),
+                             20),
                 _timed(lambda: V.visco_velocity_ref(work, co, s[0], s[1]), 5),
             )
         q, d = list(groups)[-2:]
         times[q] = (
-            _timed(lambda: V.visco_stress(work, co, point=point), 20),
+            _timed_graph(lambda: V.visco_stress(work, co, point=point), 20),
             _timed(lambda: V.visco_stress_ref(work, co, point=point), 5),
         )
         times[d] = (
-            _timed(lambda: V.visco_stress(work, co, s[2], s[3], point), 20),
+            _timed_graph(lambda: V.visco_stress(work, co, s[2], s[3], point),
+                         20),
             _timed(lambda: V.visco_stress_ref(work, co, s[2], s[3], point), 5),
         )
         for name, (tk, tp) in times.items():
@@ -674,17 +699,18 @@ def check_visco_ragged(device="cuda"):
     then a stress point on a (y, z) tile corner at the first plane of the
     second x-segment. Returns the difference (0) keyed by kernel row."""
     from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
     from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
 
     geo = V.visco_launch_geometry(RAGGED_SHAPE)
-    corner = (geo.segment, geo.tile_y, V.TILE_Z)
+    corner = (geo.segment, geo.tile_y, K.TILE_Z)
     rows = {"plane": ("visco_velocity", "visco_stress", "visco_stress_dft"),
             "point": ("visco_stress_point", "visco_stress_point_dft")}
     errs = {}
     for source, names in rows.items():
         grid, co, pamp, _, oz, _ = visco_case(
             RAGGED_SHAPE, RAGGED_STEPS, RAGGED_SENSOR_START, source, device,
-            zsrc=V.TILE_Z, source_ijk=corner)
+            zsrc=K.TILE_Z, source_ijk=corner)
         st_k = V.ViscoState.zeros(RAGGED_SHAPE, 14, device)
         st_p = V.ViscoState.zeros(RAGGED_SHAPE, 14, device)
         for n in range(RAGGED_STEPS):
@@ -695,7 +721,7 @@ def check_visco_ragged(device="cuda"):
         bad = state_diff(st_k, st_p)
         peak = float(st_p.peak.max())
         what = (f"stress point at {corner}" if source == "point"
-                else f"plane source at z = {V.TILE_Z}")
+                else f"plane source at z = {K.TILE_Z}")
         print(f"[kernels] visco {RAGGED_SHAPE} (launch {geo}), {what}, "
               f"{RAGGED_STEPS} steps (window from {RAGGED_SENSOR_START}): "
               f"peak |p| {peak:.6g} Pa; fields differing from plain {bad}")
@@ -704,6 +730,114 @@ def check_visco_ragged(device="cuda"):
                  f"from their plain versions: {bad}; peak {peak}")
         errs.update(dict.fromkeys(names, 0.0))
     return errs, {}
+
+
+def _fluid_bit_for_bit(tag, grid, co, pamp, oz, device):
+    """``grid.n_steps`` steps of the fluid kernels and of their plain
+    versions from zero fields; fails unless every field and psi slab is
+    equal bit for bit. Returns (the plain run's peak |p|, the kernels'
+    state)."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
+
+    st_k = K.FluidState.zeros(grid.shape, 14, device)
+    st_p = K.FluidState.zeros(grid.shape, 14, device)
+    for n in range(grid.n_steps):
+        F.fluid_step(st_k, co, grid, n, oz, pamp)
+        plain_step(st_p, co, grid, n, oz, pamp)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    bad = state_diff(st_k, st_p)
+    peak = float(st_p.peak.max())
+    if bad or not np.isfinite(peak) or peak <= 0:
+        fail(f"fluid kernels, {tag}: fields differ from their plain "
+             f"versions: {bad}; peak {peak}")
+    return peak, st_k
+
+
+def check_fluid_ragged(device="cuda"):
+    """The fluid kernels against their plain versions at ``RAGGED_SHAPE``,
+    bit for bit in every field: the CT table with an air pocket (reflector
+    twins) and a plane source at z = 32 (a z-tile edge); the same without
+    attenuation (the inviscid pressure kernel); a stress point on a (y, z)
+    tile corner at the first plane of the second x-segment. Returns the
+    difference (0) keyed by kernel row."""
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
+
+    geo = K.fluid_launch_geometry(RAGGED_SHAPE)
+    corner = (geo.segment, geo.tile_y, K.TILE_Z)
+    runs = {
+        "plane, reflector twins": (
+            "plane", dict(reflector=True),
+            ("fluid_velocity", "fluid_pressure", "fluid_pressure_dft")),
+        "plane, inviscid": ("plane", dict(viscous=False), ()),
+        "point": ("point", {}, ("fluid_pressure_point",
+                                "fluid_pressure_point_dft")),
+    }
+    errs = {}
+    for what, (source, kw, names) in runs.items():
+        grid, co, pamp, _, oz = fluid_case(
+            RAGGED_SHAPE, RAGGED_STEPS, RAGGED_SENSOR_START, source, device,
+            zsrc=K.TILE_Z, source_ijk=corner, **kw)
+        peak, st = _fluid_bit_for_bit(f"{RAGGED_SHAPE} {what}", grid, co,
+                                      pamp, oz, device)
+        n_mat = co.table.shape[1]
+        where = (f"stress point at {corner}" if source == "point"
+                 else f"plane source at z = {K.TILE_Z}")
+        air = ""
+        if kw.get("reflector"):
+            twins = co.mat_idx >= n_mat // 2
+            air = (f", {int(twins.sum())} air voxels (max|p| there "
+                   f"{float(st.p[twins].abs().max()):.6g})")
+            if not twins.any() or float(st.p[twins].abs().max()) != 0.0:
+                fail(f"fluid {RAGGED_SHAPE}: the air pocket is empty or "
+                     "carries pressure")
+        print(f"[kernels] fluid {RAGGED_SHAPE} (launch {geo}), {what}, "
+              f"{where}, {n_mat} materials{air}, viscous {co.viscous}, "
+              f"{RAGGED_STEPS} steps (window from {RAGGED_SENSOR_START}): "
+              f"peak |p| {peak:.6g} Pa; every field bit-equal to plain")
+        errs.update(dict.fromkeys(names, 0.0))
+    return errs, {}
+
+
+# the material count of a 16-bit HU quantisation (65536 bone levels + water,
+# skin and brain): a 1.5 MB table, whose rows exceed the 227 KB of shared
+# memory a block may hold on an H100 (the fluid kernels gather every table
+# through __ldg)
+LARGE_BONES = 65536
+LARGE_STEPS, LARGE_SENSOR_START = 40, 20
+
+
+def check_fluid_large_table(device="cuda"):
+    """The fluid kernels at ``KERNEL_SHAPE`` with the 16-bit table (indices
+    above 65535), bit for bit against the plain versions over 40 steps
+    across the window start; their times with it (beside those of
+    ``check_fluid`` with the 1026-material table)."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
+
+    grid, co, pamp, _, oz = fluid_case(KERNEL_SHAPE, LARGE_STEPS,
+                                       LARGE_SENSOR_START, "plane", device,
+                                       n_bone=LARGE_BONES)
+    n_mat = co.table.shape[1]
+    top = int(co.mat_idx.max())
+    if top <= 65535:
+        fail(f"the {n_mat}-material run gathers no index above 65535")
+    peak, st = _fluid_bit_for_bit(f"{n_mat}-material table", grid, co, pamp,
+                                  oz, device)
+    print(f"[kernels] fluid {KERNEL_SHAPE}, {n_mat}-material table "
+          f"({4 * 6 * n_mat} bytes, indices up to {top}), {LARGE_STEPS} "
+          f"steps (window from {LARGE_SENSOR_START}): peak |p| {peak:.6g} "
+          "Pa; every field bit-equal to plain")
+    if device == "cuda":
+        s = F.step_scalars(grid, 10, oz)
+        t = (_timed_graph(lambda: K.fluid_velocity(st, co, s[0], s[1]), 20),
+             _timed_graph(lambda: K.fluid_pressure(st, co), 20),
+             _timed_graph(lambda: K.fluid_pressure(st, co, s[2], s[3]), 20))
+        print(f"[kernels]   with this table: velocity {t[0]:.4f} ms, "
+              f"pressure {t[1]:.4f} ms, +DFT {t[2]:.4f} ms")
+    return {"fluid_velocity": 0.0, "fluid_pressure": 0.0,
+            "fluid_pressure_dft": 0.0}, {}
 
 
 def check_bhte(shape=KERNEL_SHAPE, n_steps=BHTE_STEPS,
@@ -756,7 +890,8 @@ def check_bhte(shape=KERNEL_SHAPE, n_steps=BHTE_STEPS,
     times = {}
     if device == "cuda":
         T, out = Tk.clone(), torch.empty_like(Tk)
-        tk = _timed(lambda: K.bhte_step(T, dk, pk, co, Q, t_art, T_out=out), 50)
+        tk = _timed_graph(
+            lambda: K.bhte_step(T, dk, pk, co, Q, t_art, T_out=out), 50)
         tp = _timed(lambda: K.bhte_step_ref(T, dk, pk, co, Q, t_art, out), 10)
         cells = float(np.prod(shape))
         print(f"[kernels]   bhte_step: kernel {tk:.4f} ms/step "
@@ -852,7 +987,7 @@ def check_diagnostics(family, shape=KERNEL_SHAPE, device="cuda"):
     if device != "cuda":
         return errs, {}, bounds
     acc = diag_k.extras
-    t_ex = (_timed(lambda: E.extras_accumulate(st, acc), 20),
+    t_ex = (_timed_graph(lambda: E.extras_accumulate(st, acc), 20),
             _timed(lambda: E.extras_accumulate_ref(st, acc), 5),
             # no single PyTorch call adds v*v into one map and keeps max|v|
             # in another, over seven fields
@@ -926,9 +1061,9 @@ def check_probe_kernels(device="cuda"):
     take_idx = (idx.long().unsqueeze(0)
                 + m * torch.arange(n_coef, device=device).view(-1, 1, 1, 1))
     times = {
-        "stream": (_timed(lambda: P.stream(x, y_k), 20),
+        "stream": (_timed_graph(lambda: P.stream(x, y_k), 20),
                    _timed(lambda: P.stream_ref(x, y_p), 5),
-                   _timed(lambda: torch.add(x, 1.0, out=y_p), 20)),
+                   _timed_graph(lambda: torch.add(x, 1.0, out=y_p), 20)),
         "fma_chain": (_timed_graph(lambda: P.fma_chain(xf, scale, f_k, rep),
                                    20),
                       _timed_graph(lambda: P.fma_chain_ref(xf, scale, f_p,
@@ -1300,6 +1435,9 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
           f"wall {wall:.2f} s")
     for label, dt in spans:
         print(f"{tag} span {label}: {dt:.3f} s")
+    setup = [round(dt, 3) for label, dt in spans
+             if label.endswith("FDTD setup")]
+    print(f"{tag} fdtd_setup host time of each run_fdtd (s): {setup}")
 
     p_amp = np.asarray(res["data_for_sim"]["p_amp"])
     th = res["thermal"]
@@ -1634,7 +1772,10 @@ def main():
     for check, source in ((check_fluid, "plane"), (check_fluid, "point"),
                           (check_fluid, "volume"), (check_visco, "plane"),
                           (check_visco, "point"), (check_visco, "volume"),
-                          (check_visco_ragged, None), (check_bhte, None)):
+                          (check_visco_ragged, None),
+                          (check_fluid_ragged, None),
+                          (check_fluid_large_table, None),
+                          (check_bhte, None)):
         e, t = check() if source is None else check(source=source)
         for k, v in e.items():  # the scatter is checked in both families
             errs[k] = max(errs.get(k, 0.0), v)

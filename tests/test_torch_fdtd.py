@@ -122,17 +122,30 @@ def test_stable_dt_bit_equal():
         assert J.stable_dt(dx, c, cfl) == T.stable_dt(dx, c, cfl)
 
 
-def test_material_fields_and_reflector_fold_bit_equal():
+@pytest.mark.parametrize("reflector", [False, True])
+def test_material_fields_and_reflector_fold_bit_equal(reflector):
+    """The fluid kernels' indexed table, gathered at the index, equals the
+    JAX expanded property volumes (``_material_fields``, folded with
+    ``_fold_reflector`` when a reflector mask is given), bit for bit."""
     idx, mats, g, _, _ = _config("ct_slab_fluid")
     coefs = J.sls_coefficients(mats, F0, g["dt"])
-    a = J._material_fields(idx, coefs, has_shear=False)
-    b = T._material_fields(idx, coefs, has_shear=False)
-    refl = np.random.default_rng(3).random(idx.shape) > 0.9
-    J._fold_reflector(a, refl, False)
-    T._fold_reflector(b, refl, False)
-    assert a.keys() == b.keys()
-    for k in a:
-        np.testing.assert_array_equal(a[k], b[k])
+    props = J._material_fields(idx, coefs, has_shear=False)
+    refl = None
+    if reflector:
+        refl = np.random.default_rng(3).random(idx.shape) > 0.9
+        J._fold_reflector(props, refl, False)
+    ti, tt = T._build_indexed_materials(coefs, idx, refl)
+    assert ti.dtype == np.int32 and tt.shape == (6, 46 if reflector else 23)
+    co = T.make_fluid_coeffs(ti, tt, T._build_cpml_profiles_np(
+        g["shape"], 12, g["dx"], g["dt"], 2900.0, 1e-5),
+        np.zeros(g["shape"][:2]), np.zeros(g["shape"][:2]),
+        T.FDTDGrid(**g), coefs["viscous"], "cpu")
+    assert set(props) == {"pi_u", "c_rp", "b_r", "rho_inv"}
+    for row, k in ((0, "rho_inv"), (1, "pi_u"), (3, "c_rp"), (5, "b_r")):
+        got = fdtd_kernels._gather(co, row).numpy()
+        np.testing.assert_array_equal(got, props[k], err_msg=k)
+    if reflector:
+        assert (props["pi_u"][refl] == 0).all()
 
 
 # ---------------------------------------------------------------------------

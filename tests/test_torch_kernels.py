@@ -43,33 +43,69 @@ def cuda():
     return torch.device("cuda")
 
 
+# Grids for the FDTD kernels' tiling (TILE_Z x TILE_Y columns a block,
+# segments of x-planes), with the plane source's z: the grid of the other
+# tests; N3 and N2 off the tile sizes, N1 = 27 < 2 ns (the lo and hi x-CPML
+# slabs overlap inside a segment) and the plane on a z-tile edge; N1 = 37,
+# which no segment length divides, and the plane on the other side of it.
+VISCO_GRIDS = [((36, 40, 56), 13), ((27, 45, 47), K.TILE_Z),
+               ((37, 41, 57), K.TILE_Z - 1)]
+
+
+def _tile_corner(shape, geometry=V.visco_launch_geometry):
+    """A cell on a (y, z) tile corner at the first plane of the second
+    x-segment of a family's launch geometry."""
+    geo = geometry(shape)
+    return (geo.segment, geo.tile_y, K.TILE_Z)
+
+
+# the material count of a 16-bit HU quantisation (65536 levels + water, skin
+# and brain): a 1.5 MB table, beyond the 227 KB of shared memory a block may
+# hold on an H100 (the fluid kernels gather it through __ldg)
+LARGE_TABLE = 65539
+
+
 def _fluid_setup(device, shape=(36, 40, 56), viscous=True,
-                 source_type="velocity_plane"):
-    mats = np.array([[1000.0, 1500.0, 0, 0, 0],
-                     [1900.0, 2800.0, 0, 80.0 if viscous else 0.0, 0]])
+                 source_type="velocity_plane", zsrc=13,
+                 source_ijk=(17, 21, 34), reflector=False, n_mat=2):
+    """Water with a bone slab along z (``n_mat`` > 2: a slab of random
+    materials of increasing speed), a plane or point source; with
+    ``reflector`` an air pocket in the slab (reflector twins)."""
+    mats = np.array([[1000.0, 1500.0, 0, 0, 0]] + [
+        [1900.0, c, 0, 80.0 if viscous else 0.0, 0]
+        for c in np.linspace(2200.0, 2800.0, n_mat - 1)])
     dx = 1500.0 / F0 / 6
     ppp = int(np.ceil(1 / F0 / F.stable_dt(dx, 2800.0, 0.5)))
     dt = 1 / F0 / ppp
     grid = F.FDTDGrid(shape=shape, dx=dx, dt=dt, n_steps=60, frequency=F0,
-                      sensor_start=40, source_plane_z=13,
-                      source_type=source_type, source_ijk=(17, 21, 34))
-    idx = np.zeros(shape, np.uint8)
+                      sensor_start=40, source_plane_z=zsrc,
+                      source_type=source_type, source_ijk=source_ijk)
+    idx = np.zeros(shape, np.int32)
     idx[:, :, 24:30] = 1
+    if n_mat > 2:  # random materials, and the last 64 of the table
+        slab = np.random.default_rng(1).integers(1, n_mat,
+                                                 (shape[0], shape[1], 6))
+        slab.reshape(-1)[:64] = np.arange(n_mat - 64, n_mat)
+        idx[:, :, 24:30] = slab
+    refl = None
+    if reflector:
+        refl = np.zeros(shape, bool)
+        refl[14:22, 14:22, 26:29] = True
     coefs = F.sls_coefficients(mats, F0, dt)
-    props = F._material_fields(idx, coefs, has_shear=False)
+    mi, table = F._build_indexed_materials(coefs, idx, refl)
     prof = F._build_cpml_profiles_np(shape, 12, dx, dt, 2800.0, 1e-5)
     amp = np.zeros(shape[:2])
     if source_type == "velocity_plane":
         amp[6:-6, 6:-6] = 60e3
     ph = np.random.default_rng(0).uniform(-1, 1, shape[:2])
-    co = F.make_fluid_coeffs(props, prof, amp, ph, grid, coefs["viscous"],
+    co = F.make_fluid_coeffs(mi, table, prof, amp, ph, grid, coefs["viscous"],
                              device)
     return grid, co
 
 
-@pytest.mark.parametrize("viscous", [True, False])
-def test_fluid_kernels_match_plain(cuda, viscous):
-    grid, co = _fluid_setup(cuda, viscous=viscous)
+def _fluid_run_matches_plain(cuda, grid, co):
+    """60 plane-source steps (20 in the DFT window) through the kernels and
+    the plain versions: every field and psi slab bit-equal."""
     oz = 1.0 / (1000.0 * 1500.0)
     st_k = K.FluidState.zeros(grid.shape, 14, cuda)
     st_p = K.FluidState.zeros(grid.shape, 14, cuda)
@@ -87,11 +123,36 @@ def test_fluid_kernels_match_plain(cuda, viscous):
     assert K.launches["fluid_pressure"] - before["fluid_pressure"] == 40
     assert K.launches["fluid_pressure_dft"] - before["fluid_pressure_dft"] == 20
     assert float(st_p.p.abs().max()) > 0
-    for name in ("p", "vx", "vy", "vz", "r", "acc_cos", "acc_sin", "peak"):
-        torch.testing.assert_close(getattr(st_k, name), getattr(st_p, name),
-                                   rtol=0, atol=0, msg=name)
-    for a, b in zip(st_k.psi_p + st_k.psi_v, st_p.psi_p + st_p.psi_v):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    _fields_equal(st_k, st_p, ("p", "vx", "vy", "vz", "r", "acc_cos",
+                               "acc_sin", "peak"), ("psi_p", "psi_v"))
+    return st_p
+
+
+@pytest.mark.parametrize("shape,zsrc", VISCO_GRIDS)
+@pytest.mark.parametrize("viscous", [True, False])
+def test_fluid_kernels_match_plain(cuda, viscous, shape, zsrc):
+    """On the tiling's ragged grids (see ``VISCO_GRIDS``)."""
+    grid, co = _fluid_setup(cuda, shape=shape, viscous=viscous, zsrc=zsrc)
+    _fluid_run_matches_plain(cuda, grid, co)
+
+
+@pytest.mark.parametrize("shape,zsrc", VISCO_GRIDS[:2])
+def test_fluid_kernels_match_plain_with_reflector_twins(cuda, shape, zsrc):
+    grid, co = _fluid_setup(cuda, shape=shape, zsrc=zsrc, reflector=True)
+    assert co.table.shape[1] == 4 and float(co.table[1, 2:].abs().max()) == 0
+    st = _fluid_run_matches_plain(cuda, grid, co)
+    air = co.mat_idx >= 2
+    assert int(air.sum()) > 0 and float(st.p[air].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("viscous", [True, False])
+def test_fluid_kernels_match_plain_large_table(cuda, viscous):
+    """A table beyond the shared memory a block may hold, gathered at
+    indices above 65535."""
+    grid, co = _fluid_setup(cuda, viscous=viscous, n_mat=LARGE_TABLE)
+    assert 4 * co.table.shape[1] > 232448  # one row beyond 227 KB
+    assert int(co.mat_idx.max()) > 65535
+    _fluid_run_matches_plain(cuda, grid, co)
 
 
 def test_fluid_wrapper_rejects_mixed_devices(cuda):
@@ -99,22 +160,6 @@ def test_fluid_wrapper_rejects_mixed_devices(cuda):
     st = K.FluidState.zeros(grid.shape, 14, "cpu")
     with pytest.raises(ValueError, match="float32 on"):
         K.fluid_velocity(st, co, 0.0, 0.0)
-
-
-# Grids for the visco kernels' tiling (TILE_Z x TILE_Y columns a block,
-# segments of x-planes), with the plane source's z: the grid of the other
-# tests; N3 and N2 off the tile sizes, N1 = 27 < 2 ns (the lo and hi x-CPML
-# slabs overlap inside a segment) and the plane on a z-tile edge; N1 = 37,
-# which no segment length divides, and the plane on the other side of it.
-VISCO_GRIDS = [((36, 40, 56), 13), ((27, 45, 47), V.TILE_Z),
-               ((37, 41, 57), V.TILE_Z - 1)]
-
-
-def _tile_corner(shape):
-    """A cell on a (y, z) tile corner at the first plane of the second
-    x-segment of the kernels' launch geometry."""
-    geo = V.visco_launch_geometry(shape)
-    return (geo.segment, geo.tile_y, V.TILE_Z)
 
 
 @pytest.mark.parametrize("shape,zsrc", VISCO_GRIDS)
@@ -232,9 +277,16 @@ def _fields_equal(st_k, st_p, names, psi):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("shape", [(36, 40, 56), (27, 45, 47),
+                                   (37, 41, 57)])
 @pytest.mark.parametrize("source", ["stress_point", "velocity_volume"])
-def test_fluid_point_and_volume_kernels_match_plain(cuda, source):
-    grid, co = _fluid_setup(cuda, source_type=source)
+def test_fluid_point_and_volume_kernels_match_plain(cuda, source, shape):
+    """On the first grid the point sits inside a tile; on the ragged ones
+    on a (y, z) tile corner at an x-segment boundary."""
+    ijk = ((17, 21, 34) if shape == (36, 40, 56)
+           else _tile_corner(shape, K.fluid_launch_geometry))
+    grid, co = _fluid_setup(cuda, shape=shape, source_type=source,
+                            source_ijk=ijk)
     vsrc = _shell(grid.shape, cuda) if source == "velocity_volume" else None
     pamp = 50e3 if source == "stress_point" else 0.0
     pt = F.point_index(grid)
