@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.timing import stage_timer
 from .bhte_kernels import BHTECoeffs, bhte_step, edge_shift
 
 # IT'IS blood properties for the perfusion term
@@ -127,6 +128,20 @@ def bhte_run(
     Returns BHTEResult; dose is CEM43 in seconds.
     """
     dev = torch.device(device)
+    with stage_timer("BHTE setup", level=3, step=3):
+        state = _bhte_setup(pressure_fields, mat_idx, mats, dx, dt,
+                            duty_cycle, monitor_points, initial_temperature,
+                            initial_dose, arterial_temperature,
+                            dose_dt_scale, dev)
+    with stage_timer("BHTE time loop", level=3, step=3):
+        return _bhte_loop(*state, schedule, dt, dose_dt_scale, dev)
+
+
+def _bhte_setup(pressure_fields, mat_idx, mats, dx, dt, duty_cycle,
+                monitor_points, initial_temperature, initial_dose,
+                arterial_temperature, dose_dt_scale, dev):
+    """The device inputs of ``bhte_run``: (heat maps, coefficients, T,
+    dose, peak, monitor indices, arterial temperature)."""
     p = np.asarray(pressure_fields, np.float32)
     if p.ndim == 3:
         p = p[None]
@@ -140,7 +155,9 @@ def bhte_run(
     co = make_bhte_coeffs(_build_coeff_maps(mat_idx, mats, dx, dt), dev)
 
     t_init = np.asarray(mats.init_temperature, np.float64)[np.asarray(mat_idx)]
-    T = torch.as_tensor(
+    # a copy: the loop writes T in place, and on the CPU ``torch.as_tensor``
+    # would share the caller's array (a chained run's previous result)
+    T = torch.tensor(
         np.asarray(initial_temperature if initial_temperature is not None
                    else t_init, np.float32),
         device=dev,
@@ -163,7 +180,13 @@ def bhte_run(
         if arterial_temperature is not None
         else np.asarray(mats.init_temperature).max()
     )
+    return Q, co, T, dose, peak, flat_idx, t_art
 
+
+def _bhte_loop(Q, co, T, dose, peak, flat_idx, t_art, schedule, dt,
+               dose_dt_scale, dev) -> BHTEResult:
+    """The schedule from the setup's state; results read back to the host
+    (the readback waits for the device)."""
     n_total = sum(int(n) for _, n, _ in schedule)
     mons = torch.empty((n_total, len(flat_idx)), dtype=torch.float32, device=dev)
     spare = torch.empty_like(T)

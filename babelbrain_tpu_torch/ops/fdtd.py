@@ -24,8 +24,12 @@ Diagnostics (``ops.fdtd_extras``, two more kernels after the step): the 14
 every ``sensor_subsampling`` steps of the window, and the raw pressure
 capture of ``run_fdtd_capture``.
 
+``run_fdtd_batch`` runs B plane-source cases on one card from one setup.
+The port compiles no executable per grid, so it keeps no counterpart of the
+JAX package's executable memo.
+
 Not ported yet: multi-device meshes (``NotImplementedError`` naming ROADMAP
-Queue A item 16).
+Queue A item 6).
 """
 
 from __future__ import annotations
@@ -256,6 +260,14 @@ def _pack_profiles(profiles_np, stag, f32):
     ]))
 
 
+def _plane(src_amp, src_phase, f32) -> dict:
+    """The plane-source fields of the coefficients: amplitude and cos/sin
+    of the phase."""
+    phase = f32(src_phase)
+    return dict(src_amp=f32(src_amp), src_cph=torch.cos(phase),
+                src_sph=torch.sin(phase))
+
+
 def _step_constants(grid: FDTDGrid, viscous: bool) -> dict:
     return dict(dt_dx=grid.dt / grid.dx, inv_dx=1.0 / grid.dx,
                 half_dt=grid.dt * 0.5, zsrc=int(grid.source_plane_z),
@@ -273,14 +285,12 @@ def _make_coeffs(cls, mat_idx, table, profiles_np, src_amp, src_phase,
         raise ValueError(
             f"material index outside the table's {table.shape[1]} materials"
         )
-    phase = f32(src_phase)
     return cls(
         mat_idx=torch.as_tensor(idx, device=torch.device(device)),
         table=f32(table),
         cpml_half=_pack_profiles(profiles_np, "half", f32),
         cpml_int=_pack_profiles(profiles_np, "int", f32),
-        src_amp=f32(src_amp), src_cph=torch.cos(phase),
-        src_sph=torch.sin(phase), **_step_constants(grid, viscous),
+        **_plane(src_amp, src_phase, f32), **_step_constants(grid, viscous),
     )
 
 
@@ -369,7 +379,7 @@ def run_fdtd(
     point_amp: float = 0.0,
     mesh=None,
     reflector_mask=None,
-    volume_source: dict | None = None,
+    volume_source: VolumeSource | dict | None = None,
     sel_maps: tuple = (),
     monitor_ijk: np.ndarray | None = None,
     sensor_subsampling: int = 1,
@@ -381,9 +391,9 @@ def run_fdtd(
     Parameters are those of the JAX ``run_fdtd`` in fluid or viscoelastic
     (shear) media, for each ``grid.source_type``: ``velocity_plane``
     (``source_amp``/``source_phase``), ``stress_point`` (``point_amp`` at
-    ``grid.source_ijk``) and ``velocity_volume`` (``volume_source``, the
-    dense dict of ``pipeline.acoustic.make_volume_source``, turned into a
-    sparse ``VolumeSource`` here). ``device`` selects where the state lives
+    ``grid.source_ijk``) and ``velocity_volume`` (``volume_source``: a
+    ``VolumeSource`` on ``device``, or the JAX package's dense dict, turned
+    into one here). ``device`` selects where the state lives
     (CUDA: the step kernels; CPU: their plain PyTorch versions). Both
     media use indexed materials (``_build_indexed_materials``).
 
@@ -402,7 +412,7 @@ def run_fdtd(
     if mesh is not None:
         raise NotImplementedError(
             "run_fdtd(mesh=...): multi-GPU decomposition is ROADMAP Queue A "
-            "item 16"
+            "item 6"
         )
     sel_maps = check_sel_maps(sel_maps)
     if int(sensor_subsampling) < 1:
@@ -532,7 +542,8 @@ def run_fdtd_capture(
 
 def fdtd_setup(mat_idx, materials, grid: FDTDGrid, source_amp=None,
                source_phase=None, reflector_mask=None,
-               volume_source: dict | None = None, *, device="cuda"):
+               volume_source: VolumeSource | dict | None = None, *,
+               device="cuda"):
     """What ``run_fdtd`` steps with, for the same arguments: (step function,
     zero state, step-invariant inputs, pressure->velocity scale, sparse
     volume source or None)."""
@@ -542,7 +553,9 @@ def fdtd_setup(mat_idx, materials, grid: FDTDGrid, source_amp=None,
     if grid.source_type == "velocity_volume":
         if volume_source is None:
             raise ValueError("velocity_volume sources need volume_source")
-        vsrc = VolumeSource.from_dense(volume_source, grid.shape, device)
+        vsrc = (volume_source if isinstance(volume_source, VolumeSource)
+                else VolumeSource.from_dense(volume_source, grid.shape,
+                                             device))
     mats = np.asarray(materials, np.float64)
     coefs = sls_coefficients(mats, grid.frequency, grid.dt)
     has_shear = bool(np.any(mats[:, 2] > 0))
@@ -564,3 +577,62 @@ def fdtd_setup(mat_idx, materials, grid: FDTDGrid, source_amp=None,
                          (make_fluid_coeffs, FluidState, fluid_step))
     co = make(idx, table, profiles, *src, grid, coefs["viscous"], device)
     return step, state.zeros(grid.shape, ns, device), co, oz_scale, vsrc
+
+
+def run_fdtd_batch(
+    mat_idx: np.ndarray,
+    materials: np.ndarray,
+    grid: FDTDGrid,
+    source_amps: np.ndarray,
+    source_phases: np.ndarray,
+    mesh=None,
+    reflector_mask=None,
+    *,
+    device="cuda",
+):
+    """Run B independent plane-source simulations on one card.
+
+    Multipoint steering runs one case per steering point (the reference
+    loops them, `CalculateFieldProcess.py:78-111`); the cases share the
+    material map and grid and differ only in their CW source plane. One
+    ``fdtd_setup`` serves them all: the cases run in turn with the same
+    kernels, the state zeroed and the source plane swapped between them,
+    so case b equals ``run_fdtd`` with plane b bit for bit.
+
+    ``source_amps``, ``source_phases``: (B, N1, N2) per-case planes.
+    ``mesh`` (the JAX package's case-axis device fan-out) is ROADMAP Queue A
+    item 6. Returns the stacked (B, N1, N2, N3) 'p_amp', 'p_phase' and
+    'peak' of ``run_fdtd``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_fdtd_batch(mesh=...): fanning cases out over several GPUs "
+            "is ROADMAP Queue A item 6"
+        )
+    if grid.source_type != "velocity_plane":
+        raise ValueError("run_fdtd_batch drives plane sources, not "
+                         f"{grid.source_type!r}")
+    amps = np.asarray(source_amps, np.float32)
+    phases = np.asarray(source_phases, np.float32)
+    if amps.ndim != 3 or amps.shape != phases.shape:
+        raise ValueError("source_amps/source_phases must be (B, N1, N2)")
+    with stage_timer("FDTD setup", level=3, step=2):
+        step, st, co, oz_scale, _ = fdtd_setup(
+            mat_idx, materials, grid, amps[0], phases[0], reflector_mask,
+            device=device,
+        )
+    f32 = _to_device(device)
+    outs = []
+    for b in range(amps.shape[0]):
+        if b:
+            for v in vars(st).values():
+                for t in (v if isinstance(v, list) else [v]):
+                    t.zero_()
+            for k, v in _plane(amps[b], phases[b], f32).items():
+                setattr(co, k, v)
+        _time_loop(step, st, co, grid, oz_scale, 0.0, None)
+        # stacked now: on the CPU 'peak' is a view of the state, zeroed next
+        outs.append(_carrier(st, grid))
+        outs[-1]["peak"] = outs[-1]["peak"].copy()
+    return {k: np.stack([o[k] for o in outs])
+            for k in ("p_amp", "p_phase", "peak")}

@@ -56,13 +56,39 @@ class VolumeSource:
     oz: torch.Tensor
 
     @classmethod
-    def from_dense(cls, volume_source: dict, shape, device) -> "VolumeSource":
-        """Sparse form of the dense dict ``run_fdtd(volume_source=...)``
-        takes (``amp``, ``phase``, ``ox``, ``oy``, ``oz``, each (N1, N2, N3)):
-        the voxels where the float32 amplitude is > 0, the JAX ``on`` mask."""
+    def from_sparse(cls, sparse: dict, shape, device) -> "VolumeSource":
+        """The source on ``device`` from its host form (``index``: C-order
+        linear voxel indices; ``amp``, ``phase``, ``ox``, ``oy``, ``oz``:
+        float32 per voxel), as ``pipeline.acoustic.make_volume_source``
+        returns it."""
         shape = tuple(int(n) for n in shape)
         if int(np.prod(shape)) >= 2**31:
             raise ValueError(f"grid {shape} too large for int32 voxel indices")
+        index = np.asarray(sparse["index"])
+        if index.ndim != 1 or (index.size and not (
+                0 <= index.min() and index.max() < np.prod(shape))):
+            raise ValueError(f"volume source indices outside the grid {shape}")
+        dev = torch.device(device)
+
+        def col(k):
+            v = np.asarray(sparse[k], np.float32)
+            if v.shape != index.shape:
+                raise ValueError(f"volume source {k!r} has shape {v.shape}, "
+                                 f"the index {index.shape}")
+            return torch.as_tensor(v, device=dev)
+
+        phase = col("phase")
+        return cls(index=torch.as_tensor(index.astype(np.int32), device=dev),
+                   amp=col("amp"), cph=torch.cos(phase), sph=torch.sin(phase),
+                   ox=col("ox"), oy=col("oy"), oz=col("oz"))
+
+    @classmethod
+    def from_dense(cls, volume_source: dict, shape, device) -> "VolumeSource":
+        """Sparse form of the dense dict of the JAX package's
+        ``make_volume_source`` (``amp``, ``phase``, ``ox``, ``oy``, ``oz``,
+        each (N1, N2, N3)): the voxels where the float32 amplitude is > 0,
+        the JAX ``on`` mask."""
+        shape = tuple(int(n) for n in shape)
         dense = {k: np.asarray(volume_source[k], np.float32)
                  for k in ("amp", "phase", "ox", "oy", "oz")}
         for k, v in dense.items():
@@ -71,15 +97,8 @@ class VolumeSource:
                     f"volume_source[{k!r}] has shape {v.shape}, grid {shape}"
                 )
         on = np.flatnonzero(dense["amp"] > 0)
-        dev = torch.device(device)
-
-        def sel(k):
-            return torch.as_tensor(dense[k].reshape(-1)[on], device=dev)
-
-        phase = sel("phase")
-        return cls(index=torch.as_tensor(on.astype(np.int32), device=dev),
-                   amp=sel("amp"), cph=torch.cos(phase), sph=torch.sin(phase),
-                   ox=sel("ox"), oy=sel("oy"), oz=sel("oz"))
+        sparse = {k: v.reshape(-1)[on] for k, v in dense.items()}
+        return cls.from_sparse(dict(sparse, index=on), shape, device)
 
     @property
     def n_src(self) -> int:

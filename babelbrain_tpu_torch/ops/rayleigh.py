@@ -81,7 +81,7 @@ def rayleigh_field(
     if mesh is not None:
         raise NotImplementedError(
             "rayleigh_field(mesh=...): multi-GPU point sharding is ROADMAP "
-            "Queue A item 16"
+            "Queue A item 6"
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

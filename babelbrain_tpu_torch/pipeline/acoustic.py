@@ -17,10 +17,10 @@ The water-only pass defaults to reusing the Rayleigh solution
 (``use_rayleigh_for_water=True``) exactly like the reference's default
 (`BabelBrain/BabelBrain.py:441`, justified by its 308-case study).
 
-Counterpart of ``babelbrain_tpu/pipeline/acoustic.py`` for one target:
-the plane-source path with optional refocusing (S4b-S8) and dome
-transducers driven volumetrically (``run_dome_sim``); Rayleigh and FDTD run
-in PyTorch on ``device``. Multipoint steering is ROADMAP Queue A item 13.
+Counterpart of ``babelbrain_tpu/pipeline/acoustic.py``: the plane-source
+path with optional refocusing (S4b-S8), multipoint steering
+(``run_multipoint``) and dome transducers driven volumetrically
+(``run_dome_sim``); Rayleigh and FDTD run in PyTorch on ``device``.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..ops.fdtd import FDTDGrid, run_fdtd
+from ..ops.fdtd import FDTDGrid, run_fdtd, run_fdtd_batch
+from ..ops.fdtd_sources import VolumeSource
 from ..ops.rayleigh import (
     expand_element_weights,
     rayleigh_field,
@@ -403,15 +404,93 @@ def position_transducer(tx, dom: Domain, focal_length: float, extra_z: float = 0
     return shifted
 
 
-def make_volume_source(dom: Domain, tx, u0):
+def run_multipoint(
+    dom: Domain,
+    tx,
+    steering_targets,
+    source_amp_pa: float = 60e3,
+    *,
+    mesh=None,
+    do_refocus: bool = False,
+    fanout: bool | str = "auto",
+    device="cuda",
+) -> tuple[list[AcousticResult], dict]:
+    """Multipoint steering (`CalculateFieldProcess.py:78-111`).
+
+    Runs one full acoustic case per steering target and combines the
+    per-point fields by voxelwise maximum for display; per-point fields are
+    kept for the time-multiplexed BHTE (`BHTEMultiplePressureFields`).
+
+    ``fanout=True`` runs the per-point FDTDs as one ``run_fdtd_batch`` (one
+    setup, the cases in turn on one card; no refocusing, as in the JAX
+    package) and assembles each point's result. ``False`` and ``"auto"``
+    run ``run_acoustic_sim`` per point: the JAX package fans out only over
+    several devices, and ``mesh`` (multi-GPU) is ROADMAP Queue A item 6.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_multipoint(mesh=...): multi-GPU fan-out is ROADMAP Queue A "
+            "item 6"
+        )
+    targets = [np.asarray(t) for t in steering_targets]
+    if fanout is True:
+        with stage_timer("Step2 forward Rayleigh", level=3, step=2):
+            per_point = [
+                _source_for_steering(dom, tx, source_amp_pa,
+                                     steering_target=t, device=device)
+                for t in targets
+            ]
+        srcs = np.stack([src for _, _, src in per_point])
+        with stage_timer("Step2 FDTD", level=3, step=2):
+            outs = run_fdtd_batch(
+                dom.material_map,
+                dom.materials,
+                _make_grid(dom),
+                source_amps=np.abs(srcs),
+                source_phases=np.angle(srcs),
+                reflector_mask=dom.meta.get("reflector_mask"),
+                device=device,
+            )
+        results = [
+            _assemble_result(
+                dom,
+                per_point[i][1],
+                per_point[i][2],
+                {k: outs[k][i] for k in outs},
+                programming=per_point[i][0],
+            )
+            for i in range(len(targets))
+        ]
+    else:
+        results = [
+            run_acoustic_sim(dom, tx, source_amp_pa, steering_target=t,
+                             do_refocus=do_refocus, device=device)
+            for t in targets
+        ]
+    combined = {
+        "p_amp_max": np.max([r.p_amp for r in results], axis=0),
+        "p_amp_all": np.stack([r.p_amp for r in results]),
+        "steering_targets": np.asarray(targets),
+    }
+    return results, combined
+
+
+def make_volume_source(dom: Domain, tx, u0) -> dict:
     """Splat transducer sub-elements into a volumetric vector source.
 
     For dome transducers the whole array sits inside the simulation domain
     (`BabelIntegrationDOME_PHASEDARRAY.py` capability): each sub-element is
     deposited on its nearest voxel with its complex drive and unit normal;
     voxels receiving several sub-elements sum complex amplitudes and average
-    normals. Returns the dense dict ``run_fdtd(volume_source=...)`` consumes
-    (a numpy copy of the JAX version: the same arrays, bit for bit).
+    normals.
+
+    Returns the sparse form (``ops.fdtd_sources.VolumeSource.from_sparse``
+    takes it): ``index``, the C-order linear indices of the voxels whose
+    float32 amplitude is > 0, and per voxel the float32 ``amp``, ``phase``,
+    ``ox``, ``oy``, ``oz``. These are the nonzero voxels of the JAX
+    package's dense dict and its values there, bit for bit: the sums run
+    over the deposited sub-elements in the same order and precision
+    (complex128 / float64), without a grid-sized accumulator.
     """
     shape = dom.material_map.shape
     centers = np.asarray(tx.centers, np.float64)
@@ -432,19 +511,23 @@ def make_volume_source(dom: Domain, tx, u0):
     lin = np.ravel_multi_index((ijk[:, 0], ijk[:, 1], ijk[:, 2]), shape)
     # conserve volume-velocity: deposit u*ds and renormalize by the voxel
     # face area, so a sparse voxel shell radiates like the continuous surface
-    acc = np.zeros(np.prod(shape), np.complex128)
-    np.add.at(acc, lin, u * ds)
-    nacc = np.zeros((np.prod(shape), 3))
-    np.add.at(nacc, lin, nrm * ds[:, None])
+    vox, slot = np.unique(lin, return_inverse=True)
+    acc = np.zeros(len(vox), np.complex128)
+    np.add.at(acc, slot, u * ds)
+    nacc = np.zeros((len(vox), 3))
+    np.add.at(nacc, slot, nrm * ds[:, None])
     acc /= dom.dx**2
     ln = np.linalg.norm(nacc, axis=1)
     nacc[ln > 0] /= ln[ln > 0, None]
+    amp = np.abs(acc).astype(np.float32)
+    on = amp > 0
     return {
-        "amp": np.abs(acc).reshape(shape).astype(np.float32),
-        "phase": np.angle(acc).reshape(shape).astype(np.float32),
-        "ox": nacc[:, 0].reshape(shape).astype(np.float32),
-        "oy": nacc[:, 1].reshape(shape).astype(np.float32),
-        "oz": nacc[:, 2].reshape(shape).astype(np.float32),
+        "index": vox[on],
+        "amp": amp[on],
+        "phase": np.angle(acc[on]).astype(np.float32),
+        "ox": nacc[on, 0].astype(np.float32),
+        "oy": nacc[on, 1].astype(np.float32),
+        "oz": nacc[on, 2].astype(np.float32),
     }
 
 
@@ -487,8 +570,11 @@ def run_dome_sim(
         u0 = expand_element_weights(tx, element_weights) * source_amp_pa
     else:
         u0 = np.full(tx.num_subelements, source_amp_pa, np.complex64)
-    vsrc = make_volume_source(dom, tx, u0)
     grid = _make_grid(dom, "velocity_volume")
+    with stage_timer("Step2 volume source", level=3, step=2):
+        # one device copy of the source voxels for both FDTD passes
+        vsrc = VolumeSource.from_sparse(make_volume_source(dom, tx, u0),
+                                        grid.shape, device)
     with stage_timer("Step2 FDTD", level=3, step=2):
         out = run_fdtd(
             dom.material_map, dom.materials, grid, volume_source=vsrc,

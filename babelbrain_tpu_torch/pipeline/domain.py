@@ -280,13 +280,11 @@ def build_domain(
     the bucket (extra water padding on the hi side, stripped again by
     ``Domain.crop``) and the step count up to a whole multiple of 4
     cycles, so near-equal cases of a targets x frequencies x PPW matrix
-    share one canonical grid signature — and hence ONE compiled
-    executable through ``run_fdtd``'s in-process memo (the reference's
-    case loop is compile-free, `BabelIntegrationBASE.py:884-1037`; on a
-    remote-compile TPU runtime every distinct shape costs minutes). The
-    extra cells are water behind the PML-side padding: fields there are
-    physically inert, and the extra settle cycles only deepen steady
-    state.
+    share one canonical grid signature (one compiled executable in the
+    JAX package; ``run_cases`` counts the distinct signatures of a
+    sweep). The extra cells are water behind the PML-side padding: fields
+    there are physically inert, and the extra settle cycles only deepen
+    steady state.
     """
     mask = np.flip(np.asarray(mask_nifti_data), axis=2).astype(np.uint32)
     shrinks = tuple(int(v) for v in (shrink_cells or (0,) * 6))

@@ -6,19 +6,21 @@ is the library-first equivalent: one call runs Step 1 -> Step 2 -> Step 3 on
 a case, with skip-if-output-exists caching like the reference
 (`BabelIntegrationBASE.py:962-966`) and ``CTS:``-style stage timing.
 
-Counterpart of ``babelbrain_tpu/pipeline/runner.py`` for single-target
-cases in CT mode (``ct_data`` given: fluid FDTD) and label mode (no CT:
+Counterpart of ``babelbrain_tpu/pipeline/runner.py``: ``run_case`` in CT
+mode (``ct_data`` given: fluid FDTD; a CT, a ZTE or PETRA MRI turned into a
+pseudo-CT, or a density map, ``CaseConfig.ct_type``) and label mode (no CT:
 tissue-label materials, viscoelastic FDTD with shear in the skull), with
 plane-source transducers (optionally refocused, ``CaseConfig.do_refocus``)
-or dome transducers driven volumetrically; every device stage runs on
-``CaseConfig.device``. Paths outside them raise ``NotImplementedError``
-naming their ROADMAP Queue A item: ZTE/PETRA/Density inputs (item 14),
-thermal-profile lists and ``run_cases`` (item 13), surface meshes (item 14)
-and device meshes (item 16).
+or dome transducers driven volumetrically, and one thermal profile entry or
+a list of them; ``run_cases`` sweeps targets x frequencies x PPW. Every
+device stage runs on ``CaseConfig.device``. Paths outside them raise
+``NotImplementedError`` naming their ROADMAP Queue A item: MRI-to-T1
+coregistration and surface meshes (item 4) and device meshes (item 6).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import os
 from dataclasses import dataclass, field
@@ -26,10 +28,17 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..materials.ct_mapping import map_hu_to_properties
+from ..materials import pseudo_ct
 from ..materials.pseudo_ct import compute_sdr
+from ..ops import imaging as im
 from ..utils.timing import stage_timer
 from . import io as pio
-from .acoustic import position_transducer, run_acoustic_sim, run_dome_sim
+from .acoustic import (
+    _make_grid,
+    position_transducer,
+    run_acoustic_sim,
+    run_dome_sim,
+)
 from .domain import (
     build_ct_materials,
     build_domain,
@@ -44,7 +53,7 @@ from .profiles import (
     validate_steering,
 )
 from .step1 import Step1Result, generate_mask
-from .thermal import SonicationParams, run_sonication
+from .thermal import SonicationParams, run_all_combinations, run_sonication
 
 
 def case_hash(**kwargs) -> str:
@@ -187,6 +196,29 @@ def load_optimized_weights(
     return w
 
 
+def make_pseudo_ct(ct_type: str, image, image_affine, labels_data,
+                   labels_affine, zte_range=(0.1, 0.6), *, device="cuda"):
+    """ZTE / PETRA MRI -> pseudo-CT HU in the image's grid (``run_case``'s
+    conversion, without its file cache): the head mask is the labels
+    resampled (nearest) onto that grid, then
+    ``materials.pseudo_ct.mri_to_pseudo_ct`` (span ``<ct_type> to
+    pseudo-CT``)."""
+    image = np.asarray(image)
+    head = im.resample_from_to(
+        (np.asarray(labels_data) > 0).astype(np.float32),
+        labels_affine,
+        image_affine if image_affine is not None else labels_affine,
+        image.shape,
+        order=0,
+        device=device,
+    ) > 0.5
+    with stage_timer(f"{ct_type} to pseudo-CT", level=1, step=1):
+        return pseudo_ct.mri_to_pseudo_ct(
+            np.asarray(image, np.float64), head, ct_type,
+            norm_range=tuple(zte_range),
+        )
+
+
 @dataclass
 class CaseConfig:
     """One sonication case (target x transducer x frequency x PPW)."""
@@ -249,6 +281,97 @@ class CaseConfig:
     device: str = "cuda"
 
 
+class CaseResults(dict):
+    """Per-cell results of a ``run_cases`` sweep, plus a ``.summary``
+    attribute (cases run, distinct FDTD grids vs cells that repeat one).
+    The summary belongs
+    to the instance (the JAX package's is a class-level dict shared by every
+    instance; its ``run_cases`` assigns one per instance all the same)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.summary = {}
+
+
+def run_cases(
+    cfg: CaseConfig,
+    labels_data,
+    labels_affine,
+    targets,
+    direction_ras,
+    *,
+    frequencies=None,
+    ppws=None,
+    stop_on_error: bool = False,
+    **case_kwargs,
+):
+    """Case-matrix sweep: targets x frequencies x PPW.
+
+    The reference's ``RUN_SIM_BASE.RunCases`` loops the full matrix with
+    per-case output naming and skip-if-output-exists caching
+    (`BabelIntegrationBASE.py:884-1037`); this is the library equivalent —
+    one call instead of shell loops, with each cell running ``run_case``
+    (so the per-case hash caches and Step-1/pseudo-CT reuse apply across
+    the matrix automatically).
+
+    Parameters
+    ----------
+    targets : list of RAS points, or dict name -> RAS point. Names become
+        the per-case prefix suffix (``<prefix>_<target>``); unnamed targets
+        get ``T0``, ``T1``, ...
+    frequencies, ppws : lists; default to the single values in ``cfg``.
+    stop_on_error : raise on the first failing cell instead of recording
+        the exception and continuing (the reference aborts the whole
+        batch; continuing is friendlier for long sweeps).
+
+    Returns dict ``(target_name, frequency, ppw) -> run_case result`` (or
+    the exception instance for failed cells when ``stop_on_error`` is
+    False). The returned mapping additionally carries a ``.summary``
+    attribute under the JAX package's keys: ``cases``, and over the cells
+    that ran their FDTD here (not failed, not served from the output
+    cache) ``fdtd_executable_builds``, the number of distinct grid
+    signatures, and ``fdtd_executable_reuses``, the cells that repeat one.
+    The port compiles nothing per grid (there is no executable cache);
+    the counts say how far ``cfg.shape_bucket`` collapsed the matrix, where
+    the JAX package compiles once per signature.
+    """
+    if isinstance(targets, dict):
+        named = list(targets.items())
+    else:
+        named = [(f"T{i}", t) for i, t in enumerate(targets)]
+    freqs = list(frequencies) if frequencies is not None else [cfg.frequency]
+    ppw_list = list(ppws) if ppws is not None else [cfg.ppw]
+
+    results = CaseResults()
+    n_cells = 0
+    for tname, target in named:
+        for f in freqs:
+            for ppw in ppw_list:
+                c = dataclasses.replace(
+                    cfg, frequency=float(f), ppw=float(ppw),
+                    prefix=f"{cfg.prefix}_{tname}",
+                )
+                key = (tname, float(f), float(ppw))
+                n_cells += 1
+                try:
+                    results[key] = run_case(
+                        c, labels_data, labels_affine, target,
+                        direction_ras, **case_kwargs,
+                    )
+                except Exception as e:  # noqa: BLE001 - recorded per cell
+                    if stop_on_error:
+                        raise
+                    results[key] = e
+    grids = [_make_grid(r["domain"]) for r in results.values()
+             if isinstance(r, dict) and r.get("domain") is not None]
+    results.summary = {
+        "cases": n_cells,
+        "fdtd_executable_builds": len(set(grids)),
+        "fdtd_executable_reuses": len(grids) - len(set(grids)),
+    }
+    return results
+
+
 def run_case(
     cfg: CaseConfig,
     labels_data,
@@ -276,23 +399,12 @@ def run_case(
     `BabelIntegrationBASE.py:962-966`, `FileManager.py:223`).
     """
     spec = TRANSDUCER_REGISTRY[cfg.tx_system]
-    ct_type = cfg.ct_type.upper().replace("REAL ", "")
-    if ct_data is not None and ct_type != "CT":
-        raise NotImplementedError(
-            f"{cfg.ct_type} inputs (pseudo-CT / density) are ROADMAP Queue A "
-            "item 14"
-        )
     if cfg.export_meshes:
         raise NotImplementedError(
-            "Step-1 surface meshes are ROADMAP Queue A item 14"
-        )
-    if isinstance(thermal_params, (list, tuple)):
-        raise NotImplementedError(
-            "thermal-profile lists (run_all_combinations) are ROADMAP Queue A "
-            "item 13"
+            "Step-1 surface meshes are ROADMAP Queue A item 4"
         )
     if mesh is not None:
-        raise NotImplementedError("device meshes are ROADMAP Queue A item 16")
+        raise NotImplementedError("device meshes are ROADMAP Queue A item 6")
     dev = cfg.device
     out_base = os.path.join(
         cfg.output_dir,
@@ -302,6 +414,53 @@ def run_case(
     # per-dataset AdvancedParams diff forces full recalculation
     # (`BabelBrain.py:1547-1583`)
     force_recalc = force_recalc or check_advanced_params(out_base, cfg)
+
+    ct_type = cfg.ct_type.upper().replace("REAL ", "")
+    if ct_data is not None and ct_type in ("ZTE", "PETRA"):
+        # MRI -> pseudo-CT conversion in the imaging grid, mirroring Step 1's
+        # CTZTEProcessing branch (`BabelDatasetPreps.py:843-851`,
+        # `CTZTEProcessing.py:501-628`). The product is target-independent,
+        # so it is cached by CONTENT hash in the output dir and reused
+        # across targets/prefixes — the reference's cross-target reuse via
+        # filename substitution (`FileManager.py:270-283`).
+        if cfg.coregister and t1_data is not None:
+            raise NotImplementedError(
+                "rigid MRI->T1 coregistration (pipeline/coreg.py) is ROADMAP "
+                "Queue A item 4"
+            )
+        pct_hash = case_hash(
+            ct=np.asarray(ct_data),
+            t1=np.asarray(t1_data) if t1_data is not None else "none",
+            labels=np.asarray(labels_data),
+            ct_type=ct_type,
+            zte_range=tuple(cfg.zte_range),
+            coreg=cfg.coregister,
+        )
+        pct_cache = os.path.join(cfg.output_dir, f"pseudoCT_{pct_hash}.h5")
+        pct = None
+        if not force_recalc and os.path.isfile(pct_cache):
+            try:
+                pct = pio.load_dict_h5(pct_cache)
+            except OSError:
+                pct = None
+        if pct is not None:
+            ct_data = np.asarray(pct["pct"])
+            ct_affine = np.asarray(pct["affine"])
+        else:
+            ct_data = make_pseudo_ct(ct_type, ct_data, ct_affine, labels_data,
+                                     labels_affine, cfg.zte_range, device=dev)
+            pio.save_dict_h5(
+                {
+                    "pct": np.asarray(ct_data),
+                    "affine": np.asarray(
+                        ct_affine if ct_affine is not None else np.eye(4)
+                    ),
+                },
+                pct_cache,
+            )
+    bone_threshold = (
+        cfg.density_threshold if ct_type == "DENSITY" else cfg.hu_threshold
+    )
 
     chash = case_hash(
         labels=np.asarray(labels_data),
@@ -417,7 +576,7 @@ def run_case(
                 segment_brain_tissue=cfg.segment_brain,
                 ct_data=ct_data,
                 ct_affine=ct_affine,
-                hu_threshold=cfg.hu_threshold,
+                hu_threshold=bone_threshold,
                 bone_rim_correction=cfg.bone_rim_correction,
                 device=dev,
             )
@@ -450,7 +609,11 @@ def run_case(
     with stage_timer("Step2 acoustic simulation", level=2, step=2):
         if ct_mode:
             rho, sos, att = map_hu_to_properties(
-                s1.unique_hu, cfg.frequency, cfg.mapping_method
+                s1.unique_hu,
+                cfg.frequency,
+                cfg.mapping_method,
+                is_petra=(ct_type == "PETRA"),
+                density_input=s1.unique_hu if ct_type == "DENSITY" else None,
             )
             materials = build_ct_materials(
                 cfg.frequency, cfg.segment_brain, rho, sos, att
@@ -623,7 +786,28 @@ def run_case(
 
     # ---------------- Step 3 ----------------
     thermal = None
-    if thermal_params is not None:
+    if isinstance(thermal_params, (list, tuple)):
+        # full thermal profile: one BHTE run per combination + consolidation
+        # (`CalculateThermalProcess.py:54-123`)
+        with stage_timer("Step3 thermal simulation", level=2, step=3):
+            p_water = data.get("p_amp_water", result.p_amp)
+            t_all, _ = run_all_combinations(
+                result.p_amp,
+                np.asarray(p_water),
+                data["MaterialMap"],
+                materials,
+                dom.dx,
+                data["TargetLocation"],
+                list(thermal_params),
+                out_base=out_base,
+                ct_mode=ct_mode,
+                segmented=cfg.segment_brain,
+                frequency=cfg.frequency,
+                tx_is_dome=is_dome,
+                device=dev,
+            )
+            thermal = t_all[-1]
+    elif thermal_params is not None:
         with stage_timer("Step3 thermal simulation", level=2, step=3):
             p_water = data.get("p_amp_water", result.p_amp)
             thermal = run_sonication(

@@ -12,7 +12,7 @@ mesh-based workflows.
 Counterpart of ``babelbrain_tpu/pipeline/step1.py`` (mask generation and
 its CT branch); the image ops run in PyTorch on ``device``. Surface-mesh
 export and target-mask helpers are not ported yet (ROADMAP Queue A
-item 14).
+item 4).
 
 Outputs honor the Step-1 contract: a ``...BabelViscoInput.nii.gz``-style
 label volume {0 water, 1 skin, 2 cortical, 3 trabecular, 4 brain, 5 target,

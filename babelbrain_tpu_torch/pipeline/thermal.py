@@ -12,9 +12,14 @@ Re-implements `ThermalModeling/CalculateTemperatureEffects.py` TPU-natively:
 * ``safety_metrics`` — TI/TIS/TIC (max temperature rises in brain / skin /
   skull), CEM43 doses, MI = p_MPa/sqrt(f_MHz), Isppa/Ispta (`:1110-1190`).
 
+* ``run_all_combinations`` — a thermal profile: one ``run_sonication``
+  per DC/PRF/Duration entry, optionally chained, consolidated into
+  ``<base>_AllCombinations.h5`` / ``.mat`` (`CalculateThermalProcess.py:
+  54-123`), with the file-name, MATLAB, Isppa-rescale and summary-table
+  helpers.
+
 Counterpart of ``babelbrain_tpu/pipeline/thermal.py``; the BHTE runs in
-PyTorch on ``device``. The thermal-profile sweep (``run_all_combinations``)
-and its file helpers are ROADMAP Queue A item 13.
+PyTorch on ``device``.
 """
 
 from __future__ import annotations
@@ -296,6 +301,171 @@ def run_sonication(
     )
 
 
+def run_all_combinations(
+    p_amp,
+    p_amp_water,
+    material_map,
+    acoustic_materials,
+    dx: float,
+    target_ijk,
+    combinations: list,
+    *,
+    out_base: str | None = None,
+    concatenate: bool = False,
+    ct_mode: bool = False,
+    segmented: bool = False,
+    baseline_temperature: float = 37.0,
+    dt: float = 0.01,
+    frequency: float = 7e5,
+    tx_is_dome: bool = False,
+    extra_data: dict | None = None,
+    device="cuda",
+):
+    """Run every DC/PRF/Duration combination of a thermal profile and
+    consolidate the per-combination results.
+
+    The reference's `CalculateThermalProcess`
+    (`Babel_Thermal/CalculateThermalProcess.py:54-123`): one BHTE run per
+    profile entry (optionally *concatenated* — each sonication seeds the next
+    run's initial temperature/dose, `prevSimulationResultsFile`), the
+    per-combination safety fields collected into ``AllData`` with an
+    ``Index`` array ``[DC, PRF, Duration, DurationOff, Isppa]`` per row, and
+    written to ``<base>_AllCombinations.h5`` (+ ``.mat``). Per-combination
+    ThermalField h5 files follow the `GetThermalOutName` contract.
+
+    Each BHTE runs on ``device``; ``out_base=None`` writes no files.
+
+    Returns (results: list[ThermalResult], consolidated: dict).
+    """
+    from . import io as pio
+
+    all_cases = []
+    index = []
+    results = []
+    init_t = init_d = None
+    for params in combinations:
+        res = run_sonication(
+            p_amp,
+            p_amp_water,
+            material_map,
+            acoustic_materials,
+            dx,
+            target_ijk,
+            params,
+            ct_mode=ct_mode,
+            segmented=segmented,
+            baseline_temperature=baseline_temperature,
+            dt=dt,
+            initial_temperature=init_t,
+            initial_dose=init_d,
+            frequency=frequency,
+            tx_is_dome=tx_is_dome,
+            device=device,
+        )
+        results.append(res)
+        if concatenate:
+            init_t, init_d = res.temperature_end, res.dose
+        n_mon = res.monitor.shape[-1]
+        mon_steps = (
+            res.monitor_steps
+            if res.monitor_steps is not None
+            else np.arange(n_mon)
+        )
+        sub = {
+            "TempProfileTarget": res.monitor[-1],
+            "TimeProfileTarget": np.asarray(mon_steps) * dt,
+            "p_map": np.asarray(p_amp)[p_amp.shape[0] // 2] * res.pressure_ratio,
+            "DurationUS": params.duration_on,
+            "DurationOff": params.duration_off,
+            "DutyCycle": params.duty_cycle,
+            "PRF": params.prf,
+            "BaselineTemperature": baseline_temperature,
+            "Repetitions": params.repetitions,
+            "NumberGroupedSonications": params.grouped_sonications,
+            "PauseBetweenGroupedSonications": params.pause_between_groups,
+        }
+        for k in ("MaxBrainPressure", "MaxIsppa", "MaxIspta", "TI", "TIC",
+                  "TIS", "Isppa", "Ispta", "MI"):
+            sub[k] = res.metrics[k]
+        all_cases.append(sub)
+        index.append([
+            params.duty_cycle, params.prf, params.duration_on,
+            params.duration_off, round(params.isppa, 1),
+        ])
+        if out_base is not None:
+            name = thermal_out_name(
+                out_base, params.duration_on, params.duration_off,
+                params.duty_cycle, params.isppa, params.prf,
+                params.repetitions,
+            )
+            per = dict(sub)
+            per.update(
+                FinalTemp=res.temperature_end,
+                FinalDose=res.dose,
+                TemperaturePoints=res.monitor,
+                RatioLosses=res.ratio_losses,
+                PressureRatio=res.pressure_ratio,
+                dt=dt,
+            )
+            pio.save_dict_h5(per, name + ".h5", compression="blosc")
+
+    consolidated = {
+        "AllData": {str(i): c for i, c in enumerate(all_cases)},
+        "Index": np.asarray(index),
+        "MaterialMap": np.asarray(material_map),
+        "TargetLocation": np.asarray(target_ijk),
+        "dt": dt,
+    }
+    if extra_data:
+        consolidated.update(extra_data)
+    if out_base is not None:
+        pio.save_dict_h5(consolidated, out_base + "_AllCombinations.h5",
+                     compression="blosc")
+        # .mat twin: AllData as a cell array of structs (digit field names
+        # are invalid in MATLAB)
+        mat_dict = dict(consolidated)
+        mat_dict["AllData"] = np.asarray(all_cases, dtype=object)
+        save_thermal_mat(out_base + "_AllCombinations.mat", mat_dict)
+    return results, consolidated
+
+
+def thermal_out_name(
+    base: str,
+    duration_on: float,
+    duration_off: float,
+    duty_cycle: float,
+    isppa: float,
+    prf: float,
+    repetitions: int,
+) -> str:
+    """Output filename contract (`GetThermalOutName`,
+    `CalculateTemperatureEffects.py:56-92`)."""
+    if duration_on >= 1 and duration_off >= 1:
+        suffix = "-ThermalField-Duration-%i-DurationOff-%i-DC-%i-Isppa-%2.1fW-PRF-%iHz" % (
+            duration_on,
+            duration_off,
+            duty_cycle * 1000,
+            isppa,
+            prf,
+        )
+    else:
+        suffix = (
+            "-ThermalField-Duration-%3.2f-DurationOff-%3.2f-DC-%i-Isppa-%2.1fW-PRF-%iHz"
+            % (duration_on, duration_off, duty_cycle * 1000, isppa, prf)
+        )
+    if repetitions > 1:
+        suffix += "-%iReps" % repetitions
+    return base + suffix
+
+
+def save_thermal_mat(path: str, save_dict: dict):
+    """Write the MATLAB twin of the thermal h5 (the reference saves both,
+    `CalculateTemperatureEffects.py:1234-1235`)."""
+    from scipy.io import savemat
+
+    savemat(path, {k.replace("-", "_"): v for k, v in save_dict.items()})
+
+
 def focal_metrics(p_amp, spacing_m: float, threshold_db: float = -6.0, *,
                   device="cuda"):
     """-6 dB focal-spot metrics (`BabelBrain/_BabelBaseTx.py:48`
@@ -340,3 +510,39 @@ def focal_metrics(p_amp, spacing_m: float, threshold_db: float = -6.0, *,
         "centroid_ijk": tuple(float(v) for v in c),
         "volume_mm3": volume_mm3,
     }
+
+
+def rescale_isppa(result: ThermalResult, p_amp, new_isppa: float, old_isppa: float):
+    """Return the pressure map scaled for a new Isppa without re-simulating
+    the acoustics (fields are linear; the reference's Babel_Thermal
+    `OverWriteIsppa` display path, `Babel_Thermal.py:314`). The BHTE must be
+    rerun on the scaled map for new thermal metrics."""
+    scale = float(np.sqrt(new_isppa / old_isppa))
+    return np.asarray(p_amp) * result.pressure_ratio * scale
+
+
+def export_summary_csv(path: str, rows: list[dict]):
+    """Write the thermal-summary table (one row per DC/duration combination;
+    the Babel_Thermal export capability, `Babel_Thermal.py:708,786`)."""
+    import csv
+
+    keys = [
+        "Isppa", "DC", "PRF", "DurationOn", "DurationOff", "Repetitions",
+        "TI", "TIS", "TIC", "CEMBrain", "CEMSkin", "CEMSkull", "MI",
+        "MaxBrainPressure", "MaxIsppa", "MaxIspta", "RatioLosses",
+    ]
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=keys, extrasaction="ignore")
+        w.writeheader()
+        for r in rows:
+            w.writerow(r)
+
+
+def summary_row(params: SonicationParams, result: ThermalResult) -> dict:
+    row = dict(result.metrics)
+    row.update(
+        Isppa=params.isppa, DC=params.duty_cycle, PRF=params.prf,
+        DurationOn=params.duration_on, DurationOff=params.duration_off,
+        Repetitions=params.repetitions, RatioLosses=result.ratio_losses,
+    )
+    return row

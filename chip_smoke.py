@@ -63,7 +63,14 @@ Phases (each prints its own lines; any failed check exits nonzero):
              their plain versions run 40 steps across the window start on
              that slice's own domain and its stress point, volumetric or
              plane source (the diag slices with every map and monitor), and
-             every field must agree bit for bit;
+             every field must agree bit for bit. zte-ct is the CT slice
+             from a synthetic ZTE MRI of the head (the pseudo-CT stage,
+             then Step 1's CT branch; its bone HU must lie in 300..2100).
+             Last, sweep-ct (``run_sweep``): two shape-bucketed targets 5 mm
+             apart (one grid signature), each with a 3-entry thermal
+             profile, then multipoint steering of the first cell at +-5 mm
+             through ``run_fdtd_batch``; its cases 0 and 1 must each equal
+             ``run_fdtd`` of their plane bit for bit;
 5. probes  — ``babelbrain_tpu_torch.probes.run_probes``: the card's stream
              rate, FP32 FMA rate and table-gather cost (P1, P2).
 
@@ -75,8 +82,10 @@ falls back to the CPU: without a CUDA device it exits with an error.
 from __future__ import annotations
 
 import importlib.util
+import dataclasses
 import json
 import os
+import resource
 import subprocess
 import sys
 import tempfile
@@ -1134,6 +1143,17 @@ def build_head():
     return labels, ct, aff
 
 
+def zte_volume(labels):
+    """A synthetic ZTE MRI of the head, made as `tests/test_runner.py:
+    303-308` makes one: bright soft tissue, dark skull, dark background,
+    seeded noise."""
+    rng = np.random.default_rng(0)
+    zte = np.full(labels.shape, 30.0)
+    zte[labels > 0] = 1000.0
+    zte[labels == 7] = 350.0  # the head's skull
+    return zte + rng.normal(0, 5, labels.shape)
+
+
 def _counted_modules():
     """The kernel modules whose wrappers count launches and plain calls."""
     from babelbrain_tpu_torch import probes
@@ -1170,11 +1190,12 @@ SLICE_CHECK_STEPS = 40
 
 
 def slice_source(cfg, dom):
-    """(grid, point amplitude, dense volume source or None) of the FDTD pass
+    """(grid, point amplitude, ``VolumeSource`` or None) of the FDTD pass
     of a slice that injects in-kernel: the refocusing's backward run from a
     stress point at the target (``run_acoustic_sim``), or the dome's
     volumetric tissue pass (``run_dome_sim``), rebuilt from the slice's own
     domain and configuration as those functions build it."""
+    from babelbrain_tpu_torch.ops.fdtd_sources import VolumeSource
     from babelbrain_tpu_torch.pipeline.acoustic import (
         _make_grid,
         make_volume_source,
@@ -1193,8 +1214,9 @@ def slice_source(cfg, dom):
            else cfg.source_amp_pa)
     tx = build_transducer(spec, cfg.frequency)
     u0 = np.full(tx.num_subelements, amp, np.complex64)
-    return (_make_grid(dom, "velocity_volume"), 0.0,
-            make_volume_source(dom, tx, u0))
+    grid = _make_grid(dom, "velocity_volume")
+    return (grid, 0.0, VolumeSource.from_sparse(
+        make_volume_source(dom, tx, u0), grid.shape, cfg.device))
 
 
 def check_slice_inputs(tag, dom, grid, point_amp=0.0, volume_source=None,
@@ -1282,10 +1304,13 @@ def to_mask_frame(dom, ijk):
 def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
                diagnostics=False):
     """The stage functions ``run_case`` calls, in its order (no files
-    written): CT mode with a CT volume, label mode with ``ct=None``; a dome
-    transducer runs ``run_dome_sim``, any other ``run_acoustic_sim`` with
-    ``cfg.do_refocus`` and, with ``diagnostics``, all 14 ``sel_maps`` and
-    the pressure series at ``beam_axis_monitors``."""
+    written): CT mode with a CT volume (a ZTE or PETRA MRI first turned
+    into a pseudo-CT, by ``cfg.ct_type``), label mode with ``ct=None``; a
+    dome transducer runs ``run_dome_sim``, any other ``run_acoustic_sim``
+    with ``cfg.do_refocus`` and, with ``diagnostics``, all 14 ``sel_maps``
+    and the pressure series at ``beam_axis_monitors``. Step 3 runs
+    ``run_sonication`` on one ``params`` entry, or ``run_all_combinations``
+    (chained, no files) on a list of them."""
     from babelbrain_tpu_torch.ops.fdtd_extras import SEL_MAPS
     from babelbrain_tpu_torch.materials.ct_mapping import map_hu_to_properties
     from babelbrain_tpu_torch.pipeline.acoustic import (
@@ -1304,23 +1329,34 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
         amplitude_for_1w,
         build_transducer,
     )
+    from babelbrain_tpu_torch.pipeline.runner import make_pseudo_ct
     from babelbrain_tpu_torch.pipeline.step1 import generate_mask
-    from babelbrain_tpu_torch.pipeline.thermal import run_sonication
+    from babelbrain_tpu_torch.pipeline.thermal import (
+        run_all_combinations,
+        run_sonication,
+    )
     from babelbrain_tpu_torch.utils.timing import stage_timer
 
     spec = TRANSDUCER_REGISTRY[cfg.tx_system]
     ct_mode = ct is not None
     is_dome = spec.kind == "dome"
+    ct_type = cfg.ct_type.upper()
+    if ct_mode and ct_type in ("ZTE", "PETRA"):
+        ct = make_pseudo_ct(ct_type, ct, aff, labels, aff, cfg.zte_range,
+                            device=cfg.device)
     with stage_timer("Step1 domain generation", level=2, step=1):
         s1 = generate_mask(
             labels, aff, target, direction, cfg.frequency, cfg.ppw,
             shape=mask_shape, ct_data=ct, ct_affine=aff if ct_mode else None,
-            hu_threshold=cfg.hu_threshold, device=cfg.device,
+            hu_threshold=(cfg.density_threshold if ct_type == "DENSITY"
+                          else cfg.hu_threshold), device=cfg.device,
         )
     with stage_timer("Step2 acoustic simulation", level=2, step=2):
         if ct_mode:
             rho, sos, att = map_hu_to_properties(
-                s1.unique_hu, cfg.frequency, cfg.mapping_method
+                s1.unique_hu, cfg.frequency, cfg.mapping_method,
+                is_petra=ct_type == "PETRA",
+                density_input=s1.unique_hu if ct_type == "DENSITY" else None,
             )
             materials = build_ct_materials(cfg.frequency, cfg.segment_brain,
                                            rho, sos, att)
@@ -1339,6 +1375,7 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
             s1.mask, cfg.frequency, cfg.ppw, materials=materials,
             ct_index_map=s1.ct_index if ct_mode else None, air_mask=air,
             offsets=offsets, shrink_cells=shrinks,
+            shape_bucket=cfg.shape_bucket,
         )
         tx = build_transducer(spec, cfg.frequency)
         monitors = beam_axis_monitors(dom) if diagnostics else None
@@ -1353,14 +1390,20 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
                                       device=cfg.device, **diag)
     data = result.data_for_sim
     with stage_timer("Step3 thermal simulation", level=2, step=3):
-        thermal = run_sonication(
-            result.p_amp, np.asarray(data["p_amp_water"]),
-            data["MaterialMap"], materials, dom.dx, data["TargetLocation"],
-            params, ct_mode=ct_mode, segmented=cfg.segment_brain,
-            frequency=cfg.frequency, tx_is_dome=is_dome, device=cfg.device,
-        )
+        args = (result.p_amp, np.asarray(data["p_amp_water"]),
+                data["MaterialMap"], materials, dom.dx, data["TargetLocation"])
+        kw = dict(ct_mode=ct_mode, segmented=cfg.segment_brain,
+                  frequency=cfg.frequency, tx_is_dome=is_dome,
+                  device=cfg.device)
+        if isinstance(params, list):
+            profile, _ = run_all_combinations(*args, params, out_base=None,
+                                              concatenate=True, **kw)
+            thermal = profile[-1]
+        else:
+            thermal = run_sonication(*args, params, **kw)
     return {"step1": s1, "domain": dom, "acoustic": result,
-            "thermal": thermal, "data_for_sim": data, "monitor_ijk": monitors}
+            "thermal": thermal, "data_for_sim": data, "monitor_ijk": monitors,
+            "tx": tx}
 
 
 # the slices of phase 4: (CT volume given?, transducer, frequency,
@@ -1376,6 +1419,8 @@ SLICES = {
     # the DomeTx's other published frequency: at 670 kHz the dome-fitted
     # domain would hold ~30x the cells
     "dome-ct": (True, "DomeTx", 220e3, False, True),
+    # the CT slice from a synthetic ZTE MRI of the head (pseudo-CT first)
+    "zte-ct": (True, "CTX_500", F0, False, False),
 }
 
 
@@ -1394,9 +1439,12 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
     with_ct, tx_system, freq, refocus, drive_1w = SLICES[mode]
     dome = mode.startswith("dome")
     diag = mode.startswith("diag")
+    zte = mode.startswith("zte")
     tag = f"[slice {mode}]"
     labels, ct, aff = build_head()
     ct = ct if with_ct else None
+    if zte:
+        ct = zte_volume(labels)
     params = params or SonicationParams(
         duration_on=30.0, duration_off=30.0, duty_cycle=0.3, isppa=10.0
     )
@@ -1404,12 +1452,13 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
     with tempfile.TemporaryDirectory() as tmp:
         cfg = CaseConfig(tx_system=tx_system, frequency=freq, ppw=PPW,
                          mapping_method=MAPPING, do_refocus=refocus,
-                         drive_1w=drive_1w, output_dir=tmp,
-                         prefix="chip_smoke", device=device)
+                         drive_1w=drive_1w, ct_type="ZTE" if zte else "CT",
+                         output_dir=tmp, prefix="chip_smoke", device=device)
         clear_spans()
         reset_counts()
+        rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         t0 = time.time()
-        if have_h5py and not diag:
+        if have_h5py and not (diag or zte):
             print(f"{tag} driving run_case (h5py present)")
             res = run_case(cfg, labels, aff, target, direction, ct_data=ct,
                            ct_affine=aff if ct is not None else None,
@@ -1418,6 +1467,7 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
             print(f"{tag} driving the stage functions of run_case in its "
                   "order, writing no files ("
                   + ("run_case takes no sel_maps)" if diag
+                     else "the pseudo-CT stage in the open)" if zte
                      else "h5py missing)"))
             res = run_stages(cfg, labels, aff, ct, target, direction, params,
                              mask_shape, diagnostics=diag)
@@ -1425,6 +1475,7 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
             torch.cuda.synchronize()
         wall = time.time() - t0
         launches, plain = read_counts()
+    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     spans = recorded_spans()
     dom = res["domain"]
     shear = int((np.asarray(dom.materials)[:, 2] > 0).sum())
@@ -1476,6 +1527,9 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
             fail(f"{mode}: tx_is_dome not set")
         if not (np.isfinite(th.ratio_losses) and 0 < th.ratio_losses <= 1.5):
             fail(f"{mode}: ratio_losses {th.ratio_losses} outside (0, 1.5]")
+        # the sparse volume source keeps no grid-sized host arrays
+        print(f"{tag} peak RSS of this process: {rss0 / 2**20:.3f} GiB "
+              f"before the slice, {rss1 / 2**20:.3f} GiB after")
     else:
         # the focal spot must form inside the brain on the beam axis:
         # within 2 mm of the target laterally and 15 mm along the beam (the
@@ -1485,6 +1539,15 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
         if np.hypot(off_mm[0], off_mm[1]) > 2.0 or abs(off_mm[2]) > 15.0:
             fail(f"{mode}: focal peak in the brain {off_mm} mm off the "
                  "target")
+    if zte:
+        # `tests/test_runner.py:318-321`: the pseudo-CT's bone maps into the
+        # skull's HU band
+        hu = np.asarray(s1.unique_hu)
+        print(f"{tag} pseudo-CT bone HU {hu.min():.2f}..{hu.max():.2f} in "
+              f"{len(hu)} quantised levels; {len(dom.materials)} materials")
+        if not (hu.min() >= 300.0 and hu.max() <= 2100.0):
+            fail(f"{mode}: pseudo-CT HU band {hu.min()}..{hu.max()} outside "
+                 "300..2100")
     if refocus:
         pr = res["data_for_sim"].get("p_amp_refocus")
         if pr is None or not np.isfinite(pr).all() or pr.max() <= 0:
@@ -1537,6 +1600,158 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
                                   monitor_ijk=res["monitor_ijk"],
                                   device=device)
     return launches, errs
+
+
+# slice sweep-ct: two targets 5 mm apart on the beam axis, shape-bucketed to
+# one grid signature; a 3-entry thermal profile per cell (the slices'
+# sonication at three duty cycles, chained); multipoint steering +-5 mm in z
+SWEEP_TARGETS = {"A": [0.0, 0.0, 20.0], "B": [0.0, 0.0, 15.0]}
+SWEEP_BUCKET = 32
+SWEEP_DUTY = (0.1, 0.2, 0.3)
+SWEEP_STEER = ([0.0, 0.0, -5e-3], [0.0, 0.0, 5e-3])
+
+
+def sweep_profile():
+    from babelbrain_tpu_torch.pipeline.thermal import SonicationParams
+
+    return [SonicationParams(duration_on=30.0, duration_off=30.0,
+                             duty_cycle=dc, isppa=10.0) for dc in SWEEP_DUTY]
+
+
+def run_sweep(have_h5py: bool, mask_shape=MASK_SHAPE, device="cuda"):
+    """Slice sweep-ct, a planning session on the digital head: the CT slice's
+    case at two targets (``run_cases`` with h5py, else the stage functions
+    per cell), each with a 3-entry thermal profile through
+    ``run_all_combinations``; the two cells must share one grid signature
+    (``run_cases``' summary); then ``run_multipoint(fanout=True)`` on the
+    first cell's domain (``run_fdtd_batch``, B=2). Every launch count must
+    equal the steps implied and no plain version may run. After the counts:
+    each case of the batch against ``run_fdtd`` of its source plane, bit for
+    bit (case 1 is the one that runs on the zeroed state and the swapped
+    plane). Returns the launch counts."""
+    from babelbrain_tpu_torch.ops.fdtd import run_fdtd
+    from babelbrain_tpu_torch.pipeline.acoustic import (
+        _assemble_result,
+        _make_grid,
+        position_transducer,
+        run_multipoint,
+    )
+    from babelbrain_tpu_torch.pipeline.profiles import (
+        TRANSDUCER_REGISTRY,
+        build_transducer,
+    )
+    from babelbrain_tpu_torch.pipeline.runner import CaseConfig, run_cases
+    from babelbrain_tpu_torch.utils.timing import (
+        clear_spans,
+        recorded_spans,
+        stage_timer,
+    )
+
+    tag = "[slice sweep-ct]"
+    labels, ct, aff = build_head()
+    profile = sweep_profile()
+    direction = [0, 0, -1]
+    spec = TRANSDUCER_REGISTRY["CTX_500"]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = CaseConfig(tx_system="CTX_500", frequency=F0, ppw=PPW,
+                         mapping_method=MAPPING, shape_bucket=SWEEP_BUCKET,
+                         output_dir=tmp, prefix="sweep", device=device)
+        clear_spans()
+        reset_counts()
+        t0 = time.time()
+        if have_h5py:
+            print(f"{tag} driving run_cases (h5py present)")
+            out = run_cases(cfg, labels, aff, SWEEP_TARGETS, direction,
+                            ct_data=ct, ct_affine=aff, thermal_params=profile,
+                            mask_shape=mask_shape, stop_on_error=True)
+            cells = {k: out[(k, cfg.frequency, cfg.ppw)] for k in SWEEP_TARGETS}
+            summary = out.summary
+        else:
+            print(f"{tag} driving the stage functions of run_case per cell, "
+                  "writing no files (h5py missing)")
+            cells = {
+                k: run_stages(dataclasses.replace(cfg, prefix=f"sweep_{k}"),
+                              labels, aff, ct, t, direction, profile,
+                              mask_shape)
+                for k, t in SWEEP_TARGETS.items()
+            }
+            # run_cases' count of the cells' distinct grid signatures
+            sigs = {_make_grid(c["domain"]) for c in cells.values()}
+            summary = {"cases": len(cells),
+                       "fdtd_executable_builds": len(sigs),
+                       "fdtd_executable_reuses": len(cells) - len(sigs)}
+        dom = cells["A"]["domain"]
+        tx = position_transducer(build_transducer(spec, F0), dom,
+                                 spec.focal_length)
+        with stage_timer("Step2 multipoint", level=2, step=2):
+            points, combined = run_multipoint(dom, tx, SWEEP_STEER,
+                                              cfg.source_amp_pa, fanout=True,
+                                              device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches, plain = read_counts()
+    for label, dt in recorded_spans():
+        print(f"{tag} span {label}: {dt:.3f} s")
+    print(f"{tag} wall {wall:.2f} s; sweep summary {summary}")
+    if summary != {"cases": 2, "fdtd_executable_builds": 1,
+                   "fdtd_executable_reuses": 1}:
+        fail(f"sweep-ct: the cells did not share one grid signature: "
+             f"{summary}")
+
+    expect = {k: 0 for k in launches}
+    grids = [c["domain"] for c in cells.values()] + [dom, dom]
+    for d in grids:
+        expect["fluid_velocity"] += d.n_steps
+        expect["fluid_pressure"] += d.sensor_start
+        expect["fluid_pressure_dft"] += d.n_steps - d.sensor_start
+    steps = sum(2 * round(p.duration_on / 0.01) + round(p.duration_off / 0.01)
+                for p in profile)  # per entry: the locating run + schedule
+    expect["bhte_step"] = len(cells) * steps
+    for k, c in cells.items():
+        d, pa = c["domain"], np.asarray(c["data_for_sim"]["p_amp"])
+        th = c["thermal"]
+        print(f"{tag} cell {k} target {SWEEP_TARGETS[k]}: grid "
+              f"{d.material_map.shape} n_steps {d.n_steps} sensor_start "
+              f"{d.sensor_start}; max p_amp {pa.max():.6g} Pa; last entry "
+              f"(DC {profile[-1].duty_cycle}) max T "
+              f"{th.temperature_peak.max():.4f} C, TI {th.metrics['TI']:.4f}")
+        if not np.isfinite(pa).all() or pa.max() <= 0:
+            fail(f"sweep-ct: cell {k} p_amp not finite or empty")
+        for name in ("temperature_end", "temperature_peak", "dose"):
+            if not np.isfinite(getattr(th, name)).all():
+                fail(f"sweep-ct: cell {k} thermal {name} not finite")
+    pall = combined["p_amp_all"]
+    zk = [int(np.unravel_index(np.argmax(f), f.shape)[2]) for f in pall]
+    print(f"{tag} multipoint {len(points)} points {SWEEP_STEER}: max p_amp "
+          f"{[float(f.max()) for f in pall]} Pa, peaks at mask z {zk}")
+    if (pall.shape[0] != 2 or not np.isfinite(pall).all()
+            or not np.array_equal(combined["p_amp_max"], pall.max(axis=0))):
+        fail("sweep-ct: multipoint fields missing, not finite or not "
+             "combined by their maximum")
+    print(f"{tag} launches {launches}; plain calls {plain}")
+    if device == "cuda":
+        if launches != expect:
+            fail(f"sweep-ct: launch counts {launches} != expected {expect}")
+        if any(plain.values()):
+            fail(f"sweep-ct: plain versions ran on the main path: {plain}")
+
+    # each case of the batch against run_fdtd of the same source plane
+    for b, point in enumerate(points):
+        src = source_plane_of(point.data_for_sim, dom)
+        single = run_fdtd(dom.material_map, dom.materials, _make_grid(dom),
+                          source_amp=np.abs(src), source_phase=np.angle(src),
+                          reflector_mask=dom.meta.get("reflector_mask"),
+                          device=device)
+        ref = _assemble_result(dom, np.zeros(dom.material_map.shape,
+                                             np.complex64), src, single)
+        bad = [k for k in ("p_amp", "p_phase")
+               if not np.array_equal(getattr(ref, k), getattr(point, k))]
+        print(f"{tag} run_fdtd_batch case {b} vs run_fdtd of its plane: "
+              f"fields differing {bad}")
+        if bad:
+            fail(f"sweep-ct: batch case {b} differs from run_fdtd in {bad}")
+    return launches
 
 
 def source_plane_of(data, dom):
@@ -1793,6 +2008,8 @@ def main():
             launches[k] += v
         for k, v in slice_errs.items():
             errs[k] = max(errs[k], v)
+    for k, v in run_sweep(have["h5py"]).items():
+        launches[k] += v
     for k, v in run_probes().items():
         launches[k] += v
 

@@ -417,6 +417,50 @@ def test_bhte_kernel_matches_plain(cuda):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def _bhte_schedule_case():
+    """Two heat maps on the layers of ``test_bhte_kernel_matches_plain``."""
+    shape = (30, 34, 40)
+    acoustic = material_array(500e3, tissues=("Water", "Skin", "Cortical",
+                                              "Trabecular", "Brain"))
+    mats = build_thermal_material_list(acoustic, ct_mode=False,
+                                       segmented_brain=False)
+    idx = np.zeros(shape, np.uint8)
+    idx[:, :, 10:14] = 1
+    idx[:, :, 14:20] = 2
+    idx[:, :, 20:] = 4
+    p = np.zeros((2,) + shape, np.float32)
+    p[0, 10:20, 12:22, 24:32] = 1.2e7
+    p[1, 14:24, 8:18, 22:30] = 1.0e7
+    return p, idx, mats
+
+
+# on/off with two fields and odd segment lengths
+BHTE_SCHEDULE = [(0, 11, True), (-1, 7, False), (1, 9, True), (0, 13, False),
+                 (0, 8, True), (1, 4, True)]
+
+
+def test_bhte_schedule_matches_plain(cuda, monkeypatch):
+    """``bhte_run`` over an on/off, two-field schedule on the card equals
+    the same schedule through the plain step on the card bit for bit
+    (temperature, peak, dose and the monitor series), with one launch a
+    step."""
+    p, idx, mats = _bhte_schedule_case()
+    kw = dict(dt=0.01, duty_cycle=0.5, device=cuda,
+              monitor_points=[(15, 17, 28), (3, 4, 5), (29, 33, 39)],
+              initial_temperature=np.full(idx.shape, 37.5, np.float32))
+    n_steps = sum(n for _, n, _ in BHTE_SCHEDULE)
+    before = bhte_kernels.launches["bhte_step"]
+    kernel = B.bhte_run(p, idx, mats, 5e-4, BHTE_SCHEDULE, **kw)
+    assert bhte_kernels.launches["bhte_step"] - before == n_steps
+    monkeypatch.setattr(B, "bhte_step", bhte_kernels.bhte_step_ref)
+    plain = B.bhte_run(p, idx, mats, 5e-4, BHTE_SCHEDULE, **kw)
+    assert kernel.peak_temperature.max() > 43.0  # both dose branches
+    for name in ("temperature", "peak_temperature", "dose", "monitor"):
+        np.testing.assert_array_equal(getattr(kernel, name),
+                                      getattr(plain, name), err_msg=name)
+    assert kernel.monitor.shape == (3, n_steps)
+
+
 def _visco_setup(device, shape=(36, 40, 56)):
     """Label-mode layers along z with a plane source (as in
     ``test_visco_kernels_match_plain``)."""

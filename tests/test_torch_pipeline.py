@@ -11,8 +11,8 @@
   `tests/test_runner.py`: same focal voxel, peak pressure within 1%, peak
   temperature within 0.05 C, CEM43 at the target within 1%, the same
   DataForSim keys.
-* Refocusing and dome transducers: ``make_volume_source`` bit-equal to
-  JAX's; ``run_acoustic_sim(do_refocus=True)`` on the aberrating-wedge case
+* Refocusing and dome transducers: ``make_volume_source``'s sparse form
+  bit-equal to JAX's dense dict at its nonzero voxels; ``run_acoustic_sim(do_refocus=True)`` on the aberrating-wedge case
   of `tests/test_runner.py:131-170` (``p_amp_refocus`` within 1e-4 peak,
   the refocus phases within 1e-3 rad); ``run_dome_sim`` on the 60-element
   TestDome of `tests/test_runner.py:437-449`; the whole slice with a dome in
@@ -353,12 +353,18 @@ def test_make_volume_source_bit_equal(dome_domain):
     vj = JA.make_volume_source(dom_j, tx_j, u0)
     vt = TA.make_volume_source(convert.domain_from_reference(dom_j),
                                convert.transducer_from_reference(tx_j), u0)
-    assert vj.keys() == vt.keys()
+    # the port's sparse form: JAX's amp > 0 voxels and its values there,
+    # bit for bit; JAX's dense dict is zero everywhere else
+    assert set(vt) == set(vj) | {"index"}
+    on = np.flatnonzero(vj["amp"] > 0)
+    np.testing.assert_array_equal(vt["index"], on)
     for k in vj:
         assert vt[k].dtype == np.float32
-        np.testing.assert_array_equal(vt[k], vj[k], err_msg=k)
+        np.testing.assert_array_equal(vt[k], vj[k].reshape(-1)[on], err_msg=k)
+        off = np.delete(vj[k].reshape(-1), on)
+        assert not off.any(), k
     # sub-elements land on far fewer voxels than the grid has
-    assert 0 < (vt["amp"] > 0).sum() < 0.01 * vt["amp"].size
+    assert 0 < on.size < 0.01 * vj["amp"].size
 
 
 def test_run_dome_sim_matches_jax(dome_domain):
@@ -670,6 +676,15 @@ def test_port_imports_no_jax():
         "assert len(names) > 20, names\n"
         "assert {'babelbrain_tpu_torch.ops.fdtd_extras', "
         "'babelbrain_tpu_torch.probes'} <= set(names), names\n"
+        "from babelbrain_tpu_torch.ops.fdtd import run_fdtd_batch\n"
+        "from babelbrain_tpu_torch.pipeline.acoustic import run_multipoint\n"
+        "from babelbrain_tpu_torch.pipeline.runner import (make_pseudo_ct, "
+        "run_cases)\n"
+        "from babelbrain_tpu_torch.pipeline.thermal import "
+        "run_all_combinations\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith(('jax.', 'jaxlib', 'babelbrain_tpu.')))\n"
+        "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -677,17 +692,15 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("case", ["petra", "zte", "density", "profile_list",
-                                  "export_meshes"])
+@pytest.mark.parametrize("case", ["zte_coregister_t1", "export_meshes"])
 def test_run_case_outside_the_slice_raises(phantom, mini_tx, tmp_path, case):
     labels, aff, ct = phantom
     cfg = TCase(tx_system=mini_tx, device="cpu", output_dir=str(tmp_path))
     kw = dict(ct_data=ct, ct_affine=aff)
-    if case in ("petra", "zte", "density"):
-        cfg.ct_type = case.upper()
-    elif case == "export_meshes":
-        cfg.export_meshes = True
+    if case == "zte_coregister_t1":
+        cfg.ct_type, cfg.coregister = "ZTE", True
+        kw.update(t1_data=ct, t1_affine=aff)
     else:
-        kw["thermal_params"] = [TSon(duration_on=1.0, duration_off=1.0)]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
+        cfg.export_meshes = True
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 4"):
         t_run_case(cfg, labels, aff, TARGET, DIRECTION, **kw)

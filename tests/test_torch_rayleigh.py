@@ -114,6 +114,6 @@ def test_steering_and_weights_match_jax():
 
 
 def test_mesh_is_outside_the_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 16"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
         T.rayleigh_field(K0, np.zeros((1, 3)), np.ones(1), np.ones(1),
                          np.ones((1, 3)), mesh=object(), device="cpu")
