@@ -1,11 +1,14 @@
-"""Host-side BLOSC1/LZ4 codec (C++), loaded via ctypes.
+"""Host-side native code (C++), loaded via ctypes: the BLOSC1/LZ4 codec and
+the solid voxelizer.
 
 The reference writes its HDF5 payloads BLOSC-compressed through
 ``H5pySimple`` (`InformationForDrivingSystems.md:12-16`); this codec lets the
 port read files the reference produced and write files its driving systems
-read, without a blosc plugin.
+read, without a blosc plugin. ``voxelize.cpp`` is the OpenMP solid
+voxelizer of ``ops.voxelize`` (a copy of the JAX package's), which keeps a
+NumPy path beside it.
 
-``blosc.cpp`` is compiled with g++ on first use into the package's
+Each ``<name>.cpp`` is compiled with g++ on first use into the package's
 ``_build/`` directory (ignored by git) and cached there; an edited source is
 rebuilt. Without g++ the first call raises, as the build cannot run.
 """
@@ -43,6 +46,14 @@ def _build_and_load(name: str):
             os.replace(tmp, lib)
         _LIBS[name] = ctypes.CDLL(lib)
         return _LIBS[name]
+
+
+def native_available(name: str = "voxelize") -> bool:
+    try:
+        _build_and_load(name)
+        return True
+    except (OSError, subprocess.CalledProcessError):
+        return False
 
 
 def lz4_decompress(src: bytes, dst_size: int) -> bytes:
@@ -205,3 +216,23 @@ def blosc_compress(data: bytes, typesize: int = 1,
         [n, blocksize, cbytes], "<u4"
     ).tobytes()
     return header + bstarts.tobytes() + bytes(body)
+
+
+def voxelize_solid_native(triangles_vox: np.ndarray, shape) -> np.ndarray:
+    """Solid voxelization in voxel coordinates (see ops.voxelize for the
+    public API). Raises if the native library cannot be built/loaded."""
+    lib = _build_and_load("voxelize")
+    fn = lib.voxelize_solid_native
+    fn.restype = ctypes.c_int
+    tri = np.ascontiguousarray(triangles_vox, np.float64)
+    N1, N2, N3 = (int(s) for s in shape)
+    out = np.zeros((N1, N2, N3), np.uint8)
+    rc = fn(
+        tri.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        ctypes.c_int64(tri.shape[0]),
+        ctypes.c_int64(N1), ctypes.c_int64(N2), ctypes.c_int64(N3),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+    )
+    if rc != 0:
+        raise MemoryError("native voxelizer allocation failed")
+    return out.astype(bool)

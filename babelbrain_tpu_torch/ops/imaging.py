@@ -5,15 +5,17 @@ Counterpart of ``babelbrain_tpu/ops/imaging.py`` for the ops Step 1 uses
 PyTorch on the given device:
 
   * median_filter3d     <- GPUMedianFilter (3-D median, reflect boundary)
-  * binary_close / binary_erode <- GPUBinaryClosing (cubic structure,
-    outside-of-volume = background)
+  * binary_close / binary_open / binary_dilate / binary_erode <-
+    GPUBinaryClosing (cubic structure, outside-of-volume = background)
   * label_components / largest_component <- GPULabel (6-connectivity)
   * map_to_unique       <- GPUMapping (value -> index in quantized table)
   * resample_affine / resample_from_to <- GPUResample (orders 0/1/3; order 3
     = cubic B-spline with host-side prefilter)
 
 Each function takes numpy input and returns numpy output; ``device`` picks
-where the work runs.
+where the work runs. ``interpolate`` (the order-0/1 sampling under
+``resample_affine``, also the rigid registration's resampler) works on
+tensors.
 """
 
 from __future__ import annotations
@@ -90,6 +92,16 @@ def binary_close(volume, size: int = 5, *, device="cuda"):
     background for the erosion (same as zero-padded closing)."""
     x = _as_float(volume, device)
     return (_erode(_dilate(x, size), size) > 0.5).cpu().numpy()
+
+
+def binary_open(volume, size: int = 5, *, device="cuda"):
+    x = _as_float(volume, device)
+    return (_dilate(_erode(x, size), size) > 0.5).cpu().numpy()
+
+
+def binary_dilate(volume, size: int = 3, *, device="cuda"):
+    x = _as_float(volume, device)
+    return (_dilate(x, size) > 0.5).cpu().numpy()
 
 
 def binary_erode(volume, size: int = 3, *, device="cuda"):
@@ -212,6 +224,15 @@ def _resample(vol, matrix, offset, out_shape, order):
     """Orders 0/1 with zero outside the volume (JAX map_coordinates
     'constant' mode, which is scipy's 'grid-constant')."""
     src = _source_coords(matrix, offset, out_shape, vol.device)
+    return interpolate(vol, src, order).reshape(out_shape)
+
+
+def interpolate(vol, src, order: int = 1):
+    """``vol`` sampled at the (3, P) voxel coordinates ``src``, order 0 or 1,
+    zero outside: JAX ``map_coordinates(mode="constant")`` in its own
+    arithmetic order (per corner the weight product times the masked
+    value, corners summed x-major). Differentiable in ``src`` for order 1;
+    flat (P,) result."""
     dims = vol.shape
     flat = vol.reshape(-1)
     if order == 0:
@@ -238,7 +259,7 @@ def _resample(vol, matrix, offset, out_shape, order):
                 if wx is not None:
                     val = wx * wy * wz * val
                 out = val if out is None else out + val
-    return out.reshape(out_shape)
+    return out
 
 
 def _bspline3_weights(t):

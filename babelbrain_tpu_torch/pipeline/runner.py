@@ -12,10 +12,12 @@ pseudo-CT, or a density map, ``CaseConfig.ct_type``) and label mode (no CT:
 tissue-label materials, viscoelastic FDTD with shear in the skull), with
 plane-source transducers (optionally refocused, ``CaseConfig.do_refocus``)
 or dome transducers driven volumetrically, and one thermal profile entry or
-a list of them; ``run_cases`` sweeps targets x frequencies x PPW. Every
-device stage runs on ``CaseConfig.device``. Paths outside them raise
-``NotImplementedError`` naming their ROADMAP Queue A item: MRI-to-T1
-coregistration and surface meshes (item 4) and device meshes (item 6).
+a list of them; ``run_cases`` sweeps targets x frequencies x PPW. A ZTE or
+PETRA MRI with a T1 and ``CaseConfig.coregister`` is first rigidly
+registered to the T1 (``coregister_to_t1``), and ``CaseConfig.export_meshes``
+writes Step 1's surface STLs. Every device stage runs on
+``CaseConfig.device``. Device meshes (``mesh=``) raise
+``NotImplementedError`` naming ROADMAP Queue A item 6.
 """
 
 from __future__ import annotations
@@ -219,6 +221,40 @@ def make_pseudo_ct(ct_type: str, image, image_affine, labels_data,
         )
 
 
+def coregister_to_t1(image, image_affine, t1_data, t1_affine, *,
+                     device="cuda", stats=None):
+    """Rigid MRI -> T1 registration, the elastix-equivalent step of
+    ``run_case`` before the pseudo-CT (`CTZTEProcessing.py:111,289`): the
+    image resampled (linear) onto the T1 grid, ``coreg.register_rigid`` on
+    ``device`` (span ``MRI to T1 coregistration``), the quality gate, then
+    the registered image on the T1 grid. A registration whose quality is
+    below ``coreg.QUALITY_THRESHOLD`` raises unless the environment sets
+    ``BBT_IGNORE_COREG_QUALITY``. Returns (image on the T1 grid, rigid
+    parameters, quality); the image's affine is ``t1_affine``. ``stats``
+    goes to ``register_rigid``."""
+    from .coreg import register_rigid, registration_ok
+
+    t1 = np.asarray(t1_data, np.float32)
+    mv = im.resample_from_to(np.asarray(image, np.float32), image_affine,
+                             t1_affine, t1.shape, order=1, device=device)
+    with stage_timer("MRI to T1 coregistration", level=1, step=1):
+        params, mat, quality = register_rigid(t1, mv, return_quality=True,
+                                              device=device, stats=stats)
+    if not registration_ok(quality) and not os.environ.get(
+        "BBT_IGNORE_COREG_QUALITY"
+    ):
+        # a silently-bad registration corrupts every later step; the
+        # harness-calibrated threshold catches diverged / wrong-anatomy fits
+        raise RuntimeError(
+            f"CT/MR coregistration quality {quality:.3f} below the "
+            f"calibrated failure threshold; inspect the inputs or set "
+            f"BBT_IGNORE_COREG_QUALITY=1 to proceed anyway"
+        )
+    # the matrix maps T1 voxels to the resampled image's voxels
+    return im.resample_affine(mv, mat[:3, :3], mat[:3, 3], t1.shape, order=1,
+                              device=device), params, quality
+
+
 @dataclass
 class CaseConfig:
     """One sonication case (target x transducer x frequency x PPW)."""
@@ -399,10 +435,6 @@ def run_case(
     `BabelIntegrationBASE.py:962-966`, `FileManager.py:223`).
     """
     spec = TRANSDUCER_REGISTRY[cfg.tx_system]
-    if cfg.export_meshes:
-        raise NotImplementedError(
-            "Step-1 surface meshes are ROADMAP Queue A item 4"
-        )
     if mesh is not None:
         raise NotImplementedError("device meshes are ROADMAP Queue A item 6")
     dev = cfg.device
@@ -423,11 +455,6 @@ def run_case(
         # so it is cached by CONTENT hash in the output dir and reused
         # across targets/prefixes — the reference's cross-target reuse via
         # filename substitution (`FileManager.py:270-283`).
-        if cfg.coregister and t1_data is not None:
-            raise NotImplementedError(
-                "rigid MRI->T1 coregistration (pipeline/coreg.py) is ROADMAP "
-                "Queue A item 4"
-            )
         pct_hash = case_hash(
             ct=np.asarray(ct_data),
             t1=np.asarray(t1_data) if t1_data is not None else "none",
@@ -447,6 +474,10 @@ def run_case(
             ct_data = np.asarray(pct["pct"])
             ct_affine = np.asarray(pct["affine"])
         else:
+            if cfg.coregister and t1_data is not None:
+                ct_data, _, _ = coregister_to_t1(ct_data, ct_affine, t1_data,
+                                                 t1_affine, device=dev)
+                ct_affine = t1_affine
             ct_data = make_pseudo_ct(ct_type, ct_data, ct_affine, labels_data,
                                      labels_affine, cfg.zte_range, device=dev)
             pio.save_dict_h5(
@@ -603,6 +634,12 @@ def run_case(
             if s1.air_mask is not None:
                 blob["air_mask"] = s1.air_mask.astype(np.uint8)
             pio.save_dict_h5(blob, s1_cache)
+    if cfg.export_meshes:
+        from .step1 import export_surface_meshes
+
+        with stage_timer("Step1 surface meshes", level=2, step=1):
+            export_surface_meshes(s1, out_base)
+
     # ---------------- Step 2 ----------------
     h5_path = out_base + "_DataForSim.h5"
     ct_mode = s1.ct_index is not None

@@ -9,10 +9,9 @@ connected components) and resamples straight into the trajectory-aligned
 simulation grid. STL inputs are still supported through ops.voxelize for
 mesh-based workflows.
 
-Counterpart of ``babelbrain_tpu/pipeline/step1.py`` (mask generation and
-its CT branch); the image ops run in PyTorch on ``device``. Surface-mesh
-export and target-mask helpers are not ported yet (ROADMAP Queue A
-item 4).
+Counterpart of ``babelbrain_tpu/pipeline/step1.py``: mask generation and
+its CT branch, whose image ops run in PyTorch on ``device``, and the host
+helpers ``export_surface_meshes`` (``ops.mesh``) and ``create_target_mask``.
 
 Outputs honor the Step-1 contract: a ``...BabelViscoInput.nii.gz``-style
 label volume {0 water, 1 skin, 2 cortical, 3 trabecular, 4 brain, 5 target,
@@ -338,3 +337,77 @@ def maximize_bone_rim(
     out = ct.copy()
     out[edge] = orig + delta
     return out
+
+
+def export_surface_meshes(
+    result: Step1Result,
+    out_prefix: str,
+    smooth_iterations: int = 10,
+) -> dict:
+    """Write skin / skull / brain-or-CSF surface STLs from a Step-1 result.
+
+    Capability of the reference's `MaskToStl` stage
+    (`BabelBrain/BabelDatasetPreps.py:87,476-494` — charm labels to
+    skin.stl / bone.stl / csf.stl via vtk marching cubes + smoothing), here
+    extracted from the aligned simulation labels with `ops.mesh`
+    (marching tetrahedra + Taubin smoothing). Returns {name: path}.
+    """
+    from ..ops.mesh import mask_to_mesh
+    from ..ops.voxelize import write_stl
+
+    lab = result.mask
+    surfaces = {
+        "skin": lab >= 1,
+        "bone": (lab == 2) | (lab == 3),
+        "csf": np.isin(lab, (4, 5, 6, 7, 8)),
+    }
+    out = {}
+    for name, m in surfaces.items():
+        if not m.any():
+            continue
+        tris = mask_to_mesh(m, result.affine, smooth_iterations)
+        path = f"{out_prefix}_{name}.stl"
+        write_stl(path, tris)
+        out[name] = path
+    return out
+
+
+def create_target_mask(in_path, ras_xyz, out_path=None, radii_vox=(1.0, 1.0, 1.0)):
+    """Write a small ellipsoidal target-mask NIfTI at an RAS coordinate.
+
+    Capability of the reference's PlanTUS helper
+    (`BabelBrain/CreateVoxelMask.py:62-120` ``create_target_mask``): the RAS
+    point (mm) is mapped through the inverse affine of ``in_path`` to a voxel
+    index and an ellipsoid of ``radii_vox`` voxels is rasterized there. Used
+    to hand a target seed to PlanTUS-style planning tools.
+
+    Returns (mask ndarray, output path).
+    """
+    from .io import load_nifti, save_nifti
+
+    img = load_nifti(in_path)
+    affine = img.affine
+    shape3 = img.data.shape[:3]
+    vox = np.linalg.inv(affine) @ np.append(np.asarray(ras_xyz, float), 1.0)
+    idx = np.rint(vox[:3]).astype(int)
+    if np.any(idx < 0) or np.any(idx >= np.array(shape3)):
+        raise ValueError(
+            f"target voxel {tuple(idx)} out of bounds for shape {shape3}"
+        )
+    ri, rj, rk = radii_vox
+    ii, jj, kk = np.ogrid[: shape3[0], : shape3[1], : shape3[2]]
+    dist = (
+        ((ii - idx[0]) / ri) ** 2
+        + ((jj - idx[1]) / rj) ** 2
+        + ((kk - idx[2]) / rk) ** 2
+    )
+    mask = (dist <= 1.0).astype(np.float32)
+    if out_path is None:
+        stem = in_path
+        for suf in (".nii.gz", ".nii"):
+            if stem.endswith(suf):
+                stem = stem[: -len(suf)]
+                break
+        out_path = stem + "_mask.nii.gz"
+    save_nifti(out_path, mask, affine)
+    return mask, out_path

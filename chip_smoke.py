@@ -66,6 +66,13 @@ Phases (each prints its own lines; any failed check exits nonzero):
              every field must agree bit for bit. zte-ct is the CT slice
              from a synthetic ZTE MRI of the head (the pseudo-CT stage,
              then Step 1's CT branch; its bone HU must lie in 300..2100).
+             coreg-zte moves that MRI 6 deg and (4, -3, 2) mm off the head
+             and registers it on the card to a 192^3 T1 at 1 mm
+             (``coregister_to_t1``, NCC, levels 4, 2, 1) before the
+             pseudo-CT: the transform must come within 1 deg and 1 voxel
+             of the truth and pass the quality gate, the registration on
+             the card and on the CPU must agree on the pair averaged to
+             64^3, and Step 1's surface meshes are exported and counted.
              Last, sweep-ct (``run_sweep``): two shape-bucketed targets 5 mm
              apart (one grid signature), each with a 3-entry thermal
              profile, then multipoint steering of the first cell at +-5 mm
@@ -1095,17 +1102,10 @@ def check_probe_kernels(device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def build_head():
-    """(labels, ct_hu, affine) of the procedural digital head at 2 mm
-    isotropic: skull sandwich with published adult thickness statistics,
-    per-compartment HU values and one intracranial air sinus."""
-    N = N_HEAD
-    rng = np.random.default_rng(11)
-    aff = np.diag([VOX, VOX, VOX, 1.0])
-    aff[:3, 3] = -N
-    ii, jj, kk = np.mgrid[0:N, 0:N, 0:N]
-    ras = np.stack([ii, jj, kk], -1) * VOX - N
-    x, y, z = ras[..., 0], ras[..., 1], ras[..., 2]
+def head_regions(x, y, z):
+    """The procedural head's compartments at RAS points (mm): skin, the
+    outer and inner tables and the diploe, brain (with its CSF rim and deep
+    core) and one intracranial air sinus."""
     r = np.sqrt((x / 0.97) ** 2 + (y / 0.92) ** 2 + z ** 2) + 1e-9
     ux, uy, uz = x / r, y / r, z / r
     r_skull_out = 60.0 * (1.0 + 0.05 * ux - 0.03 * uy * uz)
@@ -1122,14 +1122,32 @@ def build_head():
     sinus = (
         np.sqrt(x ** 2 + (y + 40) ** 2 + (z - 25) ** 2) < 7
     ) & (brain | diploe | inner_table)
+    return dict(skin=skin, outer_table=outer_table, diploe=diploe,
+                inner_table=inner_table, brain=brain, sinus=sinus,
+                csf=brain & (d_out > -(thick + 3.0)),
+                deep=d_out <= -(thick + 18.0), r=r)
+
+
+def build_head():
+    """(labels, ct_hu, affine) of the procedural digital head at 2 mm
+    isotropic: skull sandwich with published adult thickness statistics,
+    per-compartment HU values and one intracranial air sinus."""
+    N = N_HEAD
+    rng = np.random.default_rng(11)
+    aff = np.diag([VOX, VOX, VOX, 1.0])
+    aff[:3, 3] = -N
+    ii, jj, kk = np.mgrid[0:N, 0:N, 0:N]
+    ras = np.stack([ii, jj, kk], -1) * VOX - N
+    g = head_regions(ras[..., 0], ras[..., 1], ras[..., 2])
+    skin, outer_table, diploe = g["skin"], g["outer_table"], g["diploe"]
+    inner_table, brain, sinus = g["inner_table"], g["brain"], g["sinus"]
 
     labels = np.zeros((N, N, N), np.int32)
     labels[skin] = 5
     labels[outer_table | inner_table | diploe] = 7
-    csf = brain & (d_out > -(thick + 3.0))
     labels[brain] = 2
-    labels[csf] = 4
-    labels[d_out <= -(thick + 18.0)] = 1
+    labels[g["csf"]] = 4
+    labels[g["deep"]] = 1
     labels[sinus] = 0  # air cavity
 
     ct = np.full((N, N, N), 20.0)
@@ -1152,6 +1170,79 @@ def zte_volume(labels):
     zte[labels > 0] = 1000.0
     zte[labels == 7] = 350.0  # the head's skull
     return zte + rng.normal(0, 5, labels.shape)
+
+
+# the T1 of slice coreg-zte: 1 mm voxels over the digital head's field
+# (192^3); the ZTE MRI sits on the head's 2 mm grid, moved off it by
+# ZTE_MOVE (degrees about an axis, a shift in mm)
+T1_VOX = 1.0
+ZTE_MOVE = (6.0, 2, (4.0, -3.0, 2.0))
+
+
+def t1_volume(labels):
+    """(T1, affine) of the digital head on a ``T1_VOX`` grid over the same
+    field as ``build_head``'s. The labels are this T1's segmentation (as a
+    SimNIBS segmentation would be), so its tissues are theirs, each head
+    voxel a block of T1 voxels: dark skull and air, graded soft tissue,
+    seeded noise and a multiplicative coil shading, made as
+    `tests/test_registration_robustness.py` makes ``_head_pair``."""
+    f = int(round(VOX / T1_VOX))
+    lab = labels.repeat(f, 0).repeat(f, 1).repeat(f, 2)
+    n = lab.shape[0]
+    aff = np.diag([T1_VOX, T1_VOX, T1_VOX, 1.0])
+    aff[:3, 3] = -N_HEAD - VOX / 2 + T1_VOX / 2  # the same outer boundary
+    ax = (np.arange(n, dtype=np.float32) * T1_VOX + np.float32(aff[0, 3]))
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    r = head_regions(x, y, z)["r"]
+    t1 = np.zeros((n, n, n), np.float32)
+    t1[lab == 5] = 620.0  # skin
+    t1[lab == 7] = 120.0  # skull
+    t1[lab == 4] = 300.0  # CSF
+    brain = lab == 2
+    t1[brain] = 700.0 + 2.0 * (60.0 - r[brain])
+    t1[lab == 1] = 850.0
+    extent = N_HEAD * VOX
+    bias = np.exp(0.5 * x / extent + 0.35 * y / extent - 0.3 * z / extent
+                  + 0.4 * x * y / extent ** 2)
+    rng = np.random.default_rng(12)
+    t1 = t1 * bias + rng.normal(0, 25.0, t1.shape).astype(np.float32)
+    return t1.astype(np.float32), aff
+
+
+def moved(volume, move=ZTE_MOVE):
+    """``volume`` (on the head's grid) moved by a rigid transform about the
+    grid's centre: out(o) = volume(R (o - c) + c + t), linear (the
+    robustness harness's ``_apply_rigid``); ``move`` is (degrees, axis,
+    shift in mm)."""
+    from scipy import ndimage
+
+    from babelbrain_tpu_torch.pipeline.coreg import euler_matrix
+
+    deg, axis, shift_mm = move
+    angles = [0.0, 0.0, 0.0]
+    angles[axis] = np.deg2rad(deg)
+    R = euler_matrix(*angles).numpy().astype(np.float64)
+    c = np.array(volume.shape) / 2.0
+    offset = c - R @ c + np.asarray(shift_mm) / VOX
+    return ndimage.affine_transform(volume, R, offset=offset, order=1)
+
+
+def expected_registration(head_aff, t1_shape, t1_aff, move=ZTE_MOVE):
+    """The rigid parameters (radians, T1 voxels) that realign ``moved``'s
+    image on the T1 grid: the inverse rotation, and the inverse shift plus
+    the term that the two grids' rotation centres give."""
+    from babelbrain_tpu_torch.pipeline.coreg import euler_matrix
+
+    deg, axis, shift_mm = move
+    angles = [0.0, 0.0, 0.0]
+    angles[axis] = np.deg2rad(deg)
+    R = euler_matrix(*angles).numpy().astype(np.float64)
+    # the world points about which ``moved`` and ``register_rigid`` rotate
+    c_t1 = t1_aff[:3, :3] @ (np.array(t1_shape) / 2.0) + t1_aff[:3, 3]
+    c_head = head_aff[:3, :3] @ np.full(3, N_HEAD / 2.0) + head_aff[:3, 3]
+    d = c_t1 - c_head
+    t_mm = (R.T - np.eye(3)) @ d - R.T @ np.asarray(shift_mm)
+    return np.concatenate([-np.asarray(angles), t_mm / T1_VOX])
 
 
 def _counted_modules():
@@ -1302,10 +1393,13 @@ def to_mask_frame(dom, ijk):
 
 
 def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
-               diagnostics=False):
+               diagnostics=False, t1=None):
     """The stage functions ``run_case`` calls, in its order (no files
     written): CT mode with a CT volume (a ZTE or PETRA MRI first turned
-    into a pseudo-CT, by ``cfg.ct_type``), label mode with ``ct=None``; a
+    into a pseudo-CT, by ``cfg.ct_type``; with ``cfg.coregister`` and
+    ``t1`` = (T1, its affine) first registered to the T1 on the card, the
+    registration's wall time, statistics and peak device memory under the
+    result's ``"coreg"``), label mode with ``ct=None``; a
     dome transducer runs ``run_dome_sim``, any other ``run_acoustic_sim``
     with ``cfg.do_refocus`` and, with ``diagnostics``, all 14 ``sel_maps``
     and the pressure series at ``beam_axis_monitors``. Step 3 runs
@@ -1329,7 +1423,10 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
         amplitude_for_1w,
         build_transducer,
     )
-    from babelbrain_tpu_torch.pipeline.runner import make_pseudo_ct
+    from babelbrain_tpu_torch.pipeline.runner import (
+        coregister_to_t1,
+        make_pseudo_ct,
+    )
     from babelbrain_tpu_torch.pipeline.step1 import generate_mask
     from babelbrain_tpu_torch.pipeline.thermal import (
         run_all_combinations,
@@ -1341,13 +1438,28 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
     ct_mode = ct is not None
     is_dome = spec.kind == "dome"
     ct_type = cfg.ct_type.upper()
+    ct_aff, coreg = aff, None
     if ct_mode and ct_type in ("ZTE", "PETRA"):
-        ct = make_pseudo_ct(ct_type, ct, aff, labels, aff, cfg.zte_range,
+        if cfg.coregister and t1 is not None:
+            cuda = cfg.device == "cuda"
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            coreg = {"stats": []}
+            t0 = time.time()
+            ct, coreg["params"], coreg["quality"] = coregister_to_t1(
+                ct, aff, *t1, device=cfg.device, stats=coreg["stats"])
+            coreg["seconds"] = time.time() - t0
+            coreg["peak_bytes"] = (torch.cuda.max_memory_allocated() if cuda
+                                   else None)
+            ct_aff = t1[1]
+        ct = make_pseudo_ct(ct_type, ct, ct_aff, labels, aff, cfg.zte_range,
                             device=cfg.device)
     with stage_timer("Step1 domain generation", level=2, step=1):
         s1 = generate_mask(
             labels, aff, target, direction, cfg.frequency, cfg.ppw,
-            shape=mask_shape, ct_data=ct, ct_affine=aff if ct_mode else None,
+            shape=mask_shape, ct_data=ct,
+            ct_affine=ct_aff if ct_mode else None,
             hu_threshold=(cfg.density_threshold if ct_type == "DENSITY"
                           else cfg.hu_threshold), device=cfg.device,
         )
@@ -1403,7 +1515,7 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
             thermal = run_sonication(*args, params, **kw)
     return {"step1": s1, "domain": dom, "acoustic": result,
             "thermal": thermal, "data_for_sim": data, "monitor_ijk": monitors,
-            "tx": tx}
+            "tx": tx, "coreg": coreg}
 
 
 # the slices of phase 4: (CT volume given?, transducer, frequency,
@@ -1421,6 +1533,8 @@ SLICES = {
     "dome-ct": (True, "DomeTx", 220e3, False, True),
     # the CT slice from a synthetic ZTE MRI of the head (pseudo-CT first)
     "zte-ct": (True, "CTX_500", F0, False, False),
+    # zte-ct with the MRI moved off the head and registered to its T1 first
+    "coreg-zte": (True, "CTX_500", F0, False, False),
 }
 
 
@@ -1439,12 +1553,21 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
     with_ct, tx_system, freq, refocus, drive_1w = SLICES[mode]
     dome = mode.startswith("dome")
     diag = mode.startswith("diag")
-    zte = mode.startswith("zte")
+    coreg = mode == "coreg-zte"
+    zte = mode.startswith("zte") or coreg
     tag = f"[slice {mode}]"
     labels, ct, aff = build_head()
     ct = ct if with_ct else None
+    t1 = None
     if zte:
         ct = zte_volume(labels)
+    if coreg:
+        t0 = time.time()
+        ct = moved(ct)
+        t1 = t1_volume(labels)
+        print(f"{tag} T1 {t1[0].shape} at {T1_VOX} mm and the ZTE MRI moved "
+              f"by {ZTE_MOVE[0]} deg about axis {ZTE_MOVE[1]} and "
+              f"{ZTE_MOVE[2]} mm, made in {time.time() - t0:.2f} s")
     params = params or SonicationParams(
         duration_on=30.0, duration_off=30.0, duty_cycle=0.3, isppa=10.0
     )
@@ -1453,7 +1576,8 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
         cfg = CaseConfig(tx_system=tx_system, frequency=freq, ppw=PPW,
                          mapping_method=MAPPING, do_refocus=refocus,
                          drive_1w=drive_1w, ct_type="ZTE" if zte else "CT",
-                         output_dir=tmp, prefix="chip_smoke", device=device)
+                         coregister=coreg, output_dir=tmp,
+                         prefix="chip_smoke", device=device)
         clear_spans()
         reset_counts()
         rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
@@ -1470,7 +1594,7 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
                      else "the pseudo-CT stage in the open)" if zte
                      else "h5py missing)"))
             res = run_stages(cfg, labels, aff, ct, target, direction, params,
-                             mask_shape, diagnostics=diag)
+                             mask_shape, diagnostics=diag, t1=t1)
         if device == "cuda":
             torch.cuda.synchronize()
         wall = time.time() - t0
@@ -1548,6 +1672,8 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
         if not (hu.min() >= 300.0 and hu.max() <= 2100.0):
             fail(f"{mode}: pseudo-CT HU band {hu.min()}..{hu.max()} outside "
                  "300..2100")
+    if coreg:
+        check_coregistration(tag, res, ct, aff, t1, device)
     if refocus:
         pr = res["data_for_sim"].get("p_amp_refocus")
         if pr is None or not np.isfinite(pr).all() or pr.max() <= 0:
@@ -1600,6 +1726,112 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
                                   monitor_ijk=res["monitor_ijk"],
                                   device=device)
     return launches, errs
+
+
+# the card-vs-CPU registration check of slice coreg-zte: its T1 and its
+# resampled ZTE MRI block-averaged by this factor (192^3 -> 64^3)
+COREG_CHECK_FACTOR = 3
+
+
+def _block_mean(v, f):
+    n = [(s // f) * f for s in v.shape]
+    v = v[: n[0], : n[1], : n[2]]
+    return v.reshape(n[0] // f, f, n[1] // f, f, n[2] // f, f).mean(
+        axis=(1, 3, 5))
+
+
+def export_meshes(step1, prefix):
+    """``export_surface_meshes`` of a Step-1 result: (triangles per
+    surface, seconds)."""
+    from babelbrain_tpu_torch.ops.voxelize import read_stl
+    from babelbrain_tpu_torch.pipeline.step1 import export_surface_meshes
+
+    t0 = time.time()
+    files = export_surface_meshes(step1, prefix)
+    dt = time.time() - t0
+    return {k: len(read_stl(v)) for k, v in files.items()}, dt
+
+
+def check_coregistration(tag, res, zte, aff, t1, device="cuda"):
+    """Slice coreg-zte's registration: the recovered transform within 1 deg
+    and 1 T1 voxel of the truth (``expected_registration``; the largest
+    error over the axes, as the robustness harness's ``_recovered_error``
+    takes it) and the quality gate, with its statistics per level. Then
+    ``register_rigid`` on the card and on this machine's CPU on the pair
+    block-averaged to 64^3, which must agree within the port's JAX parity
+    band (0.25 deg, 0.25 voxel, quality 1e-3); meanwhile, in a process of
+    its own (the host's mesh work overlaps that check without sharing its
+    interpreter), ``export_surface_meshes`` of the slice's Step-1 result,
+    timed."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        mesh_job = pool.submit(export_meshes, res["step1"],
+                               os.path.join(tmp, "chip_smoke"))
+        check_registration(tag, res, zte, aff, t1, device)
+        tris, dt = mesh_job.result()
+    print(f"{tag} export_surface_meshes of the Step-1 mask "
+          f"{res['step1'].mask.shape}: triangles {tris} in {dt:.2f} s")
+    if sorted(tris) != ["bone", "csf", "skin"] or min(tris.values()) <= 0:
+        fail(f"coreg-zte: surface meshes {tris}")
+
+
+def check_registration(tag, res, zte, aff, t1, device):
+    """The registration checks of ``check_coregistration``."""
+    from babelbrain_tpu_torch.ops import imaging as im
+    from babelbrain_tpu_torch.pipeline.coreg import (
+        register_rigid,
+        registration_ok,
+    )
+
+    c = res["coreg"]
+    t1v, t1_aff = t1
+    want = expected_registration(aff, t1v.shape, t1_aff)
+    p = np.asarray(c["params"], np.float64)
+    rot_err = float(np.rad2deg(np.abs(p[:3] - want[:3])).max())
+    tr_err = float(np.abs(p[3:] - want[3:]).max())
+    print(f"{tag} registration {c['seconds']:.3f} s on {device}: params "
+          f"{np.round(p, 5).tolist()} (rad, T1 voxels), truth "
+          f"{np.round(want, 5).tolist()}; error {rot_err:.4f} deg, "
+          f"{tr_err:.4f} voxels; quality {c['quality']:.5f}")
+    for st in c["stats"]:
+        print(f"{tag} registration {st['stage']}: {st['evals']} loss "
+              f"evaluations, {st['syncs']} host syncs, {st['seconds']:.3f} s "
+              f"({1e3 * st['seconds'] / max(st['evals'], 1):.3f} ms per "
+              f"evaluation)")
+    if c["peak_bytes"] is not None:
+        print(f"{tag} registration peak device memory "
+              f"{c['peak_bytes'] / 2**30:.3f} GiB")
+    if rot_err > 1.0 or tr_err > 1.0:
+        fail(f"coreg-zte: recovered transform {rot_err} deg / {tr_err} voxels "
+             "off the truth (limit 1, 1)")
+    if not registration_ok(c["quality"]):
+        fail(f"coreg-zte: registration quality {c['quality']} below the gate")
+
+    mv = im.resample_from_to(zte, aff, t1_aff, t1v.shape, order=1,
+                             device=device)
+    fx = _block_mean(t1v, COREG_CHECK_FACTOR)
+    mvs = _block_mean(mv, COREG_CHECK_FACTOR)
+    out = {}
+    for dev in (device, "cpu"):
+        t0 = time.time()
+        out[dev] = register_rigid(fx, mvs, return_quality=True, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        print(f"{tag} register_rigid at {fx.shape} on {dev}: "
+              f"{time.time() - t0:.3f} s, params "
+              f"{np.round(out[dev][0].astype(np.float64), 6).tolist()}, "
+              f"quality {out[dev][2]:.6f}")
+    (pd, _, qd), (pc, _, qc) = out[device], out["cpu"]
+    drot = float(np.rad2deg(np.abs(pd[:3] - pc[:3])).max())
+    dtr = float(np.abs(pd[3:] - pc[3:]).max())
+    print(f"{tag} {device} vs cpu at {fx.shape}: {drot:.5f} deg, {dtr:.5f} "
+          f"voxels, quality {abs(qd - qc):.2e}")
+    if drot >= 0.25 or dtr >= 0.25 or abs(qd - qc) >= 1e-3:
+        fail(f"coreg-zte: {device} and cpu registrations differ by {drot} "
+             f"deg, {dtr} voxels, quality {abs(qd - qc)}")
 
 
 # slice sweep-ct: two targets 5 mm apart on the beam axis, shape-bucketed to

@@ -9,8 +9,10 @@ them on a GPU machine with
 ``python3 chip_smoke.py`` runs the same comparisons at the main path's full
 shapes. Kernels are built with --fmad=false in the plain versions'
 operation order, so the comparisons are exact (tolerance 0); the CPU tests
-hold the plain versions to the JAX package. This file imports nothing of
-the JAX package, so it runs where JAX is not installed.
+hold the plain versions to the JAX package. The rigid registration (plain
+PyTorch, no kernel of its own) is held on the card to its CPU run at the
+bands of its JAX parity test. This file imports nothing of the JAX
+package, so it runs where JAX is not installed.
 """
 
 import numpy as np
@@ -595,3 +597,31 @@ def test_stream_kernel_ragged_length_and_alignment(cuda):
     torch.testing.assert_close(y_k, y_p, rtol=0, atol=0)
     with pytest.raises(ValueError, match="16-byte"):
         P.stream(x[1:], y_k[1:])
+
+
+def test_register_rigid_on_the_card_matches_the_cpu(cuda):
+    """`tests/test_torch_coreg.py`'s phantom and bands: parameters within
+    0.25 deg and 0.25 voxel, quality within 1e-3."""
+    from babelbrain_tpu_torch.ops.imaging import resample_affine
+    from babelbrain_tpu_torch.pipeline import coreg as C
+
+    n = 48
+    ii, jj, kk = np.mgrid[0:n, 0:n, 0:n].astype(float)
+    fixed = np.exp(-(((ii - 24) / 12) ** 2 + ((jj - 24) / 9) ** 2
+                     + ((kk - 24) / 15) ** 2))
+    fixed += 0.7 * np.exp(-(((ii - 30) / 2) ** 2 + ((jj - 18) / 2) ** 2))
+    fixed += 0.5 * np.exp(-(((jj - 30) / 2) ** 2 + ((kk - 14) / 2) ** 2))
+    p_true = np.array([0.06, -0.04, 0.08, 2.0, -1.5, 1.0])
+    R = C.euler_matrix(*p_true[:3]).numpy().astype(np.float64)
+    off = 24.0 - R @ np.full(3, 24.0) + p_true[3:]
+    moving = resample_affine(fixed, np.linalg.inv(R), -np.linalg.inv(R) @ off,
+                             fixed.shape, 1, device="cpu")
+    pc, _, qc = C.register_rigid(fixed, moving, device="cpu",
+                                 return_quality=True)
+    pg, _, qg = C.register_rigid(fixed, moving, device=cuda,
+                                 return_quality=True)
+    assert np.rad2deg(np.abs(pg[:3] - pc[:3])).max() < 0.25, (pg, pc)
+    assert np.abs(pg[3:] - pc[3:]).max() < 0.25, (pg, pc)
+    assert abs(qg - qc) < 1e-3
+    np.testing.assert_allclose(pg[:3], p_true[:3], atol=0.02)
+    np.testing.assert_allclose(pg[3:], p_true[3:], atol=0.5)

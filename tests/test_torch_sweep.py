@@ -620,6 +620,29 @@ def _record_quantize(step1_mod, monkeypatch, seen):
     monkeypatch.setattr(step1_mod, "quantize_hu", rec)
 
 
+def _explain_index_differences(sj, st, s64):
+    """Step 1's HU volumes of JAX (``sj``) and the port (``st``) agree to
+    float32 rounding, and every voxel whose CT index differs is explained:
+    the two values straddle the bin edge between neighbouring indices, and
+    the float64 reference (``s64``) puts the voxel within the float32
+    computations' own error of that edge, so the bin is not decided at
+    float32 precision, on either side."""
+    np.testing.assert_allclose(st["hu"], sj["hu"], rtol=2e-6, atol=1e-3)
+    bone = sj["bone"]
+    err = max(np.abs(o["hu"] - s64["hu"])[bone].max() for o in (sj, st))
+    vals = sj["hu"][bone].astype(np.float64)
+    edges = np.linspace(vals.min(), vals.max(), 1023)  # quantize_hu's
+    for v in map(tuple, np.argwhere(st["ct_index"] != sj["ct_index"])):
+        hj, ht, h64 = (float(o["hu"][v]) for o in (sj, st, s64))
+        edge = edges[np.searchsorted(edges, max(hj, ht), side="left") - 1]
+        what = (f"voxel {v}: index {sj['ct_index'][v]} (JAX) vs "
+                f"{st['ct_index'][v]}, HU {hj} / {ht} / {h64} (float64) "
+                f"about the edge {edge}, float32 error {err}")
+        assert abs(int(st["ct_index"][v]) - int(sj["ct_index"][v])) == 1, what
+        assert min(hj, ht) <= edge <= max(hj, ht), what
+        assert abs(h64 - edge) <= err, what
+
+
 @pytest.mark.parametrize("ct_type", ["ZTE", "PETRA", "Density"])
 def test_mri_and_density_inputs_match_jax(head, tmp_path, monkeypatch,
                                           ct_type):
@@ -659,26 +682,9 @@ def test_mri_and_density_inputs_match_jax(head, tmp_path, monkeypatch,
     np.testing.assert_array_equal(quantize_hu(sj["hu"], sj["bone"])[1],
                                   sj["ct_index"])
     # The HU volumes differ by the float32 rounding of the cubic resample
-    # (XLA fuses the B-spline weights; ROADMAP Queue C). Where that moves a
-    # voxel into the neighbouring HU bin (2 voxels for ZTE, 3 for Density
-    # here), the two values must straddle the bin edge, and the float64
-    # resample must put the voxel within the float32 resample's own error
-    # of that edge: the bin is not decided at float32 precision, on either
-    # side.
-    np.testing.assert_allclose(st["hu"], sj["hu"], rtol=2e-6, atol=1e-3)
-    bone = sj["bone"]
-    err = max(np.abs(o["hu"] - s64["hu"])[bone].max() for o in (sj, st))
-    vals = sj["hu"][bone].astype(np.float64)
-    edges = np.linspace(vals.min(), vals.max(), 1023)  # quantize_hu's
-    for v in map(tuple, np.argwhere(st["ct_index"] != sj["ct_index"])):
-        hj, ht, h64 = (float(o["hu"][v]) for o in (sj, st, s64))
-        edge = edges[np.searchsorted(edges, max(hj, ht), side="left") - 1]
-        what = (f"voxel {v}: index {sj['ct_index'][v]} (JAX) vs "
-                f"{st['ct_index'][v]}, HU {hj} / {ht} / {h64} (float64) "
-                f"about the edge {edge}, float32 error {err}")
-        assert abs(int(st["ct_index"][v]) - int(sj["ct_index"][v])) == 1, what
-        assert min(hj, ht) <= edge <= max(hj, ht), what
-        assert abs(h64 - edge) <= err, what
+    # (XLA fuses the B-spline weights; ROADMAP Queue C): 2 voxels for ZTE,
+    # 3 for Density here move into the neighbouring HU bin.
+    _explain_index_differences(sj, st, s64)
     hu_j = np.load(next(sj["dir"].glob("*_CT-cal.npz")))["UniqueHU"]
     hu_t = np.load(next(st["dir"].glob("*_CT-cal.npz")))["UniqueHU"]
     np.testing.assert_allclose(hu_t, hu_j, rtol=1e-7)
