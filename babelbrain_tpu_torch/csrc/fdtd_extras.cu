@@ -1,18 +1,16 @@
-// FDTD diagnostics for NVIDIA Hopper (sm_90a): the RMS / peak maps and the
-// pressure series at monitor voxels (and the raw capture), in either FDTD
-// family.
+// FDTD diagnostics for NVIDIA Hopper (sm_90a): the RMS / peak maps, in
+// either FDTD family. (The pressure series at monitor voxels and the raw
+// capture are taken by the pressure / stress kernels themselves: their
+// MONITOR instantiations, fdtd_fluid.cu / fdtd_visco.cu and Monitor in
+// fdtd_stencil.cuh.)
 //
 // Replaces (TPU kernels of the JAX package, babelbrain_tpu/ops/fdtd_pallas.py):
 //   the with_p2 accumulator of build_fluid_fusedK_step (B4, the acc_p2 slab
 //   that sums p^2 beside the DFT and the peak over every step of a sweep,
-//   :2288-2304, serving sel_maps=("Pressure_rms",)), and the monitor capture
-//   of its driver simulate_fluid_pallas (p at K voxels once per sweep,
-//   :2891-2901). Both are generalised to what the XLA path serves
-//   (babelbrain_tpu/ops/fdtd.py _update_extras, _monitor_gather and the
-//   capture segment of _simulate_local): the 14 maps <Field>_rms /
-//   <Field>_peak over Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy, Sigmazz in fluid
-//   and viscoelastic media, and the pressure at every sample step, not once
-//   per fused sweep.
+//   :2288-2304, serving sel_maps=("Pressure_rms",)), generalised to what the
+//   XLA path serves (babelbrain_tpu/ops/fdtd.py _update_extras): the 14 maps
+//   <Field>_rms / <Field>_peak over Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy,
+//   Sigmazz in fluid and viscoelastic media.
 //
 // extras_accumulate_kernel<VISCO>: one pass after the pressure / stress
 // kernel at each step of the sensor window. A bitmask says which of the 14
@@ -22,14 +20,9 @@
 // syy, szz, vx, vy, vz, with Pressure = -(sxx+syy+szz) * (float)(1/3) in the
 // operation order of visco_stress_kernel.
 //
-// monitor_gather_kernel<VISCO>: one thread per point writes the pressure at
-// a voxel into row m of a preallocated (n_samples, K) device buffer, so a
-// run syncs with the host once, at the end. A null index gathers every voxel
-// in C order (the full-volume capture).
-//
-// What bounds them on this card: device-memory traffic. The extras pass
-// reads the fields it needs and reads and writes each held accumulator: with
-// all 14 maps a fluid cell moves 16 B of fields and 8 accumulators (the
+// What bounds it on this card: device-memory traffic. The pass reads the
+// fields it needs and reads and writes each held accumulator: with all 14
+// maps a fluid cell moves 16 B of fields and 8 accumulators (the
 // wrapper holds one accumulator for Pressure and the three Sigma maps of a
 // fluid run, which are equal bit for bit), 80 B; a visco cell 24 B of fields
 // and 14 accumulators, 136 B. One FLOP or so per 4 bytes: far below the
@@ -37,13 +30,11 @@
 // contiguous axis), so every stream is read and written in 128-byte lines;
 // the mask branch is uniform across the grid. Fusing the pass into the
 // pressure / stress kernel (as B4 fuses acc_p2 into its sweep) saves the
-// re-read of the fields and is later perf work. The gather moves 4 B of index
-// and 4 B of output a point plus one 32-byte sector per field read: latency,
-// not bandwidth, bounds a few thousand points.
+// re-read of the fields and is later perf work.
 //
 // Rounding: built with --fmad=false and written in the operation order of
-// the plain PyTorch versions (ops/fdtd_extras.py extras_accumulate_ref,
-// monitor_gather_ref), so kernel and plain version round alike.
+// the plain PyTorch version (ops/fdtd_extras.py extras_accumulate_ref), so
+// kernel and plain version round alike.
 
 #include <cuda_runtime.h>
 
@@ -93,15 +84,6 @@ __global__ void extras_accumulate_kernel(Fields F, Accs A, int mask,
   }
 }
 
-template <bool VISCO>
-__global__ void monitor_gather_kernel(Fields F, const int* __restrict__ idx,
-                                      float* __restrict__ out, int k) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= k) return;
-  const long long c = idx ? (long long)idx[q] : (long long)q;
-  out[q] = pressure_at<VISCO>(F, c);
-}
-
 Fields fields_of(const float* const* host) {
   Fields F;
   for (int a = 0; a < 6; ++a) F.f[a] = host[a];
@@ -126,22 +108,6 @@ int bb_extras_accumulate(const float* const* fields, float* const* accs,
   } else {
     extras_accumulate_kernel<false><<<nb, kThreads, 0, st>>>(
         fields_of(fields), A, mask, n);
-  }
-  return (int)cudaGetLastError();
-}
-
-// idx: int32 linear voxel indices of the k points, or null for every voxel;
-// out: the k floats of this sample's row
-int bb_monitor_gather(const float* const* fields, const int* idx, float* out,
-                      int k, int visco, void* stream) {
-  const unsigned int nb = (unsigned int)((k + kThreads - 1) / kThreads);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (visco) {
-    monitor_gather_kernel<true><<<nb, kThreads, 0, st>>>(fields_of(fields),
-                                                         idx, out, k);
-  } else {
-    monitor_gather_kernel<false><<<nb, kThreads, 0, st>>>(fields_of(fields),
-                                                          idx, out, k);
   }
   return (int)cudaGetLastError();
 }

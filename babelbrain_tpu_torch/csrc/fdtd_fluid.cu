@@ -76,6 +76,10 @@ constexpr int kMinBlocks = 6;  // 1536 threads an SM: 40 registers
 // spill 16 bytes, the viscous ones do not)
 constexpr int kMinBlocksInviscid = 8;
 constexpr int kMinBlocksInviscidDft = 5;
+// the full-capture (kMonitorEvery) instantiations, and the viscous one with
+// the DFT and listed monitors: 1280 threads (48 registers; at 40 these
+// spilled 80-116 bytes and ran slower on an H100, PERF.md)
+constexpr int kMinBlocksMonitor = 5;
 
 // table rows (ops/fdtd.py _build_indexed_materials)
 constexpr int kRhoInv = 0, kPiU = 1, kCRp = 3, kBR = 5;
@@ -156,12 +160,18 @@ struct Own {
 
 // theta = sum of the CPML'd D-_i v_i; the SLS memory r (VISCOUS) and
 // p -= dt/dx pi_u theta + dt (r' + r)/2; with POINT the point source
-// subtracted from p at cell pt; with WITH_DFT the carrier DFT and |p| peak.
+// subtracted from p at cell pt; with WITH_DFT the carrier DFT and |p| peak;
+// with MONITOR (kMonitorListed, kMonitorEvery) the new p sampled into the
+// series row mon.out (Monitor, fdtd_stencil.cuh).
 // v: [vx, vy, vz]; psi: [lo, hi] of the derivatives vx_x, vy_y, vz_z.
-template <bool VISCOUS, bool WITH_DFT, bool POINT>
+template <bool VISCOUS, bool WITH_DFT, bool POINT, int MONITOR>
 __global__ void __launch_bounds__(
-    kThreads, VISCOUS ? kMinBlocks
-                      : WITH_DFT ? kMinBlocksInviscidDft : kMinBlocksInviscid)
+    kThreads, (MONITOR == kMonitorEvery ||
+               (MONITOR == kMonitorListed && VISCOUS && WITH_DFT))
+                  ? kMinBlocksMonitor
+              : VISCOUS  ? kMinBlocks
+              : WITH_DFT ? kMinBlocksInviscidDft
+                         : kMinBlocksInviscid)
     fluid_pressure_kernel(Ptr3 v, float* __restrict__ p,
                           float* __restrict__ r, const int* __restrict__ idx,
                           const float* __restrict__ table, int n_mat,
@@ -169,9 +179,11 @@ __global__ void __launch_bounds__(
                           float* __restrict__ peak, Ptr6 psi,
                           const float* __restrict__ prof_int, float dt_dx,
                           float inv_dx, float half_dt, float cosw, float sinw,
-                          Geo g, int pt, float sval) {
+                          Geo g, int pt, float sval, Monitor mon) {
   Col q;
   if (!column(q, g)) return;
+  constexpr bool kListed = MONITOR == kMonitorListed;
+  if constexpr (kListed) fetch_range(mon);
   const float* vx = v.p[0];
   const float* vy = v.p[1];
   const float* vz = v.p[2];
@@ -210,11 +222,16 @@ __global__ void __launch_bounds__(
     }
     if (POINT && c == pt) pn = pn - sval;
     p[c] = pn;
+    if constexpr (MONITOR == kMonitorEvery) mon.out[c] = pn;
     if (WITH_DFT) {
       acc_c[c] = cur.ac + pn * cosw;
       acc_s[c] = cur.as + pn * sinw;
       peak[c] = fmaxf(cur.pk, fabsf(pn));
     }
+  }
+  if constexpr (kListed) {
+    copy_listed(mon, min(kTileZ, g.n3 - (int)blockIdx.x * kTileZ),
+                [p](int c) { return p[c]; });
   }
 }
 
@@ -244,30 +261,53 @@ int bb_fluid_velocity(const float* p, float* const* v3, const int* idx,
   return (int)cudaGetLastError();
 }
 
-// as bb_fluid_velocity; the table rows pi_u (and c_rp, b_r when viscous)
+// as bb_fluid_velocity; the table rows pi_u (and c_rp, b_r when viscous);
+// monitor (kNoMonitor, kMonitorListed, kMonitorEvery): the new pressure
+// sampled into mon_out (a series row) at the listed voxels (mon_start,
+// mon_cell, mon_slot: see Monitor) or at every voxel
 int bb_fluid_pressure(float* const* v3, float* p, float* r, const int* idx,
                       const float* table, float* acc_c, float* acc_s,
                       float* peak, float* const* psi6, const float* prof_int,
                       float dt_dx, float inv_dx, float half_dt, float cosw,
                       float sinw, int n_mat, int n1, int n2, int n3, int ns,
                       int viscous, int with_dft, int point, long long pt,
-                      float sval, int tile_y, int seg, int gz, int gy, int gx,
+                      float sval, const int* mon_start, const int* mon_cell,
+                      const int* mon_slot, float* mon_out, int monitor,
+                      int tile_y, int seg, int gz, int gy, int gx,
                       void* stream) {
   const Geo g{n1, n2, n3, ns, seg};
   dim3 grid;
-  if (!launch_grid(g, tile_y, gz, gy, gx, grid)) {
+  if (!launch_grid(g, tile_y, gz, gy, gx, grid) ||
+      !monitor_args_valid(monitor, mon_start, mon_cell, mon_slot, mon_out)) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 block(kTileZ, kTileY);
+  const Monitor mon{mon_start, mon_cell, mon_slot, mon_out};
   cudaStream_t st = (cudaStream_t)stream;
 #define BB_PRESSURE_ARGS                                                   \
   gather<3, Ptr3>(v3), p, r, idx, table, n_mat, acc_c, acc_s, peak,        \
       gather<6, Ptr6>(psi6), prof_int, dt_dx, inv_dx, half_dt, cosw, sinw, \
-      g, (int)pt, sval
-#define BB_GO(V, D, P) \
-  fluid_pressure_kernel<V, D, P><<<grid, block, 0, st>>>(BB_PRESSURE_ARGS)
-#define BB_GO_POINT(V, D) \
-  if (point) BB_GO(V, D, true); else BB_GO(V, D, false)
+      g, (int)pt, sval, mon
+#define BB_GO(V, D, P, M) \
+  fluid_pressure_kernel<V, D, P, M><<<grid, block, 0, st>>>(BB_PRESSURE_ARGS)
+#define BB_GO_MONITOR(V, D, P)               \
+  do {                                       \
+    if (monitor == kMonitorListed) {         \
+      BB_GO(V, D, P, kMonitorListed);        \
+    } else if (monitor == kMonitorEvery) {   \
+      BB_GO(V, D, P, kMonitorEvery);         \
+    } else {                                 \
+      BB_GO(V, D, P, kNoMonitor);            \
+    }                                        \
+  } while (0)
+#define BB_GO_POINT(V, D)          \
+  do {                             \
+    if (point) {                   \
+      BB_GO_MONITOR(V, D, true);   \
+    } else {                       \
+      BB_GO_MONITOR(V, D, false);  \
+    }                              \
+  } while (0)
   if (viscous && with_dft) {
     BB_GO_POINT(true, true);
   } else if (viscous) {
@@ -278,6 +318,7 @@ int bb_fluid_pressure(float* const* v3, float* p, float* r, const int* idx,
     BB_GO_POINT(false, false);
   }
 #undef BB_GO_POINT
+#undef BB_GO_MONITOR
 #undef BB_GO
 #undef BB_PRESSURE_ARGS
   return (int)cudaGetLastError();

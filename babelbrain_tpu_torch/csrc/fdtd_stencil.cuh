@@ -201,6 +201,88 @@ struct Cpml {
   }
 };
 
+// A pressure sample taken by the pressure / stress kernel of a step (their
+// MONITOR instantiations), the port of the monitor capture of B4's host loop
+// (babelbrain_tpu/ops/fdtd_pallas.py simulate_fluid_pallas): the voxels'
+// new pressure written into `out`, a row of the (n_samples, K) series.
+//   kMonitorEvery: every voxel (out[c], the raw capture); each thread
+//     stores its cells as it writes them, one more store stream.
+//   kMonitorListed: K voxels, sorted by the warp that writes them
+//     (ops/fdtd_extras.py monitor_csr, from the launch geometry: warp
+//     threadIdx.y of block b is key b * kTileY + threadIdx.y): a warp's
+//     entries are [start[w], start[w + 1]) of (cell[e], slot[e]), almost
+//     always none. Lane 0 starts an asynchronous copy of the two offsets
+//     into shared memory before the march (fetch_range: no register is held
+//     and no thread waits on it); after the march, lane 0 waits for it, a
+//     __syncwarp makes it and the warp's own stores visible to all its
+//     lanes, and they copy out[slot] = pressure(cell): values the warp has
+//     just stored. No block barrier, so the kernel keeps its early return
+//     for threads off the volume and its twin's loop. (Plain loads of the
+//     offsets after the march, or a warp shuffle of lane 0's copy, were
+//     measured slower in the instantiations the main path samples with,
+//     PERF.md.) The list moves (n_warps + 1 + 2K) ints and K floats
+//     a sample, instead of a launch of its own; a per-column table read by
+//     every x-segment would move one int per column and segment.
+constexpr int kNoMonitor = 0, kMonitorListed = 1, kMonitorEvery = 2;
+
+struct Monitor {
+  const int* start;
+  const int* cell;
+  const int* slot;
+  float* out;
+};
+
+// the two offsets of each warp's entries, in shared memory (a kernel that
+// never calls this holds none)
+__device__ __forceinline__ int* monitor_range() {
+  __shared__ int range[2 * kTileY];
+  return range + 2 * threadIdx.y;
+}
+
+__device__ __forceinline__ void cp_async4(int* smem, const int* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// kMonitorListed, before the march, by every thread inside the volume:
+// lane 0 of each warp starts the copy of the warp's offsets
+__device__ __forceinline__ void fetch_range(const Monitor& mon) {
+  if (threadIdx.x == 0) {
+    const int w =
+        (blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)) *
+            kTileY + threadIdx.y;
+    cp_async4(monitor_range(), mon.start + w);
+    cp_async4(monitor_range() + 1, mon.start + w + 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+}
+
+// kMonitorListed, after the march, by every lane of the warp that is inside
+// the volume (lanes 0 .. n_lanes - 1): the listed voxels the warp has
+// written, from at(cell)
+template <typename At>
+__device__ __forceinline__ void copy_listed(const Monitor& mon, int n_lanes,
+                                            At at) {
+  const unsigned lanes =
+      n_lanes >= kTileZ ? 0xffffffffu : (1u << n_lanes) - 1u;
+  if (threadIdx.x == 0) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp(lanes);  // lane 0's copy and the warp's own stores, for all
+  const int e0 = monitor_range()[0], e1 = monitor_range()[1];
+  for (int e = e0 + threadIdx.x; e < e1; e += n_lanes) {
+    mon.out[mon.slot[e]] = at(mon.cell[e]);
+  }
+}
+
+// the C entry points' monitor arguments: a known mode and its pointers
+inline bool monitor_args_valid(int monitor, const int* start, const int* cell,
+                               const int* slot, const float* out) {
+  if (monitor == kNoMonitor) return true;
+  if (monitor == kMonitorEvery) return out != nullptr;
+  return monitor == kMonitorListed && start && cell && slot && out;
+}
+
 // true if `blocks` tiles of `tile` cells cover [0, n) and each holds a cell
 inline bool covers(int blocks, int tile, int n) {
   return blocks >= 1 && (long long)blocks * tile >= n &&

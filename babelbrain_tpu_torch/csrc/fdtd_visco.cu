@@ -163,11 +163,13 @@ __global__ void __launch_bounds__(kThreads, kVelocityMinBlocks)
 
 // Six stresses and six SLS memories from the CPML'd velocity derivatives;
 // with POINT the point source added to the normal stresses of cell pt; with
-// WITH_DFT the carrier DFT and |p| peak of p = -(sxx+syy+szz)/3.
+// WITH_DFT the carrier DFT and |p| peak of p = -(sxx+syy+szz)/3; with
+// MONITOR (kMonitorListed, kMonitorEvery) that p sampled into the series
+// row mon.out (Monitor, fdtd_stencil.cuh).
 // v: [vx, vy, vz]; s, r: [xx, yy, zz, xy, xz, yz]; table rows
 // [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r] x n_mat; psi: the derivatives
 // vx_x, vy_y, vz_z, vx_y, vy_x, vx_z, vz_x, vy_z, vz_y.
-template <bool VISCOUS, bool WITH_DFT, bool POINT>
+template <bool VISCOUS, bool WITH_DFT, bool POINT, int MONITOR>
 __global__ void __launch_bounds__(kThreads, kStressMinBlocks)
     visco_stress_kernel(Ptr3 v, Ptr6 s, Ptr6 r, const int* __restrict__ idx,
                         const float* __restrict__ table, int n_mat,
@@ -176,7 +178,7 @@ __global__ void __launch_bounds__(kThreads, kStressMinBlocks)
                         const float* __restrict__ prof_half,
                         const float* __restrict__ prof_int, float dt_dx,
                         float inv_dx, float half_dt, float cosw, float sinw,
-                        Geo g, int pt, float sval) {
+                        Geo g, int pt, float sval, Monitor mon) {
   extern __shared__ float tab[];  // rows pi_u, mu_u, c_rp, c_rs, b_r
   for (int m = threadIdx.y * kTileZ + threadIdx.x; m < 5 * n_mat;
        m += kThreads) {
@@ -185,6 +187,8 @@ __global__ void __launch_bounds__(kThreads, kStressMinBlocks)
   __syncthreads();
   Col q;
   if (!column(q, g)) return;
+  constexpr bool kListed = MONITOR == kMonitorListed;
+  if constexpr (kListed) fetch_range(mon);
   const float* vx = v.p[0];
   const float* vy = v.p[1];
   const float* vz = v.p[2];
@@ -279,12 +283,22 @@ __global__ void __launch_bounds__(kThreads, kStressMinBlocks)
       }
       s.p[3 + a][c] = sn[3 + a];
     }
-    if (WITH_DFT) {
+    if (WITH_DFT || MONITOR == kMonitorEvery) {
       const float p = -(sn[0] + sn[1] + sn[2]) * kThird;
-      acc_c[c] = ac + p * cosw;
-      acc_s[c] = as + p * sinw;
-      peak[c] = fmaxf(pk, fabsf(p));
+      if constexpr (MONITOR == kMonitorEvery) mon.out[c] = p;
+      if (WITH_DFT) {
+        acc_c[c] = ac + p * cosw;
+        acc_s[c] = as + p * sinw;
+        peak[c] = fmaxf(pk, fabsf(p));
+      }
     }
+  }
+  if constexpr (kListed) {
+    // in the operation order of ops/fdtd_extras.py monitor_gather_ref
+    copy_listed(mon, min(kTileZ, g.n3 - (int)blockIdx.x * kTileZ),
+                [&s](int c) {
+      return -(s.p[0][c] + s.p[1][c] + s.p[2][c]) * kThird;
+    });
   }
 }
 
@@ -316,6 +330,9 @@ int bb_visco_velocity(float* const* s6, float* const* v3, const int* idx,
   return (int)cudaGetLastError();
 }
 
+// monitor (kNoMonitor, kMonitorListed, kMonitorEvery): the new pressure
+// sampled into mon_out (a series row) at the listed voxels (mon_start,
+// mon_cell, mon_slot: see Monitor) or at every voxel
 int bb_visco_stress(float* const* v3, float* const* s6, float* const* r6,
                     const int* idx, const float* table, float* acc_c,
                     float* acc_s, float* peak, float* const* psi18,
@@ -323,25 +340,45 @@ int bb_visco_stress(float* const* v3, float* const* s6, float* const* r6,
                     float dt_dx, float inv_dx, float half_dt, float cosw,
                     float sinw, int n_mat, int n1, int n2, int n3, int ns,
                     int viscous, int with_dft, int point, long long pt,
-                    float sval, int tile_y, int seg, int gz, int gy, int gx,
+                    float sval, const int* mon_start, const int* mon_cell,
+                    const int* mon_slot, float* mon_out, int monitor,
+                    int tile_y, int seg, int gz, int gy, int gx,
                     void* stream) {
   const Geo g{n1, n2, n3, ns, seg};
   dim3 grid;
-  if (!launch_grid(g, tile_y, gz, gy, gx, grid)) {
+  if (!launch_grid(g, tile_y, gz, gy, gx, grid) ||
+      !monitor_args_valid(monitor, mon_start, mon_cell, mon_slot, mon_out)) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 block(kTileZ, kTileY);
   const size_t smem = 5 * n_mat * sizeof(float);
+  const Monitor mon{mon_start, mon_cell, mon_slot, mon_out};
   cudaStream_t st = (cudaStream_t)stream;
 #define BB_STRESS_ARGS                                                     \
   gather<3, Ptr3>(v3), gather<6, Ptr6>(s6), gather<6, Ptr6>(r6), idx,      \
       table, n_mat, acc_c, acc_s, peak, gather<18, Ptr18>(psi18),          \
       prof_half, prof_int, dt_dx, inv_dx, half_dt, cosw, sinw, g, (int)pt, \
-      sval
-#define BB_GO(V, D, P) \
-  visco_stress_kernel<V, D, P><<<grid, block, smem, st>>>(BB_STRESS_ARGS)
-#define BB_GO_POINT(V, D) \
-  if (point) BB_GO(V, D, true); else BB_GO(V, D, false)
+      sval, mon
+#define BB_GO(V, D, P, M) \
+  visco_stress_kernel<V, D, P, M><<<grid, block, smem, st>>>(BB_STRESS_ARGS)
+#define BB_GO_MONITOR(V, D, P)               \
+  do {                                       \
+    if (monitor == kMonitorListed) {         \
+      BB_GO(V, D, P, kMonitorListed);        \
+    } else if (monitor == kMonitorEvery) {   \
+      BB_GO(V, D, P, kMonitorEvery);         \
+    } else {                                 \
+      BB_GO(V, D, P, kNoMonitor);            \
+    }                                        \
+  } while (0)
+#define BB_GO_POINT(V, D)          \
+  do {                             \
+    if (point) {                   \
+      BB_GO_MONITOR(V, D, true);   \
+    } else {                       \
+      BB_GO_MONITOR(V, D, false);  \
+    }                              \
+  } while (0)
   if (viscous && with_dft) {
     BB_GO_POINT(true, true);
   } else if (viscous) {
@@ -352,6 +389,7 @@ int bb_visco_stress(float* const* v3, float* const* s6, float* const* r6,
     BB_GO_POINT(false, false);
   }
 #undef BB_GO_POINT
+#undef BB_GO_MONITOR
 #undef BB_GO
 #undef BB_STRESS_ARGS
   return (int)cudaGetLastError();

@@ -38,7 +38,9 @@ NVCC_FLAGS = ARCH + (
 
 _LOCK = threading.Lock()
 _LIB = None
-build_log = ""  # nvcc's output of the last build in this process (ptxas -v)
+# nvcc's output of the build of the loaded library (ptxas -v), kept beside
+# it, so a library an earlier process built reports it too
+build_log = ""
 build_seconds = 0.0
 
 _P = ctypes.c_void_p
@@ -48,15 +50,14 @@ _L = ctypes.c_longlong
 # C entry points: argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "bb_fluid_velocity": [_P] * 9 + [_F] * 3 + [_I] * 11 + [_P],
-    "bb_fluid_pressure": [_P] * 10 + [_F] * 5 + [_I] * 8 + [_L, _F] + [_I] * 5
-    + [_P],
+    "bb_fluid_pressure": [_P] * 10 + [_F] * 5 + [_I] * 8 + [_L, _F]
+    + [_P] * 4 + [_I] * 6 + [_P],
     "bb_bhte_step": [_P] * 13 + [_F] + [_I] * 3 + [_P],
     "bb_visco_velocity": [_P] * 10 + [_F] * 3 + [_I] * 11 + [_P],
-    "bb_visco_stress": [_P] * 11 + [_F] * 5 + [_I] * 8 + [_L, _F] + [_I] * 5
-    + [_P],
+    "bb_visco_stress": [_P] * 11 + [_F] * 5 + [_I] * 8 + [_L, _F]
+    + [_P] * 4 + [_I] * 6 + [_P],
     "bb_velocity_volume_source": [_P] * 10 + [_F, _F, _I, _P],
     "bb_extras_accumulate": [_P, _P, _I, _I, _L, _P],
-    "bb_monitor_gather": [_P, _P, _P, _I, _I, _P],
     "bb_stream": [_P, _P, _L, _P],
     "bb_fma_chain": [_P, _P, _P, _I, _I, _P],
     "bb_table_gather": [_P, _P, _P, _I, _I, _L, _I, _P],
@@ -123,7 +124,12 @@ def library() -> ctypes.CDLL:
             build_seconds = time.time() - t0
             if failed:
                 raise RuntimeError(f"nvcc failed {failed}:\n{build_log}")
+            with open(f"{path}.log", "w") as f:
+                f.write(build_log)
             os.replace(tmp, path)
+        elif os.path.isfile(f"{path}.log"):
+            with open(f"{path}.log") as f:
+                build_log = f.read()
         lib = ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

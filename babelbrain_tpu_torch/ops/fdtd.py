@@ -19,10 +19,11 @@ differences, CPML with slab-only psi memory, one SLS relaxation mechanism
 per modulus tuned exactly at the carrier, a CW plane source with per-pixel
 amplitude and phase, and the carrier DFT accumulated over the sensor window.
 
-Diagnostics (``ops.fdtd_extras``, two more kernels after the step): the 14
-``sel_maps`` RMS / peak maps, the pressure series at ``monitor_ijk`` voxels
-every ``sensor_subsampling`` steps of the window, and the raw pressure
-capture of ``run_fdtd_capture``.
+Diagnostics (``ops.fdtd_extras``): the 14 ``sel_maps`` RMS / peak maps (one
+more kernel after the step), and the pressure series at ``monitor_ijk``
+voxels every ``sensor_subsampling`` steps of the window and the raw
+pressure capture of ``run_fdtd_capture``, both sampled by the step's own
+pressure / stress kernel.
 
 ``run_fdtd_batch`` runs B plane-source cases on one card from one setup.
 The port compiles no executable per grid, so it keeps no counterpart of the
@@ -54,7 +55,7 @@ from .fdtd_visco_kernels import (
     visco_stress,
     visco_velocity,
 )
-from .fdtd_extras import Diagnostics, check_sel_maps, monitor_index
+from .fdtd_extras import Diagnostics, Monitor, check_sel_maps, monitor_index
 from .fdtd_sources import VolumeSource, velocity_volume_source
 
 SOURCE_TYPES = ("velocity_plane", "stress_point", "velocity_volume")
@@ -335,10 +336,11 @@ def point_index(grid: FDTDGrid) -> int | None:
                                     grid.shape))
 
 
-def _advance(velocity, stress, st, co, grid, n, oz_scale, point_amp, vsrc):
+def _advance(velocity, stress, st, co, grid, n, oz_scale, point_amp, vsrc,
+             monitor):
     """One leapfrog step: velocity kernel, volumetric source (if any), then
-    the pressure / stress kernel with the point source (if any) and, inside
-    the sensor window, the DFT."""
+    the pressure / stress kernel with the point source (if any), inside the
+    sensor window the DFT, and at a sample step the monitor sample."""
     s_sin, s_cos, cosw, sinw, s_pt = step_scalars(grid, n, oz_scale,
                                                   point_amp)
     velocity(st, co, s_sin, s_cos)
@@ -347,27 +349,30 @@ def _advance(velocity, stress, st, co, grid, n, oz_scale, point_amp, vsrc):
     pt = point_index(grid)
     point = None if pt is None else (pt, s_pt)
     if n >= grid.sensor_start:
-        stress(st, co, cosw, sinw, point)
+        stress(st, co, cosw, sinw, point, monitor)
     else:
         # quiet phase: the DFT window is closed, accumulators untouched
-        stress(st, co, point=point)
+        stress(st, co, point=point, monitor=monitor)
 
 
 def fluid_step(st: FluidState, co: FluidCoeffs, grid: FDTDGrid, n: int,
                oz_scale: float, point_amp: float = 0.0,
-               vsrc: VolumeSource | None = None) -> None:
-    """Advance the fluid state by step ``n`` (velocity, then pressure)."""
+               vsrc: VolumeSource | None = None,
+               monitor: Monitor | None = None) -> None:
+    """Advance the fluid state by step ``n`` (velocity, then pressure);
+    ``monitor``: the sample this step takes (``Diagnostics.monitor``)."""
     _advance(fluid_velocity, fluid_pressure, st, co, grid, n, oz_scale,
-             point_amp, vsrc)
+             point_amp, vsrc, monitor)
 
 
 def visco_step(st: ViscoState, co: ViscoCoeffs, grid: FDTDGrid, n: int,
                oz_scale: float, point_amp: float = 0.0,
-               vsrc: VolumeSource | None = None) -> None:
+               vsrc: VolumeSource | None = None,
+               monitor: Monitor | None = None) -> None:
     """Advance the viscoelastic state by step ``n`` (velocity, then
-    stress)."""
+    stress); ``monitor``: the sample this step takes."""
     _advance(visco_velocity, visco_stress, st, co, grid, n, oz_scale,
-             point_amp, vsrc)
+             point_amp, vsrc, monitor)
 
 
 def run_fdtd(
@@ -447,12 +452,15 @@ def run_fdtd(
 
 
 def _time_loop(step, st, co, grid, oz_scale, point_amp, vsrc, diag=None):
-    """Steps 0..n_steps-1, each followed by the diagnostics (if any)."""
+    """Steps 0..n_steps-1, each taking its monitor sample and followed by
+    the maps' pass (with ``diag``)."""
     with stage_timer("FDTD time loop", level=3, step=2):
         for n in range(grid.n_steps):
-            step(st, co, grid, n, oz_scale, point_amp, vsrc)
-            if diag is not None:
-                diag.record(st, n)
+            if diag is None:
+                step(st, co, grid, n, oz_scale, point_amp, vsrc)
+                continue
+            step(st, co, grid, n, oz_scale, point_amp, vsrc, diag.monitor(n))
+            diag.record(st, n)
         if st.peak.device.type == "cuda":
             torch.cuda.synchronize()  # the readback below waits anyway
 

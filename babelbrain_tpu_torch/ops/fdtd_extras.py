@@ -10,32 +10,45 @@ the capture segment of ``_simulate_local``):
   of the sensor window, ``<Field>_rms`` adds v*v and ``<Field>_peak`` keeps
   max(acc, |v|) for each requested map (``Extras``); Field is Pressure, Vx,
   Vy, Vz, Sigmaxx, Sigmayy or Sigmazz, taken after this step's injections;
-* ``monitor_gather`` — the pressure at K voxels (or at every voxel) written
-  into row m of a preallocated (n_samples, K) device buffer.
+* the pressure at K voxels (or at every voxel) written into row m of a
+  preallocated (n_samples, K) device buffer at each sample step: a
+  ``Monitor`` handed to the step's pressure / stress wrapper, whose kernel
+  takes the sample itself (its MONITOR instantiation, ``csrc/fdtd_fluid.cu``
+  / ``csrc/fdtd_visco.cu``; the voxels sorted by the warp that writes them,
+  ``monitor_csr``). Its plain version is ``monitor_gather_ref``.
 
-Both kernels live in ``csrc/fdtd_extras.cu`` and replace the JAX package's
-B4 ``with_p2`` accumulator and its driver's monitor capture
-(``babelbrain_tpu/ops/fdtd_pallas.py``), generalised to the 14 maps and the
-sample steps of the XLA path. ``Diagnostics`` holds the state of one run and
-``record`` applies both after a step.
+The extras kernel lives in ``csrc/fdtd_extras.cu`` and replaces the JAX
+package's B4 ``with_p2`` accumulator; the MONITOR instantiations replace the
+monitor capture of its host loop (``babelbrain_tpu/ops/fdtd_pallas.py``), both
+generalised to the 14 maps and the sample steps of the XLA path.
+``Diagnostics`` holds the state of one run: ``monitor(n)`` is the sample of
+step n, ``record`` feeds the maps after it.
 
 The wrappers dispatch on the device of the state: a CPU state runs the plain
 version, a CUDA state launches the kernel on the current stream (or raises).
-``launches`` counts kernel launches, ``plain_calls`` calls of the plain
-versions, keyed by kernel and family.
+``launches`` counts kernel launches (``monitor_<family>``: launches of a
+MONITOR instantiation), ``plain_calls`` calls of the plain versions, keyed
+by kernel and family.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from . import _build
-from .fdtd_kernels import FluidState, _ptr, _stream
-from .fdtd_visco_kernels import ViscoState
+from .fdtd_kernels import (
+    TILE_Z,
+    FluidState,
+    LaunchGeometry,
+    _stream,
+    fluid_launch_geometry,
+)
+from .fdtd_visco_kernels import ViscoState, visco_launch_geometry
 
 MAP_FIELDS = ("Pressure", "Vx", "Vy", "Vz", "Sigmaxx", "Sigmayy", "Sigmazz")
 # accumulator i of the kernel's bitmask is SEL_MAPS[i]
@@ -194,44 +207,10 @@ def monitor_index(monitor_ijk, shape, device) -> torch.Tensor:
     return torch.as_tensor(lin.astype(np.int32), device=torch.device(device))
 
 
-def monitor_gather(st, index: torch.Tensor | None, out: torch.Tensor,
-                   row: int) -> None:
-    """Write the pressure at the voxels ``index`` (int32 linear; None: every
-    voxel in C order) into ``out[row]`` of the (n_samples, K) buffer."""
-    _check(st, (out,), "monitor")
-    visco, fields = _family(st)
-    k = fields[0].numel() if index is None else int(index.shape[0])
-    if k >= 2**31:
-        raise ValueError(f"monitor: {k} points exceed the kernel's int32 count")
-    if out.dim() != 2 or out.shape[1] != k or not 0 <= row < out.shape[0]:
-        raise ValueError(
-            f"monitor: row {row} of a {tuple(out.shape)} buffer for {k} points"
-        )
-    if index is not None and (index.device != out.device
-                              or index.dtype != torch.int32 or index.dim() != 1
-                              or not index.is_contiguous()):
-        raise ValueError(
-            f"monitor: expected a contiguous int32 index on {out.device}, got "
-            f"{index.dtype} on {index.device}"
-        )
-    if out.device.type == "cpu":
-        monitor_gather_ref(st, index, out, row)
-        return
-    if k == 0:
-        return
-    lib = _build.library()
-    rc = lib.bb_monitor_gather(
-        _pointer_array(fields, 6), None if index is None else _ptr(index),
-        ctypes.c_void_p(out.data_ptr() + row * k * out.element_size()), k,
-        int(visco), _stream(),
-    )
-    _build.check(rc, "monitor_gather_kernel")
-    launches["monitor_visco" if visco else "monitor_fluid"] += 1
-
-
 def monitor_gather_ref(st, index: torch.Tensor | None, out: torch.Tensor,
                        row: int) -> None:
-    """Plain version of ``monitor_gather_kernel`` (in place)."""
+    """Plain version of the MONITOR instantiations' sample (in place): the
+    pressure at ``index`` (None: every voxel) into ``out[row]``."""
     visco, fields = _family(st)
     plain_calls["monitor_visco" if visco else "monitor_fluid"] += 1
 
@@ -246,6 +225,79 @@ def monitor_gather_ref(st, index: torch.Tensor | None, out: torch.Tensor,
     out[row].copy_(p)
 
 
+def monitor_csr(lin, shape, geo: LaunchGeometry):
+    """The monitor voxels ``lin`` (C-order linear indices, any order,
+    repeats allowed) sorted by the warp of ``geo`` that writes them, as the
+    listed MONITOR kernels read them: (``start`` int32 (n_warps + 1,),
+    ``entries`` int32 (2, K) of [voxel, slot]), warp w's entries being
+    ``entries[:, start[w]:start[w + 1]]``. A warp is one y-row of a block's
+    tile and is numbered as the kernels number it: block * tile_y + the
+    row, the block being z-tile + gz * (y-tile + gy * x-segment)."""
+    n1, n2, n3 = (int(n) for n in shape)
+    lin = np.asarray(lin, np.int64).reshape(-1)
+    gz, gy, gx = geo.grid
+    i, rest = np.divmod(lin, n2 * n3)
+    j, k = np.divmod(rest, n3)
+    ty, row = np.divmod(j, geo.tile_y)
+    block = k // TILE_Z + gz * (ty + gy * (i // geo.segment))
+    warp = block * geo.tile_y + row
+    n_warps = gz * gy * gx * geo.tile_y
+    order = np.argsort(warp, kind="stable")
+    start = np.zeros(n_warps + 1, np.int64)
+    np.cumsum(np.bincount(warp, minlength=n_warps), out=start[1:])
+    entries = np.stack([lin[order], order]).astype(np.int32)
+    return start.astype(np.int32), entries
+
+
+@dataclass
+class Monitor:
+    """One pressure sample, taken by the pressure / stress kernel of a step:
+    the pressure at ``index`` (int32 linear voxels; None: every voxel) into
+    row ``row`` of ``series`` (n_samples, K). ``start`` / ``entries``
+    are ``monitor_csr`` of the index for the kernel's launch geometry
+    (``geometry``), on the series' device; ``visco``: the family, for the
+    launch counts."""
+
+    index: torch.Tensor | None
+    series: torch.Tensor
+    row: int
+    geometry: LaunchGeometry | None = None
+    start: torch.Tensor | None = None
+    entries: torch.Tensor | None = None
+    visco: bool = False
+
+    def out_ptr(self) -> int:
+        """Device address of the series row."""
+        s = self.series
+        return s.data_ptr() + self.row * s.shape[1] * s.element_size()
+
+    def check(self, field: torch.Tensor, geo: LaunchGeometry) -> None:
+        """Raise unless this sample fits a kernel launch of ``geo`` on a
+        state whose fields are like ``field``."""
+        k = field.numel() if self.index is None else int(self.index.shape[0])
+        s = self.series
+        if (s.device != field.device or s.dtype != torch.float32
+                or not s.is_contiguous() or s.dim() != 2 or s.shape[1] != k
+                or not 0 <= self.row < s.shape[0]):
+            raise ValueError(
+                f"monitor: row {self.row} of a {s.dtype} {tuple(s.shape)} "
+                f"buffer on {s.device} for {k} points on {field.device}"
+            )
+        if self.index is not None and (self.geometry != geo
+                                       or self.start.device
+                                       != field.device):
+            raise ValueError("monitor: its voxel list was sorted for another "
+                             "launch geometry or device")
+
+    def launched(self) -> None:
+        """Count a launch of a MONITOR instantiation."""
+        launches["monitor_visco" if self.visco else "monitor_fluid"] += 1
+
+    def gather_ref(self, st) -> None:
+        """The sample from the state after the step (the plain version)."""
+        monitor_gather_ref(st, self.index, self.series, self.row)
+
+
 @dataclass
 class Diagnostics:
     """What one FDTD run records besides the carrier DFT.
@@ -253,7 +305,9 @@ class Diagnostics:
     ``extras``: the map accumulators, fed at every step n >= ``window_start``
     (None: no maps). ``rows``: sample step -> row of ``series``, the
     (n_samples, K) float32 buffer the pressure at ``index`` (int32 linear
-    voxel indices; None: every voxel) is written to (empty: no series).
+    voxel indices; None: every voxel) is written to (empty: no series);
+    ``sample``: the ``Monitor`` of row 0 (None without a series or with
+    no voxel).
     """
 
     window_start: int
@@ -261,6 +315,7 @@ class Diagnostics:
     rows: dict = field(default_factory=dict)
     index: torch.Tensor | None = None
     series: torch.Tensor | None = None
+    sample: Monitor | None = None
 
     @classmethod
     def create(cls, st, window_start, sel_maps=(), sample_steps=(),
@@ -272,20 +327,41 @@ class Diagnostics:
         extras = (Extras.zeros(sel_maps, f0.shape, f0.device, visco)
                   if tuple(sel_maps) else None)
         steps = [int(n) for n in sample_steps]
+        if index is not None and (index.device != f0.device
+                                  or index.dtype != torch.int32
+                                  or index.dim() != 1
+                                  or not index.is_contiguous()):
+            raise ValueError(
+                f"monitor: expected a contiguous int32 index on {f0.device}, "
+                f"got {index.dtype} {tuple(index.shape)} on {index.device}"
+            )
         k = f0.numel() if index is None else int(index.shape[0])
         series = (torch.zeros((len(steps), k), dtype=torch.float32,
                               device=f0.device) if steps else None)
+        sample = None
+        if steps and k:
+            geo = (visco_launch_geometry if visco
+                   else fluid_launch_geometry)(tuple(f0.shape))
+            sample = Monitor(index, series, 0, geo, visco=visco)
+            if index is not None:
+                sample.start, sample.entries = (
+                    torch.as_tensor(a, device=f0.device)
+                    for a in monitor_csr(index.cpu().numpy(), f0.shape, geo))
         return cls(window_start=int(window_start), extras=extras,
                    rows={n: m for m, n in enumerate(steps)}, index=index,
-                   series=series)
+                   series=series, sample=sample)
+
+    def monitor(self, n: int) -> Monitor | None:
+        """The sample step ``n`` takes (None: not a sample step), for the
+        step's pressure / stress wrapper."""
+        row = self.rows.get(n)
+        if row is None or self.sample is None:
+            return None
+        return dataclasses.replace(self.sample, row=row)
 
     def record(self, st, n: int, plain: bool = False) -> None:
-        """After step ``n``: feed the maps inside the window and keep the
-        pressure at a sample step; ``plain`` runs the plain versions."""
+        """After step ``n``: feed the maps inside the window; ``plain`` runs
+        the plain version."""
         if self.extras is not None and n >= self.window_start:
             (extras_accumulate_ref if plain else extras_accumulate)(
                 st, self.extras)
-        row = self.rows.get(n)
-        if row is not None:
-            (monitor_gather_ref if plain else monitor_gather)(
-                st, self.index, self.series, row)

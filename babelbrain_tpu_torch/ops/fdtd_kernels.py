@@ -9,7 +9,9 @@ One fluid leapfrog step is two kernels (``csrc/fdtd_fluid.cu``):
   the SLS memory r, p -= dt/dx pi_u theta + dt (r' + r)/2; with ``point``
   the stress-point source (refocusing) subtracted from p at one cell; with
   the carrier DFT and |p| peak inside the sensor window (``cosw``/``sinw``
-  given).
+  given); with ``monitor`` (``ops.fdtd_extras.Monitor``) the new pressure
+  sampled at the monitor voxels, or at every voxel, into a row of the
+  series (the kernel's MONITOR instantiations).
 
 Materials are indexed: an int32 index volume and the (6, M) float32 table
 of ``ops.fdtd._build_indexed_materials`` (rows [rho_inv, pi_u, mu_u, c_rp,
@@ -275,20 +277,42 @@ def fluid_velocity(st: FluidState, co: FluidCoeffs, s_sin: float,
     launches["fluid_velocity"] += 1
 
 
+# the kernels' monitor modes (csrc/fdtd_stencil.cuh kNoMonitor,
+# kMonitorListed, kMonitorEvery)
+MONITOR_NONE, MONITOR_LISTED, MONITOR_EVERY = 0, 1, 2
+
+
+def monitor_args(monitor, st_field: torch.Tensor, geo: LaunchGeometry):
+    """The C entry points' monitor arguments (start, cell, slot, out row,
+    mode) of a ``Monitor`` or None, checked against the state and the
+    launch geometry."""
+    if monitor is None:
+        return None, None, None, None, MONITOR_NONE
+    monitor.check(st_field, geo)
+    out = ctypes.c_void_p(monitor.out_ptr())
+    if monitor.index is None:
+        return None, None, None, out, MONITOR_EVERY
+    return (_ptr(monitor.start), _ptr(monitor.entries[0]),
+            _ptr(monitor.entries[1]), out, MONITOR_LISTED)
+
+
 def fluid_pressure(st: FluidState, co: FluidCoeffs, cosw: float | None = None,
-                   sinw: float | None = None, point=None) -> None:
+                   sinw: float | None = None, point=None,
+                   monitor=None) -> None:
     """Pressure half-step in place; with ``point`` = (linear cell index,
     value) the point source is subtracted from that cell's new pressure;
     with ``cosw``/``sinw`` (the carrier cos/sin at this step) it also
-    accumulates the DFT and the |p| peak."""
+    accumulates the DFT and the |p| peak; with ``monitor`` (an
+    ``ops.fdtd_extras.Monitor``) it samples the new pressure."""
     (n1, n2, n3), ns = _check(st, co)
     check_point(point, (n1, n2, n3))
     with_dft = cosw is not None
     if st.p.device.type == "cpu":
-        fluid_pressure_ref(st, co, cosw, sinw, point)
+        fluid_pressure_ref(st, co, cosw, sinw, point, monitor)
         return
     pt, sval = point if point is not None else (0, 0.0)
     geo = fluid_launch_geometry((n1, n2, n3))
+    mon = monitor_args(monitor, st.p, geo)
     lib = _build.library()
     rc = lib.bb_fluid_pressure(
         _ptrs([st.vx, st.vy, st.vz]), _ptr(st.p), _ptr(st.r),
@@ -297,10 +321,12 @@ def fluid_pressure(st: FluidState, co: FluidCoeffs, cosw: float | None = None,
         co.inv_dx, co.half_dt, cosw if with_dft else 0.0,
         sinw if with_dft else 0.0, co.table.shape[1], n1, n2, n3, ns,
         int(co.viscous), int(with_dft), int(point is not None), pt, sval,
-        geo.tile_y, geo.segment, *geo.grid, _stream(),
+        *mon, geo.tile_y, geo.segment, *geo.grid, _stream(),
     )
     _build.check(rc, "fluid_pressure_kernel")
     launches[pressure_key("fluid_pressure", with_dft, point)] += 1
+    if monitor is not None:
+        monitor.launched()
 
 
 # ---------------------------------------------------------------------------
@@ -374,8 +400,10 @@ def fluid_velocity_ref(st: FluidState, co: FluidCoeffs, s_sin: float,
 
 def fluid_pressure_ref(st: FluidState, co: FluidCoeffs,
                        cosw: float | None = None,
-                       sinw: float | None = None, point=None) -> None:
-    """Plain version of ``fluid_pressure_kernel`` (in place)."""
+                       sinw: float | None = None, point=None,
+                       monitor=None) -> None:
+    """Plain version of ``fluid_pressure_kernel`` (in place); the monitor
+    sample is ``ops.fdtd_extras.monitor_gather_ref`` after the step."""
     with_dft = cosw is not None
     plain_calls[pressure_key("fluid_pressure", with_dft, point)] += 1
     dv = [
@@ -402,3 +430,5 @@ def fluid_pressure_ref(st: FluidState, co: FluidCoeffs,
         st.acc_cos.copy_(st.acc_cos + p_new * cosw)
         st.acc_sin.copy_(st.acc_sin + p_new * sinw)
         st.peak.copy_(torch.maximum(st.peak, p_new.abs()))
+    if monitor is not None:
+        monitor.gather_ref(st)

@@ -10,7 +10,9 @@ kernels (``csrc/fdtd_visco.cu``):
   CPML'd velocity derivatives; with ``point`` the stress-point source
   (refocusing) added to sxx, syy and szz at one cell; with the carrier DFT
   and |p| peak of p = -(sxx+syy+szz)/3 inside the sensor window
-  (``cosw``/``sinw`` given).
+  (``cosw``/``sinw`` given); with ``monitor`` (``ops.fdtd_extras.Monitor``)
+  that pressure sampled at the monitor voxels, or at every voxel, into a
+  row of the series (the kernel's MONITOR instantiations).
 
 Materials are indexed: an int32 index volume and a (6, M) float32 table with
 rows [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r] (``ops.fdtd
@@ -48,6 +50,7 @@ from .fdtd_kernels import (
     d_minus,
     d_plus,
     launch_geometry,
+    monitor_args,
     pressure_key,
 )
 
@@ -231,20 +234,23 @@ def visco_velocity(st: ViscoState, co: ViscoCoeffs, s_sin: float,
 
 
 def visco_stress(st: ViscoState, co: ViscoCoeffs, cosw: float | None = None,
-                 sinw: float | None = None, point=None) -> None:
+                 sinw: float | None = None, point=None,
+                 monitor=None) -> None:
     """Stress half-step in place; with ``point`` = (linear cell index,
     value) the point source is added to that cell's normal stresses; with
     ``cosw``/``sinw`` (the carrier cos/sin at this step) it also accumulates
-    the DFT and the |p| peak."""
+    the DFT and the |p| peak; with ``monitor`` (an
+    ``ops.fdtd_extras.Monitor``) it samples the new pressure."""
     (n1, n2, n3), ns = _check(st, co)
     check_point(point, (n1, n2, n3))
     with_dft = cosw is not None
     if st.vx.device.type == "cpu":
-        visco_stress_ref(st, co, cosw, sinw, point)
+        visco_stress_ref(st, co, cosw, sinw, point, monitor)
         return
     _check_size((n1, n2, n3), "visco step")
     pt, sval = point if point is not None else (0, 0.0)
     geo = visco_launch_geometry((n1, n2, n3))
+    mon = monitor_args(monitor, st.sxx, geo)
     lib = _build.library()
     rc = lib.bb_visco_stress(
         _ptrs(st.fields(("vx", "vy", "vz"))), _ptrs(st.fields(STRESSES)),
@@ -253,11 +259,13 @@ def visco_stress(st: ViscoState, co: ViscoCoeffs, cosw: float | None = None,
         _ptr(co.cpml_half), _ptr(co.cpml_int), co.dt_dx, co.inv_dx,
         co.half_dt, cosw if with_dft else 0.0, sinw if with_dft else 0.0,
         co.table.shape[1], n1, n2, n3, ns, int(co.viscous), int(with_dft),
-        int(point is not None), pt, sval, geo.tile_y, geo.segment,
+        int(point is not None), pt, sval, *mon, geo.tile_y, geo.segment,
         *geo.grid, _stream(),
     )
     _build.check(rc, "visco_stress_kernel")
     launches[pressure_key("visco_stress", with_dft, point)] += 1
+    if monitor is not None:
+        monitor.launched()
 
 
 # ---------------------------------------------------------------------------
@@ -291,8 +299,10 @@ def visco_velocity_ref(st: ViscoState, co: ViscoCoeffs, s_sin: float,
 
 def visco_stress_ref(st: ViscoState, co: ViscoCoeffs,
                      cosw: float | None = None,
-                     sinw: float | None = None, point=None) -> None:
-    """Plain version of ``visco_stress_kernel`` (in place)."""
+                     sinw: float | None = None, point=None,
+                     monitor=None) -> None:
+    """Plain version of ``visco_stress_kernel`` (in place); the monitor
+    sample is ``ops.fdtd_extras.monitor_gather_ref`` after the step."""
     with_dft = cosw is not None
     plain_calls[pressure_key("visco_stress", with_dft, point)] += 1
     pi_u, mu_u, c_rp, c_rs, b_r = (_gather(co, r) for r in range(1, 6))
@@ -325,3 +335,5 @@ def visco_stress_ref(st: ViscoState, co: ViscoCoeffs,
         st.acc_cos.copy_(st.acc_cos + p * cosw)
         st.acc_sin.copy_(st.acc_sin + p * sinw)
         st.peak.copy_(torch.maximum(st.peak, p.abs()))
+    if monitor is not None:
+        monitor.gather_ref(st)

@@ -1,6 +1,9 @@
 """Headless Step 1 -> Step 2 -> Step 3 pipeline (CT mode and label mode).
 
-Exports the names of ``babelbrain_tpu/pipeline/__init__.py``.
+Exports the names of ``babelbrain_tpu/pipeline/__init__.py``. As there, the
+benchmark-file media and the layer transmission (``benchmark``), the
+transducer calibration (``calibration``) and the out-of-process steps
+(``workers``) are imported from their modules.
 """
 
 from .domain import (  # noqa: F401

@@ -21,9 +21,14 @@ Phases (each prints its own lines; any failed check exits nonzero):
              volumetric scatter, timed from a CUDA graph of its launches:
              it runs for a few microseconds, less than a call costs the
              host); the BHTE step, 500 steps; the diagnostics (all 14
-             RMS / peak maps and the monitor gather at 4096 seeded voxels
-             and over every voxel) on the fluid and visco plane-source
-             states; the probe kernels (stream over 128 MB, the FMA chain,
+             RMS / peak maps, and the pressure / stress kernels' MONITOR
+             instantiations sampling 4096 seeded voxels every window step
+             and every voxel for one step more, each timed against its
+             plain twin with 201 and 4096 voxels and every voxel) on the
+             fluid and visco plane-source states, and the MONITOR
+             instantiations of both families at 27x45x47 with a plane, a
+             point and a shell source; the probe kernels (stream over
+             128 MB, the FMA chain,
              the CT table's gather over every voxel), and the
              viscoelastic pair again, bit for bit in every field, for 40
              steps on a ragged 27x45x47 grid (see ``RAGGED_SHAPE``), and
@@ -77,7 +82,18 @@ Phases (each prints its own lines; any failed check exits nonzero):
              apart (one grid signature), each with a 3-entry thermal
              profile, then multipoint steering of the first cell at +-5 mm
              through ``run_fdtd_batch``; its cases 0 and 1 must each equal
-             ``run_fdtd`` of their plane bit for bit;
+             ``run_fdtd`` of their plane bit for bit; then anchors: the
+             shear anchor of `tests/test_shear_anchor.py` (normal and 25
+             deg incidence through elastic slabs against the analytic
+             layer transmission, 5%), the O'Neil water anchor of
+             `tests/test_benchmark_anchor.py` (the inter-comparison's
+             bowl driven through the port's Rayleigh, 5%), its
+             benchmark-file skull slab through ``run_benchmark_acoustic``'s
+             helper, the water and slab runs again on the
+             inter-comparison's whole 70 x 70 x 120 mm domain (the water
+             focus against O'Neil's), the CTX-500 calibration recovering
+             known ring weights, and the CT slice's Step 1 in a spawned
+             worker equal to the in-process one;
 5. probes  — ``babelbrain_tpu_torch.probes.run_probes``: the card's stream
              rate, FP32 FMA rate and table-gather cost (P1, P2).
 
@@ -169,6 +185,15 @@ def build():
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[build] {line.strip()}")
+    lib = _build.library()
+    gone = not hasattr(lib, "bb_monitor_gather") and (
+        "monitor_gather_kernel" not in _build.build_log)
+    print("[build] monitor_gather_kernel: "
+          f"{'not in the build' if gone else 'BUILT'} (0 launches: the "
+          "MONITOR instantiations of the pressure / stress kernels take the "
+          "samples)")
+    if not gone:
+        fail("monitor_gather_kernel is still built")
     for name, res in fdtd_resources(_build.build_log):
         print(f"[build] {name}: {res['registers']} registers, "
               f"{res['spill']} bytes spilled (stores + loads), "
@@ -284,9 +309,10 @@ def _copy_state(st):
     )
 
 
-def plain_step(st, co, grid, n, oz, pamp=0.0, vsrc=None):
+def plain_step(st, co, grid, n, oz, pamp=0.0, vsrc=None, monitor=None):
     """Step ``n`` of ``ops.fdtd.fluid_step`` / ``visco_step`` (by the type of
-    ``st``) through the plain versions, on whatever device ``st`` lies."""
+    ``st``) through the plain versions, on whatever device ``st`` lies; with
+    ``monitor`` (``ops.fdtd_extras.Monitor``) the sample after it."""
     from babelbrain_tpu_torch.ops import fdtd as F
     from babelbrain_tpu_torch.ops import fdtd_kernels as K
     from babelbrain_tpu_torch.ops import fdtd_sources as S
@@ -302,9 +328,9 @@ def plain_step(st, co, grid, n, oz, pamp=0.0, vsrc=None):
     pt = F.point_index(grid)
     point = None if pt is None else (pt, s_pt)
     if n >= grid.sensor_start:
-        stress(st, co, cosw, sinw, point)
+        stress(st, co, cosw, sinw, point, monitor)
     else:
-        stress(st, co, point=point)
+        stress(st, co, point=point, monitor=monitor)
 
 
 # Work of one launch, counted from the kernel code: float-sized volumes read
@@ -339,7 +365,7 @@ KERNEL_WORK.update({
 # z, so neighbouring writes share sectors); 6 float operations.
 SCATTER_BYTES_PER_SOURCE = 4 + 6 * 4 + 3 * 4
 SCATTER_FLOPS_PER_SOURCE = 6
-# seeded voxels of the kernel phase's monitor gather
+# seeded voxels the kernel phase samples with the MONITOR instantiations
 MONITOR_POINTS = 4096
 
 
@@ -352,22 +378,27 @@ def roofline(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound(name, shape, ns=14, n_src=0):
-    """(least ms, "bytes" or "operations") of one launch of ``name`` at
-    ``shape`` (with ``n_src`` source voxels for the volumetric scatter) on
-    an H100 at its published peaks: each input read once and each output
-    written once over the HBM rate, against the float32 operations over the
-    float32 peak."""
+def work(name, shape, ns=14, n_src=0):
+    """(bytes, float32 operations) of one launch of ``name`` at ``shape``
+    (with ``n_src`` source voxels for the volumetric scatter): each input
+    read once and each output written once."""
     if name == "volume_source":
-        return roofline(n_src * SCATTER_BYTES_PER_SOURCE,
-                        n_src * SCATTER_FLOPS_PER_SOURCE)
+        return (n_src * SCATTER_BYTES_PER_SOURCE,
+                n_src * SCATTER_FLOPS_PER_SOURCE)
     w = KERNEL_WORK[name]
     n1, n2, n3 = shape
     cells = n1 * n2 * n3
     slab_cells = ns * (n2 * n3 + n1 * n3 + n1 * n2)  # one slab per axis
     floats = (w["volumes"] * cells + w["derivs_per_axis"] * 2 * 2 * slab_cells
               + w["planes"] * n1 * n2)
-    return roofline(4.0 * floats, float(w["flops"]) * cells)
+    return 4.0 * floats, float(w["flops"]) * cells
+
+
+def bound(name, shape, ns=14, n_src=0):
+    """(least ms, "bytes" or "operations") of one launch of ``name`` at
+    ``shape`` on an H100 at its published peaks: its ``work`` over the HBM
+    rate, against its float32 operations over the float32 peak."""
+    return roofline(*work(name, shape, ns, n_src))
 
 
 def shell_source(shape):
@@ -856,6 +887,65 @@ def check_fluid_large_table(device="cuda"):
             "fluid_pressure_dft": 0.0}, {}
 
 
+def check_monitor_ragged(device="cuda"):
+    """The MONITOR instantiations of both families at ``RAGGED_SHAPE``
+    (blocks with threads off the volume, which must still meet the block
+    barrier) with a plane, a point on a tile corner and a shell source:
+    ``MONITOR_POINTS`` // 16 seeded voxels (unsorted, five twice, the tile
+    corner) sampled at every step from 5 before the window, against the
+    plain step and ``monitor_gather_ref``, bit for bit in the series and
+    every field; then one more step sampling every voxel. Returns the
+    difference (0) keyed by kernel row."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_extras as E
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
+    from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
+
+    rng = np.random.default_rng(9)
+    for family in ("fluid", "visco"):
+        geometry, state, step, case = (
+            (V.visco_launch_geometry, V.ViscoState, F.visco_step, visco_case)
+            if family == "visco" else
+            (K.fluid_launch_geometry, K.FluidState, F.fluid_step, fluid_case))
+        geo = geometry(RAGGED_SHAPE)
+        corner = (geo.segment, geo.tile_y, K.TILE_Z)
+        ijk = np.stack([rng.integers(0, n, MONITOR_POINTS // 16)
+                        for n in RAGGED_SHAPE], 1)
+        ijk = np.concatenate([ijk, ijk[[1, 9, 9, 30, 200]], [corner]])
+        for source in ("plane", "point", "volume"):
+            grid, co, pamp, vsrc, oz, *_ = case(
+                RAGGED_SHAPE, RAGGED_STEPS, RAGGED_SENSOR_START, source,
+                device, zsrc=K.TILE_Z, source_ijk=corner)
+            st_k, st_p = (state.zeros(RAGGED_SHAPE, 14, device)
+                          for _ in range(2))
+            index = E.monitor_index(ijk, RAGGED_SHAPE, device)
+            steps = range(RAGGED_SENSOR_START - 5, RAGGED_STEPS)
+            diags = [E.Diagnostics.create(st, grid.sensor_start,
+                                          sample_steps=steps, index=index)
+                     for st in (st_k, st_p)]
+            for n in range(RAGGED_STEPS):
+                step(st_k, co, grid, n, oz, pamp, vsrc, diags[0].monitor(n))
+                plain_step(st_p, co, grid, n, oz, pamp, vsrc,
+                           diags[1].monitor(n))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            bad = state_diff(st_k, st_p)
+            if (e := _equal(diags[0].series, diags[1].series)):
+                bad.append(("series", e))
+            smax = float(diags[1].series.abs().max())
+            tag = f"[kernels] {family} MONITOR {RAGGED_SHAPE}, {source} source"
+            print(f"{tag}: {len(ijk)} voxels x {len(steps)} samples (steps "
+                  f"{steps.start}-{steps.stop - 1}, window from "
+                  f"{RAGGED_SENSOR_START}), max|p| {smax:.6g} Pa; differing "
+                  f"from plain {bad}")
+            if bad or not np.isfinite(smax) or smax <= 0:
+                fail(f"{tag}: differs from its plain version: {bad}; max "
+                     f"{smax}")
+            full_capture_step(tag, step, st_k, st_p, co, grid, RAGGED_STEPS,
+                              oz, pamp, vsrc)
+    return {"monitor_fluid": 0.0, "monitor_visco": 0.0}, {}
+
+
 def check_bhte(shape=KERNEL_SHAPE, n_steps=BHTE_STEPS,
                heat_steps=BHTE_HEAT_STEPS, device="cuda"):
     from babelbrain_tpu_torch.materials import build_thermal_material_list
@@ -926,12 +1016,95 @@ def _equal(a, b) -> float:
     return d if d > 0 else float("inf")
 
 
+def full_capture_step(tag, step, st_k, st_p, co, grid, n, oz, pamp=0.0,
+                      vsrc=None):
+    """Step ``n`` once more on copies of a kernel state and of its plain
+    twin (equal so far), each sampling every voxel: the full-capture
+    MONITOR instantiation against the plain step and ``monitor_gather_ref``.
+    Fails unless the samples and every field agree bit for bit."""
+    from babelbrain_tpu_torch.ops import fdtd_extras as E
+
+    a, b = _copy_state(st_k), _copy_state(st_p)
+    diag_k, diag_p = (E.Diagnostics.create(st, grid.sensor_start,
+                                           sample_steps=[n]) for st in (a, b))
+    step(a, co, grid, n, oz, pamp, vsrc, diag_k.monitor(n))
+    plain_step(b, co, grid, n, oz, pamp, vsrc, diag_p.monitor(n))
+    if a.vx.device.type == "cuda":
+        torch.cuda.synchronize()
+    bad = state_diff(a, b)
+    if (e := _equal(diag_k.series, diag_p.series)):
+        bad.append(("full capture", e))
+    smax = float(diag_p.series.abs().max())
+    print(f"{tag} full capture at step {n} ({diag_p.series.shape[1]} voxels, "
+          f"max|p| {smax:.6g} Pa): fields and samples differing from plain "
+          f"{bad}")
+    if bad or not np.isfinite(smax) or smax <= 0:
+        fail(f"{tag}: the full-capture MONITOR kernel differs from its plain "
+             f"version: {bad}; max {smax}")
+
+
+# monitor counts the MONITOR instantiations are timed with at
+# KERNEL_SHAPE: the diag slices' beam axis, the kernel phase's seeded voxels
+# and every voxel (None)
+MONITOR_TIMED = (201, MONITOR_POINTS, None)
+
+
+def monitor_bound(stem, with_dft, k, geo):
+    """(least ms, "bytes" or "operations") of a MONITOR launch of the
+    pressure / stress kernel ``stem`` at ``KERNEL_SHAPE``: its plain twin's
+    work plus, for ``k`` listed voxels, the warps' offsets, the (voxel,
+    slot) entries and the samples ((n_warps + 1 + 2k) ints, k floats); for
+    every voxel (k None) one float a cell."""
+    nbytes, flops = work(stem + ("_dft" if with_dft else ""), KERNEL_SHAPE)
+    n_warps = np.prod(geo.grid) * geo.tile_y
+    extra = (4.0 * np.prod(KERNEL_SHAPE) if k is None
+             else 4.0 * (n_warps + 1 + 3 * k))
+    return roofline(nbytes + float(extra), flops)
+
+
+def time_monitor(family, st, co, s, index):
+    """The MONITOR instantiations of the family's pressure / stress kernel
+    against their plain twins on state ``st`` at ``KERNEL_SHAPE``, each
+    from a CUDA graph: without and with the DFT, twin, then each of
+    ``MONITOR_TIMED`` (seeded voxels from ``index``), then the twin again.
+    Returns {(with_dft, k): ms} with k "twin" for the plain twin (the mean
+    of its two times)."""
+    from babelbrain_tpu_torch.ops import fdtd_extras as E
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
+    from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
+
+    kernel = V.visco_stress if family == "visco" else K.fluid_pressure
+    mons = {}
+    for k in MONITOR_TIMED:
+        diag = E.Diagnostics.create(st, 0, sample_steps=[0],
+                                    index=None if k is None else index[:k])
+        mons[k] = diag.monitor(0)
+    out = {}
+    for with_dft in (False, True):
+        dft = (s[2], s[3]) if with_dft else (None, None)
+        twin = [_timed_graph(lambda: kernel(st, co, *dft), 20)]
+        for k, mon in mons.items():
+            out[with_dft, k] = _timed_graph(
+                lambda: kernel(st, co, *dft, None, mon), 20)
+        twin.append(_timed_graph(lambda: kernel(st, co, *dft), 20))
+        tw = out[with_dft, "twin"] = sum(twin) / 2
+        print(f"[kernels]   {family} MONITOR, {'with' if with_dft else 'no'} "
+              f"DFT: plain twin {twin[0]:.4f} / {twin[1]:.4f} ms; "
+              + "; ".join(
+                  f"{'every voxel' if k is None else f'{k} voxels'} "
+                  f"{out[with_dft, k]:.4f} ms ({out[with_dft, k] - tw:+.4f})"
+                  for k in mons))
+    return out
+
+
 def check_diagnostics(family, shape=KERNEL_SHAPE, device="cuda"):
     """The diagnostics kernels against their plain versions on the states of
-    a plane-source run (fluid: CT table; visco: label materials), both fed
-    the same state after every step: the extras pass with all 14 maps at
-    every window step, the monitor gather at ``MONITOR_POINTS`` seeded
-    voxels at every window step and once over every voxel (the raw capture).
+    a plane-source run (fluid: CT table; visco: label materials): the
+    extras pass with all 14 maps at every window step (both fed the same
+    state after every step), and the MONITOR instantiation of the pressure /
+    stress kernel at ``MONITOR_POINTS`` seeded voxels (unsorted, some
+    twice) at every window step against ``monitor_gather_ref`` after the
+    step, then over every voxel for one more step (``full_capture_step``).
     Returns (errors, times, bounds) keyed by kernel row; a time is (kernel
     ms, plain ms, library ms or None)."""
     from babelbrain_tpu_torch.ops import fdtd as F
@@ -944,60 +1117,62 @@ def check_diagnostics(family, shape=KERNEL_SHAPE, device="cuda"):
         grid, co, _, _, oz, _ = visco_case(shape, VISCO_STEPS,
                                            VISCO_SENSOR_START, "plane", device)
         st, step = V.ViscoState.zeros(shape, 14, device), F.visco_step
+        stem, geo = "visco_stress", V.visco_launch_geometry(shape)
     else:
         grid, co, _, _, oz = fluid_case(shape, FLUID_STEPS,
                                         FLUID_SENSOR_START, "plane", device)
         st, step = K.FluidState.zeros(shape, 14, device), F.fluid_step
+        stem, geo = "fluid_pressure", K.fluid_launch_geometry(shape)
     rng = np.random.default_rng(5)
     ijk = np.stack([rng.integers(0, n, MONITOR_POINTS) for n in shape], 1)
+    ijk[-8:] = ijk[:8]  # repeats
     index = E.monitor_index(ijk, shape, device)
     window = range(grid.sensor_start, grid.n_steps)
     diag_k, diag_p = (E.Diagnostics.create(st, grid.sensor_start, E.SEL_MAPS,
                                            sample_steps=window, index=index)
                       for _ in range(2))
     for n in range(grid.n_steps):
-        step(st, co, grid, n, oz)
+        step(st, co, grid, n, oz, monitor=diag_k.monitor(n))
         diag_k.record(st, n)
         diag_p.record(st, n, plain=True)
-    full_k, full_p = (torch.empty((1, st.vx.numel()), device=device)
-                      for _ in range(2))
-    E.monitor_gather(st, None, full_k, 0)
-    E.monitor_gather_ref(st, None, full_p, 0)
+        if n in diag_p.rows:
+            diag_p.monitor(n).gather_ref(st)
     if device == "cuda":
         torch.cuda.synchronize()
     acc_err = {k: _equal(a, diag_p.extras.acc[k])
                for k, a in diag_k.extras.acc.items()}
-    series_err = max(_equal(diag_k.series, diag_p.series),
-                     _equal(full_k, full_p))
+    series_err = _equal(diag_k.series, diag_p.series)
     amax = {k: float(a.abs().max()) for k, a in diag_p.extras.acc.items()}
     smax = float(diag_p.series.abs().max())
     ex, mon = f"extras_{family}", f"monitor_{family}"
     print(f"[kernels] {family} diagnostics {shape}, {len(window)} window "
           f"steps of a plane-source run: {len(amax)} accumulators for the 14 "
           f"maps (max {min(amax.values()):.6g} .. {max(amax.values()):.6g}), "
-          f"{MONITOR_POINTS} monitor voxels (max|p| {smax:.6g} Pa)")
+          f"{MONITOR_POINTS} monitor voxels, 8 of them twice, sampled by the "
+          f"{stem} kernel (max|p| {smax:.6g} Pa)")
     print(f"[kernels]   {ex}: max abs diff vs plain {max(acc_err.values())}; "
-          f"{mon} (points and full volume): {series_err}")
+          f"{mon} (the MONITOR instantiation vs monitor_gather_ref): "
+          f"{series_err}")
     if any(acc_err.values()) or series_err:
         fail(f"{family} diagnostics kernels disagree with their plain "
              f"versions: {acc_err}, series {series_err}")
     if not all(np.isfinite(v) and v > 0 for v in amax.values()) or smax <= 0:
         fail(f"{family} diagnostics: an accumulator or the series is empty "
              f"or not finite: {amax}, {smax}")
+    full_capture_step(f"[kernels]   {family} {shape}", step, st, st, co,
+                      grid, grid.n_steps, oz)
 
     cells = float(np.prod(shape))
     # extras: every field read once, every held accumulator read and
     # written; 4 operations a map pair (v*v, +, |v|, max) for each distinct
     # field (fluid: p, vx, vy, vz; visco: seven), and the visco pressure's 4
-    # (two adds, a negation, a multiply). Monitor: per point the int32
-    # index, the output and the fields read (fluid p; visco sxx, syy, szz)
+    # (two adds, a negation, a multiply). Monitor row: the pressure / stress
+    # kernel with the DFT sampling the diag slices' 201 voxels
     n_read, n_fields = (6, 7) if visco else (4, 4)
-    per_point = 4 + 4 + 4 * (3 if visco else 1)
     bounds = {
         ex: roofline(cells * (4 * n_read + 8 * len(diag_k.extras.acc)),
                      cells * (4 * n_fields + (4 if visco else 0))),
-        mon: roofline(MONITOR_POINTS * per_point,
-                      MONITOR_POINTS * (4 if visco else 0)),
+        mon: monitor_bound(stem, True, MONITOR_TIMED[0], geo),
     }
     errs = {ex: max(acc_err.values()), mon: series_err}
     if device != "cuda":
@@ -1008,16 +1183,24 @@ def check_diagnostics(family, shape=KERNEL_SHAPE, device="cuda"):
             # no single PyTorch call adds v*v into one map and keeps max|v|
             # in another, over seven fields
             None)
-    buf = diag_k.series
-    lib = None
-    if not visco:  # the fluid gather is one index_select of p
-        flat = st.p.view(-1)
-        lib = _timed_graph(
-            lambda: torch.index_select(flat, 0, index, out=buf[0]), 50)
-    # (the visco pressure is -(sxx+syy+szz)/3 at the points: several calls)
-    t_mon = (_timed_graph(lambda: E.monitor_gather(st, index, buf, 0), 50),
-             _timed_graph(lambda: E.monitor_gather_ref(st, index, buf, 0), 50),
-             lib)
+    s = F.step_scalars(grid, grid.n_steps - 1, oz)
+    t_fold = time_monitor(family, st, co, s, index)
+    for (with_dft, k), t in t_fold.items():
+        if k == "twin":
+            continue
+        b_ms, _ = monitor_bound(stem, with_dft, k, geo)
+        print(f"[kernels]   {family} MONITOR {'+DFT ' if with_dft else ''}"
+              f"{'every voxel' if k is None else f'{k} voxels'}: {t:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_ms / t:.0%}); extra over the twin "
+              f"{t - t_fold[with_dft, 'twin']:.4f} ms")
+    # plain: the plain step's pressure / stress half and the plain gather
+    ref = V.visco_stress_ref if visco else K.fluid_pressure_ref
+    m201 = E.Diagnostics.create(st, 0, sample_steps=[0],
+                                index=index[:MONITOR_TIMED[0]]).monitor(0)
+    t_mon = (t_fold[True, MONITOR_TIMED[0]],
+             _timed(lambda: ref(st, co, s[2], s[3], None, m201), 5),
+             # no single PyTorch call steps the pressure and gathers it
+             None)
     for name, (tk, tp, tl) in ((ex, t_ex), (mon, t_mon)):
         print(f"[kernels]   {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms"
               + ("" if tl is None else f", library {tl:.4f} ms"))
@@ -1316,11 +1499,12 @@ def check_slice_inputs(tag, dom, grid, point_amp=0.0, volume_source=None,
     slice's FDTD pass gave them: its domain, materials and grid, with its
     stress point, its volumetric source or its complex ``source_plane``;
     with ``monitor_ijk`` also the diagnostics (all 14 maps and the series
-    at those voxels, every window step). Both run ``SLICE_CHECK_STEPS``
-    steps across the window's start; every field (velocities, pressure or
-    stresses, memories, psi slabs, accumulators, peak, maps, series) must be
-    equal bit for bit. Returns the difference (0) keyed by the kernel rows
-    that ran."""
+    at those voxels, every window step, sampled by the MONITOR kernels),
+    and one step more sampling every voxel (``full_capture_step``). Both
+    run ``SLICE_CHECK_STEPS`` steps across the window's start; every field
+    (velocities, pressure or stresses, memories, psi slabs, accumulators,
+    peak, maps, series) must be equal bit for bit. Returns the difference
+    (0) keyed by the kernel rows that ran."""
     from babelbrain_tpu_torch.ops import fdtd as F
     from babelbrain_tpu_torch.ops import fdtd_extras as E
 
@@ -1342,11 +1526,15 @@ def check_slice_inputs(tag, dom, grid, point_amp=0.0, volume_source=None,
                  for st in (st_k, st_p)]
     reset_counts()
     for n in range(n0, n0 + SLICE_CHECK_STEPS):
-        step(st_k, co, grid, n, oz, point_amp, vsrc)
-        plain_step(st_p, co, grid, n, oz, point_amp, vsrc)
+        mon = [d.monitor(n) for d in diags] or [None, None]
+        step(st_k, co, grid, n, oz, point_amp, vsrc, mon[0])
+        plain_step(st_p, co, grid, n, oz, point_amp, vsrc, mon[1])
         if diags:
             diags[0].record(st_k, n)
             diags[1].record(st_p, n, plain=True)
+    if diags:
+        full_capture_step(tag, step, st_k, st_p, co, grid,
+                          n0 + SLICE_CHECK_STEPS, oz, point_amp, vsrc)
     if device == "cuda":
         torch.cuda.synchronize()
     launches, _ = read_counts()
@@ -2132,6 +2320,595 @@ def check_capture(tag, res, src, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the anchors slice
+# ---------------------------------------------------------------------------
+
+# the shear anchor of `tests/test_shear_anchor.py` (its own grid): water and
+# a lossless elastic solid at 500 kHz, 9 cells a water wavelength
+SHEAR_F0, SHEAR_C = 500e3, 1500.0
+SHEAR_FLUID = (1000.0, SHEAR_C)
+SHEAR_SOLID = (1896.5, 2494.0, 1400.0)
+SHEAR_SHAPE = (32, 224, 144)
+SHEAR_ALPHA_W = 10.0  # water loss of the oblique runs (Np/m)
+
+
+def _shear_run(idx, mats, centre, width, ncyc, device):
+    """p_amp of a plane source (a super-Gaussian strip along y about
+    ``centre``) through ``idx`` / ``mats`` (`tests/test_shear_anchor.py`
+    ``_run_normal`` / ``_run_tilted``)."""
+    from babelbrain_tpu_torch.ops.fdtd import FDTDGrid, run_fdtd, stable_dt
+
+    dx = SHEAR_C / SHEAR_F0 / 9
+    ppp = int(np.ceil(1 / SHEAR_F0 / stable_dt(dx, SHEAR_SOLID[1], cfl=0.5)))
+    ns = ncyc * ppp
+    grid = FDTDGrid(shape=SHEAR_SHAPE, dx=dx, dt=1 / SHEAR_F0 / ppp,
+                    n_steps=ns, frequency=SHEAR_F0, sensor_start=ns - 2 * ppp,
+                    source_plane_z=13)
+    jj = np.arange(SHEAR_SHAPE[1])
+    amp = np.zeros(SHEAR_SHAPE[:2], np.float32)
+    amp[:] = (60e3 * np.exp(-((jj - centre) / width) ** 8))[None, :]
+    amp[:12] = 0
+    amp[-12:] = 0
+    return run_fdtd(idx, mats, grid, source_amp=amp,
+                    source_phase=np.zeros(SHEAR_SHAPE[:2], np.float32),
+                    device=device)["p_amp"]
+
+
+def _tilted_slab(theta_deg, d_cells):
+    """The slab of ``d_cells`` cells tilted by ``theta_deg`` about x."""
+    th = np.deg2rad(theta_deg)
+    idx = np.zeros(SHEAR_SHAPE, np.uint8)
+    jj, kk = np.mgrid[0:SHEAR_SHAPE[1], 0:SHEAR_SHAPE[2]]
+    s = -np.sin(th) * (jj - 112.0) + np.cos(th) * (kk - 62.0)
+    idx[:, (s >= 0) & (s < d_cells)] = 1
+    return idx
+
+
+def anchor_shear(device="cuda"):
+    """`tests/test_shear_anchor.py:130-185` on the port: normal incidence
+    through 6- and 10-cell elastic slabs (the viscoelastic kernels) within
+    5% of ``solid_layer_transmission``; 25 deg through a tilted slab within
+    5% of the elastic analytic value, and a slab without shear within 20%
+    of the no-shear value and below 0.75x the elastic one."""
+    from babelbrain_tpu_torch.pipeline.benchmark import (
+        solid_layer_transmission as layer,
+    )
+
+    dx = SHEAR_C / SHEAR_F0 / 9
+    tag = "[slice anchors] shear"
+    t0 = time.time()
+    mats = np.array([[1000.0, SHEAR_C, 0.0, 0.0, 0.0],
+                     [*SHEAR_SOLID, 0.0, 0.0]])
+    pw = _shear_run(np.zeros(SHEAR_SHAPE, np.uint8), mats[:1], 60.0, 40.0,
+                    16, device)
+    bad = []
+    for d in (6, 10):
+        idx = np.zeros(SHEAR_SHAPE, np.uint8)
+        idx[:, :, 50:50 + d] = 1
+        ps = _shear_run(idx, mats, 60.0, 40.0, 16, device)
+        t_sim = ps[16, :, 90].max() / pw[16, :, 90].max()
+        t_an = abs(layer(0.0, SHEAR_F0, d * dx, SHEAR_FLUID, SHEAR_SOLID)[0])
+        err = abs(t_sim - t_an) / t_an
+        print(f"{tag} normal incidence, {d}-cell slab: |T| {t_sim:.5f} "
+              f"against the analytic {t_an:.5f} ({err:+.2%}; band 5%)")
+        if not err < 0.05:
+            bad.append(f"normal {d}")
+    th = np.deg2rad(25.0)
+    mats_e = np.array([[1000.0, SHEAR_C, 0.0, SHEAR_ALPHA_W, 0.0],
+                       [*SHEAR_SOLID, 0.0, 0.0]])
+    mats_f = mats_e.copy()
+    mats_f[1, 2] = 0.0
+    pw = _shear_run(np.zeros(SHEAR_SHAPE, np.uint8), mats_e[:1], 112.0, 55.0,
+                    30, device)
+    corr = np.exp(-SHEAR_ALPHA_W * 6 * dx / np.cos(th))
+    sel = (16, slice(30, -30), 112)
+    t_el = _shear_run(_tilted_slab(25.0, 6), mats_e, 112.0, 55.0, 30,
+                      device)[sel].max() / pw[sel].max() * corr
+    t_ctl = _shear_run(_tilted_slab(25.0, 6), mats_f, 112.0, 55.0, 30,
+                       device)[sel].max() / pw[sel].max() * corr
+    t_an = abs(layer(th, SHEAR_F0, 6 * dx, SHEAR_FLUID, SHEAR_SOLID)[0])
+    t_no = abs(layer(th, SHEAR_F0, 6 * dx, SHEAR_FLUID,
+                     (SHEAR_SOLID[0], SHEAR_SOLID[1], 1e-6))[0])
+    print(f"{tag} 25 deg, 6-cell tilted slab: elastic |T| {t_el:.5f} against "
+          f"the analytic {t_an:.5f} ({(t_el - t_an) / t_an:+.2%}; band 5%); "
+          f"without shear {t_ctl:.5f} against the no-shear {t_no:.5f} "
+          f"({(t_ctl - t_no) / t_no:+.2%}; band 20%) and {t_ctl / t_an:.3f}x "
+          f"the elastic value (below 0.75x); {time.time() - t0:.2f} s")
+    if not abs(t_el - t_an) / t_an < 0.05:
+        bad.append("oblique elastic")
+    if not (abs(t_ctl - t_no) / t_no < 0.20 and t_ctl < 0.75 * t_an):
+        bad.append("oblique control")
+    if bad:
+        fail(f"shear anchor outside its bands: {bad}")
+
+
+# the O'Neil water anchor of `tests/test_benchmark_anchor.py`: the
+# inter-comparison's bowl (64 mm aperture and radius of curvature) at
+# 500 kHz, 60 kPa surface drive, 6 PPW, focus at the origin
+ONEIL_C, ONEIL_RHO = 1500.0, 1000.0
+ONEIL_ROC = ONEIL_APERTURE = 64e-3
+ONEIL_P0 = 60e3
+ONEIL_NPML = 12
+
+
+def oneil_pressure(points, n_theta=4000, n_phi=720, device="cuda"):
+    """|p| at field points by direct quadrature of the Rayleigh integral
+    over the spherical cap (O'Neil 1949), focus at the origin: the truth
+    of `tests/test_benchmark_anchor.py:44`, independent of the port's
+    Rayleigh (float64 on ``device``)."""
+    f64 = dict(dtype=torch.float64, device=device)
+    k = 2 * np.pi * F0 / ONEIL_C
+    tmax = np.arcsin(ONEIL_APERTURE / 2 / ONEIL_ROC)
+    th = (torch.arange(n_theta, **f64) + 0.5) * (tmax / n_theta)
+    ph = (torch.arange(n_phi, **f64) + 0.5) * (2 * np.pi / n_phi)
+    st, ct = torch.sin(th), torch.cos(th)
+    cap = torch.stack([torch.outer(ONEIL_ROC * st, torch.cos(ph)).ravel(),
+                       torch.outer(ONEIL_ROC * st, torch.sin(ph)).ravel(),
+                       (-ONEIL_ROC * ct).repeat_interleave(n_phi)], 1)
+    ds = (ONEIL_ROC**2 * st * (tmax / n_theta) * (2 * np.pi / n_phi)
+          ).repeat_interleave(n_phi)
+    out = np.empty(len(points))
+    for i, p in enumerate(np.asarray(points, np.float64)):
+        r = torch.linalg.norm(cap - torch.as_tensor(p, **f64), dim=1)
+        val = torch.sum(ds * torch.polar(1.0 / r, k * r))
+        out[i] = abs(1j * k / (2 * np.pi) * ONEIL_P0 * complex(val))
+    return out
+
+
+def oneil_axis(z_vals, device="cuda"):
+    """On-axis |p| (the exact 1-D quadrature of the same integral)."""
+    f64 = dict(dtype=torch.float64, device=device)
+    k = 2 * np.pi * F0 / ONEIL_C
+    tmax = np.arcsin(ONEIL_APERTURE / 2 / ONEIL_ROC)
+    n = 200_000
+    th = (torch.arange(n, **f64) + 0.5) * (tmax / n)
+    st, ct = torch.sin(th), torch.cos(th)
+    out = np.empty(len(z_vals))
+    for i, z in enumerate(np.asarray(z_vals, np.float64)):
+        r = torch.sqrt((ONEIL_ROC * st) ** 2 + (z + ONEIL_ROC * ct) ** 2)
+        val = complex(torch.sum(torch.polar(ONEIL_ROC**2 * st / r, k * r)))
+        out[i] = abs(1j * k * ONEIL_P0 * val * (tmax / n))
+    return out
+
+
+def width_m6db(x, y):
+    """-6 dB full width of profile y(x), linearly interpolated."""
+    pk = int(np.argmax(y))
+    half = y[pk] * 10 ** (-6 / 20)
+
+    def cross(direction):
+        i = pk
+        while 0 < i < len(y) - 1 and y[i] > half:
+            i += direction
+        j = i - direction
+        f = (y[j] - half) / (y[j] - y[i])
+        return x[j] + f * (x[i] - x[j])
+
+    return abs(cross(1) - cross(-1))
+
+
+def bowl_source_plane(x_vec, z_src, device="cuda"):
+    """The velocity plane that drives the FDTD with the bowl's field: the
+    normal velocity (as rho c vz) on the plane z = ``z_src`` over
+    ``x_vec`` x ``x_vec``, zero in the PML skirt. The pressure P comes
+    from the port's ``rayleigh_field`` on the card; dP/dz from its values
+    on four more planes (central differences at h = dx/4 and dx/2,
+    Richardson-extrapolated), and vz = i dP/dz / (k rho c) with the sign
+    that meets the plane-wave limit vz = p / (rho c) at the beam centre
+    (`tests/test_benchmark_anchor.py:106`'s exact normal velocity, in the
+    repository's phasor convention)."""
+    from babelbrain_tpu_torch.ops.rayleigh import rayleigh_field
+    from babelbrain_tpu_torch.tx import make_focused_bowl
+
+    tx = make_focused_bowl(F0, ONEIL_ROC, ONEIL_APERTURE, ONEIL_C,
+                           ppw_surface=6.0)
+    u0 = np.full(tx.num_subelements, ONEIL_P0, np.complex64)
+    k = 2 * np.pi * F0 / ONEIL_C
+    h = (x_vec[1] - x_vec[0]) / 4
+    xp, yp = np.meshgrid(x_vec, x_vec, indexing="ij")
+
+    def field(z):
+        pts = np.stack([xp.ravel(), yp.ravel(), np.full(xp.size, z)], 1)
+        return rayleigh_field(k, tx.centers, tx.areas, u0, pts,
+                              device=device).astype(np.complex128)
+
+    p = field(z_src)
+    f = {m: field(z_src + m * h) for m in (-2, -1, 1, 2)}
+    d1 = (f[1] - f[-1]) / (2 * h)
+    d2 = (f[2] - f[-2]) / (4 * h)
+    dpdz = (4 * d1 - d2) / 3
+    i_pk = int(np.argmax(np.abs(p)))
+    cands = [sgn * 1j * dpdz / k for sgn in (1, -1)]
+    vz = min(cands, key=lambda v: abs(v[i_pk] - p[i_pk]))
+    plane = vz.reshape(xp.shape)
+    n = ONEIL_NPML
+    plane[:n] = plane[-n:] = 0
+    plane[:, :n] = plane[:, -n:] = 0
+    return plane, tx.num_subelements
+
+
+def anchor_water(device="cuda"):
+    """`tests/test_benchmark_anchor.py:190-233` on the port: the bowl's
+    field in water through the fluid kernels, driven on a plane 24 mm
+    before the focus, against O'Neil's: focal pressure, focal position
+    (1.5 cells), -6 dB axial length and lateral width, each within 5%.
+    Returns what the slab runs reuse."""
+    from babelbrain_tpu_torch.ops.fdtd import FDTDGrid, run_fdtd, stable_dt
+
+    tag = "[slice anchors] O'Neil water"
+    t0 = time.time()
+    dx = ONEIL_C / F0 / PPW
+    n = ONEIL_NPML
+    z_src = -24e-3
+    n_lat = 88
+    shape = (n_lat + 2 * n, n_lat + 2 * n,
+             int(round((24e-3 + 16e-3) / dx)) + 2 * n + 2)
+    zsrc = n + 1
+    i0 = shape[0] // 2
+    z_vec = (np.arange(shape[2]) - zsrc) * dx + z_src
+    x_vec = (np.arange(shape[0]) - i0) * dx
+    plane, n_sub = bowl_source_plane(x_vec, z_src, device)
+    t_plane = time.time() - t0
+    ppp = int(np.ceil(1 / F0 / stable_dt(dx, ONEIL_C, 0.5)))
+    dt = 1 / F0 / ppp
+    n_steps = (int(np.ceil(60e-3 / ONEIL_C / dt)) // ppp + 3) * ppp
+    grid = FDTDGrid(shape=shape, dx=dx, dt=dt, n_steps=n_steps, frequency=F0,
+                    npml=n, sensor_start=n_steps - 2 * ppp,
+                    source_plane_z=zsrc)
+    out = run_fdtd(np.zeros(shape, np.uint8),
+                   np.array([[ONEIL_RHO, ONEIL_C, 0.0, 0.0, 0.0]]), grid,
+                   source_amp=np.abs(plane), source_phase=np.angle(plane),
+                   device=device)
+    t_run = time.time() - t0 - t_plane
+    axis = out["p_amp"][i0, i0, :]
+    sel = slice(zsrc + 6, len(z_vec) - 14)
+    zf = int(np.argmax(axis[sel])) + sel.start
+    z_ref = np.linspace(-18e-3, 10e-3, 281)
+    p_ref = oneil_axis(z_ref, device)
+    l_fdtd = width_m6db(z_vec[sel], axis[sel])
+    z_long = np.linspace(-18e-3, 12e-3, 601)
+    l_ref = width_m6db(z_long, oneil_axis(z_long, device))
+    lat = out["p_amp"][:, i0, zf]
+    x_ref = np.linspace(-4e-3, 4e-3, 81)
+    w_ref = width_m6db(x_ref, oneil_pressure(np.stack(
+        [x_ref, np.zeros_like(x_ref), np.full_like(x_ref, z_vec[zf])], 1),
+        device=device))
+    w_fdtd = width_m6db(x_vec, lat)
+    got = dict(focal_pressure=(axis[zf], p_ref.max()),
+               axial_m6db=(l_fdtd, l_ref), lateral_m6db=(w_fdtd, w_ref))
+    z_off = z_vec[zf] - z_ref[int(np.argmax(p_ref))]
+    print(f"{tag}: grid {shape}, {n_steps} steps, source plane from the "
+          f"Rayleigh of {n_sub} sub-elements ({t_plane:.2f} s), run_fdtd "
+          f"{t_run:.2f} s; focus {z_vec[zf] * 1e3:.3f} mm ({z_off * 1e3:+.3f} "
+          f"mm from O'Neil's, band {1.5 * dx * 1e3:.2f} mm); "
+          + "; ".join(f"{k} {a:.6g} against {b:.6g} ({(a - b) / b:+.2%})"
+                      for k, (a, b) in got.items())
+          + f" (band 5%); {time.time() - t0:.2f} s with the quadratures")
+    bad = [k for k, (a, b) in got.items() if not abs(a - b) / b < 0.05]
+    if abs(z_off) >= 1.5 * dx:
+        bad.append("focal position")
+    if bad:
+        fail(f"O'Neil water anchor outside its bands: {bad}")
+    return dict(out=out, plane=plane, x_vec=x_vec, z_vec=z_vec, i0=i0,
+                zsrc=zsrc, dx=dx, oneil_peak=p_ref.max(),
+                oneil_z=z_ref[int(np.argmax(p_ref))], oneil_axial=l_ref)
+
+
+# the slab of `tests/test_benchmark_anchor.py:236`: the inter-comparison's
+# skull (2800 m/s, 1850 kg/m^3, lossless), 12 cells thick, 14 cells past
+# the source plane (17 mm before the focus)
+SLAB_C, SLAB_RHO = 2800.0, 1850.0
+SLAB_CELLS, SLAB_AFTER_SOURCE = 12, 14
+# the inter-comparison's whole domain (Aubry et al., JASA 2022): 70 x 70 x
+# 120 mm (the bowl's apex to 56 mm past the focus), the PML outside it
+FULL_DOMAIN_MM = (70.0, 70.0, 120.0)
+
+
+def _slab_medium(shape, k0):
+    """A benchmark medium (the dict ``load_benchmark_file`` returns): water
+    with the slab at z-cells [k0, k0 + SLAB_CELLS), TestType 2."""
+    from babelbrain_tpu_torch.pipeline.benchmark import _with_material_array
+
+    mat_map = np.zeros(shape, np.uint32)
+    mat_map[:, :, k0:k0 + SLAB_CELLS] = 1
+    return _with_material_array({
+        "Materials": [
+            {"Density": ONEIL_RHO, "LongSoS": ONEIL_C, "ShearSoS": 0.0,
+             "LongAtt": 0.0, "ShearAtt": 0.0},
+            {"Density": SLAB_RHO, "LongSoS": SLAB_C, "ShearSoS": 0.0,
+             "LongAtt": 0.0, "ShearAtt": 0.0},
+        ],
+        "MaterialMap": mat_map, "TestType": 2,
+    })
+
+
+def _focus_past(p_amp, i0, z_vec, start):
+    """(peak p_amp on the axis from z-cell ``start`` to 14 cells before the
+    end, its z)."""
+    axis = p_amp[i0, i0, :]
+    sel = slice(start, len(axis) - 14)
+    k = int(np.argmax(axis[sel])) + sel.start
+    return axis[k], z_vec[k]
+
+
+def anchor_slab(water, device="cuda"):
+    """`tests/test_benchmark_anchor.py:236` on the port, through
+    ``run_benchmark_acoustic``'s loaded-medium helper: the water anchor's
+    beam through the slab, its focal pressure against the water run's
+    within 15% of the analytic slab transmission, its focus moved toward
+    the bowl by 0.9-2x the paraxial ray shift. Returns (focal pressure,
+    the cut-down run's grid)."""
+    from babelbrain_tpu_torch.pipeline.benchmark import _run_loaded_benchmark
+
+    tag = "[slice anchors] benchmark-file slab"
+    t0 = time.time()
+    zsrc, i0, plane = water["zsrc"], water["i0"], water["plane"]
+    shape = water["out"]["p_amp"].shape
+    k0 = zsrc + SLAB_AFTER_SOURCE
+    out = _run_loaded_benchmark(_slab_medium(shape, k0), F0, PPW,
+                                np.abs(plane), np.angle(plane),
+                                source_plane_z=zsrc, device=device)
+    dxb = out["grid"].dx
+    z_src = water["z_vec"][zsrc]
+    zb = (np.arange(shape[2]) - zsrc) * dxb + z_src
+    p_w, zf_w = _focus_past(water["out"]["p_amp"], i0, water["z_vec"],
+                            zsrc + 6)
+    p_s, zf_s = _focus_past(out["p_amp"], i0, zb, k0 + 14)
+    t_real = SLAB_CELLS * dxb
+    z1, z2 = ONEIL_RHO * ONEIL_C, SLAB_RHO * SLAB_C
+    k2 = 2 * np.pi * F0 / SLAB_C
+    t_an = 1.0 / np.sqrt(np.cos(k2 * t_real) ** 2 + 0.25 * (
+        z2 / z1 + z1 / z2) ** 2 * np.sin(k2 * t_real) ** 2)
+    shift_ref = -t_real * (SLAB_C / ONEIL_C - 1.0)
+    shift = zf_s - zf_w
+    print(f"{tag}: grid {shape}, {out['grid'].n_steps} steps; focal "
+          f"pressure {p_s:.6g} Pa, {p_s / p_w:.5f}x the water run's against "
+          f"the analytic transmission {t_an:.5f} "
+          f"({(p_s / p_w - t_an) / t_an:+.2%}; band 15%); focus moved "
+          f"{shift * 1e3:+.3f} mm, {abs(shift / shift_ref):.3f}x the paraxial "
+          f"{shift_ref * 1e3:+.3f} mm (band 0.9-2x, toward the bowl); "
+          f"{time.time() - t0:.2f} s")
+    if not (abs(p_s / p_w - t_an) / t_an < 0.15 and shift < 0
+            and 0.9 * abs(shift_ref) <= abs(shift) <= 2.0 * abs(shift_ref)):
+        fail("benchmark-file slab anchor outside its bands")
+    return p_s, out["grid"]
+
+
+def anchor_full_width(water, p_cut, device="cuda"):
+    """The water and the slab anchor on the inter-comparison's whole domain
+    (``FULL_DOMAIN_MM`` at 500 kHz and 6 PPW, the PML outside it): the
+    bowl's field on a plane 1.4 mm past its rim, the slab at the same
+    distance before the focus as in the cut-down run. The water focus must
+    meet O'Neil's focal pressure and -6 dB axial and lateral sizes within
+    5% (its position, after 54 mm of propagation at 6 PPW where the
+    cut-down run has 24, is printed); the slab's focus must move toward
+    the bowl, and its pressure is printed next to the cut-down run's (the
+    slab's echo meets the hard source plane 37 mm upstream here, 7 mm in
+    the cut-down run). Prints the grid, the steps, the ``run_fdtd`` spans
+    and the fluid kernels' launches of each run."""
+    from babelbrain_tpu_torch.pipeline.benchmark import _run_loaded_benchmark
+    from babelbrain_tpu_torch.utils.timing import (
+        clear_spans,
+        recorded_spans,
+    )
+
+    tag = "[slice anchors] full width"
+    t0 = time.time()
+    dx = ONEIL_C / F0 / PPW
+    n = ONEIL_NPML
+    cells = [int(round(mm * 1e-3 / dx)) for mm in FULL_DOMAIN_MM]
+    shape = tuple(c + 2 * n for c in cells)
+    z_lo = -ONEIL_ROC - n * dx  # the grid's first plane: apex minus the PML
+    z_rim = -np.sqrt(ONEIL_ROC**2 - (ONEIL_APERTURE / 2) ** 2)
+    zsrc = int(np.ceil((z_rim + 1.4e-3 - z_lo) / dx))
+    z_vec = np.arange(shape[2]) * dx + z_lo
+    i0 = shape[0] // 2
+    x_vec = (np.arange(shape[0]) - i0) * dx
+    plane, _ = bowl_source_plane(x_vec, z_vec[zsrc], device)
+    k0 = zsrc + int(round((-17e-3 - z_vec[zsrc]) / dx))
+    print(f"{tag}: grid {shape} ({int(np.prod(shape))} cells, "
+          f"{FULL_DOMAIN_MM} mm + PML), source plane at "
+          f"{z_vec[zsrc] * 1e3:.2f} mm (z-cell {zsrc}), slab at z-cells "
+          f"{k0}-{k0 + SLAB_CELLS - 1}")
+    focus, p_amp = {}, {}
+    for slab in (False, True):
+        medium = _slab_medium(shape, k0)
+        if not slab:
+            medium["MaterialMap"][:] = 0
+        before = read_counts()[0]
+        clear_spans()
+        out = _run_loaded_benchmark(medium, F0, PPW, np.abs(plane),
+                                    np.angle(plane), source_plane_z=zsrc,
+                                    device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        spans = {label.split(": ", 1)[-1]: dt
+                 for label, dt in recorded_spans()}
+        after = read_counts()[0]
+        b1 = {k: after[k] - before[k] for k in
+              ("fluid_velocity", "fluid_pressure", "fluid_pressure_dft")}
+        if not np.isfinite(out["p_amp"]).all():
+            fail(f"full-width {'slab' if slab else 'water'} run not finite")
+        p_amp[slab] = out["p_amp"]
+        focus[slab] = _focus_past(out["p_amp"], i0, z_vec,
+                                  k0 + 14 if slab else zsrc + 6)
+        print(f"{tag} {'slab' if slab else 'water'}: {out['grid'].n_steps} "
+              f"steps; spans " + ", ".join(f"{k} {v:.3f} s"
+                                           for k, v in spans.items())
+              + f"; launches {b1}; focal pressure {focus[slab][0]:.6g} Pa "
+              f"at {focus[slab][1] * 1e3:.2f} mm")
+    (p_w, z_w), (p_s, z_s) = focus[False], focus[True]
+    axis = p_amp[False][i0, i0, :]
+    sel = slice(zsrc + 6, len(z_vec) - 14)
+    x_ref = np.linspace(-4e-3, 4e-3, 81)
+    w_ref = width_m6db(x_ref, oneil_pressure(np.stack(
+        [x_ref, np.zeros_like(x_ref), np.full_like(x_ref, z_w)], 1),
+        device=device))
+    kf = int(np.argmin(np.abs(z_vec - z_w)))
+    got = dict(focal_pressure=(p_w, water["oneil_peak"]),
+               axial_m6db=(width_m6db(z_vec[sel], axis[sel]),
+                           water["oneil_axial"]),
+               lateral_m6db=(width_m6db(x_vec, p_amp[False][:, i0, kf]),
+                             w_ref))
+    print(f"{tag}: water " + "; ".join(
+        f"{k} {a:.6g} against O'Neil's {b:.6g} ({(a - b) / b:+.2%})"
+        for k, (a, b) in got.items())
+        + f" (band 5%); focus {(z_w - water['oneil_z']) * 1e3:+.3f} mm from "
+        f"O'Neil's; slab focal pressure {p_s / p_w:.5f}x the water run's "
+        f"({p_s / p_cut:.5f}x the cut-down slab run's {p_cut:.6g} Pa), "
+        f"focus moved {(z_s - z_w) * 1e3:+.3f} mm; {time.time() - t0:.2f} s")
+    bad = [k for k, (a, b) in got.items() if not abs(a - b) / b < 0.05]
+    if bad or not z_s < z_w:
+        fail(f"full-width anchor: water {bad} off O'Neil's, or the slab's "
+             "focus not moved toward the bowl")
+
+
+# the calibration anchor: the CTX-500's known ring weights
+# (`tests/test_pipeline.py:708`), profiles along its axis at two locations
+CALIB_W_TRUE = np.array([1.15, 0.85 * np.exp(0.25j), 1.05 * np.exp(-0.2j),
+                         0.9], np.complex64)
+CALIB_Z_MM = np.arange(35.0, 75.0, 1.0)
+CALIB_LOCS = (45.0, 60.0)
+
+
+def anchor_calibration(device="cuda"):
+    """`tests/test_pipeline.py::TestCalibrationIngestion::
+    test_calibration_recovers_ring_weights` on the card: the CTX-500 at its
+    full sub-element count, amplitude and phase profiles synthesised with
+    the port's Rayleigh from known ring weights on top of each location's
+    steering, written as CSV, read back and fitted by
+    ``calibrate_annular_from_profiles`` (``run_calibration`` writes HDF5);
+    the weights within 5% in amplitude and 0.08 rad in phase, residual
+    below 0.05."""
+    from babelbrain_tpu_torch.ops.rayleigh import (
+        rayleigh_field,
+        steering_phases,
+    )
+    from babelbrain_tpu_torch.pipeline import calibration as Cal
+    from babelbrain_tpu_torch.pipeline.profiles import (
+        TRANSDUCER_REGISTRY,
+        build_transducer,
+    )
+
+    tag = "[slice anchors] calibration"
+    spec = TRANSDUCER_REGISTRY["CTX_500"]
+    k = 2 * np.pi * F0 / 1500.0
+    tx = build_transducer(spec, F0, sos_water=1500.0)
+    outplane = spec.meta["natural_outplane"]
+    t0 = time.time()
+    amp, ph = [], []
+    for loc in CALIB_LOCS:
+        w_steer = steering_phases(k, Cal._ring_centers(tx),
+                                  [0.0, 0.0, loc * 1e-3 - outplane],
+                                  device=device)
+        u0 = Cal._expand_ring_weights(tx, w_steer * CALIB_W_TRUE)
+        pts = np.zeros((len(CALIB_Z_MM), 3), np.float32)
+        pts[:, 2] = CALIB_Z_MM * 1e-3 - outplane
+        f = rayleigh_field(k, tx.centers, tx.areas, u0, pts, device=device)
+        amp.append(np.abs(f))
+        ph.append(np.angle(f))
+    t_synth = time.time() - t0
+    with tempfile.TemporaryDirectory() as d:
+        files = []
+        for name, cols in (("amp", amp), ("phase", ph)):
+            rows = [",".join(["0"] + [f"{v}" for v in CALIB_LOCS])]
+            rows += [",".join([f"{z}"] + [f"{c[i]}" for c in cols])
+                     for i, z in enumerate(CALIB_Z_MM)]
+            files.append(os.path.join(d, f"{name}.csv"))
+            with open(files[-1], "w") as fh:
+                fh.write("\n".join(rows))
+        z_mm, locs, vals = Cal.load_hydrophone_profiles(files[0])
+        _, _, phases = Cal.load_hydrophone_profiles(files[1])
+    t1 = time.time()
+    fits = Cal.calibrate_annular_from_profiles(
+        spec, F0, z_mm, locs, vals, phases, lam=1e-6, device=device)
+    t_fit = time.time() - t1
+    bad = []
+    for loc, fit in fits.items():
+        w = np.asarray(fit["weights"], np.complex128)
+        w = w * np.exp(1j * (np.angle(CALIB_W_TRUE[0]) - np.angle(w[0])))
+        amp_err = np.abs(np.abs(w) / np.abs(CALIB_W_TRUE) - 1).max()
+        ph_err = np.abs(np.angle(w / CALIB_W_TRUE)).max()
+        print(f"{tag} {loc:g} mm: ring weights (amplitude, phase) "
+              + ", ".join(f"({abs(v):.4f}, {np.angle(v):+.4f})" for v in w)
+              + " against "
+              + ", ".join(f"({abs(v):.4f}, {np.angle(v):+.4f})"
+                          for v in CALIB_W_TRUE)
+              + f": amplitude {amp_err:.3%} (band 5%), phase {ph_err:.4f} rad "
+              f"(band 0.08), residual {fit['residual']:.3e} (below 0.05)")
+        if not (amp_err < 0.05 and ph_err < 0.08 and fit["residual"] < 0.05):
+            bad.append(loc)
+    print(f"{tag}: CTX-500, {tx.num_subelements} sub-elements in "
+          f"{tx.num_elements} rings, {len(CALIB_Z_MM)} axial points x "
+          f"{len(CALIB_LOCS)} locations; Rayleigh synthesis {t_synth:.3f} s, "
+          f"the fit (its Rayleigh columns and the solve) {t_fit:.3f} s")
+    if bad:
+        fail(f"calibration did not recover the ring weights at {bad}")
+
+
+def anchor_workers(device="cuda"):
+    """The CT slice's ``generate_mask`` (``run_stages``' call: the digital
+    head, CTX-500 at 500 kHz and 6 PPW, ``MASK_SHAPE``) on the card in this
+    process and through ``workers.calculate_mask_process`` in a spawned
+    child that opens its own CUDA context: every array of the two results
+    equal. Prints the child's wall time."""
+    from babelbrain_tpu_torch.pipeline.step1 import generate_mask
+    from babelbrain_tpu_torch.pipeline.workers import (
+        ERROR_SENTINEL,
+        calculate_mask_process,
+    )
+
+    tag = "[slice anchors] workers"
+    labels, ct, aff = build_head()
+    kw = dict(labels_data=labels, labels_affine=aff,
+              target_ras=[0.0, 0.0, 20.0], direction_ras=[0, 0, -1],
+              frequency=F0, ppw=PPW, shape=MASK_SHAPE, ct_data=ct,
+              ct_affine=aff, hu_threshold=300.0, device=device)
+    here = generate_mask(**kw)
+    logs = []
+    t0 = time.time()
+    child = calculate_mask_process(on_log=logs.append, **kw)
+    wall = time.time() - t0
+    names = ("mask", "affine", "target_idx", "ct_index", "unique_hu",
+             "air_mask")
+    differ = [n for n in names
+              if not np.array_equal(getattr(child, n), getattr(here, n))]
+    print(f"{tag}: generate_mask of the CT slice in a spawned child "
+          f"({wall:.2f} s wall, {len(logs)} log lines) and in this process: "
+          f"mask {child.mask.shape}, {len(child.unique_hu)} HU levels; "
+          f"arrays differing {differ}")
+    if differ or any(ln.strip() == ERROR_SENTINEL for ln in logs):
+        fail(f"the spawned Step 1 differs from the in-process one: {differ}")
+
+
+def run_anchors(device="cuda"):
+    """The anchors slice: the shear, O'Neil water, benchmark-file slab and
+    full-width anchors through ``run_fdtd`` (and the benchmark helper) on
+    the card, the CTX-500 calibration and a spawned Step 1, with the kernel
+    counts set to 0 before and read after: both FDTD families must have
+    launched and no plain version run. Returns the launch counts."""
+    t0 = time.time()
+    reset_counts()
+    anchor_shear(device)
+    water = anchor_water(device)
+    p_cut, _ = anchor_slab(water, device)
+    anchor_full_width(water, p_cut, device)
+    anchor_calibration(device)
+    anchor_workers(device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches, plain = read_counts()
+    print(f"[slice anchors] {time.time() - t0:.2f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    need = ("visco_velocity", "visco_stress_dft", "fluid_velocity",
+            "fluid_pressure_dft")
+    if device == "cuda" and (any(plain.values())
+                             or not all(launches[k] for k in need)):
+        fail(f"anchors: launches {launches}, plain calls {plain}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 FLUID_CU = "babelbrain_tpu_torch/csrc/fdtd_fluid.cu"
 VISCO_CU = "babelbrain_tpu_torch/csrc/fdtd_visco.cu"
@@ -2169,10 +2946,12 @@ SOURCES = {
     "extras_fluid": ("extras_accumulate_kernel", EXTRAS_CU, f"{PALLAS}:2288"),
     "extras_visco": ("extras_accumulate_kernel<VISCO>", EXTRAS_CU,
                      f"{PALLAS}:2288"),
-    # the monitor capture of B4's driver simulate_fluid_pallas
-    "monitor_fluid": ("monitor_gather_kernel", EXTRAS_CU, f"{PALLAS}:2891"),
-    "monitor_visco": ("monitor_gather_kernel<VISCO>", EXTRAS_CU,
-                      f"{PALLAS}:2891"),
+    # the monitor capture of B4's host loop simulate_fluid_pallas, folded into
+    # the pressure / stress kernel (timed with the DFT and 201 voxels)
+    "monitor_fluid": ("fluid_pressure_kernel<WITH_DFT, kMonitorListed>",
+                      FLUID_CU, f"{PALLAS}:2891"),
+    "monitor_visco": ("visco_stress_kernel<WITH_DFT, kMonitorListed>",
+                      VISCO_CU, f"{PALLAS}:2891"),
     # P1 (and P2's table gathers, tools/probe_gather.py:46)
     "stream": ("stream_kernel", PROBES_CU, "tools/probe_roofline.py:75"),
     "fma_chain": ("fma_chain_kernel", PROBES_CU, "tools/probe_roofline.py:90"),
@@ -2222,6 +3001,7 @@ def main():
                           (check_visco_ragged, None),
                           (check_fluid_ragged, None),
                           (check_fluid_large_table, None),
+                          (check_monitor_ragged, None),
                           (check_bhte, None)):
         e, t = check() if source is None else check(source=source)
         for k, v in e.items():  # the scatter is checked in both families
@@ -2241,6 +3021,8 @@ def main():
         for k, v in slice_errs.items():
             errs[k] = max(errs[k], v)
     for k, v in run_sweep(have["h5py"]).items():
+        launches[k] += v
+    for k, v in run_anchors().items():
         launches[k] += v
     for k, v in run_probes().items():
         launches[k] += v

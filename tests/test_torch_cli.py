@@ -14,6 +14,7 @@ the same arguments give the same output.
 * ``--device`` defaults to ``cuda``; ``bench`` is not ported.
 """
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -48,11 +49,33 @@ def _json(capsys):
     return json.loads(out[out.rindex("\n{") + 1:] if "\n{" in out else out)
 
 
-def test_list_tx_matches_jax(capsys):
+def _builtin_tx_names():
+    """The names the JAX package's registry ships with: its profiles module
+    executed afresh, so entries that other test files add to the loaded
+    registry (``TestOptimizedWeightsLoader``'s MiniRing) are not among
+    them."""
+    spec = importlib.util.find_spec("babelbrain_tpu.pipeline.profiles")
+    fresh = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fresh)
+    return sorted(fresh.TRANSDUCER_REGISTRY)
+
+
+def test_list_tx_matches_jax(capsys, monkeypatch):
+    """Both commands list the same registry byte for byte. The registries
+    are module globals that other test files add to (only to the JAX one,
+    or under other specs), so for this test each drops the names the other
+    lacks, whatever ran before in the process."""
+    builtin = _builtin_tx_names()
+    shared = set(J_REGISTRY) & set(T_REGISTRY)
+    for reg in (J_REGISTRY, T_REGISTRY):
+        for name in set(reg) - shared:
+            monkeypatch.delitem(reg, name)
     j_main(["list-tx"])
     ref = capsys.readouterr().out
     t_main(["list-tx"])
     assert capsys.readouterr().out == ref
+    listed = {line.split()[0] for line in ref.splitlines()}
+    assert set(builtin) <= listed, sorted(set(builtin) - listed)
     assert "CTX_500" in ref and "DomeTx" in ref
 
 

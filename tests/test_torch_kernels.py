@@ -494,8 +494,9 @@ SUBSET_MAPS = ("Pressure_rms", "Vy_peak", "Sigmazz_rms", "Sigmaxx_peak")
 @pytest.mark.parametrize("family", ["fluid", "visco"])
 @pytest.mark.parametrize("maps", ["all", "subset"])
 def test_extras_and_monitor_kernels_match_plain(cuda, family, maps):
-    """The extras pass and the monitor gather (at 64 voxels and at every
-    voxel) against their plain versions on the same states, bit for bit."""
+    """The extras pass and the monitor sample of the pressure / stress
+    kernel (at 64 voxels, every window step) against their plain versions
+    on the same states, bit for bit."""
     if family == "fluid":
         grid, co = _fluid_setup(cuda)
         st = K.FluidState.zeros(grid.shape, 14, cuda)
@@ -512,22 +513,18 @@ def test_extras_and_monitor_kernels_match_plain(cuda, family, maps):
     diag_k, diag_p = (E.Diagnostics.create(st, grid.sensor_start, names,
                                            sample_steps=window, index=index)
                       for _ in range(2))
-    full_k, full_p = (torch.zeros((2, st.vx.numel()), device=cuda)
-                      for _ in range(2))
     before = dict(E.launches)
     oz = 1.0 / (1000.0 * 1500.0)
     for n in range(grid.n_steps):
-        step(st, co, grid, n, oz)
+        step(st, co, grid, n, oz, monitor=diag_k.monitor(n))
         diag_k.record(st, n)
         diag_p.record(st, n, plain=True)
-        if n in (grid.sensor_start, grid.n_steps - 1):
-            row = int(n != grid.sensor_start)
-            E.monitor_gather(st, None, full_k, row)
-            E.monitor_gather_ref(st, None, full_p, row)
+        if n in diag_p.rows:
+            diag_p.monitor(n).gather_ref(st)
     torch.cuda.synchronize()
     grew = {k: E.launches[k] - before[k] for k in E.launches}
     assert grew[f"extras_{family}"] == len(window)
-    assert grew[f"monitor_{family}"] == len(window) + 2
+    assert grew[f"monitor_{family}"] == len(window)
     assert set(diag_k.extras.acc) == set(diag_p.extras.acc)
     if family == "fluid":  # Sigma maps ride on the Pressure accumulators
         assert not any(k.startswith("Sigma") for k in diag_k.extras.acc)
@@ -537,7 +534,93 @@ def test_extras_and_monitor_kernels_match_plain(cuda, family, maps):
                                    msg=k)
     assert float(diag_p.series.abs().max()) > 0
     torch.testing.assert_close(diag_k.series, diag_p.series, rtol=0, atol=0)
-    torch.testing.assert_close(full_k, full_p, rtol=0, atol=0)
+
+
+def _visco_source_setup(device, shape, source):
+    """``_visco_setup``'s layers with a plane, a stress point on a tile
+    corner (the first grid: inside a tile) or a shell of source voxels."""
+    if source == "velocity_plane":
+        return _visco_setup(device, shape)
+    mats = material_array(F0, tissues=("Water", "Skin", "Cortical",
+                                       "Trabecular", "Brain"))
+    dx = 1102.5 / F0 / 6
+    cmax = mats[:, 1].max()
+    ppp = int(np.ceil(1 / F0 / F.stable_dt(dx, cmax, 0.5)))
+    ijk = (17, 21, 40) if shape == (36, 40, 56) else _tile_corner(shape)
+    grid = F.FDTDGrid(shape=shape, dx=dx, dt=1 / F0 / ppp, n_steps=60,
+                      frequency=F0, sensor_start=40, source_type=source,
+                      source_ijk=ijk)
+    idx = np.zeros(shape, np.uint8)
+    idx[:, :, 25:32] = 2
+    coefs = F.sls_coefficients(mats, F0, grid.dt)
+    mi, table = F._build_indexed_materials(coefs, idx, None)
+    prof = F._build_cpml_profiles_np(shape, 12, dx, grid.dt, cmax, 1e-5)
+    z2 = np.zeros(shape[:2])
+    return grid, F.make_visco_coeffs(mi, table, prof, z2, z2, grid,
+                                     coefs["viscous"], device)
+
+
+@pytest.mark.parametrize("where", ["listed", "full"])
+@pytest.mark.parametrize("shape", [(36, 40, 56), (27, 45, 47)])
+@pytest.mark.parametrize("source", ["velocity_plane", "stress_point",
+                                    "velocity_volume"])
+@pytest.mark.parametrize("family", ["fluid", "visco"])
+def test_monitor_kernels_match_plain(cuda, family, source, shape, where):
+    """The MONITOR instantiations of the pressure / stress kernel against
+    the plain step followed by ``monitor_gather_ref``, bit for bit in the
+    series and every field: ``listed``, 96 seeded voxels unsorted, five of
+    them twice and a tile corner, sampled at steps 30-59 (before and
+    inside the DFT window from 40); ``full``, every voxel at steps 35, 40
+    and 59. The ragged grid has blocks with threads off the volume."""
+    if family == "fluid":
+        geometry, state = K.fluid_launch_geometry, K.FluidState
+        step, velocity, stress = (F.fluid_step, K.fluid_velocity_ref,
+                                  K.fluid_pressure_ref)
+        corner = _tile_corner(shape, geometry)
+        grid, co = _fluid_setup(cuda, shape=shape, source_type=source,
+                                source_ijk=((17, 21, 34)
+                                            if shape == (36, 40, 56)
+                                            else corner))
+    else:
+        geometry, state = V.visco_launch_geometry, V.ViscoState
+        step, velocity, stress = (F.visco_step, V.visco_velocity_ref,
+                                  V.visco_stress_ref)
+        corner = _tile_corner(shape, geometry)
+        grid, co = _visco_source_setup(cuda, shape, source)
+    vsrc = _shell(shape, cuda) if source == "velocity_volume" else None
+    pamp = 50e3 if source == "stress_point" else 0.0
+    pt = F.point_index(grid)
+    oz = 1.0 / (1000.0 * 1500.0)
+    st_k, st_p = (state.zeros(shape, 14, cuda) for _ in range(2))
+    index, steps = None, (35, 40, 59)
+    if where == "listed":
+        rng = np.random.default_rng(3)
+        ijk = np.stack([rng.integers(0, n, 96) for n in shape], 1)
+        ijk = np.concatenate([ijk, ijk[[7, 3, 50, 3, 90]], [corner]])
+        index, steps = E.monitor_index(ijk, shape, cuda), range(30, 60)
+    diag_k, diag_p = (E.Diagnostics.create(st, grid.sensor_start,
+                                           sample_steps=steps, index=index)
+                      for st in (st_k, st_p))
+    before = dict(E.launches)
+    for n in range(grid.n_steps):
+        step(st_k, co, grid, n, oz, pamp, vsrc, diag_k.monitor(n))
+        s_sin, s_cos, cosw, sinw, s_pt = F.step_scalars(grid, n, oz, pamp)
+        velocity(st_p, co, s_sin, s_cos)
+        if vsrc is not None:
+            S.velocity_volume_source_ref(st_p.vx, st_p.vy, st_p.vz, vsrc,
+                                         s_sin, s_cos)
+        point = None if pt is None else (pt, s_pt)
+        dft = (cosw, sinw) if n >= grid.sensor_start else (None, None)
+        stress(st_p, co, *dft, point, diag_p.monitor(n))
+    torch.cuda.synchronize()
+    assert E.launches[f"monitor_{family}"] - before[f"monitor_{family}"] == (
+        len(steps))
+    assert float(diag_p.series.abs().max()) > 0
+    torch.testing.assert_close(diag_k.series, diag_p.series, rtol=0, atol=0)
+    for name, a in vars(st_k).items():
+        b = getattr(st_p, name)
+        for x, y in (zip(a, b) if isinstance(a, list) else [(a, b)]):
+            torch.testing.assert_close(x, y, rtol=0, atol=0, msg=name)
 
 
 def test_extras_wrapper_rejects_mixed_devices(cuda):
@@ -547,8 +630,12 @@ def test_extras_wrapper_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError, match="float32 on"):
         E.extras_accumulate(st, ex)
     out = torch.zeros((1, 3), device=cuda)
-    with pytest.raises(ValueError, match="int32 index"):
-        E.monitor_gather(st, torch.zeros(3, dtype=torch.int32), out, 0)
+    # a voxel list not sorted for this launch (no CSR), or a CPU buffer
+    for mon in (E.Monitor(torch.zeros(3, dtype=torch.int32, device=cuda),
+                          out, 0),
+                E.Monitor(None, torch.zeros((1, st.p.numel())), 0)):
+        with pytest.raises(ValueError, match="monitor"):
+            K.fluid_pressure(st, co, monitor=mon)
 
 
 def test_probe_kernels_match_plain(cuda):
