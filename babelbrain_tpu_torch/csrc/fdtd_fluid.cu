@@ -58,6 +58,23 @@
 // because its accumulators leave the kernel before the injection.
 // POINT=false compiles to the plane-source code.
 //
+// x decomposition (ops/fdtd.py run_fdtd(mesh=)): a launch on one shard's
+// planes applies the x CPML's lo and hi slabs only where the shard holds
+// that global edge (x_lo / x_hi, fdtd_stencil.cuh Geo). It replaces the
+// x-CPML shift edge_offset and its xcoef_scale mask of B2
+// (build_fluid_fused_step, fdtd_pallas.py:530,598) and B4
+// (build_fluid_fusedK_step, :1755,1850): the TPU's shards carry their
+// ghost planes on both sides, so a shard's slab sits at an offset and is
+// masked where the shard owns no edge; here the first shard carries no
+// ghost planes below it and the last none above, so an edge shard's slab
+// sits at its array's end and two flags say which slabs apply. Every kernel
+// is instantiated twice: XALL (both slabs, at the array's ends: a whole
+// grid, or a mesh of one shard) compiles the code an unsharded launch ran
+// before, and the shards' twin reads the slabs' planes from Geo (xlo,
+// xhi). Reading them from Geo in the one instantiation cost the viscous
+// pressure kernel 8% at its 40-register cap (and 10.7% as two predicates),
+// on an H100 (scripts/ab_fdtd_kernels.py, PERF.md).
+//
 // Rounding: built with --fmad=false and written in the operation order of
 // the plain PyTorch versions (ops/fdtd_kernels.py fluid_velocity_ref /
 // fluid_pressure_ref), so kernel and plain version round alike.
@@ -87,6 +104,7 @@ constexpr int kRhoInv = 0, kPiU = 1, kCRp = 3, kBR = 5;
 // v_i -= dt/dx rho_inv (D+_i p + psi); then the CW plane source SETS vz at
 // zsrc where the plane amplitude is positive.
 // v: [vx, vy, vz]; psi: [lo, hi] of the derivatives p_x, p_y, p_z.
+template <bool XALL>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     fluid_velocity_kernel(const float* __restrict__ p, Ptr3 v,
                           const int* __restrict__ idx,
@@ -120,10 +138,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const float dpy = diff_yz<1, true>(pp);
     const float dpz = diff_yz<2, true>(pp);
     const float ri = __ldg(table + kRhoInv * n_mat + mi);
-    const Cpml<Ptr6> cp{psi, prof_half, nullptr, g, q, i};
-    const float dx = cp.apply<0, true, 0>(wp.diff());
-    const float dy = cp.apply<1, true, 1>(dpy);
-    const float dz = cp.apply<2, true, 2>(dpz);
+    const Cpml<Ptr6, XALL> cp{psi, prof_half, nullptr, g, q, i};
+    const float dx = cp.template apply<0, true, 0>(wp.diff());
+    const float dy = cp.template apply<1, true, 1>(dpy);
+    const float dz = cp.template apply<2, true, 2>(dpz);
     float vzn = vz - dt_dx * ri * dz;
     if (q.k == zsrc) {
       // amp sin(wt + phase) ramp oz = amp (sin(wt) cos(ph) + cos(wt) sin(ph))
@@ -164,7 +182,7 @@ struct Own {
 // with MONITOR (kMonitorListed, kMonitorEvery) the new p sampled into the
 // series row mon.out (Monitor, fdtd_stencil.cuh).
 // v: [vx, vy, vz]; psi: [lo, hi] of the derivatives vx_x, vy_y, vz_z.
-template <bool VISCOUS, bool WITH_DFT, bool POINT, int MONITOR>
+template <bool VISCOUS, bool WITH_DFT, bool POINT, int MONITOR, bool XALL>
 __global__ void __launch_bounds__(
     kThreads, (MONITOR == kMonitorEvery ||
                (MONITOR == kMonitorListed && VISCOUS && WITH_DFT))
@@ -205,10 +223,10 @@ __global__ void __launch_bounds__(
     const float dvz = diff_yz<2, false>(Plane{vz, c, q.j, q.k, g.n2, g.n3});
     const int mi = cur.mi;
     const float pi_u = __ldg(table + kPiU * n_mat + mi);
-    const Cpml<Ptr6> cp{psi, nullptr, prof_int, g, q, i};
-    const float dx = cp.apply<0, false, 0>(wvx.diff());
-    const float dy = cp.apply<1, false, 1>(dvy);
-    const float dz = cp.apply<2, false, 2>(dvz);
+    const Cpml<Ptr6, XALL> cp{psi, nullptr, prof_int, g, q, i};
+    const float dx = cp.template apply<0, false, 0>(wvx.diff());
+    const float dy = cp.template apply<1, false, 1>(dvy);
+    const float dz = cp.template apply<2, false, 2>(dvz);
     const float theta = dx + dy + dz;
     float pn;
     if (VISCOUS) {
@@ -239,25 +257,35 @@ __global__ void __launch_bounds__(
 
 extern "C" {
 
-// v3, psi6: host arrays of device pointers (see the kernels); tile_y, seg
-// and the grid (gz, gy, gx) blocks along (z, y, x): the launch geometry
-// (ops/fdtd_kernels.py fluid_launch_geometry; tile_y must be the compiled 8)
+// v3, psi6: host arrays of device pointers (see the kernels); x_lo, x_hi:
+// whether this launch applies the x CPML's lo / hi slab (both for a whole
+// grid; see Geo); tile_y, seg and the grid (gz, gy, gx) blocks along
+// (z, y, x): the launch geometry (ops/fdtd_kernels.py
+// fluid_launch_geometry; tile_y must be the compiled 8)
 int bb_fluid_velocity(const float* p, float* const* v3, const int* idx,
                       const float* table, float* const* psi6,
                       const float* prof_half, const float* amp,
                       const float* cph, const float* sph, float s_sin,
                       float s_cos, float dt_dx, int n_mat, int n1, int n2,
-                      int n3, int ns, int zsrc, int tile_y, int seg, int gz,
-                      int gy, int gx, void* stream) {
-  const Geo g{n1, n2, n3, ns, seg};
+                      int n3, int ns, int x_lo, int x_hi, int zsrc,
+                      int tile_y, int seg, int gz, int gy, int gx,
+                      void* stream) {
+  const Geo g = make_geo(n1, n2, n3, ns, seg, x_lo, x_hi);
   dim3 grid;
   if (!launch_grid(g, tile_y, gz, gy, gx, grid)) {
     return (int)cudaErrorInvalidValue;
   }
-  fluid_velocity_kernel<<<grid, dim3(kTileZ, kTileY), 0,
-                          (cudaStream_t)stream>>>(
-      p, gather<3, Ptr3>(v3), idx, table, n_mat, gather<6, Ptr6>(psi6),
-      prof_half, amp, cph, sph, s_sin, s_cos, dt_dx, g, zsrc);
+#define BB_VELOCITY(X)                                                       \
+  fluid_velocity_kernel<X><<<grid, dim3(kTileZ, kTileY), 0,                \
+                             (cudaStream_t)stream>>>(                      \
+      p, gather<3, Ptr3>(v3), idx, table, n_mat, gather<6, Ptr6>(psi6),    \
+      prof_half, amp, cph, sph, s_sin, s_cos, dt_dx, g, zsrc)
+  if (x_lo && x_hi) {
+    BB_VELOCITY(true);
+  } else {
+    BB_VELOCITY(false);
+  }
+#undef BB_VELOCITY
   return (int)cudaGetLastError();
 }
 
@@ -270,12 +298,13 @@ int bb_fluid_pressure(float* const* v3, float* p, float* r, const int* idx,
                       float* peak, float* const* psi6, const float* prof_int,
                       float dt_dx, float inv_dx, float half_dt, float cosw,
                       float sinw, int n_mat, int n1, int n2, int n3, int ns,
-                      int viscous, int with_dft, int point, long long pt,
-                      float sval, const int* mon_start, const int* mon_cell,
+                      int x_lo, int x_hi, int viscous, int with_dft,
+                      int point, long long pt, float sval,
+                      const int* mon_start, const int* mon_cell,
                       const int* mon_slot, float* mon_out, int monitor,
                       int tile_y, int seg, int gz, int gy, int gx,
                       void* stream) {
-  const Geo g{n1, n2, n3, ns, seg};
+  const Geo g = make_geo(n1, n2, n3, ns, seg, x_lo, x_hi);
   dim3 grid;
   if (!launch_grid(g, tile_y, gz, gy, gx, grid) ||
       !monitor_args_valid(monitor, mon_start, mon_cell, mon_slot, mon_out)) {
@@ -288,8 +317,16 @@ int bb_fluid_pressure(float* const* v3, float* p, float* r, const int* idx,
   gather<3, Ptr3>(v3), p, r, idx, table, n_mat, acc_c, acc_s, peak,        \
       gather<6, Ptr6>(psi6), prof_int, dt_dx, inv_dx, half_dt, cosw, sinw, \
       g, (int)pt, sval, mon
-#define BB_GO(V, D, P, M) \
-  fluid_pressure_kernel<V, D, P, M><<<grid, block, 0, st>>>(BB_PRESSURE_ARGS)
+#define BB_GO(V, D, P, M)                                                   \
+  do {                                                                      \
+    if (x_lo && x_hi) {                                                     \
+      fluid_pressure_kernel<V, D, P, M, true>                               \
+          <<<grid, block, 0, st>>>(BB_PRESSURE_ARGS);                       \
+    } else {                                                                \
+      fluid_pressure_kernel<V, D, P, M, false>                              \
+          <<<grid, block, 0, st>>>(BB_PRESSURE_ARGS);                       \
+    }                                                                       \
+  } while (0)
 #define BB_GO_MONITOR(V, D, P)               \
   do {                                       \
     if (monitor == kMonitorListed) {         \

@@ -36,9 +36,20 @@ T gather(float* const* host) {
   return out;
 }
 
+// The grid, the CPML slab depth, the x-segment length, and where this
+// launch applies the x CPML: its lo slab at planes [0, xlo) and its hi slab
+// at [xhi, n1). A whole grid applies both (xlo = ns, xhi = n1 - ns); a
+// shard of an x decomposition applies a slab only where it holds that
+// global edge (xlo = 0 or xhi = n1 otherwise: ops/fdtd.py, parallel/halo.py).
 struct Geo {
-  int n1, n2, n3, ns, seg;
+  int n1, n2, n3, ns, seg, xlo, xhi;
 };
+
+// the Geo of a launch; x_lo / x_hi: whether it applies the x lo / hi slab
+inline Geo make_geo(int n1, int n2, int n3, int ns, int seg, int x_lo,
+                    int x_hi) {
+  return Geo{n1, n2, n3, ns, seg, x_lo ? ns : 0, x_hi ? n1 - ns : n1};
+}
 
 // This thread's column (j, k) and the x-planes [i0, i1) of its block
 struct Col {
@@ -145,23 +156,25 @@ __device__ __forceinline__ float diff_yz(const Plane& f) {
                  f((lo + 3) * dy, (lo + 3) * dz));
 }
 
-// CPML correction of derivative d at slab position pos along an axis of n
-// cells: psi' = b psi + a d; d += psi'. The lo slab is applied before the
-// hi slab (they meet only when n < 2 ns), matching the XLA order.
+// CPML correction of derivative d at position pos along an axis: psi' =
+// b psi + a d; d += psi', in the lo slab at pos < lo_end and in the hi slab
+// at pos >= hi_start (its plane pos - hi_start). The lo slab is applied
+// before the hi slab (they meet only when n < 2 ns), matching the XLA order.
 // prof holds [b_lo, a_lo, b_hi, a_hi] x ns for this axis; the psi value of
 // slab plane q for this cell sits at base + q * stride.
-__device__ __forceinline__ float cpml(float d, int pos, int n, int ns,
+__device__ __forceinline__ float cpml(float d, int pos, int lo_end,
+                                      int hi_start, int ns,
                                       const float* __restrict__ prof,
                                       float* __restrict__ psi_lo,
                                       float* __restrict__ psi_hi, int base,
                                       int stride) {
-  if (pos < ns) {
+  if (pos < lo_end) {
     const int s = base + pos * stride;
     const float nw = prof[pos] * psi_lo[s] + prof[ns + pos] * d;
     psi_lo[s] = nw;
     d = d + nw;
   }
-  const int q = pos - (n - ns);
+  const int q = pos - hi_start;
   if (q >= 0) {
     const int s = base + q * stride;
     const float nw = prof[2 * ns + q] * psi_hi[s] + prof[3 * ns + q] * d;
@@ -175,8 +188,11 @@ __device__ __forceinline__ float cpml(float d, int pos, int n, int ns,
 // Ptr18, slabs [lo, hi] of each derivative in turn), along AXIS at cell
 // (i, q.j, q.k): psi slabs (ns, N2, N3), (N1, ns, N3) or (N1, N2, ns).
 // Forward differences take the "half" profiles, backward ones the "int"
-// profiles (a kernel without one of the two passes nullptr for it).
-template <typename PSI>
+// profiles (a kernel without one of the two passes nullptr for it). Along
+// y and z both slabs; along x both at the array's ends with XALL (a whole
+// grid: the code of an unsharded launch), else the slabs this launch owns
+// (Geo xlo, xhi).
+template <typename PSI, bool XALL>
 struct Cpml {
   const PSI& psi;
   const float* prof_half;  // forward differences
@@ -190,13 +206,18 @@ struct Cpml {
     float* lo = psi.p[2 * Q];
     float* hi = psi.p[2 * Q + 1];
     if constexpr (AXIS == 0) {
-      return cpml(d, i, g.n1, g.ns, prof, lo, hi, q.jk, q.plane);
+      if constexpr (XALL) {
+        return cpml(d, i, g.ns, g.n1 - g.ns, g.ns, prof, lo, hi, q.jk,
+                    q.plane);
+      } else {
+        return cpml(d, i, g.xlo, g.xhi, g.ns, prof, lo, hi, q.jk, q.plane);
+      }
     } else if constexpr (AXIS == 1) {
-      return cpml(d, q.j, g.n2, g.ns, prof, lo, hi, i * g.ns * g.n3 + q.k,
-                  g.n3);
+      return cpml(d, q.j, g.ns, g.n2 - g.ns, g.ns, prof, lo, hi,
+                  i * g.ns * g.n3 + q.k, g.n3);
     } else {
-      return cpml(d, q.k, g.n3, g.ns, prof, lo, hi, (i * g.n2 + q.j) * g.ns,
-                  1);
+      return cpml(d, q.k, g.ns, g.n3 - g.ns, g.ns, prof, lo, hi,
+                  (i * g.n2 + q.j) * g.ns, 1);
     }
   }
 };

@@ -38,10 +38,11 @@
 //   - y/z neighbours come through L1 (a block's warps load each other's rows;
 //     shared-memory tiles of them, copied with cp.async a plane ahead, were
 //     measured slower: PERF.md);
-//   - the x-CPML test (i < ns, i >= N1 - ns) is uniform over the block and
-//     the y-test over a warp; all indices are 32-bit in-plane offsets plus a
-//     plane offset, formed only for planes inside the grid (the wrapper keeps
-//     N1 N2 N3 below 2^31): no division.
+//   - the x-CPML test (i < xlo, i >= xhi: the slabs this launch owns, Geo)
+//     is uniform over the block and the y-test over a warp; all indices
+//     are 32-bit in-plane offsets plus a plane offset, formed only for
+//     planes inside the grid (the wrapper keeps N1 N2 N3 below 2^31): no
+//     division.
 // __launch_bounds__ caps the registers so that 1024 (velocity) and 768
 // (stress) threads fit on an SM without spilling. The material index
 // selects a row of the (6, M) table, which each block copies into shared
@@ -58,6 +59,12 @@
 // babelbrain_tpu/ops/fdtd.py:_make_step_fn. It replaces the in-kernel point
 // injection of B6/B8 (build_visco_fused_step, build_visco_fusedK_step).
 // POINT=false compiles to the plane-source code.
+//
+// x decomposition: as the fluid pair (fdtd_fluid.cu), a launch applies the
+// x CPML's lo / hi slab only where its shard holds that global edge
+// (x_lo / x_hi, Geo; the XALL instantiations for a whole grid). It replaces
+// the edge_offset and xcoef_scale of B6 (build_visco_fused_step,
+// fdtd_pallas.py:3439,3491) and B8 (build_visco_fusedK_step, :4844,4945).
 //
 // Rounding: built with --fmad=false and written in the operation order of
 // the plain PyTorch versions (ops/fdtd_visco_kernels.py visco_velocity_ref /
@@ -79,6 +86,7 @@ constexpr int kStressMinBlocks = 3;    // 768 threads an SM: 80 registers
 // at zsrc where the plane amplitude is positive.
 // s: [sxx, syy, szz, sxy, sxz, syz]; v: [vx, vy, vz]; psi: the derivatives
 // sxx_x, sxy_y, sxz_z, sxy_x, syy_y, syz_z, sxz_x, syz_y, szz_z.
+template <bool XALL>
 __global__ void __launch_bounds__(kThreads, kVelocityMinBlocks)
     visco_velocity_kernel(Ptr6 s, Ptr3 v, const int* __restrict__ idx,
                           const float* __restrict__ rho_inv_row, int n_mat,
@@ -136,16 +144,16 @@ __global__ void __launch_bounds__(kThreads, kVelocityMinBlocks)
     const float dsyz_z = diff_yz<2, false>(at(syz));
     const float dsyz_y = diff_yz<1, false>(at(syz));
     const float dszz_z = diff_yz<2, true>(at(szz));
-    const Cpml<Ptr18> cp{psi, prof_half, prof_int, g, q, i};
-    const float d0 = cp.apply<0, true, 0>(wxx.diff());
-    const float d1 = cp.apply<1, false, 1>(dsxy_y);
-    const float d2 = cp.apply<2, false, 2>(dsxz_z);
-    const float d3 = cp.apply<0, false, 3>(wxy.diff());
-    const float d4 = cp.apply<1, true, 4>(dsyy_y);
-    const float d5 = cp.apply<2, false, 5>(dsyz_z);
-    const float d6 = cp.apply<0, false, 6>(wxz.diff());
-    const float d7 = cp.apply<1, false, 7>(dsyz_y);
-    const float d8 = cp.apply<2, true, 8>(dszz_z);
+    const Cpml<Ptr18, XALL> cp{psi, prof_half, prof_int, g, q, i};
+    const float d0 = cp.template apply<0, true, 0>(wxx.diff());
+    const float d1 = cp.template apply<1, false, 1>(dsxy_y);
+    const float d2 = cp.template apply<2, false, 2>(dsxz_z);
+    const float d3 = cp.template apply<0, false, 3>(wxy.diff());
+    const float d4 = cp.template apply<1, true, 4>(dsyy_y);
+    const float d5 = cp.template apply<2, false, 5>(dsyz_z);
+    const float d6 = cp.template apply<0, false, 6>(wxz.diff());
+    const float d7 = cp.template apply<1, false, 7>(dsyz_y);
+    const float d8 = cp.template apply<2, true, 8>(dszz_z);
     float vzn = vz + dt_dx * ri * (d6 + d7 + d8);
     if (q.k == zsrc) {
       // amp sin(wt + phase) ramp oz = amp (sin(wt) cos(ph) + cos(wt) sin(ph))
@@ -169,7 +177,7 @@ __global__ void __launch_bounds__(kThreads, kVelocityMinBlocks)
 // v: [vx, vy, vz]; s, r: [xx, yy, zz, xy, xz, yz]; table rows
 // [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r] x n_mat; psi: the derivatives
 // vx_x, vy_y, vz_z, vx_y, vy_x, vx_z, vz_x, vy_z, vz_y.
-template <bool VISCOUS, bool WITH_DFT, bool POINT, int MONITOR>
+template <bool VISCOUS, bool WITH_DFT, bool POINT, int MONITOR, bool XALL>
 __global__ void __launch_bounds__(kThreads, kStressMinBlocks)
     visco_stress_kernel(Ptr3 v, Ptr6 s, Ptr6 r, const int* __restrict__ idx,
                         const float* __restrict__ table, int n_mat,
@@ -246,15 +254,17 @@ __global__ void __launch_bounds__(kThreads, kStressMinBlocks)
     const float dvx_z = diff_yz<2, true>(at(vx));
     const float dvy_z = diff_yz<2, true>(at(vy));
     const float dvz_y = diff_yz<1, true>(at(vz));
-    const Cpml<Ptr18> cp{psi, prof_half, prof_int, g, q, i};
-    const float dii[3] = {cp.apply<0, false, 0>(wvx.diff()),
-                          cp.apply<1, false, 1>(dvy_y),
-                          cp.apply<2, false, 2>(dvz_z)};
+    const Cpml<Ptr18, XALL> cp{psi, prof_half, prof_int, g, q, i};
+    const float dii[3] = {cp.template apply<0, false, 0>(wvx.diff()),
+                          cp.template apply<1, false, 1>(dvy_y),
+                          cp.template apply<2, false, 2>(dvz_z)};
     // shear strains: exy, exz, eyz
-    const float e[3] = {
-        cp.apply<1, true, 3>(dvx_y) + cp.apply<0, true, 4>(wvy.diff()),
-        cp.apply<2, true, 5>(dvx_z) + cp.apply<0, true, 6>(wvz.diff()),
-        cp.apply<2, true, 7>(dvy_z) + cp.apply<1, true, 8>(dvz_y)};
+    const float e[3] = {cp.template apply<1, true, 3>(dvx_y) +
+                            cp.template apply<0, true, 4>(wvy.diff()),
+                        cp.template apply<2, true, 5>(dvx_z) +
+                            cp.template apply<0, true, 6>(wvz.diff()),
+                        cp.template apply<2, true, 7>(dvy_z) +
+                            cp.template apply<1, true, 8>(dvz_y)};
     const float theta = dii[0] + dii[1] + dii[2];
     float sn[6];
 #pragma unroll
@@ -306,27 +316,36 @@ __global__ void __launch_bounds__(kThreads, kStressMinBlocks)
 
 extern "C" {
 
-// s6, v3, psi18: host arrays of device pointers (see the kernels); tile_y,
-// seg and the grid (gz, gy, gx) blocks along (z, y, x): the launch geometry
-// (ops/fdtd_visco_kernels.py visco_launch_geometry; tile_y must be the
-// compiled 8)
+// s6, v3, psi18: host arrays of device pointers (see the kernels); x_lo,
+// x_hi: whether this launch applies the x CPML's lo / hi slab (both for a
+// whole grid; see Geo); tile_y, seg and the grid (gz, gy, gx) blocks along
+// (z, y, x): the launch geometry (ops/fdtd_visco_kernels.py
+// visco_launch_geometry; tile_y must be the compiled 8)
 int bb_visco_velocity(float* const* s6, float* const* v3, const int* idx,
                       const float* table, float* const* psi18,
                       const float* prof_half, const float* prof_int,
                       const float* amp, const float* cph, const float* sph,
                       float s_sin, float s_cos, float dt_dx, int n_mat,
-                      int n1, int n2, int n3, int ns, int zsrc, int tile_y,
-                      int seg, int gz, int gy, int gx, void* stream) {
-  const Geo g{n1, n2, n3, ns, seg};
+                      int n1, int n2, int n3, int ns, int x_lo, int x_hi,
+                      int zsrc, int tile_y, int seg, int gz, int gy, int gx,
+                      void* stream) {
+  const Geo g = make_geo(n1, n2, n3, ns, seg, x_lo, x_hi);
   dim3 grid;
   if (!launch_grid(g, tile_y, gz, gy, gx, grid)) {
     return (int)cudaErrorInvalidValue;
   }
-  visco_velocity_kernel<<<grid, dim3(kTileZ, kTileY),
-                          n_mat * sizeof(float), (cudaStream_t)stream>>>(
-      gather<6, Ptr6>(s6), gather<3, Ptr3>(v3), idx, table, n_mat,
-      gather<18, Ptr18>(psi18), prof_half, prof_int, amp, cph, sph, s_sin,
-      s_cos, dt_dx, g, zsrc);
+#define BB_VELOCITY(X)                                                      \
+  visco_velocity_kernel<X><<<grid, dim3(kTileZ, kTileY),                  \
+                             n_mat * sizeof(float), (cudaStream_t)stream>>>( \
+      gather<6, Ptr6>(s6), gather<3, Ptr3>(v3), idx, table, n_mat,        \
+      gather<18, Ptr18>(psi18), prof_half, prof_int, amp, cph, sph, s_sin, \
+      s_cos, dt_dx, g, zsrc)
+  if (x_lo && x_hi) {
+    BB_VELOCITY(true);
+  } else {
+    BB_VELOCITY(false);
+  }
+#undef BB_VELOCITY
   return (int)cudaGetLastError();
 }
 
@@ -339,12 +358,13 @@ int bb_visco_stress(float* const* v3, float* const* s6, float* const* r6,
                     const float* prof_half, const float* prof_int,
                     float dt_dx, float inv_dx, float half_dt, float cosw,
                     float sinw, int n_mat, int n1, int n2, int n3, int ns,
-                    int viscous, int with_dft, int point, long long pt,
-                    float sval, const int* mon_start, const int* mon_cell,
+                    int x_lo, int x_hi, int viscous, int with_dft,
+                    int point, long long pt, float sval,
+                    const int* mon_start, const int* mon_cell,
                     const int* mon_slot, float* mon_out, int monitor,
                     int tile_y, int seg, int gz, int gy, int gx,
                     void* stream) {
-  const Geo g{n1, n2, n3, ns, seg};
+  const Geo g = make_geo(n1, n2, n3, ns, seg, x_lo, x_hi);
   dim3 grid;
   if (!launch_grid(g, tile_y, gz, gy, gx, grid) ||
       !monitor_args_valid(monitor, mon_start, mon_cell, mon_slot, mon_out)) {
@@ -359,8 +379,16 @@ int bb_visco_stress(float* const* v3, float* const* s6, float* const* r6,
       table, n_mat, acc_c, acc_s, peak, gather<18, Ptr18>(psi18),          \
       prof_half, prof_int, dt_dx, inv_dx, half_dt, cosw, sinw, g, (int)pt, \
       sval, mon
-#define BB_GO(V, D, P, M) \
-  visco_stress_kernel<V, D, P, M><<<grid, block, smem, st>>>(BB_STRESS_ARGS)
+#define BB_GO(V, D, P, M)                                                   \
+  do {                                                                      \
+    if (x_lo && x_hi) {                                                     \
+      visco_stress_kernel<V, D, P, M, true>                                 \
+          <<<grid, block, smem, st>>>(BB_STRESS_ARGS);                      \
+    } else {                                                                \
+      visco_stress_kernel<V, D, P, M, false>                                \
+          <<<grid, block, smem, st>>>(BB_STRESS_ARGS);                      \
+    }                                                                       \
+  } while (0)
 #define BB_GO_MONITOR(V, D, P)               \
   do {                                       \
     if (monitor == kMonitorListed) {         \

@@ -8,7 +8,8 @@ _build/``, named by a hash of the sources, headers and flags, so an edited
 source is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import time: only a call that needs a kernel on a CUDA
-tensor builds or loads the library.
+tensor builds or loads the library. ``launch`` calls an entry point on the
+device of the call's tensors, on that device's current stream.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -49,12 +52,12 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C entry points: argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
-    "bb_fluid_velocity": [_P] * 9 + [_F] * 3 + [_I] * 11 + [_P],
-    "bb_fluid_pressure": [_P] * 10 + [_F] * 5 + [_I] * 8 + [_L, _F]
+    "bb_fluid_velocity": [_P] * 9 + [_F] * 3 + [_I] * 13 + [_P],
+    "bb_fluid_pressure": [_P] * 10 + [_F] * 5 + [_I] * 10 + [_L, _F]
     + [_P] * 4 + [_I] * 6 + [_P],
     "bb_bhte_step": [_P] * 13 + [_F] + [_I] * 3 + [_P],
-    "bb_visco_velocity": [_P] * 10 + [_F] * 3 + [_I] * 11 + [_P],
-    "bb_visco_stress": [_P] * 11 + [_F] * 5 + [_I] * 8 + [_L, _F]
+    "bb_visco_velocity": [_P] * 10 + [_F] * 3 + [_I] * 13 + [_P],
+    "bb_visco_stress": [_P] * 11 + [_F] * 5 + [_I] * 10 + [_L, _F]
     + [_P] * 4 + [_I] * 6 + [_P],
     "bb_velocity_volume_source": [_P] * 10 + [_F, _F, _I, _P],
     "bb_extras_accumulate": [_P, _P, _I, _I, _L, _P],
@@ -143,3 +146,15 @@ def check(rc: int, name: str) -> None:
     """Raise when a C entry point reported a CUDA launch error."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
+
+
+def launch(entry: str, kernel: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the current stream
+    of ``device`` as its last argument, with ``device`` the current device
+    (so the kernel launches there, on the device of its tensors); raise if
+    the launch of ``kernel`` failed."""
+    fn = getattr(library(), entry)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, ctypes.c_void_p(stream))
+    check(rc, kernel)

@@ -12,8 +12,8 @@ Pallas kernel B9 (``babelbrain_tpu/ops/bhte_pallas.py:
 build_bhte_fusedK_step``); the update is ``ops/bhte.py:_bhte_scan``'s.
 
 The wrapper dispatches on the device of ``T``: CPU tensors run the plain
-version ``bhte_step_ref``, CUDA tensors launch the kernel on the current
-stream (or raise). ``launches`` counts kernel launches, ``plain_calls``
+version ``bhte_step_ref``, CUDA tensors launch the kernel on their device
+and its current stream (or raise); a tensor on another device is refused. ``launches`` counts kernel launches, ``plain_calls``
 calls of the plain version.
 """
 
@@ -81,12 +81,11 @@ def bhte_step(T, dose, peak, co: BHTECoeffs, q, t_art: float, T_out=None):
     if T.device.type == "cpu":
         return bhte_step_ref(T, dose, peak, co, q, t_art, T_out)
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
-    rc = _build.library().bb_bhte_step(
-        ptr(T), ptr(T_out), ptr(dose), ptr(peak), *(ptr(k) for k in co.k6),
-        ptr(co.irc), ptr(co.perf), ptr(q), t_art, n1, n2, n3,
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+    _build.launch(
+        "bb_bhte_step", "bhte_step_kernel", T.device, ptr(T), ptr(T_out),
+        ptr(dose), ptr(peak), *(ptr(k) for k in co.k6), ptr(co.irc),
+        ptr(co.perf), ptr(q), t_art, n1, n2, n3,
     )
-    _build.check(rc, "bhte_step_kernel")
     launches["bhte_step"] += 1
     return T_out
 

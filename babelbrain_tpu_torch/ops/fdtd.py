@@ -25,38 +25,58 @@ voxels every ``sensor_subsampling`` steps of the window and the raw
 pressure capture of ``run_fdtd_capture``, both sampled by the step's own
 pressure / stress kernel.
 
-``run_fdtd_batch`` runs B plane-source cases on one card from one setup.
+``run_fdtd_batch`` runs B plane-source cases from one setup per device.
 The port compiles no executable per grid, so it keeps no counterpart of the
 JAX package's executable memo.
 
-Not ported yet: multi-device meshes (``NotImplementedError`` naming ROADMAP
-Queue A item 6).
+Domain decomposition (``run_fdtd(mesh=)``, ``parallel.halo``): the grid is
+cut into equal shards along x over the devices of a 1-D ``DeviceMesh``;
+each shard holds its own copy of the setup, its planes and 2 ghost planes
+on each side that has a neighbour, and its launches apply the x CPML only
+where it holds a global edge. After each half-step the ghost planes of the
+fields the next half-step reads across x are copied from the neighbours
+(``XSlabs.refresh``), so a sharded run equals the unsharded one bit for
+bit. ``run_fdtd_batch(mesh=)`` spreads its cases over a mesh's devices
+(``make_case_mesh``). 2-D (x, y) meshes raise ``NotImplementedError``
+naming ROADMAP Queue A item 6.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..parallel.halo import XSlabs, mesh_axis_sizes, mesh_devices
+from ..parallel.halo import make_mesh as _make_mesh
 from ..utils.timing import stage_timer
+from . import fdtd_kernels, fdtd_visco_kernels
 from .fdtd_kernels import (
     _C1,
     _C2,
     FluidCoeffs,
     FluidState,
     fluid_pressure,
+    fluid_pressure_ref,
     fluid_velocity,
+    fluid_velocity_ref,
 )
 from .fdtd_visco_kernels import (
     ViscoCoeffs,
     ViscoState,
     visco_stress,
+    visco_stress_ref,
     visco_velocity,
+    visco_velocity_ref,
 )
 from .fdtd_extras import Diagnostics, Monitor, check_sel_maps, monitor_index
-from .fdtd_sources import VolumeSource, velocity_volume_source
+from .fdtd_sources import (
+    VolumeSource,
+    velocity_volume_source,
+    velocity_volume_source_ref,
+)
 
 SOURCE_TYPES = ("velocity_plane", "stress_point", "velocity_volume")
 
@@ -336,23 +356,38 @@ def point_index(grid: FDTDGrid) -> int | None:
                                     grid.shape))
 
 
+def _velocity_half(velocity, st, co, scalars, vsrc,
+                   scatter=velocity_volume_source, **kw):
+    """The velocity kernel, then the volumetric source (if any); ``kw``
+    goes to the kernel's wrapper."""
+    s_sin, s_cos = scalars[:2]
+    velocity(st, co, s_sin, s_cos, **kw)
+    if vsrc is not None:
+        scatter(st.vx, st.vy, st.vz, vsrc, s_sin, s_cos)
+
+
+def _stress_half(stress, st, co, grid, n, scalars, pt, monitor, **kw):
+    """The pressure / stress kernel of step ``n`` with the point source at
+    linear cell ``pt`` (if not None), inside the sensor window the DFT, and
+    at a sample step the monitor sample; ``kw`` goes to the wrapper."""
+    cosw, sinw, s_pt = scalars[2:]
+    point = None if pt is None else (pt, s_pt)
+    if n >= grid.sensor_start:
+        stress(st, co, cosw, sinw, point, monitor, **kw)
+    else:
+        # quiet phase: the DFT window is closed, accumulators untouched
+        stress(st, co, point=point, monitor=monitor, **kw)
+
+
 def _advance(velocity, stress, st, co, grid, n, oz_scale, point_amp, vsrc,
              monitor):
     """One leapfrog step: velocity kernel, volumetric source (if any), then
     the pressure / stress kernel with the point source (if any), inside the
     sensor window the DFT, and at a sample step the monitor sample."""
-    s_sin, s_cos, cosw, sinw, s_pt = step_scalars(grid, n, oz_scale,
-                                                  point_amp)
-    velocity(st, co, s_sin, s_cos)
-    if vsrc is not None:
-        velocity_volume_source(st.vx, st.vy, st.vz, vsrc, s_sin, s_cos)
-    pt = point_index(grid)
-    point = None if pt is None else (pt, s_pt)
-    if n >= grid.sensor_start:
-        stress(st, co, cosw, sinw, point, monitor)
-    else:
-        # quiet phase: the DFT window is closed, accumulators untouched
-        stress(st, co, point=point, monitor=monitor)
+    scalars = step_scalars(grid, n, oz_scale, point_amp)
+    _velocity_half(velocity, st, co, scalars, vsrc)
+    _stress_half(stress, st, co, grid, n, scalars, point_index(grid),
+                 monitor)
 
 
 def fluid_step(st: FluidState, co: FluidCoeffs, grid: FDTDGrid, n: int,
@@ -402,6 +437,12 @@ def run_fdtd(
     (CUDA: the step kernels; CPU: their plain PyTorch versions). Both
     media use indexed materials (``_build_indexed_materials``).
 
+    ``mesh``: a 1-D ``DeviceMesh`` on axis "x" (``parallel.halo.make_mesh``)
+    decomposes the grid along x over its devices (``device`` is then not
+    used): N1 must divide by the mesh size into shards of at least
+    npml + 2 planes, as in the JAX package. The result equals the
+    unsharded run's bit for bit.
+
     ``sel_maps``: extra maps named ``<Field>_rms`` / ``<Field>_peak``, Field
     in Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy, Sigmazz, accumulated over
     the sensor window. ``monitor_ijk``: (K, 3) voxels whose pressure is kept
@@ -414,14 +455,15 @@ def run_fdtd(
     one entry per ``sel_maps`` name, and 'sensor_series' (K, nT) float32 +
     'sensor_times' (nT,) float32 when ``monitor_ijk`` is given.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_fdtd(mesh=...): multi-GPU decomposition is ROADMAP Queue A "
-            "item 6"
-        )
     sel_maps = check_sel_maps(sel_maps)
     if int(sensor_subsampling) < 1:
         raise ValueError(f"sensor_subsampling={sensor_subsampling} < 1")
+    if mesh is not None:
+        return _run_fdtd_sharded(
+            mesh, mat_idx, materials, grid, source_amp, source_phase,
+            point_amp, reflector_mask, volume_source, sel_maps, monitor_ijk,
+            int(sensor_subsampling),
+        )
     with stage_timer("FDTD setup", level=3, step=2):
         step, st, co, oz_scale, vsrc = fdtd_setup(
             mat_idx, materials, grid, source_amp, source_phase,
@@ -437,7 +479,7 @@ def run_fdtd(
             index=(monitor_index(monitor_ijk, grid.shape, device)
                    if with_series else None),
         )
-    _time_loop(step, st, co, grid, oz_scale, point_amp, vsrc, diag)
+    _time_loop([(step, st, co, vsrc, diag)], grid, oz_scale, point_amp)
 
     result = _carrier(st, grid)
     if diag is not None and diag.extras is not None:
@@ -446,29 +488,49 @@ def run_fdtd(
         k = int(diag.index.shape[0])
         series = (diag.series.cpu().numpy() if diag.series is not None
                   else np.zeros((0, k), np.float32))
-        result["sensor_series"] = series.T.astype(np.float32)
-        result["sensor_times"] = (sel * grid.dt).astype(np.float32)
+        result.update(_series(series, sel, grid))
     return result
 
 
-def _time_loop(step, st, co, grid, oz_scale, point_amp, vsrc, diag=None):
-    """Steps 0..n_steps-1, each taking its monitor sample and followed by
-    the maps' pass (with ``diag``)."""
+def _series(series, sel, grid: FDTDGrid) -> dict:
+    """'sensor_series' (K, nT) and 'sensor_times' (nT,) of a monitor run
+    from its (nT, K) samples at steps ``sel``."""
+    return {"sensor_series": series.T.astype(np.float32),
+            "sensor_times": (sel * grid.dt).astype(np.float32)}
+
+
+def _synchronize(tensors) -> None:
+    """Wait for the CUDA devices of ``tensors`` (the readback would wait
+    anyway: this keeps the loop's span honest)."""
+    for dev in {t.device for t in tensors if t.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+
+
+def _time_loop(runs, grid, oz_scale, point_amp=0.0):
+    """Steps 0..n_steps-1 of each run of ``runs`` (step function, state,
+    coefficients, volume source or None, ``Diagnostics`` or None), in
+    lockstep: each step takes its monitor sample and is followed by the
+    maps' pass (with a ``Diagnostics``)."""
     with stage_timer("FDTD time loop", level=3, step=2):
         for n in range(grid.n_steps):
-            if diag is None:
-                step(st, co, grid, n, oz_scale, point_amp, vsrc)
-                continue
-            step(st, co, grid, n, oz_scale, point_amp, vsrc, diag.monitor(n))
-            diag.record(st, n)
-        if st.peak.device.type == "cuda":
-            torch.cuda.synchronize()  # the readback below waits anyway
+            for step, st, co, vsrc, diag in runs:
+                if diag is None:
+                    step(st, co, grid, n, oz_scale, point_amp, vsrc)
+                    continue
+                step(st, co, grid, n, oz_scale, point_amp, vsrc,
+                     diag.monitor(n))
+                diag.record(st, n)
+        _synchronize([run[1].peak for run in runs])
 
 
 def _carrier(st, grid: FDTDGrid) -> dict:
     """'p_amp', 'p_phase' and 'peak' from the DFT accumulators."""
-    acc_c = st.acc_cos.cpu().numpy()
-    acc_s = st.acc_sin.cpu().numpy()
+    return _carrier_of(st.acc_cos.cpu().numpy(), st.acc_sin.cpu().numpy(),
+                       st.peak.cpu().numpy(), grid)
+
+
+def _carrier_of(acc_c, acc_s, peak, grid: FDTDGrid) -> dict:
+    """'p_amp', 'p_phase' and 'peak' from the DFT sums (numpy)."""
     n_win = grid.n_steps - grid.sensor_start
     # FFT-bin convention: X = sum p e^{-i w t} = C - iS; amp=2|X|/N
     amp = 2.0 / n_win * np.sqrt(acc_c**2 + acc_s**2)
@@ -476,7 +538,7 @@ def _carrier(st, grid: FDTDGrid) -> dict:
     return {
         "p_amp": amp.astype(np.float32),
         "p_phase": phase.astype(np.float32),
-        "peak": st.peak.cpu().numpy(),
+        "peak": peak,
     }
 
 
@@ -534,7 +596,7 @@ def run_fdtd_capture(
         st, grid.sensor_start, sample_steps=steps,
         index=None if ijk is None else monitor_index(ijk, grid.shape, device),
     )
-    _time_loop(step, st, co, grid, oz_scale, point_amp, vsrc, diag)
+    _time_loop([(step, st, co, vsrc, diag)], grid, oz_scale, point_amp)
 
     out = _carrier(st, grid)
     k = int(np.prod(grid.shape)) if ijk is None else len(ijk)
@@ -548,28 +610,33 @@ def run_fdtd_capture(
     return out
 
 
-def fdtd_setup(mat_idx, materials, grid: FDTDGrid, source_amp=None,
-               source_phase=None, reflector_mask=None,
-               volume_source: VolumeSource | dict | None = None, *,
-               device="cuda"):
-    """What ``run_fdtd`` steps with, for the same arguments: (step function,
-    zero state, step-invariant inputs, pressure->velocity scale, sparse
-    volume source or None)."""
+@dataclass
+class _HostSetup:
+    """What ``fdtd_setup`` computes on the host: the indexed materials, the
+    CPML profiles, the source plane (amplitude, phase), the medium's flags
+    and the pressure->velocity scale."""
+
+    idx: np.ndarray
+    table: np.ndarray
+    profiles: list
+    src: tuple
+    viscous: bool
+    has_shear: bool
+    oz_scale: float
+
+    def family(self):
+        """(coefficients factory, state class, step function)."""
+        return ((make_visco_coeffs, ViscoState, visco_step) if self.has_shear
+                else (make_fluid_coeffs, FluidState, fluid_step))
+
+
+def _host_setup(mat_idx, materials, grid: FDTDGrid, source_amp=None,
+                source_phase=None, reflector_mask=None) -> _HostSetup:
     if grid.source_type not in SOURCE_TYPES:
         raise ValueError(f"unknown source_type {grid.source_type!r}")
-    vsrc = None
-    if grid.source_type == "velocity_volume":
-        if volume_source is None:
-            raise ValueError("velocity_volume sources need volume_source")
-        vsrc = (volume_source if isinstance(volume_source, VolumeSource)
-                else VolumeSource.from_dense(volume_source, grid.shape,
-                                             device))
     mats = np.asarray(materials, np.float64)
     coefs = sls_coefficients(mats, grid.frequency, grid.dt)
-    has_shear = bool(np.any(mats[:, 2] > 0))
-
     rho0, c0 = mats[0, 0], mats[0, 1]
-    oz_scale = 1.0 / (rho0 * c0)  # pressure -> particle velocity (plane wave)
     cmax = max(mats[:, 1].max(), mats[:, 2].max())
     profiles = _build_cpml_profiles_np(
         grid.shape, grid.npml, grid.dx, grid.dt, cmax, grid.reflection_limit
@@ -578,13 +645,246 @@ def fdtd_setup(mat_idx, materials, grid: FDTDGrid, source_amp=None,
     plane = grid.source_type == "velocity_plane"  # the only plane drive
     src = (source_amp if plane and source_amp is not None else zeros2,
            source_phase if plane and source_phase is not None else zeros2)
-    ns = grid.npml + 2
     idx, table = _build_indexed_materials(coefs, mat_idx, reflector_mask)
-    make, state, step = ((make_visco_coeffs, ViscoState, visco_step)
-                         if has_shear else
-                         (make_fluid_coeffs, FluidState, fluid_step))
-    co = make(idx, table, profiles, *src, grid, coefs["viscous"], device)
-    return step, state.zeros(grid.shape, ns, device), co, oz_scale, vsrc
+    return _HostSetup(idx=idx, table=table, profiles=profiles, src=src,
+                      viscous=coefs["viscous"],
+                      has_shear=bool(np.any(mats[:, 2] > 0)),
+                      # pressure -> particle velocity (plane wave)
+                      oz_scale=1.0 / (rho0 * c0))
+
+
+def _volume_source(grid: FDTDGrid, volume_source, device):
+    """The ``VolumeSource`` of a ``velocity_volume`` run on ``device`` (a
+    given one as it is, JAX's dense dict turned into one), else None."""
+    if grid.source_type != "velocity_volume":
+        return None
+    if volume_source is None:
+        raise ValueError("velocity_volume sources need volume_source")
+    return (volume_source if isinstance(volume_source, VolumeSource)
+            else VolumeSource.from_dense(volume_source, grid.shape, device))
+
+
+def fdtd_setup(mat_idx, materials, grid: FDTDGrid, source_amp=None,
+               source_phase=None, reflector_mask=None,
+               volume_source: VolumeSource | dict | None = None, *,
+               device="cuda"):
+    """What ``run_fdtd`` steps with, for the same arguments: (step function,
+    zero state, step-invariant inputs, pressure->velocity scale, sparse
+    volume source or None)."""
+    h = _host_setup(mat_idx, materials, grid, source_amp, source_phase,
+                    reflector_mask)
+    vsrc = _volume_source(grid, volume_source, device)
+    make, state, step = h.family()
+    co = make(h.idx, h.table, h.profiles, *h.src, grid, h.viscous, device)
+    return (step, state.zeros(grid.shape, grid.npml + 2, device), co,
+            h.oz_scale, vsrc)
+
+
+# ---------------------------------------------------------------------------
+# x decomposition over a device mesh
+# ---------------------------------------------------------------------------
+
+# the fields each half-step's successor reads across x: their ghost planes
+# are refreshed after (velocity half, pressure / stress half)
+HALO_FIELDS = {
+    FluidState: (("vx",), ("p",)),
+    ViscoState: (("vx", "vy", "vz"), ("sxx", "sxy", "sxz")),
+}
+# (velocity, pressure / stress) of each family: the kernels' wrappers and
+# their plain versions; the wrappers' one-time check
+_STEPS = {
+    FluidState: ((fluid_velocity, fluid_pressure),
+                 (fluid_velocity_ref, fluid_pressure_ref)),
+    ViscoState: ((visco_velocity, visco_stress),
+                 (visco_velocity_ref, visco_stress_ref)),
+}
+_CHECK = {FluidState: fdtd_kernels.check_step,
+          ViscoState: fdtd_visco_kernels.check_step}
+
+
+@dataclass
+class Shard:
+    """One shard of a decomposed run: its device, state, coefficients,
+    volume source, point-source cell (local linear index) and
+    ``Diagnostics``, and the global slots of its monitor voxels."""
+
+    device: torch.device
+    st: object
+    co: object
+    vsrc: VolumeSource | None = None
+    point: int | None = None
+    diag: Diagnostics | None = None
+    slots: np.ndarray | None = None
+
+
+def _x_slabs(mesh, grid: FDTDGrid) -> XSlabs:
+    """The x decomposition of ``grid`` over a 1-D x mesh, with the JAX
+    package's refusals (`babelbrain_tpu/ops/fdtd.py:1477-1485`)."""
+    mesh_devices(mesh, "run_fdtd")
+    nx, ny = mesh_axis_sizes(mesh)
+    if ny > 1 or "x" not in mesh.axis_names:
+        raise NotImplementedError(
+            f"run_fdtd: the port decomposes along x only (mesh axes "
+            f"{mesh.axis_names} {mesh.shape}); 2-D (x, y) meshes are ROADMAP "
+            "Queue A item 6"
+        )
+    if grid.shape[0] % nx or grid.shape[1] % ny:
+        raise ValueError(
+            f"grid {grid.shape[:2]} not divisible by mesh ({nx}, {ny})"
+        )
+    if grid.shape[0] // nx < grid.npml + 2 or grid.shape[1] // ny < grid.npml + 2:
+        raise ValueError("shard too thin for the PML slab; reduce mesh size")
+    return XSlabs(grid.shape[0], nx)
+
+
+def _split_source(vs: VolumeSource, xs: XSlabs, s: int, plane: int, device):
+    """The source voxels of shard s's own planes, re-indexed to its local
+    planes, on ``device`` (the values copied, not recomputed)."""
+    i = vs.index.long() // plane
+    lo = s * xs.width
+    sel = torch.nonzero((i >= lo) & (i < lo + xs.width)).reshape(-1)
+    index = vs.index.index_select(0, sel) - xs.start(s) * plane
+    return VolumeSource(index=index.to(device), **{
+        k: getattr(vs, k).index_select(0, sel).to(device)
+        for k in ("amp", "cph", "sph", "ox", "oy", "oz")})
+
+
+def shard_setup(mesh, mat_idx, materials, grid: FDTDGrid, source_amp=None,
+                source_phase=None, reflector_mask=None, volume_source=None,
+                sel_maps=(), monitor_ijk=None, sample_steps=()):
+    """What ``run_fdtd(mesh=)`` steps with: (``XSlabs``, the ``Shard`` of
+    each mesh device, the pressure->velocity scale). Each shard holds its
+    copy of the setup, a zero state of its planes and ghost planes, its
+    part of the sources and, with ``sel_maps`` or ``monitor_ijk``, its
+    ``Diagnostics`` (monitor samples at ``sample_steps``)."""
+    xs = _x_slabs(mesh, grid)
+    h = _host_setup(mat_idx, materials, grid, source_amp, source_phase,
+                    reflector_mask)
+    vsrc = _volume_source(grid, volume_source, mesh.devices[0])
+    make, state, _ = h.family()
+    n2, n3 = grid.shape[1:]
+    mon = (None if monitor_ijk is None
+           else np.asarray(monitor_ijk, np.int64).reshape(-1, 3))
+    if mon is not None:
+        monitor_index(mon, grid.shape, "cpu")  # refuses voxels off the grid
+    shards = []
+    for s, dev in enumerate(mesh.devices):
+        a, n1 = xs.start(s), xs.planes(s)
+        shape = (n1, n2, n3)
+        co = make(h.idx[a:a + n1], h.table, h.profiles,
+                  *(np.asarray(v)[a:a + n1] for v in h.src), grid,
+                  h.viscous, dev)
+        co.x_lo, co.x_hi = s == 0, s == xs.n_shards - 1
+        sh = Shard(dev, state.zeros(shape, grid.npml + 2, dev), co)
+        _CHECK[state](sh.st, sh.co)  # once: the loop passes checked=True
+        if vsrc is not None:
+            sh.vsrc = _split_source(vsrc, xs, s, n2 * n3, dev)
+        own = range(s * xs.width, (s + 1) * xs.width)
+        if grid.source_type == "stress_point" and grid.source_ijk[0] in own:
+            i, j, k = (int(v) for v in grid.source_ijk)
+            sh.point = ((i - a) * n2 + j) * n3 + k
+        if sel_maps or mon is not None:
+            index = None
+            if mon is not None:
+                sh.slots = np.flatnonzero((mon[:, 0] >= own.start)
+                                          & (mon[:, 0] < own.stop))
+                local = mon[sh.slots] - np.array([a, 0, 0])
+                index = monitor_index(local, shape, dev)
+            sh.diag = Diagnostics.create(
+                sh.st, grid.sensor_start, sel_maps,
+                sample_steps=sample_steps if mon is not None else (),
+                index=index)
+        shards.append(sh)
+    return xs, shards, h.oz_scale
+
+
+def _shard_range(sh: Shard, s: int):
+    """An NVTX range naming shard s around its launches (CUDA only)."""
+    if sh.device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.nvtx.range(f"shard {s}")
+
+
+def step_shards(shards, xs: XSlabs, grid: FDTDGrid, n: int, oz_scale: float,
+                point_amp: float = 0.0, plain: bool = False) -> None:
+    """Step ``n`` of ``_advance`` over the shards: every shard's velocity
+    half-step and volumetric scatter, the velocity ghost planes, every
+    shard's pressure / stress half-step (its point source and monitor
+    sample, then its maps), the pressure / stress ghost planes. ``plain``
+    runs the plain versions (to check the kernels against). The shards'
+    states and coefficients were validated by ``shard_setup``: the
+    wrappers skip their per-call checks."""
+    state = type(shards[0].st)
+    velocity, stress = _STEPS[state][plain]
+    scatter = velocity_volume_source_ref if plain else velocity_volume_source
+    kw = {} if plain else {"checked": True}
+    after_v, after_s = HALO_FIELDS[state]
+    scalars = step_scalars(grid, n, oz_scale, point_amp)
+    for s, sh in enumerate(shards):
+        with _shard_range(sh, s):
+            _velocity_half(velocity, sh.st, sh.co, scalars, sh.vsrc, scatter,
+                           **kw)
+    for k in after_v:
+        xs.refresh([getattr(sh.st, k) for sh in shards])
+    for s, sh in enumerate(shards):
+        with _shard_range(sh, s):
+            mon = sh.diag.monitor(n) if sh.diag is not None else None
+            _stress_half(stress, sh.st, sh.co, grid, n, scalars, sh.point,
+                         mon, **kw)
+            if sh.diag is not None:
+                sh.diag.record(sh.st, n, plain=plain)
+    for k in after_s:
+        xs.refresh([getattr(sh.st, k) for sh in shards])
+
+
+def own_planes(xs: XSlabs, parts) -> np.ndarray:
+    """The global volume from each shard's (planes, N2, N3) part (numpy
+    arrays or tensors): the planes each shard owns, in order."""
+    return np.concatenate([
+        (p.cpu().numpy() if torch.is_tensor(p) else p)[xs.own(s)]
+        for s, p in enumerate(parts)])
+
+
+def _run_fdtd_sharded(mesh, mat_idx, materials, grid: FDTDGrid, source_amp,
+                      source_phase, point_amp, reflector_mask, volume_source,
+                      sel_maps, monitor_ijk, sub: int) -> dict:
+    """``run_fdtd`` decomposed along x over ``mesh``."""
+    sel = np.arange(grid.sensor_start, grid.n_steps, sub)
+    with stage_timer("FDTD setup", level=3, step=2):
+        xs, shards, oz_scale = shard_setup(
+            mesh, mat_idx, materials, grid, source_amp, source_phase,
+            reflector_mask, volume_source, sel_maps, monitor_ijk, sel)
+    with stage_timer("FDTD time loop", level=3, step=2):
+        for n in range(grid.n_steps):
+            step_shards(shards, xs, grid, n, oz_scale, point_amp)
+        _synchronize([sh.st.peak for sh in shards])
+
+    result = _carrier_of(*(own_planes(xs, [getattr(sh.st, k) for sh in shards])
+                           for k in ("acc_cos", "acc_sin", "peak")), grid)
+    n_win = grid.n_steps - grid.sensor_start
+    if sel_maps:
+        maps = [sh.diag.extras.read(n_win) for sh in shards]
+        result.update({k: own_planes(xs, [m[k] for m in maps])
+                       for k in sel_maps})
+    if monitor_ijk is not None:
+        k = len(np.asarray(monitor_ijk).reshape(-1, 3))
+        series = np.zeros((len(sel), k), np.float32)
+        for sh in shards:
+            if sh.diag.series is not None:  # the monitor's psum, by owner
+                series[:, sh.slots] = sh.diag.series.cpu().numpy()
+        result.update(_series(series, sel, grid))
+    return result
+
+
+# ---------------------------------------------------------------------------
+# independent cases
+# ---------------------------------------------------------------------------
+
+
+def make_case_mesh(n_devices: int | None = None, devices=None):
+    """1-D mesh on axis "case" for ``run_fdtd_batch``: ``devices`` (repeats
+    allowed), or CUDA devices 0..n_devices-1 (all when None)."""
+    return _make_mesh(n_devices, "case", devices)
 
 
 def run_fdtd_batch(
@@ -598,25 +898,24 @@ def run_fdtd_batch(
     *,
     device="cuda",
 ):
-    """Run B independent plane-source simulations on one card.
+    """Run B independent plane-source simulations.
 
     Multipoint steering runs one case per steering point (the reference
     loops them, `CalculateFieldProcess.py:78-111`); the cases share the
-    material map and grid and differ only in their CW source plane. One
-    ``fdtd_setup`` serves them all: the cases run in turn with the same
-    kernels, the state zeroed and the source plane swapped between them,
-    so case b equals ``run_fdtd`` with plane b bit for bit.
+    material map and grid and differ only in their CW source plane. Each
+    device runs its cases in turn from one ``fdtd_setup``, the state zeroed
+    and the source plane swapped between them, so case b equals
+    ``run_fdtd`` with plane b bit for bit.
 
     ``source_amps``, ``source_phases``: (B, N1, N2) per-case planes.
-    ``mesh`` (the JAX package's case-axis device fan-out) is ROADMAP Queue A
-    item 6. Returns the stacked (B, N1, N2, N3) 'p_amp', 'p_phase' and
-    'peak' of ``run_fdtd``.
+    ``mesh``: a 1-D ``DeviceMesh`` (``make_case_mesh``) whose devices take
+    contiguous blocks of the cases (the JAX package's case-axis fan-out,
+    without its padding), stepped in lockstep so that several cards work at
+    once; without it every case runs on ``device``. Returns the stacked
+    (B, N1, N2, N3) 'p_amp', 'p_phase' and 'peak' of ``run_fdtd``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_fdtd_batch(mesh=...): fanning cases out over several GPUs "
-            "is ROADMAP Queue A item 6"
-        )
+    devices = ((torch.device(device),) if mesh is None
+               else mesh_devices(mesh, "run_fdtd_batch"))
     if grid.source_type != "velocity_plane":
         raise ValueError("run_fdtd_batch drives plane sources, not "
                          f"{grid.source_type!r}")
@@ -624,23 +923,32 @@ def run_fdtd_batch(
     phases = np.asarray(source_phases, np.float32)
     if amps.ndim != 3 or amps.shape != phases.shape:
         raise ValueError("source_amps/source_phases must be (B, N1, N2)")
+    cases = [list(c) for c in np.array_split(np.arange(amps.shape[0]),
+                                             len(devices))]
     with stage_timer("FDTD setup", level=3, step=2):
-        step, st, co, oz_scale, _ = fdtd_setup(
-            mat_idx, materials, grid, amps[0], phases[0], reflector_mask,
-            device=device,
-        )
-    f32 = _to_device(device)
-    outs = []
-    for b in range(amps.shape[0]):
-        if b:
-            for v in vars(st).values():
-                for t in (v if isinstance(v, list) else [v]):
-                    t.zero_()
+        h = _host_setup(mat_idx, materials, grid, amps[0], phases[0],
+                        reflector_mask)
+        make, state, step = h.family()
+        runs = [(make(h.idx, h.table, h.profiles, *h.src, grid, h.viscous,
+                      dev), state.zeros(grid.shape, grid.npml + 2, dev), c)
+                for dev, c in zip(devices, cases) if c]
+    outs = {}
+    for j in range(len(runs[0][2])):  # the first device has the most cases
+        active = [(co, st, c[j]) for co, st, c in runs if j < len(c)]
+        for co, st, b in active:
+            if j:
+                for v in vars(st).values():
+                    for t in (v if isinstance(v, list) else [v]):
+                        t.zero_()
+            f32 = _to_device(st.peak.device)
             for k, v in _plane(amps[b], phases[b], f32).items():
                 setattr(co, k, v)
-        _time_loop(step, st, co, grid, oz_scale, 0.0, None)
-        # stacked now: on the CPU 'peak' is a view of the state, zeroed next
-        outs.append(_carrier(st, grid))
-        outs[-1]["peak"] = outs[-1]["peak"].copy()
-    return {k: np.stack([o[k] for o in outs])
+        _time_loop([(step, st, co, None, None) for co, st, _ in active],
+                   grid, h.oz_scale)
+        for _, st, b in active:
+            # copied now: on the CPU 'peak' is a view of the state, zeroed
+            # by the next case
+            outs[b] = _carrier(st, grid)
+            outs[b]["peak"] = outs[b]["peak"].copy()
+    return {k: np.stack([outs[b][k] for b in range(amps.shape[0])])
             for k in ("p_amp", "p_phase", "peak")}

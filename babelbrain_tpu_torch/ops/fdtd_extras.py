@@ -25,7 +25,8 @@ generalised to the 14 maps and the sample steps of the XLA path.
 step n, ``record`` feeds the maps after it.
 
 The wrappers dispatch on the device of the state: a CPU state runs the plain
-version, a CUDA state launches the kernel on the current stream (or raises).
+version, a CUDA state launches the kernel on its device and that device's
+current stream (or raises); a tensor on another device is refused.
 ``launches`` counts kernel launches (``monitor_<family>``: launches of a
 MONITOR instantiation), ``plain_calls`` calls of the plain versions, keyed
 by kernel and family.
@@ -45,7 +46,6 @@ from .fdtd_kernels import (
     TILE_Z,
     FluidState,
     LaunchGeometry,
-    _stream,
     fluid_launch_geometry,
 )
 from .fdtd_visco_kernels import ViscoState, visco_launch_geometry
@@ -159,12 +159,11 @@ def extras_accumulate(st, ex: Extras) -> None:
     accs = [ex.acc.get(k) for k in SEL_MAPS]
     acc_ptrs = (ctypes.c_void_p * len(SEL_MAPS))(
         *(None if t is None else t.data_ptr() for t in accs))
-    lib = _build.library()
-    rc = lib.bb_extras_accumulate(
+    _build.launch(
+        "bb_extras_accumulate", "extras_accumulate_kernel", fields[0].device,
         _pointer_array(fields, 6), acc_ptrs, ex.mask, int(visco),
-        fields[0].numel(), _stream(),
+        fields[0].numel(),
     )
-    _build.check(rc, "extras_accumulate_kernel")
     launches["extras_visco" if visco else "extras_fluid"] += 1
 
 

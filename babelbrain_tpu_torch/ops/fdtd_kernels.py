@@ -28,10 +28,15 @@ Launch geometry (both FDTD families, ``launch_geometry``): blocks of
 x over segments of planes; the wrappers pass the grid to the C entry
 points, which refuse one that does not cover the volume once.
 
+x decomposition (``ops.fdtd.run_fdtd(mesh=)``): the coefficients of one
+shard say whether its launches apply the x CPML's lo and hi slabs
+(``x_lo`` / ``x_hi``: where the shard holds that global edge), the port of
+the ``edge_offset`` of B2/B4.
+
 The wrappers dispatch on the device of the state: a CPU state runs the plain
 version (``fluid_velocity_ref`` / ``fluid_pressure_ref``), a CUDA state
-launches the kernel on the current stream (or raises). All state is updated
-in place. ``launches`` counts kernel launches, ``plain_calls`` calls of the
+launches the kernel on that device and its current stream (or raises); a
+tensor on another device is refused. All state is updated in place. ``launches`` counts kernel launches, ``plain_calls`` calls of the
 plain versions.
 """
 
@@ -107,7 +112,9 @@ class FluidCoeffs:
     (6, M) rows [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r]. ``cpml_half`` /
     ``cpml_int``: (3, 4, ns) profiles, per axis the rows [b_lo, a_lo, b_hi,
     a_hi] of the ns-plane slabs. ``src_*``: (N1, N2) source amplitude and
-    cos/sin of its phase.
+    cos/sin of its phase. ``x_lo`` / ``x_hi``: whether the step applies the
+    x CPML's lo slab (first ns planes) / hi slab (last ns planes); both for
+    a whole grid, on a shard of an x decomposition only at a global edge.
     """
 
     mat_idx: torch.Tensor
@@ -122,6 +129,8 @@ class FluidCoeffs:
     half_dt: float
     zsrc: int
     viscous: bool
+    x_lo: bool = True
+    x_hi: bool = True
 
 
 @dataclass
@@ -204,6 +213,14 @@ def _check(st: FluidState, co: FluidCoeffs) -> tuple:
     return shape, ns
 
 
+def check_step(st: FluidState, co: FluidCoeffs) -> None:
+    """Validate a state and its coefficients once, for the calls that then
+    pass ``checked=True`` (a decomposed run's loop, whose shards keep their
+    tensors: the wrappers' per-call checks cost more host time than a
+    shard's launch takes on the card)."""
+    _check(st, co)
+
+
 def _check_size(shape, what: str = "FDTD step") -> None:
     """The kernels index cells with 32-bit offsets (the plain versions have
     no such limit)."""
@@ -252,28 +269,32 @@ def _ptrs(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _shape(st, co, checked: bool) -> tuple:
+    """(shape, ns) of a step; validated unless ``checked`` (the caller ran
+    ``check_step`` on this pair)."""
+    if checked:
+        return tuple(st.p.shape), co.cpml_half.shape[-1]
+    return _check(st, co)
 
 
 def fluid_velocity(st: FluidState, co: FluidCoeffs, s_sin: float,
-                   s_cos: float) -> None:
+                   s_cos: float, *, checked: bool = False) -> None:
     """Velocity half-step in place; ``s_sin``/``s_cos`` are sin(wt) and
-    cos(wt) times the source ramp and the pressure->velocity scale."""
-    (n1, n2, n3), ns = _check(st, co)
+    cos(wt) times the source ramp and the pressure->velocity scale;
+    ``checked``: ``check_step`` validated (st, co) already."""
+    (n1, n2, n3), ns = _shape(st, co, checked)
     if st.p.device.type == "cpu":
         fluid_velocity_ref(st, co, s_sin, s_cos)
         return
     geo = fluid_launch_geometry((n1, n2, n3))
-    lib = _build.library()
-    rc = lib.bb_fluid_velocity(
+    _build.launch(
+        "bb_fluid_velocity", "fluid_velocity_kernel", st.p.device,
         _ptr(st.p), _ptrs([st.vx, st.vy, st.vz]), _ptr(co.mat_idx),
         _ptr(co.table), _ptrs(st.psi_p), _ptr(co.cpml_half),
         _ptr(co.src_amp), _ptr(co.src_cph), _ptr(co.src_sph), s_sin, s_cos,
-        co.dt_dx, co.table.shape[1], n1, n2, n3, ns, co.zsrc, geo.tile_y,
-        geo.segment, *geo.grid, _stream(),
+        co.dt_dx, co.table.shape[1], n1, n2, n3, ns, int(co.x_lo),
+        int(co.x_hi), co.zsrc, geo.tile_y, geo.segment, *geo.grid,
     )
-    _build.check(rc, "fluid_velocity_kernel")
     launches["fluid_velocity"] += 1
 
 
@@ -298,13 +319,14 @@ def monitor_args(monitor, st_field: torch.Tensor, geo: LaunchGeometry):
 
 def fluid_pressure(st: FluidState, co: FluidCoeffs, cosw: float | None = None,
                    sinw: float | None = None, point=None,
-                   monitor=None) -> None:
+                   monitor=None, *, checked: bool = False) -> None:
     """Pressure half-step in place; with ``point`` = (linear cell index,
     value) the point source is subtracted from that cell's new pressure;
     with ``cosw``/``sinw`` (the carrier cos/sin at this step) it also
     accumulates the DFT and the |p| peak; with ``monitor`` (an
-    ``ops.fdtd_extras.Monitor``) it samples the new pressure."""
-    (n1, n2, n3), ns = _check(st, co)
+    ``ops.fdtd_extras.Monitor``) it samples the new pressure; ``checked``
+    as ``fluid_velocity``."""
+    (n1, n2, n3), ns = _shape(st, co, checked)
     check_point(point, (n1, n2, n3))
     with_dft = cosw is not None
     if st.p.device.type == "cpu":
@@ -313,17 +335,17 @@ def fluid_pressure(st: FluidState, co: FluidCoeffs, cosw: float | None = None,
     pt, sval = point if point is not None else (0, 0.0)
     geo = fluid_launch_geometry((n1, n2, n3))
     mon = monitor_args(monitor, st.p, geo)
-    lib = _build.library()
-    rc = lib.bb_fluid_pressure(
+    _build.launch(
+        "bb_fluid_pressure", "fluid_pressure_kernel", st.p.device,
         _ptrs([st.vx, st.vy, st.vz]), _ptr(st.p), _ptr(st.r),
         _ptr(co.mat_idx), _ptr(co.table), _ptr(st.acc_cos), _ptr(st.acc_sin),
         _ptr(st.peak), _ptrs(st.psi_v), _ptr(co.cpml_int), co.dt_dx,
         co.inv_dx, co.half_dt, cosw if with_dft else 0.0,
         sinw if with_dft else 0.0, co.table.shape[1], n1, n2, n3, ns,
-        int(co.viscous), int(with_dft), int(point is not None), pt, sval,
-        *mon, geo.tile_y, geo.segment, *geo.grid, _stream(),
+        int(co.x_lo), int(co.x_hi), int(co.viscous), int(with_dft),
+        int(point is not None), pt, sval, *mon, geo.tile_y, geo.segment,
+        *geo.grid,
     )
-    _build.check(rc, "fluid_pressure_kernel")
     launches[pressure_key("fluid_pressure", with_dft, point)] += 1
     if monitor is not None:
         monitor.launched()
@@ -361,21 +383,31 @@ def d_minus(f, axis):
     )
 
 
-def _cpml(D, axis, prof, psi_lo, psi_hi):
-    """Update the psi slabs in place and correct D in place (lo, then hi)."""
+def _cpml(D, axis, prof, psi_lo, psi_hi, lo=True, hi=True):
+    """Update the psi slabs in place and correct D in place (lo, then hi);
+    ``lo`` / ``hi`` False leave that slab (and its psi) alone: the x slabs
+    of a shard that holds no such global edge (the kernels' Geo xlo, xhi)."""
     ns = prof.shape[-1]
     shape = [1, 1, 1]
     shape[axis] = ns
     b_lo, a_lo, b_hi, a_hi = (prof[q].reshape(shape) for q in range(4))
-    d_lo = D.narrow(axis, 0, ns)
-    new_lo = b_lo * psi_lo + a_lo * d_lo
-    psi_lo.copy_(new_lo)
-    d_lo.copy_(d_lo + new_lo)
-    d_hi = D.narrow(axis, D.shape[axis] - ns, ns)
-    new_hi = b_hi * psi_hi + a_hi * d_hi
-    psi_hi.copy_(new_hi)
-    d_hi.copy_(d_hi + new_hi)
+    if lo:
+        d_lo = D.narrow(axis, 0, ns)
+        new_lo = b_lo * psi_lo + a_lo * d_lo
+        psi_lo.copy_(new_lo)
+        d_lo.copy_(d_lo + new_lo)
+    if hi:
+        d_hi = D.narrow(axis, D.shape[axis] - ns, ns)
+        new_hi = b_hi * psi_hi + a_hi * d_hi
+        psi_hi.copy_(new_hi)
+        d_hi.copy_(d_hi + new_hi)
     return D
+
+
+def _edges(co, axis) -> dict:
+    """The slabs ``_cpml`` applies along ``axis``: x as the coefficients
+    say, y and z both."""
+    return dict(lo=co.x_lo, hi=co.x_hi) if axis == 0 else {}
 
 
 def _gather(co, row: int) -> torch.Tensor:
@@ -391,7 +423,8 @@ def fluid_velocity_ref(st: FluidState, co: FluidCoeffs, s_sin: float,
     rho_inv = _gather(co, 0)
     for axis, v in enumerate((st.vx, st.vy, st.vz)):
         d = _cpml(d_plus(st.p, axis), axis, co.cpml_half[axis],
-                  st.psi_p[2 * axis], st.psi_p[2 * axis + 1])
+                  st.psi_p[2 * axis], st.psi_p[2 * axis + 1],
+                  **_edges(co, axis))
         v.copy_(v - co.dt_dx * rho_inv * d)
     plane = st.vz[:, :, co.zsrc]
     sval = co.src_amp * (s_sin * co.src_cph + s_cos * co.src_sph)
@@ -408,7 +441,7 @@ def fluid_pressure_ref(st: FluidState, co: FluidCoeffs,
     plain_calls[pressure_key("fluid_pressure", with_dft, point)] += 1
     dv = [
         _cpml(d_minus(v, axis), axis, co.cpml_int[axis],
-              st.psi_v[2 * axis], st.psi_v[2 * axis + 1])
+              st.psi_v[2 * axis], st.psi_v[2 * axis + 1], **_edges(co, axis))
         for axis, v in enumerate((st.vx, st.vy, st.vz))
     ]
     theta = dv[0] + dv[1] + dv[2]

@@ -17,8 +17,8 @@ kernel and the pressure/stress kernel of either FDTD family.
 
 The wrapper dispatches on the device of the velocities: CPU tensors run the
 plain version (``velocity_volume_source_ref``, an ``index_put_`` of the
-three velocities), CUDA tensors launch the kernel on the current stream (or
-raise). ``launches`` counts kernel launches, ``plain_calls`` calls of the
+three velocities), CUDA tensors launch the kernel on their device and its
+current stream (or raise); a source on another device is refused. ``launches`` counts kernel launches, ``plain_calls`` calls of the
 plain version.
 """
 
@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .fdtd_kernels import _ptr, _stream
+from .fdtd_kernels import _ptr
 
 launches = {"volume_source": 0}
 plain_calls = {"volume_source": 0}
@@ -143,12 +143,11 @@ def velocity_volume_source(vx, vy, vz, vs: VolumeSource, s_sin: float,
         return
     if vs.n_src == 0:
         return
-    lib = _build.library()
-    rc = lib.bb_velocity_volume_source(
-        _ptr(vs.index), *(_ptr(getattr(vs, k)) for k in _FIELDS),
-        _ptr(vx), _ptr(vy), _ptr(vz), s_sin, s_cos, vs.n_src, _stream(),
+    _build.launch(
+        "bb_velocity_volume_source", "velocity_volume_source_kernel",
+        vx.device, _ptr(vs.index), *(_ptr(getattr(vs, k)) for k in _FIELDS),
+        _ptr(vx), _ptr(vy), _ptr(vz), s_sin, s_cos, vs.n_src,
     )
-    _build.check(rc, "velocity_volume_source_kernel")
     launches["volume_source"] += 1
 
 

@@ -23,16 +23,19 @@ They replace the JAX package's Pallas kernels B5-B8
 ``babelbrain_tpu/ops/fdtd.py:_make_step_fn``; a volumetric (dome) source is
 ``ops.fdtd_sources``, launched between the two.
 
+x decomposition: as the fluid step, ``x_lo`` / ``x_hi`` of the
+coefficients say which x-CPML slabs a shard's launches apply (the port of
+the ``edge_offset`` of B6/B8).
+
 The wrappers dispatch on the device of the state: a CPU state runs the plain
 version (``visco_velocity_ref`` / ``visco_stress_ref``), a CUDA state
-launches the kernel on the current stream (or raises). All state is updated
-in place. ``launches`` counts kernel launches, ``plain_calls`` calls of the
+launches the kernel on that device and its current stream (or raises); a
+tensor on another device is refused. All state is updated in place. ``launches`` counts kernel launches, ``plain_calls`` calls of the
 plain versions.
 """
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import torch
@@ -44,8 +47,8 @@ from .fdtd_kernels import (
     _cpml,
     _gather,
     _ptr,
+    _edges,
     _ptrs,
-    _stream,
     check_point,
     d_minus,
     d_plus,
@@ -96,7 +99,8 @@ class ViscoCoeffs:
     (6, M) rows [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r]. ``cpml_half`` /
     ``cpml_int``: (3, 4, ns) profiles, per axis the rows [b_lo, a_lo, b_hi,
     a_hi] of the ns-plane slabs. ``src_*``: (N1, N2) source amplitude and
-    cos/sin of its phase.
+    cos/sin of its phase. ``x_lo`` / ``x_hi``: which x-CPML slabs the step
+    applies (``ops.fdtd_kernels.FluidCoeffs``).
     """
 
     mat_idx: torch.Tensor
@@ -111,6 +115,8 @@ class ViscoCoeffs:
     half_dt: float
     zsrc: int
     viscous: bool
+    x_lo: bool = True
+    x_hi: bool = True
 
 
 @dataclass
@@ -210,59 +216,74 @@ def _check(st: ViscoState, co: ViscoCoeffs) -> tuple:
     return shape, ns
 
 
+def check_step(st: ViscoState, co: ViscoCoeffs) -> None:
+    """Validate a state and its coefficients once, for the calls that then
+    pass ``checked=True`` (``ops.fdtd_kernels.check_step``)."""
+    _shape(st, co, False)
+
+
+def _shape(st, co, checked: bool) -> tuple:
+    """(shape, ns) of a step, validated unless ``checked``; the kernels'
+    size limit on the CUDA route."""
+    if checked:
+        return tuple(st.vx.shape), co.cpml_half.shape[-1]
+    shape, ns = _check(st, co)
+    if st.vx.device.type == "cuda":
+        _check_size(shape, "visco step")
+    return shape, ns
+
+
 def visco_velocity(st: ViscoState, co: ViscoCoeffs, s_sin: float,
-                   s_cos: float) -> None:
+                   s_cos: float, *, checked: bool = False) -> None:
     """Velocity half-step in place; ``s_sin``/``s_cos`` are sin(wt) and
-    cos(wt) times the source ramp and the pressure->velocity scale."""
-    (n1, n2, n3), ns = _check(st, co)
+    cos(wt) times the source ramp and the pressure->velocity scale;
+    ``checked``: ``check_step`` validated (st, co) already."""
+    (n1, n2, n3), ns = _shape(st, co, checked)
     if st.vx.device.type == "cpu":
         visco_velocity_ref(st, co, s_sin, s_cos)
         return
-    _check_size((n1, n2, n3), "visco step")
     geo = visco_launch_geometry((n1, n2, n3))
-    lib = _build.library()
-    rc = lib.bb_visco_velocity(
+    _build.launch(
+        "bb_visco_velocity", "visco_velocity_kernel", st.vx.device,
         _ptrs(st.fields(STRESSES)), _ptrs(st.fields(("vx", "vy", "vz"))),
         _ptr(co.mat_idx), _ptr(co.table), _ptrs(st.psi_s),
         _ptr(co.cpml_half), _ptr(co.cpml_int), _ptr(co.src_amp),
         _ptr(co.src_cph), _ptr(co.src_sph), s_sin, s_cos, co.dt_dx,
-        co.table.shape[1], n1, n2, n3, ns, co.zsrc, geo.tile_y, geo.segment,
-        *geo.grid, _stream(),
+        co.table.shape[1], n1, n2, n3, ns, int(co.x_lo), int(co.x_hi),
+        co.zsrc, geo.tile_y, geo.segment, *geo.grid,
     )
-    _build.check(rc, "visco_velocity_kernel")
     launches["visco_velocity"] += 1
 
 
 def visco_stress(st: ViscoState, co: ViscoCoeffs, cosw: float | None = None,
                  sinw: float | None = None, point=None,
-                 monitor=None) -> None:
+                 monitor=None, *, checked: bool = False) -> None:
     """Stress half-step in place; with ``point`` = (linear cell index,
     value) the point source is added to that cell's normal stresses; with
     ``cosw``/``sinw`` (the carrier cos/sin at this step) it also accumulates
     the DFT and the |p| peak; with ``monitor`` (an
-    ``ops.fdtd_extras.Monitor``) it samples the new pressure."""
-    (n1, n2, n3), ns = _check(st, co)
+    ``ops.fdtd_extras.Monitor``) it samples the new pressure; ``checked``
+    as ``visco_velocity``."""
+    (n1, n2, n3), ns = _shape(st, co, checked)
     check_point(point, (n1, n2, n3))
     with_dft = cosw is not None
     if st.vx.device.type == "cpu":
         visco_stress_ref(st, co, cosw, sinw, point, monitor)
         return
-    _check_size((n1, n2, n3), "visco step")
     pt, sval = point if point is not None else (0, 0.0)
     geo = visco_launch_geometry((n1, n2, n3))
     mon = monitor_args(monitor, st.sxx, geo)
-    lib = _build.library()
-    rc = lib.bb_visco_stress(
+    _build.launch(
+        "bb_visco_stress", "visco_stress_kernel", st.vx.device,
         _ptrs(st.fields(("vx", "vy", "vz"))), _ptrs(st.fields(STRESSES)),
         _ptrs(st.fields(MEMORIES)), _ptr(co.mat_idx), _ptr(co.table),
         _ptr(st.acc_cos), _ptr(st.acc_sin), _ptr(st.peak), _ptrs(st.psi_v),
         _ptr(co.cpml_half), _ptr(co.cpml_int), co.dt_dx, co.inv_dx,
         co.half_dt, cosw if with_dft else 0.0, sinw if with_dft else 0.0,
-        co.table.shape[1], n1, n2, n3, ns, int(co.viscous), int(with_dft),
-        int(point is not None), pt, sval, *mon, geo.tile_y, geo.segment,
-        *geo.grid, _stream(),
+        co.table.shape[1], n1, n2, n3, ns, int(co.x_lo), int(co.x_hi),
+        int(co.viscous), int(with_dft), int(point is not None), pt, sval,
+        *mon, geo.tile_y, geo.segment, *geo.grid,
     )
-    _build.check(rc, "visco_stress_kernel")
     launches[pressure_key("visco_stress", with_dft, point)] += 1
     if monitor is not None:
         monitor.launched()
@@ -280,7 +301,8 @@ def _derivs(st: ViscoState, co: ViscoCoeffs, derivs, psi) -> list:
         f = getattr(st, name)
         d = d_plus(f, axis) if forward else d_minus(f, axis)
         prof = (co.cpml_half if forward else co.cpml_int)[axis]
-        out.append(_cpml(d, axis, prof, psi[2 * q], psi[2 * q + 1]))
+        out.append(_cpml(d, axis, prof, psi[2 * q], psi[2 * q + 1],
+                         **_edges(co, axis)))
     return out
 
 

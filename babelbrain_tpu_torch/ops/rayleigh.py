@@ -17,13 +17,19 @@ pair distances are direct coordinate differences (the JAX package expands
 float32), and the complex accumulation is a complex64 matrix-vector product
 at full float32 precision (TF32 is switched off for every call: the phases
 reach k r ~ 1e3 rad). Field points are processed in blocks, so memory stays
-at O(point_block * elem_block).
+at O(point_block * elem_block). With ``mesh`` the points are split in
+contiguous runs of whole blocks over the mesh's devices, each integrating
+every source over its run (JAX's point sharding,
+`babelbrain_tpu/ops/rayleigh.py:148-175`); every block is the unsharded
+run's block, so the field is the same.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..parallel.halo import mesh_devices
 
 
 def _rayleigh_blocks(kr, ki, centers, w, points, point_block, elem_block):
@@ -72,17 +78,17 @@ def rayleigh_field(
     areas : (M,) patch areas (m^2).
     u0 : (M,) complex surface pressure amplitudes (Pa).
     points : (P, 3) field points (m).
+    mesh : optional 1-D ``DeviceMesh`` (``parallel.halo.make_mesh``): the
+        points are split over its devices in contiguous runs of whole
+        ``point_block`` blocks (``device`` is then not used).
     device : where the evaluation runs.
 
     Returns
     -------
     (P,) complex64 numpy pressure field.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "rayleigh_field(mesh=...): multi-GPU point sharding is ROADMAP "
-            "Queue A item 6"
-        )
+    devices = ((torch.device(device),) if mesh is None
+               else mesh_devices(mesh, "rayleigh_field"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kr = float(np.real(wavenumber))
@@ -101,16 +107,24 @@ def rayleigh_field(
 
     # fold the (i k / 2 pi) prefactor and area weights into the source term
     pref = 1j * (kr + 1j * ki) / (2.0 * np.pi)
-    w = u0 * areas * pref
-    dev = torch.device(device)
-    out = _rayleigh_blocks(
-        kr, ki,
-        torch.as_tensor(centers, dtype=torch.float32, device=dev),
-        torch.as_tensor(w.astype(np.complex64), device=dev),
-        torch.as_tensor(points, dtype=torch.float32, device=dev),
-        point_block, elem_block,
-    )
-    return out.cpu().numpy()
+    w = (u0 * areas * pref).astype(np.complex64)
+    centers = centers.astype(np.float32)
+    points = points.astype(np.float32)
+    # each device's run of points: whole blocks, the last one ragged
+    n_blocks = -(-len(points) // point_block)
+    run = -(-n_blocks // len(devices)) * point_block
+    parts = [
+        _rayleigh_blocks(
+            kr, ki, torch.as_tensor(centers, device=dev),
+            torch.as_tensor(w, device=dev),
+            torch.as_tensor(points[d * run:(d + 1) * run], device=dev),
+            point_block, elem_block,
+        )
+        for d, dev in enumerate(devices) if d * run < len(points)
+    ]  # every device's work is queued before the first readback
+    if not parts:
+        return np.zeros(0, np.complex64)
+    return np.concatenate([p.cpu().numpy() for p in parts])
 
 
 def rayleigh_field_volume(wavenumber, tx, u0, x, y, z, **kw):

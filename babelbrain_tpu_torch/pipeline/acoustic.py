@@ -20,7 +20,9 @@ The water-only pass defaults to reusing the Rayleigh solution
 Counterpart of ``babelbrain_tpu/pipeline/acoustic.py``: the plane-source
 path with optional refocusing (S4b-S8), multipoint steering
 (``run_multipoint``) and dome transducers driven volumetrically
-(``run_dome_sim``); Rayleigh and FDTD run in PyTorch on ``device``.
+(``run_dome_sim``); Rayleigh and FDTD run in PyTorch on ``device``, the
+FDTD decomposed over a ``mesh`` (``parallel.halo.make_mesh``) where one is
+given.
 """
 
 from __future__ import annotations
@@ -28,14 +30,16 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
-from ..ops.fdtd import FDTDGrid, run_fdtd, run_fdtd_batch
+from ..ops.fdtd import FDTDGrid, make_case_mesh, run_fdtd, run_fdtd_batch
 from ..ops.fdtd_sources import VolumeSource
 from ..ops.rayleigh import (
     expand_element_weights,
     rayleigh_field,
     steering_phases,
 )
+from ..parallel.halo import mesh_devices
 from ..utils.timing import stage_timer
 from .domain import Domain
 
@@ -404,6 +408,20 @@ def position_transducer(tx, dom: Domain, focal_length: float, extra_z: float = 0
     return shifted
 
 
+def fanout_mesh(fanout, mesh, do_refocus: bool, n_targets: int, device):
+    """(fan out?, case mesh or None) of ``run_multipoint``: the JAX rule
+    (`babelbrain_tpu/pipeline/acoustic.py:400-416`) over the CUDA cards;
+    the case mesh spans ``min(n_targets, cards)`` of them when that is more
+    than one."""
+    cards = (torch.cuda.device_count()
+             if torch.device(device).type == "cuda" else 0)
+    use = fanout is True or (fanout == "auto" and mesh is None
+                             and not do_refocus and n_targets > 1
+                             and cards > 1)
+    n = min(n_targets, cards)
+    return use, (make_case_mesh(n) if use and n > 1 else None)
+
+
 def run_multipoint(
     dom: Domain,
     tx,
@@ -421,19 +439,21 @@ def run_multipoint(
     per-point fields by voxelwise maximum for display; per-point fields are
     kept for the time-multiplexed BHTE (`BHTEMultiplePressureFields`).
 
-    ``fanout=True`` runs the per-point FDTDs as one ``run_fdtd_batch`` (one
-    setup, the cases in turn on one card; no refocusing, as in the JAX
-    package) and assembles each point's result. ``False`` and ``"auto"``
-    run ``run_acoustic_sim`` per point: the JAX package fans out only over
-    several devices, and ``mesh`` (multi-GPU) is ROADMAP Queue A item 6.
+    With fan-out the per-point FDTDs run as one ``run_fdtd_batch`` (no
+    refocusing, as in the JAX package) over a case mesh of
+    ``min(len(targets), torch.cuda.device_count())`` cards (on ``device``
+    alone when that is one), and each point's result is assembled;
+    ``fanout='auto'`` fans out when several cards are available, no spatial
+    ``mesh`` was given and no refocusing is asked for (``fanout_mesh``,
+    JAX's rule); ``True`` / ``False`` force it. Without fan-out each point
+    runs ``run_acoustic_sim``, its FDTD decomposed over ``mesh`` if given.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "run_multipoint(mesh=...): multi-GPU fan-out is ROADMAP Queue A "
-            "item 6"
-        )
+        mesh_devices(mesh, "run_multipoint")  # refused before any Rayleigh
     targets = [np.asarray(t) for t in steering_targets]
-    if fanout is True:
+    use_fanout, case_mesh = fanout_mesh(fanout, mesh, do_refocus,
+                                        len(targets), device)
+    if use_fanout:
         with stage_timer("Step2 forward Rayleigh", level=3, step=2):
             per_point = [
                 _source_for_steering(dom, tx, source_amp_pa,
@@ -448,6 +468,7 @@ def run_multipoint(
                 _make_grid(dom),
                 source_amps=np.abs(srcs),
                 source_phases=np.angle(srcs),
+                mesh=case_mesh,
                 reflector_mask=dom.meta.get("reflector_mask"),
                 device=device,
             )
@@ -464,7 +485,7 @@ def run_multipoint(
     else:
         results = [
             run_acoustic_sim(dom, tx, source_amp_pa, steering_target=t,
-                             do_refocus=do_refocus, device=device)
+                             do_refocus=do_refocus, mesh=mesh, device=device)
             for t in targets
         ]
     combined = {

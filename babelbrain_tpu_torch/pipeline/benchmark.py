@@ -73,6 +73,7 @@ def run_benchmark_acoustic(
     npml: int = 12,
     alpha_cfl: float = 0.5,
     source_plane_z: int = 13,
+    mesh=None,
     device="cuda",
 ):
     """Run the FDTD on a benchmark medium with a given CW source plane.
@@ -81,19 +82,20 @@ def run_benchmark_acoustic(
     columns — the reference's per-material Q correction for benchmark media
     (`BabelIntegrationBASE.py:2210-2217`; our SLS is exact at the carrier so
     the array acts directly on the alpha columns). ``device``: where the
-    FDTD runs (CUDA: the step kernels; CPU: their plain versions). The JAX
-    version's ``mesh`` and ``backend`` have no counterpart on one card.
+    FDTD runs (CUDA: the step kernels; CPU: their plain versions);
+    ``mesh``: a device mesh the FDTD is decomposed over (``run_fdtd``). The
+    JAX version's ``backend`` has no counterpart here.
     """
     return _run_loaded_benchmark(
         load_benchmark_file(path), frequency, ppw, source_amp, source_phase,
         npml=npml, alpha_cfl=alpha_cfl, source_plane_z=source_plane_z,
-        device=device,
+        mesh=mesh, device=device,
     )
 
 
 def _run_loaded_benchmark(bench: dict, frequency, ppw, source_amp,
                           source_phase, *, npml=12, alpha_cfl=0.5,
-                          source_plane_z=13, device="cuda"):
+                          source_plane_z=13, mesh=None, device="cuda"):
     """``run_benchmark_acoustic`` on a medium already loaded (the dict
     ``load_benchmark_file`` returns; its "MaterialArray" is replaced by the
     Q-corrected one)."""
@@ -128,7 +130,7 @@ def _run_loaded_benchmark(bench: dict, frequency, ppw, source_amp,
     )
     out = run_fdtd(
         mat_map, mats, grid, source_amp=source_amp, source_phase=source_phase,
-        device=device,
+        mesh=mesh, device=device,
     )
     out["grid"] = grid
     out["benchmark"] = bench

@@ -16,8 +16,8 @@ a list of them; ``run_cases`` sweeps targets x frequencies x PPW. A ZTE or
 PETRA MRI with a T1 and ``CaseConfig.coregister`` is first rigidly
 registered to the T1 (``coregister_to_t1``), and ``CaseConfig.export_meshes``
 writes Step 1's surface STLs. Every device stage runs on
-``CaseConfig.device``. Device meshes (``mesh=``) raise
-``NotImplementedError`` naming ROADMAP Queue A item 6.
+``CaseConfig.device``; ``run_case(mesh=)`` decomposes the FDTD over a
+``parallel.halo`` device mesh.
 """
 
 from __future__ import annotations
@@ -435,8 +435,6 @@ def run_case(
     `BabelIntegrationBASE.py:962-966`, `FileManager.py:223`).
     """
     spec = TRANSDUCER_REGISTRY[cfg.tx_system]
-    if mesh is not None:
-        raise NotImplementedError("device meshes are ROADMAP Queue A item 6")
     dev = cfg.device
     out_base = os.path.join(
         cfg.output_dir,
@@ -742,6 +740,7 @@ def run_case(
                 source_amp,
                 steering_target=steering if np.any(steering != 0) else None,
                 element_weights=elem_weights,
+                mesh=mesh,
                 device=dev,
             )
         else:
@@ -756,6 +755,7 @@ def run_case(
                 element_weights=elem_weights,
                 steering_target=steering if np.any(steering != 0) else None,
                 do_refocus=cfg.do_refocus,
+                mesh=mesh,
                 device=dev,
             )
         data = dict(result.data_for_sim)

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .ops import _build
-from .ops.fdtd_kernels import _ptr, _stream
+from .ops.fdtd_kernels import _ptr
 
 _KEYS = ("stream", "fma_chain", "table_gather")
 launches = dict.fromkeys(_KEYS, 0)
@@ -80,8 +80,8 @@ def stream(x: torch.Tensor, out: torch.Tensor) -> None:
     if x.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("stream: the kernel moves 16-byte vectors; x and "
                          "out must be 16-byte aligned")
-    rc = _build.library().bb_stream(_ptr(x), _ptr(out), x.numel(), _stream())
-    _build.check(rc, "stream_kernel")
+    _build.launch("bb_stream", "stream_kernel", dev, _ptr(x), _ptr(out),
+                  x.numel())
     launches["stream"] += 1
 
 
@@ -101,9 +101,8 @@ def fma_chain(x: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,
     if dev.type == "cpu":
         fma_chain_ref(x, scale, out, rep)
         return
-    rc = _build.library().bb_fma_chain(_ptr(x), _ptr(scale), _ptr(out),
-                                       x.numel(), int(rep), _stream())
-    _build.check(rc, "fma_chain_kernel")
+    _build.launch("bb_fma_chain", "fma_chain_kernel", dev, _ptr(x),
+                  _ptr(scale), _ptr(out), x.numel(), int(rep))
     launches["fma_chain"] += 1
 
 
@@ -148,9 +147,8 @@ def table_gather(idx: torch.Tensor, table: torch.Tensor,
     if n == 0:
         return
     blocks = min((n + 255) // 256, GATHER_MAX_BLOCKS)
-    rc = _build.library().bb_table_gather(_ptr(idx), _ptr(table), _ptr(out),
-                                          n_coef, m, n, blocks, _stream())
-    _build.check(rc, "table_gather_kernel")
+    _build.launch("bb_table_gather", "table_gather_kernel", dev, _ptr(idx),
+                  _ptr(table), _ptr(out), n_coef, m, n, blocks)
     launches["table_gather"] += 1
 
 

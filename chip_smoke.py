@@ -94,7 +94,24 @@ Phases (each prints its own lines; any failed check exits nonzero):
              focus against O'Neil's), the CTX-500 calibration recovering
              known ring weights, and the CT slice's Step 1 in a spawned
              worker equal to the in-process one;
-5. probes  — ``babelbrain_tpu_torch.probes.run_probes``: the card's stream
+5. mesh    — the x decomposition on one card: ``make_mesh(4, devices=
+             ["cuda:0"] * 4)`` named explicitly (``make_mesh(4)`` must
+             refuse with fewer cards). The four FDTD kernels with their
+             x-CPML edge ownership on 4 shards of 192x192x240 against
+             their plain versions (plane, and a point on an inner shard;
+             40 steps, bit for bit) and each shard's launch timed against
+             the whole one; then the ``run_fdtd`` calls the CT, label,
+             diag-ct (14 maps, 201 monitors) and dome-ct slices made
+             (recorded as they ran) again on the 4-shard mesh, each equal
+             to its slice's result bit for bit, with the loops' idle share
+             under ``torch.profiler`` (CT, label); the CT slice's forward
+             Rayleigh over 4 devices (within 2e-5 of its peak, the
+             difference printed); sweep-ct's ``run_fdtd_batch`` on a
+             2-device case mesh, bit-equal. Counts are set to 0 before
+             the replays: the FDTD rows must count the shards' launches.
+             With more than one card, the CT run across cards and the
+             peer-copy rate;
+6. probes  — ``babelbrain_tpu_torch.probes.run_probes``: the card's stream
              rate, FP32 FMA rate and table-gather cost (P1, P2).
 
 The last lines are the kernel table (JSON), the card's name and power limit
@@ -104,8 +121,10 @@ falls back to the CPU: without a CUDA device it exits with an error.
 
 from __future__ import annotations
 
-import importlib.util
+import contextlib
 import dataclasses
+import importlib.util
+import inspect
 import json
 import os
 import resource
@@ -1448,6 +1467,14 @@ def reset_counts():
         for d in (mod.launches, mod.plain_calls):
             for k in d:
                 d[k] = 0
+
+
+def restore_counts(launches, plain):
+    """Set every count back to what ``read_counts`` returned."""
+    for mod in _counted_modules():
+        for d, values in ((mod.launches, launches), (mod.plain_calls, plain)):
+            for k in d:
+                d[k] = values[k]
 
 
 def read_counts():
@@ -2909,6 +2936,401 @@ def run_anchors(device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# mesh: the x decomposition on one card
+# ---------------------------------------------------------------------------
+
+# shards of the mesh phase, all on one card (devices= named explicitly);
+# the slices whose run_fdtd calls it replays on them
+MESH_SHARDS = 4
+MESH_SLICES = ("ct", "label", "diag-ct", "dome-ct")
+MESH_CHECK_STEPS = 40
+# mode -> [(function name, args, kwargs, result, loop seconds)] of the
+# pipeline calls a slice made (``recording``)
+RECORDED: dict = {}
+RECORDED_FUNCTIONS = ("run_fdtd", "run_fdtd_batch", "rayleigh_field")
+
+
+@contextlib.contextmanager
+def recording(mode):
+    """While slice ``mode`` runs, keep the arguments and results of the
+    calls the Step 2 pipeline makes (``pipeline.acoustic``'s names):
+    every ``run_fdtd`` and ``run_fdtd_batch``, and in the CT slice its
+    forward Rayleigh over the whole grid, for the mesh phase to replay."""
+    from babelbrain_tpu_torch.pipeline import acoustic as A
+    from babelbrain_tpu_torch.utils.timing import recorded_spans
+
+    calls = RECORDED.setdefault(mode, [])
+    saved = {name: getattr(A, name) for name in RECORDED_FUNCTIONS}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if name == "rayleigh_field" and (
+                    mode != "ct" or any(c[0] == name for c in calls)
+                    or len(_bound(fn, args, kwargs, "points")[0]) < 10**6):
+                return out
+            loop = next((dt for label, dt in reversed(recorded_spans())
+                         if label.endswith("FDTD time loop")), None)
+            kept = ({k: np.array(v) if isinstance(v, np.ndarray) else v
+                     for k, v in out.items()} if isinstance(out, dict)
+                    else np.array(out))
+            calls.append((name, args, kwargs, kept, loop))
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(A, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(A, name, fn)
+
+
+def mesh_case(family, source, shape=KERNEL_SHAPE):
+    """(grid, materials, index, plane amplitude, phase) of the mesh phase's
+    kernel checks: the kernel phase's CT table and slab (fluid) or label
+    layers (visco), a plane or a point at the centre, 40 steps with the DFT
+    window from step 20."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.pipeline.domain import (
+        build_label_materials,
+        compute_time_stepping,
+    )
+
+    if family == "fluid":
+        mats = ct_table()
+        idx = ct_index_volume(shape, n_mat=len(mats))
+        dx = 1482.3 / F0 / PPW
+        dt = 1 / F0 / int(np.ceil(1 / F0 / F.stable_dt(
+            dx, mats[:, 1].max(), cfl=0.5)))
+    else:
+        mats = build_label_materials(F0, False)
+        idx = label_index_volume(shape)
+        dx, dt, _, _ = compute_time_stepping(mats, F0, PPW)
+    grid = F.FDTDGrid(shape=shape, dx=dx, dt=dt, n_steps=MESH_CHECK_STEPS,
+                      frequency=F0, sensor_start=MESH_CHECK_STEPS // 2,
+                      source_plane_z=13, source_type=SOURCE_TYPES[source],
+                      source_ijk=tuple(n // 2 for n in shape))
+    amp = np.zeros(shape[:2])
+    m = max(2, shape[0] // 12)
+    if source == "plane":
+        amp[m:-m, m:-m] = 60e3
+    ph = np.random.default_rng(1).uniform(-1.0, 1.0, shape[:2])
+    return grid, mats, idx, amp, ph
+
+
+def check_mesh_kernels(mesh, times, device="cuda"):
+    """The four FDTD kernels with their x-CPML edge ownership on
+    ``MESH_SHARDS`` shards of the kernel phase's grid, against their plain
+    versions: 40 steps of ``ops.fdtd.step_shards`` with a plane and with a
+    point (on an inner shard), every field of every shard bit-equal; then
+    each shard's launches timed from CUDA graphs, their sum against the
+    unsharded launch (``times``) per cell. Returns the errors by row."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
+    from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
+
+    errs = {}
+    for family in ("fluid", "visco"):
+        stem = "fluid_pressure" if family == "fluid" else "visco_stress"
+        vel, stress = ((K.fluid_velocity, K.fluid_pressure)
+                       if family == "fluid"
+                       else (V.visco_velocity, V.visco_stress))
+        for source in ("plane", "point"):
+            grid, mats, idx, amp, ph = mesh_case(family, source)
+            pamp = POINT_AMP if source == "point" else 0.0
+            runs = []
+            for plain in (False, True):
+                xs, shards, oz = F.shard_setup(mesh, idx, mats, grid, amp, ph)
+                for n in range(grid.n_steps):
+                    F.step_shards(shards, xs, grid, n, oz, pamp, plain=plain)
+                runs.append(shards)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            bad = [(s, name, e) for s, (a, b) in enumerate(zip(*runs))
+                   for name, e in state_diff(a.st, b.st)]
+            pmax = max(float(sh.st.acc_cos.abs().max()) for sh in runs[1])
+            inner = [s for s, sh in enumerate(runs[0]) if sh.point is not None]
+            print(f"[mesh] {family} kernels on {MESH_SHARDS} shards of "
+                  f"{grid.shape} ({[xs.planes(s) for s in range(xs.n_shards)]}"
+                  f" planes with ghosts), {source} source"
+                  + (f" on shard {inner}" if inner else "")
+                  + f", {grid.n_steps} steps (window from "
+                  f"{grid.sensor_start}) against the plain versions: max "
+                  f"|DFT sum| {pmax:.6g}; fields differing {bad}")
+            if bad or not np.isfinite(pmax) or pmax <= 0:
+                fail(f"mesh: the {family} kernels on shards disagree with "
+                     f"their plain versions ({source} source): {bad}")
+            point = "_point" if source == "point" else ""
+            keys = ((f"{family}_velocity",) if source == "plane" else ()) + (
+                stem + point, stem + point + "_dft")
+            for k in keys:
+                errs[k] = 0.0
+            if source != "plane" or device != "cuda":
+                continue
+            s = F.step_scalars(grid, 10, oz)
+            calls = {
+                f"{family}_velocity": lambda sh: vel(sh.st, sh.co, s[0], s[1]),
+                stem: lambda sh: stress(sh.st, sh.co),
+                f"{stem}_dft": lambda sh: stress(sh.st, sh.co, s[2], s[3]),
+            }
+            cells = [xs.planes(i) * grid.shape[1] * grid.shape[2]
+                     for i in range(xs.n_shards)]
+            whole = float(np.prod(grid.shape))
+            for k, fn in calls.items():
+                per = [_timed_graph(lambda sh=sh: fn(sh), 20)
+                       for sh in runs[0]]
+                ratio = (sum(per) / sum(cells)) / (times[k][0] / whole)
+                print(f"[mesh]   {k}: shards {[round(t, 4) for t in per]} "
+                      f"ms, sum {sum(per):.4f} ms over {sum(cells)} cells "
+                      f"(+{sum(cells) / whole - 1:.2%} ghost planes); the "
+                      f"unsharded launch {times[k][0]:.4f} ms; time per "
+                      f"cell sharded / unsharded {ratio:.4f}")
+    return errs
+
+
+IDLE_STEPS = 300
+
+
+def idle_share(args, kw, mesh=None):
+    """(device-busy ms, wall ms, idle share) of ``IDLE_STEPS`` steps of a
+    recorded ``run_fdtd`` call's loop (from its window's start), on
+    ``mesh`` or unsharded on the card, under ``torch.profiler``: the
+    kernels' and copies' device time against the host clock from the first
+    step to the synchronize after the last. (None, wall, None) when the
+    profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from babelbrain_tpu_torch.ops import fdtd as F
+
+    from babelbrain_tpu_torch.ops.fdtd import run_fdtd
+
+    mat_idx, materials, grid, amp, phase, refl, vsrc = _bound(
+        run_fdtd, args, kw, "mat_idx", "materials", "grid", "source_amp",
+        "source_phase", "reflector_mask", "volume_source")
+    if mesh is None:
+        step, st, co, oz, vsrc = F.fdtd_setup(
+            mat_idx, materials, grid, amp, phase, refl, vsrc, device="cuda")
+
+        def run(n):
+            step(st, co, grid, n, oz, 0.0, vsrc)
+    else:
+        xs, shards, oz = F.shard_setup(mesh, mat_idx, materials, grid, amp,
+                                       phase, refl, vsrc)
+
+        def run(n):
+            F.step_shards(shards, xs, grid, n, oz)
+    n0 = grid.sensor_start
+    for n in range(n0 - 20, n0):  # warm
+        run(n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for n in range(n0, n0 + IDLE_STEPS):
+            run(n)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    if busy <= 0:
+        return None, wall, None
+    return busy, wall, max(0.0, 1.0 - busy / wall)
+
+
+def _bound(fn, args, kw, *names):
+    """The arguments ``names`` of a recorded call ``fn(*args, **kw)``
+    (defaults included)."""
+    bound = inspect.signature(fn).bind(*args, **kw)
+    bound.apply_defaults()
+    return tuple(bound.arguments[n] for n in names)
+
+
+def _maps_differ(ref: dict, out: dict) -> list:
+    """The array entries of two ``run_fdtd``-style results that differ."""
+    return [k for k, v in ref.items()
+            if isinstance(v, np.ndarray) and not np.array_equal(v, out.get(k))]
+
+
+def _expect_shard_launches(expect, grid, materials, n_shards):
+    """Add the velocity and pressure / stress launches a run of ``grid`` on
+    ``n_shards`` shards makes (plane or volumetric source)."""
+    fam, stem = (("visco", "visco_stress")
+                 if np.any(np.asarray(materials)[:, 2] > 0)
+                 else ("fluid", "fluid_pressure"))
+    n, s = grid.n_steps, grid.sensor_start
+    expect[f"{fam}_velocity"] += n_shards * n
+    expect[stem] += n_shards * s
+    expect[f"{stem}_dft"] += n_shards * (n - s)
+
+
+def run_mesh(times, device="cuda"):
+    """The mesh phase (one card): the kernels on shards
+    (``check_mesh_kernels``), then the recorded ``run_fdtd`` calls of the
+    CT, label, diag-ct and dome-ct slices again on a ``MESH_SHARDS``-shard
+    mesh, each equal to its slice's unsharded result bit for bit; the CT
+    slice's forward Rayleigh over a 4-device mesh; sweep-ct's
+    ``run_fdtd_batch`` on a 2-device case mesh, equal to its unsharded
+    batch. Counts are set to 0 before the replays and read after: every
+    FDTD kernel's launches must be those of the shards, and no plain
+    version may run. With more than one card, the CT run again across real
+    cards and the peer-copy rate. Returns (errors, launches)."""
+    from babelbrain_tpu_torch.ops.fdtd import make_case_mesh
+    from babelbrain_tpu_torch.ops.fdtd import run_fdtd, run_fdtd_batch
+    from babelbrain_tpu_torch.ops.rayleigh import rayleigh_field
+    from babelbrain_tpu_torch.parallel.halo import make_mesh
+    from babelbrain_tpu_torch.utils.timing import clear_spans, recorded_spans
+
+    t_phase = time.time()
+    cards = torch.cuda.device_count()
+    one = "cuda:0" if device == "cuda" else device
+    devices = [one] * MESH_SHARDS
+    mesh = make_mesh(MESH_SHARDS, devices=devices)
+    print(f"[mesh] make_mesh({MESH_SHARDS}, devices={devices}): every shard "
+          f"on one card, named explicitly ({cards} card(s) present)")
+    if cards < MESH_SHARDS:
+        try:
+            make_mesh(MESH_SHARDS)
+        except ValueError as e:
+            print(f"[mesh] make_mesh({MESH_SHARDS}) without devices= refuses: "
+                  f"{e}")
+        else:
+            fail(f"mesh: make_mesh({MESH_SHARDS}) made a mesh on {cards} "
+                 "card(s)")
+    errs = check_mesh_kernels(mesh, times, device)
+
+    reset_counts()
+    launches0, _ = read_counts()
+    expect = dict.fromkeys(launches0, 0)
+    for mode in MESH_SLICES:
+        for name, args, kw, ref, loop in RECORDED.get(mode, ()):
+            if name != "run_fdtd":
+                continue
+            kw = {k: v for k, v in kw.items() if k not in ("device", "mesh")}
+            grid, mats = _bound(run_fdtd, args, kw, "grid", "materials")
+            clear_spans()
+            t0 = time.time()
+            out = run_fdtd(*args, mesh=mesh, **kw)
+            wall = time.time() - t0
+            loop_mesh = next(dt for label, dt in recorded_spans()
+                             if label.endswith("FDTD time loop"))
+            bad = _maps_differ(ref, out)
+            extra = [k for k in ref if k not in ("p_amp", "p_phase", "peak")
+                     and isinstance(ref[k], np.ndarray)]
+            halo = halo_bytes(grid, mats, MESH_SHARDS)
+            print(f"[mesh] {mode} run_fdtd {grid.shape} {grid.n_steps} steps "
+                  f"({grid.source_type}"
+                  + (f", {len(extra)} maps and series" if extra else "")
+                  + f") on {MESH_SHARDS} shards: wall {wall:.3f} s, loop "
+                  f"{loop_mesh:.3f} s against the slice's unsharded loop "
+                  f"{loop:.3f} s ({loop_mesh / loop:.3f}x); halo "
+                  f"{halo / 1e6:.3f} MB a step; fields differing from the "
+                  f"slice's result {bad}")
+            if bad:
+                fail(f"mesh: {mode} run_fdtd on {MESH_SHARDS} shards differs "
+                     f"from the unsharded run in {bad}")
+            _expect_shard_launches(expect, grid, mats, MESH_SHARDS)
+            if mode in ("ct", "label") and device == "cuda":
+                # the idle share of the loop, sharded and not (the counts
+                # are set aside: these launches are the measurement's)
+                fields = 6 if np.any(np.asarray(mats)[:, 2] > 0) else 2
+                saved = read_counts()
+                whole = idle_share(args, kw)
+                shard = idle_share(args, kw, mesh)
+                restore_counts(*saved)
+                print(f"[mesh] {mode} loop over {IDLE_STEPS} window steps "
+                      f"under torch.profiler (device busy ms, wall ms, idle "
+                      f"share): unsharded {whole}; {MESH_SHARDS} shards "
+                      f"{shard}; {2 * (MESH_SHARDS - 1) * fields} "
+                      f"ghost-plane copies a step")
+            del out
+    # the CT slice's forward Rayleigh, its points over 4 devices
+    for name, args, kw, ref, _ in RECORDED.get("ct", ()):
+        if name != "rayleigh_field":
+            continue
+        kw = {k: v for k, v in kw.items() if k != "device"}
+        t0 = time.time()
+        out = rayleigh_field(*args, mesh=make_mesh(4, devices=devices), **kw)
+        wall = time.time() - t0
+        diff = float(np.abs(out - ref).max())
+        scale = float(np.abs(ref).max())
+        points, centers = _bound(rayleigh_field, args, kw, "points",
+                                 "centers")
+        print(f"[mesh] ct forward Rayleigh ({len(points)} points, "
+              f"{len(centers)} sources) on 4 devices: {wall:.3f} s; max "
+              f"|difference| {diff:.6g} Pa = {diff / scale:.3g} of the peak "
+              f"(bit-equal: {diff == 0.0}; band 2e-5)")
+        if not diff <= 2e-5 * scale:
+            fail(f"mesh: sharded Rayleigh off by {diff} (peak {scale})")
+    # sweep-ct's batch over a 2-device case mesh
+    for name, args, kw, ref, _ in RECORDED.get("sweep-ct", ()):
+        if name != "run_fdtd_batch":
+            continue
+        kw = {k: v for k, v in kw.items() if k not in ("device", "mesh")}
+        grid, mats, amps = _bound(run_fdtd_batch, args, kw, "grid",
+                                  "materials", "source_amps")
+        t0 = time.time()
+        out = run_fdtd_batch(*args, mesh=make_case_mesh(
+            devices=[one] * 2), **kw)
+        wall = time.time() - t0
+        bad = _maps_differ(ref, out)
+        print(f"[mesh] sweep-ct run_fdtd_batch ({len(amps)} cases) on a "
+              f"2-device case mesh: {wall:.3f} s; fields differing from the "
+              f"unsharded batch {bad}")
+        if bad:
+            fail(f"mesh: the case-mesh batch differs in {bad}")
+        for _ in range(len(amps)):
+            _expect_shard_launches(expect, grid, mats, 1)
+    launches, plain = read_counts()
+    print(f"[mesh] launches {launches}; plain calls {plain}")
+    fdtd_rows = [k for k in expect if expect[k]]
+    if device == "cuda" and (any(plain.values()) or any(launches[k] != expect[k]
+                                   for k in fdtd_rows)
+            or not all(launches[k] for k in ("volume_source", "extras_fluid",
+                                             "monitor_fluid"))):
+        fail(f"mesh: launches {launches} (expected {expect} for the "
+             f"velocity and pressure / stress rows), plain calls {plain}")
+    if cards > 1:
+        check_mesh_cards(cards)
+    print(f"[mesh] phase {time.time() - t_phase:.2f} s")
+    return errs, launches
+
+
+def halo_bytes(grid, materials, n_shards):
+    """Bytes the ghost-plane refresh of one step copies on ``n_shards``
+    shards: 2 planes each way at each boundary, for each field the next
+    half-step reads across x (fluid vx, p; visco 3 velocities, 3 stresses)."""
+    fields = 6 if np.any(np.asarray(materials)[:, 2] > 0) else 2
+    plane = grid.shape[1] * grid.shape[2] * 4
+    return (n_shards - 1) * 2 * 2 * plane * fields
+
+
+def check_mesh_cards(cards):
+    """With several cards: the CT slice's run_fdtd across real cards, equal
+    to its unsharded result, and the peer-copy rate between cards 0 and 1."""
+    from babelbrain_tpu_torch.ops.fdtd import run_fdtd
+    from babelbrain_tpu_torch.parallel.halo import make_mesh
+
+    name, args, kw, ref, loop = next(c for c in RECORDED["ct"]
+                                     if c[0] == "run_fdtd")
+    kw = {k: v for k, v in kw.items() if k not in ("device", "mesh")}
+    (grid,) = _bound(run_fdtd, args, kw, "grid")
+    n = max(d for d in range(1, min(cards, MESH_SHARDS) + 1)
+            if grid.shape[0] % d == 0)
+    t0 = time.time()
+    out = run_fdtd(*args, mesh=make_mesh(n), **kw)
+    bad = _maps_differ(ref, out)
+    print(f"[mesh] ct run_fdtd across {n} cards: {time.time() - t0:.3f} s; "
+          f"fields differing {bad}")
+    if bad:
+        fail(f"mesh: the run across cards differs in {bad}")
+    a = torch.empty(64 * 2**20, device="cuda:0")
+    b = torch.empty(64 * 2**20, device="cuda:1")
+    ms = _timed(lambda: b.copy_(a, non_blocking=True), 10)
+    print(f"[mesh] peer copy cuda:0 -> cuda:1: {a.numel() * 4 / ms / 1e6:.1f}"
+          f" GB/s ({ms:.4f} ms for {a.numel() * 4 / 2**20:.0f} MiB)")
+
+
+# ---------------------------------------------------------------------------
 
 FLUID_CU = "babelbrain_tpu_torch/csrc/fdtd_fluid.cu"
 VISCO_CU = "babelbrain_tpu_torch/csrc/fdtd_visco.cu"
@@ -3015,15 +3437,24 @@ def main():
     n_shell = int((shell_source(KERNEL_SHAPE)["amp"] > 0).sum())
     launches = {k: 0 for k in SOURCES}
     for mode in SLICES:
-        counts, slice_errs = run_slice(have["h5py"], mode)
+        with (recording(mode) if mode in MESH_SLICES
+              else contextlib.nullcontext()):
+            counts, slice_errs = run_slice(have["h5py"], mode)
         for k, v in counts.items():
             launches[k] += v
         for k, v in slice_errs.items():
             errs[k] = max(errs[k], v)
-    for k, v in run_sweep(have["h5py"]).items():
-        launches[k] += v
+    with recording("sweep-ct"):
+        for k, v in run_sweep(have["h5py"]).items():
+            launches[k] += v
     for k, v in run_anchors().items():
         launches[k] += v
+    mesh_errs, counts = run_mesh(times)
+    RECORDED.clear()
+    for k, v in counts.items():
+        launches[k] += v
+    for k, v in mesh_errs.items():
+        errs[k] = max(errs[k], v)
     for k, v in run_probes().items():
         launches[k] += v
 

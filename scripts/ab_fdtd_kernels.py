@@ -52,14 +52,23 @@ def resources(build):
     """Kernel -> its ptxas resources. A pressure / stress instantiation
     with a fourth template argument (MONITOR) is named by its first three
     when that argument is 0 (no monitor), so that it meets its twin of a
-    tree without the argument, and gets the monitor mode appended else."""
+    tree without the argument, and gets the monitor mode appended else.
+    The last argument of a tree whose kernels take the x-slab flag XALL is
+    dropped where it is 1 (a whole grid, the twin of a tree without it);
+    the shards' instantiations (0) are named "... shards"."""
     out = {}
     for name, res in C.fdtd_resources(build.build_log):
+        suffix = ""
+        if name.count(",") == 4 or (name.startswith(
+                ("fluid_velocity_kernel<", "visco_velocity_kernel<"))):
+            head, flag = name[:-1].rsplit(", " if "," in name else "<", 1)
+            name = head + (">" if "," in head else "")
+            suffix = "" if flag == "1" else " shards"
         if name.count(",") == 3:
             head, mode = name[:-1].rsplit(", ", 1)
             name = head + ">" + {"0": "", "1": " MONITOR listed",
                                  "2": " MONITOR every voxel"}[mode]
-        out[name] = res
+        out[name + suffix] = res
     return out
 
 

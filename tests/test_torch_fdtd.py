@@ -227,18 +227,27 @@ def test_cpu_run_counts_plain_calls_not_launches():
 
 @pytest.mark.parametrize("case", ["mesh", "rayleigh_mesh"])
 def test_paths_outside_the_slice_raise(case):
+    """A mesh that is not a ``DeviceMesh`` is refused, and a 2-D (x, y)
+    mesh (ROADMAP Queue A item 6)."""
+    from babelbrain_tpu_torch.parallel.halo import make_mesh_2d
+
     idx, mats, g, amp, ph = _config("water_plane")
     g = dict(g, shape=(20, 20, 40), n_steps=4, sensor_start=2)
+    mesh_2d = make_mesh_2d(2, 2, devices=["cpu"] * 4)
     if case == "rayleigh_mesh":
         from babelbrain_tpu_torch.ops.rayleigh import rayleigh_field
 
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
+        def run(mesh):
             rayleigh_field(1e3, np.zeros((1, 3)), np.ones(1), np.ones(1),
-                           np.ones((2, 3)), mesh=object(), device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-        T.run_fdtd(np.zeros(g["shape"], np.uint8), mats, T.FDTDGrid(**g),
-                   device="cpu", mesh=object())
+                           np.ones((2, 3)), mesh=mesh, device="cpu")
+    else:
+        def run(mesh):
+            T.run_fdtd(np.zeros(g["shape"], np.uint8), mats,
+                       T.FDTDGrid(**g), device="cpu", mesh=mesh)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        run(object())
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
+        run(mesh_2d)
 
 
 # ---------------------------------------------------------------------------

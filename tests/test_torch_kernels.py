@@ -712,3 +712,110 @@ def test_register_rigid_on_the_card_matches_the_cpu(cuda):
     assert abs(qg - qc) < 1e-3
     np.testing.assert_allclose(pg[:3], p_true[:3], atol=0.02)
     np.testing.assert_allclose(pg[3:], p_true[3:], atol=0.5)
+
+
+# ---------------------------------------------------------------------------
+# x decomposition: the kernels' x-CPML edge ownership
+# ---------------------------------------------------------------------------
+
+
+def _edge_case(family, shape, npml, source, viscous=True):
+    """(grid, materials, index, plane amplitude, phase) of an edge-ownership
+    check: a slab along z, a plane source or a stress point in the third
+    quarter along x, 14 steps across the window's start."""
+    mats = np.array([[1000.0, 1500.0, 0, 0, 0],
+                     [1900.0, 2500.0, 1200.0 if family == "visco" else 0.0,
+                      80.0 if viscous else 0.0,
+                      90.0 if family == "visco" and viscous else 0.0]])
+    dx = 1500.0 / F0 / 6
+    ppp = int(np.ceil(1 / F0 / F.stable_dt(dx, 2500.0, 0.5)))
+    grid = F.FDTDGrid(shape=shape, dx=dx, dt=1 / F0 / ppp, n_steps=14,
+                      frequency=F0, npml=npml, sensor_start=7,
+                      source_plane_z=npml + 1, source_type=source,
+                      source_ijk=(shape[0] * 5 // 8, shape[1] // 2,
+                                  shape[2] // 2))
+    idx = np.zeros(shape, np.uint8)
+    idx[:, :, shape[2] // 2 - 3:shape[2] // 2 + 3] = 1
+    amp = np.zeros(shape[:2])
+    amp[2:-2, 3:-3] = 60e3
+    ph = np.random.default_rng(2).uniform(-1, 1, shape[:2])
+    return grid, mats, idx, amp, ph
+
+
+def _edge_runs(cuda, family, shape, npml, n_shards, source, monitor,
+               flags=None, viscous=True):
+    """The kernels and their plain versions through ``F.step_shards`` on
+    ``n_shards`` shards of one card (``flags``: the x-slab flags of a
+    single shard instead of its own), every monitor sample taken (listed
+    voxels or every voxel); both runs' shards."""
+    grid, mats, idx, amp, ph = _edge_case(family, shape, npml, source,
+                                          viscous)
+    from babelbrain_tpu_torch.parallel.halo import make_mesh
+
+    mesh = make_mesh(n_shards, devices=[cuda] * n_shards)
+    steps = range(grid.sensor_start, grid.n_steps)
+    mon = np.argwhere(idx[:, ::5, ::7] >= 0)[::11] * [1, 5, 7]
+    runs = []
+    for plain in (False, True):
+        xs, shards, oz = F.shard_setup(
+            mesh, idx, mats, grid, amp, ph, sel_maps=E.SEL_MAPS,
+            monitor_ijk=mon if monitor == "listed" else None,
+            sample_steps=steps)
+        for sh in shards:
+            if flags is not None:
+                sh.co.x_lo, sh.co.x_hi = flags
+            if monitor == "every":
+                sh.diag = E.Diagnostics.create(sh.st, grid.sensor_start,
+                                               sample_steps=steps)
+        for n in range(grid.n_steps):
+            F.step_shards(shards, xs, grid, n, oz, 60e3, plain=plain)
+        runs.append(shards)
+    if torch.device(cuda).type == "cuda":
+        torch.cuda.synchronize()
+    return runs
+
+
+def _shards_equal(kernel, plain):
+    for a, b in zip(kernel, plain):
+        for k, v in vars(a.st).items():
+            for t, u in zip(v if isinstance(v, list) else [v],
+                            (getattr(b.st, k) if isinstance(v, list)
+                             else [getattr(b.st, k)])):
+                assert torch.equal(t, u), k
+        if a.diag is not None:
+            if a.diag.series is not None:
+                assert torch.equal(a.diag.series, b.diag.series)
+            if a.diag.extras is not None:
+                for k, t in a.diag.extras.acc.items():
+                    assert torch.equal(t, b.diag.extras.acc[k]), k
+
+
+@pytest.mark.parametrize("monitor", ["listed", "every"])
+@pytest.mark.parametrize("source", ["velocity_plane", "stress_point"])
+@pytest.mark.parametrize("family,viscous", [("fluid", True),
+                                            ("fluid", False),
+                                            ("visco", True)])
+def test_edge_ownership_kernels_match_plain(cuda, family, viscous, source,
+                                            monitor):
+    """Four shards of a 64-plane grid (npml 6: 16 planes a shard, ragged
+    against both families' x-segments) and the ragged 27x45x47 grid as one
+    shard with each pair of x-slab flags: the velocity and pressure /
+    stress kernels (their POINT, DFT and MONITOR instantiations) against
+    their plain versions, every field, psi slab, map and sample bit-equal.
+    An interior shard leaves its x psi slabs at zero."""
+    before = dict(K.launches, **V.launches)
+    kernel, plain = _edge_runs(cuda, family, (64, 40, 56), 6, 4, source,
+                               monitor, viscous=viscous)
+    _shards_equal(kernel, plain)
+    psi = kernel[1].st.psi_p if family == "fluid" else kernel[1].st.psi_s
+    assert not psi[0].any() and not psi[1].any()
+    if source == "velocity_plane":  # the plane reaches into both x slabs
+        assert kernel[0].st.psi_v[0].any() and kernel[3].st.psi_v[1].any()
+    for flags in ((True, True), (True, False), (False, True), (False, False)):
+        _shards_equal(*_edge_runs(cuda, family, (27, 45, 47), 12, 1, source,
+                                  monitor, flags=flags, viscous=viscous))
+    after = dict(K.launches, **V.launches)
+    stem = "fluid_pressure" if family == "fluid" else "visco_stress"
+    point = "_point" if source == "stress_point" else ""
+    for key in (stem + point, stem + point + "_dft"):
+        assert after[key] > before[key], key

@@ -681,7 +681,8 @@ def test_port_imports_no_jax():
         "'babelbrain_tpu_torch.pipeline.plantus', "
         "'babelbrain_tpu_torch.pipeline.benchmark', "
         "'babelbrain_tpu_torch.pipeline.calibration', "
-        "'babelbrain_tpu_torch.pipeline.workers'} <= set(names), names\n"
+        "'babelbrain_tpu_torch.pipeline.workers', "
+        "'babelbrain_tpu_torch.parallel.halo'} <= set(names), names\n"
         "from babelbrain_tpu_torch.ops.fdtd import run_fdtd_batch\n"
         "from babelbrain_tpu_torch.pipeline.acoustic import run_multipoint\n"
         "from babelbrain_tpu_torch.pipeline.runner import (make_pseudo_ct, "

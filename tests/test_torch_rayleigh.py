@@ -114,6 +114,13 @@ def test_steering_and_weights_match_jax():
 
 
 def test_mesh_is_outside_the_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
-        T.rayleigh_field(K0, np.zeros((1, 3)), np.ones(1), np.ones(1),
-                         np.ones((1, 3)), mesh=object(), device="cpu")
+    """``mesh`` takes a 1-D ``DeviceMesh``: another object, or a 2-D mesh
+    (ROADMAP Queue A item 6), is refused."""
+    from babelbrain_tpu_torch.parallel.halo import make_mesh_2d
+
+    for mesh, err, match in ((object(), TypeError, "DeviceMesh"),
+                             (make_mesh_2d(2, 2, devices=["cpu"] * 4),
+                              NotImplementedError, "ROADMAP Queue A item 6")):
+        with pytest.raises(err, match=match):
+            T.rayleigh_field(K0, np.zeros((1, 3)), np.ones(1), np.ones(1),
+                             np.ones((1, 3)), mesh=mesh, device="cpu")

@@ -48,6 +48,7 @@ from babelbrain_tpu_torch import convert
 from babelbrain_tpu_torch.materials import pseudo_ct as t_pseudo_ct
 from babelbrain_tpu_torch.ops import bhte_kernels, fdtd_kernels
 from babelbrain_tpu_torch.ops import fdtd as TF
+from babelbrain_tpu_torch.parallel.halo import make_mesh_2d
 from babelbrain_tpu_torch.pipeline import acoustic as TA
 from babelbrain_tpu_torch.pipeline import domain as TD
 from babelbrain_tpu_torch.pipeline import io as tio
@@ -403,9 +404,14 @@ def test_run_fdtd_batch_matches_jax_and_run_fdtd():
         for k in ("p_amp", "p_phase", "peak"):
             np.testing.assert_array_equal(bt[k][b], single[k],
                                           err_msg=f"{k}[{b}]")
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    # a mesh that is not a DeviceMesh, and a 2-D mesh, are refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TF.run_fdtd_batch(idx, mats, TF.FDTDGrid(**kw), amps, phases,
                           mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        TF.run_fdtd_batch(idx, mats, TF.FDTDGrid(**kw), amps, phases,
+                          mesh=make_mesh_2d(2, 2, devices=["cpu"] * 4),
+                          device="cpu")
 
 
 def test_run_multipoint_matches_jax():
@@ -456,8 +462,12 @@ def test_run_multipoint_matches_jax():
         assert np.abs(dphi).max() < 1e-3
     # the two points are steered apart
     assert not np.array_equal(ct["p_amp_all"][0], ct["p_amp_all"][1])
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    # the spatial mesh of each point's run_fdtd: not a DeviceMesh, or 2-D
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TA.run_multipoint(dom_t, tx_t, points, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        TA.run_multipoint(dom_t, tx_t, points, device="cpu",
+                          mesh=make_mesh_2d(2, 2, devices=["cpu"] * 4))
 
 
 # ---------------------------------------------------------------------------
