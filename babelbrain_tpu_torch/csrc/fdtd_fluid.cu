@@ -3,11 +3,13 @@
 //
 // Replaces (TPU kernels of the JAX package):
 //   babelbrain_tpu/ops/fdtd_pallas.py build_fluid_pallas_step: vel_kernel
-//   and press_kernel (B1), and the velocity / pressure stages of
-//   build_fluid_fused_step (B2), build_fluid_fused2_step (B3) and
-//   build_fluid_fusedK_step (B4). B3 and B4 only block B1's update in time;
-//   K fused TPU steps are K launches of this pair here. The math is the XLA
-//   step of babelbrain_tpu/ops/fdtd.py:_make_fluid_step_fn.
+//   and press_kernel (B1). The K-step sweeps of build_fluid_fused_step (B2),
+//   build_fluid_fused2_step (B3) and build_fluid_fusedK_step (B4) are
+//   fdtd_fluid_fused.cu, with this pair's per-cell arithmetic; this pair
+//   takes the steps a fused run leaves (the schedule's one-step tail) and
+//   every run that keeps it (volumetric sources, maps, monitors, capture).
+//   The math is the XLA step of babelbrain_tpu/ops/fdtd.py
+//   :_make_fluid_step_fn.
 //
 // What bounds it on this card: device-memory traffic. Per cell and step,
 // counted from the code and leaving out the CPML psi slabs: the velocity

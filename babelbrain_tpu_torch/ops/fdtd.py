@@ -12,7 +12,10 @@ The time loop is a Python loop over ``ops.fdtd_kernels`` (fluid) or
 ``ops.fdtd_visco_kernels`` (viscoelastic): on a CUDA device each step is
 two hand-written kernels (velocity, then pressure or stress; a volumetric source
 adds ``ops.fdtd_sources`` between them); on the CPU the same step runs as
-plain PyTorch.
+plain PyTorch. A fluid run with a plane or point source and no diagnostics
+runs fused sweeps instead (``ops.fdtd_fused_kernels``: K steps a launch,
+the schedule of the JAX package's ``simulate_fluid_pallas``, ``fuse_steps``),
+equal to the step-by-step run bit for bit.
 
 Physics (see the JAX module for the derivations): 4th-order staggered
 differences, CPML with slab-only psi memory, one SLS relaxation mechanism
@@ -31,12 +34,18 @@ JAX package's executable memo.
 
 Domain decomposition (``run_fdtd(mesh=)``, ``parallel.halo``): the grid is
 cut into equal shards along x over the devices of a 1-D ``DeviceMesh``;
-each shard holds its own copy of the setup, its planes and 2 ghost planes
+each shard holds its own copy of the setup, its planes and ghost planes
 on each side that has a neighbour, and its launches apply the x CPML only
-where it holds a global edge. After each half-step the ghost planes of the
-fields the next half-step reads across x are copied from the neighbours
-(``XSlabs.refresh``), so a sharded run equals the unsharded one bit for
-bit. ``run_fdtd_batch(mesh=)`` spreads its cases over a mesh's devices
+where it holds a global edge. A fluid plane-source run without diagnostics
+goes overlap-and-discard (``sharded_plan``, the JAX package's
+``_simulate_fluid_pallas_sharded_fused``): H >= 3K ghost planes a side,
+one bundled refresh of the state's ghost planes (``XSlabs.refresh_group``)
+and one fused K-step launch per shard a sweep; what the array's edge
+contaminates stays inside the ghost planes. Every other run keeps 2 ghost
+planes and, after each half-step, copies those of the fields the next
+half-step reads across x from the neighbours (``XSlabs.refresh``). Either
+way a sharded run equals the unsharded one bit for bit.
+``run_fdtd_batch(mesh=)`` spreads its cases over a mesh's devices
 (``make_case_mesh``). 2-D (x, y) meshes raise ``NotImplementedError``
 naming ROADMAP Queue A item 6.
 """
@@ -72,6 +81,14 @@ from .fdtd_visco_kernels import (
     visco_velocity_ref,
 )
 from .fdtd_extras import Diagnostics, Monitor, check_sel_maps, monitor_index
+from .fdtd_fused_kernels import (
+    CONTAMINATION,
+    FUSE_BEST,
+    K_CAP,
+    admitted_depth,
+    fluid_fused,
+    fluid_fused_ref,
+)
 from .fdtd_sources import (
     VolumeSource,
     velocity_volume_source,
@@ -410,6 +427,89 @@ def visco_step(st: ViscoState, co: ViscoCoeffs, grid: FDTDGrid, n: int,
              point_amp, vsrc, monitor)
 
 
+# ---------------------------------------------------------------------------
+# fused sweeps (fluid)
+# ---------------------------------------------------------------------------
+
+
+def phase_schedule(n0: int, n1: int, k: int, fused2: bool = True):
+    """Steps [n0, n1) split as the JAX package's ``run_phase``
+    (`babelbrain_tpu/ops/fdtd_pallas.py:2874`): (sweeps, tail), the sweeps a
+    list of (first step, K): K-step sweeps while K >= 3 fits, then 2-step
+    sweeps (with ``fused2``), then the tail, the steps left to the pair."""
+    sweeps, rem = [], n0
+    if k >= 3 and (n1 - n0) // k > 0:
+        m = (n1 - n0) // k
+        sweeps += [(n0 + k * j, k) for j in range(m)]
+        rem = n0 + k * m
+    pairs = (n1 - rem) // 2 if fused2 else 0
+    sweeps += [(rem + 2 * j, 2) for j in range(pairs)]
+    return sweeps, list(range(rem + 2 * pairs, n1))
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    """The depths of a fused run: K in the quiet phase and in the sensor
+    window (``k``, ``k_dft``), and whether 2-step sweeps fit (``fused2``)."""
+
+    k: int
+    k_dft: int
+    fused2: bool
+
+
+def fused_plan(shape, device, viscous: bool, point: bool,
+               fuse_steps: int | None = None) -> FusedPlan:
+    """The depth rule of ``simulate_fluid_pallas``: ``None`` takes in each
+    phase the deepest K the kernel admits on ``shape`` (``admitted_depth``,
+    at most ``FUSE_BEST``); an int pins K in both and is refused when the
+    card cannot hold K >= 3 steps a launch. 2-step sweeps run where both
+    phases admit them."""
+    quiet = admitted_depth(shape, device, viscous, False, point)
+    window = admitted_depth(shape, device, viscous, True, point)
+    if fuse_steps is None:
+        return FusedPlan(min(quiet, FUSE_BEST), min(window, FUSE_BEST),
+                         min(quiet, window) >= 2)
+    k = int(fuse_steps)
+    if not 0 <= k <= K_CAP:
+        raise ValueError(f"fuse_steps={k} outside 0..{K_CAP}")
+    if k >= 3 and k > min(quiet, window):
+        raise ValueError(
+            f"fuse_steps={k}: {device} holds {min(quiet, window)} stages of "
+            f"the fused kernel at once on {tuple(shape)}")
+    return FusedPlan(k, k, min(quiet, window) >= 2)
+
+
+def fluid_schedule(grid: FDTDGrid, plan: FusedPlan):
+    """[(first step, K, with_dft)] of a fused run: the quiet phase
+    [0, sensor_start), then the window, each split by ``phase_schedule``
+    (K = 1: a step of the pair)."""
+    n_quiet = max(0, min(grid.sensor_start, grid.n_steps))
+    out = []
+    for n0, n1, dft in ((0, n_quiet, False), (n_quiet, grid.n_steps, True)):
+        k = (plan.k_dft if dft else plan.k) if plan.k >= 3 else 0
+        sweeps, tail = phase_schedule(n0, n1, k, plan.fused2)
+        out += [(n, m, dft) for n, m in sweeps] + [(n, 1, dft) for n in tail]
+    return out
+
+
+def _fused_loop(runs, grid: FDTDGrid, oz_scale, point_amp, plan: FusedPlan):
+    """The fluid runs ``runs`` ((state, coefficients) pairs) in lockstep
+    through ``fluid_schedule``: each sweep one ``fluid_fused`` launch a run,
+    each tail step the pair."""
+    pt = point_index(grid)
+    with stage_timer("FDTD time loop", level=3, step=2):
+        for n, k, dft in fluid_schedule(grid, plan):
+            if k == 1:
+                for st, co in runs:
+                    fluid_step(st, co, grid, n, oz_scale, point_amp)
+                continue
+            rows = [step_scalars(grid, m, oz_scale, point_amp)
+                    for m in range(n, n + k)]
+            for st, co in runs:
+                fluid_fused(st, co, rows, pt, with_dft=dft)
+        _synchronize([st.peak for st, _ in runs])
+
+
 def run_fdtd(
     mat_idx: np.ndarray,
     materials: np.ndarray,
@@ -423,6 +523,7 @@ def run_fdtd(
     sel_maps: tuple = (),
     monitor_ijk: np.ndarray | None = None,
     sensor_subsampling: int = 1,
+    fuse_steps: int | None = None,
     *,
     device="cuda",
 ):
@@ -437,15 +538,30 @@ def run_fdtd(
     (CUDA: the step kernels; CPU: their plain PyTorch versions). Both
     media use indexed materials (``_build_indexed_materials``).
 
+    ``fuse_steps``: the JAX argument. A fluid run with a plane or point
+    source and no ``sel_maps`` or ``monitor_ijk`` runs fused sweeps
+    (``ops.fdtd_fused_kernels.fluid_fused``, K steps a launch) in the
+    schedule of the JAX package's ``simulate_fluid_pallas``: in the quiet
+    phase and in the window, K-step sweeps while K >= 3, then 2-step sweeps,
+    then a one-step tail on the pair. ``None`` takes the deepest K the
+    kernel admits on this grid and device (``fused_plan``); an int pins K
+    (refused when the card cannot hold it). Viscoelastic media, volumetric
+    sources, ``sel_maps`` and ``monitor_ijk`` keep the pair for every step,
+    with its per-step monitor samples. Fused or not, the result is the
+    step-by-step run's bit for bit.
+
     ``mesh``: a 1-D ``DeviceMesh`` on axis "x" (``parallel.halo.make_mesh``)
     decomposes the grid along x over its devices (``device`` is then not
     used): N1 must divide by the mesh size into shards of at least
-    npml + 2 planes, as in the JAX package. The result equals the
-    unsharded run's bit for bit.
+    npml + 2 planes, as in the JAX package. A fluid plane-source run
+    without diagnostics runs overlap-and-discard fused sweeps where
+    ``sharded_plan`` finds a K >= 2 (``fuse_steps`` as above), every other
+    run the pair with 2 ghost planes. The result equals the unsharded run's
+    bit for bit.
 
     ``sel_maps``: extra maps named ``<Field>_rms`` / ``<Field>_peak``, Field
     in Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy, Sigmazz, accumulated over
-    the sensor window. ``monitor_ijk``: (K, 3) voxels whose pressure is kept
+    the sensor window. ``monitor_ijk``: (n, 3) voxels whose pressure is kept
     at steps ``sensor_start, sensor_start + sensor_subsampling, ...``. The
     JAX Pallas path samples at its fused depth instead; the values here are
     those of its XLA path.
@@ -462,7 +578,7 @@ def run_fdtd(
         return _run_fdtd_sharded(
             mesh, mat_idx, materials, grid, source_amp, source_phase,
             point_amp, reflector_mask, volume_source, sel_maps, monitor_ijk,
-            int(sensor_subsampling),
+            int(sensor_subsampling), fuse_steps,
         )
     with stage_timer("FDTD setup", level=3, step=2):
         step, st, co, oz_scale, vsrc = fdtd_setup(
@@ -479,7 +595,12 @@ def run_fdtd(
             index=(monitor_index(monitor_ijk, grid.shape, device)
                    if with_series else None),
         )
-    _time_loop([(step, st, co, vsrc, diag)], grid, oz_scale, point_amp)
+    if step is fluid_step and vsrc is None and diag is None:
+        plan = fused_plan(grid.shape, device, co.viscous,
+                          point_index(grid) is not None, fuse_steps)
+        _fused_loop([(st, co)], grid, oz_scale, point_amp, plan)
+    else:
+        _time_loop([(step, st, co, vsrc, diag)], grid, oz_scale, point_amp)
 
     result = _carrier(st, grid)
     if diag is not None and diag.extras is not None:
@@ -717,9 +838,10 @@ class Shard:
     slots: np.ndarray | None = None
 
 
-def _x_slabs(mesh, grid: FDTDGrid) -> XSlabs:
-    """The x decomposition of ``grid`` over a 1-D x mesh, with the JAX
-    package's refusals (`babelbrain_tpu/ops/fdtd.py:1477-1485`)."""
+def _x_slabs(mesh, grid: FDTDGrid, halo: int = 2) -> XSlabs:
+    """The x decomposition of ``grid`` over a 1-D x mesh with ``halo`` ghost
+    planes, with the JAX package's refusals
+    (`babelbrain_tpu/ops/fdtd.py:1477-1485`)."""
     mesh_devices(mesh, "run_fdtd")
     nx, ny = mesh_axis_sizes(mesh)
     if ny > 1 or "x" not in mesh.axis_names:
@@ -734,7 +856,7 @@ def _x_slabs(mesh, grid: FDTDGrid) -> XSlabs:
         )
     if grid.shape[0] // nx < grid.npml + 2 or grid.shape[1] // ny < grid.npml + 2:
         raise ValueError("shard too thin for the PML slab; reduce mesh size")
-    return XSlabs(grid.shape[0], nx)
+    return XSlabs(grid.shape[0], nx, halo)
 
 
 def _split_source(vs: VolumeSource, xs: XSlabs, s: int, plane: int, device):
@@ -751,13 +873,14 @@ def _split_source(vs: VolumeSource, xs: XSlabs, s: int, plane: int, device):
 
 def shard_setup(mesh, mat_idx, materials, grid: FDTDGrid, source_amp=None,
                 source_phase=None, reflector_mask=None, volume_source=None,
-                sel_maps=(), monitor_ijk=None, sample_steps=()):
+                sel_maps=(), monitor_ijk=None, sample_steps=(), halo=2):
     """What ``run_fdtd(mesh=)`` steps with: (``XSlabs``, the ``Shard`` of
     each mesh device, the pressure->velocity scale). Each shard holds its
-    copy of the setup, a zero state of its planes and ghost planes, its
-    part of the sources and, with ``sel_maps`` or ``monitor_ijk``, its
-    ``Diagnostics`` (monitor samples at ``sample_steps``)."""
-    xs = _x_slabs(mesh, grid)
+    copy of the setup, a zero state of its planes and ``halo`` ghost planes
+    a side, its part of the sources and, with ``sel_maps`` or
+    ``monitor_ijk``, its ``Diagnostics`` (monitor samples at
+    ``sample_steps``)."""
+    xs = _x_slabs(mesh, grid, halo)
     h = _host_setup(mat_idx, materials, grid, source_amp, source_phase,
                     reflector_mask)
     vsrc = _volume_source(grid, volume_source, mesh.devices[0])
@@ -837,6 +960,75 @@ def step_shards(shards, xs: XSlabs, grid: FDTDGrid, n: int, oz_scale: float,
         xs.refresh([getattr(sh.st, k) for sh in shards])
 
 
+def sharded_plan(width: int, grid: FDTDGrid, device, viscous: bool,
+                 fuse_steps: int | None = None):
+    """(K, H) of the overlap-and-discard sweeps on shards of ``width`` own
+    planes, the counterpart of the JAX package's ``_sharded_fusedK_plan``
+    (`babelbrain_tpu/ops/fdtd_pallas.py:2544`), or None when no K >= 2
+    fits. H = 3K ghost planes a side: each step widens what the array's
+    edge contaminates by ``CONTAMINATION`` planes (JAX counts 4). H must
+    also satisfy H <= width - (npml + 2), JAX's guard: ghost planes that
+    reached into an edge neighbour's x-PML slab would evolve without the
+    CPML there. ``fuse_steps`` pins K (None or 0: the deepest K from
+    ``min(K_CAP, FUSE_BEST)`` down that the card holds on the extended
+    slab)."""
+    ns = grid.npml + 2
+    auto = not fuse_steps
+    for k in ([int(fuse_steps)] if not auto
+              else range(min(K_CAP, FUSE_BEST), 1, -1)):
+        if k < 2:
+            return None
+        h = CONTAMINATION * k
+        if h > width - ns:
+            continue
+        ext = (width + 2 * h,) + tuple(grid.shape[1:])
+        if auto and min(admitted_depth(ext, device, viscous, dft)
+                        for dft in (False, True)) < k:
+            continue
+        return k, h
+    return None
+
+
+def overlap_schedule(grid: FDTDGrid, k: int):
+    """[(first step, K, with_dft)] of an overlap-and-discard run: in the
+    quiet phase and in the window, K-step sweeps, then one-step sweeps (the
+    JAX sharded driver's ``run_phase``)."""
+    n_quiet = max(0, min(grid.sensor_start, grid.n_steps))
+    out = []
+    for n0, n1, dft in ((0, n_quiet, False), (n_quiet, grid.n_steps, True)):
+        m = max(0, n1 - n0) // k
+        out += [(n0 + k * j, k, dft) for j in range(m)]
+        out += [(n, 1, dft) for n in range(n0 + k * m, n1)]
+    return out
+
+
+def state_groups(st: FluidState) -> tuple:
+    """The fluid state's per-cell fields an overlap sweep refreshes in the
+    ghost planes, in groups of one shape: the volumes p, vx, vy, vz, r; the
+    y psi slabs; the z psi slabs (the x slabs sit at the global edges, which
+    have no ghost planes; the DFT sums of ghost planes are discarded)."""
+    return ([st.p, st.vx, st.vy, st.vz, st.r],
+            st.psi_p[2:4] + st.psi_v[2:4], st.psi_p[4:6] + st.psi_v[4:6])
+
+
+def sweep_shards(shards, xs: XSlabs, grid: FDTDGrid, n: int, k: int,
+                 with_dft: bool, oz_scale: float, plain: bool = False) -> None:
+    """Steps n..n+k-1 over the shards, overlap and discard: one bundled
+    refresh of each group of ``state_groups``, then one fused launch per
+    shard over its planes and ghost planes (``plain``: the plain version)."""
+    groups = [state_groups(sh.st) for sh in shards]
+    for g in range(len(groups[0])):
+        xs.refresh_group([gr[g] for gr in groups])
+    rows = [step_scalars(grid, m, oz_scale) for m in range(n, n + k)]
+    for s, sh in enumerate(shards):
+        with _shard_range(sh, s):
+            if plain:
+                fluid_fused_ref(sh.st, sh.co, rows, with_dft=with_dft)
+            else:
+                fluid_fused(sh.st, sh.co, rows, with_dft=with_dft,
+                            checked=True)
+
+
 def own_planes(xs: XSlabs, parts) -> np.ndarray:
     """The global volume from each shard's (planes, N2, N3) part (numpy
     arrays or tensors): the planes each shard owns, in order."""
@@ -845,18 +1037,42 @@ def own_planes(xs: XSlabs, parts) -> np.ndarray:
         for s, p in enumerate(parts)])
 
 
+def overlap_plan(mesh, materials, grid: FDTDGrid, sel_maps=(),
+                 monitor_ijk=None, fuse_steps=None):
+    """``sharded_plan`` of a ``run_fdtd(mesh=)`` call, or None where that
+    run keeps the pair: anything but fluid media with a plane source and
+    no diagnostics, or no K >= 2 that fits."""
+    mats = np.asarray(materials, np.float64)
+    if (grid.source_type != "velocity_plane" or sel_maps
+            or monitor_ijk is not None or np.any(mats[:, 2] > 0)):
+        return None
+    xs = _x_slabs(mesh, grid)
+    viscous = sls_coefficients(mats, grid.frequency, grid.dt)["viscous"]
+    return sharded_plan(xs.width, grid, mesh.devices[0], viscous, fuse_steps)
+
+
 def _run_fdtd_sharded(mesh, mat_idx, materials, grid: FDTDGrid, source_amp,
                       source_phase, point_amp, reflector_mask, volume_source,
-                      sel_maps, monitor_ijk, sub: int) -> dict:
-    """``run_fdtd`` decomposed along x over ``mesh``."""
+                      sel_maps, monitor_ijk, sub: int,
+                      fuse_steps=None) -> dict:
+    """``run_fdtd`` decomposed along x over ``mesh``: overlap-and-discard
+    fused sweeps where ``overlap_plan`` finds one, else the pair step by
+    step."""
     sel = np.arange(grid.sensor_start, grid.n_steps, sub)
+    plan = overlap_plan(mesh, materials, grid, sel_maps, monitor_ijk,
+                        fuse_steps)
     with stage_timer("FDTD setup", level=3, step=2):
         xs, shards, oz_scale = shard_setup(
             mesh, mat_idx, materials, grid, source_amp, source_phase,
-            reflector_mask, volume_source, sel_maps, monitor_ijk, sel)
+            reflector_mask, volume_source, sel_maps, monitor_ijk, sel,
+            halo=2 if plan is None else plan[1])
     with stage_timer("FDTD time loop", level=3, step=2):
-        for n in range(grid.n_steps):
-            step_shards(shards, xs, grid, n, oz_scale, point_amp)
+        if plan is None:
+            for n in range(grid.n_steps):
+                step_shards(shards, xs, grid, n, oz_scale, point_amp)
+        else:
+            for n, k, dft in overlap_schedule(grid, plan[0]):
+                sweep_shards(shards, xs, grid, n, k, dft, oz_scale)
         _synchronize([sh.st.peak for sh in shards])
 
     result = _carrier_of(*(own_planes(xs, [getattr(sh.st, k) for sh in shards])
@@ -904,8 +1120,9 @@ def run_fdtd_batch(
     loops them, `CalculateFieldProcess.py:78-111`); the cases share the
     material map and grid and differ only in their CW source plane. Each
     device runs its cases in turn from one ``fdtd_setup``, the state zeroed
-    and the source plane swapped between them, so case b equals
-    ``run_fdtd`` with plane b bit for bit.
+    and the source plane swapped between them (fluid media in the fused
+    sweeps of ``run_fdtd``'s schedule), so case b equals ``run_fdtd`` with
+    plane b bit for bit.
 
     ``source_amps``, ``source_phases``: (B, N1, N2) per-case planes.
     ``mesh``: a 1-D ``DeviceMesh`` (``make_case_mesh``) whose devices take
@@ -932,6 +1149,8 @@ def run_fdtd_batch(
         runs = [(make(h.idx, h.table, h.profiles, *h.src, grid, h.viscous,
                       dev), state.zeros(grid.shape, grid.npml + 2, dev), c)
                 for dev, c in zip(devices, cases) if c]
+        plan = (fused_plan(grid.shape, devices[0], h.viscous, False)
+                if step is fluid_step else None)
     outs = {}
     for j in range(len(runs[0][2])):  # the first device has the most cases
         active = [(co, st, c[j]) for co, st, c in runs if j < len(c)]
@@ -943,8 +1162,12 @@ def run_fdtd_batch(
             f32 = _to_device(st.peak.device)
             for k, v in _plane(amps[b], phases[b], f32).items():
                 setattr(co, k, v)
-        _time_loop([(step, st, co, None, None) for co, st, _ in active],
-                   grid, h.oz_scale)
+        if step is fluid_step:
+            _fused_loop([(st, co) for co, st, _ in active], grid, h.oz_scale,
+                        0.0, plan)
+        else:
+            _time_loop([(step, st, co, None, None) for co, st, _ in active],
+                       grid, h.oz_scale)
         for _, st, b in active:
             # copied now: on the CPU 'peak' is a view of the state, zeroed
             # by the next case

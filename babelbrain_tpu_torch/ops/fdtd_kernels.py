@@ -18,10 +18,12 @@ of ``ops.fdtd._build_indexed_materials`` (rows [rho_inv, pi_u, mu_u, c_rp,
 c_rs, b_r], reflector twins included); the fluid step reads rows 0, 1, 3
 and 5, the kernels through the read-only data path (any table size).
 
-They replace the JAX package's Pallas kernels B1-B4
-(``babelbrain_tpu/ops/fdtd_pallas.py``). The math is the XLA step of
-``babelbrain_tpu/ops/fdtd.py:_make_fluid_step_fn``; a volumetric (dome)
-source is ``ops.fdtd_sources``, launched between the two.
+They replace the JAX package's Pallas kernel B1
+(``babelbrain_tpu/ops/fdtd_pallas.py``); B2-B4, K steps a launch, are
+``ops.fdtd_fused_kernels``, whose plain version is K steps of this pair.
+The math is the XLA step of ``babelbrain_tpu/ops/fdtd.py
+:_make_fluid_step_fn``; a volumetric (dome) source is ``ops.fdtd_sources``,
+launched between the two.
 
 Launch geometry (both FDTD families, ``launch_geometry``): blocks of
 ``TILE_Z`` x ``TILE_Y`` threads own (y, z) tiles of columns and march along

@@ -7,7 +7,11 @@ one program over a device ``Mesh`` with ``shard_map``; each shard carries
 place (``edge_offset``). Here one process drives a tuple of
 ``torch.device`` (``DeviceMesh``), each shard's state lives on its device,
 and ``XSlabs.refresh`` copies the ghost planes between neighbours after
-each half-step that writes them. The first shard has no ghost planes below
+each half-step that writes them; the overlap-and-discard fused sweeps
+(``ops.fdtd.sweep_shards``) carry H ghost planes a side and refresh a group
+of fields with one transfer per boundary and direction
+(``XSlabs.refresh_group``, the JAX driver's ``refresh_group``). The first
+shard has no ghost planes below
 it and the last none above (``XSlabs``): a global edge is the end of its
 shard's array, so the kernels' zero boundary there is the whole grid's,
 and the x-CPML slab sits where the whole grid has it (the kernels are told
@@ -148,6 +152,25 @@ class XSlabs:
         """Shard s's own planes, as a slice of its local planes."""
         lo = self.lo_ghosts(s)
         return slice(lo, lo + self.width)
+
+    def refresh_group(self, groups) -> None:
+        """Ghost planes of a group of same-shaped fields (``groups[s]``:
+        shard s's tensors, as ``refresh`` takes one): at each boundary and
+        in each direction the group's ``halo`` own planes are stacked into
+        one buffer, moved to the neighbour's device in one transfer and
+        copied into its ghost planes with one multi-tensor copy."""
+        h = self.halo
+        for s in range(self.n_shards - 1):
+            a, b = groups[s], groups[s + 1]
+            end = a[0].shape[0] - h  # a's own planes end here
+            for src, src_sl, dst, dst_sl in ((b, slice(h, 2 * h), a,
+                                              slice(end, None)),
+                                             (a, slice(end - h, end), b,
+                                              slice(0, h))):
+                buf = torch.stack([t[src_sl] for t in src])
+                buf = buf.to(dst[0].device, non_blocking=True)
+                torch._foreach_copy_([t[dst_sl] for t in dst],
+                                     list(buf.unbind(0)))
 
     def refresh(self, tensors) -> None:
         """Ghost planes of ``tensors`` (shard s's (planes(s), ...) tensor at

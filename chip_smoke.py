@@ -36,6 +36,14 @@ Phases (each prints its own lines; any failed check exits nonzero):
              reflector twins double the table; without attenuation; a
              point), then at 192x192x240 with a 65539-material table (a
              16-bit HU quantisation, beyond what shared memory holds).
+             Then the fused phase: ``fluid_fused`` (K steps a launch)
+             against its plain version and against K launches of the
+             pair, max abs difference 0 in every field, at 192x192x240
+             and at 27x45x47, K = 1, 2, 3 and the deepest K the card
+             holds there, plane and point, viscous and inviscid, quiet and
+             window, and on a 50-plane shard with each x_lo / x_hi
+             combination; each K timed per step against its bound and the
+             pair.
              Every kernel is timed from a CUDA graph of captured calls:
              the card's own time, without the host's work per call. The
              plain versions of the FDTD, BHTE and stream rows, which run
@@ -64,8 +72,12 @@ Phases (each prints its own lines; any failed check exits nonzero):
              step count the run implies, and no plain version may run.
              The diag slices' maps and series are held to the steady-state
              anchors and to each other, the capture to the series, bit for
-             bit. After a refocus, dome or diag slice, the kernels and
-             their plain versions run 40 steps across the window start on
+             bit. The CT, refocus-ct, zte-ct and coreg-zte slices' FDTD
+             runs go through the fused sweeps (``run_fdtd``'s default):
+             each run is repeated through the pair step by step and must
+             equal it bit for bit. After a refocus, dome or diag slice,
+             the kernels and their plain versions run 40 steps across the
+             window start on
              that slice's own domain and its stress point, volumetric or
              plane source (the diag slices with every map and monitor), and
              every field must agree bit for bit. zte-ct is the CT slice
@@ -100,11 +112,14 @@ Phases (each prints its own lines; any failed check exits nonzero):
              x-CPML edge ownership on 4 shards of 192x192x240 against
              their plain versions (plane, and a point on an inner shard;
              40 steps, bit for bit) and each shard's launch timed against
-             the whole one; then the ``run_fdtd`` calls the CT, label,
-             diag-ct (14 maps, 201 monitors) and dome-ct slices made
-             (recorded as they ran) again on the 4-shard mesh, each equal
-             to its slice's result bit for bit, with the loops' idle share
-             under ``torch.profiler`` (CT, label); the CT slice's forward
+             the whole one; the overlap-and-discard fused sweeps against
+             their plain versions and the unsharded run; then the
+             ``run_fdtd`` calls the CT (overlap and discard), label,
+             diag-ct (14 maps, 201 monitors) and dome-ct slices made and
+             refocus-ct's backward point run (recorded as they ran) again
+             on the 4-shard mesh, each equal to its slice's result bit for
+             bit, with the loops' idle share under ``torch.profiler`` (CT,
+             label); the CT slice's forward
              Rayleigh over 4 devices (within 2e-5 of its peak, the
              difference printed); sweep-ct's ``run_fdtd_batch`` on a
              2-device case mesh, bit-equal. Counts are set to 0 before
@@ -397,14 +412,35 @@ def roofline(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def work(name, shape, ns=14, n_src=0):
+# The fused sweep of K steps (csrc/fdtd_fluid_fused.cu), per launch: p, vx,
+# vy, vz, r and the index read once and p, vx, vy, vz, r written once (11
+# volumes; + the DFT sums and the peak read and written in the window, 17);
+# the psi slabs of both half-steps' derivatives read and written once; the
+# three source planes read once; each step's float operations (the pair's).
+# Nothing is recomputed (no halo): the K stages share one copy of the state.
+FUSED_WORK = {
+    "fluid_fused": dict(volumes=11, derivs_per_axis=2, planes=3,
+                        flops_per_step=51),
+    "fluid_fused_dft": dict(volumes=17, derivs_per_axis=2, planes=3,
+                            flops_per_step=57),
+}
+FUSED_WORK.update({"fluid_fused_point": FUSED_WORK["fluid_fused"],
+                   "fluid_fused_point_dft": FUSED_WORK["fluid_fused_dft"]})
+
+
+def work(name, shape, ns=14, n_src=0, k=1):
     """(bytes, float32 operations) of one launch of ``name`` at ``shape``
-    (with ``n_src`` source voxels for the volumetric scatter): each input
-    read once and each output written once."""
-    if name == "volume_source":
+    (with ``n_src`` source voxels for the volumetric scatter, ``k`` steps a
+    launch for the fused sweep): each input read once and each output
+    written once."""
+    if name in FUSED_WORK:
+        w = FUSED_WORK[name]
+        w = dict(w, flops=w["flops_per_step"] * k)
+    elif name == "volume_source":
         return (n_src * SCATTER_BYTES_PER_SOURCE,
                 n_src * SCATTER_FLOPS_PER_SOURCE)
-    w = KERNEL_WORK[name]
+    else:
+        w = KERNEL_WORK[name]
     n1, n2, n3 = shape
     cells = n1 * n2 * n3
     slab_cells = ns * (n2 * n3 + n1 * n3 + n1 * n2)  # one slab per axis
@@ -413,11 +449,11 @@ def work(name, shape, ns=14, n_src=0):
     return 4.0 * floats, float(w["flops"]) * cells
 
 
-def bound(name, shape, ns=14, n_src=0):
+def bound(name, shape, ns=14, n_src=0, k=1):
     """(least ms, "bytes" or "operations") of one launch of ``name`` at
     ``shape`` on an H100 at its published peaks: its ``work`` over the HBM
     rate, against its float32 operations over the float32 peak."""
-    return roofline(*work(name, shape, ns, n_src))
+    return roofline(*work(name, shape, ns, n_src, k))
 
 
 def shell_source(shape):
@@ -904,6 +940,138 @@ def check_fluid_large_table(device="cuda"):
               f"pressure {t[1]:.4f} ms, +DFT {t[2]:.4f} ms")
     return {"fluid_velocity": 0.0, "fluid_pressure": 0.0,
             "fluid_pressure_dft": 0.0}, {}
+
+
+# the fused phase: steps before a fused launch (from zero fields, with the
+# pair), and the 50-plane grid its shard checks run on (the planes of a
+# shard of 192 planes over 4 devices with its ghost planes)
+FUSED_PRE_STEPS = 30
+FUSED_SHARD = (50, 192, 240)
+
+
+def _fused_case(shape, k, source, viscous, dft, device, x_lo=True,
+                x_hi=True):
+    """One fused launch of ``k`` steps against its plain version
+    (``fluid_fused_ref``, on the card) and against ``k`` steps of the pair,
+    from the state ``FUSED_PRE_STEPS`` pair steps leave (the kernel phase's
+    CT case, ``source`` drive): (the fused state, coefficients, rows,
+    point, [(field, max abs diff)] of both comparisons)."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
+
+    n0 = FUSED_PRE_STEPS
+    grid, co, pamp, _, oz = fluid_case(shape, n0 + k, n0 // 2, source, device,
+                                       viscous=viscous)
+    co.x_lo, co.x_hi = x_lo, x_hi
+    st = K.FluidState.zeros(shape, 14, device)
+    for n in range(n0):
+        F.fluid_step(st, co, grid, n, oz, pamp)
+    fused, plain, pair = (_copy_state(st) for _ in range(3))
+    pt = F.point_index(grid)
+    rows = [F.step_scalars(grid, n, oz, pamp) for n in range(n0, n0 + k)]
+    FK.fluid_fused(fused, co, rows, pt, with_dft=dft)
+    FK.fluid_fused_ref(plain, co, rows, pt, with_dft=dft)
+    for s_sin, s_cos, cosw, sinw, s_pt in rows:
+        K.fluid_velocity(pair, co, s_sin, s_cos)
+        point = None if pt is None else (pt, s_pt)
+        if dft:
+            K.fluid_pressure(pair, co, cosw, sinw, point)
+        else:
+            K.fluid_pressure(pair, co, point=point)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    bad = ([("plain", *b) for b in state_diff(fused, plain)]
+           + [("pair", *b) for b in state_diff(fused, pair)])
+    return fused, co, rows, pt, bad
+
+
+def check_fused(times, device="cuda"):
+    """The fused phase: ``fluid_fused`` against its plain version and
+    against K launches of the pair, max abs difference 0 in every field, at
+    192x192x240 (the 1026-material CT table) and at the ragged 27x45x47,
+    for K = 1, 2, 3 and the deepest K each grid admits, plane and point,
+    viscous and inviscid, quiet and window; on a 50-plane shard with each
+    x_lo / x_hi combination; then each K's time at 192x192x240 from a CUDA
+    graph of captured launches, per step, against its bound and the pair's
+    ``times``. Returns (errors, times, bounds) keyed by kernel row, the
+    rows at the depth the main path takes there."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+    from babelbrain_tpu_torch.ops.fdtd_kernels import pressure_key
+
+    t_phase = time.time()
+    cases = []
+    for shape in (KERNEL_SHAPE, RAGGED_SHAPE):
+        kmax = min(FK.admitted_depth(shape, device, v, d, p)
+                   for v in (True, False) for d in (False, True)
+                   for p in (False, True))
+        for k in sorted({1, 2, 3, kmax}):
+            for viscous in ((True, False) if k in (3, kmax) else (True,)):
+                for source in ("plane", "point"):
+                    for dft in (False, True):
+                        cases.append((shape, k, source, viscous, dft, True,
+                                      True))
+    for x_lo, x_hi in ((True, True), (True, False), (False, True),
+                       (False, False)):
+        for dft in (False, True):
+            cases.append((FUSED_SHARD, 3, "plane", True, dft, x_lo, x_hi))
+    errs = {}
+    for shape, k, source, viscous, dft, x_lo, x_hi in cases:
+        st, _, _, _, bad = _fused_case(shape, k, source, viscous, dft, device,
+                                       x_lo, x_hi)
+        pmax = float(st.p.abs().max())
+        print(f"[fused] {shape} K={k} {source} "
+              f"{'viscous' if viscous else 'inviscid'} "
+              f"{'window' if dft else 'quiet'} x_lo={x_lo} x_hi={x_hi}: "
+              f"max|p| {pmax:.6g} Pa; fields differing from the plain "
+              f"version / the pair {bad}")
+        if bad or not np.isfinite(pmax) or pmax <= 0:
+            fail(f"fused kernel differs ({shape}, K={k}, {source}, "
+                 f"viscous={viscous}, dft={dft}, x_lo={x_lo}, x_hi={x_hi}): "
+                 f"{bad}; max|p| {pmax}")
+        errs[pressure_key("fluid_fused", dft,
+                          0 if source == "point" else None)] = 0.0
+    out_t, out_b = {}, {}
+    if device == "cuda":
+        shape = KERNEL_SHAPE
+        cells = float(np.prod(shape))
+        pair = {False: times["fluid_velocity"][0] + times["fluid_pressure"][0],
+                True: times["fluid_velocity"][0]
+                + times["fluid_pressure_dft"][0]}
+        for source in ("plane", "point"):
+            point = source == "point"
+            plan = F.fused_plan(shape, device, True, point)
+            for dft in (False, True):
+                key = pressure_key("fluid_fused", dft, 0 if point else None)
+                k_main = plan.k_dft if dft else plan.k
+                kmax = FK.admitted_depth(shape, device, True, dft, point)
+                st, co, rows_max, pt, _ = _fused_case(shape, kmax, source,
+                                                      True, dft, device)
+                for k in range(1, kmax + 1):
+                    if point and k != k_main:
+                        continue
+                    rows = rows_max[:k]
+                    ms = _timed_graph(lambda: FK.fluid_fused(
+                        st, co, rows, pt, with_dft=dft), 5)
+                    b_ms, b_by = bound(key, shape, k=k)
+                    print(f"[fused] {key} K={k} at {shape}: {ms:.4f} ms a "
+                          f"launch, {ms / k:.4f} ms a step "
+                          f"({cells * k / ms / 1e3:.1f} Mcell-updates/s); "
+                          f"bound {b_ms:.4f} ms ({b_by}), {b_ms / k:.4f} a "
+                          f"step ({b_ms / ms:.0%}); the pair "
+                          f"{pair[dft]:.4f} ms a step "
+                          f"({ms / k / pair[dft]:.3f}x)")
+                    if k == k_main:
+                        plain = _timed(lambda: FK.fluid_fused_ref(
+                            st, co, rows, pt, with_dft=dft), 2, warm=1)
+                        out_t[key] = (ms, plain)
+                        out_b[key] = (b_ms, b_by)
+                        print(f"[fused]   {key}: the main path's K={k} at "
+                              f"{shape} (fuse_steps=None); plain version "
+                              f"{plain:.4f} ms a launch")
+    print(f"[fused] phase {time.time() - t_phase:.2f} s")
+    return errs, out_t, out_b
 
 
 def check_monitor_ragged(device="cuda"):
@@ -1453,13 +1621,14 @@ def _counted_modules():
     from babelbrain_tpu_torch.ops import (
         bhte_kernels,
         fdtd_extras,
+        fdtd_fused_kernels,
         fdtd_kernels,
         fdtd_sources,
         fdtd_visco_kernels,
     )
 
-    return (fdtd_kernels, fdtd_visco_kernels, fdtd_sources, bhte_kernels,
-            fdtd_extras, probes)
+    return (fdtd_kernels, fdtd_fused_kernels, fdtd_visco_kernels,
+            fdtd_sources, bhte_kernels, fdtd_extras, probes)
 
 
 def reset_counts():
@@ -1906,15 +2075,23 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
     n_off = int(round(params.duration_off / 0.01))
     fdtd, stress = ("fluid", "pressure") if with_ct else ("visco", "stress")
     runs = 2 if (refocus or dome) else 1  # plane / volumetric FDTD passes
-    expect = dict({k: 0 for k in launches}, **{
-        f"{fdtd}_velocity": (runs + refocus) * n,
-        f"{fdtd}_{stress}": runs * s,
-        f"{fdtd}_{stress}_dft": runs * (n - s),
-        "bhte_step": n_on + n_on + n_off,  # locating run + schedule
-    })
-    if refocus:  # the backward run from a stress point at the target
-        expect[f"{fdtd}_{stress}_point"] = s
-        expect[f"{fdtd}_{stress}_point_dft"] = n - s
+    expect = dict({k: 0 for k in launches},
+                  bhte_step=n_on + n_on + n_off)  # locating run + schedule
+    if with_ct and not (dome or diag):
+        # fluid plane and point runs: the fused sweeps by default
+        expect_fluid_run(expect, _make_grid(dom), dom.materials, n=runs,
+                         device=device)
+        if refocus:  # the backward run from a stress point at the target
+            expect_fluid_run(expect, _make_grid(dom, "stress_point",
+                                                dom.focal_idx), dom.materials,
+                             device=device)
+    else:
+        expect.update({f"{fdtd}_velocity": (runs + refocus) * n,
+                       f"{fdtd}_{stress}": runs * s,
+                       f"{fdtd}_{stress}_dft": runs * (n - s)})
+        if refocus:  # the backward run from a stress point at the target
+            expect[f"{fdtd}_{stress}_point"] = s
+            expect[f"{fdtd}_{stress}_point_dft"] = n - s
     if dome:  # the tissue and the water pass, both volumetric
         expect["volume_source"] = 2 * n
     if diag:  # every window step: the maps, and the series (subsampling 1)
@@ -2148,10 +2325,8 @@ def run_sweep(have_h5py: bool, mask_shape=MASK_SHAPE, device="cuda"):
 
     expect = {k: 0 for k in launches}
     grids = [c["domain"] for c in cells.values()] + [dom, dom]
-    for d in grids:
-        expect["fluid_velocity"] += d.n_steps
-        expect["fluid_pressure"] += d.sensor_start
-        expect["fluid_pressure_dft"] += d.n_steps - d.sensor_start
+    for d in grids:  # the cells' runs and the batch's cases: fused sweeps
+        expect_fluid_run(expect, _make_grid(d), d.materials, device=device)
     steps = sum(2 * round(p.duration_on / 0.01) + round(p.duration_off / 0.01)
                 for p in profile)  # per entry: the locating run + schedule
     expect["bhte_step"] = len(cells) * steps
@@ -2753,7 +2928,8 @@ def anchor_full_width(water, p_cut, device="cuda"):
                  for label, dt in recorded_spans()}
         after = read_counts()[0]
         b1 = {k: after[k] - before[k] for k in
-              ("fluid_velocity", "fluid_pressure", "fluid_pressure_dft")}
+              ("fluid_velocity", "fluid_pressure", "fluid_pressure_dft",
+               "fluid_fused", "fluid_fused_dft")}
         if not np.isfinite(out["p_amp"]).all():
             fail(f"full-width {'slab' if slab else 'water'} run not finite")
         p_amp[slab] = out["p_amp"]
@@ -2927,8 +3103,8 @@ def run_anchors(device="cuda"):
     launches, plain = read_counts()
     print(f"[slice anchors] {time.time() - t0:.2f} s; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
-    need = ("visco_velocity", "visco_stress_dft", "fluid_velocity",
-            "fluid_pressure_dft")
+    need = ("visco_velocity", "visco_stress_dft", "fluid_fused",
+            "fluid_fused_dft")
     if device == "cuda" and (any(plain.values())
                              or not all(launches[k] for k in need)):
         fail(f"anchors: launches {launches}, plain calls {plain}")
@@ -2942,7 +3118,13 @@ def run_anchors(device="cuda"):
 # shards of the mesh phase, all on one card (devices= named explicitly);
 # the slices whose run_fdtd calls it replays on them
 MESH_SHARDS = 4
-MESH_SLICES = ("ct", "label", "diag-ct", "dome-ct")
+MESH_SLICES = ("ct", "label", "diag-ct", "dome-ct", "refocus-ct")
+# of refocus-ct only its backward run (a stress point: sharded, it keeps
+# the pair, step by step)
+MESH_POINT_ONLY = ("refocus-ct",)
+# the slices whose run_fdtd calls go through the fused sweeps by default:
+# each call is run again through the pair, step by step, and must equal it
+FUSED_SLICES = ("ct", "refocus-ct", "zte-ct", "coreg-zte")
 MESH_CHECK_STEPS = 40
 # mode -> [(function name, args, kwargs, result, loop seconds)] of the
 # pipeline calls a slice made (``recording``)
@@ -2985,6 +3167,60 @@ def recording(mode):
     finally:
         for name, fn in saved.items():
             setattr(A, name, fn)
+
+
+def expect_fluid_run(expect, grid, materials, n=1, device="cuda"):
+    """Add the launches ``n`` calls of ``run_fdtd`` on ``grid`` make in
+    fluid ``materials`` with a plane or point source and no diagnostics:
+    the fused sweeps and the pair's tail steps of ``ops.fdtd
+    .fluid_schedule`` at the depths ``fused_plan`` takes on the card."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops.fdtd_kernels import pressure_key
+
+    mats = np.asarray(materials, np.float64)
+    viscous = F.sls_coefficients(mats, grid.frequency, grid.dt)["viscous"]
+    point = 0 if F.point_index(grid) is not None else None
+    plan = F.fused_plan(grid.shape, device, viscous, point is not None)
+    for _, k, dft in F.fluid_schedule(grid, plan):
+        if k == 1:
+            expect["fluid_velocity"] += n
+            expect[pressure_key("fluid_pressure", dft, point)] += n
+        else:
+            expect[pressure_key("fluid_fused", dft, point)] += n
+
+
+def check_fused_runs(mode, device="cuda"):
+    """Each ``run_fdtd`` call slice ``mode`` made (``recording``), which
+    went through the fused sweeps, again through the pair step by step
+    (``fdtd_setup`` and the wrappers of ``ops.fdtd_kernels``): the carrier
+    maps must be equal bit for bit. Prints both loops' times; the counts of
+    these launches are set aside."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.utils.timing import clear_spans, recorded_spans
+
+    saved = read_counts()
+    for name, args, kw, ref, loop in RECORDED.get(mode, ()):
+        if name != "run_fdtd":
+            continue
+        kw = {k: v for k, v in kw.items() if k not in ("device", "mesh")}
+        idx, mats, grid, amp, ph, pamp, refl = _bound(
+            F.run_fdtd, args, kw, "mat_idx", "materials", "grid",
+            "source_amp", "source_phase", "point_amp", "reflector_mask")
+        clear_spans()
+        step, st, co, oz, _ = F.fdtd_setup(idx, mats, grid, amp, ph, refl,
+                                           device=device)
+        F._time_loop([(step, st, co, None, None)], grid, oz, pamp)
+        pair_loop = next(dt for label, dt in recorded_spans()
+                         if label.endswith("FDTD time loop"))
+        bad = _maps_differ(ref, F._carrier(st, grid))
+        print(f"[slice {mode}] run_fdtd {grid.shape} {grid.n_steps} steps "
+              f"({grid.source_type}): fused loop {loop:.3f} s, the pair "
+              f"step by step {pair_loop:.3f} s ({loop / pair_loop:.3f}x); "
+              f"maps differing {bad}")
+        if bad:
+            fail(f"{mode}: run_fdtd through the fused sweeps differs from "
+                 f"the pair in {bad}")
+    restore_counts(*saved)
 
 
 def mesh_case(family, source, shape=KERNEL_SHAPE):
@@ -3067,6 +3303,8 @@ def check_mesh_kernels(mesh, times, device="cuda"):
                 stem + point, stem + point + "_dft")
             for k in keys:
                 errs[k] = 0.0
+            if family == "fluid" and source == "plane":
+                check_mesh_overlap(mesh, grid, mats, idx, amp, ph, device)
             if source != "plane" or device != "cuda":
                 continue
             s = F.step_scalars(grid, 10, oz)
@@ -3090,13 +3328,50 @@ def check_mesh_kernels(mesh, times, device="cuda"):
     return errs
 
 
+def check_mesh_overlap(mesh, grid, mats, idx, amp, ph, device="cuda"):
+    """The overlap-and-discard sweeps (``ops.fdtd.sweep_shards``) of a
+    fluid plane-source case on the mesh's shards against their plain
+    versions, every field of every shard bit for bit, and the own planes'
+    carrier against the unsharded fused run's."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+
+    plan = F.overlap_plan(mesh, mats, grid)
+    if plan is None:
+        fail(f"mesh: no overlap plan for {grid.shape} on {mesh.size} shards")
+    runs = []
+    for plain in (False, True):
+        xs, shards, oz = F.shard_setup(mesh, idx, mats, grid, amp, ph,
+                                       halo=plan[1])
+        for n, k, dft in F.overlap_schedule(grid, plan[0]):
+            F.sweep_shards(shards, xs, grid, n, k, dft, oz, plain=plain)
+        runs.append(shards)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    bad = [(s, name, e) for s, (a, b) in enumerate(zip(*runs))
+           for name, e in state_diff(a.st, b.st)]
+    whole = F.run_fdtd(idx, mats, grid, amp, ph, device=device)
+    mine = F._carrier_of(*(F.own_planes(xs, [getattr(sh.st, k)
+                                             for sh in runs[0]])
+                           for k in ("acc_cos", "acc_sin", "peak")), grid)
+    differ = _maps_differ(whole, mine)
+    print(f"[mesh] fluid overlap and discard (K, H) = {plan} on "
+          f"{mesh.size} shards of {grid.shape} "
+          f"({[xs.planes(s) for s in range(xs.n_shards)]} planes with ghosts)"
+          f", {grid.n_steps} steps (window from {grid.sensor_start}): "
+          f"fields differing from the plain versions {bad}; maps differing "
+          f"from the unsharded run {differ}")
+    if bad or differ:
+        fail(f"mesh: the overlap-and-discard sweeps differ: {bad} {differ}")
+
+
 IDLE_STEPS = 300
 
 
 def idle_share(args, kw, mesh=None):
     """(device-busy ms, wall ms, idle share) of ``IDLE_STEPS`` steps of a
-    recorded ``run_fdtd`` call's loop (from its window's start), on
-    ``mesh`` or unsharded on the card, under ``torch.profiler``: the
+    recorded ``run_fdtd`` call's loop (from its window's start, in its
+    fused sweeps where it has them), on ``mesh`` or unsharded on the card,
+    under ``torch.profiler``: the
     kernels' and copies' device time against the host clock from the first
     step to the synchronize after the last. (None, wall, None) when the
     profiler reports no device time."""
@@ -3106,29 +3381,52 @@ def idle_share(args, kw, mesh=None):
 
     from babelbrain_tpu_torch.ops.fdtd import run_fdtd
 
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+
     mat_idx, materials, grid, amp, phase, refl, vsrc = _bound(
         run_fdtd, args, kw, "mat_idx", "materials", "grid", "source_amp",
         "source_phase", "reflector_mask", "volume_source")
+    # the loop as run_fdtd runs it: (first step, K, with_dft) units, each
+    # a fused sweep (K > 1, or any K on the overlap path) or a step
+    units = [(n, 1, n >= grid.sensor_start) for n in range(grid.n_steps)]
     if mesh is None:
         step, st, co, oz, vsrc = F.fdtd_setup(
             mat_idx, materials, grid, amp, phase, refl, vsrc, device="cuda")
+        fused = step is F.fluid_step and vsrc is None
+        if fused:
+            units = F.fluid_schedule(grid, F.fused_plan(
+                grid.shape, "cuda", co.viscous, False))
 
-        def run(n):
-            step(st, co, grid, n, oz, 0.0, vsrc)
+        def run(n, k, dft):
+            if k == 1:
+                step(st, co, grid, n, oz, 0.0, vsrc)
+            else:
+                FK.fluid_fused(st, co, [F.step_scalars(grid, m, oz)
+                                        for m in range(n, n + k)],
+                               with_dft=dft)
     else:
+        plan = F.overlap_plan(mesh, materials, grid)
         xs, shards, oz = F.shard_setup(mesh, mat_idx, materials, grid, amp,
-                                       phase, refl, vsrc)
+                                       phase, refl, vsrc,
+                                       halo=2 if plan is None else plan[1])
+        if plan is not None:
+            units = F.overlap_schedule(grid, plan[0])
 
-        def run(n):
-            F.step_shards(shards, xs, grid, n, oz)
+        def run(n, k, dft):
+            if plan is None:
+                F.step_shards(shards, xs, grid, n, oz)
+            else:
+                F.sweep_shards(shards, xs, grid, n, k, dft, oz)
     n0 = grid.sensor_start
-    for n in range(n0 - 20, n0):  # warm
-        run(n)
+    for u in units:  # warm
+        if n0 - 20 <= u[0] < n0:
+            run(*u)
     torch.cuda.synchronize()
+    timed = [u for u in units if n0 <= u[0] < n0 + IDLE_STEPS]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        for n in range(n0, n0 + IDLE_STEPS):
-            run(n)
+        for u in timed:
+            run(*u)
         torch.cuda.synchronize()
         wall = (time.time() - t0) * 1e3
     busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
@@ -3151,29 +3449,49 @@ def _maps_differ(ref: dict, out: dict) -> list:
             if isinstance(v, np.ndarray) and not np.array_equal(v, out.get(k))]
 
 
-def _expect_shard_launches(expect, grid, materials, n_shards):
-    """Add the velocity and pressure / stress launches a run of ``grid`` on
-    ``n_shards`` shards makes (plane or volumetric source)."""
+def _expect_shard_launches(expect, grid, materials, n_shards, mesh=None,
+                           kw=None):
+    """Add the launches a run of ``grid`` on ``n_shards`` shards makes
+    (plane or volumetric source): on ``mesh``, with the call's keywords
+    ``kw``, the fused launches of the overlap-and-discard sweeps where
+    ``ops.fdtd.overlap_plan`` finds one, else the velocity and pressure /
+    stress launches of every step."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+
+    kw = kw or {}
+    plan = (None if mesh is None else F.overlap_plan(
+        mesh, materials, grid, kw.get("sel_maps", ()), kw.get("monitor_ijk")))
+    if plan is not None:
+        for _, _, dft in F.overlap_schedule(grid, plan[0]):
+            expect["fluid_fused_dft" if dft else "fluid_fused"] += n_shards
+        return
     fam, stem = (("visco", "visco_stress")
                  if np.any(np.asarray(materials)[:, 2] > 0)
                  else ("fluid", "fluid_pressure"))
     n, s = grid.n_steps, grid.sensor_start
+    # a stress point: the shard that holds it launches the point variants
+    point = int(grid.source_type == "stress_point")
     expect[f"{fam}_velocity"] += n_shards * n
-    expect[stem] += n_shards * s
-    expect[f"{stem}_dft"] += n_shards * (n - s)
+    expect[stem] += (n_shards - point) * s
+    expect[f"{stem}_dft"] += (n_shards - point) * (n - s)
+    if point:
+        expect[f"{stem}_point"] += s
+        expect[f"{stem}_point_dft"] += n - s
 
 
 def run_mesh(times, device="cuda"):
     """The mesh phase (one card): the kernels on shards
     (``check_mesh_kernels``), then the recorded ``run_fdtd`` calls of the
-    CT, label, diag-ct and dome-ct slices again on a ``MESH_SHARDS``-shard
-    mesh, each equal to its slice's unsharded result bit for bit; the CT
+    CT, label, diag-ct and dome-ct slices and refocus-ct's point run again
+    on a ``MESH_SHARDS``-shard mesh, each equal to its slice's unsharded
+    result bit for bit; the CT
     slice's forward Rayleigh over a 4-device mesh; sweep-ct's
     ``run_fdtd_batch`` on a 2-device case mesh, equal to its unsharded
     batch. Counts are set to 0 before the replays and read after: every
     FDTD kernel's launches must be those of the shards, and no plain
     version may run. With more than one card, the CT run again across real
     cards and the peer-copy rate. Returns (errors, launches)."""
+    from babelbrain_tpu_torch.ops import fdtd as F
     from babelbrain_tpu_torch.ops.fdtd import make_case_mesh
     from babelbrain_tpu_torch.ops.fdtd import run_fdtd, run_fdtd_batch
     from babelbrain_tpu_torch.ops.rayleigh import rayleigh_field
@@ -3207,6 +3525,9 @@ def run_mesh(times, device="cuda"):
                 continue
             kw = {k: v for k, v in kw.items() if k not in ("device", "mesh")}
             grid, mats = _bound(run_fdtd, args, kw, "grid", "materials")
+            if (mode in MESH_POINT_ONLY
+                    and grid.source_type != "stress_point"):
+                continue
             clear_spans()
             t0 = time.time()
             out = run_fdtd(*args, mesh=mesh, **kw)
@@ -3216,7 +3537,9 @@ def run_mesh(times, device="cuda"):
             bad = _maps_differ(ref, out)
             extra = [k for k in ref if k not in ("p_amp", "p_phase", "peak")
                      and isinstance(ref[k], np.ndarray)]
-            halo = halo_bytes(grid, mats, MESH_SHARDS)
+            halo = halo_bytes(grid, mats, MESH_SHARDS, F.overlap_plan(
+                mesh, mats, grid, kw.get("sel_maps", ()),
+                kw.get("monitor_ijk")))
             print(f"[mesh] {mode} run_fdtd {grid.shape} {grid.n_steps} steps "
                   f"({grid.source_type}"
                   + (f", {len(extra)} maps and series" if extra else "")
@@ -3228,20 +3551,25 @@ def run_mesh(times, device="cuda"):
             if bad:
                 fail(f"mesh: {mode} run_fdtd on {MESH_SHARDS} shards differs "
                      f"from the unsharded run in {bad}")
-            _expect_shard_launches(expect, grid, mats, MESH_SHARDS)
+            _expect_shard_launches(expect, grid, mats, MESH_SHARDS, mesh, kw)
             if mode in ("ct", "label") and device == "cuda":
                 # the idle share of the loop, sharded and not (the counts
                 # are set aside: these launches are the measurement's)
                 fields = 6 if np.any(np.asarray(mats)[:, 2] > 0) else 2
+                plan = F.overlap_plan(mesh, mats, grid)
                 saved = read_counts()
                 whole = idle_share(args, kw)
                 shard = idle_share(args, kw, mesh)
                 restore_counts(*saved)
+                copies = (f"overlap and discard (K, H) = {plan}: "
+                          f"{2 * (MESH_SHARDS - 1) * 3} bundled ghost-plane "
+                          f"transfers a sweep" if plan is not None else
+                          f"{2 * (MESH_SHARDS - 1) * fields} ghost-plane "
+                          "copies a step")
                 print(f"[mesh] {mode} loop over {IDLE_STEPS} window steps "
                       f"under torch.profiler (device busy ms, wall ms, idle "
                       f"share): unsharded {whole}; {MESH_SHARDS} shards "
-                      f"{shard}; {2 * (MESH_SHARDS - 1) * fields} "
-                      f"ghost-plane copies a step")
+                      f"{shard}; {copies}")
             del out
     # the CT slice's forward Rayleigh, its points over 4 devices
     for name, args, kw, ref, _ in RECORDED.get("ct", ()):
@@ -3278,8 +3606,7 @@ def run_mesh(times, device="cuda"):
               f"unsharded batch {bad}")
         if bad:
             fail(f"mesh: the case-mesh batch differs in {bad}")
-        for _ in range(len(amps)):
-            _expect_shard_launches(expect, grid, mats, 1)
+        expect_fluid_run(expect, grid, mats, n=len(amps), device=device)
     launches, plain = read_counts()
     print(f"[mesh] launches {launches}; plain calls {plain}")
     fdtd_rows = [k for k in expect if expect[k]]
@@ -3295,12 +3622,20 @@ def run_mesh(times, device="cuda"):
     return errs, launches
 
 
-def halo_bytes(grid, materials, n_shards):
+def halo_bytes(grid, materials, n_shards, plan=None):
     """Bytes the ghost-plane refresh of one step copies on ``n_shards``
     shards: 2 planes each way at each boundary, for each field the next
-    half-step reads across x (fluid vx, p; visco 3 velocities, 3 stresses)."""
+    half-step reads across x (fluid vx, p; visco 3 velocities, 3 stresses);
+    with an overlap ``plan`` (K, H), H planes each way of p, vx, vy, vz, r
+    and the four y and four z psi slabs once a sweep, over K."""
+    n2, n3 = grid.shape[1:]
+    if plan is not None:
+        k, h = plan
+        ns = grid.npml + 2
+        cells = 5 * n2 * n3 + 4 * ns * n3 + 4 * n2 * ns
+        return (n_shards - 1) * 2 * h * cells * 4 / k
     fields = 6 if np.any(np.asarray(materials)[:, 2] > 0) else 2
-    plane = grid.shape[1] * grid.shape[2] * 4
+    plane = n2 * n3 * 4
     return (n_shards - 1) * 2 * 2 * plane * fields
 
 
@@ -3333,6 +3668,7 @@ def check_mesh_cards(cards):
 # ---------------------------------------------------------------------------
 
 FLUID_CU = "babelbrain_tpu_torch/csrc/fdtd_fluid.cu"
+FUSED_CU = "babelbrain_tpu_torch/csrc/fdtd_fluid_fused.cu"
 VISCO_CU = "babelbrain_tpu_torch/csrc/fdtd_visco.cu"
 SOURCES_CU = "babelbrain_tpu_torch/csrc/fdtd_sources.cu"
 EXTRAS_CU = "babelbrain_tpu_torch/csrc/fdtd_extras.cu"
@@ -3356,6 +3692,15 @@ SOURCES = {
                              f"{PALLAS}:774"),
     "fluid_pressure_point_dft": ("fluid_pressure_kernel<WITH_DFT, POINT>",
                                  FLUID_CU, f"{PALLAS}:774"),
+    # B2 (K = 1), B3 (K = 2) and B4 (K >= 3): K steps in one sweep, plane
+    # (B4 :1754) and point (B4's injection :1808); timed at the main path's K
+    "fluid_fused": ("fluid_fused_kernel", FUSED_CU, f"{PALLAS}:1754"),
+    "fluid_fused_dft": ("fluid_fused_kernel<WITH_DFT>", FUSED_CU,
+                        f"{PALLAS}:1754"),
+    "fluid_fused_point": ("fluid_fused_kernel<POINT>", FUSED_CU,
+                          f"{PALLAS}:1808"),
+    "fluid_fused_point_dft": ("fluid_fused_kernel<WITH_DFT, POINT>", FUSED_CU,
+                              f"{PALLAS}:1808"),
     "volume_source": ("velocity_volume_source_kernel", SOURCES_CU,
                       f"{PALLAS}:706"),
     # B6 build_visco_fused_step's point injection (the same as B8's)
@@ -3429,17 +3774,21 @@ def main():
         for k, v in e.items():  # the scatter is checked in both families
             errs[k] = max(errs.get(k, 0.0), v)
         times.update(t)
-    for e, t, b in (check_diagnostics("fluid"), check_diagnostics("visco"),
-                    check_probe_kernels()):
+    for e, t, b in (check_fused(times), check_diagnostics("fluid"),
+                    check_diagnostics("visco"), check_probe_kernels()):
         errs.update(e)
         times.update(t)
         bounds.update(b)
     n_shell = int((shell_source(KERNEL_SHAPE)["amp"] > 0).sum())
     launches = {k: 0 for k in SOURCES}
     for mode in SLICES:
-        with (recording(mode) if mode in MESH_SLICES
+        with (recording(mode) if mode in MESH_SLICES + FUSED_SLICES
               else contextlib.nullcontext()):
             counts, slice_errs = run_slice(have["h5py"], mode)
+        if mode in FUSED_SLICES:
+            check_fused_runs(mode)
+            if mode not in MESH_SLICES:
+                RECORDED.pop(mode, None)
         for k, v in counts.items():
             launches[k] += v
         for k, v in slice_errs.items():

@@ -157,6 +157,85 @@ def test_fluid_kernels_match_plain_large_table(cuda, viscous):
     _fluid_run_matches_plain(cuda, grid, co)
 
 
+# the fused sweep's cases: (K, source, viscous, with the DFT, x_lo, x_hi),
+# on the tiling's ragged grids; the x-slab flags as a shard's launch sets
+# them (one global edge, or none)
+FUSED_CASES = (
+    [(k, src, True, dft, True, True) for k in (1, 2, 3, 4, 8)
+     for src in ("velocity_plane", "stress_point") for dft in (False, True)]
+    + [(k, "velocity_plane", False, dft, True, True) for k in (1, 3)
+       for dft in (False, True)]
+    + [(3, "velocity_plane", True, True, lo, hi)
+       for lo, hi in ((True, False), (False, True), (False, False))])
+
+
+@pytest.mark.parametrize("shape,zsrc", VISCO_GRIDS[1:])
+@pytest.mark.parametrize("k,source,viscous,dft,x_lo,x_hi", FUSED_CASES)
+def test_fused_kernel_matches_plain(cuda, k, source, viscous, dft, x_lo,
+                                    x_hi, shape, zsrc):
+    """``fluid_fused`` (K steps a launch) against its plain version and
+    against K steps of the pair, every field and psi slab bit-equal, from
+    the state 20 pair steps leave; a stress point on a (y, z) tile corner."""
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+
+    grid, co = _fluid_setup(cuda, shape=shape, viscous=viscous,
+                            source_type=source, zsrc=zsrc,
+                            source_ijk=(shape[0] // 2, K.TILE_Y, K.TILE_Z))
+    co.x_lo, co.x_hi = x_lo, x_hi
+    oz = 1.0 / (1000.0 * 1500.0)
+    pamp = 60e3 if source == "stress_point" else 0.0
+    st = K.FluidState.zeros(grid.shape, 14, cuda)
+    for n in range(20):
+        F.fluid_step(st, co, grid, n, oz, pamp)
+    fused, plain, pair = (_copy(st) for _ in range(3))
+    pt = F.point_index(grid)
+    rows = [F.step_scalars(grid, n, oz, pamp) for n in range(20, 20 + k)]
+    before = dict(FK.launches)
+    FK.fluid_fused(fused, co, rows, pt, with_dft=dft)
+    FK.fluid_fused_ref(plain, co, rows, pt, with_dft=dft)
+    for s_sin, s_cos, cosw, sinw, s_pt in rows:
+        K.fluid_velocity(pair, co, s_sin, s_cos)
+        point = None if pt is None else (pt, s_pt)
+        if dft:
+            K.fluid_pressure(pair, co, cosw, sinw, point)
+        else:
+            K.fluid_pressure(pair, co, point=point)
+    torch.cuda.synchronize()
+    key = K.pressure_key("fluid_fused", dft, pt)
+    assert FK.launches[key] - before[key] == 1
+    assert float(fused.p.abs().max()) > 0
+    fields = ("p", "vx", "vy", "vz", "r", "acc_cos", "acc_sin", "peak")
+    _fields_equal(fused, plain, fields, ("psi_p", "psi_v"))
+    _fields_equal(fused, pair, fields, ("psi_p", "psi_v"))
+
+
+def test_fused_run_fdtd_matches_the_pair(cuda):
+    """``run_fdtd`` through the fused sweeps by default (its schedule's
+    K-step, 2-step and tail steps) equals the pair step by step."""
+    grid, co = _fluid_setup(cuda)
+    idx = co.mat_idx.cpu().numpy()
+    mats = np.array([[1000.0, 1500.0, 0, 0, 0], [1900.0, 2200.0, 0, 80.0, 0]])
+    amp = np.zeros(grid.shape[:2])
+    amp[6:-6, 6:-6] = 60e3
+    ph = np.random.default_rng(0).uniform(-1, 1, grid.shape[:2])
+    out = F.run_fdtd(idx, mats, grid, amp, ph, device="cuda")
+    step, st, co2, oz, _ = F.fdtd_setup(idx, mats, grid, amp, ph,
+                                        device="cuda")
+    F._time_loop([(step, st, co2, None, None)], grid, oz)
+    ref = F._carrier(st, grid)
+    for name in ("p_amp", "p_phase", "peak"):
+        np.testing.assert_array_equal(out[name], ref[name], err_msg=name)
+
+
+def test_fused_wrapper_rejects_mixed_devices(cuda):
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+
+    grid, co = _fluid_setup(cuda)
+    st = K.FluidState.zeros(grid.shape, 14, "cpu")
+    with pytest.raises(ValueError, match="float32 on"):
+        FK.fluid_fused(st, co, [F.step_scalars(grid, 0, 1.0)])
+
+
 def test_fluid_wrapper_rejects_mixed_devices(cuda):
     grid, co = _fluid_setup(cuda)
     st = K.FluidState.zeros(grid.shape, 14, "cpu")
@@ -268,6 +347,13 @@ def _shell(shape, device):
         amp=np.where(shell, 60e3, 0.0), phase=rng.uniform(-2, 2, shape),
         ox=(c[0] - ii) / rr, oy=(c[1] - jj) / rr, oz=(c[2] - kk) / rr,
     ), shape, device)
+
+
+def _copy(st):
+    """A copy of a fluid or visco state (every tensor and psi slab)."""
+    return type(st)(**{k: (v.clone() if torch.is_tensor(v)
+                           else [t.clone() for t in v])
+                       for k, v in vars(st).items()})
 
 
 def _fields_equal(st_k, st_p, names, psi):
