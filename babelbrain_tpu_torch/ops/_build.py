@@ -59,6 +59,8 @@ _SIGNATURES = {
     + [_I] * 2 + [_P],
     "bb_fluid_fused_capacity": [_I] * 4 + [_P],
     "bb_bhte_step": [_P] * 13 + [_F] + [_I] * 3 + [_P],
+    "bb_bhte_fused": [_P] * 13 + [_F] + [_I] * 8 + [_P],
+    "bb_bhte_fused_tile": [_I, _P, _P],
     "bb_visco_velocity": [_P] * 10 + [_F] * 3 + [_I] * 13 + [_P],
     "bb_visco_stress": [_P] * 11 + [_F] * 5 + [_I] * 10 + [_L, _F]
     + [_P] * 4 + [_I] * 6 + [_P],

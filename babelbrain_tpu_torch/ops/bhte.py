@@ -10,9 +10,15 @@ harmonic-mean interface conductivities and edge-replicated (adiabatic)
 boundaries, perfusion converted from mL/min/kg, and the CEM43 thermal dose
 ``dose += dt * R^(43 - T)`` with R = 0.5 above 43 C and 0.25 below.
 
-The schedule runs as a Python loop of ``ops.bhte_kernels.bhte_step`` calls
-(one CUDA kernel per step on a GPU). Monitor-point temperatures are sampled
-after every step into a preallocated device tensor, with no host sync
+The schedule runs in JAX's segment order (``babelbrain_tpu/ops/
+bhte_pallas.py:bhte_segment_pallas``): each (field, on) segment of n steps
+is n // K sweeps of ``ops.bhte_kernels.bhte_fused`` (K steps a launch of
+one CUDA kernel on a GPU), then n % K steps of ``bhte_step`` (one launch
+each); a sweep never crosses a segment. K is ``bhte_run``'s ``fuse_steps``:
+by default ``BHTE_FUSE_BEST`` on a card and 1 (every step through
+``bhte_step``, as JAX's XLA path on its CPU) elsewhere. Monitor-point
+temperatures are sampled after each sweep and after each one-step launch
+(``monitor_steps``) into a preallocated device tensor, with no host sync
 inside the loop.
 """
 
@@ -24,7 +30,14 @@ import numpy as np
 import torch
 
 from ..utils.timing import stage_timer
-from .bhte_kernels import BHTECoeffs, bhte_step, edge_shift
+from .bhte_kernels import (
+    BHTE_FUSE_BEST,
+    BHTE_K_CAP,
+    BHTECoeffs,
+    bhte_fused,
+    bhte_step,
+    edge_shift,
+)
 
 # IT'IS blood properties for the perfusion term
 BLOOD_DENSITY = 1050.0  # kg/m^3
@@ -41,7 +54,7 @@ class BHTEResult:
     peak_temperature: np.ndarray  # max T over schedule
     dose: np.ndarray  # CEM43 in seconds
     monitor: np.ndarray  # (n_points, n_samples) temperatures
-    # global step index of each monitor sample (every step here)
+    # global step index of each monitor sample (``monitor_steps``)
     monitor_steps: np.ndarray | None = None
 
 
@@ -111,6 +124,7 @@ def bhte_run(
     arterial_temperature: float | None = None,
     dose_dt_scale: float = 1.0,
     device="cuda",
+    fuse_steps: int | None = None,
 ) -> BHTEResult:
     """Run a BHTE schedule.
 
@@ -121,20 +135,70 @@ def bhte_run(
     schedule : sequence of (field_index, n_steps, on) tuples executed in
         order; ``field_index < 0`` or ``on=False`` means no heating.
     duty_cycle : scales Q during 'on' phases.
-    monitor_points : (K, 3) integer voxel indices to record (every step).
-    device : where the volumes live (CUDA: the BHTE kernel; CPU: its plain
-        PyTorch version).
+    monitor_points : (P, 3) integer voxel indices to record, after each
+        sweep and each one-step launch (``monitor_steps``).
+    device : where the volumes live (CUDA: the BHTE kernels; CPU: their
+        plain PyTorch versions).
+    fuse_steps : K, the steps a sweep advances (JAX's
+        ``bhte_segment_pallas(fuse_steps=)``): None takes ``BHTE_FUSE_BEST``
+        on a card and 1 elsewhere; 1 runs one step a launch; 2..8 pin K.
+        Results do not depend on it (bit for bit); the monitor cadence does.
 
     Returns BHTEResult; dose is CEM43 in seconds.
     """
     dev = torch.device(device)
+    k = fuse_depth(fuse_steps, dev)
     with stage_timer("BHTE setup", level=3, step=3):
         state = _bhte_setup(pressure_fields, mat_idx, mats, dx, dt,
                             duty_cycle, monitor_points, initial_temperature,
                             initial_dose, arterial_temperature,
                             dose_dt_scale, dev)
     with stage_timer("BHTE time loop", level=3, step=3):
-        return _bhte_loop(*state, schedule, dt, dose_dt_scale, dev)
+        return _bhte_loop(*state, schedule, dt, dose_dt_scale, dev, k)
+
+
+def fuse_depth(fuse_steps, device) -> int:
+    """The K ``bhte_run(fuse_steps=)`` runs on ``device``: JAX's
+    ``backend="auto"`` rule, the K-step sweep on the accelerator and one
+    step at a time elsewhere, unless pinned."""
+    if fuse_steps is None:
+        return BHTE_FUSE_BEST if torch.device(device).type == "cuda" else 1
+    k = int(fuse_steps)
+    if k != fuse_steps or not 1 <= k <= BHTE_K_CAP:
+        raise ValueError(f"fuse_steps={fuse_steps!r}: 1..{BHTE_K_CAP} or None")
+    return k
+
+
+def segment_plan(schedule, k: int):
+    """Per schedule segment (field, on, sweeps of K steps, one-step tail
+    launches): JAX's split, ``n // K`` sweeps then ``n % K`` single steps
+    (K = 1: every step a single one)."""
+    plan = []
+    for f_idx, n_steps, on in schedule:
+        n = max(int(n_steps), 0)
+        sweeps = n // k if k >= 2 else 0
+        plan.append((f_idx, on, sweeps, n - k * sweeps))
+    return plan
+
+
+def monitor_steps(schedule, k: int) -> np.ndarray:
+    """The global step index of each monitor sample of a run with K-step
+    sweeps: the last step of each sweep, then each tail step, segment by
+    segment (JAX's ``bhte_segment_pallas`` offset as in its ``bhte_run``)."""
+    steps, step0 = [], 0
+    for _, _, sweeps, tail in segment_plan(schedule, k):
+        done = step0 + k * sweeps
+        steps += [*range(step0 + k - 1, done, k), *range(done, done + tail)]
+        step0 = done + tail
+    return np.asarray(steps, np.int64)
+
+
+def schedule_launches(schedule, k: int) -> dict:
+    """Kernel launches of a run: ``bhte_fused`` sweeps and ``bhte_step``
+    one-step launches."""
+    plan = segment_plan(schedule, k)
+    return {"bhte_fused": sum(p[2] for p in plan),
+            "bhte_step": sum(p[3] for p in plan)}
 
 
 def _bhte_setup(pressure_fields, mat_idx, mats, dx, dt, duty_cycle,
@@ -184,26 +248,30 @@ def _bhte_setup(pressure_fields, mat_idx, mats, dx, dt, duty_cycle,
 
 
 def _bhte_loop(Q, co, T, dose, peak, flat_idx, t_art, schedule, dt,
-               dose_dt_scale, dev) -> BHTEResult:
-    """The schedule from the setup's state; results read back to the host
-    (the readback waits for the device)."""
-    n_total = sum(int(n) for _, n, _ in schedule)
-    mons = torch.empty((n_total, len(flat_idx)), dtype=torch.float32, device=dev)
+               dose_dt_scale, dev, k) -> BHTEResult:
+    """The schedule from the setup's state at depth ``k``; results read back
+    to the host (the readback waits for the device)."""
+    steps = monitor_steps(schedule, k)
+    mons = torch.empty((len(steps), len(flat_idx)), dtype=torch.float32,
+                       device=dev)
     spare = torch.empty_like(T)
-    step = 0
-    for f_idx, n_steps, on in schedule:
+    s = 0
+    for f_idx, on, sweeps, tail in segment_plan(schedule, k):
         q = Q[int(f_idx)] if (on and f_idx >= 0) else None
-        for _ in range(int(n_steps)):
-            T_new = bhte_step(T, dose, peak, co, q, t_art, T_out=spare)
+        for n in range(sweeps + tail):
+            if n < sweeps:
+                T_new = bhte_fused(T, dose, peak, co, q, t_art, k, T_out=spare)
+            else:
+                T_new = bhte_step(T, dose, peak, co, q, t_art, T_out=spare)
             T, spare = T_new, T
-            torch.index_select(T.view(-1), 0, flat_idx, out=mons[step])
-            step += 1
+            torch.index_select(T.view(-1), 0, flat_idx, out=mons[s])
+            s += 1
     return BHTEResult(
         temperature=T.cpu().numpy(),
         peak_temperature=peak.cpu().numpy(),
         dose=dose.cpu().numpy() * dt * dose_dt_scale,
         monitor=mons.cpu().numpy().T,
-        monitor_steps=np.arange(n_total),
+        monitor_steps=steps,
     )
 
 

@@ -874,6 +874,9 @@ def run_case(
                 "FinalDose": thermal.dose,
                 "DoseEndFUS": thermal.dose,
                 "TemperaturePoints": thermal.monitor,
+                # the step of each sample: one a launch, so every step on
+                # the CPU and every K-step sweep's last on a card
+                "TemperaturePointsSteps": thermal.monitor_steps,
                 "TargetLocation": data["TargetLocation"],
                 "RatioLosses": thermal.ratio_losses,
                 "PressureRatio": thermal.pressure_ratio,

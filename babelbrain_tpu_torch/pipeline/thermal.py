@@ -157,8 +157,9 @@ class ThermalResult:
     metrics: dict = field(default_factory=dict)
     pressure_ratio: float = 1.0
     ratio_losses: float = 1.0
-    # step index of each monitor sample (per-step for the XLA BHTE path,
-    # once per fused sweep for the Pallas path)
+    # step index of each monitor sample (``ops.bhte.monitor_steps``: every
+    # step one step a launch, as on the CPU; after each K-step sweep and
+    # each tail step on a card)
     monitor_steps: np.ndarray | None = None
 
 
@@ -403,6 +404,7 @@ def run_all_combinations(
                 FinalTemp=res.temperature_end,
                 FinalDose=res.dose,
                 TemperaturePoints=res.monitor,
+                TemperaturePointsSteps=np.asarray(mon_steps),
                 RatioLosses=res.ratio_losses,
                 PressureRatio=res.pressure_ratio,
                 dt=dt,

@@ -43,7 +43,16 @@ Phases (each prints its own lines; any failed check exits nonzero):
              holds there, plane and point, viscous and inviscid, quiet and
              window, and on a 50-plane shard with each x_lo / x_hi
              combination; each K timed per step against its bound and the
-             pair.
+             pair. Then the BHTE sweep: ``bhte_fused`` (K steps a launch)
+             against its plain version and against K launches of
+             ``bhte_step`` (and those against the plain version), max abs
+             difference 0 in T, dose and peak, at 192x192x240 (heating,
+             then cooling, across 43 C) for K = 1, 2, 3, 4, 8 and
+             ``BHTE_FUSE_BEST``, at the slices' Step 3 frame 160x160x200
+             for ``BHTE_FUSE_BEST``, at 27x45x47 for K = 1..8, with N1
+             below K and with N2 and N3 below one tile; each K timed a
+             launch and a step at 192x192x240 and 160x160x200 against its
+             bound and ``bhte_step``.
              Every kernel is timed from a CUDA graph of captured calls:
              the card's own time, without the host's work per call. The
              plain versions of the FDTD, BHTE and stream rows, which run
@@ -75,7 +84,13 @@ Phases (each prints its own lines; any failed check exits nonzero):
              bit. The CT, refocus-ct, zte-ct and coreg-zte slices' FDTD
              runs go through the fused sweeps (``run_fdtd``'s default):
              each run is repeated through the pair step by step and must
-             equal it bit for bit. After a refocus, dome or diag slice,
+             equal it bit for bit. Every slice's Step 3 runs the BHTE
+             sweeps (``bhte_run``'s default K on a card): each of its two
+             ``bhte_run`` loops is run again from its start one step a
+             launch (``fuse_steps=1``) and must equal it bit for bit in T,
+             dose and peak, its monitors at the sampled steps; the
+             launch counts are the sweeps and one-step tails of the
+             sonication's schedules. After a refocus, dome or diag slice,
              the kernels and their plain versions run 40 steps across the
              window start on
              that slice's own domain and its stress point, volumetric or
@@ -92,7 +107,8 @@ Phases (each prints its own lines; any failed check exits nonzero):
              64^3, and Step 1's surface meshes are exported and counted.
              Last, sweep-ct (``run_sweep``): two shape-bucketed targets 5 mm
              apart (one grid signature), each with a 3-entry thermal
-             profile, then multipoint steering of the first cell at +-5 mm
+             profile (the last entry's 30.01 s pause ends in a one-step
+             tail; its Step 3 checked as the slices'), then multipoint steering of the first cell at +-5 mm
              through ``run_fdtd_batch``; its cases 0 and 1 must each equal
              ``run_fdtd`` of their plane bit for bit; then anchors: the
              shear anchor of `tests/test_shear_anchor.py` (normal and 25
@@ -157,6 +173,11 @@ KERNEL_SHAPE = (192, 192, 240)
 FLUID_STEPS, FLUID_SENSOR_START = 200, 150
 VISCO_STEPS, VISCO_SENSOR_START = 200, 150
 BHTE_STEPS, BHTE_HEAT_STEPS = 500, 300
+# the K-step BHTE check: steps a case at KERNEL_SHAPE (half heating, then
+# cooling across 43 C; 8 K at the small grids), and the grids beside
+# KERNEL_SHAPE and RAGGED_SHAPE: N1 below K, and N2 and N3 below one tile
+BHTE_FUSED_STEPS = 24
+BHTE_THIN, BHTE_NARROW = (5, 45, 47), (12, 5, 20)
 # FDTD grid (216, 216, 224) after the transducer-cone fit: the order of the
 # 192x192x240 benchmark grid
 MASK_SHAPE = (160, 160, 200)
@@ -426,6 +447,13 @@ FUSED_WORK = {
 }
 FUSED_WORK.update({"fluid_fused_point": FUSED_WORK["fluid_fused"],
                    "fluid_fused_point_dft": FUSED_WORK["fluid_fused_dft"]})
+# The BHTE sweep of K steps (csrc/bhte.cu bhte_fused_kernel), per launch:
+# T read and written, dose and peak read and written, the six
+# conductivities, irc, perf and Q read once (15 volumes, whatever K; the
+# halo a block recomputes is read again from L2, not counted); each step's
+# float operations (the one-step kernel's).
+FUSED_WORK["bhte_fused"] = dict(volumes=15, derivs_per_axis=0, planes=0,
+                                flops_per_step=30)
 
 
 def work(name, shape, ns=14, n_src=0, k=1):
@@ -1133,29 +1161,39 @@ def check_monitor_ragged(device="cuda"):
     return {"monitor_fluid": 0.0, "monitor_visco": 0.0}, {}
 
 
-def check_bhte(shape=KERNEL_SHAPE, n_steps=BHTE_STEPS,
-               heat_steps=BHTE_HEAT_STEPS, device="cuda"):
+def bhte_case(shape, device, amp=3e6, hot=0.0):
+    """(heat map Q, coefficients, T0) of the BHTE kernel checks on the CT
+    table's thermal materials (``ct_index_volume``; seeded indices on grids
+    too thin for its layers): a focused heating blob of ``amp`` Pa in the
+    brain layer (30% duty), T0 the materials' start plus ``hot`` C at the
+    blob's centre."""
     from babelbrain_tpu_torch.materials import build_thermal_material_list
     from babelbrain_tpu_torch.ops import bhte as B
-    from babelbrain_tpu_torch.ops import bhte_kernels as K
 
     mats = build_thermal_material_list(ct_table(), ct_mode=True,
                                        segmented_brain=False)
-    idx = ct_index_volume(shape)
+    idx = (ct_index_volume(shape) if shape[2] >= 48 else
+           np.random.default_rng(3).integers(0, len(ct_table()), shape))
     dx = 1482.3 / F0 / PPW
-    dt = 0.01
-    # focused heating blob in the brain layer, hot enough to cross 43 C
     n1, n2, n3 = shape
     ii, jj, kk = np.meshgrid(*(np.arange(n) for n in shape), indexing="ij")
     r2 = ((ii - n1 / 2) ** 2 + (jj - n2 / 2) ** 2
           + ((kk - 0.7 * n3) / 3.0) ** 2) / 8.0**2
-    p = (3e6 * np.exp(-r2)).astype(np.float32)
+    p = (amp * np.exp(-r2)).astype(np.float32)
     Q = torch.as_tensor(B.absorption_heating(p, idx, mats, 0.3), device=device)
-    co = B.make_bhte_coeffs(B._build_coeff_maps(idx, mats, dx, dt), device)
+    co = B.make_bhte_coeffs(B._build_coeff_maps(idx, mats, dx, 0.01), device)
+    T0 = np.asarray(mats.init_temperature, np.float32)[idx]
+    T0 = T0 + (hot * np.exp(-r2 / 4)).astype(np.float32)
+    return Q, co, torch.as_tensor(T0, device=device)
+
+
+def check_bhte(shape=KERNEL_SHAPE, n_steps=BHTE_STEPS,
+               heat_steps=BHTE_HEAT_STEPS, device="cuda"):
+    from babelbrain_tpu_torch.ops import bhte_kernels as K
+
+    # a focused heating blob in the brain layer
+    Q, co, T0 = bhte_case(shape, device)
     t_art = 37.0
-    T0 = torch.as_tensor(
-        np.asarray(mats.init_temperature, np.float32)[idx], device=device
-    )
 
     def run(step):
         T, out = T0.clone(), torch.empty_like(T0)
@@ -1192,6 +1230,105 @@ def check_bhte(shape=KERNEL_SHAPE, n_steps=BHTE_STEPS,
               f"ms/step ({cells / tp / 1e3:.1f} Mcell-updates/s)")
         times["bhte_step"] = (tk, tp)
     return {"bhte_step": max(dT, dpeak)}, times
+
+
+def check_bhte_fused(times, device="cuda"):
+    """``bhte_fused`` (K steps a launch) against its plain version and
+    against K launches of ``bhte_step``, and those launches against the
+    plain version too, max abs difference 0 in T, dose and peak: at
+    192x192x240 for K = 1, 2, 3, 4, 8 and ``BHTE_FUSE_BEST`` and at the
+    slices' Step 3 frame ``MASK_SHAPE`` for ``BHTE_FUSE_BEST`` (the main
+    path's depth and grid; ``BHTE_FUSED_STEPS`` steps, half heating, then
+    cooling, from a start whose blob straddles 43 C), at the ragged 27x45x47
+    for K = 1..8, with N1 below K and with N2 and N3 below one tile (8 K
+    steps each); then each K's time at both grids from a CUDA graph of
+    captured launches, a launch and a step, against its bound and the
+    one-step kernel's (``times`` at 192x192x240). Returns (errors, times,
+    bounds) of the ``bhte_fused`` row, timed at the main path's K at
+    192x192x240."""
+    from babelbrain_tpu_torch.ops import bhte_kernels as K
+
+    t_phase = time.time()
+    best = K.BHTE_FUSE_BEST
+    t_art = 37.0
+    depths = sorted({1, 2, 3, 4, 8, best})
+    cases = ((KERNEL_SHAPE, depths), (MASK_SHAPE, (best,)),
+             (RAGGED_SHAPE, range(1, K.BHTE_K_CAP + 1)), (BHTE_THIN, (6, 8)),
+             (BHTE_NARROW, (1, 3, 8)))
+    for shape, ks in cases:
+        Q, co, T0 = bhte_case(shape, device, amp=6e6, hot=7.0)
+        for k in ks:
+            n = (BHTE_FUSED_STEPS // k if shape in (KERNEL_SHAPE, MASK_SHAPE)
+                 else 8) * k
+            heat = n // 2 // k * k
+
+            def run(how):
+                T, out = T0.clone(), torch.empty_like(T0)
+                dose, peak = torch.zeros_like(T0), torch.full_like(T0, -1e9)
+                for s in range(0, n, k):
+                    q = Q if s < heat else None
+                    if how == "steps":
+                        for _ in range(k):
+                            T_new = K.bhte_step(T, dose, peak, co, q, t_art,
+                                                T_out=out)
+                            T, out = T_new, T
+                        continue
+                    fn = K.bhte_fused if how == "kernel" else K.bhte_fused_ref
+                    T_new = fn(T, dose, peak, co, q, t_art, k, out)
+                    T, out = T_new, T
+                return T, dose, peak
+
+            got, plain, steps = run("kernel"), run("plain"), run("steps")
+            if device == "cuda":
+                torch.cuda.synchronize()
+            names = ("T", "dose", "peak")
+            bad = [(f"{nm} {what}", _equal(a, b))
+                   for what, x, y in (("fused vs plain", got, plain),
+                                      ("fused vs steps", got, steps),
+                                      ("steps vs plain", steps, plain))
+                   for nm, a, b in zip(names, x, y) if not torch.equal(a, b)]
+            # both dose branches: cells start below 43 C and peak above it
+            tmin, pmax = float(T0.min()), float(got[2].max())
+            print(f"[bhte-fused] {shape} K={k} {n} steps ({heat} heating): "
+                  f"T from {tmin:.3f} C, peak {pmax:.3f} C; differing among "
+                  f"bhte_fused, the plain version and K launches of "
+                  f"bhte_step {bad}")
+            if bad or not tmin < 43.0 < pmax:
+                fail(f"bhte_fused differs ({shape}, K={k}): {bad}; T from "
+                     f"{tmin} C, peak {pmax} C (both dose branches required)")
+    out_t, out_b = {}, {}
+    if device == "cuda":
+        for shape in (KERNEL_SHAPE, MASK_SHAPE):
+            cells = float(np.prod(shape))
+            Q, co, T0 = bhte_case(shape, device, amp=6e6, hot=7.0)
+            T, out = T0.clone(), torch.empty_like(T0)
+            dose, peak = torch.zeros_like(T0), torch.full_like(T0, -1e9)
+            one = (times["bhte_step"][0] if shape == KERNEL_SHAPE else
+                   _timed_graph(lambda: K.bhte_step(T, dose, peak, co, Q,
+                                                    t_art, T_out=out), 24))
+            print(f"[bhte-fused] bhte_step at {shape}: {one:.4f} ms a step")
+            for k in depths:
+                ms = _timed_graph(lambda: K.bhte_fused(
+                    T, dose, peak, co, Q, t_art, k, T_out=out), 24 // k)
+                cool = _timed_graph(lambda: K.bhte_fused(
+                    T, dose, peak, co, None, t_art, k, T_out=out), 24 // k)
+                b_ms, b_by = bound("bhte_fused", shape, k=k)
+                print(f"[bhte-fused] K={k} at {shape}: {ms:.4f} ms a launch, "
+                      f"{ms / k:.4f} ms a step ({cells * k / ms / 1e3:.1f} "
+                      f"Mcell-updates/s; cooling {cool / k:.4f}); bound "
+                      f"{b_ms:.4f} ms ({b_by}), {b_ms / k:.4f} a step "
+                      f"({b_ms / ms:.0%}); bhte_step {one:.4f} ms a step "
+                      f"({ms / k / one:.3f}x)")
+                if k == best and shape == KERNEL_SHAPE:
+                    plain = _timed(lambda: K.bhte_fused_ref(
+                        T, dose, peak, co, Q, t_art, k, out), 2, warm=1)
+                    out_t["bhte_fused"] = (ms, plain)
+                    out_b["bhte_fused"] = (b_ms, b_by)
+                    print(f"[bhte-fused]   the main path's K={k} "
+                          f"(BHTE_FUSE_BEST); plain version {plain:.4f} ms a "
+                          "launch")
+    print(f"[bhte-fused] phase {time.time() - t_phase:.2f} s")
+    return {"bhte_fused": 0.0}, out_t, out_b
 
 
 def _equal(a, b) -> float:
@@ -1966,21 +2103,22 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
         reset_counts()
         rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         t0 = time.time()
-        if have_h5py and not (diag or zte):
-            print(f"{tag} driving run_case (h5py present)")
-            res = run_case(cfg, labels, aff, target, direction, ct_data=ct,
-                           ct_affine=aff if ct is not None else None,
-                           thermal_params=params, mask_shape=mask_shape)
-        else:
-            print(f"{tag} driving the stage functions of run_case in its "
-                  "order, writing no files ("
-                  + ("run_case takes no sel_maps)" if diag
-                     else "the pseudo-CT stage in the open)" if zte
-                     else "h5py missing)"))
-            res = run_stages(cfg, labels, aff, ct, target, direction, params,
-                             mask_shape, diagnostics=diag, t1=t1)
-        if device == "cuda":
-            torch.cuda.synchronize()
+        with recording_bhte() as bhte_loops:
+            if have_h5py and not (diag or zte):
+                print(f"{tag} driving run_case (h5py present)")
+                res = run_case(cfg, labels, aff, target, direction, ct_data=ct,
+                               ct_affine=aff if ct is not None else None,
+                               thermal_params=params, mask_shape=mask_shape)
+            else:
+                print(f"{tag} driving the stage functions of run_case in its "
+                      "order, writing no files ("
+                      + ("run_case takes no sel_maps)" if diag
+                         else "the pseudo-CT stage in the open)" if zte
+                         else "h5py missing)"))
+                res = run_stages(cfg, labels, aff, ct, target, direction,
+                                 params, mask_shape, diagnostics=diag, t1=t1)
+            if device == "cuda":
+                torch.cuda.synchronize()
         wall = time.time() - t0
         launches, plain = read_counts()
     rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
@@ -2071,12 +2209,10 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
               f"{tuple(round(float(v), 2) for v in (fr - tgt) * dx_mm)} mm")
 
     n, s = dom.n_steps, dom.sensor_start
-    n_on = int(round(params.duration_on / 0.01))
-    n_off = int(round(params.duration_off / 0.01))
     fdtd, stress = ("fluid", "pressure") if with_ct else ("visco", "stress")
     runs = 2 if (refocus or dome) else 1  # plane / volumetric FDTD passes
-    expect = dict({k: 0 for k in launches},
-                  bhte_step=n_on + n_on + n_off)  # locating run + schedule
+    expect = {k: 0 for k in launches}
+    expect_bhte(expect, [params], device)  # the locating run + schedule
     if with_ct and not (dome or diag):
         # fluid plane and point runs: the fused sweeps by default
         expect_fluid_run(expect, _make_grid(dom), dom.materials, n=runs,
@@ -2104,6 +2240,7 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
             fail(f"{mode}: launch counts {launches} != expected {expect}")
         if any(plain.values()):
             fail(f"{mode}: plain versions ran on the main path: {plain}")
+    check_bhte_runs(tag, bhte_loops, sonication_schedules(params), device)
     if refocus or dome:
         errs = check_slice_inputs(tag, dom, *slice_source(cfg, dom),
                                   device=device)
@@ -2236,10 +2373,15 @@ SWEEP_STEER = ([0.0, 0.0, -5e-3], [0.0, 0.0, 5e-3])
 
 
 def sweep_profile():
+    """The slices' sonication at ``SWEEP_DUTY``; the last entry's pause is
+    30.01 s, 3001 steps: no whole number of BHTE sweeps of any K >= 2, so
+    the one-step kernel runs the tail."""
     from babelbrain_tpu_torch.pipeline.thermal import SonicationParams
 
-    return [SonicationParams(duration_on=30.0, duration_off=30.0,
-                             duty_cycle=dc, isppa=10.0) for dc in SWEEP_DUTY]
+    return [SonicationParams(duration_on=30.0,
+                             duration_off=30.01 if dc == SWEEP_DUTY[-1]
+                             else 30.0, duty_cycle=dc, isppa=10.0)
+            for dc in SWEEP_DUTY]
 
 
 def run_sweep(have_h5py: bool, mask_shape=MASK_SHAPE, device="cuda"):
@@ -2283,27 +2425,31 @@ def run_sweep(have_h5py: bool, mask_shape=MASK_SHAPE, device="cuda"):
         clear_spans()
         reset_counts()
         t0 = time.time()
-        if have_h5py:
-            print(f"{tag} driving run_cases (h5py present)")
-            out = run_cases(cfg, labels, aff, SWEEP_TARGETS, direction,
-                            ct_data=ct, ct_affine=aff, thermal_params=profile,
-                            mask_shape=mask_shape, stop_on_error=True)
-            cells = {k: out[(k, cfg.frequency, cfg.ppw)] for k in SWEEP_TARGETS}
-            summary = out.summary
-        else:
-            print(f"{tag} driving the stage functions of run_case per cell, "
-                  "writing no files (h5py missing)")
-            cells = {
-                k: run_stages(dataclasses.replace(cfg, prefix=f"sweep_{k}"),
-                              labels, aff, ct, t, direction, profile,
-                              mask_shape)
-                for k, t in SWEEP_TARGETS.items()
-            }
-            # run_cases' count of the cells' distinct grid signatures
-            sigs = {_make_grid(c["domain"]) for c in cells.values()}
-            summary = {"cases": len(cells),
-                       "fdtd_executable_builds": len(sigs),
-                       "fdtd_executable_reuses": len(cells) - len(sigs)}
+        with recording_bhte() as bhte_loops:
+            if have_h5py:
+                print(f"{tag} driving run_cases (h5py present)")
+                out = run_cases(cfg, labels, aff, SWEEP_TARGETS, direction,
+                                ct_data=ct, ct_affine=aff,
+                                thermal_params=profile,
+                                mask_shape=mask_shape, stop_on_error=True)
+                cells = {k: out[(k, cfg.frequency, cfg.ppw)]
+                         for k in SWEEP_TARGETS}
+                summary = out.summary
+            else:
+                print(f"{tag} driving the stage functions of run_case per "
+                      "cell, writing no files (h5py missing)")
+                cells = {
+                    k: run_stages(dataclasses.replace(cfg,
+                                                      prefix=f"sweep_{k}"),
+                                  labels, aff, ct, t, direction, profile,
+                                  mask_shape)
+                    for k, t in SWEEP_TARGETS.items()
+                }
+                # run_cases' count of the cells' distinct grid signatures
+                sigs = {_make_grid(c["domain"]) for c in cells.values()}
+                summary = {"cases": len(cells),
+                           "fdtd_executable_builds": len(sigs),
+                           "fdtd_executable_reuses": len(cells) - len(sigs)}
         dom = cells["A"]["domain"]
         tx = position_transducer(build_transducer(spec, F0), dom,
                                  spec.focal_length)
@@ -2327,9 +2473,8 @@ def run_sweep(have_h5py: bool, mask_shape=MASK_SHAPE, device="cuda"):
     grids = [c["domain"] for c in cells.values()] + [dom, dom]
     for d in grids:  # the cells' runs and the batch's cases: fused sweeps
         expect_fluid_run(expect, _make_grid(d), d.materials, device=device)
-    steps = sum(2 * round(p.duration_on / 0.01) + round(p.duration_off / 0.01)
-                for p in profile)  # per entry: the locating run + schedule
-    expect["bhte_step"] = len(cells) * steps
+    for _ in cells:  # per entry: the locating run + schedule
+        expect_bhte(expect, profile, device)
     for k, c in cells.items():
         d, pa = c["domain"], np.asarray(c["data_for_sim"]["p_amp"])
         th = c["thermal"]
@@ -2357,6 +2502,9 @@ def run_sweep(have_h5py: bool, mask_shape=MASK_SHAPE, device="cuda"):
             fail(f"sweep-ct: launch counts {launches} != expected {expect}")
         if any(plain.values()):
             fail(f"sweep-ct: plain versions ran on the main path: {plain}")
+    check_bhte_runs(tag, bhte_loops, [s for _ in cells for p in profile
+                                      for s in sonication_schedules(p)],
+                    device)
 
     # each case of the batch against run_fdtd of the same source plane
     for b, point in enumerate(points):
@@ -3189,6 +3337,90 @@ def expect_fluid_run(expect, grid, materials, n=1, device="cuda"):
             expect[pressure_key("fluid_fused", dft, point)] += n
 
 
+def sonication_schedules(params):
+    """The two ``bhte_run`` schedules ``pipeline.thermal.run_sonication``
+    runs for a profile entry of one group and one repetition: the locating
+    run (the on time) and the sonication (on, then off)."""
+    if params.grouped_sonications != 1 or params.repetitions != 1:
+        raise ValueError("one group of one repetition expected")
+    n_on = int(round(params.duration_on / 0.01))
+    n_off = int(round(params.duration_off / 0.01))
+    return [[(0, n_on, True)],
+            [(0, n_on, True)] + ([(0, n_off, False)] if n_off else [])]
+
+
+def expect_bhte(expect, profile, device="cuda"):
+    """Add the launches Step 3 makes for each entry of ``profile``: the
+    sweeps and one-step tails of both its schedules (``ops.bhte
+    .schedule_launches``) at the depth ``bhte_run`` takes on ``device``."""
+    from babelbrain_tpu_torch.ops import bhte as B
+
+    k = B.fuse_depth(None, device)
+    for params in profile:
+        for sched in sonication_schedules(params):
+            for key, v in B.schedule_launches(sched, k).items():
+                expect[key] += v
+
+
+@contextlib.contextmanager
+def recording_bhte():
+    """While Step 3 runs, keep each ``bhte_run`` loop's inputs (the start
+    T, dose and peak cloned before the loop updates them), its depth, its
+    result and its seconds (host clock; the loop ends in a readback)."""
+    from babelbrain_tpu_torch.ops import bhte as B
+
+    loops, loop = [], B._bhte_loop
+
+    def call(Q, co, T, dose, peak, *rest):
+        start = (T.clone(), dose.clone(), peak.clone())
+        t0 = time.time()
+        res = loop(Q, co, T, dose, peak, *rest)
+        loops.append((Q, co, start, rest, res, time.time() - t0))
+        return res
+
+    B._bhte_loop = call
+    try:
+        yield loops
+    finally:
+        B._bhte_loop = loop
+
+
+def check_bhte_runs(tag, loops, schedules, device="cuda"):
+    """Each ``bhte_run`` loop a slice made (``recording_bhte``), in the
+    order ``schedules`` lists them, run again from its start one step a
+    launch (``fuse_steps=1``: ``bhte_step`` only): temperature, peak and
+    dose must be equal bit for bit, the monitors at the sampled steps
+    (``ops.bhte.monitor_steps``) too. Prints both loops' seconds; the
+    counts of these launches are set aside."""
+    from babelbrain_tpu_torch.ops import bhte as B
+
+    if [lp[3][2] for lp in loops] != schedules:
+        fail(f"{tag}: Step 3 ran {[lp[3][2] for lp in loops]}, expected "
+             f"{schedules}")
+    saved = read_counts()
+    for Q, co, (T, dose, peak), rest, res, secs in loops:
+        *head, k = rest
+        t0 = time.time()
+        one = B._bhte_loop(Q, co, T, dose, peak, *head, 1)
+        secs1 = time.time() - t0
+        sched = head[2]
+        bad = [n for n in ("temperature", "peak_temperature", "dose")
+               if not np.array_equal(getattr(res, n), getattr(one, n))]
+        if not np.array_equal(res.monitor_steps, B.monitor_steps(sched, k)):
+            bad.append("monitor_steps")
+        elif not np.array_equal(res.monitor,
+                                one.monitor[:, res.monitor_steps]):
+            bad.append("monitor")
+        print(f"{tag} bhte_run {tuple(T.shape)} {sched}: K={k} "
+              f"{B.schedule_launches(sched, k)} loop {secs:.3f} s, one step a "
+              f"launch {secs1:.3f} s ({secs / secs1:.3f}x); max T "
+              f"{float(res.peak_temperature.max()):.4f} C; differing {bad}")
+        if bad:
+            fail(f"{tag}: bhte_run with K={k} differs from fuse_steps=1 in "
+                 f"{bad}")
+    restore_counts(*saved)
+
+
 def check_fused_runs(mode, device="cuda"):
     """Each ``run_fdtd`` call slice ``mode`` made (``recording``), which
     went through the fused sweeps, again through the pair step by step
@@ -3679,6 +3911,9 @@ SOURCES = {
     "fluid_pressure": ("fluid_pressure_kernel", FLUID_CU, f"{PALLAS}:370"),
     "fluid_pressure_dft": ("fluid_pressure_kernel<WITH_DFT>", FLUID_CU,
                            f"{PALLAS}:370"),
+    # B9: its K-step sweep, and one step of it (the tails of a segment)
+    "bhte_fused": ("bhte_fused_kernel", "babelbrain_tpu_torch/csrc/bhte.cu",
+                   "babelbrain_tpu/ops/bhte_pallas.py:54"),
     "bhte_step": ("bhte_step_kernel", "babelbrain_tpu_torch/csrc/bhte.cu",
                   "babelbrain_tpu/ops/bhte_pallas.py:109"),
     # B5 vel_kernel / stress_kernel; the same step as B6-B8
@@ -3774,7 +4009,8 @@ def main():
         for k, v in e.items():  # the scatter is checked in both families
             errs[k] = max(errs.get(k, 0.0), v)
         times.update(t)
-    for e, t, b in (check_fused(times), check_diagnostics("fluid"),
+    for e, t, b in (check_fused(times), check_bhte_fused(times),
+                    check_diagnostics("fluid"),
                     check_diagnostics("visco"), check_probe_kernels()):
         errs.update(e)
         times.update(t)

@@ -15,6 +15,8 @@ bands of its JAX parity test. This file imports nothing of the JAX
 package, so it runs where JAX is not installed.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ from babelbrain_tpu_torch.materials import (
     build_thermal_material_list,
     material_array,
 )
+from babelbrain_tpu_torch.ops import _build
 from babelbrain_tpu_torch.ops import bhte as B
 from babelbrain_tpu_torch.ops import bhte_kernels
 from babelbrain_tpu_torch.ops import fdtd as F
@@ -528,12 +531,12 @@ BHTE_SCHEDULE = [(0, 11, True), (-1, 7, False), (1, 9, True), (0, 13, False),
 
 
 def test_bhte_schedule_matches_plain(cuda, monkeypatch):
-    """``bhte_run`` over an on/off, two-field schedule on the card equals
-    the same schedule through the plain step on the card bit for bit
-    (temperature, peak, dose and the monitor series), with one launch a
-    step."""
+    """``bhte_run(fuse_steps=1)`` over an on/off, two-field schedule on the
+    card equals the same schedule through the plain step on the card bit
+    for bit (temperature, peak, dose and the monitor series), with one
+    launch a step."""
     p, idx, mats = _bhte_schedule_case()
-    kw = dict(dt=0.01, duty_cycle=0.5, device=cuda,
+    kw = dict(dt=0.01, duty_cycle=0.5, device=cuda, fuse_steps=1,
               monitor_points=[(15, 17, 28), (3, 4, 5), (29, 33, 39)],
               initial_temperature=np.full(idx.shape, 37.5, np.float32))
     n_steps = sum(n for _, n, _ in BHTE_SCHEDULE)
@@ -547,6 +550,94 @@ def test_bhte_schedule_matches_plain(cuda, monkeypatch):
         np.testing.assert_array_equal(getattr(kernel, name),
                                       getattr(plain, name), err_msg=name)
     assert kernel.monitor.shape == (3, n_steps)
+
+
+@pytest.mark.parametrize("with_q", [True, False])
+@pytest.mark.parametrize("k", range(1, bhte_kernels.BHTE_K_CAP + 1))
+@pytest.mark.parametrize("shape", [(27, 45, 47), (64, 64, 80)])
+def test_bhte_fused_matches_plain(cuda, shape, k, with_q):
+    """``bhte_fused`` (K steps a launch) against its plain version and
+    against K launches of ``bhte_step``, bit for bit in T, dose and peak,
+    over three sweeps from a start that straddles 43 C (a ragged grid and
+    one whose tiles and segments divide it unevenly)."""
+    rng = np.random.default_rng(k)
+    acoustic = material_array(500e3, tissues=("Water", "Skin", "Cortical",
+                                              "Trabecular", "Brain"))
+    mats = build_thermal_material_list(acoustic, ct_mode=False,
+                                       segmented_brain=False)
+    idx = rng.integers(0, 5, shape).astype(np.uint8)
+    co = B.make_bhte_coeffs(B._build_coeff_maps(idx, mats, 5e-4, 0.01), cuda)
+    q = torch.as_tensor((rng.random(shape) * 4e6).astype(np.float32),
+                        device=cuda) if with_q else None
+    T0 = torch.as_tensor((37.0 + 9.0 * rng.random(shape)).astype(np.float32),
+                         device=cuda)
+    states = []
+    before = dict(bhte_kernels.launches)
+    for how in ("kernel", "plain", "steps"):
+        T, dose = T0.clone(), torch.zeros_like(T0)
+        peak = torch.full_like(T0, -1e9)
+        for _ in range(3):
+            if how == "steps":
+                for _ in range(k):
+                    T = bhte_kernels.bhte_step(T, dose, peak, co, q, 37.0)
+            elif how == "kernel":
+                T = bhte_kernels.bhte_fused(T, dose, peak, co, q, 37.0, k)
+            else:
+                T = bhte_kernels.bhte_fused_ref(T, dose, peak, co, q, 37.0, k,
+                                                torch.empty_like(T))
+        states.append((T, dose, peak))
+    torch.cuda.synchronize()
+    assert bhte_kernels.launches["bhte_fused"] - before["bhte_fused"] == 3
+    assert bhte_kernels.launches["bhte_step"] - before["bhte_step"] == 3 * k
+    assert float(states[0][2].min()) < 43.0 < float(states[0][2].max())
+    for other in states[1:]:
+        for a, b in zip(states[0], other):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_bhte_fused_tile_matches_the_kernel(cuda, monkeypatch):
+    """The launch geometry's tile is the built kernel's ``FusedTile<K>`` at
+    every depth, and a wrapper whose tile drifted from it refuses to launch,
+    naming both."""
+    for k in range(1, bhte_kernels.BHTE_K_CAP + 1):
+        tz, ty = ctypes.c_int(0), ctypes.c_int(0)
+        rc = _build.library().bb_bhte_fused_tile(k, ctypes.byref(tz),
+                                                 ctypes.byref(ty))
+        assert rc == 0
+        assert (tz.value, ty.value) == (bhte_kernels.FUSED_TILE_Z,
+                                        bhte_kernels.fused_tile_y(k))
+    T = torch.full((6, 20, 40), 37.0, device=cuda)
+    co = bhte_kernels.BHTECoeffs([torch.zeros_like(T) for _ in range(6)],
+                                 torch.zeros_like(T), torch.zeros_like(T))
+    monkeypatch.setattr(bhte_kernels, "fused_tile_y", lambda k: 7)
+    with pytest.raises(RuntimeError, match=r"FusedTile<2>.*fused_tile_y"):
+        bhte_kernels.bhte_fused(T, torch.zeros_like(T), torch.zeros_like(T),
+                                co, None, 37.0, 2)
+
+
+def test_bhte_run_sweeps_on_the_card(cuda):
+    """``bhte_run()`` on the card runs ``BHTE_FUSE_BEST``-step sweeps (and
+    one-step tails), bit-equal to ``fuse_steps=1`` in temperature, peak and
+    dose, the monitors equal at the sampled steps."""
+    p, idx, mats = _bhte_schedule_case()
+    kw = dict(dt=0.01, duty_cycle=0.5, device=cuda,
+              monitor_points=[(15, 17, 28), (3, 4, 5), (29, 33, 39)],
+              initial_temperature=np.full(idx.shape, 37.5, np.float32))
+    k = bhte_kernels.BHTE_FUSE_BEST
+    before = dict(bhte_kernels.launches)
+    fused = B.bhte_run(p, idx, mats, 5e-4, BHTE_SCHEDULE, **kw)
+    grew = {n: bhte_kernels.launches[n] - before[n] for n in before}
+    assert grew == B.schedule_launches(BHTE_SCHEDULE, k)
+    assert grew["bhte_fused"] > 0 and grew["bhte_step"] > 0
+    one = B.bhte_run(p, idx, mats, 5e-4, BHTE_SCHEDULE, fuse_steps=1, **kw)
+    for name in ("temperature", "peak_temperature", "dose"):
+        np.testing.assert_array_equal(getattr(fused, name), getattr(one, name),
+                                      err_msg=name)
+    np.testing.assert_array_equal(fused.monitor_steps,
+                                  B.monitor_steps(BHTE_SCHEDULE, k))
+    np.testing.assert_array_equal(fused.monitor,
+                                  one.monitor[:, fused.monitor_steps])
+    assert fused.peak_temperature.max() > 43.0
 
 
 def _visco_setup(device, shape=(36, 40, 56)):

@@ -152,7 +152,12 @@ def test_run_all_combinations_matches_jax(tmp_path, concatenate):
     assert set(bt) == set(bj) >= {"AllData", "Index"}
     per = next(f for f in files if f.endswith("Hz.h5"))
     pt, pj = tio.load_dict_h5(str(dt / per)), tio.load_dict_h5(str(dj / per))
-    assert set(pt) == set(pj)
+    # the port adds the step of each TemperaturePoints sample (every step on
+    # the CPU)
+    assert set(pt) == set(pj) | {"TemperaturePointsSteps"}
+    np.testing.assert_array_equal(
+        pt["TemperaturePointsSteps"],
+        np.arange(np.asarray(pt["TemperaturePoints"]).shape[-1]))
     np.testing.assert_allclose(pt["FinalTemp"], pj["FinalTemp"], rtol=0,
                                atol=1e-5)
     np.testing.assert_allclose(pt["FinalDose"], pj["FinalDose"], rtol=1e-5)
