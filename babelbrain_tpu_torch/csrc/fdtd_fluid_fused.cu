@@ -9,9 +9,9 @@
 //   plane or point source, and the carrier DFT and |p| peak of every step.
 //   Their volumetric (dome) drive and B4's with_p2 / monitor capture are not
 //   here: those runs keep the one-step pair (fdtd_fluid.cu). Each cell's
-//   arithmetic is the pair's, in the pair's order (fdtd_stencil.cuh, and
-//   the L2-loading copies of its helpers below), so K steps of this kernel
-//   equal K steps of the pair bit for bit.
+//   arithmetic is the pair's, in the pair's order (fdtd_stencil.cuh's
+//   helpers and their L2-loading twins), so K steps of this kernel equal K
+//   steps of the pair bit for bit.
 //
 // What bounds it on this card: the pair is bound by device-memory traffic
 // (16 float volumes a step, 22 inside the sensor window). A sweep reads p,
@@ -48,8 +48,8 @@
 //     registers (p for the velocity, the new vx for the pressure), loading
 //     the window's newest plane each march step. Values another block wrote
 //     in this launch are loaded with ld.global.cg (L2), never through L1 or
-//     the read-only path; the index, table, profiles and source planes
-//     through __ldg.
+//     the read-only path (the L2 helpers of fdtd_stencil.cuh); the index,
+//     table, profiles and source planes through __ldg.
 //   - Per-step scalars: the K rows (s_sin, s_cos, cosw, sinw, s_point) of
 //     ops/fdtd.py step_scalars, passed by value as float32, the values the
 //     pair takes as arguments.
@@ -104,103 +104,6 @@ constexpr int kRhoInv = 0, kPiU = 1, kCRp = 3, kBR = 5;
 struct Rows {
   float s_sin[kMaxSteps], s_cos[kMaxSteps], cosw[kMaxSteps], sinw[kMaxSteps],
       s_pt[kMaxSteps];
-};
-
-// The helpers of fdtd_stencil.cuh for state that other blocks of this
-// launch write: every load of such a field goes through L2 (ld.global.cg),
-// since another SM may have written the cell since this SM's L1 cached its
-// line; the arithmetic is theirs, in their order. They are kept apart from
-// the header: making its helpers generic over the load changed the pair's
-// and the visco kernels' code (scripts/ab_fdtd_kernels.py: visco stress
-// 1.6-3.1% slower, two MONITOR instantiations spilling).
-
-// a field another block may have written in this launch
-__device__ __forceinline__ float ld2(const float* f, int c) {
-  return __ldcg(f + c);
-}
-
-// f at plane i of column q, 0 outside [0, n1)
-__device__ __forceinline__ float at_x2(const float* f, int i, const Col& q,
-                                       int n1) {
-  return (unsigned)i < (unsigned)n1 ? ld2(f, i * q.plane + q.jk) : 0.0f;
-}
-
-// Plane: a field around cell c in its plane (0 outside the grid)
-struct PlaneL2 {
-  const float* f;
-  int c, j, k, n2, n3;
-  __device__ __forceinline__ float operator()(int dy, int dz) const {
-    return ((unsigned)(j + dy) < (unsigned)n2 &&
-            (unsigned)(k + dz) < (unsigned)n3)
-               ? ld2(f, c + dy * n3 + dz)
-               : 0.0f;
-  }
-};
-
-// diff_yz: the difference along y (AXIS 1) or z (AXIS 2)
-template <int AXIS, bool PLUS>
-__device__ __forceinline__ float diff_yz2(const PlaneL2& f) {
-  constexpr int lo = PLUS ? -1 : -2;
-  constexpr int dy = AXIS == 1 ? 1 : 0;
-  constexpr int dz = AXIS == 2 ? 1 : 0;
-  return stencil(f(lo * dy, lo * dz), f((lo + 1) * dy, (lo + 1) * dz),
-                 f((lo + 2) * dy, (lo + 2) * dz),
-                 f((lo + 3) * dy, (lo + 3) * dz));
-}
-
-// cpml: the CPML correction of derivative d (lo slab, then hi slab)
-__device__ __forceinline__ float cpml2(float d, int pos, int lo_end,
-                                       int hi_start, int ns,
-                                       const float* __restrict__ prof,
-                                       float* __restrict__ psi_lo,
-                                       float* __restrict__ psi_hi, int base,
-                                       int stride) {
-  if (pos < lo_end) {
-    const int s = base + pos * stride;
-    const float nw = prof[pos] * ld2(psi_lo, s) + prof[ns + pos] * d;
-    psi_lo[s] = nw;
-    d = d + nw;
-  }
-  const int q = pos - hi_start;
-  if (q >= 0) {
-    const int s = base + q * stride;
-    const float nw = prof[2 * ns + q] * ld2(psi_hi, s) + prof[3 * ns + q] * d;
-    psi_hi[s] = nw;
-    d = d + nw;
-  }
-  return d;
-}
-
-// Cpml: the CPML'd derivative number Q of a psi list along AXIS at cell
-// (i, q.j, q.k)
-template <bool XALL>
-struct CpmlL2 {
-  const Ptr6& psi;
-  const float* prof_half;  // forward differences
-  const float* prof_int;   // backward differences
-  const Geo& g;
-  const Col& q;
-  int i;
-  template <int AXIS, bool PLUS, int Q>
-  __device__ __forceinline__ float apply(float d) const {
-    const float* prof = (PLUS ? prof_half : prof_int) + AXIS * 4 * g.ns;
-    float* lo = psi.p[2 * Q];
-    float* hi = psi.p[2 * Q + 1];
-    if constexpr (AXIS == 0) {
-      if constexpr (XALL) {
-        return cpml2(d, i, g.ns, g.n1 - g.ns, g.ns, prof, lo, hi, q.jk,
-                     q.plane);
-      } else {
-        return cpml2(d, i, g.xlo, g.xhi, g.ns, prof, lo, hi, q.jk, q.plane);
-      }
-    } else if constexpr (AXIS == 1) {
-      return cpml2(d, q.j, g.ns, g.n2 - g.ns, g.ns, prof, lo, hi,
-                   i * g.ns * g.n3 + q.k, g.n3);
-    } else {
-      return cpml2(d, q.k, g.ns, g.n3 - g.ns, g.ns, prof, lo, hi,
-                   (i * g.n2 + q.j) * g.ns, 1);
-    }
-  }
 };
 
 // K steps of fluid_velocity_kernel then fluid_pressure_kernel (fdtd_fluid.cu)
@@ -264,7 +167,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksFused)
         const float dpy = diff_yz2<1, true>(pp);
         const float dpz = diff_yz2<2, true>(pp);
         const float ri = __ldg(table + kRhoInv * n_mat + mi);
-        const CpmlL2<XALL> cp{psi_p, prof_half, nullptr, g, q, i};
+        const CpmlL2<Ptr6, XALL> cp{psi_p, prof_half, nullptr, g, q, i};
         const float dx = cp.template apply<0, true, 0>(
             stencil(wp0, wp1, wp2, wp3));
         const float dy = cp.template apply<1, true, 1>(dpy);
@@ -298,7 +201,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksFused)
         const float dvz = diff_yz2<2, false>(PlaneL2{vz, c, q.j, q.k, g.n2,
                                                     g.n3});
         const float pi_u = __ldg(table + kPiU * n_mat + mi);
-        const CpmlL2<XALL> cp{psi_v, nullptr, prof_int, g, q, ip};
+        const CpmlL2<Ptr6, XALL> cp{psi_v, nullptr, prof_int, g, q, ip};
         const float dx = cp.template apply<0, false, 0>(
             stencil(wv0, wv1, wv2, wv3));
         const float dy = cp.template apply<1, false, 1>(dvy);
@@ -355,17 +258,8 @@ extern "C" {
 // not exceed it)
 int bb_fluid_fused_capacity(int viscous, int with_dft, int point, int xall,
                             int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_kernel(viscous, with_dft, point, xall), kThreads, 0);
-  }
-  *blocks = per_sm * sms;
-  return (int)e;
+  return (int)cooperative_capacity(
+      fused_kernel(viscous, with_dft, point, xall), blocks);
 }
 
 // K = k_steps steps in one cooperative launch. v3, psi_p6, psi_v6: host

@@ -1,7 +1,9 @@
-// Device helpers shared by the FDTD kernels (fdtd_fluid.cu, fdtd_visco.cu):
-// the x-marching tile geometry, the 4th-order staggered differences from
-// register windows (x) and L1 loads (y, z), the CPML slab correction, and
-// the check of the launch grid the wrapper chose. Everything is written in
+// Device helpers shared by the FDTD kernels (fdtd_fluid.cu, fdtd_visco.cu,
+// and the fused sweeps fdtd_fluid_fused.cu, fdtd_visco_fused.cu): the
+// x-marching tile geometry, the 4th-order staggered differences from
+// register windows (x) and L1 loads (y, z), the CPML slab correction (and
+// their L2-loading twins for the fused sweeps), and the check of the launch
+// grid the wrapper chose. Everything is written in
 // the operation order of the plain PyTorch versions (ops/fdtd_kernels.py
 // d_plus, d_minus, _cpml), so kernel and plain version round alike.
 //
@@ -221,6 +223,119 @@ struct Cpml {
     }
   }
 };
+
+// The helpers above for state that other blocks of the same launch write
+// (the fused sweeps, fdtd_fluid_fused.cu and fdtd_visco_fused.cu): every
+// load of such a field goes through L2 (ld.global.cg), since another SM may
+// have written the cell since this SM's L1 cached its line; the arithmetic
+// is theirs, in their order. They are separate functions, not the helpers
+// above made generic over the load: that changed the pairs' code
+// (scripts/ab_fdtd_kernels.py: visco stress 1.6-3.1% slower, two MONITOR
+// instantiations spilling).
+
+// a field another block may have written in this launch
+__device__ __forceinline__ float ld2(const float* f, int c) {
+  return __ldcg(f + c);
+}
+
+// at_x: f at plane i of column q, 0 outside [0, n1)
+__device__ __forceinline__ float at_x2(const float* f, int i, const Col& q,
+                                       int n1) {
+  return (unsigned)i < (unsigned)n1 ? ld2(f, i * q.plane + q.jk) : 0.0f;
+}
+
+// Plane: a field around cell c in its plane (0 outside the grid)
+struct PlaneL2 {
+  const float* f;
+  int c, j, k, n2, n3;
+  __device__ __forceinline__ float operator()(int dy, int dz) const {
+    return ((unsigned)(j + dy) < (unsigned)n2 &&
+            (unsigned)(k + dz) < (unsigned)n3)
+               ? ld2(f, c + dy * n3 + dz)
+               : 0.0f;
+  }
+};
+
+// diff_yz: the difference along y (AXIS 1) or z (AXIS 2)
+template <int AXIS, bool PLUS>
+__device__ __forceinline__ float diff_yz2(const PlaneL2& f) {
+  constexpr int lo = PLUS ? -1 : -2;
+  constexpr int dy = AXIS == 1 ? 1 : 0;
+  constexpr int dz = AXIS == 2 ? 1 : 0;
+  return stencil(f(lo * dy, lo * dz), f((lo + 1) * dy, (lo + 1) * dz),
+                 f((lo + 2) * dy, (lo + 2) * dz),
+                 f((lo + 3) * dy, (lo + 3) * dz));
+}
+
+// cpml: the CPML correction of derivative d (lo slab, then hi slab)
+__device__ __forceinline__ float cpml2(float d, int pos, int lo_end,
+                                       int hi_start, int ns,
+                                       const float* __restrict__ prof,
+                                       float* __restrict__ psi_lo,
+                                       float* __restrict__ psi_hi, int base,
+                                       int stride) {
+  if (pos < lo_end) {
+    const int s = base + pos * stride;
+    const float nw = prof[pos] * ld2(psi_lo, s) + prof[ns + pos] * d;
+    psi_lo[s] = nw;
+    d = d + nw;
+  }
+  const int q = pos - hi_start;
+  if (q >= 0) {
+    const int s = base + q * stride;
+    const float nw = prof[2 * ns + q] * ld2(psi_hi, s) + prof[3 * ns + q] * d;
+    psi_hi[s] = nw;
+    d = d + nw;
+  }
+  return d;
+}
+
+// Cpml: the CPML'd derivative number Q of a psi list along AXIS at cell
+// (i, q.j, q.k)
+template <typename PSI, bool XALL>
+struct CpmlL2 {
+  const PSI& psi;
+  const float* prof_half;  // forward differences
+  const float* prof_int;   // backward differences
+  const Geo& g;
+  const Col& q;
+  int i;
+  template <int AXIS, bool PLUS, int Q>
+  __device__ __forceinline__ float apply(float d) const {
+    const float* prof = (PLUS ? prof_half : prof_int) + AXIS * 4 * g.ns;
+    float* lo = psi.p[2 * Q];
+    float* hi = psi.p[2 * Q + 1];
+    if constexpr (AXIS == 0) {
+      if constexpr (XALL) {
+        return cpml2(d, i, g.ns, g.n1 - g.ns, g.ns, prof, lo, hi, q.jk,
+                     q.plane);
+      } else {
+        return cpml2(d, i, g.xlo, g.xhi, g.ns, prof, lo, hi, q.jk, q.plane);
+      }
+    } else if constexpr (AXIS == 1) {
+      return cpml2(d, q.j, g.ns, g.n2 - g.ns, g.ns, prof, lo, hi,
+                   i * g.ns * g.n3 + q.k, g.n3);
+    } else {
+      return cpml2(d, q.k, g.ns, g.n3 - g.ns, g.ns, prof, lo, hi,
+                   (i * g.n2 + q.j) * g.ns, 1);
+    }
+  }
+};
+
+// the co-resident blocks of a cooperative kernel on the current device
+inline cudaError_t cooperative_capacity(const void* kernel, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
+  }
+  *blocks = per_sm * sms;
+  return e;
+}
 
 // A pressure sample taken by the pressure / stress kernel of a step (their
 // MONITOR instantiations), the port of the monitor capture of B4's host loop

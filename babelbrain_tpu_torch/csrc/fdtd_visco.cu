@@ -2,11 +2,12 @@
 // indexed materials: label mode, where the skull carries shear waves.
 //
 // Replaces (TPU kernels of the JAX package, babelbrain_tpu/ops/fdtd_pallas.py):
-//   build_visco_pallas_step (B5: vel_kernel, stress_kernel), and the one-step
-//   update of build_visco_fused_step (B6, plane source), build_visco_fused2_step
-//   (B7) and build_visco_fusedK_step (B8, with its int32 index + coefficient
-//   table gather). B6-B8 only block B5's update in time; K fused TPU steps are
-//   K launches of this pair here. The math is the XLA step of
+//   build_visco_pallas_step (B5: vel_kernel, stress_kernel), and B6-B8's point
+//   injection (build_visco_fused_step, build_visco_fusedK_step). B6-B8 block
+//   B5's update in time: their K-step sweeps are fdtd_visco_fused.cu, whose
+//   runs take this pair for their one-step tails; runs with a volumetric
+//   source, maps or monitors, and sharded runs other than overlap and
+//   discard, take it for every step. The math is the XLA step of
 //   babelbrain_tpu/ops/fdtd.py:_make_step_fn.
 //
 // What bounds it on this card: device-memory traffic. Per cell and step,

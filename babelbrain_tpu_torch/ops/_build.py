@@ -28,7 +28,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("fdtd_fluid.cu", "fdtd_fluid_fused.cu", "fdtd_visco.cu",
-           "fdtd_sources.cu", "bhte.cu", "fdtd_extras.cu", "probes.cu")
+           "fdtd_visco_fused.cu", "fdtd_sources.cu", "bhte.cu",
+           "fdtd_extras.cu", "probes.cu")
 HEADERS = ("fdtd_stencil.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --fmad=false: no multiply-add contraction, so each kernel rounds exactly
@@ -58,6 +59,9 @@ _SIGNATURES = {
     "bb_fluid_fused": [_P] * 16 + [_I] + [_F] * 3 + [_I] * 11 + [_L]
     + [_I] * 2 + [_P],
     "bb_fluid_fused_capacity": [_I] * 4 + [_P],
+    "bb_visco_fused": [_P] * 16 + [_I] + [_F] * 3 + [_I] * 11 + [_L]
+    + [_I] * 2 + [_P],
+    "bb_visco_fused_capacity": [_I] * 4 + [_P],
     "bb_bhte_step": [_P] * 13 + [_F] + [_I] * 3 + [_P],
     "bb_bhte_fused": [_P] * 13 + [_F] + [_I] * 8 + [_P],
     "bb_bhte_fused_tile": [_I, _P, _P],

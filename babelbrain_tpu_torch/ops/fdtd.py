@@ -12,10 +12,12 @@ The time loop is a Python loop over ``ops.fdtd_kernels`` (fluid) or
 ``ops.fdtd_visco_kernels`` (viscoelastic): on a CUDA device each step is
 two hand-written kernels (velocity, then pressure or stress; a volumetric source
 adds ``ops.fdtd_sources`` between them); on the CPU the same step runs as
-plain PyTorch. A fluid run with a plane or point source and no diagnostics
-runs fused sweeps instead (``ops.fdtd_fused_kernels``: K steps a launch,
-the schedule of the JAX package's ``simulate_fluid_pallas``, ``fuse_steps``),
-equal to the step-by-step run bit for bit.
+plain PyTorch. A run with a plane or point source and no diagnostics runs
+fused sweeps instead, K steps a launch (``fuse_steps``): fluid media
+``ops.fdtd_fused_kernels`` in the schedule of the JAX package's
+``simulate_fluid_pallas``, shear media ``ops.fdtd_visco_fused_kernels`` in
+that of ``simulate_visco_pallas``; either equals the step-by-step run bit
+for bit.
 
 Physics (see the JAX module for the derivations): 4th-order staggered
 differences, CPML with slab-only psi memory, one SLS relaxation mechanism
@@ -36,12 +38,14 @@ Domain decomposition (``run_fdtd(mesh=)``, ``parallel.halo``): the grid is
 cut into equal shards along x over the devices of a 1-D ``DeviceMesh``;
 each shard holds its own copy of the setup, its planes and ghost planes
 on each side that has a neighbour, and its launches apply the x CPML only
-where it holds a global edge. A fluid plane-source run without diagnostics
-goes overlap-and-discard (``sharded_plan``, the JAX package's
-``_simulate_fluid_pallas_sharded_fused``): H >= 3K ghost planes a side,
-one bundled refresh of the state's ghost planes (``XSlabs.refresh_group``)
-and one fused K-step launch per shard a sweep; what the array's edge
-contaminates stays inside the ghost planes. Every other run keeps 2 ghost
+where it holds a global edge. A plane-source run without diagnostics goes
+overlap-and-discard (``sharded_plan``, the JAX package's
+``_simulate_fluid_pallas_sharded_fused`` and
+``_simulate_visco_pallas_sharded_fused``): H = 3K (fluid) or JAX's 4K
+(visco) ghost planes a side, one bundled refresh of each group of the state's
+ghost planes (``XSlabs.refresh_group``) and one fused K-step launch per
+shard a sweep; what the array's edge contaminates stays inside the ghost
+planes. Every other run keeps 2 ghost
 planes and, after each half-step, copies those of the fields the next
 half-step reads across x from the neighbours (``XSlabs.refresh``). Either
 way a sharded run equals the unsharded one bit for bit.
@@ -81,13 +85,12 @@ from .fdtd_visco_kernels import (
     visco_velocity_ref,
 )
 from .fdtd_extras import Diagnostics, Monitor, check_sel_maps, monitor_index
-from .fdtd_fused_kernels import (
-    CONTAMINATION,
-    FUSE_BEST,
-    K_CAP,
-    admitted_depth,
-    fluid_fused,
-    fluid_fused_ref,
+from . import fdtd_fused_kernels, fdtd_visco_fused_kernels
+from .fdtd_fused_kernels import FUSE_BEST, fluid_fused, fluid_fused_ref
+from .fdtd_visco_fused_kernels import (
+    VISCO_FUSE_BEST,
+    visco_fused,
+    visco_fused_ref,
 )
 from .fdtd_sources import (
     VolumeSource,
@@ -432,13 +435,15 @@ def visco_step(st: ViscoState, co: ViscoCoeffs, grid: FDTDGrid, n: int,
 # ---------------------------------------------------------------------------
 
 
-def phase_schedule(n0: int, n1: int, k: int, fused2: bool = True):
+def phase_schedule(n0: int, n1: int, k: int, fused2: bool = True,
+                   k_min: int = 3):
     """Steps [n0, n1) split as the JAX package's ``run_phase``
-    (`babelbrain_tpu/ops/fdtd_pallas.py:2874`): (sweeps, tail), the sweeps a
-    list of (first step, K): K-step sweeps while K >= 3 fits, then 2-step
-    sweeps (with ``fused2``), then the tail, the steps left to the pair."""
+    (`babelbrain_tpu/ops/fdtd_pallas.py:2874`, fluid; `:6443`, visco):
+    (sweeps, tail), the sweeps a list of (first step, K): K-step sweeps
+    while K >= ``k_min`` (3 fluid, 2 visco) fits, then 2-step sweeps (with
+    ``fused2``), then the tail, the steps left to the pair."""
     sweeps, rem = [], n0
-    if k >= 3 and (n1 - n0) // k > 0:
+    if k >= k_min and (n1 - n0) // k > 0:
         m = (n1 - n0) // k
         sweeps += [(n0 + k * j, k) for j in range(m)]
         rem = n0 + k * m
@@ -450,11 +455,27 @@ def phase_schedule(n0: int, n1: int, k: int, fused2: bool = True):
 @dataclass(frozen=True)
 class FusedPlan:
     """The depths of a fused run: K in the quiet phase and in the sensor
-    window (``k``, ``k_dft``), and whether 2-step sweeps fit (``fused2``)."""
+    window (``k``, ``k_dft``), whether 2-step sweeps run (``fused2``), and
+    the least K of a K-step sweep (``k_min``: 3 fluid, 2 visco)."""
 
     k: int
     k_dft: int
     fused2: bool
+    k_min: int = 3
+
+
+def _pinned(fuse_steps, quiet: int, window: int, k_cap: int, k_min: int,
+            shape, device) -> int:
+    """A pinned ``fuse_steps``, refused outside 0..``k_cap`` and where the
+    card cannot hold a K-step sweep of that depth."""
+    k = int(fuse_steps)
+    if not 0 <= k <= k_cap:
+        raise ValueError(f"fuse_steps={k} outside 0..{k_cap}")
+    if k >= k_min and k > min(quiet, window):
+        raise ValueError(
+            f"fuse_steps={k}: {device} holds {min(quiet, window)} stages of "
+            f"the fused kernel at once on {tuple(shape)}")
+    return k
 
 
 def fused_plan(shape, device, viscous: bool, point: bool,
@@ -464,49 +485,81 @@ def fused_plan(shape, device, viscous: bool, point: bool,
     at most ``FUSE_BEST``); an int pins K in both and is refused when the
     card cannot hold K >= 3 steps a launch. 2-step sweeps run where both
     phases admit them."""
-    quiet = admitted_depth(shape, device, viscous, False, point)
-    window = admitted_depth(shape, device, viscous, True, point)
+    fk = fdtd_fused_kernels
+    quiet = fk.admitted_depth(shape, device, viscous, False, point)
+    window = fk.admitted_depth(shape, device, viscous, True, point)
     if fuse_steps is None:
         return FusedPlan(min(quiet, FUSE_BEST), min(window, FUSE_BEST),
                          min(quiet, window) >= 2)
-    k = int(fuse_steps)
-    if not 0 <= k <= K_CAP:
-        raise ValueError(f"fuse_steps={k} outside 0..{K_CAP}")
-    if k >= 3 and k > min(quiet, window):
-        raise ValueError(
-            f"fuse_steps={k}: {device} holds {min(quiet, window)} stages of "
-            f"the fused kernel at once on {tuple(shape)}")
+    k = _pinned(fuse_steps, quiet, window, fk.K_CAP, 3, shape, device)
     return FusedPlan(k, k, min(quiet, window) >= 2)
 
 
-def fluid_schedule(grid: FDTDGrid, plan: FusedPlan):
+def visco_plan(shape, device, viscous: bool, point: bool,
+               fuse_steps: int | None = None) -> FusedPlan:
+    """The depth rule of ``simulate_visco_pallas`` (unsharded,
+    `babelbrain_tpu/ops/fdtd_pallas.py:6393-6441`): ``None`` takes in each
+    phase the deepest K ``visco_fused`` admits on ``shape`` (at most
+    ``VISCO_FUSE_BEST``); an int pins K in both and is refused when the
+    card cannot hold K >= 2 steps a launch (JAX refuses an x-extent too
+    short for its VMEM blocks, which has no counterpart here). K-step
+    sweeps run from K = 2, 2-step sweeps after them only for a plane
+    source."""
+    vk = fdtd_visco_fused_kernels
+    quiet = vk.admitted_depth(shape, device, viscous, False, point)
+    window = vk.admitted_depth(shape, device, viscous, True, point)
+    fused2 = not point and min(quiet, window) >= 2
+    if fuse_steps is None:
+        return FusedPlan(min(quiet, VISCO_FUSE_BEST),
+                         min(window, VISCO_FUSE_BEST), fused2, 2)
+    k = _pinned(fuse_steps, quiet, window, vk.K_CAP, 2, shape, device)
+    return FusedPlan(k, k, fused2, 2)
+
+
+def fused_schedule(grid: FDTDGrid, plan: FusedPlan):
     """[(first step, K, with_dft)] of a fused run: the quiet phase
     [0, sensor_start), then the window, each split by ``phase_schedule``
-    (K = 1: a step of the pair)."""
+    (K = 1: a step of the pair); K-step sweeps only where the quiet phase's
+    K reaches ``plan.k_min``, as JAX's ``use_fusedK``."""
     n_quiet = max(0, min(grid.sensor_start, grid.n_steps))
     out = []
     for n0, n1, dft in ((0, n_quiet, False), (n_quiet, grid.n_steps, True)):
-        k = (plan.k_dft if dft else plan.k) if plan.k >= 3 else 0
-        sweeps, tail = phase_schedule(n0, n1, k, plan.fused2)
+        k = (plan.k_dft if dft else plan.k) if plan.k >= plan.k_min else 0
+        sweeps, tail = phase_schedule(n0, n1, k, plan.fused2, plan.k_min)
         out += [(n, m, dft) for n, m in sweeps] + [(n, 1, dft) for n in tail]
     return out
 
 
+# each family's fused sweep: (the wrapper, its plain version, the step of
+# the pair its tails run, the depth rule)
+FUSED = {
+    FluidState: (fluid_fused, fluid_fused_ref, fluid_step, fused_plan),
+    ViscoState: (visco_fused, visco_fused_ref, visco_step, visco_plan),
+}
+
+
+def plan_run(st, shape, device, viscous: bool, point: bool,
+             fuse_steps: int | None = None) -> FusedPlan:
+    """The depth rule of ``st``'s family (``fused_plan``, ``visco_plan``)."""
+    return FUSED[type(st)][3](shape, device, viscous, point, fuse_steps)
+
+
 def _fused_loop(runs, grid: FDTDGrid, oz_scale, point_amp, plan: FusedPlan):
-    """The fluid runs ``runs`` ((state, coefficients) pairs) in lockstep
-    through ``fluid_schedule``: each sweep one ``fluid_fused`` launch a run,
-    each tail step the pair."""
+    """The runs ``runs`` ((state, coefficients) pairs of one family) in
+    lockstep through ``fused_schedule``: each sweep one fused launch
+    (``fluid_fused`` or ``visco_fused``) a run, each tail step the pair."""
     pt = point_index(grid)
+    fused, _, step, _ = FUSED[type(runs[0][0])]
     with stage_timer("FDTD time loop", level=3, step=2):
-        for n, k, dft in fluid_schedule(grid, plan):
+        for n, k, dft in fused_schedule(grid, plan):
             if k == 1:
                 for st, co in runs:
-                    fluid_step(st, co, grid, n, oz_scale, point_amp)
+                    step(st, co, grid, n, oz_scale, point_amp)
                 continue
             rows = [step_scalars(grid, m, oz_scale, point_amp)
                     for m in range(n, n + k)]
             for st, co in runs:
-                fluid_fused(st, co, rows, pt, with_dft=dft)
+                fused(st, co, rows, pt, with_dft=dft)
         _synchronize([st.peak for st, _ in runs])
 
 
@@ -538,14 +591,16 @@ def run_fdtd(
     (CUDA: the step kernels; CPU: their plain PyTorch versions). Both
     media use indexed materials (``_build_indexed_materials``).
 
-    ``fuse_steps``: the JAX argument. A fluid run with a plane or point
-    source and no ``sel_maps`` or ``monitor_ijk`` runs fused sweeps
-    (``ops.fdtd_fused_kernels.fluid_fused``, K steps a launch) in the
-    schedule of the JAX package's ``simulate_fluid_pallas``: in the quiet
-    phase and in the window, K-step sweeps while K >= 3, then 2-step sweeps,
+    ``fuse_steps``: the JAX argument. A run with a plane or point source
+    and no ``sel_maps`` or ``monitor_ijk`` runs fused sweeps, K steps a
+    launch, in the schedule of the JAX driver of its medium, in the quiet
+    phase and in the window: fluid media ``fluid_fused`` as
+    ``simulate_fluid_pallas`` (K-step sweeps while K >= 3, then 2-step
+    sweeps), shear media ``visco_fused`` as ``simulate_visco_pallas``
+    (K-step sweeps while K >= 2, then, for a plane source, 2-step sweeps);
     then a one-step tail on the pair. ``None`` takes the deepest K the
-    kernel admits on this grid and device (``fused_plan``); an int pins K
-    (refused when the card cannot hold it). Viscoelastic media, volumetric
+    kernel admits on this grid and device (``fused_plan``, ``visco_plan``);
+    an int pins K (refused when the card cannot hold it). Volumetric
     sources, ``sel_maps`` and ``monitor_ijk`` keep the pair for every step,
     with its per-step monitor samples. Fused or not, the result is the
     step-by-step run's bit for bit.
@@ -553,8 +608,8 @@ def run_fdtd(
     ``mesh``: a 1-D ``DeviceMesh`` on axis "x" (``parallel.halo.make_mesh``)
     decomposes the grid along x over its devices (``device`` is then not
     used): N1 must divide by the mesh size into shards of at least
-    npml + 2 planes, as in the JAX package. A fluid plane-source run
-    without diagnostics runs overlap-and-discard fused sweeps where
+    npml + 2 planes, as in the JAX package. A plane-source run without
+    diagnostics runs overlap-and-discard fused sweeps where
     ``sharded_plan`` finds a K >= 2 (``fuse_steps`` as above), every other
     run the pair with 2 ghost planes. The result equals the unsharded run's
     bit for bit.
@@ -595,9 +650,9 @@ def run_fdtd(
             index=(monitor_index(monitor_ijk, grid.shape, device)
                    if with_series else None),
         )
-    if step is fluid_step and vsrc is None and diag is None:
-        plan = fused_plan(grid.shape, device, co.viscous,
-                          point_index(grid) is not None, fuse_steps)
+    if vsrc is None and diag is None:
+        plan = plan_run(st, grid.shape, device, co.viscous,
+                        point_index(grid) is not None, fuse_steps)
         _fused_loop([(st, co)], grid, oz_scale, point_amp, plan)
     else:
         _time_loop([(step, st, co, vsrc, diag)], grid, oz_scale, point_amp)
@@ -961,28 +1016,32 @@ def step_shards(shards, xs: XSlabs, grid: FDTDGrid, n: int, oz_scale: float,
 
 
 def sharded_plan(width: int, grid: FDTDGrid, device, viscous: bool,
-                 fuse_steps: int | None = None):
+                 fuse_steps: int | None = None, visco: bool = False):
     """(K, H) of the overlap-and-discard sweeps on shards of ``width`` own
     planes, the counterpart of the JAX package's ``_sharded_fusedK_plan``
-    (`babelbrain_tpu/ops/fdtd_pallas.py:2544`), or None when no K >= 2
-    fits. H = 3K ghost planes a side: each step widens what the array's
-    edge contaminates by ``CONTAMINATION`` planes (JAX counts 4). H must
-    also satisfy H <= width - (npml + 2), JAX's guard: ghost planes that
-    reached into an edge neighbour's x-PML slab would evolve without the
-    CPML there. ``fuse_steps`` pins K (None or 0: the deepest K from
-    ``min(K_CAP, FUSE_BEST)`` down that the card holds on the extended
-    slab)."""
+    (`babelbrain_tpu/ops/fdtd_pallas.py:2544`; ``visco``: with ``K_cap=4``,
+    as ``simulate_visco_pallas`` calls it), or None when no K >= 2 fits.
+    H = ``CONTAMINATION`` x K ghost planes a side: each step widens what
+    the array's edge contaminates by 3 planes, in either medium (JAX counts
+    4); the fluid takes 3K, the visco JAX's 4K.
+    H must also satisfy H <= width - (npml + 2), JAX's guard: ghost planes
+    that reached into an edge neighbour's x-PML slab would evolve without
+    the CPML there. ``fuse_steps`` pins K (None or 0: the deepest K from
+    the family's cap (``K_CAP`` and ``FUSE_BEST`` / ``VISCO_FUSE_BEST``)
+    down that the card holds on the extended slab)."""
+    fk = fdtd_visco_fused_kernels if visco else fdtd_fused_kernels
+    best = VISCO_FUSE_BEST if visco else FUSE_BEST
     ns = grid.npml + 2
     auto = not fuse_steps
     for k in ([int(fuse_steps)] if not auto
-              else range(min(K_CAP, FUSE_BEST), 1, -1)):
+              else range(min(fk.K_CAP, best), 1, -1)):
         if k < 2:
             return None
-        h = CONTAMINATION * k
+        h = fk.CONTAMINATION * k
         if h > width - ns:
             continue
         ext = (width + 2 * h,) + tuple(grid.shape[1:])
-        if auto and min(admitted_depth(ext, device, viscous, dft)
+        if auto and min(fk.admitted_depth(ext, device, viscous, dft)
                         for dft in (False, True)) < k:
             continue
         return k, h
@@ -992,7 +1051,7 @@ def sharded_plan(width: int, grid: FDTDGrid, device, viscous: bool,
 def overlap_schedule(grid: FDTDGrid, k: int):
     """[(first step, K, with_dft)] of an overlap-and-discard run: in the
     quiet phase and in the window, K-step sweeps, then one-step sweeps (the
-    JAX sharded driver's ``run_phase``)."""
+    JAX sharded drivers' ``run_phase``)."""
     n_quiet = max(0, min(grid.sensor_start, grid.n_steps))
     out = []
     for n0, n1, dft in ((0, n_quiet, False), (n_quiet, grid.n_steps, True)):
@@ -1002,31 +1061,45 @@ def overlap_schedule(grid: FDTDGrid, k: int):
     return out
 
 
-def state_groups(st: FluidState) -> tuple:
-    """The fluid state's per-cell fields an overlap sweep refreshes in the
-    ghost planes, in groups of one shape: the volumes p, vx, vy, vz, r; the
-    y psi slabs; the z psi slabs (the x slabs sit at the global edges, which
-    have no ghost planes; the DFT sums of ghost planes are discarded)."""
-    return ([st.p, st.vx, st.vy, st.vz, st.r],
-            st.psi_p[2:4] + st.psi_v[2:4], st.psi_p[4:6] + st.psi_v[4:6])
+def state_groups(st) -> tuple:
+    """The per-cell fields of a state that an overlap sweep refreshes in
+    the ghost planes, in groups of one shape (the x psi slabs sit at the
+    global edges, which have no ghost planes; the DFT sums of ghost planes
+    are discarded). Fluid: the volumes p, vx, vy, vz, r; the four y psi
+    slabs; the four z psi slabs. Visco (JAX's
+    ``_simulate_visco_pallas_sharded_fused``): the 15 fields; the 12 y psi
+    slabs; the 12 z psi slabs."""
+    if isinstance(st, FluidState):
+        return ([st.p, st.vx, st.vy, st.vz, st.r],
+                st.psi_p[2:4] + st.psi_v[2:4], st.psi_p[4:6] + st.psi_v[4:6])
+    fields = st.fields(("vx", "vy", "vz") + fdtd_visco_kernels.STRESSES
+                       + fdtd_visco_kernels.MEMORIES)
+    slabs = {1: [], 2: []}
+    for psi, derivs in ((st.psi_s, fdtd_visco_kernels.VELOCITY_DERIVS),
+                        (st.psi_v, fdtd_visco_kernels.STRESS_DERIVS)):
+        for q, (_, axis, _) in enumerate(derivs):
+            if axis:
+                slabs[axis] += psi[2 * q:2 * q + 2]
+    return fields, slabs[1], slabs[2]
 
 
 def sweep_shards(shards, xs: XSlabs, grid: FDTDGrid, n: int, k: int,
                  with_dft: bool, oz_scale: float, plain: bool = False) -> None:
     """Steps n..n+k-1 over the shards, overlap and discard: one bundled
-    refresh of each group of ``state_groups``, then one fused launch per
-    shard over its planes and ghost planes (``plain``: the plain version)."""
+    refresh of each group of ``state_groups``, then one fused launch
+    (``fluid_fused`` or ``visco_fused``) per shard over its planes and ghost
+    planes (``plain``: the plain version)."""
     groups = [state_groups(sh.st) for sh in shards]
     for g in range(len(groups[0])):
         xs.refresh_group([gr[g] for gr in groups])
     rows = [step_scalars(grid, m, oz_scale) for m in range(n, n + k)]
+    fused, ref, _, _ = FUSED[type(shards[0].st)]
     for s, sh in enumerate(shards):
         with _shard_range(sh, s):
             if plain:
-                fluid_fused_ref(sh.st, sh.co, rows, with_dft=with_dft)
+                ref(sh.st, sh.co, rows, with_dft=with_dft)
             else:
-                fluid_fused(sh.st, sh.co, rows, with_dft=with_dft,
-                            checked=True)
+                fused(sh.st, sh.co, rows, with_dft=with_dft, checked=True)
 
 
 def own_planes(xs: XSlabs, parts) -> np.ndarray:
@@ -1039,16 +1112,17 @@ def own_planes(xs: XSlabs, parts) -> np.ndarray:
 
 def overlap_plan(mesh, materials, grid: FDTDGrid, sel_maps=(),
                  monitor_ijk=None, fuse_steps=None):
-    """``sharded_plan`` of a ``run_fdtd(mesh=)`` call, or None where that
-    run keeps the pair: anything but fluid media with a plane source and
-    no diagnostics, or no K >= 2 that fits."""
+    """``sharded_plan`` of a ``run_fdtd(mesh=)`` call (fluid or shear
+    media), or None where that run keeps the pair: anything but a plane
+    source without diagnostics, or no K >= 2 that fits."""
     mats = np.asarray(materials, np.float64)
     if (grid.source_type != "velocity_plane" or sel_maps
-            or monitor_ijk is not None or np.any(mats[:, 2] > 0)):
+            or monitor_ijk is not None):
         return None
     xs = _x_slabs(mesh, grid)
     viscous = sls_coefficients(mats, grid.frequency, grid.dt)["viscous"]
-    return sharded_plan(xs.width, grid, mesh.devices[0], viscous, fuse_steps)
+    return sharded_plan(xs.width, grid, mesh.devices[0], viscous, fuse_steps,
+                        visco=bool(np.any(mats[:, 2] > 0)))
 
 
 def _run_fdtd_sharded(mesh, mat_idx, materials, grid: FDTDGrid, source_amp,
@@ -1120,9 +1194,9 @@ def run_fdtd_batch(
     loops them, `CalculateFieldProcess.py:78-111`); the cases share the
     material map and grid and differ only in their CW source plane. Each
     device runs its cases in turn from one ``fdtd_setup``, the state zeroed
-    and the source plane swapped between them (fluid media in the fused
-    sweeps of ``run_fdtd``'s schedule), so case b equals ``run_fdtd`` with
-    plane b bit for bit.
+    and the source plane swapped between them (in the fused sweeps of
+    ``run_fdtd``'s schedule, either medium), so case b equals ``run_fdtd``
+    with plane b bit for bit.
 
     ``source_amps``, ``source_phases``: (B, N1, N2) per-case planes.
     ``mesh``: a 1-D ``DeviceMesh`` (``make_case_mesh``) whose devices take
@@ -1145,12 +1219,12 @@ def run_fdtd_batch(
     with stage_timer("FDTD setup", level=3, step=2):
         h = _host_setup(mat_idx, materials, grid, amps[0], phases[0],
                         reflector_mask)
-        make, state, step = h.family()
+        make, state, _ = h.family()
         runs = [(make(h.idx, h.table, h.profiles, *h.src, grid, h.viscous,
                       dev), state.zeros(grid.shape, grid.npml + 2, dev), c)
                 for dev, c in zip(devices, cases) if c]
-        plan = (fused_plan(grid.shape, devices[0], h.viscous, False)
-                if step is fluid_step else None)
+        plan = plan_run(runs[0][1], grid.shape, devices[0], h.viscous,
+                        False)
     outs = {}
     for j in range(len(runs[0][2])):  # the first device has the most cases
         active = [(co, st, c[j]) for co, st, c in runs if j < len(c)]
@@ -1162,12 +1236,8 @@ def run_fdtd_batch(
             f32 = _to_device(st.peak.device)
             for k, v in _plane(amps[b], phases[b], f32).items():
                 setattr(co, k, v)
-        if step is fluid_step:
-            _fused_loop([(st, co) for co, st, _ in active], grid, h.oz_scale,
-                        0.0, plan)
-        else:
-            _time_loop([(step, st, co, None, None) for co, st, _ in active],
-                       grid, h.oz_scale)
+        _fused_loop([(st, co) for co, st, _ in active], grid, h.oz_scale,
+                    0.0, plan)
         for _, st, b in active:
             # copied now: on the CPU 'peak' is a view of the state, zeroed
             # by the next case

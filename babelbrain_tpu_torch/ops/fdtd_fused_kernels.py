@@ -84,30 +84,40 @@ def march(n1: int, k: int):
              for s in range(k)] for t in range(n1 + LAG * (k - 1) + 1)]
 
 
-# co-resident blocks of an instantiation on a device (the kernel's occupancy
-# does not change while the process runs)
+# co-resident blocks of a cooperative kernel's instantiation on a device
+# (the kernel's occupancy does not change while the process runs)
 _CAPACITY: dict = {}
 
 
-def capacity(device, viscous: bool, with_dft: bool, point: bool) -> int:
-    """How many blocks of the fused kernel's instantiation the CUDA
-    ``device`` holds at once (a cooperative launch may not exceed it): the
-    fewer of its whole-grid and its shards' twin."""
+def resident(entry: str, kernel: str, device, viscous: bool, with_dft: bool,
+             point: bool) -> int:
+    """How many blocks of the (viscous, with_dft, point) instantiation of a
+    fused sweep's kernel (its capacity query ``entry``) the CUDA ``device``
+    holds at once (a cooperative launch may not exceed it): the fewer of
+    its whole-grid and its shards' twin."""
     dev = torch.device(device)
-    key = (dev.index if dev.index is not None else torch.cuda.current_device(),
-           bool(viscous), bool(with_dft), bool(point))
+    key = (entry, dev.index if dev.index is not None
+           else torch.cuda.current_device(), bool(viscous), bool(with_dft),
+           bool(point))
     if key not in _CAPACITY:
         blocks = []
         for xall in (1, 0):
             out = ctypes.c_int(0)
-            with torch.cuda.device(key[0]):
-                rc = _build.library().bb_fluid_fused_capacity(
+            with torch.cuda.device(key[1]):
+                rc = getattr(_build.library(), entry)(
                     int(viscous), int(with_dft), int(point), xall,
                     ctypes.byref(out))
-            _build.check(rc, "fluid_fused_kernel occupancy")
+            _build.check(rc, f"{kernel} occupancy")
             blocks.append(out.value)
         _CAPACITY[key] = min(blocks)
     return _CAPACITY[key]
+
+
+def capacity(device, viscous: bool, with_dft: bool, point: bool) -> int:
+    """How many blocks of the fused kernel's instantiation the CUDA
+    ``device`` holds at once (``resident``)."""
+    return resident("bb_fluid_fused_capacity", "fluid_fused_kernel", device,
+                    viscous, with_dft, point)
 
 
 def admitted_depth(shape, device, viscous: bool, with_dft: bool,
@@ -122,12 +132,13 @@ def admitted_depth(shape, device, viscous: bool, with_dft: bool,
     return min(K_CAP, capacity(dev, viscous, with_dft, point) // (gz * gy))
 
 
-def _check_rows(rows) -> int:
+def check_rows(rows, k_cap: int = K_CAP, name: str = "fluid_fused") -> int:
+    """K of a launch's per-step rows: 1..``k_cap`` rows of five scalars."""
     k = len(rows)
-    if not 1 <= k <= K_CAP:
-        raise ValueError(f"fluid_fused: {k} steps a launch, 1..{K_CAP} taken")
+    if not 1 <= k <= k_cap:
+        raise ValueError(f"{name}: {k} steps a launch, 1..{k_cap} taken")
     if any(len(r) != 5 for r in rows):
-        raise ValueError("fluid_fused: rows are (s_sin, s_cos, cosw, sinw, "
+        raise ValueError(f"{name}: rows are (s_sin, s_cos, cosw, sinw, "
                          "s_point) of ops.fdtd.step_scalars")
     return k
 
@@ -141,7 +152,7 @@ def fluid_fused(st: FluidState, co: FluidCoeffs, rows, point=None, *,
     its cosw, sinw and the |p| peak. ``checked``: ``check_step`` validated
     (st, co) already."""
     (n1, n2, n3), ns = _shape(st, co, checked)
-    k = _check_rows(rows)
+    k = check_rows(rows)
     if point is not None and not 0 <= int(point) < n1 * n2 * n3:
         raise ValueError(f"point source index {point} outside {(n1, n2, n3)}")
     if st.p.device.type == "cpu":
@@ -167,7 +178,7 @@ def fluid_fused_ref(st: FluidState, co: FluidCoeffs, rows, point=None, *,
                     with_dft: bool = False) -> None:
     """Plain version of ``fluid_fused_kernel``: the K steps through the
     pair's plain versions, in place."""
-    _check_rows(rows)
+    check_rows(rows)
     plain_calls[pressure_key("fluid_fused", with_dft, point)] += 1
     for s_sin, s_cos, cosw, sinw, s_pt in rows:
         fluid_velocity_ref(st, co, s_sin, s_cos)

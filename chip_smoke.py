@@ -43,8 +43,16 @@ Phases (each prints its own lines; any failed check exits nonzero):
              holds there, plane and point, viscous and inviscid, quiet and
              window, and on a 50-plane shard with each x_lo / x_hi
              combination; each K timed per step against its bound and the
-             pair. Then the BHTE sweep: ``bhte_fused`` (K steps a launch)
-             against its plain version and against K launches of
+             pair. Then the visco fused phase: ``visco_fused`` against its
+             plain version and K launches of the visco pair, bit for bit,
+             at 192x192x240 with the 5 label materials for every K the card
+             admits (plane and point, quiet and window), on the 50-plane
+             shard with each x_lo / x_hi combination, and at 27x45x47 for
+             K = 1..4 (a plane on a z-tile edge, a point on a tile corner,
+             and inviscid); each admitted K timed a launch and a step
+             against its bound and the pair. Then the BHTE sweep:
+             ``bhte_fused`` (K steps a launch) against its plain version
+             and against K launches of
              ``bhte_step`` (and those against the plain version), max abs
              difference 0 in T, dose and peak, at 192x192x240 (heating,
              then cooling, across 43 C) for K = 1, 2, 3, 4, 8 and
@@ -81,10 +89,12 @@ Phases (each prints its own lines; any failed check exits nonzero):
              step count the run implies, and no plain version may run.
              The diag slices' maps and series are held to the steady-state
              anchors and to each other, the capture to the series, bit for
-             bit. The CT, refocus-ct, zte-ct and coreg-zte slices' FDTD
-             runs go through the fused sweeps (``run_fdtd``'s default):
-             each run is repeated through the pair step by step and must
-             equal it bit for bit. Every slice's Step 3 runs the BHTE
+             bit. The CT, label, refocus-ct, refocus-label, zte-ct and
+             coreg-zte slices' FDTD runs go through the fused sweeps
+             (``run_fdtd``'s default: ``fluid_fused`` in CT mode,
+             ``visco_fused`` in label mode): each run is repeated through
+             the pair step by step and must equal it bit for bit. Every
+             slice's Step 3 runs the BHTE
              sweeps (``bhte_run``'s default K on a card): each of its two
              ``bhte_run`` loops is run again from its start one step a
              launch (``fuse_steps=1``) and must equal it bit for bit in T,
@@ -129,13 +139,13 @@ Phases (each prints its own lines; any failed check exits nonzero):
              their plain versions (plane, and a point on an inner shard;
              40 steps, bit for bit) and each shard's launch timed against
              the whole one; the overlap-and-discard fused sweeps against
-             their plain versions and the unsharded run; then the
-             ``run_fdtd`` calls the CT (overlap and discard), label,
-             diag-ct (14 maps, 201 monitors) and dome-ct slices made and
-             refocus-ct's backward point run (recorded as they ran) again
-             on the 4-shard mesh, each equal to its slice's result bit for
-             bit, with the loops' idle share under ``torch.profiler`` (CT,
-             label); the CT slice's forward
+             their plain versions and the unsharded run (fluid and
+             visco); then the ``run_fdtd`` calls the CT and label (overlap
+             and discard), diag-ct (14 maps, 201 monitors) and dome-ct
+             slices made and the refocus slices' backward point runs
+             (recorded as they ran) again on the 4-shard mesh, each equal
+             to its slice's result bit for bit, with the loops' idle share
+             under ``torch.profiler`` (CT, label); the CT slice's forward
              Rayleigh over 4 devices (within 2e-5 of its peak, the
              difference printed); sweep-ct's ``run_fdtd_batch`` on a
              2-device case mesh, bit-equal. Counts are set to 0 before
@@ -447,6 +457,20 @@ FUSED_WORK = {
 }
 FUSED_WORK.update({"fluid_fused_point": FUSED_WORK["fluid_fused"],
                    "fluid_fused_point_dft": FUSED_WORK["fluid_fused_dft"]})
+# The visco sweep of K steps (csrc/fdtd_visco_fused.cu), per launch: the 15
+# fields (v, sigma, r) and the index read once and the 15 fields written
+# once (31 volumes; + the DFT sums and the peak read and written in the
+# window, 37); the psi slabs of both half-steps' 18 derivatives (6 an axis)
+# read and written once; the three source planes read once; each step's
+# float operations (the pair's: 60 + 134, 60 + 143 with the DFT).
+FUSED_WORK.update({
+    "visco_fused": dict(volumes=31, derivs_per_axis=6, planes=3,
+                        flops_per_step=194),
+    "visco_fused_dft": dict(volumes=37, derivs_per_axis=6, planes=3,
+                            flops_per_step=203),
+})
+FUSED_WORK.update({"visco_fused_point": FUSED_WORK["visco_fused"],
+                   "visco_fused_point_dft": FUSED_WORK["visco_fused_dft"]})
 # The BHTE sweep of K steps (csrc/bhte.cu bhte_fused_kernel), per launch:
 # T read and written, dose and peak read and written, the six
 # conductivities, irc, perf and Q read once (15 volumes, whatever K; the
@@ -1099,6 +1123,152 @@ def check_fused(times, device="cuda"):
                               f"{shape} (fuse_steps=None); plain version "
                               f"{plain:.4f} ms a launch")
     print(f"[fused] phase {time.time() - t_phase:.2f} s")
+    return errs, out_t, out_b
+
+
+def _visco_fused_case(shape, k, source, dft, device, x_lo=True, x_hi=True,
+                      viscous=True, zsrc=13, source_ijk=None):
+    """One ``visco_fused`` launch of ``k`` steps against its plain version
+    (``visco_fused_ref``, on the card) and against ``k`` steps of the visco
+    pair, from the state ``FUSED_PRE_STEPS`` pair steps leave (the kernel
+    phase's label case, ``source`` drive; the SLS memories off unless
+    ``viscous``): (the fused state, coefficients, rows, point, [(field, max
+    abs diff)] of both comparisons)."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_visco_fused_kernels as VF
+    from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
+
+    n0 = FUSED_PRE_STEPS
+    grid, co, pamp, _, oz, _ = visco_case(shape, n0 + k, n0 // 2, source,
+                                          device, zsrc=zsrc,
+                                          source_ijk=source_ijk)
+    co.x_lo, co.x_hi = x_lo, x_hi
+    co.viscous = co.viscous and viscous
+    st = V.ViscoState.zeros(shape, 14, device)
+    for n in range(n0):
+        F.visco_step(st, co, grid, n, oz, pamp)
+    fused, plain, pair = (_copy_state(st) for _ in range(3))
+    pt = F.point_index(grid)
+    rows = [F.step_scalars(grid, n, oz, pamp) for n in range(n0, n0 + k)]
+    VF.visco_fused(fused, co, rows, pt, with_dft=dft)
+    VF.visco_fused_ref(plain, co, rows, pt, with_dft=dft)
+    for s_sin, s_cos, cosw, sinw, s_pt in rows:
+        V.visco_velocity(pair, co, s_sin, s_cos)
+        point = None if pt is None else (pt, s_pt)
+        if dft:
+            V.visco_stress(pair, co, cosw, sinw, point)
+        else:
+            V.visco_stress(pair, co, point=point)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    bad = ([("plain", *b) for b in state_diff(fused, plain)]
+           + [("pair", *b) for b in state_diff(fused, pair)])
+    return fused, co, rows, pt, bad
+
+
+def check_visco_fused(times, device="cuda"):
+    """The visco fused phase: ``visco_fused`` against its plain version and
+    against K launches of the visco pair, max abs difference 0 in every
+    field: at 192x192x240 (5 label materials) for every K the card admits
+    there, plane and point, quiet and window; on a 50-plane shard with each
+    x_lo / x_hi combination (the shards' instantiation beside the XALL
+    twin); at the ragged 27x45x47 for K = 1..4, plane (on a z-tile edge)
+    and point (on a tile corner), and inviscid; then each admitted K's time
+    at 192x192x240 from a CUDA graph of captured launches, a launch and a
+    step, against its bound and the pair's ``times``. Returns (errors,
+    times, bounds) keyed by kernel row, the rows at the depth the main
+    path takes there."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
+    from babelbrain_tpu_torch.ops import fdtd_visco_fused_kernels as VF
+    from babelbrain_tpu_torch.ops.fdtd_kernels import pressure_key
+
+    t_phase = time.time()
+    kmax = min(VF.admitted_depth(KERNEL_SHAPE, device, True, d, p)
+               for d in (False, True) for p in (False, True))
+    kshard = min(2, VF.admitted_depth(FUSED_SHARD, device, True, True))
+    print(f"[visco-fused] admitted depth at {KERNEL_SHAPE}: K = {kmax}; at "
+          f"{FUSED_SHARD}: "
+          f"{VF.admitted_depth(FUSED_SHARD, device, True, True)}; at "
+          f"{RAGGED_SHAPE}: "
+          f"{VF.admitted_depth(RAGGED_SHAPE, device, True, True)}"
+          + (f"; capacity {VF.capacity(device, True, True, False)} blocks"
+             if device == "cuda" else ""))
+    if kmax < 1:
+        fail(f"visco_fused: not one stage fits at {KERNEL_SHAPE}")
+    corner = (RAGGED_SHAPE[0] // 2, K.TILE_Y, K.TILE_Z)
+    cases = []  # (shape, k, source, dft, x_lo, x_hi, viscous)
+    for k in range(1, kmax + 1):
+        for source in ("plane", "point"):
+            for dft in (False, True):
+                cases.append((KERNEL_SHAPE, k, source, dft, True, True, True))
+    for x_lo, x_hi in ((True, True), (True, False), (False, True),
+                       (False, False)):
+        for dft in (False, True):
+            cases.append((FUSED_SHARD, kshard, "plane", dft, x_lo, x_hi,
+                          True))
+    for k in range(1, VF.K_CAP + 1):
+        for source in ("plane", "point"):
+            for dft in (False, True):
+                cases.append((RAGGED_SHAPE, k, source, dft, True, True,
+                              True))
+    for k in (2, VF.K_CAP):
+        cases.append((RAGGED_SHAPE, k, "plane", True, True, True, False))
+    errs = {}
+    for shape, k, source, dft, x_lo, x_hi, viscous in cases:
+        ragged = shape == RAGGED_SHAPE
+        st, _, _, _, bad = _visco_fused_case(
+            shape, k, source, dft, device, x_lo, x_hi, viscous,
+            zsrc=K.TILE_Z if ragged else 13,
+            source_ijk=corner if ragged else None)
+        smax = float(st.sxx.abs().max())
+        print(f"[visco-fused] {shape} K={k} {source} "
+              f"{'viscous' if viscous else 'inviscid'} "
+              f"{'window' if dft else 'quiet'} x_lo={x_lo} x_hi={x_hi}: "
+              f"max|sxx| {smax:.6g} Pa; fields differing from the plain "
+              f"version / the pair {bad}")
+        if bad or not np.isfinite(smax) or smax <= 0:
+            fail(f"visco fused kernel differs ({shape}, K={k}, {source}, "
+                 f"dft={dft}, x_lo={x_lo}, x_hi={x_hi}, viscous={viscous}): "
+                 f"{bad}; max|sxx| {smax}")
+        errs[pressure_key("visco_fused", dft,
+                          0 if source == "point" else None)] = 0.0
+    out_t, out_b = {}, {}
+    if device == "cuda":
+        shape = KERNEL_SHAPE
+        cells = float(np.prod(shape))
+        for source in ("plane", "point"):
+            point = source == "point"
+            pk = "_point" if point else ""
+            plan = F.visco_plan(shape, device, True, point)
+            for dft in (False, True):
+                key = pressure_key("visco_fused", dft, 0 if point else None)
+                pair = (times["visco_velocity"][0]
+                        + times[pressure_key("visco_stress", dft,
+                                             0 if point else None)][0])
+                k_main = plan.k_dft if dft else plan.k
+                st, co, rows_max, pt, _ = _visco_fused_case(
+                    shape, kmax, source, dft, device)
+                for k in range(1, kmax + 1):
+                    rows = rows_max[:k]
+                    ms = _timed_graph(lambda: VF.visco_fused(
+                        st, co, rows, pt, with_dft=dft, checked=True), 5)
+                    b_ms, b_by = bound(key, shape, k=k)
+                    print(f"[visco-fused] {key} K={k} at {shape}: {ms:.4f} "
+                          f"ms a launch, {ms / k:.4f} ms a step "
+                          f"({cells * k / ms / 1e3:.1f} Mcell-updates/s); "
+                          f"bound {b_ms:.4f} ms ({b_by}), {b_ms / k:.4f} a "
+                          f"step ({b_ms / ms:.0%}); the pair{pk} "
+                          f"{pair:.4f} ms a step ({ms / k / pair:.3f}x)")
+                    if k == k_main:
+                        plain = _timed(lambda: VF.visco_fused_ref(
+                            st, co, rows, pt, with_dft=dft), 2, warm=1)
+                        out_t[key] = (ms, plain)
+                        out_b[key] = (b_ms, b_by)
+                        print(f"[visco-fused]   {key}: the main path's K={k} "
+                              f"at {shape} (fuse_steps=None); plain version "
+                              f"{plain:.4f} ms a launch")
+    print(f"[visco-fused] phase {time.time() - t_phase:.2f} s")
     return errs, out_t, out_b
 
 
@@ -1761,11 +1931,13 @@ def _counted_modules():
         fdtd_fused_kernels,
         fdtd_kernels,
         fdtd_sources,
+        fdtd_visco_fused_kernels,
         fdtd_visco_kernels,
     )
 
     return (fdtd_kernels, fdtd_fused_kernels, fdtd_visco_kernels,
-            fdtd_sources, bhte_kernels, fdtd_extras, probes)
+            fdtd_visco_fused_kernels, fdtd_sources, bhte_kernels,
+            fdtd_extras, probes)
 
 
 def reset_counts():
@@ -2213,12 +2385,12 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
     runs = 2 if (refocus or dome) else 1  # plane / volumetric FDTD passes
     expect = {k: 0 for k in launches}
     expect_bhte(expect, [params], device)  # the locating run + schedule
-    if with_ct and not (dome or diag):
-        # fluid plane and point runs: the fused sweeps by default
-        expect_fluid_run(expect, _make_grid(dom), dom.materials, n=runs,
+    if not (dome or diag):
+        # plane and point runs: the fused sweeps by default
+        expect_fused_run(expect, _make_grid(dom), dom.materials, n=runs,
                          device=device)
         if refocus:  # the backward run from a stress point at the target
-            expect_fluid_run(expect, _make_grid(dom, "stress_point",
+            expect_fused_run(expect, _make_grid(dom, "stress_point",
                                                 dom.focal_idx), dom.materials,
                              device=device)
     else:
@@ -2472,7 +2644,7 @@ def run_sweep(have_h5py: bool, mask_shape=MASK_SHAPE, device="cuda"):
     expect = {k: 0 for k in launches}
     grids = [c["domain"] for c in cells.values()] + [dom, dom]
     for d in grids:  # the cells' runs and the batch's cases: fused sweeps
-        expect_fluid_run(expect, _make_grid(d), d.materials, device=device)
+        expect_fused_run(expect, _make_grid(d), d.materials, device=device)
     for _ in cells:  # per entry: the locating run + schedule
         expect_bhte(expect, profile, device)
     for k, c in cells.items():
@@ -3251,7 +3423,7 @@ def run_anchors(device="cuda"):
     launches, plain = read_counts()
     print(f"[slice anchors] {time.time() - t0:.2f} s; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
-    need = ("visco_velocity", "visco_stress_dft", "fluid_fused",
+    need = ("visco_fused", "visco_fused_dft", "fluid_fused",
             "fluid_fused_dft")
     if device == "cuda" and (any(plain.values())
                              or not all(launches[k] for k in need)):
@@ -3266,13 +3438,15 @@ def run_anchors(device="cuda"):
 # shards of the mesh phase, all on one card (devices= named explicitly);
 # the slices whose run_fdtd calls it replays on them
 MESH_SHARDS = 4
-MESH_SLICES = ("ct", "label", "diag-ct", "dome-ct", "refocus-ct")
-# of refocus-ct only its backward run (a stress point: sharded, it keeps
-# the pair, step by step)
-MESH_POINT_ONLY = ("refocus-ct",)
+MESH_SLICES = ("ct", "label", "diag-ct", "dome-ct", "refocus-ct",
+               "refocus-label")
+# of the refocus slices only their backward run (a stress point: sharded,
+# it keeps the pair, step by step)
+MESH_POINT_ONLY = ("refocus-ct", "refocus-label")
 # the slices whose run_fdtd calls go through the fused sweeps by default:
 # each call is run again through the pair, step by step, and must equal it
-FUSED_SLICES = ("ct", "refocus-ct", "zte-ct", "coreg-zte")
+FUSED_SLICES = ("ct", "label", "refocus-ct", "refocus-label", "zte-ct",
+                "coreg-zte")
 MESH_CHECK_STEPS = 40
 # mode -> [(function name, args, kwargs, result, loop seconds)] of the
 # pipeline calls a slice made (``recording``)
@@ -3317,24 +3491,29 @@ def recording(mode):
             setattr(A, name, fn)
 
 
-def expect_fluid_run(expect, grid, materials, n=1, device="cuda"):
+def expect_fused_run(expect, grid, materials, n=1, device="cuda"):
     """Add the launches ``n`` calls of ``run_fdtd`` on ``grid`` make in
-    fluid ``materials`` with a plane or point source and no diagnostics:
-    the fused sweeps and the pair's tail steps of ``ops.fdtd
-    .fluid_schedule`` at the depths ``fused_plan`` takes on the card."""
+    ``materials`` (fluid, or shear media) with a plane or point source and
+    no diagnostics: the fused sweeps and the pair's tail steps of ``ops.fdtd
+    .fused_schedule`` at the depths ``fused_plan`` / ``visco_plan`` take on
+    the card."""
     from babelbrain_tpu_torch.ops import fdtd as F
     from babelbrain_tpu_torch.ops.fdtd_kernels import pressure_key
 
     mats = np.asarray(materials, np.float64)
     viscous = F.sls_coefficients(mats, grid.frequency, grid.dt)["viscous"]
     point = 0 if F.point_index(grid) is not None else None
-    plan = F.fused_plan(grid.shape, device, viscous, point is not None)
-    for _, k, dft in F.fluid_schedule(grid, plan):
+    visco = bool(np.any(mats[:, 2] > 0))
+    fam, stem = ("visco", "visco_stress") if visco else ("fluid",
+                                                         "fluid_pressure")
+    plan = (F.visco_plan if visco else F.fused_plan)(
+        grid.shape, device, viscous, point is not None)
+    for _, k, dft in F.fused_schedule(grid, plan):
         if k == 1:
-            expect["fluid_velocity"] += n
-            expect[pressure_key("fluid_pressure", dft, point)] += n
+            expect[f"{fam}_velocity"] += n
+            expect[pressure_key(stem, dft, point)] += n
         else:
-            expect[pressure_key("fluid_fused", dft, point)] += n
+            expect[pressure_key(f"{fam}_fused", dft, point)] += n
 
 
 def sonication_schedules(params):
@@ -3535,7 +3714,7 @@ def check_mesh_kernels(mesh, times, device="cuda"):
                 stem + point, stem + point + "_dft")
             for k in keys:
                 errs[k] = 0.0
-            if family == "fluid" and source == "plane":
+            if source == "plane":
                 check_mesh_overlap(mesh, grid, mats, idx, amp, ph, device)
             if source != "plane" or device != "cuda":
                 continue
@@ -3562,9 +3741,9 @@ def check_mesh_kernels(mesh, times, device="cuda"):
 
 def check_mesh_overlap(mesh, grid, mats, idx, amp, ph, device="cuda"):
     """The overlap-and-discard sweeps (``ops.fdtd.sweep_shards``) of a
-    fluid plane-source case on the mesh's shards against their plain
-    versions, every field of every shard bit for bit, and the own planes'
-    carrier against the unsharded fused run's."""
+    plane-source case (fluid or shear media) on the mesh's shards against
+    their plain versions, every field of every shard bit for bit, and the
+    own planes' carrier against the unsharded fused run's."""
     from babelbrain_tpu_torch.ops import fdtd as F
 
     plan = F.overlap_plan(mesh, mats, grid)
@@ -3586,7 +3765,8 @@ def check_mesh_overlap(mesh, grid, mats, idx, amp, ph, device="cuda"):
                                              for sh in runs[0]])
                            for k in ("acc_cos", "acc_sin", "peak")), grid)
     differ = _maps_differ(whole, mine)
-    print(f"[mesh] fluid overlap and discard (K, H) = {plan} on "
+    family = "visco" if np.any(np.asarray(mats)[:, 2] > 0) else "fluid"
+    print(f"[mesh] {family} overlap and discard (K, H) = {plan} on "
           f"{mesh.size} shards of {grid.shape} "
           f"({[xs.planes(s) for s in range(xs.n_shards)]} planes with ghosts)"
           f", {grid.n_steps} steps (window from {grid.sensor_start}): "
@@ -3613,8 +3793,6 @@ def idle_share(args, kw, mesh=None):
 
     from babelbrain_tpu_torch.ops.fdtd import run_fdtd
 
-    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
-
     mat_idx, materials, grid, amp, phase, refl, vsrc = _bound(
         run_fdtd, args, kw, "mat_idx", "materials", "grid", "source_amp",
         "source_phase", "reflector_mask", "volume_source")
@@ -3624,18 +3802,17 @@ def idle_share(args, kw, mesh=None):
     if mesh is None:
         step, st, co, oz, vsrc = F.fdtd_setup(
             mat_idx, materials, grid, amp, phase, refl, vsrc, device="cuda")
-        fused = step is F.fluid_step and vsrc is None
-        if fused:
-            units = F.fluid_schedule(grid, F.fused_plan(
-                grid.shape, "cuda", co.viscous, False))
+        if vsrc is None:
+            units = F.fused_schedule(grid, F.plan_run(
+                st, grid.shape, "cuda", co.viscous, False))
 
         def run(n, k, dft):
             if k == 1:
                 step(st, co, grid, n, oz, 0.0, vsrc)
             else:
-                FK.fluid_fused(st, co, [F.step_scalars(grid, m, oz)
-                                        for m in range(n, n + k)],
-                               with_dft=dft)
+                F.FUSED[type(st)][0](st, co, [F.step_scalars(grid, m, oz)
+                                              for m in range(n, n + k)],
+                                     with_dft=dft)
     else:
         plan = F.overlap_plan(mesh, materials, grid)
         xs, shards, oz = F.shard_setup(mesh, mat_idx, materials, grid, amp,
@@ -3693,13 +3870,13 @@ def _expect_shard_launches(expect, grid, materials, n_shards, mesh=None,
     kw = kw or {}
     plan = (None if mesh is None else F.overlap_plan(
         mesh, materials, grid, kw.get("sel_maps", ()), kw.get("monitor_ijk")))
-    if plan is not None:
-        for _, _, dft in F.overlap_schedule(grid, plan[0]):
-            expect["fluid_fused_dft" if dft else "fluid_fused"] += n_shards
-        return
     fam, stem = (("visco", "visco_stress")
                  if np.any(np.asarray(materials)[:, 2] > 0)
                  else ("fluid", "fluid_pressure"))
+    if plan is not None:
+        for _, _, dft in F.overlap_schedule(grid, plan[0]):
+            expect[f"{fam}_fused_dft" if dft else f"{fam}_fused"] += n_shards
+        return
     n, s = grid.n_steps, grid.sensor_start
     # a stress point: the shard that holds it launches the point variants
     point = int(grid.source_type == "stress_point")
@@ -3769,17 +3946,20 @@ def run_mesh(times, device="cuda"):
             bad = _maps_differ(ref, out)
             extra = [k for k in ref if k not in ("p_amp", "p_phase", "peak")
                      and isinstance(ref[k], np.ndarray)]
-            halo = halo_bytes(grid, mats, MESH_SHARDS, F.overlap_plan(
-                mesh, mats, grid, kw.get("sel_maps", ()),
-                kw.get("monitor_ijk")))
+            plan = F.overlap_plan(mesh, mats, grid, kw.get("sel_maps", ()),
+                                  kw.get("monitor_ijk"))
+            halo = halo_bytes(grid, mats, MESH_SHARDS, plan)
+            sweep = ("" if plan is None else
+                     f" ({halo * plan[0] / 1e6:.3f} MB a sweep of overlap and "
+                     f"discard, (K, H) = {plan})")
             print(f"[mesh] {mode} run_fdtd {grid.shape} {grid.n_steps} steps "
                   f"({grid.source_type}"
                   + (f", {len(extra)} maps and series" if extra else "")
                   + f") on {MESH_SHARDS} shards: wall {wall:.3f} s, loop "
                   f"{loop_mesh:.3f} s against the slice's unsharded loop "
                   f"{loop:.3f} s ({loop_mesh / loop:.3f}x); halo "
-                  f"{halo / 1e6:.3f} MB a step; fields differing from the "
-                  f"slice's result {bad}")
+                  f"{halo / 1e6:.3f} MB a step{sweep}; fields differing "
+                  f"from the slice's result {bad}")
             if bad:
                 fail(f"mesh: {mode} run_fdtd on {MESH_SHARDS} shards differs "
                      f"from the unsharded run in {bad}")
@@ -3788,7 +3968,6 @@ def run_mesh(times, device="cuda"):
                 # the idle share of the loop, sharded and not (the counts
                 # are set aside: these launches are the measurement's)
                 fields = 6 if np.any(np.asarray(mats)[:, 2] > 0) else 2
-                plan = F.overlap_plan(mesh, mats, grid)
                 saved = read_counts()
                 whole = idle_share(args, kw)
                 shard = idle_share(args, kw, mesh)
@@ -3838,7 +4017,7 @@ def run_mesh(times, device="cuda"):
               f"unsharded batch {bad}")
         if bad:
             fail(f"mesh: the case-mesh batch differs in {bad}")
-        expect_fluid_run(expect, grid, mats, n=len(amps), device=device)
+        expect_fused_run(expect, grid, mats, n=len(amps), device=device)
     launches, plain = read_counts()
     print(f"[mesh] launches {launches}; plain calls {plain}")
     fdtd_rows = [k for k in expect if expect[k]]
@@ -3858,15 +4037,19 @@ def halo_bytes(grid, materials, n_shards, plan=None):
     """Bytes the ghost-plane refresh of one step copies on ``n_shards``
     shards: 2 planes each way at each boundary, for each field the next
     half-step reads across x (fluid vx, p; visco 3 velocities, 3 stresses);
-    with an overlap ``plan`` (K, H), H planes each way of p, vx, vy, vz, r
-    and the four y and four z psi slabs once a sweep, over K."""
+    with an overlap ``plan`` (K, H), H planes each way of the state's
+    groups once a sweep, over K (fluid p, vx, vy, vz, r and the four y and
+    four z psi slabs; visco the 15 fields and the twelve y and twelve z psi
+    slabs)."""
     n2, n3 = grid.shape[1:]
+    visco = bool(np.any(np.asarray(materials)[:, 2] > 0))
     if plan is not None:
         k, h = plan
         ns = grid.npml + 2
-        cells = 5 * n2 * n3 + 4 * ns * n3 + 4 * n2 * ns
+        vols, slabs = (15, 12) if visco else (5, 4)
+        cells = vols * n2 * n3 + slabs * (ns * n3 + n2 * ns)
         return (n_shards - 1) * 2 * h * cells * 4 / k
-    fields = 6 if np.any(np.asarray(materials)[:, 2] > 0) else 2
+    fields = 6 if visco else 2
     plane = n2 * n3 * 4
     return (n_shards - 1) * 2 * 2 * plane * fields
 
@@ -3901,6 +4084,7 @@ def check_mesh_cards(cards):
 
 FLUID_CU = "babelbrain_tpu_torch/csrc/fdtd_fluid.cu"
 FUSED_CU = "babelbrain_tpu_torch/csrc/fdtd_fluid_fused.cu"
+VISCO_FUSED_CU = "babelbrain_tpu_torch/csrc/fdtd_visco_fused.cu"
 VISCO_CU = "babelbrain_tpu_torch/csrc/fdtd_visco.cu"
 SOURCES_CU = "babelbrain_tpu_torch/csrc/fdtd_sources.cu"
 EXTRAS_CU = "babelbrain_tpu_torch/csrc/fdtd_extras.cu"
@@ -3936,6 +4120,16 @@ SOURCES = {
                           f"{PALLAS}:1808"),
     "fluid_fused_point_dft": ("fluid_fused_kernel<WITH_DFT, POINT>", FUSED_CU,
                               f"{PALLAS}:1808"),
+    # B6 (K = 1), B7 (K = 2) and B8 (K >= 2): K visco steps in one sweep,
+    # plane (B8 :4843) and point (B8's injection :4900); timed at the main
+    # path's K
+    "visco_fused": ("visco_fused_kernel", VISCO_FUSED_CU, f"{PALLAS}:4843"),
+    "visco_fused_dft": ("visco_fused_kernel<WITH_DFT>", VISCO_FUSED_CU,
+                        f"{PALLAS}:4843"),
+    "visco_fused_point": ("visco_fused_kernel<POINT>", VISCO_FUSED_CU,
+                          f"{PALLAS}:4900"),
+    "visco_fused_point_dft": ("visco_fused_kernel<WITH_DFT, POINT>",
+                              VISCO_FUSED_CU, f"{PALLAS}:4900"),
     "volume_source": ("velocity_volume_source_kernel", SOURCES_CU,
                       f"{PALLAS}:706"),
     # B6 build_visco_fused_step's point injection (the same as B8's)
@@ -4009,7 +4203,8 @@ def main():
         for k, v in e.items():  # the scatter is checked in both families
             errs[k] = max(errs.get(k, 0.0), v)
         times.update(t)
-    for e, t, b in (check_fused(times), check_bhte_fused(times),
+    for e, t, b in (check_fused(times), check_visco_fused(times),
+                    check_bhte_fused(times),
                     check_diagnostics("fluid"),
                     check_diagnostics("visco"), check_probe_kernels()):
         errs.update(e)

@@ -193,13 +193,13 @@ def _jax_split(monkeypatch, g, fuse_steps):
                                              (5, 17, 61), (3, 0, 20),
                                              (4, 30, 30)])
 def test_schedule_matches_jax_run_phase(monkeypatch, k, quiet, n_steps):
-    """``fluid_schedule`` with K pinned: the same sweeps and tail as the
+    """``fused_schedule`` with K pinned: the same sweeps and tail as the
     JAX driver's ``run_phase`` (K-step sweeps, 2-step sweeps, the one-step
     tail, in the quiet phase and in the window)."""
     g = _water((48, 16, 24), 2, n_steps=n_steps, sensor_start=quiet)
     sweeps, tail = _jax_split(monkeypatch, g, k)
     plan = T.fused_plan(g["shape"], "cpu", True, False, fuse_steps=k)
-    ours = T.fluid_schedule(T.FDTDGrid(**g), plan)
+    ours = T.fused_schedule(T.FDTDGrid(**g), plan)
     assert [(n, m) for n, m, _ in ours if m > 1] == sweeps
     assert [n for n, m, _ in ours if m == 1] == tail
     # every step once, in order, the window's with the DFT

@@ -665,6 +665,102 @@ def _visco_setup(device, shape=(36, 40, 56)):
     return grid, co
 
 
+# the visco sweep's cases: (K, source, viscous, with the DFT, x_lo, x_hi)
+# on the tiling's ragged grids, as FUSED_CASES for the fluid sweep
+VISCO_FUSED_CASES = (
+    [(k, src, True, dft, True, True) for k in range(1, 5)
+     for src in ("velocity_plane", "stress_point") for dft in (False, True)]
+    + [(k, "velocity_plane", False, True, True, True) for k in (2, 4)]
+    + [(2, "velocity_plane", True, True, lo, hi)
+       for lo, hi in ((True, False), (False, True), (False, False))])
+
+
+@pytest.mark.parametrize("shape,zsrc", VISCO_GRIDS[1:])
+@pytest.mark.parametrize("k,source,viscous,dft,x_lo,x_hi", VISCO_FUSED_CASES)
+def test_visco_fused_kernel_matches_plain(cuda, k, source, viscous, dft,
+                                          x_lo, x_hi, shape, zsrc):
+    """``visco_fused`` (K steps a launch) against its plain version and
+    against K steps of the visco pair, every field and psi slab bit-equal,
+    from the state 20 pair steps leave; a stress point on a (y, z) tile
+    corner."""
+    import dataclasses
+
+    from babelbrain_tpu_torch.ops import fdtd_visco_fused_kernels as VF
+
+    grid, co = _visco_setup(cuda, shape)
+    grid = dataclasses.replace(grid, source_plane_z=zsrc, source_type=source,
+                               source_ijk=(shape[0] // 2, K.TILE_Y, K.TILE_Z))
+    co.zsrc = zsrc
+    co.x_lo, co.x_hi = x_lo, x_hi
+    co.viscous = co.viscous and viscous
+    oz = 1.0 / (1000.0 * 1500.0)
+    pamp = 60e3 if source == "stress_point" else 0.0
+    st = V.ViscoState.zeros(grid.shape, 14, cuda)
+    for n in range(20):
+        F.visco_step(st, co, grid, n, oz, pamp)
+    fused, plain, pair = (_copy(st) for _ in range(3))
+    pt = F.point_index(grid)
+    rows = [F.step_scalars(grid, n, oz, pamp) for n in range(20, 20 + k)]
+    before = dict(VF.launches)
+    VF.visco_fused(fused, co, rows, pt, with_dft=dft)
+    VF.visco_fused_ref(plain, co, rows, pt, with_dft=dft)
+    for s_sin, s_cos, cosw, sinw, s_pt in rows:
+        V.visco_velocity(pair, co, s_sin, s_cos)
+        point = None if pt is None else (pt, s_pt)
+        if dft:
+            V.visco_stress(pair, co, cosw, sinw, point)
+        else:
+            V.visco_stress(pair, co, point=point)
+    torch.cuda.synchronize()
+    key = K.pressure_key("visco_fused", dft, pt)
+    assert VF.launches[key] - before[key] == 1
+    assert float(fused.sxx.abs().max()) > 0
+    fields = (("vx", "vy", "vz") + V.STRESSES + V.MEMORIES
+              + ("acc_cos", "acc_sin", "peak"))
+    _fields_equal(fused, plain, fields, ("psi_s", "psi_v"))
+    _fields_equal(fused, pair, fields, ("psi_s", "psi_v"))
+
+
+@pytest.mark.parametrize("source", ["velocity_plane", "stress_point"])
+def test_visco_fused_run_fdtd_matches_the_pair(cuda, source):
+    """``run_fdtd`` in shear media through the visco sweeps by default (its
+    schedule's sweeps, 2-step sweeps and tails) equals the pair step by
+    step."""
+    import dataclasses
+
+    from babelbrain_tpu_torch.ops import fdtd_visco_fused_kernels as VF
+
+    grid, co = _visco_setup(cuda)
+    grid = dataclasses.replace(grid, n_steps=61, sensor_start=41,
+                               source_type=source, source_ijk=(18, 20, 40))
+    idx = co.mat_idx.cpu().numpy()
+    mats = material_array(F0, tissues=("Water", "Skin", "Cortical",
+                                       "Trabecular", "Brain"))
+    amp = np.zeros(grid.shape[:2])
+    amp[6:-6, 6:-6] = 60e3
+    ph = np.random.default_rng(0).uniform(-1, 1, grid.shape[:2])
+    pamp = 60e3 if source == "stress_point" else 0.0
+    before = sum(VF.launches.values())
+    out = F.run_fdtd(idx, mats, grid, amp, ph, pamp, device="cuda")
+    assert sum(VF.launches.values()) > before
+    step, st, co2, oz, _ = F.fdtd_setup(idx, mats, grid, amp, ph,
+                                        device="cuda")
+    F._time_loop([(step, st, co2, None, None)], grid, oz, pamp)
+    ref = F._carrier(st, grid)
+    for name in ("p_amp", "p_phase", "peak"):
+        np.testing.assert_array_equal(out[name], ref[name], err_msg=name)
+
+
+def test_visco_fused_wrapper_rejects_mixed_devices(cuda):
+    from babelbrain_tpu_torch.ops import fdtd_visco_fused_kernels as VF
+
+    grid, co = _visco_setup(cuda)
+    st = V.ViscoState.zeros(grid.shape, 14, "cpu")
+    with pytest.raises(ValueError,
+                       match="int32 on cpu, got torch.int32 on cuda"):
+        VF.visco_fused(st, co, [F.step_scalars(grid, 0, 1.0)])
+
+
 SUBSET_MAPS = ("Pressure_rms", "Vy_peak", "Sigmazz_rms", "Sigmaxx_peak")
 
 

@@ -25,6 +25,16 @@ from babelbrain_tpu_torch.pipeline.workers import (
 torch.set_num_threads(2)
 
 
+@pytest.fixture(autouse=True)
+def _child_threads(monkeypatch):
+    """A spawned child inherits this environment: its torch then takes two
+    threads, as this process does, not every core of the machine (beside
+    other busy test workers, a child with every core's threads ran the
+    field case ~28x slower than alone)."""
+    for name in ("OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+        monkeypatch.setenv(name, "2")
+
+
 def _ok_step(x, y=1):
     print("CTS:L2:S1: doing work")
     return x + y
