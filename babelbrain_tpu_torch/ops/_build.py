@@ -27,9 +27,12 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("fdtd_fluid.cu", "fdtd_fluid_fused.cu", "fdtd_visco.cu",
-           "fdtd_visco_fused.cu", "fdtd_sources.cu", "bhte.cu",
-           "fdtd_extras.cu", "probes.cu")
+SOURCES = ("fdtd_fluid.cu", "fdtd_fluid_fused.cu", "fdtd_fluid_halo.cu",
+           "fdtd_visco.cu", "fdtd_visco_fused.cu", "fdtd_sources.cu",
+           "bhte.cu", "fdtd_extras.cu", "probes.cu")
+# the halo sweep is compiled once per depth (-DBB_HALO_K=K), each depth a
+# translation unit of its own, so that they compile in parallel
+HALO_DEPTHS = (1, 2, 3)
 HEADERS = ("fdtd_stencil.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --fmad=false: no multiply-add contraction, so each kernel rounds exactly
@@ -70,6 +73,9 @@ _SIGNATURES = {
     + [_P] * 4 + [_I] * 6 + [_P],
     "bb_velocity_volume_source": [_P] * 10 + [_F, _F, _I, _P],
     "bb_extras_accumulate": [_P, _P, _I, _I, _L, _P],
+    **{f"bb_fluid_halo_k{k}": [_P] * 24 + [_I] + [_F] * 3 + [_I] * 14 + [_P]
+       for k in HALO_DEPTHS},
+    **{f"bb_fluid_halo_tile_k{k}": [_P, _P] for k in HALO_DEPTHS},
     "bb_stream": [_P, _P, _L, _P],
     "bb_fma_chain": [_P, _P, _P, _I, _I, _P],
     "bb_table_gather": [_P, _P, _P, _I, _I, _L, _I, _P],
@@ -83,8 +89,21 @@ def find_nvcc() -> str | None:
     return path
 
 
+def _units():
+    """(source, extra nvcc flags, object name) of each translation unit."""
+    for src in SOURCES:
+        stem = os.path.splitext(src)[0]
+        if src == "fdtd_fluid_halo.cu":
+            for k in HALO_DEPTHS:
+                yield src, (f"-DBB_HALO_K={k}",), f"{stem}_k{k}"
+        else:
+            yield src, (), stem
+
+
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(
+        NVCC_FLAGS + tuple(f for _, flags, _ in _units() for f in flags)
+    ).encode())
     for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
@@ -111,18 +130,20 @@ def library() -> ctypes.CDLL:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
             t0 = time.time()
-            objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+            units = list(_units())
+            objs = [f"{tmp}.{stem}.o" for _, _, stem in units]
             procs = [
                 subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                    [nvcc, *NVCC_FLAGS, *flags, "-c", "-o", obj,
                      os.path.join(CSRC, src)],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 )
-                for src, obj in zip(SOURCES, objs)
+                for (src, flags, _), obj in zip(units, objs)
             ]
             logs = [proc.communicate()[0] for proc in procs]
             build_log = "".join(logs)
-            failed = [(src, proc.returncode) for src, proc in zip(SOURCES, procs)
+            failed = [(stem, proc.returncode)
+                      for (_, _, stem), proc in zip(units, procs)
                       if proc.returncode != 0]
             if not failed:
                 link = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],

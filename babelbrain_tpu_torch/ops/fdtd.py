@@ -87,6 +87,13 @@ from .fdtd_visco_kernels import (
 from .fdtd_extras import Diagnostics, Monitor, check_sel_maps, monitor_index
 from . import fdtd_fused_kernels, fdtd_visco_fused_kernels
 from .fdtd_fused_kernels import FUSE_BEST, fluid_fused, fluid_fused_ref
+from . import fdtd_halo_kernels
+from .fdtd_halo_kernels import (
+    HALO_K_CAP,
+    VOLUME_FUSE_BEST,
+    fluid_halo,
+    fluid_halo_ref,
+)
 from .fdtd_visco_fused_kernels import (
     VISCO_FUSE_BEST,
     visco_fused,
@@ -516,6 +523,23 @@ def visco_plan(shape, device, viscous: bool, point: bool,
     return FusedPlan(k, k, fused2, 2)
 
 
+def volume_plan(fuse_steps: int | None = None) -> FusedPlan:
+    """The depth rule of a fluid run with a volumetric drive (the halo
+    sweep, ``fluid_halo``): K-step sweeps, then a one-step tail on pair +
+    scatter, as JAX's volumetric ``run_phase``
+    (`babelbrain_tpu/ops/fdtd_pallas.py:2877-2931`: no 2-step sweeps).
+    JAX sweeps from K = 3; here from K = 2 (ROADMAP Queue C, "Fused
+    schedule"). ``None`` takes ``VOLUME_FUSE_BEST``, the depth the card
+    measured fastest at the dome's shape (0: pair + scatter for every
+    step); an int pins K (0 and 1: the pair), refused beyond
+    ``HALO_K_CAP``. No co-residency bounds the halo sweep's depth."""
+    k = VOLUME_FUSE_BEST if fuse_steps is None else int(fuse_steps)
+    if not 0 <= k <= HALO_K_CAP:
+        raise ValueError(f"fuse_steps={k} outside 0..{HALO_K_CAP} for a "
+                         "volumetric source")
+    return FusedPlan(k, k, False, 2)
+
+
 def fused_schedule(grid: FDTDGrid, plan: FusedPlan):
     """[(first step, K, with_dft)] of a fused run: the quiet phase
     [0, sensor_start), then the window, each split by ``phase_schedule``
@@ -544,23 +568,30 @@ def plan_run(st, shape, device, viscous: bool, point: bool,
     return FUSED[type(st)][3](shape, device, viscous, point, fuse_steps)
 
 
-def _fused_loop(runs, grid: FDTDGrid, oz_scale, point_amp, plan: FusedPlan):
+def _fused_loop(runs, grid: FDTDGrid, oz_scale, point_amp, plan: FusedPlan,
+                vsrc: VolumeSource | None = None):
     """The runs ``runs`` ((state, coefficients) pairs of one family) in
-    lockstep through ``fused_schedule``: each sweep one fused launch
-    (``fluid_fused`` or ``visco_fused``) a run, each tail step the pair."""
+    lockstep through ``fused_schedule``: each sweep one fused launch a run
+    (``fluid_fused`` or ``visco_fused``; with a volumetric drive ``vsrc``
+    the halo sweep ``fluid_halo``), each tail step the pair (and the
+    scatter)."""
     pt = point_index(grid)
     fused, _, step, _ = FUSED[type(runs[0][0])]
+    if vsrc is not None:
+        def fused(st, co, rows, _pt, with_dft):
+            fluid_halo(st, co, rows, vsrc, with_dft=with_dft)
     with stage_timer("FDTD time loop", level=3, step=2):
         for n, k, dft in fused_schedule(grid, plan):
             if k == 1:
                 for st, co in runs:
-                    step(st, co, grid, n, oz_scale, point_amp)
+                    step(st, co, grid, n, oz_scale, point_amp, vsrc)
                 continue
             rows = [step_scalars(grid, m, oz_scale, point_amp)
                     for m in range(n, n + k)]
             for st, co in runs:
                 fused(st, co, rows, pt, with_dft=dft)
         _synchronize([st.peak for st, _ in runs])
+    fdtd_halo_kernels.release()
 
 
 def run_fdtd(
@@ -600,19 +631,24 @@ def run_fdtd(
     (K-step sweeps while K >= 2, then, for a plane source, 2-step sweeps);
     then a one-step tail on the pair. ``None`` takes the deepest K the
     kernel admits on this grid and device (``fused_plan``, ``visco_plan``);
-    an int pins K (refused when the card cannot hold it). Volumetric
-    sources, ``sel_maps`` and ``monitor_ijk`` keep the pair for every step,
-    with its per-step monitor samples. Fused or not, the result is the
-    step-by-step run's bit for bit.
+    an int pins K (refused when the card cannot hold it). A fluid run with
+    a volumetric source and no diagnostics runs the halo sweep
+    ``fluid_halo`` in ``volume_plan``'s schedule (K-step sweeps from K = 2,
+    then pair + scatter; ``None``: ``VOLUME_FUSE_BEST``). Volumetric
+    sources in shear media, ``sel_maps`` and ``monitor_ijk`` keep the pair
+    for every step, with its per-step monitor samples. Fused or not, the
+    result is the step-by-step run's bit for bit.
 
     ``mesh``: a 1-D ``DeviceMesh`` on axis "x" (``parallel.halo.make_mesh``)
     decomposes the grid along x over its devices (``device`` is then not
     used): N1 must divide by the mesh size into shards of at least
     npml + 2 planes, as in the JAX package. A plane-source run without
-    diagnostics runs overlap-and-discard fused sweeps where
-    ``sharded_plan`` finds a K >= 2 (``fuse_steps`` as above), every other
-    run the pair with 2 ghost planes. The result equals the unsharded run's
-    bit for bit.
+    diagnostics, and a fluid run with a volumetric source, run
+    overlap-and-discard fused sweeps where ``sharded_plan`` finds a K >= 2
+    (``fuse_steps`` as above; the volumetric ones through ``fluid_halo``,
+    by default only where ``VOLUME_FUSE_BEST`` >= 2), every other run the
+    pair with 2 ghost planes. The result equals the
+    unsharded run's bit for bit.
 
     ``sel_maps``: extra maps named ``<Field>_rms`` / ``<Field>_peak``, Field
     in Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy, Sigmazz, accumulated over
@@ -654,6 +690,9 @@ def run_fdtd(
         plan = plan_run(st, grid.shape, device, co.viscous,
                         point_index(grid) is not None, fuse_steps)
         _fused_loop([(st, co)], grid, oz_scale, point_amp, plan)
+    elif diag is None and isinstance(st, FluidState):
+        _fused_loop([(st, co)], grid, oz_scale, point_amp,
+                    volume_plan(fuse_steps), vsrc)
     else:
         _time_loop([(step, st, co, vsrc, diag)], grid, oz_scale, point_amp)
 
@@ -915,11 +954,16 @@ def _x_slabs(mesh, grid: FDTDGrid, halo: int = 2) -> XSlabs:
 
 
 def _split_source(vs: VolumeSource, xs: XSlabs, s: int, plane: int, device):
-    """The source voxels of shard s's own planes, re-indexed to its local
-    planes, on ``device`` (the values copied, not recomputed)."""
+    """The source voxels of shard s's planes, its ghost planes included,
+    re-indexed to its local planes, on ``device`` (the values copied, not
+    recomputed). The overlap-and-discard sweeps drive the ghost planes as
+    their owner drives them, zero beyond the global edges (JAX extends its
+    sharded drive so, `babelbrain_tpu/ops/fdtd_pallas.py:2677-2690`); in
+    the pair's steps a driven ghost plane is refreshed from its owner or
+    never read."""
     i = vs.index.long() // plane
-    lo = s * xs.width
-    sel = torch.nonzero((i >= lo) & (i < lo + xs.width)).reshape(-1)
+    lo = xs.start(s)
+    sel = torch.nonzero((i >= lo) & (i < lo + xs.planes(s))).reshape(-1)
     index = vs.index.index_select(0, sel) - xs.start(s) * plane
     return VolumeSource(index=index.to(device), **{
         k: getattr(vs, k).index_select(0, sel).to(device)
@@ -1016,7 +1060,8 @@ def step_shards(shards, xs: XSlabs, grid: FDTDGrid, n: int, oz_scale: float,
 
 
 def sharded_plan(width: int, grid: FDTDGrid, device, viscous: bool,
-                 fuse_steps: int | None = None, visco: bool = False):
+                 fuse_steps: int | None = None, visco: bool = False,
+                 volume: bool = False):
     """(K, H) of the overlap-and-discard sweeps on shards of ``width`` own
     planes, the counterpart of the JAX package's ``_sharded_fusedK_plan``
     (`babelbrain_tpu/ops/fdtd_pallas.py:2544`; ``visco``: with ``K_cap=4``,
@@ -1028,21 +1073,31 @@ def sharded_plan(width: int, grid: FDTDGrid, device, viscous: bool,
     that reached into an edge neighbour's x-PML slab would evolve without
     the CPML there. ``fuse_steps`` pins K (None or 0: the deepest K from
     the family's cap (``K_CAP`` and ``FUSE_BEST`` / ``VISCO_FUSE_BEST``)
-    down that the card holds on the extended slab)."""
+    down that the card holds on the extended slab). ``volume``: the halo
+    sweep of a volumetric drive (``fluid_halo``, JAX's sharded volume
+    branch), which no co-residency bounds: None or 0 takes
+    ``VOLUME_FUSE_BEST`` (at most ``HALO_K_CAP``) down, none while it is
+    below 2 (the pair, as unsharded)."""
     fk = fdtd_visco_fused_kernels if visco else fdtd_fused_kernels
     best = VISCO_FUSE_BEST if visco else FUSE_BEST
+    cap = fk.K_CAP
+    if volume:
+        fk, best, cap = fdtd_halo_kernels, VOLUME_FUSE_BEST, HALO_K_CAP
     ns = grid.npml + 2
     auto = not fuse_steps
     for k in ([int(fuse_steps)] if not auto
-              else range(min(fk.K_CAP, best), 1, -1)):
+              else range(min(cap, best), 1, -1)):
         if k < 2:
             return None
+        if volume and k > cap:
+            raise ValueError(f"fuse_steps={k} outside 0..{cap}")
         h = fk.CONTAMINATION * k
         if h > width - ns:
             continue
         ext = (width + 2 * h,) + tuple(grid.shape[1:])
-        if auto and min(fk.admitted_depth(ext, device, viscous, dft)
-                        for dft in (False, True)) < k:
+        if auto and not volume and min(
+                fk.admitted_depth(ext, device, viscous, dft)
+                for dft in (False, True)) < k:
             continue
         return k, h
     return None
@@ -1087,8 +1142,9 @@ def sweep_shards(shards, xs: XSlabs, grid: FDTDGrid, n: int, k: int,
                  with_dft: bool, oz_scale: float, plain: bool = False) -> None:
     """Steps n..n+k-1 over the shards, overlap and discard: one bundled
     refresh of each group of ``state_groups``, then one fused launch
-    (``fluid_fused`` or ``visco_fused``) per shard over its planes and ghost
-    planes (``plain``: the plain version)."""
+    (``fluid_fused`` or ``visco_fused``; with a volumetric drive
+    ``fluid_halo``) per shard over its planes and ghost planes (``plain``:
+    the plain version)."""
     groups = [state_groups(sh.st) for sh in shards]
     for g in range(len(groups[0])):
         xs.refresh_group([gr[g] for gr in groups])
@@ -1096,7 +1152,14 @@ def sweep_shards(shards, xs: XSlabs, grid: FDTDGrid, n: int, k: int,
     fused, ref, _, _ = FUSED[type(shards[0].st)]
     for s, sh in enumerate(shards):
         with _shard_range(sh, s):
-            if plain:
+            if sh.vsrc is not None:  # a volumetric drive: the halo sweep
+                if plain:
+                    fluid_halo_ref(sh.st, sh.co, rows, sh.vsrc,
+                                   with_dft=with_dft)
+                else:
+                    fluid_halo(sh.st, sh.co, rows, sh.vsrc,
+                               with_dft=with_dft, checked=True)
+            elif plain:
                 ref(sh.st, sh.co, rows, with_dft=with_dft)
             else:
                 fused(sh.st, sh.co, rows, with_dft=with_dft, checked=True)
@@ -1114,15 +1177,18 @@ def overlap_plan(mesh, materials, grid: FDTDGrid, sel_maps=(),
                  monitor_ijk=None, fuse_steps=None):
     """``sharded_plan`` of a ``run_fdtd(mesh=)`` call (fluid or shear
     media), or None where that run keeps the pair: anything but a plane
-    source without diagnostics, or no K >= 2 that fits."""
+    source or a fluid run's volumetric drive without diagnostics, or no
+    K >= 2 that fits."""
     mats = np.asarray(materials, np.float64)
-    if (grid.source_type != "velocity_plane" or sel_maps
+    visco = bool(np.any(mats[:, 2] > 0))
+    volume = grid.source_type == "velocity_volume" and not visco
+    if ((grid.source_type != "velocity_plane" and not volume) or sel_maps
             or monitor_ijk is not None):
         return None
     xs = _x_slabs(mesh, grid)
     viscous = sls_coefficients(mats, grid.frequency, grid.dt)["viscous"]
     return sharded_plan(xs.width, grid, mesh.devices[0], viscous, fuse_steps,
-                        visco=bool(np.any(mats[:, 2] > 0)))
+                        visco=visco, volume=volume)
 
 
 def _run_fdtd_sharded(mesh, mat_idx, materials, grid: FDTDGrid, source_amp,
@@ -1148,6 +1214,7 @@ def _run_fdtd_sharded(mesh, mat_idx, materials, grid: FDTDGrid, source_amp,
             for n, k, dft in overlap_schedule(grid, plan[0]):
                 sweep_shards(shards, xs, grid, n, k, dft, oz_scale)
         _synchronize([sh.st.peak for sh in shards])
+    fdtd_halo_kernels.release()
 
     result = _carrier_of(*(own_planes(xs, [getattr(sh.st, k) for sh in shards])
                            for k in ("acc_cos", "acc_sin", "peak")), grid)

@@ -24,7 +24,7 @@ plain version.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -54,6 +54,8 @@ class VolumeSource:
     ox: torch.Tensor
     oy: torch.Tensor
     oz: torch.Tensor
+    # (shape, the dense slot volume) once ``slot_volume`` built it
+    _slots: tuple | None = field(default=None, repr=False, compare=False)
 
     @classmethod
     def from_sparse(cls, sparse: dict, shape, device) -> "VolumeSource":
@@ -103,6 +105,28 @@ class VolumeSource:
     @property
     def n_src(self) -> int:
         return int(self.index.shape[0])
+
+    def slot_volume(self, shape) -> torch.Tensor:
+        """The drive as a dense int32 (N1, N2, N3) volume on the source's
+        device: -1 where no voxel drives, else the voxel's index in the
+        sparse list (the halo sweep, ``ops.fdtd_halo_kernels``, reads a
+        cell's slot once a launch). Built once for a shape; a voxel listed
+        twice is refused."""
+        shape = tuple(int(n) for n in shape)
+        if self._slots is None or self._slots[0] != shape:
+            n = int(np.prod(shape))
+            lin = self.index.long()
+            if self.n_src and (int(lin.min()) < 0 or int(lin.max()) >= n):
+                raise ValueError(
+                    f"volume source indices outside the grid {shape}")
+            if self.n_src and torch.unique(lin).numel() != self.n_src:
+                raise ValueError("volume source: a voxel is listed twice")
+            slots = torch.full((n,), -1, dtype=torch.int32,
+                               device=self.index.device)
+            slots[lin] = torch.arange(self.n_src, dtype=torch.int32,
+                                      device=self.index.device)
+            self._slots = (shape, slots.view(shape))
+        return self._slots[1]
 
 
 def _check(vx, vy, vz, vs: VolumeSource) -> None:

@@ -50,7 +50,18 @@ Phases (each prints its own lines; any failed check exits nonzero):
              shard with each x_lo / x_hi combination, and at 27x45x47 for
              K = 1..4 (a plane on a z-tile edge, a point on a tile corner,
              and inviscid); each admitted K timed a launch and a step
-             against its bound and the pair. Then the BHTE sweep:
+             against its bound and the pair. Then the halo sweep
+             (``check_fused_volume``): ``fluid_halo`` (K steps a launch in
+             independent blocks that recompute a 3K halo, with the
+             volumetric drive) against its plain version and K steps of
+             pair + scatter, bit for bit, K = 1..3 at 192x192x240 and at
+             the dome's 392x392x337, viscous and inviscid, quiet and
+             window, with a shell of source voxels; at 27x45x47 with
+             voxels on the tiles' corners and halo edges; on the 50-plane
+             shard with each x_lo / x_hi pair; each K timed a launch and a
+             step against its bound and pair + scatter, and with a plane
+             source against the lockstep sweep and the pair at 192x192x240
+             and 216x216x224. Then the BHTE sweep:
              ``bhte_fused`` (K steps a launch) against its plain version
              and against K launches of
              ``bhte_step`` (and those against the plain version), max abs
@@ -92,8 +103,11 @@ Phases (each prints its own lines; any failed check exits nonzero):
              bit. The CT, label, refocus-ct, refocus-label, zte-ct and
              coreg-zte slices' FDTD runs go through the fused sweeps
              (``run_fdtd``'s default: ``fluid_fused`` in CT mode,
-             ``visco_fused`` in label mode): each run is repeated through
-             the pair step by step and must equal it bit for bit. Every
+             ``visco_fused`` in label mode), dome-ct's two volumetric
+             passes through the halo sweep (``fuse_steps`` pinned at
+             ``DOME_PIN_K`` while the default keeps pair + scatter): each
+             run is repeated through the pair (and the scatter) step by
+             step and must equal it bit for bit. Every
              slice's Step 3 runs the BHTE
              sweeps (``bhte_run``'s default K on a card): each of its two
              ``bhte_run`` loops is run again from its start one step a
@@ -142,7 +156,10 @@ Phases (each prints its own lines; any failed check exits nonzero):
              their plain versions and the unsharded run (fluid and
              visco); then the ``run_fdtd`` calls the CT and label (overlap
              and discard), diag-ct (14 maps, 201 monitors) and dome-ct
-             slices made and the refocus slices' backward point runs
+             (its tissue pass by overlap and discard through the halo
+             sweep, its water pass through pair + scatter with 2 ghost
+             planes) slices made and the refocus slices' backward point
+             runs
              (recorded as they ran) again on the 4-shard mesh, each equal
              to its slice's result bit for bit, with the loops' idle share
              under ``torch.profiler`` (CT, label); the CT slice's forward
@@ -471,6 +488,19 @@ FUSED_WORK.update({
 })
 FUSED_WORK.update({"visco_fused_point": FUSED_WORK["visco_fused"],
                    "visco_fused_point_dft": FUSED_WORK["visco_fused_dft"]})
+# The halo sweep of K steps (csrc/fdtd_fluid_halo.cu), per launch: p, vx,
+# vy, vz, r and the index read once and p, vx, vy, vz, r written once (11
+# volumes; + the DFT sums and the peak read and written in the window, 17);
+# the psi slabs of both half-steps read and written once (the scratch slabs
+# of the steps in between are written and read again, from L2 mostly, not
+# counted); the three source planes read once; each step's float
+# operations (the pair's). With a volumetric drive (``work``'s
+# "fluid_halo_volume" rows) also the int32 slot volume (12 volumes, 18)
+# and each source voxel's six floats read once, and the scatter's 6
+# operations a voxel a step. The halo a block recomputes is read again
+# from L2, not counted.
+FUSED_WORK.update({"fluid_halo": FUSED_WORK["fluid_fused"],
+                   "fluid_halo_dft": FUSED_WORK["fluid_fused_dft"]})
 # The BHTE sweep of K steps (csrc/bhte.cu bhte_fused_kernel), per launch:
 # T read and written, dose and peak read and written, the six
 # conductivities, irc, perf and Q read once (15 volumes, whatever K; the
@@ -485,6 +515,10 @@ def work(name, shape, ns=14, n_src=0, k=1):
     (with ``n_src`` source voxels for the volumetric scatter, ``k`` steps a
     launch for the fused sweep): each input read once and each output
     written once."""
+    if name.startswith("fluid_halo_volume"):
+        b, f = work(name.replace("_volume", ""), shape, ns, k=k)
+        return (b + 4.0 * float(np.prod(shape)) + n_src * 6 * 4,
+                f + k * n_src * SCATTER_FLOPS_PER_SOURCE)
     if name in FUSED_WORK:
         w = FUSED_WORK[name]
         w = dict(w, flops=w["flops_per_step"] * k)
@@ -535,10 +569,7 @@ POINT_AMP = 60e3
 
 def _sources(shape, source, device):
     """(point amplitude, VolumeSource or None) of a kernel-phase run."""
-    from babelbrain_tpu_torch.ops.fdtd_sources import VolumeSource
-
-    vsrc = (VolumeSource.from_dense(shell_source(shape), shape, device)
-            if source == "volume" else None)
+    vsrc = shell_vsrc(shape, device) if source == "volume" else None
     return (POINT_AMP if source == "point" else 0.0), vsrc
 
 
@@ -1272,6 +1303,284 @@ def check_visco_fused(times, device="cuda"):
     return errs, out_t, out_b
 
 
+# the dome-ct slice's FDTD grid (DomeTx at 220 kHz, 6 PPW, CT mode) and the
+# CT slice's, for the halo sweep's checks and its head to head
+DOME_SHAPE = (392, 392, 337)
+CT_SHAPE = (216, 216, 224)
+# the depth chip_smoke pins for dome-ct's two volumetric run_fdtd calls
+# while run_fdtd(fuse_steps=None) keeps pair + scatter there
+# (ops.fdtd_halo_kernels.VOLUME_FUSE_BEST = 0): the halo sweep's fastest K
+# of those the volumetric schedule sweeps (K >= 2) at DOME_SHAPE (PERF.md)
+DOME_PIN_K = 2
+_SHELLS: dict = {}
+
+
+def dome_fuse_steps():
+    """The ``fuse_steps`` chip_smoke gives dome-ct's ``run_fdtd`` calls:
+    None where the default takes the halo sweep, else ``DOME_PIN_K``."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+
+    return None if F.volume_plan().k >= 2 else DOME_PIN_K
+
+
+@contextlib.contextmanager
+def pinned_fuse_steps(k):
+    """While a slice runs, its ``run_fdtd`` calls (``pipeline.acoustic``'s
+    name) take ``fuse_steps=k`` (nothing changes for None)."""
+    from babelbrain_tpu_torch.pipeline import acoustic as A
+
+    saved = A.run_fdtd
+
+    def call(*args, **kwargs):
+        if k is not None:
+            kwargs.setdefault("fuse_steps", k)
+        return saved(*args, **kwargs)
+
+    A.run_fdtd = call
+    try:
+        yield
+    finally:
+        A.run_fdtd = saved
+
+
+def shell_vsrc(shape, device):
+    """``shell_source(shape)`` as a ``VolumeSource`` on ``device`` (built
+    once a shape: at DOME_SHAPE the dense dict takes seconds)."""
+    from babelbrain_tpu_torch.ops.fdtd_sources import VolumeSource
+
+    key = (tuple(shape), str(device))
+    if key not in _SHELLS:
+        _SHELLS[key] = VolumeSource.from_dense(shell_source(shape), shape,
+                                               device)
+    return _SHELLS[key]
+
+
+def corner_vsrc(shape, k, device):
+    """Source voxels where the halo sweep's blocks meet: on the corners of
+    the depth-``k`` owned tiles and on the outer edge of their halos (3K
+    cells beyond a tile), in every x-segment's first and last plane and in
+    between (seeded amplitudes, phases and directions)."""
+    from babelbrain_tpu_torch.ops import fdtd_halo_kernels as HK
+    from babelbrain_tpu_torch.ops.fdtd_sources import VolumeSource
+
+    geo = HK.halo_launch_geometry(shape, k)
+    tz, ty = geo.tile
+    cells = set()
+    for i in sorted({0, geo.segment - 1, geo.segment, shape[0] // 2,
+                     shape[0] - 1}):
+        for j in range(0, shape[1] + ty, ty):
+            for z in range(0, shape[2] + tz, tz):
+                for dj, dz in ((0, 0), (-1, -1), (geo.halo, 0),
+                               (0, -geo.halo - 1)):
+                    if 0 <= j + dj < shape[1] and 0 <= z + dz < shape[2] \
+                            and 0 <= i < shape[0]:
+                        cells.add((i, j + dj, z + dz))
+    idx = np.ravel_multi_index(np.array(sorted(cells)).T, shape)
+    rng = np.random.default_rng(9)
+    n = len(idx)
+    return VolumeSource.from_sparse(dict(
+        index=idx, amp=rng.uniform(3e4, 6e4, n), phase=rng.uniform(-2, 2, n),
+        ox=rng.uniform(-1, 1, n), oy=rng.uniform(-1, 1, n),
+        oz=rng.uniform(-1, 1, n)), shape, device)
+
+
+def _halo_start(shape, viscous, device, vsrc, source="volume"):
+    """(grid, coefficients, oz, the state FUSED_PRE_STEPS steps of pair
+    (and scatter) leave) of the kernel phase's CT case with the volumetric
+    drive ``vsrc`` (or a ``source`` plane)."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
+
+    n0 = FUSED_PRE_STEPS
+    grid, co, _, _, oz = fluid_case(shape, n0 + 8, n0 // 2, source, device,
+                                    viscous=viscous)
+    st = K.FluidState.zeros(shape, 14, device)
+    for n in range(n0):
+        F.fluid_step(st, co, grid, n, oz, 0.0, vsrc)
+    return grid, co, oz, st
+
+
+def _halo_case(grid, co, oz, st0, k, dft, vsrc):
+    """One ``fluid_halo`` launch of ``k`` steps from ``st0`` against its
+    plain version (on the card) and ``k`` steps of pair + scatter: (the
+    halo state, [(field, max abs diff)])."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_halo_kernels as HK
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
+    from babelbrain_tpu_torch.ops import fdtd_sources as S
+
+    n0 = FUSED_PRE_STEPS
+    halo, plain, pair = (_copy_state(st0) for _ in range(3))
+    rows = [F.step_scalars(grid, n, oz) for n in range(n0, n0 + k)]
+    HK.fluid_halo(halo, co, rows, vsrc, with_dft=dft)
+    HK.fluid_halo_ref(plain, co, rows, vsrc, with_dft=dft)
+    for s_sin, s_cos, cosw, sinw, _ in rows:
+        K.fluid_velocity(pair, co, s_sin, s_cos)
+        if vsrc is not None:
+            S.velocity_volume_source(pair.vx, pair.vy, pair.vz, vsrc, s_sin,
+                                     s_cos)
+        if dft:
+            K.fluid_pressure(pair, co, cosw, sinw)
+        else:
+            K.fluid_pressure(pair, co)
+    if pair.p.device.type == "cuda":
+        torch.cuda.synchronize()
+    bad = ([("plain", *b) for b in state_diff(halo, plain)]
+           + [("pair", *b) for b in state_diff(halo, pair)])
+    return halo, bad
+
+
+def check_fused_volume(times, device="cuda"):
+    """The halo sweep (``fluid_halo``, csrc/fdtd_fluid_halo.cu) against its
+    plain version and against K steps of pair + scatter, max abs difference
+    0 in every field: every K it takes (1..HALO_K_CAP) at 192x192x240 and
+    at the dome's 392x392x337 (which the lockstep sweep holds only at
+    K = 1), quiet and window, viscous and inviscid, with ``shell_source``;
+    at 27x45x47 with source voxels on the tiles' corners and halo edges; on
+    the 50-plane shard with each x_lo / x_hi pair. Then each K timed a
+    launch and a step at both shapes (CUDA graphs of captured launches)
+    against its bound and pair + scatter, its cells computed per cell
+    owned; and the head to head with a plane source at 192x192x240 and
+    216x216x224: the halo sweep at each K, the lockstep sweep at the depth
+    ``fused_plan`` takes there, the pair. Returns (errors, times, bounds)
+    keyed by kernel row, the rows at the dome's shape and the depth its
+    slice runs."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+    from babelbrain_tpu_torch.ops import fdtd_halo_kernels as HK
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
+    from babelbrain_tpu_torch.ops import fdtd_sources as S
+
+    t_phase = time.time()
+    ks = range(1, HK.HALO_K_CAP + 1)
+    errs = {}
+
+    def report(tag, bad, st):
+        pmax = float(st.p.abs().max())
+        print(f"[fused-volume] {tag}: max|p| {pmax:.6g} Pa; fields differing "
+              f"from the plain version / pair + scatter {bad}")
+        if bad or not np.isfinite(pmax) or pmax <= 0:
+            fail(f"fluid_halo differs ({tag}): {bad}; max|p| {pmax}")
+
+    starts = {}
+    for shape in (KERNEL_SHAPE, DOME_SHAPE):
+        vsrc = shell_vsrc(shape, device)
+        for viscous in (True, False):
+            start = _halo_start(shape, viscous, device, vsrc)
+            if viscous:
+                starts[shape] = start
+            for k in ks:
+                for dft in (False, True):
+                    st, bad = _halo_case(*start, k, dft, vsrc)
+                    report(f"{shape} K={k} {vsrc.n_src} shell voxels "
+                           f"{'viscous' if viscous else 'inviscid'} "
+                           f"{'window' if dft else 'quiet'}", bad, st)
+                    errs[HK.halo_key(True, dft)] = 0.0
+                    del st
+            del start
+    for k in ks:
+        vsrc = corner_vsrc(RAGGED_SHAPE, k, device)
+        start = _halo_start(RAGGED_SHAPE, True, device, vsrc)
+        for dft in (False, True):
+            st, bad = _halo_case(*start, k, dft, vsrc)
+            report(f"{RAGGED_SHAPE} K={k} {vsrc.n_src} voxels on tile corners "
+                   f"and halo edges {'window' if dft else 'quiet'}", bad, st)
+    vsrc = shell_vsrc(FUSED_SHARD, device)
+    grid, co, oz, st0 = _halo_start(FUSED_SHARD, True, device, vsrc)
+    for x_lo, x_hi in ((True, True), (True, False), (False, True),
+                       (False, False)):
+        co.x_lo, co.x_hi = x_lo, x_hi
+        for dft in (False, True):
+            st, bad = _halo_case(grid, co, oz, st0, DOME_PIN_K, dft, vsrc)
+            report(f"{FUSED_SHARD} K={DOME_PIN_K} x_lo={x_lo} x_hi={x_hi} "
+                   f"{'window' if dft else 'quiet'}", bad, st)
+    del st0
+    HK.release()
+    print(f"[fused-volume] checks {time.time() - t_phase:.2f} s")
+
+    out_t, out_b = {}, {}
+    if device != "cuda":
+        return errs, out_t, out_b
+    k_main = F.volume_plan().k if F.volume_plan().k >= 2 else DOME_PIN_K
+    for shape in (KERNEL_SHAPE, DOME_SHAPE):
+        grid, co, oz, st = starts.pop(shape)
+        vsrc = shell_vsrc(shape, device)
+        cells = float(np.prod(shape))
+        s = F.step_scalars(grid, FUSED_PRE_STEPS, oz)
+        velocity = _timed_graph(lambda: K.fluid_velocity(st, co, s[0], s[1]),
+                                10)
+        scatter = _timed_graph(lambda: S.velocity_volume_source(
+            st.vx, st.vy, st.vz, vsrc, s[0], s[1]), 10)
+        pair = {False: _timed_graph(lambda: K.fluid_pressure(st, co), 10),
+                True: _timed_graph(lambda: K.fluid_pressure(st, co, s[2],
+                                                            s[3]), 10)}
+        for dft in (False, True):
+            step = velocity + scatter + pair[dft]
+            print(f"[fused-volume] pair + scatter at {shape}, "
+                  f"{'window' if dft else 'quiet'}: velocity {velocity:.4f} + "
+                  f"scatter {scatter:.4f} + pressure {pair[dft]:.4f} = "
+                  f"{step:.4f} ms a step ({cells / step / 1e3:.1f} "
+                  f"Mcell-updates/s)")
+            key = HK.halo_key(True, dft)
+            for k in ks:
+                rows = [F.step_scalars(grid, FUSED_PRE_STEPS + m, oz)
+                        for m in range(k)]
+                ms = _timed_graph(lambda: HK.fluid_halo(
+                    st, co, rows, vsrc, with_dft=dft, checked=True), 5)
+                b_ms, b_by = bound(key, shape, n_src=vsrc.n_src, k=k)
+                geo = HK.halo_launch_geometry(shape, k)
+                print(f"[fused-volume] {key} K={k} at {shape}: {ms:.4f} ms a "
+                      f"launch, {ms / k:.4f} ms a step "
+                      f"({cells * k / ms / 1e3:.1f} Mcell-updates/s); bound "
+                      f"{b_ms:.4f} ms ({b_by}), {b_ms / k:.4f} a step "
+                      f"({b_ms / ms:.0%}); pair + scatter {step:.4f} ms a "
+                      f"step ({ms / k / step:.3f}x); {geo.threads} threads a "
+                      f"block, grid {geo.grid}, segment {geo.segment}, "
+                      f"{geo.computed(shape):.3f} cells computed per cell "
+                      f"owned a step")
+                if shape == DOME_SHAPE and k == k_main:
+                    plain = _timed(lambda: HK.fluid_halo_ref(
+                        st, co, rows, vsrc, with_dft=dft), 1, warm=1)
+                    out_t[key] = (ms, plain)
+                    out_b[key] = (b_ms, b_by)
+                    print(f"[fused-volume]   {key}: dome-ct's K={k} at "
+                          f"{shape}; plain version {plain:.4f} ms a launch")
+        del st
+        HK.release()
+    # the head to head with a plane source: the halo sweep, the lockstep
+    # sweep at fused_plan's depth, the pair
+    for shape in (KERNEL_SHAPE, CT_SHAPE):
+        grid, co, oz, st = _halo_start(shape, True, device, None, "plane")
+        cells = float(np.prod(shape))
+        plan = F.fused_plan(shape, device, True, False)
+        for dft in (False, True):
+            s = F.step_scalars(grid, FUSED_PRE_STEPS, oz)
+            pair = (_timed_graph(lambda: K.fluid_velocity(st, co, s[0], s[1]),
+                                 10)
+                    + (_timed_graph(lambda: K.fluid_pressure(st, co, s[2],
+                                                             s[3]), 10)
+                       if dft else
+                       _timed_graph(lambda: K.fluid_pressure(st, co), 10)))
+            k_lock = plan.k_dft if dft else plan.k
+            rows = [F.step_scalars(grid, FUSED_PRE_STEPS + m, oz)
+                    for m in range(max(k_lock, HK.HALO_K_CAP))]
+            lock = _timed_graph(lambda: FK.fluid_fused(
+                st, co, rows[:k_lock], with_dft=dft, checked=True), 5)
+            line = (f"[fused-volume] head to head, plane source at {shape}, "
+                    f"{'window' if dft else 'quiet'} (ms a step): pair "
+                    f"{pair:.4f}; lockstep K={k_lock} {lock / k_lock:.4f} "
+                    f"({lock / k_lock / pair:.3f}x)")
+            for k in ks:
+                ms = _timed_graph(lambda: HK.fluid_halo(
+                    st, co, rows[:k], with_dft=dft, checked=True), 5)
+                line += f"; halo K={k} {ms / k:.4f} ({ms / k / pair:.3f}x)"
+            print(line + f" ({cells / 1e6:.2f} M cells)")
+        del st
+        HK.release()
+    print(f"[fused-volume] phase {time.time() - t_phase:.2f} s")
+    return errs, out_t, out_b
+
+
 def check_monitor_ragged(device="cuda"):
     """The MONITOR instantiations of both families at ``RAGGED_SHAPE``
     (blocks with threads off the volume, which must still meet the block
@@ -1929,15 +2238,16 @@ def _counted_modules():
         bhte_kernels,
         fdtd_extras,
         fdtd_fused_kernels,
+        fdtd_halo_kernels,
         fdtd_kernels,
         fdtd_sources,
         fdtd_visco_fused_kernels,
         fdtd_visco_kernels,
     )
 
-    return (fdtd_kernels, fdtd_fused_kernels, fdtd_visco_kernels,
-            fdtd_visco_fused_kernels, fdtd_sources, bhte_kernels,
-            fdtd_extras, probes)
+    return (fdtd_kernels, fdtd_fused_kernels, fdtd_halo_kernels,
+            fdtd_visco_kernels, fdtd_visco_fused_kernels, fdtd_sources,
+            bhte_kernels, fdtd_extras, probes)
 
 
 def reset_counts():
@@ -2385,7 +2695,11 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
     runs = 2 if (refocus or dome) else 1  # plane / volumetric FDTD passes
     expect = {k: 0 for k in launches}
     expect_bhte(expect, [params], device)  # the locating run + schedule
-    if not (dome or diag):
+    if dome:  # the tissue and the water pass, both volumetric
+        expect_fused_run(expect, _make_grid(dom, "velocity_volume"),
+                         dom.materials, n=runs, device=device,
+                         fuse_steps=dome_fuse_steps())
+    elif not diag:
         # plane and point runs: the fused sweeps by default
         expect_fused_run(expect, _make_grid(dom), dom.materials, n=runs,
                          device=device)
@@ -2400,8 +2714,6 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
         if refocus:  # the backward run from a stress point at the target
             expect[f"{fdtd}_{stress}_point"] = s
             expect[f"{fdtd}_{stress}_point_dft"] = n - s
-    if dome:  # the tissue and the water pass, both volumetric
-        expect["volume_source"] = 2 * n
     if diag:  # every window step: the maps, and the series (subsampling 1)
         expect[f"extras_{fdtd}"] = n - s
         expect[f"monitor_{fdtd}"] = len(range(s, n, 1))
@@ -3446,7 +3758,12 @@ MESH_POINT_ONLY = ("refocus-ct", "refocus-label")
 # the slices whose run_fdtd calls go through the fused sweeps by default:
 # each call is run again through the pair, step by step, and must equal it
 FUSED_SLICES = ("ct", "label", "refocus-ct", "refocus-label", "zte-ct",
-                "coreg-zte")
+                "coreg-zte", "dome-ct")
+# the run_fdtd call (its place among a slice's calls) the mesh phase replays
+# with fuse_steps=1, through pair + scatter with 2 ghost planes (the path of
+# a volumetric run that keeps the pair), the slice's other calls as they
+# were made: dome-ct's water pass
+MESH_PAIR_REPLAY = {"dome-ct": 1}
 MESH_CHECK_STEPS = 40
 # mode -> [(function name, args, kwargs, result, loop seconds)] of the
 # pipeline calls a slice made (``recording``)
@@ -3491,27 +3808,36 @@ def recording(mode):
             setattr(A, name, fn)
 
 
-def expect_fused_run(expect, grid, materials, n=1, device="cuda"):
+def expect_fused_run(expect, grid, materials, n=1, device="cuda",
+                     fuse_steps=None):
     """Add the launches ``n`` calls of ``run_fdtd`` on ``grid`` make in
-    ``materials`` (fluid, or shear media) with a plane or point source and
-    no diagnostics: the fused sweeps and the pair's tail steps of ``ops.fdtd
-    .fused_schedule`` at the depths ``fused_plan`` / ``visco_plan`` take on
-    the card."""
+    ``materials`` (fluid, or shear media) with a plane, point or (fluid)
+    volumetric source and no diagnostics: the fused sweeps and the pair's
+    tail steps of ``ops.fdtd.fused_schedule`` at the depths ``fused_plan``
+    / ``visco_plan`` / ``volume_plan`` take on the card (``fuse_steps`` as
+    the calls passed it; a volumetric run's sweeps are ``fluid_halo``'s,
+    its tail steps scatter too)."""
     from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops.fdtd_halo_kernels import halo_key
     from babelbrain_tpu_torch.ops.fdtd_kernels import pressure_key
 
     mats = np.asarray(materials, np.float64)
     viscous = F.sls_coefficients(mats, grid.frequency, grid.dt)["viscous"]
     point = 0 if F.point_index(grid) is not None else None
     visco = bool(np.any(mats[:, 2] > 0))
+    volume = grid.source_type == "velocity_volume"
     fam, stem = ("visco", "visco_stress") if visco else ("fluid",
                                                          "fluid_pressure")
-    plan = (F.visco_plan if visco else F.fused_plan)(
-        grid.shape, device, viscous, point is not None)
+    plan = (F.volume_plan(fuse_steps) if volume
+            else (F.visco_plan if visco else F.fused_plan)(
+                grid.shape, device, viscous, point is not None, fuse_steps))
     for _, k, dft in F.fused_schedule(grid, plan):
         if k == 1:
             expect[f"{fam}_velocity"] += n
             expect[pressure_key(stem, dft, point)] += n
+            expect["volume_source"] += n * volume
+        elif volume:
+            expect[halo_key(True, dft)] += n
         else:
             expect[pressure_key(f"{fam}_fused", dft, point)] += n
 
@@ -3602,10 +3928,11 @@ def check_bhte_runs(tag, loops, schedules, device="cuda"):
 
 def check_fused_runs(mode, device="cuda"):
     """Each ``run_fdtd`` call slice ``mode`` made (``recording``), which
-    went through the fused sweeps, again through the pair step by step
-    (``fdtd_setup`` and the wrappers of ``ops.fdtd_kernels``): the carrier
-    maps must be equal bit for bit. Prints both loops' times; the counts of
-    these launches are set aside."""
+    went through the fused sweeps (a volumetric one through the halo
+    sweep), again through the pair step by step (``fdtd_setup`` and the
+    wrappers of ``ops.fdtd_kernels``, with the scatter of a volumetric
+    drive): the carrier maps must be equal bit for bit. Prints both loops'
+    times; the counts of these launches are set aside."""
     from babelbrain_tpu_torch.ops import fdtd as F
     from babelbrain_tpu_torch.utils.timing import clear_spans, recorded_spans
 
@@ -3614,13 +3941,14 @@ def check_fused_runs(mode, device="cuda"):
         if name != "run_fdtd":
             continue
         kw = {k: v for k, v in kw.items() if k not in ("device", "mesh")}
-        idx, mats, grid, amp, ph, pamp, refl = _bound(
+        idx, mats, grid, amp, ph, pamp, refl, vs = _bound(
             F.run_fdtd, args, kw, "mat_idx", "materials", "grid",
-            "source_amp", "source_phase", "point_amp", "reflector_mask")
+            "source_amp", "source_phase", "point_amp", "reflector_mask",
+            "volume_source")
         clear_spans()
-        step, st, co, oz, _ = F.fdtd_setup(idx, mats, grid, amp, ph, refl,
-                                           device=device)
-        F._time_loop([(step, st, co, None, None)], grid, oz, pamp)
+        step, st, co, oz, vsrc = F.fdtd_setup(idx, mats, grid, amp, ph, refl,
+                                              vs, device=device)
+        F._time_loop([(step, st, co, vsrc, None)], grid, oz, pamp)
         pair_loop = next(dt for label, dt in recorded_spans()
                          if label.endswith("FDTD time loop"))
         bad = _maps_differ(ref, F._carrier(st, grid))
@@ -3869,13 +4197,16 @@ def _expect_shard_launches(expect, grid, materials, n_shards, mesh=None,
 
     kw = kw or {}
     plan = (None if mesh is None else F.overlap_plan(
-        mesh, materials, grid, kw.get("sel_maps", ()), kw.get("monitor_ijk")))
+        mesh, materials, grid, kw.get("sel_maps", ()), kw.get("monitor_ijk"),
+        kw.get("fuse_steps")))
     fam, stem = (("visco", "visco_stress")
                  if np.any(np.asarray(materials)[:, 2] > 0)
                  else ("fluid", "fluid_pressure"))
     if plan is not None:
+        sweep = ("fluid_halo_volume" if grid.source_type == "velocity_volume"
+                 else f"{fam}_fused")
         for _, _, dft in F.overlap_schedule(grid, plan[0]):
-            expect[f"{fam}_fused_dft" if dft else f"{fam}_fused"] += n_shards
+            expect[f"{sweep}_dft" if dft else sweep] += n_shards
         return
     n, s = grid.n_steps, grid.sensor_start
     # a stress point: the shard that holds it launches the point variants
@@ -3929,10 +4260,11 @@ def run_mesh(times, device="cuda"):
     launches0, _ = read_counts()
     expect = dict.fromkeys(launches0, 0)
     for mode in MESH_SLICES:
-        for name, args, kw, ref, loop in RECORDED.get(mode, ()):
-            if name != "run_fdtd":
-                continue
+        calls = [c for c in RECORDED.get(mode, ()) if c[0] == "run_fdtd"]
+        for j, (name, args, kw, ref, loop) in enumerate(calls):
             kw = {k: v for k, v in kw.items() if k not in ("device", "mesh")}
+            if MESH_PAIR_REPLAY.get(mode) == j:
+                kw["fuse_steps"] = 1
             grid, mats = _bound(run_fdtd, args, kw, "grid", "materials")
             if (mode in MESH_POINT_ONLY
                     and grid.source_type != "stress_point"):
@@ -3947,7 +4279,7 @@ def run_mesh(times, device="cuda"):
             extra = [k for k in ref if k not in ("p_amp", "p_phase", "peak")
                      and isinstance(ref[k], np.ndarray)]
             plan = F.overlap_plan(mesh, mats, grid, kw.get("sel_maps", ()),
-                                  kw.get("monitor_ijk"))
+                                  kw.get("monitor_ijk"), kw.get("fuse_steps"))
             halo = halo_bytes(grid, mats, MESH_SHARDS, plan)
             sweep = ("" if plan is None else
                      f" ({halo * plan[0] / 1e6:.3f} MB a sweep of overlap and "
@@ -4084,6 +4416,7 @@ def check_mesh_cards(cards):
 
 FLUID_CU = "babelbrain_tpu_torch/csrc/fdtd_fluid.cu"
 FUSED_CU = "babelbrain_tpu_torch/csrc/fdtd_fluid_fused.cu"
+HALO_CU = "babelbrain_tpu_torch/csrc/fdtd_fluid_halo.cu"
 VISCO_FUSED_CU = "babelbrain_tpu_torch/csrc/fdtd_visco_fused.cu"
 VISCO_CU = "babelbrain_tpu_torch/csrc/fdtd_visco.cu"
 SOURCES_CU = "babelbrain_tpu_torch/csrc/fdtd_sources.cu"
@@ -4132,6 +4465,12 @@ SOURCES = {
                               VISCO_FUSED_CU, f"{PALLAS}:4900"),
     "volume_source": ("velocity_volume_source_kernel", SOURCES_CU,
                       f"{PALLAS}:706"),
+    # B4's volumetric drive (:1815, injected at :2108) inside its K-step
+    # sweep: the halo sweep, timed at the dome's grid and depth
+    "fluid_halo_volume": ("fluid_halo_kernel<VOLUME>", HALO_CU,
+                          f"{PALLAS}:1815"),
+    "fluid_halo_volume_dft": ("fluid_halo_kernel<WITH_DFT, VOLUME>", HALO_CU,
+                              f"{PALLAS}:1815"),
     # B6 build_visco_fused_step's point injection (the same as B8's)
     "visco_stress_point": ("visco_stress_kernel<POINT>", VISCO_CU,
                            f"{PALLAS}:3780"),
@@ -4204,17 +4543,20 @@ def main():
             errs[k] = max(errs.get(k, 0.0), v)
         times.update(t)
     for e, t, b in (check_fused(times), check_visco_fused(times),
-                    check_bhte_fused(times),
+                    check_fused_volume(times), check_bhte_fused(times),
                     check_diagnostics("fluid"),
                     check_diagnostics("visco"), check_probe_kernels()):
         errs.update(e)
         times.update(t)
         bounds.update(b)
     n_shell = int((shell_source(KERNEL_SHAPE)["amp"] > 0).sum())
-    launches = {k: 0 for k in SOURCES}
+    # every counted kernel (the halo sweep's plane-source rows are timed in
+    # the head to head only, off the kernel table)
+    launches = dict.fromkeys([*SOURCES, *read_counts()[0]], 0)
     for mode in SLICES:
         with (recording(mode) if mode in MESH_SLICES + FUSED_SLICES
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), pinned_fuse_steps(
+                  dome_fuse_steps() if mode == "dome-ct" else None):
             counts, slice_errs = run_slice(have["h5py"], mode)
         if mode in FUSED_SLICES:
             check_fused_runs(mode)

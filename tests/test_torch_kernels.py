@@ -230,6 +230,100 @@ def test_fused_run_fdtd_matches_the_pair(cuda):
         np.testing.assert_array_equal(out[name], ref[name], err_msg=name)
 
 
+# the halo sweep's cases: (K, volumetric drive, viscous, with the DFT,
+# x_lo, x_hi), on the tiling's ragged grids
+HALO_CASES = (
+    [(k, vol, True, dft, True, True) for k in (1, 2, 3)
+     for vol in (True, False) for dft in (False, True)]
+    + [(k, True, False, dft, True, True) for k in (1, 3)
+       for dft in (False, True)]
+    + [(2, True, True, True, lo, hi)
+       for lo, hi in ((True, False), (False, True), (False, False))])
+
+
+@pytest.mark.parametrize("shape,zsrc", VISCO_GRIDS)
+@pytest.mark.parametrize("k,volume,viscous,dft,x_lo,x_hi", HALO_CASES)
+def test_halo_kernel_matches_plain(cuda, k, volume, viscous, dft, x_lo, x_hi,
+                                   shape, zsrc):
+    """``fluid_halo`` (K steps a launch in halo-recomputing blocks) against
+    its plain version and against K steps of pair + scatter, every field
+    and psi slab bit-equal, from the state 20 steps leave; a shell of
+    source voxels (or the plane), the input state left unchanged but for
+    the swap."""
+    from babelbrain_tpu_torch.ops import fdtd_halo_kernels as HK
+
+    grid, co = _fluid_setup(cuda, shape=shape, viscous=viscous, zsrc=zsrc)
+    co.x_lo, co.x_hi = x_lo, x_hi
+    vsrc = _shell(grid.shape, cuda) if volume else None
+    oz = 1.0 / (1000.0 * 1500.0)
+    st = K.FluidState.zeros(grid.shape, 14, cuda)
+    for n in range(20):
+        F.fluid_step(st, co, grid, n, oz, 0.0, vsrc)
+    halo, plain, pair = (_copy(st) for _ in range(3))
+    rows = [F.step_scalars(grid, n, oz) for n in range(20, 20 + k)]
+    before = dict(HK.launches)
+    HK.fluid_halo(halo, co, rows, vsrc, with_dft=dft)
+    HK.fluid_halo_ref(plain, co, rows, vsrc, with_dft=dft)
+    for s_sin, s_cos, cosw, sinw, _ in rows:
+        K.fluid_velocity(pair, co, s_sin, s_cos)
+        if vsrc is not None:
+            S.velocity_volume_source(pair.vx, pair.vy, pair.vz, vsrc, s_sin,
+                                     s_cos)
+        if dft:
+            K.fluid_pressure(pair, co, cosw, sinw)
+        else:
+            K.fluid_pressure(pair, co)
+    torch.cuda.synchronize()
+    key = HK.halo_key(volume, dft)
+    assert HK.launches[key] - before[key] == 1
+    assert float(halo.p.abs().max()) > 0
+    fields = ("p", "vx", "vy", "vz", "r", "acc_cos", "acc_sin", "peak")
+    _fields_equal(halo, plain, fields, ("psi_p", "psi_v"))
+    _fields_equal(halo, pair, fields, ("psi_p", "psi_v"))
+    HK.release()
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_halo_run_fdtd_matches_pair_and_scatter(cuda, k):
+    """``run_fdtd`` with a volumetric source and ``fuse_steps=k`` (K-step
+    halo sweeps, then pair + scatter) equals pair + scatter step by step."""
+    from babelbrain_tpu_torch.ops import fdtd_halo_kernels as HK
+
+    grid, co = _fluid_setup(cuda, source_type="velocity_volume")
+    idx = co.mat_idx.cpu().numpy()
+    mats = np.array([[1000.0, 1500.0, 0, 0, 0], [1900.0, 2200.0, 0, 80.0, 0]])
+    vsrc = _shell(grid.shape, cuda)
+    before = dict(HK.launches)
+    out = F.run_fdtd(idx, mats, grid, volume_source=vsrc, fuse_steps=k,
+                     device="cuda")
+    assert HK.launches["fluid_halo_volume"] > before["fluid_halo_volume"]
+    step, st, co2, oz, vs = F.fdtd_setup(idx, mats, grid, volume_source=vsrc,
+                                         device="cuda")
+    F._time_loop([(step, st, co2, vs, None)], grid, oz)
+    ref = F._carrier(st, grid)
+    for name in ("p_amp", "p_phase", "peak"):
+        np.testing.assert_array_equal(out[name], ref[name], err_msg=name)
+
+
+def test_halo_entry_point_refuses_aliasing(cuda):
+    """The C entry point refuses an output state that aliases its input
+    (neighbouring blocks read the input's halo cells)."""
+    from babelbrain_tpu_torch.ops import fdtd_halo_kernels as HK
+
+    grid, co = _fluid_setup(cuda)
+    st = K.FluidState.zeros(grid.shape, 14, cuda)
+    HK.fluid_halo(st, co, [F.step_scalars(grid, 0, 1.0)])  # builds the twin
+    twin, _ = HK._twin(st, 1)
+    saved = twin.p
+    twin.p = st.p
+    try:
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            HK.fluid_halo(st, co, [F.step_scalars(grid, 1, 1.0)])
+    finally:
+        twin.p = saved
+        HK.release()
+
+
 def test_fused_wrapper_rejects_mixed_devices(cuda):
     from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
 
