@@ -141,39 +141,10 @@ struct Out5 {
 struct PsiStages {
   float* q[kMaxSteps + 1][12];
 };
-struct VolSrc {
-  const int* slot;
-  const float *amp, *cph, *sph, *ox, *oy, *oz;
-};
 // the per-step scalars (ops/fdtd.py step_scalars), row s for step s
 struct HaloRows {
   float s_sin[kMaxSteps], s_cos[kMaxSteps], cosw[kMaxSteps], sinw[kMaxSteps];
 };
-
-// cpml (fdtd_stencil.cuh) reading psi from `in` and writing the new value to
-// `out` (where `keep`): the same arithmetic, out of place
-__device__ __forceinline__ float cpml_io(float d, int pos, int lo_end,
-                                         int hi_start, int ns,
-                                         const float* __restrict__ prof,
-                                         const float* in_lo,
-                                         const float* in_hi, float* out_lo,
-                                         float* out_hi, int base, int stride,
-                                         bool keep) {
-  if (pos < lo_end) {
-    const int s = base + pos * stride;
-    const float nw = prof[pos] * in_lo[s] + prof[ns + pos] * d;
-    if (keep) out_lo[s] = nw;
-    d = d + nw;
-  }
-  const int q = pos - hi_start;
-  if (q >= 0) {
-    const int s = base + q * stride;
-    const float nw = prof[2 * ns + q] * in_hi[s] + prof[3 * ns + q] * d;
-    if (keep) out_hi[s] = nw;
-    d = d + nw;
-  }
-  return d;
-}
 
 // K steps of fluid_velocity_kernel, velocity_volume_source_kernel (VOLUME)
 // and fluid_pressure_kernel in one march of independent blocks
@@ -447,20 +418,6 @@ struct Args {
   int zsrc;
   HaloRows rows;
 };
-
-// raise an instantiation's dynamic shared memory limit once per device
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, int* allowed, int bytes) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (allowed[dev] >= bytes) return cudaSuccess;
-  e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kern),
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) allowed[dev] = bytes;
-  return e;
-}
 
 template <int I>
 cudaError_t go(const Args& a, dim3 grid, cudaStream_t st) {

@@ -1,5 +1,6 @@
 // Device helpers shared by the FDTD kernels (fdtd_fluid.cu, fdtd_visco.cu,
-// and the fused sweeps fdtd_fluid_fused.cu, fdtd_visco_fused.cu): the
+// the fused sweeps fdtd_fluid_fused.cu, fdtd_visco_fused.cu and the halo
+// sweeps fdtd_fluid_halo.cu, fdtd_visco_halo.cu): the
 // x-marching tile geometry, the 4th-order staggered differences from
 // register windows (x) and L1 loads (y, z), the CPML slab correction (and
 // their L2-loading twins for the fused sweeps), and the check of the launch
@@ -321,6 +322,57 @@ struct CpmlL2 {
     }
   }
 };
+
+// The halo sweeps (fdtd_fluid_halo.cu, fdtd_visco_halo.cu): their
+// out-of-place CPML, the volumetric drive they read, and their dynamic
+// shared memory.
+
+// cpml reading psi from `in` and writing the new value to `out` (where
+// `keep`): the same arithmetic, out of place
+__device__ __forceinline__ float cpml_io(float d, int pos, int lo_end,
+                                         int hi_start, int ns,
+                                         const float* __restrict__ prof,
+                                         const float* in_lo,
+                                         const float* in_hi, float* out_lo,
+                                         float* out_hi, int base, int stride,
+                                         bool keep) {
+  if (pos < lo_end) {
+    const int s = base + pos * stride;
+    const float nw = prof[pos] * in_lo[s] + prof[ns + pos] * d;
+    if (keep) out_lo[s] = nw;
+    d = d + nw;
+  }
+  const int q = pos - hi_start;
+  if (q >= 0) {
+    const int s = base + q * stride;
+    const float nw = prof[2 * ns + q] * in_hi[s] + prof[3 * ns + q] * d;
+    if (keep) out_hi[s] = nw;
+    d = d + nw;
+  }
+  return d;
+}
+
+// the volumetric drive: the dense slot volume (ops/fdtd_sources.py
+// VolumeSource.slot_volume: -1, or the voxel's index in the sparse list)
+// and the six floats of each source voxel
+struct VolSrc {
+  const int* slot;
+  const float *amp, *cph, *sph, *ox, *oy, *oz;
+};
+
+// raise an instantiation's dynamic shared memory limit once per device
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, int* allowed, int bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (allowed[dev] >= bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kern),
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) allowed[dev] = bytes;
+  return e;
+}
 
 // the co-resident blocks of a cooperative kernel on the current device
 inline cudaError_t cooperative_capacity(const void* kernel, int* blocks) {

@@ -4,10 +4,11 @@
 // Replaces (TPU kernels of the JAX package, babelbrain_tpu/ops/fdtd_pallas.py):
 //   build_visco_pallas_step (B5: vel_kernel, stress_kernel), and B6-B8's point
 //   injection (build_visco_fused_step, build_visco_fusedK_step). B6-B8 block
-//   B5's update in time: their K-step sweeps are fdtd_visco_fused.cu, whose
-//   runs take this pair for their one-step tails; runs with a volumetric
-//   source, maps or monitors, and sharded runs other than overlap and
-//   discard, take it for every step. The math is the XLA step of
+//   B5's update in time: their K-step sweeps are fdtd_visco_fused.cu (plane
+//   and point sources) and fdtd_visco_halo.cu (a volumetric source), whose
+//   runs take this pair for their one-step tails; runs with maps or
+//   monitors, and sharded runs other than overlap and discard, take it for
+//   every step. The math is the XLA step of
 //   babelbrain_tpu/ops/fdtd.py:_make_step_fn.
 //
 // What bounds it on this card: device-memory traffic. Per cell and step,

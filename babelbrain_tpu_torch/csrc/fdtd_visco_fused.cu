@@ -8,8 +8,9 @@
 //   velocity and the stress half-steps of K steps in one sweep over the 15
 //   fields (v x3, sigma x6, the SLS memories r x6), with the x, y and z
 //   CPML, the indexed table, the plane or point source, and the carrier DFT
-//   and |p| peak of every step. Their volumetric (dome) drive is not here:
-//   those runs keep the one-step pair (fdtd_visco.cu). Each cell's
+//   and |p| peak of every step. Their volumetric (dome) drive is the halo
+//   sweep's (fdtd_visco_halo.cu): the dome's planes hold more blocks than
+//   this cooperative launch may. Each cell's
 //   arithmetic is the pair's, in the pair's order (fdtd_stencil.cuh's
 //   helpers and their L2-loading twins), so K steps of this kernel equal K
 //   steps of the pair bit for bit.

@@ -28,11 +28,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("fdtd_fluid.cu", "fdtd_fluid_fused.cu", "fdtd_fluid_halo.cu",
-           "fdtd_visco.cu", "fdtd_visco_fused.cu", "fdtd_sources.cu",
-           "bhte.cu", "fdtd_extras.cu", "probes.cu")
-# the halo sweep is compiled once per depth (-DBB_HALO_K=K), each depth a
-# translation unit of its own, so that they compile in parallel
+           "fdtd_visco.cu", "fdtd_visco_fused.cu", "fdtd_visco_halo.cu",
+           "fdtd_sources.cu", "bhte.cu", "fdtd_extras.cu", "probes.cu")
+# the halo sweeps are compiled once per depth (-DBB_HALO_K=K,
+# -DBB_VHALO_K=K), each depth a translation unit of its own, so that they
+# compile in parallel
 HALO_DEPTHS = (1, 2, 3)
+VISCO_HALO_DEPTHS = (1, 2)
+DEPTH_UNITS = {"fdtd_fluid_halo.cu": ("BB_HALO_K", HALO_DEPTHS),
+               "fdtd_visco_halo.cu": ("BB_VHALO_K", VISCO_HALO_DEPTHS)}
 HEADERS = ("fdtd_stencil.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --fmad=false: no multiply-add contraction, so each kernel rounds exactly
@@ -76,6 +80,9 @@ _SIGNATURES = {
     **{f"bb_fluid_halo_k{k}": [_P] * 24 + [_I] + [_F] * 3 + [_I] * 14 + [_P]
        for k in HALO_DEPTHS},
     **{f"bb_fluid_halo_tile_k{k}": [_P, _P] for k in HALO_DEPTHS},
+    **{f"bb_visco_halo_k{k}": [_P] * 14 + [_I] + [_F] * 3 + [_I] * 12 + [_P]
+       for k in VISCO_HALO_DEPTHS},
+    **{f"bb_visco_halo_tile_k{k}": [_P, _P] for k in VISCO_HALO_DEPTHS},
     "bb_stream": [_P, _P, _L, _P],
     "bb_fma_chain": [_P, _P, _P, _I, _I, _P],
     "bb_table_gather": [_P, _P, _P, _I, _I, _L, _I, _P],
@@ -93,9 +100,10 @@ def _units():
     """(source, extra nvcc flags, object name) of each translation unit."""
     for src in SOURCES:
         stem = os.path.splitext(src)[0]
-        if src == "fdtd_fluid_halo.cu":
-            for k in HALO_DEPTHS:
-                yield src, (f"-DBB_HALO_K={k}",), f"{stem}_k{k}"
+        if src in DEPTH_UNITS:
+            macro, depths = DEPTH_UNITS[src]
+            for k in depths:
+                yield src, (f"-D{macro}={k}",), f"{stem}_k{k}"
         else:
             yield src, (), stem
 

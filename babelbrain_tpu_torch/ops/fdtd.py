@@ -16,8 +16,9 @@ plain PyTorch. A run with a plane or point source and no diagnostics runs
 fused sweeps instead, K steps a launch (``fuse_steps``): fluid media
 ``ops.fdtd_fused_kernels`` in the schedule of the JAX package's
 ``simulate_fluid_pallas``, shear media ``ops.fdtd_visco_fused_kernels`` in
-that of ``simulate_visco_pallas``; either equals the step-by-step run bit
-for bit.
+that of ``simulate_visco_pallas``; a volumetric drive the halo sweeps
+``ops.fdtd_halo_kernels`` (fluid) and ``ops.fdtd_visco_halo_kernels``
+(shear). Each equals the step-by-step run bit for bit.
 
 Physics (see the JAX module for the derivations): 4th-order staggered
 differences, CPML with slab-only psi memory, one SLS relaxation mechanism
@@ -98,6 +99,12 @@ from .fdtd_visco_fused_kernels import (
     VISCO_FUSE_BEST,
     visco_fused,
     visco_fused_ref,
+)
+from . import fdtd_visco_halo_kernels
+from .fdtd_visco_halo_kernels import (
+    VISCO_HALO_K_CAP,
+    VISCO_VOLUME_FUSE_BEST,
+    visco_halo,
 )
 from .fdtd_sources import (
     VolumeSource,
@@ -540,6 +547,29 @@ def volume_plan(fuse_steps: int | None = None) -> FusedPlan:
     return FusedPlan(k, k, False, 2)
 
 
+def visco_volume_plan(grid: FDTDGrid,
+                      fuse_steps: int | None = None) -> FusedPlan:
+    """The depth rule of a shear-media run with a volumetric drive (the
+    halo sweep, ``visco_halo``): K-step sweeps from K = 2, no 2-step sweeps,
+    then a one-step tail on pair + scatter, exactly JAX's visco
+    ``run_phase`` with a volumetric source
+    (`babelbrain_tpu/ops/fdtd_pallas.py:6441-6479`). ``None`` takes
+    ``VISCO_VOLUME_FUSE_BEST``, the depth the card measured fastest at the
+    dome's shape (0: pair + scatter for every step); an int pins K (0 and
+    1: the pair, as JAX), refused beyond ``VISCO_HALO_K_CAP`` and, for
+    K >= 2, where JAX refuses it: an x-extent with N1 / 2 < ceil(ns / 2) +
+    2K - 1 (`:6432-6438`, its VMEM blocks of nb = 2 planes)."""
+    k = VISCO_VOLUME_FUSE_BEST if fuse_steps is None else int(fuse_steps)
+    if not 0 <= k <= VISCO_HALO_K_CAP:
+        raise ValueError(f"fuse_steps={k} outside 0..{VISCO_HALO_K_CAP} for "
+                         "a volumetric source in shear media")
+    kx = -(-(grid.npml + 2) // 2)
+    if k >= 2 and grid.shape[0] // 2 < kx + 2 * k - 1:
+        raise ValueError(f"fuse_steps={k} needs an unsharded x-extent with "
+                         f"N1/nb >= {kx + 2 * k - 1}")
+    return FusedPlan(k, k, False, 2)
+
+
 def fused_schedule(grid: FDTDGrid, plan: FusedPlan):
     """[(first step, K, with_dft)] of a fused run: the quiet phase
     [0, sensor_start), then the window, each split by ``phase_schedule``
@@ -555,10 +585,13 @@ def fused_schedule(grid: FDTDGrid, plan: FusedPlan):
 
 
 # each family's fused sweep: (the wrapper, its plain version, the step of
-# the pair its tails run, the depth rule)
+# the pair its tails run, the depth rule, the halo sweep of a volumetric
+# drive)
 FUSED = {
-    FluidState: (fluid_fused, fluid_fused_ref, fluid_step, fused_plan),
-    ViscoState: (visco_fused, visco_fused_ref, visco_step, visco_plan),
+    FluidState: (fluid_fused, fluid_fused_ref, fluid_step, fused_plan,
+                 fluid_halo),
+    ViscoState: (visco_fused, visco_fused_ref, visco_step, visco_plan,
+                 visco_halo),
 }
 
 
@@ -573,13 +606,13 @@ def _fused_loop(runs, grid: FDTDGrid, oz_scale, point_amp, plan: FusedPlan,
     """The runs ``runs`` ((state, coefficients) pairs of one family) in
     lockstep through ``fused_schedule``: each sweep one fused launch a run
     (``fluid_fused`` or ``visco_fused``; with a volumetric drive ``vsrc``
-    the halo sweep ``fluid_halo``), each tail step the pair (and the
-    scatter)."""
+    the family's halo sweep, ``fluid_halo`` or ``visco_halo``), each tail
+    step the pair (and the scatter)."""
     pt = point_index(grid)
-    fused, _, step, _ = FUSED[type(runs[0][0])]
+    fused, _, step, _, halo = FUSED[type(runs[0][0])]
     if vsrc is not None:
         def fused(st, co, rows, _pt, with_dft):
-            fluid_halo(st, co, rows, vsrc, with_dft=with_dft)
+            halo(st, co, rows, vsrc, with_dft=with_dft)
     with stage_timer("FDTD time loop", level=3, step=2):
         for n, k, dft in fused_schedule(grid, plan):
             if k == 1:
@@ -592,6 +625,7 @@ def _fused_loop(runs, grid: FDTDGrid, oz_scale, point_amp, plan: FusedPlan,
                 fused(st, co, rows, pt, with_dft=dft)
         _synchronize([st.peak for st, _ in runs])
     fdtd_halo_kernels.release()
+    fdtd_visco_halo_kernels.release()
 
 
 def run_fdtd(
@@ -631,13 +665,16 @@ def run_fdtd(
     (K-step sweeps while K >= 2, then, for a plane source, 2-step sweeps);
     then a one-step tail on the pair. ``None`` takes the deepest K the
     kernel admits on this grid and device (``fused_plan``, ``visco_plan``);
-    an int pins K (refused when the card cannot hold it). A fluid run with
-    a volumetric source and no diagnostics runs the halo sweep
-    ``fluid_halo`` in ``volume_plan``'s schedule (K-step sweeps from K = 2,
-    then pair + scatter; ``None``: ``VOLUME_FUSE_BEST``). Volumetric
-    sources in shear media, ``sel_maps`` and ``monitor_ijk`` keep the pair
-    for every step, with its per-step monitor samples. Fused or not, the
-    result is the step-by-step run's bit for bit.
+    an int pins K (refused when the card cannot hold it). A run with a
+    volumetric source and no diagnostics runs the halo sweep of its medium
+    in independent halo-recomputing blocks (K-step sweeps from K = 2, then
+    pair + scatter): fluid media ``fluid_halo`` in ``volume_plan``'s
+    schedule (``None``: ``VOLUME_FUSE_BEST``), shear media ``visco_halo``
+    in ``visco_volume_plan``'s, JAX's visco ``run_phase`` (``None``:
+    ``VISCO_VOLUME_FUSE_BEST``; an int is refused where JAX refuses it).
+    ``sel_maps`` and ``monitor_ijk`` keep the pair for every step, with its
+    per-step monitor samples. Fused or not, the result is the step-by-step
+    run's bit for bit.
 
     ``mesh``: a 1-D ``DeviceMesh`` on axis "x" (``parallel.halo.make_mesh``)
     decomposes the grid along x over its devices (``device`` is then not
@@ -646,8 +683,9 @@ def run_fdtd(
     diagnostics, and a fluid run with a volumetric source, run
     overlap-and-discard fused sweeps where ``sharded_plan`` finds a K >= 2
     (``fuse_steps`` as above; the volumetric ones through ``fluid_halo``,
-    by default only where ``VOLUME_FUSE_BEST`` >= 2), every other run the
-    pair with 2 ghost planes. The result equals the
+    by default only where ``VOLUME_FUSE_BEST`` >= 2), every other run (a
+    volumetric source in shear media too: JAX sends it to XLA) the pair
+    with 2 ghost planes. The result equals the
     unsharded run's bit for bit.
 
     ``sel_maps``: extra maps named ``<Field>_rms`` / ``<Field>_peak``, Field
@@ -690,9 +728,10 @@ def run_fdtd(
         plan = plan_run(st, grid.shape, device, co.viscous,
                         point_index(grid) is not None, fuse_steps)
         _fused_loop([(st, co)], grid, oz_scale, point_amp, plan)
-    elif diag is None and isinstance(st, FluidState):
-        _fused_loop([(st, co)], grid, oz_scale, point_amp,
-                    volume_plan(fuse_steps), vsrc)
+    elif diag is None:
+        plan = (volume_plan(fuse_steps) if isinstance(st, FluidState)
+                else visco_volume_plan(grid, fuse_steps))
+        _fused_loop([(st, co)], grid, oz_scale, point_amp, plan, vsrc)
     else:
         _time_loop([(step, st, co, vsrc, diag)], grid, oz_scale, point_amp)
 
@@ -1149,7 +1188,7 @@ def sweep_shards(shards, xs: XSlabs, grid: FDTDGrid, n: int, k: int,
     for g in range(len(groups[0])):
         xs.refresh_group([gr[g] for gr in groups])
     rows = [step_scalars(grid, m, oz_scale) for m in range(n, n + k)]
-    fused, ref, _, _ = FUSED[type(shards[0].st)]
+    fused, ref, *_ = FUSED[type(shards[0].st)]
     for s, sh in enumerate(shards):
         with _shard_range(sh, s):
             if sh.vsrc is not None:  # a volumetric drive: the halo sweep

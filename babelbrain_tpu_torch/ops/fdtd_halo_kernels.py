@@ -121,17 +121,20 @@ class HaloGeometry:
                 / float(n1 * n2 * n3))
 
 
-def halo_launch_geometry(shape, k: int) -> HaloGeometry:
-    """The launch of K steps on an (N1, N2, N3) grid: ``HALO_TILES[K]``
-    tiles over (z, y) and the x-segment length that gives about
-    ``HALO_BLOCKS`` blocks. Refuses K outside 1..``HALO_K_CAP`` and grids of
-    2^31 cells or more (the kernel's 32-bit offsets)."""
-    if isinstance(k, bool) or int(k) != k or not 1 <= k <= HALO_K_CAP:
-        raise ValueError(f"fluid_halo: {k} steps a launch, 1..{HALO_K_CAP} "
+def halo_launch_geometry(shape, k: int, tiles=None,
+                         name: str = "fluid_halo") -> HaloGeometry:
+    """The launch of K steps on an (N1, N2, N3) grid: ``tiles[K]`` (by
+    default ``HALO_TILES``) over (z, y) and the x-segment length that gives
+    about ``HALO_BLOCKS`` blocks. Refuses K outside the depths ``tiles``
+    has (1..``HALO_K_CAP``) and grids of 2^31 cells or more (the kernels'
+    32-bit offsets)."""
+    tiles = HALO_TILES if tiles is None else tiles
+    if isinstance(k, bool) or int(k) != k or int(k) not in tiles:
+        raise ValueError(f"{name}: {k} steps a launch, 1..{max(tiles)} "
                          "taken")
-    _check_size(shape, "fluid_halo")
+    _check_size(shape, name)
     n1, n2, n3 = (int(n) for n in shape)
-    tz, ty = HALO_TILES[int(k)]
+    tz, ty = tiles[int(k)]
     gz, gy = _cdiv(n3, tz), _cdiv(n2, ty)
     seg = max(1, min(n1, _cdiv(n1 * gz * gy, HALO_BLOCKS)))
     seg = _cdiv(n1, _cdiv(n1, seg))  # the shortest for that many segments
@@ -248,7 +251,7 @@ def fluid_halo(st: FluidState, co: FluidCoeffs, rows,
         fluid_halo_ref(st, co, rows, vsrc, with_dft=with_dft)
         return
     geo = halo_launch_geometry((n1, n2, n3), k)
-    _check_tile(k)
+    check_tile(k)
     twin, scratch = _twin(st, k)
     stages = ([st.psi_p + st.psi_v] + scratch[:k - 1]
               + [twin.psi_p + twin.psi_v])
@@ -276,24 +279,26 @@ def fluid_halo(st: FluidState, co: FluidCoeffs, rows,
     launches[halo_key(vsrc is not None, with_dft)] += 1
 
 
-# (TZ, TY) of each depth's HaloTile<K> as the built library reports it
+# (TZ, TY) of each halo sweep's tile at each depth as the built library
+# reports it, by (entry point stem, K)
 _KERNEL_TILES: dict = {}
 
 
-def _check_tile(k: int) -> None:
-    """Refuse a K-step launch whose geometry's tile (``HALO_TILES[K]``) is
-    not the built kernel's ``HaloTile<K>``."""
-    if k not in _KERNEL_TILES:
+def check_tile(k: int, tiles=None, stem: str = "fluid_halo") -> None:
+    """Refuse a K-step launch whose geometry's tile (``tiles[K]``, by
+    default ``HALO_TILES``) is not the built kernel's, which the library
+    reports through ``bb_<stem>_tile_k<K>``."""
+    tiles = HALO_TILES if tiles is None else tiles
+    if (stem, k) not in _KERNEL_TILES:
         tz, ty = ctypes.c_int(0), ctypes.c_int(0)
-        rc = getattr(_build.library(), f"bb_fluid_halo_tile_k{k}")(
+        rc = getattr(_build.library(), f"bb_{stem}_tile_k{k}")(
             ctypes.byref(tz), ctypes.byref(ty))
-        _build.check(rc, "fluid_halo_kernel tile")
-        _KERNEL_TILES[k] = (tz.value, ty.value)
-    if _KERNEL_TILES[k] != HALO_TILES[k]:
+        _build.check(rc, f"{stem}_kernel tile")
+        _KERNEL_TILES[(stem, k)] = (tz.value, ty.value)
+    if _KERNEL_TILES[(stem, k)] != tiles[k]:
         raise RuntimeError(
-            f"fluid_halo: csrc/fdtd_fluid_halo.cu HaloTile<{k}> (TZ, TY) is "
-            f"{_KERNEL_TILES[k]}, ops/fdtd_halo_kernels.py HALO_TILES gives "
-            f"{HALO_TILES[k]}")
+            f"{stem}: the kernel's (TZ, TY) at K = {k} is "
+            f"{_KERNEL_TILES[(stem, k)]}, its launch geometry's {tiles[k]}")
 
 
 def fluid_halo_ref(st: FluidState, co: FluidCoeffs, rows,

@@ -109,8 +109,9 @@ class VolumeSource:
     def slot_volume(self, shape) -> torch.Tensor:
         """The drive as a dense int32 (N1, N2, N3) volume on the source's
         device: -1 where no voxel drives, else the voxel's index in the
-        sparse list (the halo sweep, ``ops.fdtd_halo_kernels``, reads a
-        cell's slot once a launch). Built once for a shape; a voxel listed
+        sparse list (the halo sweeps, ``ops.fdtd_halo_kernels`` and
+        ``ops.fdtd_visco_halo_kernels``, read a cell's slot once a
+        launch). Built once for a shape; a voxel listed
         twice is refused."""
         shape = tuple(int(n) for n in shape)
         if self._slots is None or self._slots[0] != shape:

@@ -8,7 +8,8 @@ sensor window, the carrier DFT and |p| peak of every step. It replaces the
 JAX package's Pallas kernels B6 (``build_visco_fused_step``, K = 1), B7
 (``build_visco_fused2_step``, K = 2) and B8 (``build_visco_fusedK_step``)
 of ``babelbrain_tpu/ops/fdtd_pallas.py``, without their volumetric drive
-(those runs keep the pair).
+(``ops.fdtd_visco_halo_kernels``: the dome's planes hold more blocks than
+this kernel's cooperative launch may).
 
 Launch (``csrc/fdtd_visco_fused.cu``): a cooperative grid of blocks
 (z-tile, y-tile, stage), 32x8 columns a block as the pair's, every block

@@ -20,8 +20,9 @@ rows [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r] (``ops.fdtd
 
 They replace the JAX package's Pallas kernel B5 and the one-step point
 injection of B6-B8 (``babelbrain_tpu/ops/fdtd_pallas.py``); the K-step
-sweeps of B6-B8 are ``ops.fdtd_visco_fused_kernels``, whose runs end in
-one-step tails of this pair. The math is the XLA step of
+sweeps of B6-B8 are ``ops.fdtd_visco_fused_kernels`` (plane and point
+sources) and ``ops.fdtd_visco_halo_kernels`` (a volumetric source), whose
+runs end in one-step tails of this pair. The math is the XLA step of
 ``babelbrain_tpu/ops/fdtd.py:_make_step_fn``; a volumetric (dome) source is
 ``ops.fdtd_sources``, launched between the two.
 

@@ -59,9 +59,17 @@ Phases (each prints its own lines; any failed check exits nonzero):
              window, with a shell of source voxels; at 27x45x47 with
              voxels on the tiles' corners and halo edges; on the 50-plane
              shard with each x_lo / x_hi pair; each K timed a launch and a
-             step against its bound and pair + scatter, and with a plane
-             source against the lockstep sweep and the pair at 192x192x240
-             and 216x216x224. Then the BHTE sweep:
+             step against its bound and pair + scatter. Then the visco
+             halo sweep
+             (``check_visco_volume``): ``visco_halo`` (K visco steps a
+             launch in independent blocks that recompute a 3K halo, with
+             the volumetric drive) against its plain version and K steps
+             of the visco pair + scatter, bit for bit, K = 1, 2 at
+             192x192x240 and 392x392x337 with the 5 label materials and
+             the shell, viscous and inviscid, quiet and window, and at
+             27x45x47 with voxels on tile corners and halo edges; each K
+             timed a launch and a step against its bound and pair +
+             scatter at both shapes. Then the BHTE sweep:
              ``bhte_fused`` (K steps a launch) against its plain version
              and against K launches of
              ``bhte_step`` (and those against the plain version), max abs
@@ -86,8 +94,11 @@ Phases (each prints its own lines; any failed check exits nonzero):
              -> BHTE), each once plain and once refocused (backward FDTD
              from a stress point at the target, backward Rayleigh,
              refocused forward run); and the 1024-element DomeTx at
-             220 kHz / 6 PPW in CT mode at its 1 W drive (volumetric FDTD
-             over a 392x392x337 grid, forward Rayleigh, water pass, BHTE);
+             220 kHz / 6 PPW at its 1 W drive, in CT mode (dome-ct:
+             volumetric fluid FDTD over a 392x392x337 grid at 2250 of its
+             6750 steps, forward Rayleigh, water pass, BHTE) and in label
+             mode (dome-label: the same grid, the volumetric visco FDTD,
+             all its 4125 steps);
              and diag-ct / diag-label, the CT and label slices asking
              ``run_acoustic_sim`` for all 14 ``sel_maps`` and the pressure
              series along the beam axis through the target, after which
@@ -103,11 +114,13 @@ Phases (each prints its own lines; any failed check exits nonzero):
              bit. The CT, label, refocus-ct, refocus-label, zte-ct and
              coreg-zte slices' FDTD runs go through the fused sweeps
              (``run_fdtd``'s default: ``fluid_fused`` in CT mode,
-             ``visco_fused`` in label mode), dome-ct's two volumetric
-             passes through the halo sweep (``fuse_steps`` pinned at
-             ``DOME_PIN_K`` while the default keeps pair + scatter): each
-             run is repeated through the pair (and the scatter) step by
-             step and must equal it bit for bit. Every
+             ``visco_fused`` in label mode), the dome slices' volumetric
+             passes through the halo sweeps (``fuse_steps`` pinned at
+             ``DOME_PIN_K`` while the default keeps pair + scatter:
+             ``fluid_halo`` in fluid media, dome-label's tissue pass in
+             shear media through ``visco_halo``): each run is repeated
+             through the pair (and the scatter) step by step and must
+             equal it bit for bit. Every
              slice's Step 3 runs the BHTE
              sweeps (``bhte_run``'s default K on a card): each of its two
              ``bhte_run`` loops is run again from its start one step a
@@ -128,13 +141,17 @@ Phases (each prints its own lines; any failed check exits nonzero):
              pseudo-CT: the transform must come within 1 deg and 1 voxel
              of the truth and pass the quality gate, the registration on
              the card and on the CPU must agree on the pair averaged to
-             64^3, and Step 1's surface meshes are exported and counted.
-             Last, sweep-ct (``run_sweep``): two shape-bucketed targets 5 mm
+             64^3, and Step 1's surface meshes are exported and counted
+             (the CPU registration and the export in spawned processes
+             beside the anchors and sweep-ct, joined before the mesh
+             phase).
+             Last, sweep-ct (``run_sweep``, after the anchors below): two
+             shape-bucketed targets 5 mm
              apart (one grid signature), each with a 3-entry thermal
              profile (the last entry's 30.01 s pause ends in a one-step
              tail; its Step 3 checked as the slices'), then multipoint steering of the first cell at +-5 mm
              through ``run_fdtd_batch``; its cases 0 and 1 must each equal
-             ``run_fdtd`` of their plane bit for bit; then anchors: the
+             ``run_fdtd`` of their plane bit for bit; the anchors: the
              shear anchor of `tests/test_shear_anchor.py` (normal and 25
              deg incidence through elastic slabs against the analytic
              layer transmission, 5%), the O'Neil water anchor of
@@ -156,12 +173,14 @@ Phases (each prints its own lines; any failed check exits nonzero):
              their plain versions and the unsharded run (fluid and
              visco); then the ``run_fdtd`` calls the CT and label (overlap
              and discard), diag-ct (14 maps, 201 monitors) and dome-ct
-             (its tissue pass by overlap and discard through the halo
-             sweep, its water pass through pair + scatter with 2 ghost
-             planes) slices made and the refocus slices' backward point
-             runs
+             slices made and the refocus slices' backward point runs
              (recorded as they ran) again on the 4-shard mesh, each equal
-             to its slice's result bit for bit, with the loops' idle share
+             to its slice's result bit for bit (dome-ct's at 450 of its
+             2250 steps, against an unsharded run at that depth: its
+             tissue pass as it ran, by overlap and discard through the
+             halo sweep, its water pass with ``fuse_steps=1``, through
+             pair + scatter with 2 ghost planes),
+             with the loops' idle share
              under ``torch.profiler`` (CT, label); the CT slice's forward
              Rayleigh over 4 devices (within 2e-5 of its peak, the
              difference printed); sweep-ct's ``run_fdtd_batch`` on a
@@ -501,6 +520,17 @@ FUSED_WORK.update({"visco_fused_point": FUSED_WORK["visco_fused"],
 # from L2, not counted.
 FUSED_WORK.update({"fluid_halo": FUSED_WORK["fluid_fused"],
                    "fluid_halo_dft": FUSED_WORK["fluid_fused_dft"]})
+# The visco halo sweep of K steps (csrc/fdtd_visco_halo.cu), per launch: as
+# the visco sweep (the 15 fields and the index read once, the 15 fields
+# written once: 31 volumes, 37 in the window; the psi slabs; the source
+# planes; the pair's operations a step), and with its volumetric drive
+# (``work``'s "visco_halo_volume" rows) the slot volume (32 volumes, 38)
+# and each source voxel's six floats read once, and the scatter's 6
+# operations a voxel a step. The scratch state of the steps in between is
+# written and read again (L2 mostly), and the halo a block recomputes read
+# again: neither is counted.
+FUSED_WORK.update({"visco_halo": FUSED_WORK["visco_fused"],
+                   "visco_halo_dft": FUSED_WORK["visco_fused_dft"]})
 # The BHTE sweep of K steps (csrc/bhte.cu bhte_fused_kernel), per launch:
 # T read and written, dose and peak read and written, the six
 # conductivities, irc, perf and Q read once (15 volumes, whatever K; the
@@ -515,7 +545,7 @@ def work(name, shape, ns=14, n_src=0, k=1):
     (with ``n_src`` source voxels for the volumetric scatter, ``k`` steps a
     launch for the fused sweep): each input read once and each output
     written once."""
-    if name.startswith("fluid_halo_volume"):
+    if name.startswith(("fluid_halo_volume", "visco_halo_volume")):
         b, f = work(name.replace("_volume", ""), shape, ns, k=k)
         return (b + 4.0 * float(np.prod(shape)) + n_src * 6 * 4,
                 f + k * n_src * SCATTER_FLOPS_PER_SOURCE)
@@ -1303,40 +1333,34 @@ def check_visco_fused(times, device="cuda"):
     return errs, out_t, out_b
 
 
-# the dome-ct slice's FDTD grid (DomeTx at 220 kHz, 6 PPW, CT mode) and the
-# CT slice's, for the halo sweep's checks and its head to head
+# the dome slices' FDTD grid (DomeTx at 220 kHz, 6 PPW), for the halo
+# sweeps' checks
 DOME_SHAPE = (392, 392, 337)
-CT_SHAPE = (216, 216, 224)
-# the depth chip_smoke pins for dome-ct's two volumetric run_fdtd calls
-# while run_fdtd(fuse_steps=None) keeps pair + scatter there
-# (ops.fdtd_halo_kernels.VOLUME_FUSE_BEST = 0): the halo sweep's fastest K
-# of those the volumetric schedule sweeps (K >= 2) at DOME_SHAPE (PERF.md)
+# the depth chip_smoke pins for every run_fdtd call of the dome slices (both
+# volumetric passes, in fluid or shear media) while run_fdtd(fuse_steps=None)
+# keeps pair + scatter there (ops.fdtd_halo_kernels.VOLUME_FUSE_BEST and
+# ops.fdtd_visco_halo_kernels.VISCO_VOLUME_FUSE_BEST are 0): the halo
+# sweeps' fastest K of those the volumetric schedules sweep (K >= 2) at
+# DOME_SHAPE in both families (PERF.md)
 DOME_PIN_K = 2
 _SHELLS: dict = {}
 
 
-def dome_fuse_steps():
-    """The ``fuse_steps`` chip_smoke gives dome-ct's ``run_fdtd`` calls:
-    None where the default takes the halo sweep, else ``DOME_PIN_K``."""
-    from babelbrain_tpu_torch.ops import fdtd as F
-
-    return None if F.volume_plan().k >= 2 else DOME_PIN_K
-
-
 @contextlib.contextmanager
-def pinned_fuse_steps(k):
-    """While a slice runs, its ``run_fdtd`` calls (``pipeline.acoustic``'s
-    name) take ``fuse_steps=k`` (nothing changes for None)."""
+def pinned_fuse_steps(dome: bool):
+    """While a dome slice runs, each of its ``run_fdtd`` calls
+    (``pipeline.acoustic``'s name) takes ``fuse_steps=DOME_PIN_K`` (nothing
+    changes when not ``dome``)."""
     from babelbrain_tpu_torch.pipeline import acoustic as A
 
     saved = A.run_fdtd
 
     def call(*args, **kwargs):
-        if k is not None:
-            kwargs.setdefault("fuse_steps", k)
+        kwargs.setdefault("fuse_steps", DOME_PIN_K)
         return saved(*args, **kwargs)
 
-    A.run_fdtd = call
+    if dome:
+        A.run_fdtd = call
     try:
         yield
     finally:
@@ -1355,15 +1379,16 @@ def shell_vsrc(shape, device):
     return _SHELLS[key]
 
 
-def corner_vsrc(shape, k, device):
-    """Source voxels where the halo sweep's blocks meet: on the corners of
-    the depth-``k`` owned tiles and on the outer edge of their halos (3K
-    cells beyond a tile), in every x-segment's first and last plane and in
-    between (seeded amplitudes, phases and directions)."""
+def corner_vsrc(shape, k, device, geometry=None):
+    """Source voxels where a halo sweep's blocks meet: on the corners of
+    the depth-``k`` owned tiles of ``geometry`` (the fluid halo sweep's
+    ``halo_launch_geometry`` by default) and on the outer edge of their
+    halos (3K cells beyond a tile), in every x-segment's first and last
+    plane and in between (seeded amplitudes, phases and directions)."""
     from babelbrain_tpu_torch.ops import fdtd_halo_kernels as HK
     from babelbrain_tpu_torch.ops.fdtd_sources import VolumeSource
 
-    geo = HK.halo_launch_geometry(shape, k)
+    geo = (geometry or HK.halo_launch_geometry)(shape, k)
     tz, ty = geo.tile
     cells = set()
     for i in sorted({0, geo.segment - 1, geo.segment, shape[0] // 2,
@@ -1384,16 +1409,16 @@ def corner_vsrc(shape, k, device):
         oz=rng.uniform(-1, 1, n)), shape, device)
 
 
-def _halo_start(shape, viscous, device, vsrc, source="volume"):
+def _halo_start(shape, viscous, device, vsrc):
     """(grid, coefficients, oz, the state FUSED_PRE_STEPS steps of pair
     (and scatter) leave) of the kernel phase's CT case with the volumetric
-    drive ``vsrc`` (or a ``source`` plane)."""
+    drive ``vsrc``."""
     from babelbrain_tpu_torch.ops import fdtd as F
     from babelbrain_tpu_torch.ops import fdtd_kernels as K
 
     n0 = FUSED_PRE_STEPS
-    grid, co, _, _, oz = fluid_case(shape, n0 + 8, n0 // 2, source, device,
-                                    viscous=viscous)
+    grid, co, _, _, oz = fluid_case(shape, n0 + 8, n0 // 2, "volume",
+                                    device, viscous=viscous)
     st = K.FluidState.zeros(shape, 14, device)
     for n in range(n0):
         F.fluid_step(st, co, grid, n, oz, 0.0, vsrc)
@@ -1440,13 +1465,9 @@ def check_fused_volume(times, device="cuda"):
     the 50-plane shard with each x_lo / x_hi pair. Then each K timed a
     launch and a step at both shapes (CUDA graphs of captured launches)
     against its bound and pair + scatter, its cells computed per cell
-    owned; and the head to head with a plane source at 192x192x240 and
-    216x216x224: the halo sweep at each K, the lockstep sweep at the depth
-    ``fused_plan`` takes there, the pair. Returns (errors, times, bounds)
-    keyed by kernel row, the rows at the dome's shape and the depth its
-    slice runs."""
+    owned. Returns (errors, times, bounds) keyed by kernel row, the rows at
+    the dome's shape and the depth its slice runs."""
     from babelbrain_tpu_torch.ops import fdtd as F
-    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
     from babelbrain_tpu_torch.ops import fdtd_halo_kernels as HK
     from babelbrain_tpu_torch.ops import fdtd_kernels as K
     from babelbrain_tpu_torch.ops import fdtd_sources as S
@@ -1501,7 +1522,7 @@ def check_fused_volume(times, device="cuda"):
     out_t, out_b = {}, {}
     if device != "cuda":
         return errs, out_t, out_b
-    k_main = F.volume_plan().k if F.volume_plan().k >= 2 else DOME_PIN_K
+    k_main = DOME_PIN_K
     for shape in (KERNEL_SHAPE, DOME_SHAPE):
         grid, co, oz, st = starts.pop(shape)
         vsrc = shell_vsrc(shape, device)
@@ -1543,41 +1564,172 @@ def check_fused_volume(times, device="cuda"):
                         st, co, rows, vsrc, with_dft=dft), 1, warm=1)
                     out_t[key] = (ms, plain)
                     out_b[key] = (b_ms, b_by)
-                    print(f"[fused-volume]   {key}: dome-ct's K={k} at "
+                    print(f"[fused-volume]   {key}: the dome slices' K={k} at "
                           f"{shape}; plain version {plain:.4f} ms a launch")
         del st
         HK.release()
-    # the head to head with a plane source: the halo sweep, the lockstep
-    # sweep at fused_plan's depth, the pair
-    for shape in (KERNEL_SHAPE, CT_SHAPE):
-        grid, co, oz, st = _halo_start(shape, True, device, None, "plane")
-        cells = float(np.prod(shape))
-        plan = F.fused_plan(shape, device, True, False)
-        for dft in (False, True):
-            s = F.step_scalars(grid, FUSED_PRE_STEPS, oz)
-            pair = (_timed_graph(lambda: K.fluid_velocity(st, co, s[0], s[1]),
-                                 10)
-                    + (_timed_graph(lambda: K.fluid_pressure(st, co, s[2],
-                                                             s[3]), 10)
-                       if dft else
-                       _timed_graph(lambda: K.fluid_pressure(st, co), 10)))
-            k_lock = plan.k_dft if dft else plan.k
-            rows = [F.step_scalars(grid, FUSED_PRE_STEPS + m, oz)
-                    for m in range(max(k_lock, HK.HALO_K_CAP))]
-            lock = _timed_graph(lambda: FK.fluid_fused(
-                st, co, rows[:k_lock], with_dft=dft, checked=True), 5)
-            line = (f"[fused-volume] head to head, plane source at {shape}, "
-                    f"{'window' if dft else 'quiet'} (ms a step): pair "
-                    f"{pair:.4f}; lockstep K={k_lock} {lock / k_lock:.4f} "
-                    f"({lock / k_lock / pair:.3f}x)")
-            for k in ks:
-                ms = _timed_graph(lambda: HK.fluid_halo(
-                    st, co, rows[:k], with_dft=dft, checked=True), 5)
-                line += f"; halo K={k} {ms / k:.4f} ({ms / k / pair:.3f}x)"
-            print(line + f" ({cells / 1e6:.2f} M cells)")
-        del st
-        HK.release()
     print(f"[fused-volume] phase {time.time() - t_phase:.2f} s")
+    return errs, out_t, out_b
+
+
+def _visco_halo_start(shape, viscous, device, vsrc):
+    """(grid, coefficients, oz, the state FUSED_PRE_STEPS steps of the visco
+    pair + scatter leave) of the kernel phase's label-mode case (the 5
+    label materials in layers) with the volumetric drive ``vsrc``."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
+
+    n0 = FUSED_PRE_STEPS
+    grid, co, _, _, oz, _ = visco_case(shape, n0 + 8, n0 // 2, "volume",
+                                       device)
+    co.viscous = co.viscous and viscous
+    st = V.ViscoState.zeros(shape, 14, device)
+    for n in range(n0):
+        F.visco_step(st, co, grid, n, oz, 0.0, vsrc)
+    return grid, co, oz, st
+
+
+def _visco_halo_case(grid, co, oz, st0, k, dft, vsrc):
+    """One ``visco_halo`` launch of ``k`` steps from ``st0`` against its
+    plain version (on the card) and ``k`` steps of the visco pair +
+    scatter: (the halo state, [(field, max abs diff)])."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_sources as S
+    from babelbrain_tpu_torch.ops import fdtd_visco_halo_kernels as VH
+    from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
+
+    n0 = FUSED_PRE_STEPS
+    halo, plain, pair = (_copy_state(st0) for _ in range(3))
+    rows = [F.step_scalars(grid, n, oz) for n in range(n0, n0 + k)]
+    VH.visco_halo(halo, co, rows, vsrc, with_dft=dft)
+    VH.visco_halo_ref(plain, co, rows, vsrc, with_dft=dft)
+    for s_sin, s_cos, cosw, sinw, _ in rows:
+        V.visco_velocity(pair, co, s_sin, s_cos)
+        S.velocity_volume_source(pair.vx, pair.vy, pair.vz, vsrc, s_sin,
+                                 s_cos)
+        if dft:
+            V.visco_stress(pair, co, cosw, sinw)
+        else:
+            V.visco_stress(pair, co)
+    if pair.vx.device.type == "cuda":
+        torch.cuda.synchronize()
+    bad = ([("plain", *b) for b in state_diff(halo, plain)]
+           + [("pair", *b) for b in state_diff(halo, pair)])
+    return halo, bad
+
+
+def check_visco_volume(times, device="cuda"):
+    """The visco halo sweep (``visco_halo``, csrc/fdtd_visco_halo.cu)
+    against its plain version and against K steps of the visco pair +
+    scatter, max abs difference 0 in all 15 fields, the psi slabs, the DFT
+    sums and the peak: every K it takes (1..VISCO_HALO_K_CAP) at
+    192x192x240 and at the dome's 392x392x337 (where the lockstep visco
+    sweep holds not even K = 1), with the 5 label materials and
+    ``shell_source``, quiet and window, viscous and inviscid; at 27x45x47
+    with source voxels on the tiles' corners and halo edges. Then each K
+    timed a launch and a step at both shapes (CUDA graphs of captured
+    launches) against its bound and pair + scatter, with its cells
+    computed per cell owned. Returns (errors, times, bounds) keyed by
+    kernel row, the rows at the dome's shape and the depth its label slice
+    runs."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_sources as S
+    from babelbrain_tpu_torch.ops import fdtd_visco_halo_kernels as VH
+    from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
+
+    t_phase = time.time()
+    ks = range(1, VH.VISCO_HALO_K_CAP + 1)
+    errs = {}
+
+    def report(tag, bad, st):
+        smax = float(st.sxx.abs().max())
+        print(f"[visco-volume] {tag}: max|sxx| {smax:.6g} Pa; fields "
+              f"differing from the plain version / pair + scatter {bad}")
+        if bad or not np.isfinite(smax) or smax <= 0:
+            fail(f"visco_halo differs ({tag}): {bad}; max|sxx| {smax}")
+
+    starts = {}
+    for shape in (KERNEL_SHAPE, DOME_SHAPE):
+        vsrc = shell_vsrc(shape, device)
+        for viscous in (True, False):
+            start = _visco_halo_start(shape, viscous, device, vsrc)
+            if viscous:
+                starts[shape] = start
+            for k in ks:
+                for dft in (False, True):
+                    st, bad = _visco_halo_case(*start, k, dft, vsrc)
+                    report(f"{shape} K={k} {vsrc.n_src} shell voxels "
+                           f"{'viscous' if viscous else 'inviscid'} "
+                           f"{'window' if dft else 'quiet'}", bad, st)
+                    errs[VH.halo_key(dft)] = 0.0
+                    del st
+            del start
+    for k in ks:
+        vsrc = corner_vsrc(RAGGED_SHAPE, k, device,
+                           VH.visco_halo_launch_geometry)
+        start = _visco_halo_start(RAGGED_SHAPE, True, device, vsrc)
+        for dft in (False, True):
+            st, bad = _visco_halo_case(*start, k, dft, vsrc)
+            report(f"{RAGGED_SHAPE} K={k} {vsrc.n_src} voxels on tile corners "
+                   f"and halo edges {'window' if dft else 'quiet'}", bad, st)
+    VH.release()
+    print(f"[visco-volume] checks {time.time() - t_phase:.2f} s")
+
+    out_t, out_b = {}, {}
+    if device != "cuda":
+        return errs, out_t, out_b
+    k_main = DOME_PIN_K
+    for shape in (KERNEL_SHAPE, DOME_SHAPE):
+        grid, co, oz, st = starts.pop(shape)
+        vsrc = shell_vsrc(shape, device)
+        cells = float(np.prod(shape))
+        s = F.step_scalars(grid, FUSED_PRE_STEPS, oz)
+        velocity = _timed_graph(lambda: V.visco_velocity(st, co, s[0], s[1]),
+                                10)
+        scatter = _timed_graph(lambda: S.velocity_volume_source(
+            st.vx, st.vy, st.vz, vsrc, s[0], s[1]), 10)
+        stress = {False: _timed_graph(lambda: V.visco_stress(st, co), 10),
+                  True: _timed_graph(lambda: V.visco_stress(st, co, s[2],
+                                                            s[3]), 10)}
+        for dft in (False, True):
+            step = velocity + scatter + stress[dft]
+            p_ms, _ = roofline(
+                work("visco_velocity", shape)[0]
+                + work("volume_source", shape, n_src=vsrc.n_src)[0]
+                + work("visco_stress_dft" if dft else "visco_stress",
+                       shape)[0], 0.0)
+            print(f"[visco-volume] pair + scatter at {shape}, "
+                  f"{'window' if dft else 'quiet'}: velocity {velocity:.4f} "
+                  f"+ scatter {scatter:.4f} + stress {stress[dft]:.4f} = "
+                  f"{step:.4f} ms a step ({cells / step / 1e3:.1f} "
+                  f"Mcell-updates/s; its bytes' bound {p_ms:.4f} ms)")
+            key = VH.halo_key(dft)
+            for k in ks:
+                rows = [F.step_scalars(grid, FUSED_PRE_STEPS + m, oz)
+                        for m in range(k)]
+                ms = _timed_graph(lambda: VH.visco_halo(
+                    st, co, rows, vsrc, with_dft=dft, checked=True), 5)
+                b_ms, b_by = bound(key, shape, n_src=vsrc.n_src, k=k)
+                geo = VH.visco_halo_launch_geometry(shape, k)
+                print(f"[visco-volume] {key} K={k} at {shape}: {ms:.4f} ms a "
+                      f"launch, {ms / k:.4f} ms a step "
+                      f"({cells * k / ms / 1e3:.1f} Mcell-updates/s); bound "
+                      f"{b_ms:.4f} ms ({b_by}), {b_ms / k:.4f} a step "
+                      f"({b_ms / ms:.0%}); pair + scatter {step:.4f} ms a "
+                      f"step ({ms / k / step:.3f}x); {geo.threads} threads a "
+                      f"block, grid {geo.grid}, segment {geo.segment}, "
+                      f"{geo.computed(shape):.3f} cells computed per cell "
+                      f"owned a step")
+                if shape == DOME_SHAPE and k == k_main:
+                    plain = _timed(lambda: VH.visco_halo_ref(
+                        st, co, rows, vsrc, with_dft=dft), 1, warm=1)
+                    out_t[key] = (ms, plain)
+                    out_b[key] = (b_ms, b_by)
+                    print(f"[visco-volume]   {key}: dome-label's K={k} at "
+                          f"{shape}; plain version {plain:.4f} ms a launch")
+        del st
+        VH.release()
+    print(f"[visco-volume] phase {time.time() - t_phase:.2f} s")
     return errs, out_t, out_b
 
 
@@ -2242,12 +2394,14 @@ def _counted_modules():
         fdtd_kernels,
         fdtd_sources,
         fdtd_visco_fused_kernels,
+        fdtd_visco_halo_kernels,
         fdtd_visco_kernels,
     )
 
     return (fdtd_kernels, fdtd_fused_kernels, fdtd_halo_kernels,
-            fdtd_visco_kernels, fdtd_visco_fused_kernels, fdtd_sources,
-            bhte_kernels, fdtd_extras, probes)
+            fdtd_visco_kernels, fdtd_visco_fused_kernels,
+            fdtd_visco_halo_kernels, fdtd_sources, bhte_kernels, fdtd_extras,
+            probes)
 
 
 def reset_counts():
@@ -2396,7 +2550,7 @@ def to_mask_frame(dom, ijk):
 
 
 def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
-               diagnostics=False, t1=None):
+               diagnostics=False, t1=None, n_steps=None):
     """The stage functions ``run_case`` calls, in its order (no files
     written): CT mode with a CT volume (a ZTE or PETRA MRI first turned
     into a pseudo-CT, by ``cfg.ct_type``; with ``cfg.coregister`` and
@@ -2407,7 +2561,8 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
     with ``cfg.do_refocus`` and, with ``diagnostics``, all 14 ``sel_maps``
     and the pressure series at ``beam_axis_monitors``. Step 3 runs
     ``run_sonication`` on one ``params`` entry, or ``run_all_combinations``
-    (chained, no files) on a list of them."""
+    (chained, no files) on a list of them. ``n_steps`` cuts the domain's
+    FDTD steps (its DFT window kept whole)."""
     from babelbrain_tpu_torch.ops.fdtd_extras import SEL_MAPS
     from babelbrain_tpu_torch.materials.ct_mapping import map_hu_to_properties
     from babelbrain_tpu_torch.pipeline.acoustic import (
@@ -2492,6 +2647,10 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
             offsets=offsets, shrink_cells=shrinks,
             shape_bucket=cfg.shape_bucket,
         )
+        if n_steps:
+            dom = dataclasses.replace(dom, n_steps=n_steps,
+                                      sensor_start=n_steps - (
+                                          dom.n_steps - dom.sensor_start))
         tx = build_transducer(spec, cfg.frequency)
         monitors = beam_axis_monitors(dom) if diagnostics else None
         if is_dome:
@@ -2521,6 +2680,9 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
             "tx": tx, "coreg": coreg}
 
 
+# the FDTD steps dome-ct runs, a third of its domain's 6750 (the DFT window
+# kept whole): all of them would not fit the time limit
+DOME_CT_STEPS = 2250
 # the slices of phase 4: (CT volume given?, transducer, frequency,
 # refocusing?, 1 W calibrated drive?); a "diag" slice asks for every
 # diagnostic (the 14 maps and the beam-axis series)
@@ -2534,6 +2696,8 @@ SLICES = {
     # the DomeTx's other published frequency: at 670 kHz the dome-fitted
     # domain would hold ~30x the cells
     "dome-ct": (True, "DomeTx", 220e3, False, True),
+    # dome-ct's case in label mode: its tissue pass in shear media
+    "dome-label": (False, "DomeTx", 220e3, False, True),
     # the CT slice from a synthetic ZTE MRI of the head (pseudo-CT first)
     "zte-ct": (True, "CTX_500", F0, False, False),
     # zte-ct with the MRI moved off the head and registered to its T1 first
@@ -2586,7 +2750,7 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
         rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         t0 = time.time()
         with recording_bhte() as bhte_loops:
-            if have_h5py and not (diag or zte):
+            if have_h5py and not (diag or zte or mode == "dome-ct"):
                 print(f"{tag} driving run_case (h5py present)")
                 res = run_case(cfg, labels, aff, target, direction, ct_data=ct,
                                ct_affine=aff if ct is not None else None,
@@ -2598,7 +2762,9 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
                          else "the pseudo-CT stage in the open)" if zte
                          else "h5py missing)"))
                 res = run_stages(cfg, labels, aff, ct, target, direction,
-                                 params, mask_shape, diagnostics=diag, t1=t1)
+                                 params, mask_shape, diagnostics=diag, t1=t1,
+                                 n_steps=DOME_CT_STEPS if mode == "dome-ct"
+                                 else None)
             if device == "cuda":
                 torch.cuda.synchronize()
         wall = time.time() - t0
@@ -2696,9 +2862,9 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
     expect = {k: 0 for k in launches}
     expect_bhte(expect, [params], device)  # the locating run + schedule
     if dome:  # the tissue and the water pass, both volumetric
-        expect_fused_run(expect, _make_grid(dom, "velocity_volume"),
-                         dom.materials, n=runs, device=device,
-                         fuse_steps=dome_fuse_steps())
+        for mats in (dom.materials, dom.materials[:1]):
+            expect_fused_run(expect, _make_grid(dom, "velocity_volume"),
+                             mats, device=device, fuse_steps=DOME_PIN_K)
     elif not diag:
         # plane and point runs: the fused sweeps by default
         expect_fused_run(expect, _make_grid(dom), dom.materials, n=runs,
@@ -2754,15 +2920,69 @@ def _block_mean(v, f):
 
 
 def export_meshes(step1, prefix):
-    """``export_surface_meshes`` of a Step-1 result: (triangles per
-    surface, seconds)."""
+    """``export_surface_meshes`` of a Step-1 result: triangles per
+    surface."""
     from babelbrain_tpu_torch.ops.voxelize import read_stl
     from babelbrain_tpu_torch.pipeline.step1 import export_surface_meshes
 
-    t0 = time.time()
     files = export_surface_meshes(step1, prefix)
-    dt = time.time() - t0
-    return {k: len(read_stl(v)) for k, v in files.items()}, dt
+    return {k: len(read_stl(v)) for k, v in files.items()}
+
+
+# host work that runs beside the later phases, and the checks of its
+# results: [(future, check)], joined (and emptied) by ``finish_background``
+# before the mesh phase, so that its loop times, idle shares and the probes
+# share neither the host nor the card with it
+BACKGROUND: list = []
+
+
+def _host_call(fn, *args, **kw):
+    """(``fn(*args, **kw)``, its seconds on the host clock)."""
+    t0 = time.time()
+    out = fn(*args, **kw)
+    return out, time.time() - t0
+
+
+def in_background(fn, *args, check, process=True, **kw):
+    """Run ``fn(*args, **kw)`` beside the later phases: in a spawned process
+    with two torch threads (host work that would hold this interpreter or
+    the host's cores), or in a thread (``process=False``: a call that waits
+    on a process of its own). ``check(result, seconds)`` runs in
+    ``finish_background``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+    pool = (ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=torch.set_num_threads, initargs=(2,))
+        if process else ThreadPoolExecutor(1))
+    job = pool.submit(_host_call, fn, *args, **kw)
+
+    def collect():
+        try:
+            result, seconds = job.result()
+        finally:
+            pool.shutdown()
+        check(result, seconds)
+
+    BACKGROUND.append((job, collect))
+
+
+def background_note(phase):
+    """Print how many jobs of ``BACKGROUND`` are still running as ``phase``
+    starts: its times are taken beside them."""
+    n = sum(not job.done() for job, _ in BACKGROUND)
+    print(f"[background] {n} of {len(BACKGROUND)} job(s) running as {phase} "
+          "starts")
+
+
+def finish_background():
+    """Wait for every job of ``BACKGROUND`` and run its checks; prints the
+    wait."""
+    t0, n = time.time(), len(BACKGROUND)
+    while BACKGROUND:
+        BACKGROUND.pop(0)[1]()
+    print(f"[background] joined {n} job(s) in {time.time() - t0:.2f} s")
 
 
 def check_coregistration(tag, res, zte, aff, t1, device="cuda"):
@@ -2772,23 +2992,22 @@ def check_coregistration(tag, res, zte, aff, t1, device="cuda"):
     takes it) and the quality gate, with its statistics per level. Then
     ``register_rigid`` on the card and on this machine's CPU on the pair
     block-averaged to 64^3, which must agree within the port's JAX parity
-    band (0.25 deg, 0.25 voxel, quality 1e-3); meanwhile, in a process of
-    its own (the host's mesh work overlaps that check without sharing its
-    interpreter), ``export_surface_meshes`` of the slice's Step-1 result,
-    timed."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+    band (0.25 deg, 0.25 voxel, quality 1e-3); the CPU run, and
+    ``export_surface_meshes`` of the slice's Step-1 result, in processes of
+    their own beside the anchors and sweep-ct (``in_background``)."""
+    tmp = tempfile.TemporaryDirectory()
+    shape = res["step1"].mask.shape
 
-    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        mesh_job = pool.submit(export_meshes, res["step1"],
-                               os.path.join(tmp, "chip_smoke"))
-        check_registration(tag, res, zte, aff, t1, device)
-        tris, dt = mesh_job.result()
-    print(f"{tag} export_surface_meshes of the Step-1 mask "
-          f"{res['step1'].mask.shape}: triangles {tris} in {dt:.2f} s")
-    if sorted(tris) != ["bone", "csf", "skin"] or min(tris.values()) <= 0:
-        fail(f"coreg-zte: surface meshes {tris}")
+    def meshes_made(tris, seconds):
+        tmp.cleanup()
+        print(f"{tag} export_surface_meshes of the Step-1 mask {shape} (in "
+              f"the background): triangles {tris} in {seconds:.2f} s")
+        if sorted(tris) != ["bone", "csf", "skin"] or min(tris.values()) <= 0:
+            fail(f"coreg-zte: surface meshes {tris}")
+
+    in_background(export_meshes, res["step1"],
+                  os.path.join(tmp.name, "chip_smoke"), check=meshes_made)
+    check_registration(tag, res, zte, aff, t1, device)
 
 
 def check_registration(tag, res, zte, aff, t1, device):
@@ -2827,24 +3046,30 @@ def check_registration(tag, res, zte, aff, t1, device):
                              device=device)
     fx = _block_mean(t1v, COREG_CHECK_FACTOR)
     mvs = _block_mean(mv, COREG_CHECK_FACTOR)
-    out = {}
-    for dev in (device, "cpu"):
-        t0 = time.time()
-        out[dev] = register_rigid(fx, mvs, return_quality=True, device=dev)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        print(f"{tag} register_rigid at {fx.shape} on {dev}: "
-              f"{time.time() - t0:.3f} s, params "
-              f"{np.round(out[dev][0].astype(np.float64), 6).tolist()}, "
-              f"quality {out[dev][2]:.6f}")
-    (pd, _, qd), (pc, _, qc) = out[device], out["cpu"]
-    drot = float(np.rad2deg(np.abs(pd[:3] - pc[:3])).max())
-    dtr = float(np.abs(pd[3:] - pc[3:]).max())
-    print(f"{tag} {device} vs cpu at {fx.shape}: {drot:.5f} deg, {dtr:.5f} "
-          f"voxels, quality {abs(qd - qc):.2e}")
-    if drot >= 0.25 or dtr >= 0.25 or abs(qd - qc) >= 1e-3:
-        fail(f"coreg-zte: {device} and cpu registrations differ by {drot} "
-             f"deg, {dtr} voxels, quality {abs(qd - qc)}")
+    t0 = time.time()
+    pd, _, qd = register_rigid(fx, mvs, return_quality=True, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    print(f"{tag} register_rigid at {fx.shape} on {device}: "
+          f"{time.time() - t0:.3f} s, params "
+          f"{np.round(pd.astype(np.float64), 6).tolist()}, quality {qd:.6f}")
+
+    def compare(cpu, seconds):
+        pc, _, qc = cpu
+        print(f"{tag} register_rigid at {fx.shape} on cpu (in the "
+              f"background, two threads): {seconds:.3f} s, params "
+              f"{np.round(pc.astype(np.float64), 6).tolist()}, quality "
+              f"{qc:.6f}")
+        drot = float(np.rad2deg(np.abs(pd[:3] - pc[:3])).max())
+        dtr = float(np.abs(pd[3:] - pc[3:]).max())
+        print(f"{tag} {device} vs cpu at {fx.shape}: {drot:.5f} deg, "
+              f"{dtr:.5f} voxels, quality {abs(qd - qc):.2e}")
+        if drot >= 0.25 or dtr >= 0.25 or abs(qd - qc) >= 1e-3:
+            fail(f"coreg-zte: {device} and cpu registrations differ by "
+                 f"{drot} deg, {dtr} voxels, quality {abs(qd - qc)}")
+
+    in_background(register_rigid, fx, mvs, return_quality=True, device="cpu",
+                  check=compare)
 
 
 # slice sweep-ct: two targets 5 mm apart on the beam axis, shape-bucketed to
@@ -3685,8 +3910,9 @@ def anchor_workers(device="cuda"):
     """The CT slice's ``generate_mask`` (``run_stages``' call: the digital
     head, CTX-500 at 500 kHz and 6 PPW, ``MASK_SHAPE``) on the card in this
     process and through ``workers.calculate_mask_process`` in a spawned
-    child that opens its own CUDA context: every array of the two results
-    equal. Prints the child's wall time."""
+    child that opens its own CUDA context (waited on in a thread beside
+    sweep-ct, ``in_background``): every array of the two results equal.
+    Prints the child's wall time."""
     from babelbrain_tpu_torch.pipeline.step1 import generate_mask
     from babelbrain_tpu_torch.pipeline.workers import (
         ERROR_SENTINEL,
@@ -3701,19 +3927,22 @@ def anchor_workers(device="cuda"):
               ct_affine=aff, hu_threshold=300.0, device=device)
     here = generate_mask(**kw)
     logs = []
-    t0 = time.time()
-    child = calculate_mask_process(on_log=logs.append, **kw)
-    wall = time.time() - t0
-    names = ("mask", "affine", "target_idx", "ct_index", "unique_hu",
-             "air_mask")
-    differ = [n for n in names
-              if not np.array_equal(getattr(child, n), getattr(here, n))]
-    print(f"{tag}: generate_mask of the CT slice in a spawned child "
-          f"({wall:.2f} s wall, {len(logs)} log lines) and in this process: "
-          f"mask {child.mask.shape}, {len(child.unique_hu)} HU levels; "
-          f"arrays differing {differ}")
-    if differ or any(ln.strip() == ERROR_SENTINEL for ln in logs):
-        fail(f"the spawned Step 1 differs from the in-process one: {differ}")
+
+    def compare(child, wall):
+        names = ("mask", "affine", "target_idx", "ct_index", "unique_hu",
+                 "air_mask")
+        differ = [n for n in names
+                  if not np.array_equal(getattr(child, n), getattr(here, n))]
+        print(f"{tag}: generate_mask of the CT slice in a spawned child "
+              f"({wall:.2f} s wall, beside sweep-ct; {len(logs)} log "
+              f"lines) and in this process: mask {child.mask.shape}, "
+              f"{len(child.unique_hu)} HU levels; arrays differing {differ}")
+        if differ or any(ln.strip() == ERROR_SENTINEL for ln in logs):
+            fail(f"the spawned Step 1 differs from the in-process one: "
+                 f"{differ}")
+
+    in_background(calculate_mask_process, on_log=logs.append, check=compare,
+                  process=False, **kw)
 
 
 def run_anchors(device="cuda"):
@@ -3758,12 +3987,16 @@ MESH_POINT_ONLY = ("refocus-ct", "refocus-label")
 # the slices whose run_fdtd calls go through the fused sweeps by default:
 # each call is run again through the pair, step by step, and must equal it
 FUSED_SLICES = ("ct", "label", "refocus-ct", "refocus-label", "zte-ct",
-                "coreg-zte", "dome-ct")
-# the run_fdtd call (its place among a slice's calls) the mesh phase replays
+                "coreg-zte", "dome-ct", "dome-label")
+# the run_fdtd call (its place among dome-ct's calls) the mesh phase replays
 # with fuse_steps=1, through pair + scatter with 2 ghost planes (the path of
 # a volumetric run that keeps the pair), the slice's other calls as they
 # were made: dome-ct's water pass
-MESH_PAIR_REPLAY = {"dome-ct": 1}
+DOME_CT_PAIR_REPLAY = 1
+# the steps the mesh phase replays dome-ct's calls at, against an unsharded
+# run at that depth (the DFT window kept whole): all of DOME_CT_STEPS would
+# not fit the time limit
+DOME_CT_REPLAY_STEPS = 450
 MESH_CHECK_STEPS = 40
 # mode -> [(function name, args, kwargs, result, loop seconds)] of the
 # pipeline calls a slice made (``recording``)
@@ -3811,15 +4044,19 @@ def recording(mode):
 def expect_fused_run(expect, grid, materials, n=1, device="cuda",
                      fuse_steps=None):
     """Add the launches ``n`` calls of ``run_fdtd`` on ``grid`` make in
-    ``materials`` (fluid, or shear media) with a plane, point or (fluid)
+    ``materials`` (fluid, or shear media) with a plane, point or
     volumetric source and no diagnostics: the fused sweeps and the pair's
     tail steps of ``ops.fdtd.fused_schedule`` at the depths ``fused_plan``
-    / ``visco_plan`` / ``volume_plan`` take on the card (``fuse_steps`` as
-    the calls passed it; a volumetric run's sweeps are ``fluid_halo``'s,
-    its tail steps scatter too)."""
+    / ``visco_plan`` / ``volume_plan`` / ``visco_volume_plan`` take on the
+    card (``fuse_steps`` as the calls passed it; a volumetric run's sweeps
+    are ``fluid_halo``'s or ``visco_halo``'s, its tail steps scatter
+    too)."""
     from babelbrain_tpu_torch.ops import fdtd as F
     from babelbrain_tpu_torch.ops.fdtd_halo_kernels import halo_key
     from babelbrain_tpu_torch.ops.fdtd_kernels import pressure_key
+    from babelbrain_tpu_torch.ops.fdtd_visco_halo_kernels import (
+        halo_key as visco_halo_key,
+    )
 
     mats = np.asarray(materials, np.float64)
     viscous = F.sls_coefficients(mats, grid.frequency, grid.dt)["viscous"]
@@ -3828,16 +4065,20 @@ def expect_fused_run(expect, grid, materials, n=1, device="cuda",
     volume = grid.source_type == "velocity_volume"
     fam, stem = ("visco", "visco_stress") if visco else ("fluid",
                                                          "fluid_pressure")
-    plan = (F.volume_plan(fuse_steps) if volume
-            else (F.visco_plan if visco else F.fused_plan)(
-                grid.shape, device, viscous, point is not None, fuse_steps))
+    if volume:
+        plan = (F.visco_volume_plan(grid, fuse_steps) if visco
+                else F.volume_plan(fuse_steps))
+    else:
+        plan = (F.visco_plan if visco else F.fused_plan)(
+            grid.shape, device, viscous, point is not None, fuse_steps)
     for _, k, dft in F.fused_schedule(grid, plan):
         if k == 1:
             expect[f"{fam}_velocity"] += n
             expect[pressure_key(stem, dft, point)] += n
             expect["volume_source"] += n * volume
         elif volume:
-            expect[halo_key(True, dft)] += n
+            expect[visco_halo_key(dft) if visco
+                   else halo_key(True, dft)] += n
         else:
             expect[pressure_key(f"{fam}_fused", dft, point)] += n
 
@@ -4219,12 +4460,37 @@ def _expect_shard_launches(expect, grid, materials, n_shards, mesh=None,
         expect[f"{stem}_point_dft"] += n - s
 
 
+def _shallow_replay(args, kw, n_steps, device="cuda"):
+    """A recorded ``run_fdtd`` call cut to ``n_steps`` (its DFT window kept
+    whole): (its args, its keywords, its grid, the unsharded run's result
+    at that depth on ``device``, that run's loop seconds). The unsharded
+    run takes the default depth; its launches are set aside."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.utils.timing import clear_spans, recorded_spans
+
+    bound = inspect.signature(F.run_fdtd).bind(*args, **kw)
+    grid = bound.arguments["grid"]
+    grid = dataclasses.replace(grid, n_steps=n_steps, sensor_start=n_steps - (
+        grid.n_steps - grid.sensor_start))
+    bound.arguments["grid"] = grid
+    args, kw = bound.args, bound.kwargs
+    saved = read_counts()
+    clear_spans()
+    ref = F.run_fdtd(*args, device=device, **{
+        k: v for k, v in kw.items() if k != "fuse_steps"})
+    restore_counts(*saved)
+    loop = next(dt for label, dt in recorded_spans()
+                if label.endswith("FDTD time loop"))
+    return args, kw, grid, ref, loop
+
+
 def run_mesh(times, device="cuda"):
     """The mesh phase (one card): the kernels on shards
     (``check_mesh_kernels``), then the recorded ``run_fdtd`` calls of the
     CT, label, diag-ct and dome-ct slices and refocus-ct's point run again
     on a ``MESH_SHARDS``-shard mesh, each equal to its slice's unsharded
-    result bit for bit; the CT
+    result bit for bit (dome-ct's at ``DOME_CT_REPLAY_STEPS``, to an
+    unsharded run at that depth); the CT
     slice's forward Rayleigh over a 4-device mesh; sweep-ct's
     ``run_fdtd_batch`` on a 2-device case mesh, equal to its unsharded
     batch. Counts are set to 0 before the replays and read after: every
@@ -4263,12 +4529,15 @@ def run_mesh(times, device="cuda"):
         calls = [c for c in RECORDED.get(mode, ()) if c[0] == "run_fdtd"]
         for j, (name, args, kw, ref, loop) in enumerate(calls):
             kw = {k: v for k, v in kw.items() if k not in ("device", "mesh")}
-            if MESH_PAIR_REPLAY.get(mode) == j:
+            if mode == "dome-ct" and j == DOME_CT_PAIR_REPLAY:
                 kw["fuse_steps"] = 1
             grid, mats = _bound(run_fdtd, args, kw, "grid", "materials")
             if (mode in MESH_POINT_ONLY
                     and grid.source_type != "stress_point"):
                 continue
+            if mode == "dome-ct":
+                args, kw, grid, ref, loop = _shallow_replay(
+                    args, kw, DOME_CT_REPLAY_STEPS, device)
             clear_spans()
             t0 = time.time()
             out = run_fdtd(*args, mesh=mesh, **kw)
@@ -4288,7 +4557,7 @@ def run_mesh(times, device="cuda"):
                   f"({grid.source_type}"
                   + (f", {len(extra)} maps and series" if extra else "")
                   + f") on {MESH_SHARDS} shards: wall {wall:.3f} s, loop "
-                  f"{loop_mesh:.3f} s against the slice's unsharded loop "
+                  f"{loop_mesh:.3f} s against the unsharded loop "
                   f"{loop:.3f} s ({loop_mesh / loop:.3f}x); halo "
                   f"{halo / 1e6:.3f} MB a step{sweep}; fields differing "
                   f"from the slice's result {bad}")
@@ -4417,6 +4686,7 @@ def check_mesh_cards(cards):
 FLUID_CU = "babelbrain_tpu_torch/csrc/fdtd_fluid.cu"
 FUSED_CU = "babelbrain_tpu_torch/csrc/fdtd_fluid_fused.cu"
 HALO_CU = "babelbrain_tpu_torch/csrc/fdtd_fluid_halo.cu"
+VISCO_HALO_CU = "babelbrain_tpu_torch/csrc/fdtd_visco_halo.cu"
 VISCO_FUSED_CU = "babelbrain_tpu_torch/csrc/fdtd_visco_fused.cu"
 VISCO_CU = "babelbrain_tpu_torch/csrc/fdtd_visco.cu"
 SOURCES_CU = "babelbrain_tpu_torch/csrc/fdtd_sources.cu"
@@ -4471,6 +4741,13 @@ SOURCES = {
                           f"{PALLAS}:1815"),
     "fluid_halo_volume_dft": ("fluid_halo_kernel<WITH_DFT, VOLUME>", HALO_CU,
                               f"{PALLAS}:1815"),
+    # B8's volumetric drive (:4905, injected at :5293) inside its K-step
+    # sweep (B6's K = 1 form :3666): the visco halo sweep, which always
+    # drives the volume, timed at the dome's grid and dome-label's depth
+    "visco_halo_volume": ("visco_halo_kernel", VISCO_HALO_CU,
+                          f"{PALLAS}:4905"),
+    "visco_halo_volume_dft": ("visco_halo_kernel<WITH_DFT>", VISCO_HALO_CU,
+                              f"{PALLAS}:4905"),
     # B6 build_visco_fused_step's point injection (the same as B8's)
     "visco_stress_point": ("visco_stress_kernel<POINT>", VISCO_CU,
                            f"{PALLAS}:3780"),
@@ -4543,20 +4820,21 @@ def main():
             errs[k] = max(errs.get(k, 0.0), v)
         times.update(t)
     for e, t, b in (check_fused(times), check_visco_fused(times),
-                    check_fused_volume(times), check_bhte_fused(times),
+                    check_fused_volume(times), check_visco_volume(times),
+                    check_bhte_fused(times),
                     check_diagnostics("fluid"),
                     check_diagnostics("visco"), check_probe_kernels()):
         errs.update(e)
         times.update(t)
         bounds.update(b)
     n_shell = int((shell_source(KERNEL_SHAPE)["amp"] > 0).sum())
-    # every counted kernel (the halo sweep's plane-source rows are timed in
-    # the head to head only, off the kernel table)
+    # every counted kernel (the halo sweep's plane-source instantiations
+    # are checked by the cuda tests only, off the kernel table)
     launches = dict.fromkeys([*SOURCES, *read_counts()[0]], 0)
     for mode in SLICES:
         with (recording(mode) if mode in MESH_SLICES + FUSED_SLICES
               else contextlib.nullcontext()), pinned_fuse_steps(
-                  dome_fuse_steps() if mode == "dome-ct" else None):
+                  mode.startswith("dome")):
             counts, slice_errs = run_slice(have["h5py"], mode)
         if mode in FUSED_SLICES:
             check_fused_runs(mode)
@@ -4566,11 +4844,14 @@ def main():
             launches[k] += v
         for k, v in slice_errs.items():
             errs[k] = max(errs[k], v)
+    background_note("the anchors")
+    for k, v in run_anchors().items():
+        launches[k] += v
+    background_note("sweep-ct")
     with recording("sweep-ct"):
         for k, v in run_sweep(have["h5py"]).items():
             launches[k] += v
-    for k, v in run_anchors().items():
-        launches[k] += v
+    finish_background()
     mesh_errs, counts = run_mesh(times)
     RECORDED.clear()
     for k, v in counts.items():

@@ -845,6 +845,99 @@ def test_visco_fused_run_fdtd_matches_the_pair(cuda, source):
         np.testing.assert_array_equal(out[name], ref[name], err_msg=name)
 
 
+# the visco halo sweep's cases: (K, viscous, with the DFT)
+VISCO_HALO_CASES = [(k, viscous, dft) for k in (1, 2)
+                    for viscous in (True, False) for dft in (False, True)]
+
+
+@pytest.mark.parametrize("shape", [(36, 40, 56), (27, 45, 47),
+                                   (37, 41, 57)])
+@pytest.mark.parametrize("k,viscous,dft", VISCO_HALO_CASES)
+def test_visco_halo_kernel_matches_plain(cuda, k, viscous, dft, shape):
+    """``visco_halo`` (K visco steps a launch in halo-recomputing blocks,
+    with the volumetric drive) against its plain version and against K
+    steps of the visco pair + scatter, every field and psi slab bit-equal,
+    from the state 20 steps leave, with a shell of source voxels."""
+    from babelbrain_tpu_torch.ops import fdtd_visco_halo_kernels as VH
+
+    grid, co = _visco_source_setup(cuda, shape, "velocity_volume")
+    co.viscous = co.viscous and viscous
+    vsrc = _shell(grid.shape, cuda)
+    oz = 1.0 / (1000.0 * 1500.0)
+    st = V.ViscoState.zeros(grid.shape, 14, cuda)
+    for n in range(20):
+        F.visco_step(st, co, grid, n, oz, 0.0, vsrc)
+    halo, plain, pair = (_copy(st) for _ in range(3))
+    rows = [F.step_scalars(grid, n, oz) for n in range(20, 20 + k)]
+    before = dict(VH.launches)
+    VH.visco_halo(halo, co, rows, vsrc, with_dft=dft)
+    VH.visco_halo_ref(plain, co, rows, vsrc, with_dft=dft)
+    for s_sin, s_cos, cosw, sinw, _ in rows:
+        V.visco_velocity(pair, co, s_sin, s_cos)
+        S.velocity_volume_source(pair.vx, pair.vy, pair.vz, vsrc, s_sin,
+                                 s_cos)
+        if dft:
+            V.visco_stress(pair, co, cosw, sinw)
+        else:
+            V.visco_stress(pair, co)
+    torch.cuda.synchronize()
+    key = VH.halo_key(dft)
+    assert VH.launches[key] - before[key] == 1
+    assert float(halo.sxx.abs().max()) > 0
+    fields = (VH.FIELDS + ("acc_cos", "acc_sin", "peak"))
+    _fields_equal(halo, plain, fields, ("psi_s", "psi_v"))
+    _fields_equal(halo, pair, fields, ("psi_s", "psi_v"))
+    VH.release()
+
+
+@pytest.mark.parametrize("n_steps", [60, 61])
+@pytest.mark.parametrize("k", sorted({2, F.VISCO_HALO_K_CAP}))
+def test_visco_halo_run_fdtd_matches_pair_and_scatter(cuda, k, n_steps):
+    """``run_fdtd`` in shear media with a volumetric source and
+    ``fuse_steps=k`` (K-step halo sweeps, then pair + scatter for the
+    tail) equals pair + scatter step by step."""
+    import dataclasses
+
+    from babelbrain_tpu_torch.ops import fdtd_visco_halo_kernels as VH
+
+    grid, co = _visco_source_setup(cuda, (36, 40, 56), "velocity_volume")
+    grid = dataclasses.replace(grid, n_steps=n_steps, sensor_start=41)
+    idx = co.mat_idx.cpu().numpy()
+    mats = material_array(F0, tissues=("Water", "Skin", "Cortical",
+                                       "Trabecular", "Brain"))
+    vsrc = _shell(grid.shape, cuda)
+    before = dict(VH.launches)
+    out = F.run_fdtd(idx, mats, grid, volume_source=vsrc, fuse_steps=k,
+                     device="cuda")
+    assert VH.launches["visco_halo_volume"] > before["visco_halo_volume"]
+    step, st, co2, oz, vs = F.fdtd_setup(idx, mats, grid, volume_source=vsrc,
+                                         device="cuda")
+    F._time_loop([(step, st, co2, vs, None)], grid, oz)
+    ref = F._carrier(st, grid)
+    for name in ("p_amp", "p_phase", "peak"):
+        np.testing.assert_array_equal(out[name], ref[name], err_msg=name)
+
+
+def test_visco_halo_entry_point_refuses_aliasing(cuda):
+    """The C entry point refuses an output state that aliases its input
+    (neighbouring blocks read the input's halo cells)."""
+    from babelbrain_tpu_torch.ops import fdtd_visco_halo_kernels as VH
+
+    grid, co = _visco_source_setup(cuda, (36, 40, 56), "velocity_volume")
+    vsrc = _shell(grid.shape, cuda)
+    st = V.ViscoState.zeros(grid.shape, 14, cuda)
+    VH.visco_halo(st, co, [F.step_scalars(grid, 0, 1.0)], vsrc)  # the twin
+    twin, _ = VH._twin(st, 1)
+    saved = twin.syz
+    twin.syz = st.syz
+    try:
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            VH.visco_halo(st, co, [F.step_scalars(grid, 1, 1.0)], vsrc)
+    finally:
+        twin.syz = saved
+        VH.release()
+
+
 def test_visco_fused_wrapper_rejects_mixed_devices(cuda):
     from babelbrain_tpu_torch.ops import fdtd_visco_fused_kernels as VF
 
