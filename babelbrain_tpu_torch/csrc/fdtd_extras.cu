@@ -4,13 +4,15 @@
 // MONITOR instantiations, fdtd_fluid.cu / fdtd_visco.cu and Monitor in
 // fdtd_stencil.cuh.)
 //
-// Replaces (TPU kernels of the JAX package, babelbrain_tpu/ops/fdtd_pallas.py):
-//   the with_p2 accumulator of build_fluid_fusedK_step (B4, the acc_p2 slab
-//   that sums p^2 beside the DFT and the peak over every step of a sweep,
-//   :2288-2304, serving sel_maps=("Pressure_rms",)), generalised to what the
-//   XLA path serves (babelbrain_tpu/ops/fdtd.py _update_extras): the 14 maps
-//   <Field>_rms / <Field>_peak over Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy,
-//   Sigmazz in fluid and viscoelastic media.
+// Replaces no TPU kernel: it computes what the JAX package's XLA path
+// serves (babelbrain_tpu/ops/fdtd.py _update_extras), the 14 maps
+// <Field>_rms / <Field>_peak over Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy,
+// Sigmazz in fluid and viscoelastic media, after each step a run takes on
+// the pair: the 14-map runs, the viscoelastic ones, and the tail steps of a
+// fluid run whose window goes through the fused sweep. B4's own with_p2
+// accumulator (build_fluid_fusedK_step, babelbrain_tpu/ops/fdtd_pallas.py
+// :2288-2303) is ported inside that sweep (fdtd_fluid_fused.cu, EXTRAS),
+// which rounds p^2 as this pass does.
 //
 // extras_accumulate_kernel<VISCO>: one pass after the pressure / stress
 // kernel at each step of the sensor window. A bitmask says which of the 14
@@ -29,8 +31,8 @@
 // card's balance. The design: one thread per cell, threadIdx.x along z (the
 // contiguous axis), so every stream is read and written in 128-byte lines;
 // the mask branch is uniform across the grid. Fusing the pass into the
-// pressure / stress kernel (as B4 fuses acc_p2 into its sweep) saves the
-// re-read of the fields and is later perf work.
+// pair's pressure / stress kernel saves the re-read of the fields and is
+// later perf work.
 //
 // Rounding: built with --fmad=false and written in the operation order of
 // the plain PyTorch version (ops/fdtd_extras.py extras_accumulate_ref), so

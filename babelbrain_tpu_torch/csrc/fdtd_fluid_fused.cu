@@ -6,12 +6,18 @@
 //   build_fluid_fused_step (B2, K = 1), build_fluid_fused2_step (B3, K = 2)
 //   and build_fluid_fusedK_step (B4, K >= 3): the velocity and the pressure
 //   half-steps of K steps in one sweep, with the CPML, the SLS memory, the
-//   plane or point source, and the carrier DFT and |p| peak of every step.
-//   Their volumetric (dome) drive and B4's with_p2 / monitor capture are not
-//   here: those runs keep the one-step pair (fdtd_fluid.cu). Each cell's
-//   arithmetic is the pair's, in the pair's order (fdtd_stencil.cuh's
-//   helpers and their L2-loading twins), so K steps of this kernel equal K
-//   steps of the pair bit for bit.
+//   plane or point source, and the carrier DFT and |p| peak of every step;
+//   in the EXTRAS instantiations also B4's with_p2 accumulator (acc_p2,
+//   :1924 / :1957, summed :2288-2303: p^2 of every window step, the
+//   Pressure_rms map) and the monitor capture of its driver
+//   simulate_fluid_pallas (:2840-2943: the pressure at listed voxels, here
+//   at every sampled step of the sweep, not once a sweep). Their volumetric
+//   (dome) drive is not here: it runs in the halo sweep
+//   (fdtd_fluid_halo.cu). Each cell's arithmetic is the pair's, in the
+//   pair's order (fdtd_stencil.cuh's helpers and their L2-loading twins),
+//   and the p^2 sum is extras_accumulate_kernel's (fdtd_extras.cu), so K
+//   steps of this kernel equal K steps of the pair (with the maps' pass and
+//   the MONITOR sample) bit for bit.
 //
 // What bounds it on this card: the pair is bound by device-memory traffic
 // (16 float volumes a step, 22 inside the sensor window). A sweep reads p,
@@ -71,6 +77,23 @@
 // instead of the grid barrier, and thread-block clusters sharing halos in
 // distributed shared memory are later work.
 //
+// EXTRAS (only with WITH_DFT and XALL: JAX sends sharded extras runs to its
+// XLA path, and the port's sharded diagnostic runs keep the pair): where the
+// stage writes a cell's new pressure it also adds pn * pn to acc_p2 (a load,
+// an add, a store; nothing live across the march), and samples pn at the
+// listed monitor voxels into its step's row of the series (rows.mon_row[s],
+// -1: not sampled, no store). The sample is taken from the register at the
+// write: stage s + 1 overwrites the plane kLag march steps later, so a read
+// of p after the march (the pair's copy_listed) would see only the last
+// stage's value. The voxels are sorted by the warp that writes them, keyed
+// by (z-tile, y-tile, row) whatever the stage, and within a warp by cell
+// (ops/fdtd_extras.py sweep_csr); each stage walks its warp's entries plane
+// by plane with one cursor (e, e_end: two registers), every lane of the warp
+// through the same entries, the lane that owns the cell storing it. A warp
+// with no listed voxel does one compare a plane. A null acc_p2 or monitor
+// list skips its part (uniform across the grid), so one instantiation
+// serves maps, monitors or both.
+//
 // Stateful cells: r, the psi slabs (x, y, z) and the DFT sums are per-cell
 // state; at each stage only the thread that owns the cell reads and writes
 // them, so nothing is held twice. x decomposition: the x_lo / x_hi
@@ -100,15 +123,29 @@ constexpr int kMinBlocksFused = 6;
 constexpr int kRhoInv = 0, kPiU = 1, kCRp = 3, kBR = 5;
 
 // the per-step scalars of a launch (ops/fdtd.py step_scalars), row s for
-// stage s
+// stage s, and the series row each step samples (EXTRAS; -1: none)
 struct Rows {
   float s_sin[kMaxSteps], s_cos[kMaxSteps], cosw[kMaxSteps], sinw[kMaxSteps],
       s_pt[kMaxSteps];
+  int mon_row[kMaxSteps];
+};
+
+// the listed monitor voxels of an EXTRAS sweep (ops/fdtd_extras.py
+// sweep_csr): warp w's entries are [start[w], start[w + 1]) of (cell[e],
+// slot[e]), sorted by cell; the series is (n_samples, n_mon); cell null:
+// no monitor
+struct SweepMon {
+  const int* start;
+  const int* cell;
+  const int* slot;
+  float* series;
+  int n_mon;
 };
 
 // K steps of fluid_velocity_kernel then fluid_pressure_kernel (fdtd_fluid.cu)
-// in one march; psi_p / psi_v: [lo, hi] of p_x, p_y, p_z / vx_x, vy_y, vz_z.
-template <bool VISCOUS, bool WITH_DFT, bool POINT, bool XALL>
+// in one march; psi_p / psi_v: [lo, hi] of p_x, p_y, p_z / vx_x, vy_y, vz_z;
+// EXTRAS: with acc_p2 and the monitor list (see above)
+template <bool VISCOUS, bool WITH_DFT, bool POINT, bool XALL, bool EXTRAS>
 __global__ void __launch_bounds__(kThreads, kMinBlocksFused)
     fluid_fused_kernel(float* __restrict__ p, Ptr3 v, float* __restrict__ r,
                        const int* __restrict__ idx,
@@ -121,7 +158,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksFused)
                        const float* __restrict__ cph,
                        const float* __restrict__ sph, float dt_dx,
                        float inv_dx, float half_dt, Geo g, int zsrc, int pt,
-                       Rows rows) {
+                       Rows rows, float* __restrict__ acc_p2, SweepMon mon) {
+  static_assert(!EXTRAS || (WITH_DFT && XALL),
+                "the extras sweep runs in the sensor window on whole grids");
   cg::grid_group grid = cg::this_grid();
   const int s = blockIdx.z;  // this block's step of the sweep
   Col q;
@@ -142,6 +181,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksFused)
   // planes i-3..i (pressure of plane i-1, backward)
   float wp0 = 0.0f, wp1 = 0.0f, wp2 = 0.0f, wp3 = 0.0f;
   float wv0 = 0.0f, wv1 = 0.0f, wv2 = 0.0f, wv3 = 0.0f;
+  // EXTRAS: the cursor over this warp's listed voxels, keyed by its
+  // (z-tile, y-tile, row), the same for every stage
+  int e = 0, e_end = 0;
+  if (EXTRAS && mon.cell != nullptr && inside) {
+    const int w = (blockIdx.x + gridDim.x * blockIdx.y) * kTileY + threadIdx.y;
+    e = __ldg(mon.start + w);
+    e_end = __ldg(mon.start + w + 1);
+  }
   const int n_march = g.n1 + kLag * ((int)gridDim.z - 1) + 1;
   for (int t = 0; t < n_march; ++t) {
     const int i = t - kLag * s;  // this stage's velocity plane
@@ -224,6 +271,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksFused)
           acc_s[c] = ld2(acc_s, c) + pn * sinw;
           peak[c] = fmaxf(ld2(peak, c), fabsf(pn));
         }
+        if (EXTRAS) {
+          // extras_accumulate_kernel's Pressure_rms sum, in its order
+          if (acc_p2 != nullptr) acc_p2[c] = ld2(acc_p2, c) + pn * pn;
+          // the warp's listed voxels in plane ip (uniform across the warp)
+          const int end = (ip + 1) * q.plane;
+          for (; e < e_end; ++e) {
+            const int cell = __ldg(mon.cell + e);
+            if (cell >= end) break;
+            const int row = rows.mon_row[s];
+            if (cell == c && row >= 0) {
+              mon.series[(long long)row * mon.n_mon + __ldg(mon.slot + e)] =
+                  pn;
+            }
+          }
+        }
       }
     }
     if (t + 1 < n_march) grid.sync();
@@ -235,16 +297,31 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksFused)
 template <int I>
 const void* fused_at() {
   return reinterpret_cast<const void*>(
-      &fluid_fused_kernel<bool(I & 8), bool(I & 4), bool(I & 2),
-                          bool(I & 1)>);
+      &fluid_fused_kernel<bool(I & 8), bool(I & 4), bool(I & 2), bool(I & 1),
+                          false>);
 }
 
-const void* fused_kernel(int viscous, int with_dft, int point, int xall) {
+// the EXTRAS instantiation of (viscous, point): with the DFT, whole grids
+template <int I>
+const void* extras_at() {
+  return reinterpret_cast<const void*>(
+      &fluid_fused_kernel<bool(I & 2), true, bool(I & 1), true, true>);
+}
+
+// null for an EXTRAS request outside the window or on a shard
+const void* fused_kernel(int viscous, int with_dft, int point, int xall,
+                         int extras) {
   static const void* const kernels[16] = {
       fused_at<0>(),  fused_at<1>(),  fused_at<2>(),  fused_at<3>(),
       fused_at<4>(),  fused_at<5>(),  fused_at<6>(),  fused_at<7>(),
       fused_at<8>(),  fused_at<9>(),  fused_at<10>(), fused_at<11>(),
       fused_at<12>(), fused_at<13>(), fused_at<14>(), fused_at<15>()};
+  static const void* const with_extras[4] = {extras_at<0>(), extras_at<1>(),
+                                             extras_at<2>(), extras_at<3>()};
+  if (extras) {
+    if (!with_dft || !xall) return nullptr;
+    return with_extras[(viscous ? 2 : 0) | (point ? 1 : 0)];
+  }
   return kernels[(viscous ? 8 : 0) | (with_dft ? 4 : 0) | (point ? 2 : 0) |
                  (xall ? 1 : 0)];
 }
@@ -253,13 +330,14 @@ const void* fused_kernel(int viscous, int with_dft, int point, int xall) {
 
 extern "C" {
 
-// *blocks: how many blocks of the (viscous, with_dft, point, xall)
+// *blocks: how many blocks of the (viscous, with_dft, point, xall, extras)
 // instantiation the current device holds at once (a cooperative launch may
 // not exceed it)
 int bb_fluid_fused_capacity(int viscous, int with_dft, int point, int xall,
-                            int* blocks) {
-  return (int)cooperative_capacity(
-      fused_kernel(viscous, with_dft, point, xall), blocks);
+                            int extras, int* blocks) {
+  const void* kernel = fused_kernel(viscous, with_dft, point, xall, extras);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)cooperative_capacity(kernel, blocks);
 }
 
 // K = k_steps steps in one cooperative launch. v3, psi_p6, psi_v6: host
@@ -267,7 +345,11 @@ int bb_fluid_fused_capacity(int viscous, int with_dft, int point, int xall,
 // rows: host array of k_steps x (s_sin, s_cos, cosw, sinw, s_point); pt:
 // the point source's cell (point); gz, gy: the (z, y) tiles of
 // ops/fdtd_fused_kernels.py fused_launch_geometry (the grid's third
-// dimension is k_steps)
+// dimension is k_steps); extras: the EXTRAS instantiation (with_dft and a
+// whole grid only), with acc_p2 (null: no p^2 sum) and the monitor list
+// mon_start / mon_cell / mon_slot of ops/fdtd_extras.py sweep_csr (mon_cell
+// null: no monitor) sampling into series (n_samples, n_mon) at the host
+// array mon_rows of k_steps rows (-1: step not sampled)
 int bb_fluid_fused(float* p, float* const* v3, float* r, const int* idx,
                    const float* table, float* acc_c, float* acc_s, float* peak,
                    float* const* psi_p6, float* const* psi_v6,
@@ -276,10 +358,18 @@ int bb_fluid_fused(float* p, float* const* v3, float* r, const int* idx,
                    const float* rows, int k_steps, float dt_dx, float inv_dx,
                    float half_dt, int n_mat, int n1, int n2, int n3, int ns,
                    int x_lo, int x_hi, int zsrc, int viscous, int with_dft,
-                   int point, long long pt, int gz, int gy, void* stream) {
-  if (k_steps < 1 || k_steps > kMaxSteps ||
+                   int point, long long pt, int gz, int gy, int extras,
+                   float* acc_p2, const int* mon_start, const int* mon_cell,
+                   const int* mon_slot, float* series, int n_mon,
+                   const int* mon_rows, void* stream) {
+  const void* kernel =
+      fused_kernel(viscous, with_dft, point, x_lo && x_hi, extras);
+  if (kernel == nullptr || k_steps < 1 || k_steps > kMaxSteps ||
       (long long)n1 * n2 * n3 >= (1LL << 31) || !covers(gz, kTileZ, n3) ||
-      !covers(gy, kTileY, n2)) {
+      !covers(gy, kTileY, n2) ||
+      (extras && mon_cell != nullptr &&
+       (mon_start == nullptr || mon_slot == nullptr || series == nullptr ||
+        mon_rows == nullptr || n_mon < 1))) {
     return (int)cudaErrorInvalidValue;
   }
   Geo g = make_geo(n1, n2, n3, ns, n1, x_lo, x_hi);
@@ -290,7 +380,11 @@ int bb_fluid_fused(float* p, float* const* v3, float* r, const int* idx,
     rw.cosw[s] = rows[5 * s + 2];
     rw.sinw[s] = rows[5 * s + 3];
     rw.s_pt[s] = rows[5 * s + 4];
+    rw.mon_row[s] = extras && mon_cell != nullptr ? mon_rows[s] : -1;
   }
+  SweepMon mon{mon_start, extras ? mon_cell : nullptr, mon_slot, series,
+               n_mon};
+  float* p2 = extras ? acc_p2 : nullptr;
   Ptr3 v = gather<3, Ptr3>(v3);
   Ptr6 pp = gather<6, Ptr6>(psi_p6);
   Ptr6 pv = gather<6, Ptr6>(psi_v6);
@@ -299,10 +393,9 @@ int bb_fluid_fused(float* p, float* const* v3, float* r, const int* idx,
                   &n_mat,    &acc_c,     &acc_s,  &peak,    &pp,
                   &pv,       &prof_half, &prof_int, &amp,   &cph,
                   &sph,      &dt_dx,     &inv_dx, &half_dt, &g,
-                  &zsrc,     &pti,       &rw};
+                  &zsrc,     &pti,       &rw,     &p2,      &mon};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      fused_kernel(viscous, with_dft, point, x_lo && x_hi),
-      dim3(gz, gy, k_steps), dim3(kTileZ, kTileY), args, 0,
+      kernel, dim3(gz, gy, k_steps), dim3(kTileZ, kTileY), args, 0,
       (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

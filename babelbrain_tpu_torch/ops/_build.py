@@ -29,7 +29,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("fdtd_fluid.cu", "fdtd_fluid_fused.cu", "fdtd_fluid_halo.cu",
            "fdtd_visco.cu", "fdtd_visco_fused.cu", "fdtd_visco_halo.cu",
-           "fdtd_sources.cu", "bhte.cu", "fdtd_extras.cu", "probes.cu")
+           "fdtd_sources.cu", "bhte.cu", "fdtd_extras.cu", "probes.cu",
+           "rayleigh.cu")
 # the halo sweeps are compiled once per depth (-DBB_HALO_K=K,
 # -DBB_VHALO_K=K), each depth a translation unit of its own, so that they
 # compile in parallel
@@ -86,6 +87,7 @@ _SIGNATURES = {
     "bb_stream": [_P, _P, _L, _P],
     "bb_fma_chain": [_P, _P, _P, _I, _I, _P],
     "bb_table_gather": [_P, _P, _P, _I, _I, _L, _I, _P],
+    "bb_rayleigh": [_P] * 4 + [_F, _F, _L, _I, _P],
 }
 
 

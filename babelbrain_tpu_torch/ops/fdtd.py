@@ -18,7 +18,10 @@ fused sweeps instead, K steps a launch (``fuse_steps``): fluid media
 ``simulate_fluid_pallas``, shear media ``ops.fdtd_visco_fused_kernels`` in
 that of ``simulate_visco_pallas``; a volumetric drive the halo sweeps
 ``ops.fdtd_halo_kernels`` (fluid) and ``ops.fdtd_visco_halo_kernels``
-(shear). Each equals the step-by-step run bit for bit.
+(shear). A fluid run whose diagnostics are only the Pressure_rms /
+Pressure_peak maps and monitors can take its window in the fluid sweep's
+extras instantiations (``extras_plan``, B4's ``with_p2`` and monitor
+capture). Each equals the step-by-step run bit for bit.
 
 Physics (see the JAX module for the derivations): 4th-order staggered
 differences, CPML with slab-only psi memory, one SLS relaxation mechanism
@@ -85,7 +88,13 @@ from .fdtd_visco_kernels import (
     visco_velocity,
     visco_velocity_ref,
 )
-from .fdtd_extras import Diagnostics, Monitor, check_sel_maps, monitor_index
+from .fdtd_extras import (
+    SWEEP_MAPS,
+    Diagnostics,
+    Monitor,
+    check_sel_maps,
+    monitor_index,
+)
 from . import fdtd_fused_kernels, fdtd_visco_fused_kernels
 from .fdtd_fused_kernels import FUSE_BEST, fluid_fused, fluid_fused_ref
 from . import fdtd_halo_kernels
@@ -570,6 +579,49 @@ def visco_volume_plan(grid: FDTDGrid,
     return FusedPlan(k, k, False, 2)
 
 
+def extras_eligible(st, grid: FDTDGrid, sel_maps, monitor_ijk,
+                    vsrc) -> bool:
+    """Whether an unsharded run's diagnostics can ride on the fluid sweep,
+    JAX's rule for B4's ``with_p2`` path: a fluid medium, a plane or point
+    source, maps only among ``SWEEP_MAPS``, and maps or monitors asked."""
+    return (isinstance(st, FluidState) and vsrc is None
+            and grid.source_type in ("velocity_plane", "stress_point")
+            and set(sel_maps) <= SWEEP_MAPS
+            and (bool(sel_maps) or monitor_ijk is not None))
+
+
+def extras_plan(shape, device, viscous: bool, point: bool,
+                fuse_steps: int | None = None) -> FusedPlan | None:
+    """The depth rule of an ``extras_eligible`` run: the quiet phase as
+    ``fused_plan`` gives it without diagnostics; the window in extras sweeps
+    of ``k_dft`` steps (then 2-step extras sweeps, then a tail on the pair
+    with the maps' pass and its MONITOR sample). ``None`` takes the deepest
+    K the extras instantiation admits, capped at ``EXTRAS_FUSE_BEST``; an
+    int pins K in both phases, refused as ``fused_plan`` refuses it and
+    where the card cannot hold the extras sweep. Returns None where the
+    window depth is below 2: the run keeps the pair for every step. Unlike
+    JAX (`babelbrain_tpu/ops/fdtd_pallas.py:2857-2875`), K need not divide
+    the window: each sweep samples every selected step (ROADMAP Queue C,
+    "Fused schedule")."""
+    fk = fdtd_fused_kernels
+    if fuse_steps is None and fk.EXTRAS_FUSE_BEST < 2:
+        return None
+    base = fused_plan(shape, device, viscous, point, fuse_steps)
+    window = fk.admitted_depth(shape, device, viscous, True, point,
+                               extras=True)
+    if fuse_steps is None:
+        k = min(window, fk.EXTRAS_FUSE_BEST)
+    else:
+        k = base.k_dft
+        if k >= 2 and k > window:
+            raise ValueError(
+                f"fuse_steps={k}: {device} holds {window} stages of the "
+                f"fused kernel's extras sweep at once on {tuple(shape)}")
+    if k < 2:
+        return None
+    return FusedPlan(base.k, k, base.fused2)
+
+
 def fused_schedule(grid: FDTDGrid, plan: FusedPlan):
     """[(first step, K, with_dft)] of a fused run: the quiet phase
     [0, sensor_start), then the window, each split by ``phase_schedule``
@@ -602,27 +654,43 @@ def plan_run(st, shape, device, viscous: bool, point: bool,
 
 
 def _fused_loop(runs, grid: FDTDGrid, oz_scale, point_amp, plan: FusedPlan,
-                vsrc: VolumeSource | None = None):
+                vsrc: VolumeSource | None = None,
+                diag: Diagnostics | None = None):
     """The runs ``runs`` ((state, coefficients) pairs of one family) in
     lockstep through ``fused_schedule``: each sweep one fused launch a run
     (``fluid_fused`` or ``visco_fused``; with a volumetric drive ``vsrc``
     the family's halo sweep, ``fluid_halo`` or ``visco_halo``), each tail
-    step the pair (and the scatter)."""
+    step the pair (and the scatter). ``diag`` (one fluid run,
+    ``extras_plan``): the window's sweeps feed its maps and samples (the
+    extras sweep), its tail steps take their MONITOR sample and the maps'
+    pass."""
     pt = point_index(grid)
     fused, _, step, _, halo = FUSED[type(runs[0][0])]
     if vsrc is not None:
         def fused(st, co, rows, _pt, with_dft):
             halo(st, co, rows, vsrc, with_dft=with_dft)
+    if diag is not None and (len(runs) != 1 or vsrc is not None):
+        raise ValueError("diagnostics ride on one fluid run's sweeps")
     with stage_timer("FDTD time loop", level=3, step=2):
         for n, k, dft in fused_schedule(grid, plan):
             if k == 1:
                 for st, co in runs:
-                    step(st, co, grid, n, oz_scale, point_amp, vsrc)
+                    if diag is None:
+                        step(st, co, grid, n, oz_scale, point_amp, vsrc)
+                        continue
+                    step(st, co, grid, n, oz_scale, point_amp, vsrc,
+                         diag.monitor(n))
+                    diag.record(st, n)
                 continue
             rows = [step_scalars(grid, m, oz_scale, point_amp)
                     for m in range(n, n + k)]
             for st, co in runs:
-                fused(st, co, rows, pt, with_dft=dft)
+                if diag is not None and dft:
+                    fused(st, co, rows, pt, with_dft=True,
+                          extras=diag.extras,
+                          monitor=diag.sweep_monitor(n, k))
+                else:
+                    fused(st, co, rows, pt, with_dft=dft)
         _synchronize([st.peak for st, _ in runs])
     fdtd_halo_kernels.release()
     fdtd_visco_halo_kernels.release()
@@ -672,9 +740,16 @@ def run_fdtd(
     schedule (``None``: ``VOLUME_FUSE_BEST``), shear media ``visco_halo``
     in ``visco_volume_plan``'s, JAX's visco ``run_phase`` (``None``:
     ``VISCO_VOLUME_FUSE_BEST``; an int is refused where JAX refuses it).
-    ``sel_maps`` and ``monitor_ijk`` keep the pair for every step, with its
-    per-step monitor samples. Fused or not, the result is the step-by-step
-    run's bit for bit.
+    A fluid run with a plane or point source whose ``sel_maps`` are among
+    ``Pressure_rms`` / ``Pressure_peak`` and / or with ``monitor_ijk``
+    (JAX's rule for B4's ``with_p2`` path, ``extras_eligible``) runs its
+    quiet phase as without diagnostics and its window in the fused sweep's
+    extras instantiations, p^2 and the samples taken inside the sweep
+    (``extras_plan``: ``None`` caps the window's K at ``EXTRAS_FUSE_BEST``,
+    whose 0 keeps the pair for every step; an int pins K). Every other run
+    with ``sel_maps`` or ``monitor_ijk`` keeps the pair for every step, with
+    its per-step monitor samples. Fused or not, the result is the
+    step-by-step run's bit for bit.
 
     ``mesh``: a 1-D ``DeviceMesh`` on axis "x" (``parallel.halo.make_mesh``)
     decomposes the grid along x over its devices (``device`` is then not
@@ -690,10 +765,12 @@ def run_fdtd(
 
     ``sel_maps``: extra maps named ``<Field>_rms`` / ``<Field>_peak``, Field
     in Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy, Sigmazz, accumulated over
-    the sensor window. ``monitor_ijk``: (n, 3) voxels whose pressure is kept
-    at steps ``sensor_start, sensor_start + sensor_subsampling, ...``. The
-    JAX Pallas path samples at its fused depth instead; the values here are
-    those of its XLA path.
+    the sensor window; in fluid media ``Pressure_peak`` (and the Sigma
+    peaks) is the carrier 'peak' itself, as on JAX's B4 path.
+    ``monitor_ijk``: (n, 3) voxels whose pressure is kept
+    at steps ``sensor_start, sensor_start + sensor_subsampling, ...``, on
+    the pair or inside the extras sweeps alike. The JAX Pallas path samples
+    once a sweep instead; the values here are those of its XLA path.
 
     Returns dict with 'p_amp' (Pa), 'p_phase' (rad, FFT-bin convention of
     the reference), 'peak' (Pa), each (N1,N2,N3) float32 numpy arrays; plus
@@ -715,14 +792,18 @@ def run_fdtd(
             reflector_mask, volume_source, device=device,
         )
     sel = np.arange(grid.sensor_start, grid.n_steps, int(sensor_subsampling))
-    diag = None
+    diag = plan = None
     if sel_maps or monitor_ijk is not None:
+        if extras_eligible(st, grid, sel_maps, monitor_ijk, vsrc):
+            plan = extras_plan(grid.shape, device, co.viscous,
+                               point_index(grid) is not None, fuse_steps)
         with_series = monitor_ijk is not None
         diag = Diagnostics.create(
             st, grid.sensor_start, sel_maps,
             sample_steps=sel if with_series else (),
             index=(monitor_index(monitor_ijk, grid.shape, device)
                    if with_series else None),
+            sweep=plan is not None,
         )
     if vsrc is None and diag is None:
         plan = plan_run(st, grid.shape, device, co.viscous,
@@ -732,6 +813,8 @@ def run_fdtd(
         plan = (volume_plan(fuse_steps) if isinstance(st, FluidState)
                 else visco_volume_plan(grid, fuse_steps))
         _fused_loop([(st, co)], grid, oz_scale, point_amp, plan, vsrc)
+    elif plan is not None:
+        _fused_loop([(st, co)], grid, oz_scale, point_amp, plan, diag=diag)
     else:
         _time_loop([(step, st, co, vsrc, diag)], grid, oz_scale, point_amp)
 

@@ -17,12 +17,20 @@ the capture segment of ``_simulate_local``):
   / ``csrc/fdtd_visco.cu``; the voxels sorted by the warp that writes them,
   ``monitor_csr``). Its plain version is ``monitor_gather_ref``.
 
-The extras kernel lives in ``csrc/fdtd_extras.cu`` and replaces the JAX
-package's B4 ``with_p2`` accumulator; the MONITOR instantiations replace the
-monitor capture of its host loop (``babelbrain_tpu/ops/fdtd_pallas.py``), both
-generalised to the 14 maps and the sample steps of the XLA path.
+The extras kernel lives in ``csrc/fdtd_extras.cu``: the XLA path's 14 maps
+(``_update_extras``), after each step a run takes on the pair. The MONITOR
+instantiations take the XLA path's samples on the pair. B4's own
+``with_p2`` accumulator and the monitor capture of its driver
+(``babelbrain_tpu/ops/fdtd_pallas.py``) live in the fluid sweep's EXTRAS
+instantiations (``ops.fdtd_fused_kernels.fluid_fused`` with ``extras`` and a
+``SweepMonitor``, whose voxel list is ``sweep_csr``); the sweep serves the
+maps of ``SWEEP_MAPS``. Every fluid run, on either route, reads
+``Pressure_peak`` (and the Sigma peaks that alias it) from the carrier peak
+(``Extras.zeros(peak=)``), as JAX's B4 path does: the pair's pressure kernel
+and the sweep keep fmaxf(peak, |p|) over the same window steps.
 ``Diagnostics`` holds the state of one run: ``monitor(n)`` is the sample of
-step n, ``record`` feeds the maps after it.
+step n on the pair, ``sweep_monitor(n, k)`` that of a sweep of K steps from
+n, ``record`` feeds the maps after a step on the pair.
 
 The wrappers dispatch on the device of the state: a CPU state runs the plain
 version, a CUDA state launches the kernel on its device and that device's
@@ -43,9 +51,11 @@ import torch
 
 from . import _build
 from .fdtd_kernels import (
+    TILE_Y,
     TILE_Z,
     FluidState,
     LaunchGeometry,
+    _cdiv,
     fluid_launch_geometry,
 )
 from .fdtd_visco_kernels import ViscoState, visco_launch_geometry
@@ -53,6 +63,10 @@ from .fdtd_visco_kernels import ViscoState, visco_launch_geometry
 MAP_FIELDS = ("Pressure", "Vx", "Vy", "Vz", "Sigmaxx", "Sigmayy", "Sigmazz")
 # accumulator i of the kernel's bitmask is SEL_MAPS[i]
 SEL_MAPS = tuple(f"{f}_{k}" for f in MAP_FIELDS for k in ("rms", "peak"))
+# the maps the fluid sweep's extras instantiations serve (B4's with_p2 and
+# its carrier peak, `babelbrain_tpu/ops/fdtd.py:1089-1103`): Pressure_rms
+# summed in the sweep, Pressure_peak carried by the run's peak
+SWEEP_MAPS = frozenset({"Pressure_rms", "Pressure_peak"})
 
 _KEYS = ("extras_fluid", "extras_visco", "monitor_fluid", "monitor_visco")
 launches = dict.fromkeys(_KEYS, 0)
@@ -84,26 +98,37 @@ class Extras:
     """Accumulators of the requested maps on one device.
 
     ``names``: the requested maps; ``source[name]``: the accumulator that
-    holds it; ``acc``: accumulator name -> (N1, N2, N3) float32 tensor. In a
-    fluid medium sigma_ii = -p, so (-p)^2 and |-p| equal p^2 and |p| bit for
-    bit: the Sigma maps are held by the Pressure accumulators.
+    holds it; ``acc``: accumulator name -> (N1, N2, N3) float32 tensor, fed
+    by the maps' pass or the extras sweep; ``carried``: accumulator name ->
+    a tensor of the run's state that already holds it (read, never fed). In
+    a fluid medium sigma_ii = -p, so (-p)^2 and |-p| equal p^2 and |p| bit
+    for bit: the Sigma maps are held by the Pressure accumulators.
     """
 
     names: tuple
     source: dict
     acc: dict
+    carried: dict = field(default_factory=dict)
 
     @classmethod
-    def zeros(cls, sel_maps, shape, device, visco: bool) -> "Extras":
+    def zeros(cls, sel_maps, shape, device, visco: bool,
+              peak: torch.Tensor | None = None) -> "Extras":
+        """Zero accumulators of ``sel_maps``; ``peak``: the carrier |p|
+        peak of a fluid run (the pair's DFT or the sweep's, fmaxf(peak, |p|)
+        from 0 over the window steps, as the maps' pass), which then holds
+        Pressure_peak, as JAX's B4 path reads it."""
         names = check_sel_maps(sel_maps)
         source = {}
         for name in names:
             fld, kind = name.rsplit("_", 1)
             source[name] = (f"Pressure_{kind}"
                             if not visco and fld.startswith("Sigma") else name)
+        held = dict.fromkeys(source.values())
+        carried = ({"Pressure_peak": peak}
+                   if peak is not None and "Pressure_peak" in held else {})
         acc = {k: torch.zeros(tuple(shape), dtype=torch.float32, device=device)
-               for k in dict.fromkeys(source.values())}
-        return cls(names=names, source=source, acc=acc)
+               for k in held if k not in carried}
+        return cls(names=names, source=source, acc=acc, carried=carried)
 
     @property
     def mask(self) -> int:
@@ -113,7 +138,8 @@ class Extras:
     def read(self, n_win: int) -> dict:
         """The maps as float32 numpy arrays: sqrt(sum / n_win) for ``_rms``,
         the running maximum for ``_peak`` (the JAX readout)."""
-        host = {k: v.cpu().numpy() for k, v in self.acc.items()}
+        host = {k: v.cpu().numpy()
+                for k, v in {**self.acc, **self.carried}.items()}
         out = {}
         for name in self.names:
             v = host[self.source[name]]
@@ -297,6 +323,59 @@ class Monitor:
         monitor_gather_ref(st, self.index, self.series, self.row)
 
 
+def sweep_geometry(shape) -> LaunchGeometry:
+    """The (z-tile, y-tile) columns of the fluid sweep's launch
+    (``ops.fdtd_fused_kernels.fused_launch_geometry``) as one x-segment of
+    all N1 planes: its warps, keyed as the EXTRAS instantiations key them
+    whatever the stage."""
+    n1, n2, n3 = (int(n) for n in shape)
+    return LaunchGeometry(TILE_Y, n1, (_cdiv(n3, TILE_Z), _cdiv(n2, TILE_Y),
+                                       1))
+
+
+def sweep_csr(lin, shape):
+    """``monitor_csr`` of the voxels ``lin`` for the fluid sweep
+    (``sweep_geometry``), each warp's entries sorted by voxel (a repeated
+    voxel's slots in their order): each stage of an extras sweep walks its
+    warp's entries plane by plane as it writes them."""
+    start, (cell, slot) = monitor_csr(lin, shape, sweep_geometry(shape))
+    warp = np.repeat(np.arange(len(start) - 1), np.diff(start))
+    order = np.lexsort((slot, cell, warp))
+    return start, np.stack([cell[order], slot[order]])
+
+
+@dataclass
+class SweepMonitor:
+    """The pressure samples of one extras sweep of K steps
+    (``ops.fdtd_fused_kernels.fluid_fused``): step s of the sweep writes the
+    pressure at ``index`` into row ``rows[s]`` of ``series`` (n_samples, K
+    voxels; -1: step s takes no sample). ``start`` / ``entries`` are
+    ``sweep_csr`` of the index, on the series' device."""
+
+    index: torch.Tensor
+    series: torch.Tensor
+    start: torch.Tensor
+    entries: torch.Tensor
+    rows: tuple
+
+    def check(self, field: torch.Tensor, k: int) -> None:
+        """Raise unless this sample fits a sweep of ``k`` steps on a state
+        whose fields are like ``field``."""
+        s = self.series
+        n = int(self.index.shape[0])
+        gz, gy, _ = sweep_geometry(field.shape).grid
+        if (s.device != field.device or s.dtype != torch.float32
+                or not s.is_contiguous() or s.dim() != 2 or s.shape[1] != n
+                or self.start.device != field.device
+                or self.start.shape[0] != gz * gy * TILE_Y + 1
+                or len(self.rows) != k
+                or not all(-1 <= r < s.shape[0] for r in self.rows)):
+            raise ValueError(
+                f"sweep monitor: rows {self.rows} of a {s.dtype} "
+                f"{tuple(s.shape)} buffer on {s.device} for {n} voxels and "
+                f"{k} steps on {field.device}")
+
+
 @dataclass
 class Diagnostics:
     """What one FDTD run records besides the carrier DFT.
@@ -315,15 +394,20 @@ class Diagnostics:
     index: torch.Tensor | None = None
     series: torch.Tensor | None = None
     sample: Monitor | None = None
+    swept: SweepMonitor | None = None
 
     @classmethod
     def create(cls, st, window_start, sel_maps=(), sample_steps=(),
-               index=None) -> "Diagnostics":
+               index=None, sweep: bool = False) -> "Diagnostics":
         """Zero accumulators and an empty series buffer on the state's
-        device; ``sample_steps``: the steps whose pressure is kept."""
+        device, Pressure_peak read from a fluid state's carrier peak;
+        ``sample_steps``: the steps whose pressure is kept; ``sweep``: the
+        fluid run's window goes through extras sweeps (the listed voxels
+        also sorted for the sweep, ``sweep_monitor``)."""
         visco, fields = _family(st)
         f0 = fields[0]
-        extras = (Extras.zeros(sel_maps, f0.shape, f0.device, visco)
+        extras = (Extras.zeros(sel_maps, f0.shape, f0.device, visco,
+                               peak=None if visco else st.peak)
                   if tuple(sel_maps) else None)
         steps = [int(n) for n in sample_steps]
         if index is not None and (index.device != f0.device
@@ -346,9 +430,28 @@ class Diagnostics:
                 sample.start, sample.entries = (
                     torch.as_tensor(a, device=f0.device)
                     for a in monitor_csr(index.cpu().numpy(), f0.shape, geo))
+        swept = None
+        if sweep and sample is not None:
+            if visco or index is None:
+                raise ValueError("extras sweeps sample listed voxels of a "
+                                 "fluid run")
+            start, entries = sweep_csr(index.cpu().numpy(), f0.shape)
+            swept = SweepMonitor(index, series,
+                                 torch.as_tensor(start, device=f0.device),
+                                 torch.as_tensor(entries, device=f0.device),
+                                 ())
         return cls(window_start=int(window_start), extras=extras,
                    rows={n: m for m, n in enumerate(steps)}, index=index,
-                   series=series, sample=sample)
+                   series=series, sample=sample, swept=swept)
+
+    def sweep_monitor(self, n: int, k: int) -> SweepMonitor | None:
+        """The samples of the extras sweep of steps n .. n + k - 1 (None:
+        no listed voxels)."""
+        if self.swept is None:
+            return None
+        return dataclasses.replace(
+            self.swept, rows=tuple(self.rows.get(m, -1)
+                                   for m in range(n, n + k)))
 
     def monitor(self, n: int) -> Monitor | None:
         """The sample step ``n`` takes (None: not a sample step), for the
@@ -361,6 +464,7 @@ class Diagnostics:
     def record(self, st, n: int, plain: bool = False) -> None:
         """After step ``n``: feed the maps inside the window; ``plain`` runs
         the plain version."""
-        if self.extras is not None and n >= self.window_start:
+        if (self.extras is not None and self.extras.acc
+                and n >= self.window_start):
             (extras_accumulate_ref if plain else extras_accumulate)(
                 st, self.extras)

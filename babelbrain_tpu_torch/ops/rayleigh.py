@@ -1,4 +1,5 @@
-"""Rayleigh-Sommerfeld integral propagator (plain PyTorch).
+"""Rayleigh-Sommerfeld integral propagator: CUDA kernel, wrapper and plain
+PyTorch version.
 
 Computes the monochromatic field radiated by M source patches at P field
 points:
@@ -11,17 +12,24 @@ normalization reproduces the exact on-axis piston solution
 ``p(z) = u0 (e^{-ikz} - e^{-ikR})``.
 
 Counterpart of ``babelbrain_tpu/ops/rayleigh.py``, which has no TPU kernel
-(XLA matmuls); this stays plain PyTorch. Differences from the JAX version:
-pair distances are direct coordinate differences (the JAX package expands
-``|p|^2 - 2 p.c + |c|^2`` for the TPU's matrix unit, which cancels in
-float32), and the complex accumulation is a complex64 matrix-vector product
-at full float32 precision (TF32 is switched off for every call: the phases
-reach k r ~ 1e3 rad). Field points are processed in blocks, so memory stays
-at O(point_block * elem_block). With ``mesh`` the points are split in
-contiguous runs of whole blocks over the mesh's devices, each integrating
-every source over its run (JAX's point sharding,
-`babelbrain_tpu/ops/rayleigh.py:148-175`); every block is the unsharded
-run's block, so the field is the same.
+(XLA matmuls). Differences from the JAX version: pair distances are direct
+coordinate differences (the JAX package expands ``|p|^2 - 2 p.c + |c|^2``
+for the TPU's matrix unit, which cancels in float32), and the sum over
+sources is taken at full float32 precision (TF32 is switched off for every
+call: the phases reach k r ~ 1e3 rad).
+
+``rayleigh_sum`` dispatches on the device of the points: CPU tensors run
+the plain version (``rayleigh_sum_ref``: field points in blocks, so memory
+stays at O(point_block * elem_block), each block a complex64
+matrix-vector product), CUDA tensors launch ``csrc/rayleigh.cu``
+``rayleigh_kernel`` (one thread a point, the sources staged through shared
+memory; ``point_block`` and ``elem_block`` do not apply) or raise.
+``launches`` counts kernel launches, ``plain_calls`` calls of the plain
+version. With ``mesh`` the points are split in contiguous runs of whole
+blocks over the mesh's devices, each integrating every source over its run
+(JAX's point sharding, `babelbrain_tpu/ops/rayleigh.py:148-175`); a point's
+value does not depend on the other points of its call, so the field is the
+unsharded one.
 """
 
 from __future__ import annotations
@@ -30,10 +38,53 @@ import numpy as np
 import torch
 
 from ..parallel.halo import mesh_devices
+from . import _build
+from .fdtd_kernels import _ptr
+
+launches = {"rayleigh": 0}
+plain_calls = {"rayleigh": 0}
 
 
-def _rayleigh_blocks(kr, ki, centers, w, points, point_block, elem_block):
-    """Blocked evaluation on the tensors' device; returns (P,) complex64."""
+def rayleigh_sum(kr, ki, centers, w, points, point_block=4096,
+                 elem_block=8192):
+    """sum_m w_m exp(-ki r_pm) exp(-i kr r_pm) / r_pm at each point, on the
+    device of the tensors (``centers`` (M, 3) and ``points`` (P, 3)
+    contiguous float32, ``w`` (M,) complex64); returns (P,) complex64."""
+    dev = points.device
+    for name, t, dtype in (("centers", centers, torch.float32),
+                           ("w", w, torch.complex64),
+                           ("points", points, torch.float32)):
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                f"rayleigh: {name} must be contiguous {dtype} on {dev}, got "
+                f"{t.dtype} on {t.device}")
+    if (centers.ndim != 2 or centers.shape[1] != 3 or points.ndim != 2
+            or points.shape[1] != 3 or tuple(w.shape) != (centers.shape[0],)):
+        raise ValueError(
+            f"rayleigh: centers {tuple(centers.shape)}, w {tuple(w.shape)}, "
+            f"points {tuple(points.shape)}: expected (M, 3), (M,), (P, 3)")
+    if dev.type == "cpu":
+        return rayleigh_sum_ref(kr, ki, centers, w, points, point_block,
+                                elem_block)
+    if dev.type != "cuda":
+        raise ValueError(f"rayleigh: unsupported device {dev}")
+    if centers.shape[0] >= 2**31:
+        raise ValueError(f"rayleigh: {centers.shape[0]} sources exceed int32")
+    out = torch.zeros(points.shape[0], dtype=torch.complex64, device=dev)
+    if points.shape[0] == 0:
+        return out
+    _build.launch("bb_rayleigh", "rayleigh_kernel", dev, _ptr(points),
+                  _ptr(centers), _ptr(w), _ptr(out), kr, ki,
+                  points.shape[0], centers.shape[0])
+    launches["rayleigh"] += 1
+    return out
+
+
+def rayleigh_sum_ref(kr, ki, centers, w, points, point_block=4096,
+                     elem_block=8192):
+    """Plain version of ``rayleigh_kernel``: blocked evaluation on the
+    tensors' device; returns (P,) complex64."""
+    plain_calls["rayleigh"] += 1
     P = points.shape[0]
     M = centers.shape[0]
     out = torch.empty(P, dtype=torch.complex64, device=points.device)
@@ -54,6 +105,26 @@ def _rayleigh_blocks(kr, ki, centers, w, points, point_block, elem_block):
             acc += a @ w[e0 : e0 + elem_block]
         out[p0 : p0 + point_block] = acc
     return out
+
+
+def sum_inputs(wavenumber, centers, areas, u0, points):
+    """The arguments ``rayleigh_field`` hands ``rayleigh_sum``: (kr, ki,
+    centers, w, points), the coordinates float32 numpy shifted to the
+    midpoint of sources and points (for float32 conditioning), w complex64
+    with the (i k / 2 pi) prefactor and the areas folded into u0. The host
+    work is float64."""
+    kr = float(np.real(wavenumber))
+    ki = float(np.imag(wavenumber))
+    centers = np.asarray(centers, np.float64)
+    points = np.asarray(points, np.float64)
+    u0 = np.asarray(u0, np.complex128).reshape(-1)
+    areas = np.asarray(areas, np.float64).reshape(-1)
+    allpts = np.concatenate([centers, points])
+    mid = (allpts.min(0) + allpts.max(0)) * 0.5
+    pref = 1j * (kr + 1j * ki) / (2.0 * np.pi)
+    w = (u0 * areas * pref).astype(np.complex64)
+    return (kr, ki, (centers - mid).astype(np.float32), w,
+            (points - mid).astype(np.float32))
 
 
 def rayleigh_field(
@@ -91,30 +162,13 @@ def rayleigh_field(
                else mesh_devices(mesh, "rayleigh_field"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kr = float(np.real(wavenumber))
-    ki = float(np.imag(wavenumber))
-    # host-side prep in float64
-    centers = np.asarray(centers, np.float64)
-    points = np.asarray(points, np.float64)
-    u0 = np.asarray(u0, np.complex128).reshape(-1)
-    areas = np.asarray(areas, np.float64).reshape(-1)
-
-    # shift coordinates to the midpoint for f32 conditioning
-    allpts = np.concatenate([centers, points])
-    mid = (allpts.min(0) + allpts.max(0)) * 0.5
-    centers = centers - mid
-    points = points - mid
-
-    # fold the (i k / 2 pi) prefactor and area weights into the source term
-    pref = 1j * (kr + 1j * ki) / (2.0 * np.pi)
-    w = (u0 * areas * pref).astype(np.complex64)
-    centers = centers.astype(np.float32)
-    points = points.astype(np.float32)
+    kr, ki, centers, w, points = sum_inputs(wavenumber, centers, areas, u0,
+                                            points)
     # each device's run of points: whole blocks, the last one ragged
     n_blocks = -(-len(points) // point_block)
     run = -(-n_blocks // len(devices)) * point_block
     parts = [
-        _rayleigh_blocks(
+        rayleigh_sum(
             kr, ki, torch.as_tensor(centers, device=dev),
             torch.as_tensor(w, device=dev),
             torch.as_tensor(points[d * run:(d + 1) * run], device=dev),

@@ -43,7 +43,19 @@ Phases (each prints its own lines; any failed check exits nonzero):
              holds there, plane and point, viscous and inviscid, quiet and
              window, and on a 50-plane shard with each x_lo / x_hi
              combination; each K timed per step against its bound and the
-             pair. Then the visco fused phase: ``visco_fused`` against its
+             pair. Before it the extras sweep (``check_fused_extras``):
+             ``fluid_fused`` with B4's ``with_p2`` accumulator and the
+             monitor capture (its EXTRAS instantiations) against its plain
+             version and K steps of pair + extras + MONITOR, bit for bit in
+             every field, both Pressure maps and the series, for every K
+             the card admits at 192x192x240 (plane and point, viscous with
+             4096 seeded voxels and inviscid with 201 on a line, some
+             listed twice; maps only, the peak only, monitors only) and
+             K = 1..4 at 27x45x47 with voxels on tile corners and the
+             stages' hand-over planes; each K timed a launch and a step at
+             192x192x240 and 216x216x224 against its bound and pair +
+             extras + MONITOR (the figures behind ``EXTRAS_FUSE_BEST``).
+             Then the visco fused phase: ``visco_fused`` against its
              plain version and K launches of the visco pair, bit for bit,
              at 192x192x240 with the 5 label materials for every K the card
              admits (plane and point, quiet and window), on the 50-plane
@@ -98,29 +110,37 @@ Phases (each prints its own lines; any failed check exits nonzero):
              volumetric fluid FDTD over a 392x392x337 grid at 2250 of its
              6750 steps, forward Rayleigh, water pass, BHTE) and in label
              mode (dome-label: the same grid, the volumetric visco FDTD,
-             all its 4125 steps);
+             at 2250 of its 4125 steps);
              and diag-ct / diag-label, the CT and label slices asking
              ``run_acoustic_sim`` for all 14 ``sel_maps`` and the pressure
              series along the beam axis through the target, after which
              diag-ct runs ``run_fdtd_capture`` on its inputs at a 5x5x5
-             mask and over the full volume. Each runs through ``run_case``
-             when h5py is installed (the diag slices always through the
-             stage functions: ``run_case`` takes no ``sel_maps``), else
+             mask and over the full volume; and sensors-ct, the CT slice
+             asking for the reference's own Step 2 selection (the
+             Pressure RMS / peak maps and the beam-axis series), its
+             window through the extras sweeps (pinned at the deepest K
+             the card admits while ``EXTRAS_FUSE_BEST`` keeps such runs on
+             the pair). Each runs through ``run_case``
+             when h5py is installed (the diag and sensors slices always
+             through the stage functions: ``run_case`` takes no
+             ``sel_maps``), else
              through the stage functions ``run_case`` calls, in its order,
              writing no files. Every kernel's launch count must equal the
              step count the run implies, and no plain version may run.
              The diag slices' maps and series are held to the steady-state
              anchors and to each other, the capture to the series, bit for
-             bit. The CT, label, refocus-ct, refocus-label, zte-ct and
-             coreg-zte slices' FDTD runs go through the fused sweeps
+             bit. The CT, label, sensors-ct, refocus-ct, refocus-label,
+             zte-ct and coreg-zte slices' FDTD runs go through the fused
+             sweeps
              (``run_fdtd``'s default: ``fluid_fused`` in CT mode,
              ``visco_fused`` in label mode), the dome slices' volumetric
              passes through the halo sweeps (``fuse_steps`` pinned at
              ``DOME_PIN_K`` while the default keeps pair + scatter:
              ``fluid_halo`` in fluid media, dome-label's tissue pass in
              shear media through ``visco_halo``): each run is repeated
-             through the pair (and the scatter) step by step and must
-             equal it bit for bit. Every
+             through the pair (and the scatter; sensors-ct's with the
+             maps' pass and the MONITOR samples) step by step and must
+             equal it bit for bit, maps and series included. Every
              slice's Step 3 runs the BHTE
              sweeps (``bhte_run``'s default K on a card): each of its two
              ``bhte_run`` loops is run again from its start one step a
@@ -132,7 +152,13 @@ Phases (each prints its own lines; any failed check exits nonzero):
              window start on
              that slice's own domain and its stress point, volumetric or
              plane source (the diag slices with every map and monitor), and
-             every field must agree bit for bit. zte-ct is the CT slice
+             every field must agree bit for bit. After the CT and dome-ct
+             slices the Rayleigh kernel (``rayleigh_kernel``, each slice's
+             forward Rayleigh and every ``rayleigh_field`` call a launch)
+             runs again at 2^18 of that forward Rayleigh's points with all
+             its sources: equal to the slice's values bit for bit, within
+             2e-5 of the peak of its plain version, both held to float64
+             at 256 points and timed. zte-ct is the CT slice
              from a synthetic ZTE MRI of the head (the pseudo-CT stage,
              then Step 1's CT branch; its bone HU must lie in 300..2100).
              coreg-zte moves that MRI 6 deg and (4, -3, 2) mm off the head
@@ -493,6 +519,14 @@ FUSED_WORK = {
 }
 FUSED_WORK.update({"fluid_fused_point": FUSED_WORK["fluid_fused"],
                    "fluid_fused_point_dft": FUSED_WORK["fluid_fused_dft"]})
+# The extras sweep (the EXTRAS instantiations, always in the window): the
+# window sweep's 17 volumes and the p^2 accumulator read and written once
+# (19), and each step's operations plus p * p and its add (the monitor
+# list and samples, a few KB, are added by check_fused_extras)
+FUSED_WORK["fluid_fused_extras_dft"] = dict(volumes=19, derivs_per_axis=2,
+                                            planes=3, flops_per_step=59)
+FUSED_WORK["fluid_fused_point_extras_dft"] = FUSED_WORK[
+    "fluid_fused_extras_dft"]
 # The visco sweep of K steps (csrc/fdtd_visco_fused.cu), per launch: the 15
 # fields (v, sigma, r) and the index read once and the 15 fields written
 # once (31 volumes; + the DFT sums and the peak read and written in the
@@ -1187,6 +1221,246 @@ def check_fused(times, device="cuda"):
     return errs, out_t, out_b
 
 
+# the CT slices' FDTD grid (216x216x224), where the extras sweep's depth is
+# chosen against pair + extras + MONITOR (EXTRAS_FUSE_BEST)
+SLICE_SHAPE = (216, 216, 224)
+# the maps of the reference's Step 2 selection (SelMapsRMSPeakList)
+SENSOR_MAPS = ("Pressure_rms", "Pressure_peak")
+
+
+def extras_voxels(shape, n, seed=6):
+    """(K, 3) monitor voxels for the extras sweep's checks: n = 201, a line
+    along z through the centre (the diag slices' beam axis), its middle
+    voxel first; else ``n`` seeded voxels; the last 8 repeat the first 8."""
+    if n == 201:
+        c1, c2 = shape[0] // 2, shape[1] // 2
+        ks = np.linspace(0, shape[2] - 1, n - 1).astype(int)
+        ijk = np.array([[c1, c2, shape[2] // 2]] + [[c1, c2, k] for k in ks])
+    else:
+        rng = np.random.default_rng(seed)
+        ijk = np.stack([rng.integers(0, m, n) for m in shape], 1)
+    ijk[-8:] = ijk[:8]
+    return ijk
+
+
+def edge_voxels(shape):
+    """Voxels where the extras sweep's warps and stages meet: the planes
+    where one stage hands over to the next (0, 1, LAG - 1, LAG, LAG + 1 and
+    the last two) on the (y, z) tiles' corners and at the centre, each
+    once, and 6 of them again."""
+    from babelbrain_tpu_torch.ops.fdtd_fused_kernels import LAG
+    from babelbrain_tpu_torch.ops.fdtd_kernels import TILE_Y, TILE_Z
+
+    n1, n2, n3 = shape
+    planes = sorted({0, 1, LAG - 1, LAG, LAG + 1, n1 - 2, n1 - 1})
+    ys = sorted({0, TILE_Y - 1, TILE_Y, n2 - 1})
+    zs = sorted({0, TILE_Z - 1, TILE_Z, n3 - 1})
+    ijk = np.array([[i, j, k] for i in planes for j in ys for k in zs]
+                   + [[i, n2 // 2, n3 // 2] for i in planes])
+    return np.concatenate([ijk, ijk[[0, 7, 7, 20, 41, -1]]])
+
+
+def _extras_case(shape, k, source, viscous, device, ijk, maps=SENSOR_MAPS):
+    """One extras sweep of ``k`` window steps (``fluid_fused`` with the
+    Pressure_rms accumulator of ``maps`` and the samples at ``ijk``, every
+    step but the second sampled) from the state ``FUSED_PRE_STEPS`` quiet
+    pair steps leave, against its plain version and against ``k`` steps of
+    pair + extras + MONITOR (``fluid_step`` with the sample, the maps'
+    pass). Returns (the swept state, its Diagnostics, coefficients, grid,
+    oz, point amplitude, [(what, max abs diff)])."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_extras as E
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+    from babelbrain_tpu_torch.ops import fdtd_kernels as K
+
+    n0 = FUSED_PRE_STEPS
+    grid, co, pamp, _, oz = fluid_case(shape, n0 + k, n0, source, device,
+                                       viscous=viscous)
+    st = K.FluidState.zeros(shape, 14, device)
+    for n in range(n0):
+        F.fluid_step(st, co, grid, n, oz, pamp)
+    fused, plain, pair = (_copy_state(st) for _ in range(3))
+    index = (None if ijk is None else E.monitor_index(ijk, shape, device))
+    steps = [n for n in range(n0, n0 + k) if n != n0 + 1]
+    diags = [E.Diagnostics.create(
+        x, grid.sensor_start, maps, sample_steps=steps if ijk is not None
+        else (), index=index, sweep=sweep)
+        for x, sweep in ((fused, True), (plain, True), (pair, False))]
+    pt = F.point_index(grid)
+    rows = [F.step_scalars(grid, n, oz, pamp) for n in range(n0, n0 + k)]
+    for fn, x, d in ((FK.fluid_fused, fused, diags[0]),
+                     (FK.fluid_fused_ref, plain, diags[1])):
+        fn(x, co, rows, pt, with_dft=True, extras=d.extras,
+           monitor=d.sweep_monitor(n0, k))
+    for n in range(n0, n0 + k):
+        F.fluid_step(pair, co, grid, n, oz, pamp, None, diags[2].monitor(n))
+        diags[2].record(pair, n)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    bad = ([("plain", *b) for b in state_diff(fused, plain)]
+           + [("pair", *b) for b in state_diff(fused, pair)])
+    ex = [d.extras.read(k) if d.extras is not None else {} for d in diags]
+    for name in ex[0]:
+        for other, o in (("plain", ex[1]), ("pair", ex[2])):
+            if (e := _equal(torch.as_tensor(ex[0][name]),
+                            torch.as_tensor(o[name]))):
+                bad.append((f"{other} {name}", e))
+    if ijk is not None:
+        for other, d in (("plain", diags[1]), ("pair", diags[2])):
+            if (e := _equal(diags[0].series, d.series)):
+                bad.append((f"{other} series", e))
+    return fused, diags[0], co, grid, oz, pamp, bad
+
+
+def check_fused_extras(device="cuda"):
+    """The extras sweep (``fluid_fused`` with B4's ``with_p2`` accumulator
+    and the monitor capture; csrc/fdtd_fluid_fused.cu EXTRAS) against its
+    plain version and against K steps of pair + extras + MONITOR, max abs
+    difference 0 in every field, the Pressure_rms / Pressure_peak maps and
+    the series: at 192x192x240 for K = 1 .. the deepest the card admits,
+    plane and point, viscous (4096 seeded voxels, 8 twice) and inviscid
+    (201 on a line), the Pressure_peak map read from the carrier peak;
+    there also maps only, Pressure_peak only and monitors only; at 27x45x47
+    for K = 1..4 with voxels on tile corners and the stages' hand-over
+    planes. Then each K's time a launch and a step at 192x192x240 and at
+    the CT slices' 216x216x224 against its bound and pair + extras +
+    MONITOR a step (201 voxels, every step sampled). Returns (errors,
+    times, bounds) keyed by kernel row (the plane-source row at the depth
+    the sensors-ct slice takes) and {K: ms a step at 216x216x224, "pair":
+    ms} for ``EXTRAS_FUSE_BEST``."""
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+
+    t_phase = time.time()
+    cases = []
+    kmax = min(FK.admitted_depth(KERNEL_SHAPE, device, v, True, p, True)
+               for v in (True, False) for p in (False, True))
+    for k in range(1, kmax + 1):
+        for viscous, n_mon in ((True, MONITOR_POINTS), (False, 201)):
+            for source in ("plane", "point"):
+                cases.append((KERNEL_SHAPE, k, source, viscous,
+                              extras_voxels(KERNEL_SHAPE, n_mon), SENSOR_MAPS))
+    for maps, n_mon in ((SENSOR_MAPS, None), (("Pressure_peak",), 201),
+                        ((), 201)):
+        cases.append((KERNEL_SHAPE, kmax, "plane", True, None if n_mon is None
+                      else extras_voxels(KERNEL_SHAPE, n_mon), maps))
+    for k in range(1, 5):
+        for source in ("plane", "point"):
+            cases.append((RAGGED_SHAPE, k, source, k % 2 == 1,
+                          edge_voxels(RAGGED_SHAPE), SENSOR_MAPS))
+    errs = {}
+    for shape, k, source, viscous, ijk, maps in cases:
+        st, diag, *_, bad = _extras_case(shape, k, source, viscous, device,
+                                         ijk, maps)
+        pmax = float(st.p.abs().max())
+        smax = (float(diag.series.abs().max()) if diag.series is not None
+                else None)
+        print(f"[fused extras] {shape} K={k} {source} "
+              f"{'viscous' if viscous else 'inviscid'} maps {maps} "
+              f"{0 if ijk is None else len(ijk)} voxels: max|p| {pmax:.6g} "
+              f"Pa, max|series| {smax}; differing from the plain version / "
+              f"pair + extras + MONITOR {bad}")
+        if bad or not np.isfinite(pmax) or pmax <= 0 or (
+                smax is not None and not smax > 0):
+            fail(f"extras sweep differs ({shape}, K={k}, {source}, "
+                 f"viscous={viscous}, maps={maps}): {bad}; max|p| {pmax}")
+        errs[FK.fused_key(True, 0 if source == "point" else None,
+                          True)] = 0.0
+    out_t, out_b, per_step = {}, {}, {}
+    if device == "cuda":
+        for shape in (KERNEL_SHAPE, SLICE_SHAPE):
+            per_step.update(_time_extras(shape, device, out_t, out_b))
+    print(f"[fused extras] phase {time.time() - t_phase:.2f} s")
+    return errs, out_t, out_b, per_step
+
+
+def _time_extras(shape, device, out_t, out_b):
+    """The deepest K of the extras sweep the card admits at ``shape``
+    (plane, viscous, the Pressure maps, 201 voxels) held to its plain
+    version and to K steps of pair + extras + MONITOR, max abs difference
+    0 (fails otherwise); then each K a launch and a step (every step
+    sampled) against its bound and pair + extras + MONITOR a step (the
+    pair route's work for the Pressure maps and the voxels: one CUDA graph
+    of the three launches, timed before and after the sweeps); at
+    ``KERNEL_SHAPE`` the plane-source row's times and bound at the
+    sensors-ct slice's depth go into ``out_t`` / ``out_b``. Returns {K: ms
+    a step, "pair": ms a step} at ``SLICE_SHAPE``, else {}."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_extras as E
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+
+    kmax = FK.admitted_depth(shape, device, True, True, False, True)
+    ijk = extras_voxels(shape, 201)
+    st, diag, co, grid, oz, pamp, bad = _extras_case(shape, kmax, "plane",
+                                                     True, device, ijk)
+    pmax = float(st.p.abs().max())
+    smax = float(diag.series.abs().max())
+    print(f"[fused extras] {shape} K={kmax} plane viscous maps {SENSOR_MAPS} "
+          f"{len(ijk)} voxels: max|p| {pmax:.6g} Pa, max|series| {smax:.6g}; "
+          f"differing from the plain version / pair + extras + MONITOR {bad}")
+    if bad or not np.isfinite(pmax) or pmax <= 0 or not smax > 0:
+        fail(f"extras sweep differs ({shape}, K={kmax}, plane, viscous): "
+             f"{bad}; max|p| {pmax}")
+    n0 = FUSED_PRE_STEPS
+    rows_max = [F.step_scalars(grid, n, oz, pamp) for n in range(n0, n0 + kmax)]
+    sampled = E.Diagnostics.create(st, n0, SENSOR_MAPS,
+                                   sample_steps=range(n0, n0 + kmax),
+                                   index=diag.index, sweep=True)
+    pair_diag = E.Diagnostics.create(st, n0, SENSOR_MAPS,
+                                     sample_steps=[n0], index=diag.index)
+
+    def pair_step():
+        F.fluid_step(st, co, grid, n0, oz, pamp, None, pair_diag.monitor(n0))
+        pair_diag.record(st, n0)
+
+    pair = [_timed_graph(pair_step, 10)]
+    cells = float(np.prod(shape))
+    n_warps = float(np.prod(E.sweep_geometry(shape).grid)) * 8
+    ms = {}
+    for k in range(1, kmax + 1):
+        rows = rows_max[:k]
+        mon = sampled.sweep_monitor(n0, k)
+        ms[k] = _timed_graph(lambda: FK.fluid_fused(
+            st, co, rows, None, with_dft=True, extras=sampled.extras,
+            monitor=mon), 5)
+    pair.append(_timed_graph(pair_step, 10))
+    t_pair = sum(pair) / 2
+    k_main = sensors_depth(shape, device)
+    key = FK.fused_key(True, None, True)
+    for k, t in ms.items():
+        b_bytes, b_ops = work(key, shape, k=k)
+        # the list's offsets and entries read, the samples written
+        b_ms, b_by = roofline(b_bytes + 4.0 * (n_warps + 1 + 2 * 201 + k * 201),
+                              b_ops)
+        print(f"[fused extras] {key} K={k} at {shape}: {t:.4f} ms a launch, "
+              f"{t / k:.4f} ms a step ({cells * k / t / 1e3:.1f} "
+              f"Mcell-updates/s); bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / k:.4f} a step ({b_ms / t:.0%}); pair + extras + "
+              f"MONITOR {pair[0]:.4f} / {pair[1]:.4f} ms a step "
+              f"({t / k / t_pair:.3f}x)")
+        if shape == KERNEL_SHAPE and k == k_main:
+            plain = _timed(lambda: FK.fluid_fused_ref(
+                st, co, rows_max[:k], None, with_dft=True,
+                extras=sampled.extras, monitor=sampled.sweep_monitor(n0, k)),
+                2, warm=1)
+            out_t[key] = (t, plain)
+            out_b[key] = (b_ms, b_by)
+            print(f"[fused extras]   {key}: the sensors-ct slice's K={k}; "
+                  f"plain version {plain:.4f} ms a launch")
+    if shape != SLICE_SHAPE:
+        return {}
+    return {**{k: t / k for k, t in ms.items()}, "pair": t_pair}
+
+
+def sensors_depth(shape, device="cuda"):
+    """The window depth the sensors-ct slice's run_fdtd on ``shape`` is
+    pinned at (``pinned_fuse_steps``): the deepest K of the extras sweep
+    the card admits there, at most ``FUSE_BEST``."""
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+
+    admitted = FK.admitted_depth(shape, device, True, True, False, True)
+    return min(FK.FUSE_BEST, admitted)
+
+
 def _visco_fused_case(shape, k, source, dft, device, x_lo=True, x_hi=True,
                       viscous=True, zsrc=13, source_ijk=None):
     """One ``visco_fused`` launch of ``k`` steps against its plain version
@@ -1347,19 +1621,27 @@ _SHELLS: dict = {}
 
 
 @contextlib.contextmanager
-def pinned_fuse_steps(dome: bool):
+def pinned_fuse_steps(mode: str):
     """While a dome slice runs, each of its ``run_fdtd`` calls
-    (``pipeline.acoustic``'s name) takes ``fuse_steps=DOME_PIN_K`` (nothing
-    changes when not ``dome``)."""
+    (``pipeline.acoustic``'s name) takes ``fuse_steps=DOME_PIN_K``; while
+    sensors-ct runs, ``sensors_depth`` of its grid (the extras sweeps'
+    depth: pinned while ``EXTRAS_FUSE_BEST`` keeps such runs on the pair);
+    nothing changes for another slice."""
+    from babelbrain_tpu_torch.ops import fdtd as F
     from babelbrain_tpu_torch.pipeline import acoustic as A
 
     saved = A.run_fdtd
 
     def call(*args, **kwargs):
-        kwargs.setdefault("fuse_steps", DOME_PIN_K)
+        if mode.startswith("dome"):
+            kwargs.setdefault("fuse_steps", DOME_PIN_K)
+        else:
+            grid, = _bound(F.run_fdtd, args, kwargs, "grid")
+            kwargs.setdefault("fuse_steps", sensors_depth(
+                grid.shape, kwargs.get("device", "cuda")))
         return saved(*args, **kwargs)
 
-    if dome:
+    if mode.startswith(("dome", "sensors")):
         A.run_fdtd = call
     try:
         yield
@@ -2086,16 +2368,25 @@ def check_diagnostics(family, shape=KERNEL_SHAPE, device="cuda"):
     diag_k, diag_p = (E.Diagnostics.create(st, grid.sensor_start, E.SEL_MAPS,
                                            sample_steps=window, index=index)
                       for _ in range(2))
+    # fluid: Pressure_peak is read from the carrier peak; the kernel also
+    # feeds an accumulator of its own, which must equal that peak
+    own = (None if visco else
+           E.Extras.zeros(("Pressure_peak",), shape, device, False))
     for n in range(grid.n_steps):
         step(st, co, grid, n, oz, monitor=diag_k.monitor(n))
         diag_k.record(st, n)
         diag_p.record(st, n, plain=True)
+        if own is not None and n >= grid.sensor_start:
+            E.extras_accumulate(st, own)
         if n in diag_p.rows:
             diag_p.monitor(n).gather_ref(st)
     if device == "cuda":
         torch.cuda.synchronize()
     acc_err = {k: _equal(a, diag_p.extras.acc[k])
                for k, a in diag_k.extras.acc.items()}
+    if own is not None:
+        acc_err["Pressure_peak (the carrier peak)"] = _equal(
+            own.acc["Pressure_peak"], st.peak)
     series_err = _equal(diag_k.series, diag_p.series)
     amax = {k: float(a.abs().max()) for k, a in diag_p.extras.acc.items()}
     smax = float(diag_p.series.abs().max())
@@ -2396,12 +2687,13 @@ def _counted_modules():
         fdtd_visco_fused_kernels,
         fdtd_visco_halo_kernels,
         fdtd_visco_kernels,
+        rayleigh,
     )
 
     return (fdtd_kernels, fdtd_fused_kernels, fdtd_halo_kernels,
             fdtd_visco_kernels, fdtd_visco_fused_kernels,
             fdtd_visco_halo_kernels, fdtd_sources, bhte_kernels, fdtd_extras,
-            probes)
+            rayleigh, probes)
 
 
 def reset_counts():
@@ -2425,6 +2717,33 @@ def read_counts():
         launches.update(mod.launches)
         plain.update(mod.plain_calls)
     return launches, plain
+
+
+@contextlib.contextmanager
+def counting_rayleigh():
+    """Count the calls of ``rayleigh_field`` while the block runs (the
+    acoustic pipeline's, and those of ``steering_phases``): a call on one
+    device launches the Rayleigh kernel once, so a slice's ``rayleigh``
+    launches must equal this count. Yields a one-element list."""
+    from babelbrain_tpu_torch.ops import rayleigh as R
+    from babelbrain_tpu_torch.pipeline import acoustic as A
+
+    calls = [0]
+    saved = {m: m.rayleigh_field for m in (R, A)}
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            calls[0] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for m, fn in saved.items():
+        m.rayleigh_field = counted(fn)
+    try:
+        yield calls
+    finally:
+        for m, fn in saved.items():
+            m.rayleigh_field = fn
 
 
 # steps of the slice-input check: half before the DFT window's start, half
@@ -2550,7 +2869,7 @@ def to_mask_frame(dom, ijk):
 
 
 def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
-               diagnostics=False, t1=None, n_steps=None):
+               diagnostics=(), t1=None, n_steps=None):
     """The stage functions ``run_case`` calls, in its order (no files
     written): CT mode with a CT volume (a ZTE or PETRA MRI first turned
     into a pseudo-CT, by ``cfg.ct_type``; with ``cfg.coregister`` and
@@ -2558,12 +2877,12 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
     registration's wall time, statistics and peak device memory under the
     result's ``"coreg"``), label mode with ``ct=None``; a
     dome transducer runs ``run_dome_sim``, any other ``run_acoustic_sim``
-    with ``cfg.do_refocus`` and, with ``diagnostics``, all 14 ``sel_maps``
-    and the pressure series at ``beam_axis_monitors``. Step 3 runs
+    with ``cfg.do_refocus`` and, with ``diagnostics`` (``sel_maps`` names:
+    all 14, or the reference's Step 2 selection ``SENSOR_MAPS``), those
+    maps and the pressure series at ``beam_axis_monitors``. Step 3 runs
     ``run_sonication`` on one ``params`` entry, or ``run_all_combinations``
     (chained, no files) on a list of them. ``n_steps`` cuts the domain's
     FDTD steps (its DFT window kept whole)."""
-    from babelbrain_tpu_torch.ops.fdtd_extras import SEL_MAPS
     from babelbrain_tpu_torch.materials.ct_mapping import map_hu_to_properties
     from babelbrain_tpu_torch.pipeline.acoustic import (
         position_transducer,
@@ -2657,7 +2976,7 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
             result = run_dome_sim(dom, tx, source_amp, device=cfg.device)
         else:
             tx = position_transducer(tx, dom, spec.focal_length)
-            diag = (dict(sel_maps=SEL_MAPS, monitor_ijk=monitors)
+            diag = (dict(sel_maps=tuple(diagnostics), monitor_ijk=monitors)
                     if diagnostics else {})
             result = run_acoustic_sim(dom, tx, source_amp,
                                       do_refocus=cfg.do_refocus,
@@ -2680,9 +2999,11 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
             "tx": tx, "coreg": coreg}
 
 
-# the FDTD steps dome-ct runs, a third of its domain's 6750 (the DFT window
-# kept whole): all of them would not fit the time limit
+# the FDTD steps the dome slices run (the DFT window kept whole): dome-ct a
+# third of its domain's 6750, dome-label 2250 of its 4125; all of them
+# would not fit the time limit
 DOME_CT_STEPS = 2250
+DOME_STEPS = {"dome-ct": DOME_CT_STEPS, "dome-label": 2250}
 # the slices of phase 4: (CT volume given?, transducer, frequency,
 # refocusing?, 1 W calibrated drive?); a "diag" slice asks for every
 # diagnostic (the 14 maps and the beam-axis series)
@@ -2691,6 +3012,10 @@ SLICES = {
     "label": (False, "CTX_500", F0, False, False),
     "diag-ct": (True, "CTX_500", F0, False, False),
     "diag-label": (False, "CTX_500", F0, False, False),
+    # the CT slice asking for the reference's own Step 2 selection: the
+    # Pressure RMS / peak maps and the beam-axis pressure sensors, its
+    # window through the fluid sweep's extras instantiations
+    "sensors-ct": (True, "CTX_500", F0, False, False),
     "refocus-ct": (True, "CTX_500", F0, True, False),
     "refocus-label": (False, "CTX_500", F0, True, False),
     # the DomeTx's other published frequency: at 670 kHz the dome-fitted
@@ -2709,9 +3034,11 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
               device="cuda", params=None):
     """One main path on the digital head (``SLICES[mode]``): CT mode (CT
     volume given: fluid FDTD) or label mode (labels only: viscoelastic
-    FDTD), with refocusing, with the DomeTx driven volumetrically, or with
-    every diagnostic (and, in CT mode, the raw capture after it). Returns
-    the launch counts of the run."""
+    FDTD), with refocusing, with the DomeTx driven volumetrically, with
+    every diagnostic (and, in CT mode, the raw capture after it), or with
+    the reference's Step 2 selection (sensors-ct). Returns the launch
+    counts of the run."""
+    from babelbrain_tpu_torch.ops.fdtd_extras import SEL_MAPS
     from babelbrain_tpu_torch.pipeline.acoustic import _make_grid
     from babelbrain_tpu_torch.pipeline.runner import CaseConfig, run_case
     from babelbrain_tpu_torch.pipeline.thermal import SonicationParams
@@ -2720,6 +3047,7 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
     with_ct, tx_system, freq, refocus, drive_1w = SLICES[mode]
     dome = mode.startswith("dome")
     diag = mode.startswith("diag")
+    sensors = mode.startswith("sensors")
     coreg = mode == "coreg-zte"
     zte = mode.startswith("zte") or coreg
     tag = f"[slice {mode}]"
@@ -2749,8 +3077,9 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
         reset_counts()
         rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         t0 = time.time()
-        with recording_bhte() as bhte_loops:
-            if have_h5py and not (diag or zte or mode == "dome-ct"):
+        with recording_bhte() as bhte_loops, counting_rayleigh() as n_ray:
+            if have_h5py and not (diag or sensors or zte
+                                  or mode in DOME_STEPS):
                 print(f"{tag} driving run_case (h5py present)")
                 res = run_case(cfg, labels, aff, target, direction, ct_data=ct,
                                ct_affine=aff if ct is not None else None,
@@ -2758,13 +3087,14 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
             else:
                 print(f"{tag} driving the stage functions of run_case in its "
                       "order, writing no files ("
-                      + ("run_case takes no sel_maps)" if diag
+                      + ("run_case takes no sel_maps)" if diag or sensors
                          else "the pseudo-CT stage in the open)" if zte
                          else "h5py missing)"))
                 res = run_stages(cfg, labels, aff, ct, target, direction,
-                                 params, mask_shape, diagnostics=diag, t1=t1,
-                                 n_steps=DOME_CT_STEPS if mode == "dome-ct"
-                                 else None)
+                                 params, mask_shape,
+                                 diagnostics=(SEL_MAPS if diag else
+                                              SENSOR_MAPS if sensors else ()),
+                                 t1=t1, n_steps=DOME_STEPS.get(mode))
             if device == "cuda":
                 torch.cuda.synchronize()
         wall = time.time() - t0
@@ -2860,11 +3190,17 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
     fdtd, stress = ("fluid", "pressure") if with_ct else ("visco", "stress")
     runs = 2 if (refocus or dome) else 1  # plane / volumetric FDTD passes
     expect = {k: 0 for k in launches}
+    expect["rayleigh"] = n_ray[0]  # a launch a call, all on one card
     expect_bhte(expect, [params], device)  # the locating run + schedule
     if dome:  # the tissue and the water pass, both volumetric
         for mats in (dom.materials, dom.materials[:1]):
             expect_fused_run(expect, _make_grid(dom, "velocity_volume"),
                              mats, device=device, fuse_steps=DOME_PIN_K)
+    elif sensors:  # the window through the extras sweeps, pinned
+        grid = _make_grid(dom)
+        expect_fused_run(expect, grid, dom.materials, device=device,
+                         fuse_steps=sensors_depth(grid.shape, device),
+                         sel_maps=SENSOR_MAPS, monitors=True)
     elif not diag:
         # plane and point runs: the fused sweeps by default
         expect_fused_run(expect, _make_grid(dom), dom.materials, n=runs,
@@ -2894,6 +3230,9 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
     if refocus or dome:
         errs = check_slice_inputs(tag, dom, *slice_source(cfg, dom),
                                   device=device)
+    if sensors:
+        check_diagnostic_outputs(tag, res, brain, fk, fluid=True,
+                                 names=SENSOR_MAPS)
     if diag:
         check_diagnostic_outputs(tag, res, brain, fk, fluid=with_ct)
         src = source_plane_of(res["data_for_sim"], dom)
@@ -3134,38 +3473,40 @@ def run_sweep(have_h5py: bool, mask_shape=MASK_SHAPE, device="cuda"):
         clear_spans()
         reset_counts()
         t0 = time.time()
-        with recording_bhte() as bhte_loops:
-            if have_h5py:
-                print(f"{tag} driving run_cases (h5py present)")
-                out = run_cases(cfg, labels, aff, SWEEP_TARGETS, direction,
-                                ct_data=ct, ct_affine=aff,
-                                thermal_params=profile,
-                                mask_shape=mask_shape, stop_on_error=True)
-                cells = {k: out[(k, cfg.frequency, cfg.ppw)]
-                         for k in SWEEP_TARGETS}
-                summary = out.summary
-            else:
-                print(f"{tag} driving the stage functions of run_case per "
-                      "cell, writing no files (h5py missing)")
-                cells = {
-                    k: run_stages(dataclasses.replace(cfg,
-                                                      prefix=f"sweep_{k}"),
-                                  labels, aff, ct, t, direction, profile,
-                                  mask_shape)
-                    for k, t in SWEEP_TARGETS.items()
-                }
-                # run_cases' count of the cells' distinct grid signatures
-                sigs = {_make_grid(c["domain"]) for c in cells.values()}
-                summary = {"cases": len(cells),
-                           "fdtd_executable_builds": len(sigs),
-                           "fdtd_executable_reuses": len(cells) - len(sigs)}
-        dom = cells["A"]["domain"]
-        tx = position_transducer(build_transducer(spec, F0), dom,
-                                 spec.focal_length)
-        with stage_timer("Step2 multipoint", level=2, step=2):
-            points, combined = run_multipoint(dom, tx, SWEEP_STEER,
-                                              cfg.source_amp_pa, fanout=True,
-                                              device=device)
+        with counting_rayleigh() as n_ray:
+            with recording_bhte() as bhte_loops:
+                if have_h5py:
+                    print(f"{tag} driving run_cases (h5py present)")
+                    out = run_cases(cfg, labels, aff, SWEEP_TARGETS, direction,
+                                    ct_data=ct, ct_affine=aff,
+                                    thermal_params=profile,
+                                    mask_shape=mask_shape, stop_on_error=True)
+                    cells = {k: out[(k, cfg.frequency, cfg.ppw)]
+                             for k in SWEEP_TARGETS}
+                    summary = out.summary
+                else:
+                    print(f"{tag} driving the stage functions of run_case per "
+                          "cell, writing no files (h5py missing)")
+                    cells = {
+                        k: run_stages(dataclasses.replace(cfg,
+                                                          prefix=f"sweep_{k}"),
+                                      labels, aff, ct, t, direction, profile,
+                                      mask_shape)
+                        for k, t in SWEEP_TARGETS.items()
+                    }
+                    # run_cases' count of the cells' distinct grid signatures
+                    sigs = {_make_grid(c["domain"]) for c in cells.values()}
+                    summary = {
+                        "cases": len(cells),
+                        "fdtd_executable_builds": len(sigs),
+                        "fdtd_executable_reuses": len(cells) - len(sigs)}
+            dom = cells["A"]["domain"]
+            tx = position_transducer(build_transducer(spec, F0), dom,
+                                     spec.focal_length)
+            with stage_timer("Step2 multipoint", level=2, step=2):
+                points, combined = run_multipoint(
+                    dom, tx, SWEEP_STEER, cfg.source_amp_pa, fanout=True,
+                    device=device)
         if device == "cuda":
             torch.cuda.synchronize()
         wall = time.time() - t0
@@ -3179,6 +3520,7 @@ def run_sweep(have_h5py: bool, mask_shape=MASK_SHAPE, device="cuda"):
              f"{summary}")
 
     expect = {k: 0 for k in launches}
+    expect["rayleigh"] = n_ray[0]  # a launch a call, all on one card
     grids = [c["domain"] for c in cells.values()] + [dom, dom]
     for d in grids:  # the cells' runs and the batch's cases: fused sweeps
         expect_fused_run(expect, _make_grid(d), d.materials, device=device)
@@ -3243,8 +3585,9 @@ def source_plane_of(data, dom):
     return src
 
 
-def check_diagnostic_outputs(tag, res, brain, fk, fluid):
-    """What a diag slice's ``extra_maps`` must hold: the 14 maps in the mask
+def check_diagnostic_outputs(tag, res, brain, fk, fluid, names=None):
+    """What a diag slice's ``extra_maps`` must hold: the maps ``names`` (all
+    14 by default) in the mask
     frame, finite and not empty; the sample times of every window step; at
     every monitor voxel the largest |p| of the series equal to the
     ``Pressure_peak`` map there, bit for bit; in a fluid, each Sigma map
@@ -3254,11 +3597,12 @@ def check_diagnostic_outputs(tag, res, brain, fk, fluid):
     steady-state anchors of `tests/test_fdtd.py:395-428`)."""
     from babelbrain_tpu_torch.ops.fdtd_extras import SEL_MAPS
 
+    names = SEL_MAPS if names is None else names
     dom, ex = res["domain"], res["acoustic"].extra_maps
     p_amp = np.asarray(res["data_for_sim"]["p_amp"])
-    if set(ex) != set(SEL_MAPS) | {"sensor_series", "sensor_times"}:
+    if set(ex) != set(names) | {"sensor_series", "sensor_times"}:
         fail(f"{tag}: extra_maps keys {sorted(ex)}")
-    for name in SEL_MAPS:
+    for name in names:
         v = ex[name]
         if (v.shape != p_amp.shape or v.dtype != np.float32
                 or not np.isfinite(v).all() or not v.max() > 0):
@@ -3275,7 +3619,7 @@ def check_diagnostic_outputs(tag, res, brain, fk, fluid):
     peak_at = ex["Pressure_peak"][tuple(mf.T)]
     if not np.array_equal(np.abs(series).max(1), peak_at):
         fail(f"{tag}: max|series| differs from Pressure_peak at the monitors")
-    if fluid:
+    if fluid and names == SEL_MAPS:
         for kind in ("rms", "peak"):
             for f in ("Sigmaxx", "Sigmayy", "Sigmazz"):
                 if not np.array_equal(ex[f"{f}_{kind}"],
@@ -3288,13 +3632,15 @@ def check_diagnostic_outputs(tag, res, brain, fk, fluid):
     line = np.flatnonzero(on_axis) + 1
     a = line[np.argmax(p_amp[tuple(mf[line].T)])]
     amp_ratio = float(np.abs(series[a]).max() / p_amp[tuple(mf[a])])
-    print(f"{tag} diagnostics: 14 maps in the mask frame {p_amp.shape}; "
+    print(f"{tag} diagnostics: {len(names)} maps in the mask frame "
+          f"{p_amp.shape}; "
           f"{len(mon)} monitors x {n - s} samples; Pressure_rms / p_amp at the "
           f"brain focus {rms_ratio:.5f} (1/sqrt 2 = {1 / np.sqrt(2):.5f}); "
           f"max|series| / p_amp at the beam axis's brain focus "
           f"{tuple(int(v) for v in mf[a])}: {amp_ratio:.5f}; max|series| == "
           f"Pressure_peak at every monitor"
-          + ("; Sigma maps == Pressure maps" if fluid else ""))
+          + ("; Sigma maps == Pressure maps" if fluid and names == SEL_MAPS
+             else ""))
     if abs(rms_ratio * np.sqrt(2) - 1) > 0.05:
         fail(f"{tag}: Pressure_rms / p_amp {rms_ratio} not within 5% of "
              "1/sqrt(2)")
@@ -3986,8 +4332,8 @@ MESH_SLICES = ("ct", "label", "diag-ct", "dome-ct", "refocus-ct",
 MESH_POINT_ONLY = ("refocus-ct", "refocus-label")
 # the slices whose run_fdtd calls go through the fused sweeps by default:
 # each call is run again through the pair, step by step, and must equal it
-FUSED_SLICES = ("ct", "label", "refocus-ct", "refocus-label", "zte-ct",
-                "coreg-zte", "dome-ct", "dome-label")
+FUSED_SLICES = ("ct", "label", "sensors-ct", "refocus-ct", "refocus-label",
+                "zte-ct", "coreg-zte", "dome-ct", "dome-label")
 # the run_fdtd call (its place among dome-ct's calls) the mesh phase replays
 # with fuse_steps=1, through pair + scatter with 2 ghost planes (the path of
 # a volumetric run that keeps the pair), the slice's other calls as they
@@ -4008,8 +4354,9 @@ RECORDED_FUNCTIONS = ("run_fdtd", "run_fdtd_batch", "rayleigh_field")
 def recording(mode):
     """While slice ``mode`` runs, keep the arguments and results of the
     calls the Step 2 pipeline makes (``pipeline.acoustic``'s names):
-    every ``run_fdtd`` and ``run_fdtd_batch``, and in the CT slice its
-    forward Rayleigh over the whole grid, for the mesh phase to replay."""
+    every ``run_fdtd`` and ``run_fdtd_batch``, and in the ``RAYLEIGH_SLICES``
+    their first forward Rayleigh over the whole grid, for the Rayleigh
+    kernel's check and the mesh phase to replay."""
     from babelbrain_tpu_torch.pipeline import acoustic as A
     from babelbrain_tpu_torch.utils.timing import recorded_spans
 
@@ -4020,7 +4367,8 @@ def recording(mode):
         def call(*args, **kwargs):
             out = fn(*args, **kwargs)
             if name == "rayleigh_field" and (
-                    mode != "ct" or any(c[0] == name for c in calls)
+                    mode not in RAYLEIGH_SLICES
+                    or any(c[0] == name for c in calls)
                     or len(_bound(fn, args, kwargs, "points")[0]) < 10**6):
                 return out
             loop = next((dt for label, dt in reversed(recorded_spans())
@@ -4042,7 +4390,7 @@ def recording(mode):
 
 
 def expect_fused_run(expect, grid, materials, n=1, device="cuda",
-                     fuse_steps=None):
+                     fuse_steps=None, sel_maps=(), monitors=False):
     """Add the launches ``n`` calls of ``run_fdtd`` on ``grid`` make in
     ``materials`` (fluid, or shear media) with a plane, point or
     volumetric source and no diagnostics: the fused sweeps and the pair's
@@ -4050,8 +4398,12 @@ def expect_fused_run(expect, grid, materials, n=1, device="cuda",
     / ``visco_plan`` / ``volume_plan`` / ``visco_volume_plan`` take on the
     card (``fuse_steps`` as the calls passed it; a volumetric run's sweeps
     are ``fluid_halo``'s or ``visco_halo``'s, its tail steps scatter
-    too)."""
+    too). With ``sel_maps`` among Pressure_rms / Pressure_peak and / or
+    ``monitors`` (every window step sampled) a fluid run in ``extras_plan``'s
+    schedule: its window sweeps are the extras sweep's, its window's tail
+    steps take the MONITOR sample and the maps' pass."""
     from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops.fdtd_fused_kernels import fused_key
     from babelbrain_tpu_torch.ops.fdtd_halo_kernels import halo_key
     from babelbrain_tpu_torch.ops.fdtd_kernels import pressure_key
     from babelbrain_tpu_torch.ops.fdtd_visco_halo_kernels import (
@@ -4065,9 +4417,13 @@ def expect_fused_run(expect, grid, materials, n=1, device="cuda",
     volume = grid.source_type == "velocity_volume"
     fam, stem = ("visco", "visco_stress") if visco else ("fluid",
                                                          "fluid_pressure")
+    extras = bool(sel_maps) or monitors
     if volume:
         plan = (F.visco_volume_plan(grid, fuse_steps) if visco
                 else F.volume_plan(fuse_steps))
+    elif extras:
+        plan = F.extras_plan(grid.shape, device, viscous, point is not None,
+                             fuse_steps)
     else:
         plan = (F.visco_plan if visco else F.fused_plan)(
             grid.shape, device, viscous, point is not None, fuse_steps)
@@ -4076,6 +4432,11 @@ def expect_fused_run(expect, grid, materials, n=1, device="cuda",
             expect[f"{fam}_velocity"] += n
             expect[pressure_key(stem, dft, point)] += n
             expect["volume_source"] += n * volume
+            if extras and dft:
+                expect["extras_fluid"] += n * ("Pressure_rms" in sel_maps)
+                expect["monitor_fluid"] += n * monitors
+        elif extras and dft:
+            expect[fused_key(True, point, True)] += n
         elif volume:
             expect[visco_halo_key(dft) if visco
                    else halo_key(True, dft)] += n
@@ -4167,14 +4528,98 @@ def check_bhte_runs(tag, loops, schedules, device="cuda"):
     restore_counts(*saved)
 
 
+# the slices whose first forward Rayleigh over the whole grid is recorded
+# for the Rayleigh kernel's check (the CT slice's 10.5 M points and the
+# CTX-500's sources; dome-ct's 51.8 M points and the DomeTx's sources), the
+# points of it the check takes, evenly spread, its band against the plain
+# version (of the peak |p| at those points) and the points it also holds
+# to float64
+RAYLEIGH_SLICES = ("ct", "dome-ct")
+RAYLEIGH_CHECK_POINTS = 2**18
+RAYLEIGH_BAND = 2e-5
+RAYLEIGH_F64_POINTS = 256
+# float32 operations of a point-source pair: r^2 (3 differences, 3 squares,
+# 2 sums), the square root, the reciprocal, the phase's product, its cosine
+# and sine, the 2 products of the amplitude and the complex multiply-add
+# (8); 2 more (a product and exp) with an attenuation
+RAYLEIGH_OPS_PER_PAIR = 23
+
+
+def check_rayleigh_run(mode, device="cuda"):
+    """The forward Rayleigh that slice ``mode`` ran over its whole grid
+    (``recording``), at ``RAYLEIGH_CHECK_POINTS`` of its points, evenly
+    spread, with every source: the kernel (``rayleigh_sum``) must give the
+    slice's values there bit for bit (a point's value does not depend on
+    the other points of its call), and the plain version
+    (``rayleigh_sum_ref``, on the same device and inputs) must agree within
+    ``RAYLEIGH_BAND`` of their peak |p|. Both are held to a float64
+    evaluation at ``RAYLEIGH_F64_POINTS`` of the points and, on a card,
+    timed. The counts of these launches are set aside. Returns (max
+    |kernel - plain|, (ms, plain ms, None) or None, (bound ms, by))."""
+    from babelbrain_tpu_torch.ops import rayleigh as R
+
+    saved = read_counts()
+    _, args, kw, ref, _ = next(c for c in RECORDED[mode]
+                               if c[0] == "rayleigh_field")
+    k, centers, areas, u0, points = _bound(
+        R.rayleigh_field, args, kw, "wavenumber", "centers", "areas", "u0",
+        "points")
+    kr, ki, c, w, pts = R.sum_inputs(k, centers, areas, u0, points)
+    sel = np.unique(np.linspace(0, len(pts) - 1, RAYLEIGH_CHECK_POINTS)
+                    .round().astype(np.int64))
+    dev = torch.device(device)
+    c_t, w_t = torch.as_tensor(c, device=dev), torch.as_tensor(w, device=dev)
+    p_t = torch.as_tensor(pts[sel], device=dev)
+    got = R.rayleigh_sum(kr, ki, c_t, w_t, p_t).cpu().numpy()
+    plain = R.rayleigh_sum_ref(kr, ki, c_t, w_t, p_t).cpu().numpy()
+    same = np.array_equal(got, ref[sel])
+    err = float(np.abs(got - plain).max())
+    scale = float(np.abs(plain).max())
+    few = np.arange(0, len(sel), max(1, len(sel) // RAYLEIGH_F64_POINTS))
+    exact = R.rayleigh_sum_ref(
+        kr, ki, c_t.double(), w_t.to(torch.complex128),
+        p_t[torch.as_tensor(few, device=dev)].double()).cpu().numpy()
+    e64 = [float(np.abs(v[few] - exact).max()) / scale for v in (got, plain)]
+    timed = None
+    if dev.type == "cuda":
+        ms = _timed(lambda: R.rayleigh_sum(kr, ki, c_t, w_t, p_t), 3)
+        plain_ms = _timed(lambda: R.rayleigh_sum_ref(kr, ki, c_t, w_t, p_t),
+                          1, warm=0)
+        timed = (ms, plain_ms, None)
+    restore_counts(*saved)
+    pairs = len(sel) * len(c)
+    b_ms, b_by = roofline(20 * (len(sel) + len(c)),
+                          pairs * (RAYLEIGH_OPS_PER_PAIR + 2 * (ki != 0)))
+    print(f"[rayleigh] {mode} forward Rayleigh ({len(pts)} points, {len(c)} "
+          f"sources), at {len(sel)} of its points: the kernel equals the "
+          f"slice's values bit for bit: {same}; max |kernel - plain| "
+          f"{err:.6g} Pa = {err / scale:.3g} of the peak {scale:.6g} Pa "
+          f"(band {RAYLEIGH_BAND:g}); against float64 at {len(few)} points "
+          f"{e64[0]:.3g} (kernel) and {e64[1]:.3g} (plain) of the peak"
+          + (f"; kernel {timed[0]:.3f} ms, plain {timed[1]:.3f} ms "
+             f"({timed[1] / timed[0]:.1f}x), bound {b_ms:.3f} ms ({b_by}): "
+             f"{b_ms / timed[0]:.1%} of it" if timed else ""))
+    if not same:
+        fail(f"{mode}: the Rayleigh kernel differs from the slice's forward "
+             "Rayleigh")
+    if not err <= RAYLEIGH_BAND * scale:
+        fail(f"{mode}: Rayleigh kernel off its plain version by {err} "
+             f"(peak {scale})")
+    return err, timed, (b_ms, b_by)
+
+
 def check_fused_runs(mode, device="cuda"):
     """Each ``run_fdtd`` call slice ``mode`` made (``recording``), which
     went through the fused sweeps (a volumetric one through the halo
-    sweep), again through the pair step by step (``fdtd_setup`` and the
+    sweep; one with the Pressure maps and monitors through the extras
+    sweeps), again through the pair step by step (``fdtd_setup`` and the
     wrappers of ``ops.fdtd_kernels``, with the scatter of a volumetric
-    drive): the carrier maps must be equal bit for bit. Prints both loops'
-    times; the counts of these launches are set aside."""
+    drive, with a fresh ``Diagnostics`` taking the maps' pass and the
+    MONITOR samples): the carrier maps, the extra maps and the series must
+    be equal bit for bit. Prints both loops' times; the counts of these
+    launches are set aside."""
     from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_extras as E
     from babelbrain_tpu_torch.utils.timing import clear_spans, recorded_spans
 
     saved = read_counts()
@@ -4182,17 +4627,31 @@ def check_fused_runs(mode, device="cuda"):
         if name != "run_fdtd":
             continue
         kw = {k: v for k, v in kw.items() if k not in ("device", "mesh")}
-        idx, mats, grid, amp, ph, pamp, refl, vs = _bound(
+        idx, mats, grid, amp, ph, pamp, refl, vs, maps, mon, sub = _bound(
             F.run_fdtd, args, kw, "mat_idx", "materials", "grid",
             "source_amp", "source_phase", "point_amp", "reflector_mask",
-            "volume_source")
+            "volume_source", "sel_maps", "monitor_ijk", "sensor_subsampling")
         clear_spans()
         step, st, co, oz, vsrc = F.fdtd_setup(idx, mats, grid, amp, ph, refl,
                                               vs, device=device)
-        F._time_loop([(step, st, co, vsrc, None)], grid, oz, pamp)
+        diag, sel = None, np.arange(grid.sensor_start, grid.n_steps, sub)
+        if maps or mon is not None:
+            diag = E.Diagnostics.create(
+                st, grid.sensor_start, E.check_sel_maps(maps),
+                sample_steps=sel if mon is not None else (),
+                index=(None if mon is None
+                       else E.monitor_index(mon, grid.shape, device)))
+        F._time_loop([(step, st, co, vsrc, diag)], grid, oz, pamp)
         pair_loop = next(dt for label, dt in recorded_spans()
                          if label.endswith("FDTD time loop"))
-        bad = _maps_differ(ref, F._carrier(st, grid))
+        out = F._carrier(st, grid)
+        if diag is not None and diag.extras is not None:
+            out.update(diag.extras.read(grid.n_steps - grid.sensor_start))
+        if mon is not None:
+            out.update(F._series(diag.series.cpu().numpy(), sel, grid))
+        bad = _maps_differ(ref, out)
+        if set(ref) != set(out):
+            bad.append(f"keys {sorted(ref)} != {sorted(out)}")
         print(f"[slice {mode}] run_fdtd {grid.shape} {grid.n_steps} steps "
               f"({grid.source_type}): fused loop {loop:.3f} s, the pair "
               f"step by step {pair_loop:.3f} s ({loop / pair_loop:.3f}x); "
@@ -4693,6 +5152,7 @@ SOURCES_CU = "babelbrain_tpu_torch/csrc/fdtd_sources.cu"
 EXTRAS_CU = "babelbrain_tpu_torch/csrc/fdtd_extras.cu"
 PROBES_CU = "babelbrain_tpu_torch/csrc/probes.cu"
 PALLAS = "babelbrain_tpu/ops/fdtd_pallas.py"
+XLA = "babelbrain_tpu/ops/fdtd.py"
 SOURCES = {
     "fluid_velocity": ("fluid_velocity_kernel", FLUID_CU, f"{PALLAS}:262"),
     "fluid_pressure": ("fluid_pressure_kernel", FLUID_CU, f"{PALLAS}:370"),
@@ -4723,6 +5183,12 @@ SOURCES = {
                           f"{PALLAS}:1808"),
     "fluid_fused_point_dft": ("fluid_fused_kernel<WITH_DFT, POINT>", FUSED_CU,
                               f"{PALLAS}:1808"),
+    # B4's with_p2 accumulator (:1756, summed :2288) and its driver's
+    # monitor capture (:2891) inside the K-step sweep: the extras sweep,
+    # timed at the sensors-ct slice's K (its point twin, off the main path,
+    # is checked by check_fused_extras and the cuda tests)
+    "fluid_fused_extras_dft": ("fluid_fused_kernel<WITH_DFT, EXTRAS>",
+                               FUSED_CU, f"{PALLAS}:1756"),
     # B6 (K = 1), B7 (K = 2) and B8 (K >= 2): K visco steps in one sweep,
     # plane (B8 :4843) and point (B8's injection :4900); timed at the main
     # path's K
@@ -4735,6 +5201,10 @@ SOURCES = {
                               VISCO_FUSED_CU, f"{PALLAS}:4900"),
     "volume_source": ("velocity_volume_source_kernel", SOURCES_CU,
                       f"{PALLAS}:706"),
+    # no TPU kernel: the XLA Rayleigh integral (its matrix-unit form), the
+    # forward Rayleigh over each slice's grid; timed at dome-ct's sources
+    "rayleigh": ("rayleigh_kernel", "babelbrain_tpu_torch/csrc/rayleigh.cu",
+                 "babelbrain_tpu/ops/rayleigh.py:98"),
     # B4's volumetric drive (:1815, injected at :2108) inside its K-step
     # sweep: the halo sweep, timed at the dome's grid and depth
     "fluid_halo_volume": ("fluid_halo_kernel<VOLUME>", HALO_CU,
@@ -4753,17 +5223,18 @@ SOURCES = {
                            f"{PALLAS}:3780"),
     "visco_stress_point_dft": ("visco_stress_kernel<WITH_DFT, POINT>",
                                VISCO_CU, f"{PALLAS}:3780"),
-    # B4's with_p2 accumulator (the running sum of p^2 of its sweeps),
-    # generalised to the 14 maps of the XLA path in either family
-    "extras_fluid": ("extras_accumulate_kernel", EXTRAS_CU, f"{PALLAS}:2288"),
+    # no TPU kernel: the XLA path's 14 maps (_update_extras) in either
+    # family, after each step a run takes on the pair
+    "extras_fluid": ("extras_accumulate_kernel", EXTRAS_CU, f"{XLA}:729"),
     "extras_visco": ("extras_accumulate_kernel<VISCO>", EXTRAS_CU,
-                     f"{PALLAS}:2288"),
-    # the monitor capture of B4's host loop simulate_fluid_pallas, folded into
-    # the pressure / stress kernel (timed with the DFT and 201 voxels)
+                     f"{XLA}:729"),
+    # no TPU kernel: the XLA path's samples (_monitor_gather) on the pair,
+    # folded into the pressure / stress kernel (timed with the DFT and 201
+    # voxels)
     "monitor_fluid": ("fluid_pressure_kernel<WITH_DFT, kMonitorListed>",
-                      FLUID_CU, f"{PALLAS}:2891"),
+                      FLUID_CU, f"{XLA}:706"),
     "monitor_visco": ("visco_stress_kernel<WITH_DFT, kMonitorListed>",
-                      VISCO_CU, f"{PALLAS}:2891"),
+                      VISCO_CU, f"{XLA}:706"),
     # P1 (and P2's table gathers, tools/probe_gather.py:46)
     "stream": ("stream_kernel", PROBES_CU, "tools/probe_roofline.py:75"),
     "fma_chain": ("fma_chain_kernel", PROBES_CU, "tools/probe_roofline.py:90"),
@@ -4819,6 +5290,16 @@ def main():
         for k, v in e.items():  # the scatter is checked in both families
             errs[k] = max(errs.get(k, 0.0), v)
         times.update(t)
+    e, t, b, per_step = check_fused_extras()
+    errs.update(e)
+    times.update(t)
+    bounds.update(b)
+    from babelbrain_tpu_torch.ops.fdtd_fused_kernels import EXTRAS_FUSE_BEST
+    print(f"[fused extras] at {SLICE_SHAPE} a step: "
+          + ", ".join(f"K={k} {v:.4f} ms" for k, v in per_step.items()
+                      if k != "pair")
+          + f"; pair + extras + MONITOR {per_step['pair']:.4f} ms; "
+          f"EXTRAS_FUSE_BEST = {EXTRAS_FUSE_BEST}")
     for e, t, b in (check_fused(times), check_visco_fused(times),
                     check_fused_volume(times), check_visco_volume(times),
                     check_bhte_fused(times),
@@ -4833,13 +5314,18 @@ def main():
     launches = dict.fromkeys([*SOURCES, *read_counts()[0]], 0)
     for mode in SLICES:
         with (recording(mode) if mode in MESH_SLICES + FUSED_SLICES
-              else contextlib.nullcontext()), pinned_fuse_steps(
-                  mode.startswith("dome")):
+              else contextlib.nullcontext()), pinned_fuse_steps(mode):
             counts, slice_errs = run_slice(have["h5py"], mode)
         if mode in FUSED_SLICES:
             check_fused_runs(mode)
             if mode not in MESH_SLICES:
                 RECORDED.pop(mode, None)
+        if mode in RAYLEIGH_SLICES:
+            e, times["rayleigh"], bounds["rayleigh"] = check_rayleigh_run(mode)
+            errs["rayleigh"] = max(errs.get("rayleigh", 0.0), e)
+            if mode != "ct":  # the mesh phase replays the CT slice's alone
+                RECORDED[mode] = [c for c in RECORDED[mode]
+                                  if c[0] != "rayleigh_field"]
         for k, v in counts.items():
             launches[k] += v
         for k, v in slice_errs.items():
@@ -4872,7 +5358,10 @@ def main():
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             # the FDTD and BHTE rows: no single PyTorch call computes an
             # FDTD or BHTE step, or sets three scattered velocity volumes
-            # from the dome drive (the other rows give theirs or say why not)
+            # from the dome drive; nor the Rayleigh sum from its points and
+            # sources (a complex product needs the points x sources matrix
+            # of phase factors, which is the kernel's work) (the other rows
+            # give theirs or say why not)
             "library_ms": lib[0] if lib else None,
         })
         if launches[k] <= 0:

@@ -557,14 +557,27 @@ def _b4_config():
     return np.zeros(shape, np.uint8), mats, g, kw
 
 
-def test_pressure_maps_and_monitor_match_jax_b4_interpret():
+@functools.cache
+def _b4_jax():
+    """JAX's Pallas path (B4 with ``with_p2`` and the monitor capture, in
+    interpret mode) on ``_b4_config``, run once for both port routes."""
+    idx, mats, g, kw = _b4_config()
+    return J.run_fdtd(idx, mats, J.FDTDGrid(**g), backend="pallas", **kw)
+
+
+@pytest.mark.parametrize("fuse_steps", [None, 3])
+def test_pressure_maps_and_monitor_match_jax_b4_interpret(fuse_steps):
     """The port against B4 itself (``build_fluid_fusedK_step`` with
     ``with_p2`` and its driver's monitor capture), run by the JAX Pallas
     path in interpret mode: ``Pressure_rms`` and ``Pressure_peak`` at the
-    plane band, and the series at B4's sample steps (every fused depth)."""
+    plane band, and the series at B4's sample steps (every fused depth).
+    The port's default (``EXTRAS_FUSE_BEST`` = 0: every step on the pair)
+    and its extras sweeps at K = 3 (the window in the fused sweep, p^2 and
+    the samples inside it)."""
     idx, mats, g, kw = _b4_config()
-    oj = J.run_fdtd(idx, mats, J.FDTDGrid(**g), backend="pallas", **kw)
-    ot = T.run_fdtd(idx, mats, T.FDTDGrid(**g), device="cpu", **kw)
+    oj = _b4_jax()
+    ot = T.run_fdtd(idx, mats, T.FDTDGrid(**g), device="cpu",
+                    fuse_steps=fuse_steps, **kw)
     steps_j = np.round(oj["sensor_times"] / g["dt"]).astype(int)
     steps_t = np.round(ot["sensor_times"] / g["dt"]).astype(int)
     # the port samples every step of the window, B4 once per sweep

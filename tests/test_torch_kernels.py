@@ -8,14 +8,17 @@ them on a GPU machine with
 
 ``python3 chip_smoke.py`` runs the same comparisons at the main path's full
 shapes. Kernels are built with --fmad=false in the plain versions'
-operation order, so the comparisons are exact (tolerance 0); the CPU tests
-hold the plain versions to the JAX package. The rigid registration (plain
+operation order, so the comparisons are exact (tolerance 0), but for the
+Rayleigh kernel's, which sums its pairs in another order than the plain
+version's complex matrix product (within 2e-5 of the peak |p|); the CPU
+tests hold the plain versions to the JAX package. The rigid registration (plain
 PyTorch, no kernel of its own) is held on the card to its CPU run at the
 bands of its JAX parity test. This file imports nothing of the JAX
 package, so it runs where JAX is not installed.
 """
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -34,6 +37,7 @@ from babelbrain_tpu_torch.ops import fdtd_extras as E
 from babelbrain_tpu_torch.ops import fdtd_kernels as K
 from babelbrain_tpu_torch.ops import fdtd_sources as S
 from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
+from babelbrain_tpu_torch.ops import rayleigh as R
 
 pytestmark = pytest.mark.cuda
 
@@ -228,6 +232,161 @@ def test_fused_run_fdtd_matches_the_pair(cuda):
     ref = F._carrier(st, grid)
     for name in ("p_amp", "p_phase", "peak"):
         np.testing.assert_array_equal(out[name], ref[name], err_msg=name)
+
+
+def _handover_monitors(shape):
+    """Monitor voxels where the extras sweep's stages and warps meet: the
+    planes where stage s + 1 follows stage s (0, 1, LAG - 1, LAG, LAG + 1,
+    the last two) on (y, z) tile corners and at the centre, four repeated."""
+    from babelbrain_tpu_torch.ops.fdtd_fused_kernels import LAG
+
+    n1, n2, n3 = shape
+    planes = sorted({0, 1, LAG - 1, LAG, LAG + 1, n1 - 2, n1 - 1})
+    ijk = [[i, j, k] for i in planes for j in sorted({0, K.TILE_Y - 1,
+                                                      K.TILE_Y, n2 - 1})
+           for k in sorted({0, K.TILE_Z - 1, K.TILE_Z, n3 - 1})]
+    ijk += [[i, n2 // 2, n3 // 2] for i in planes]
+    return np.array(ijk + [ijk[0], ijk[5], ijk[5], ijk[-1]])
+
+
+def _extras_sweep(cuda, shape, zsrc, k, source, viscous, maps, monitors):
+    """One extras sweep of ``k`` window steps from the state 20 quiet pair
+    steps leave (every step but the second sampled), its plain version and
+    ``k`` steps of pair + extras + MONITOR: the three states and their
+    ``Diagnostics``, and the launch counts the sweep added."""
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+
+    grid, co = _fluid_setup(cuda, shape=shape, viscous=viscous,
+                            source_type=source, zsrc=zsrc,
+                            source_ijk=(shape[0] // 2, K.TILE_Y, K.TILE_Z))
+    grid = dataclasses.replace(grid, sensor_start=20)
+    oz = 1.0 / (1000.0 * 1500.0)
+    pamp = 60e3 if source == "stress_point" else 0.0
+    st = K.FluidState.zeros(grid.shape, 14, cuda)
+    for n in range(20):
+        F.fluid_step(st, co, grid, n, oz, pamp)
+    states = [_copy(st) for _ in range(3)]
+    index = (E.monitor_index(_handover_monitors(shape), shape, cuda)
+             if monitors else None)
+    sampled = [n for n in range(20, 20 + k) if n != 21] if monitors else ()
+    diags = [E.Diagnostics.create(x, 20, maps, sample_steps=sampled,
+                                  index=index, sweep=sweep)
+             for x, sweep in zip(states, (True, True, False))]
+    pt = F.point_index(grid)
+    rows = [F.step_scalars(grid, n, oz, pamp) for n in range(20, 20 + k)]
+    before = dict(FK.launches)
+    for fn, x, d in zip((FK.fluid_fused, FK.fluid_fused_ref), states, diags):
+        fn(x, co, rows, pt, with_dft=True, extras=d.extras,
+           monitor=d.sweep_monitor(20, k))
+    grew = {key: FK.launches[key] - before[key] for key in FK.launches}
+    for n in range(20, 20 + k):
+        F.fluid_step(states[2], co, grid, n, oz, pamp, None,
+                     diags[2].monitor(n))
+        diags[2].record(states[2], n)
+    torch.cuda.synchronize()
+    return states, diags, grew
+
+
+def _extras_equal(states, diags, k):
+    """The sweep's state, maps and series against its plain version's and
+    the pair's, bit for bit."""
+    fields = ("p", "vx", "vy", "vz", "r", "acc_cos", "acc_sin", "peak")
+    maps = [d.extras.read(k) if d.extras is not None else {} for d in diags]
+    for x, m, d in zip(states[1:], maps[1:], diags[1:]):
+        _fields_equal(states[0], x, fields, ("psi_p", "psi_v"))
+        assert set(m) == set(maps[0])
+        for name, v in maps[0].items():
+            np.testing.assert_array_equal(v, m[name], err_msg=name)
+        if d.series is not None:
+            torch.testing.assert_close(diags[0].series, d.series, rtol=0,
+                                       atol=0)
+
+
+# the extras sweep's cases: (K, source, viscous), on the ragged grids
+EXTRAS_CASES = [(k, src, viscous) for k in (1, 2, 3, 4)
+                for src in ("velocity_plane", "stress_point")
+                for viscous in (True, False)]
+
+
+@pytest.mark.parametrize("shape,zsrc", VISCO_GRIDS[1:])
+@pytest.mark.parametrize("k,source,viscous", EXTRAS_CASES)
+def test_fused_extras_kernel_matches_plain(cuda, k, source, viscous, shape,
+                                           zsrc):
+    """The extras sweep (``fluid_fused`` with the Pressure_rms accumulator
+    and monitors on the stages' hand-over planes and tile corners, some
+    listed twice, one step not sampled) against its plain version and
+    against K steps of pair + extras + MONITOR, bit for bit; Pressure_peak
+    read from the carrier peak equals the pair's own map."""
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+
+    states, diags, grew = _extras_sweep(
+        cuda, shape, zsrc, k, source, viscous,
+        ("Pressure_rms", "Pressure_peak"), True)
+    key = FK.fused_key(True, 0 if source == "stress_point" else None, True)
+    assert grew[key] == 1 and sum(grew.values()) == 1
+    assert float(diags[0].series.abs().max()) > 0
+    _extras_equal(states, diags, k)
+
+
+@pytest.mark.parametrize("maps,monitors", [
+    (("Pressure_rms", "Pressure_peak"), False), (("Pressure_peak",), True),
+    ((), True)])
+def test_fused_extras_maps_or_monitors_alone(cuda, maps, monitors):
+    """Maps without monitors, the carrier peak alone (no p^2 sum) and
+    monitors without maps, each through the same instantiation with a null
+    pointer: bit for bit with the plain version and the pair."""
+    states, diags, grew = _extras_sweep(cuda, (27, 45, 47), K.TILE_Z, 3,
+                                        "velocity_plane", True, maps,
+                                        monitors)
+    assert grew["fluid_fused_extras_dft"] == 1
+    _extras_equal(states, diags, 3)
+
+
+@pytest.mark.parametrize("subsampling", [1, 3])
+@pytest.mark.parametrize("source", ["velocity_plane", "stress_point"])
+def test_fused_extras_run_fdtd_matches_the_pair(cuda, source, subsampling):
+    """``run_fdtd`` with Pressure_rms / Pressure_peak and monitors through
+    the extras sweeps (pinned at K = 3 and 4: a 20-step window, which
+    neither divides) equals its pair route (``fuse_steps=0``) bit for bit."""
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+
+    grid, co = _fluid_setup(cuda, source_type=source)
+    idx = co.mat_idx.cpu().numpy()
+    mats = np.array([[1000.0, 1500.0, 0, 0, 0], [1900.0, 2200.0, 0, 80.0, 0]])
+    amp = np.zeros(grid.shape[:2])
+    amp[6:-6, 6:-6] = 60e3
+    ph = np.random.default_rng(0).uniform(-1, 1, grid.shape[:2])
+    kw = dict(sel_maps=("Pressure_rms", "Pressure_peak"),
+              monitor_ijk=_handover_monitors(grid.shape),
+              sensor_subsampling=subsampling, point_amp=60e3, device="cuda")
+    ref = F.run_fdtd(idx, mats, grid, amp, ph, fuse_steps=0, **kw)
+    point = F.point_index(grid)
+    key = FK.fused_key(True, point, True)
+    for k in (3, 4):
+        plan = F.extras_plan(grid.shape, "cuda", True, point is not None, k)
+        sweeps = sum(m >= 2 and dft for _, m, dft in
+                     F.fused_schedule(grid, plan))
+        before = FK.launches[key]
+        out = F.run_fdtd(idx, mats, grid, amp, ph, fuse_steps=k, **kw)
+        assert FK.launches[key] - before == sweeps > 0
+        assert set(out) == set(ref)
+        for name, v in ref.items():
+            np.testing.assert_array_equal(out[name], v, err_msg=name)
+
+
+def test_fused_extras_refuses_the_quiet_phase_and_shards(cuda):
+    """An extras sweep outside the window or on a shard raises."""
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+
+    grid, co = _fluid_setup(cuda)
+    st = K.FluidState.zeros(grid.shape, 14, cuda)
+    ex = E.Extras.zeros(("Pressure_rms",), grid.shape, cuda, False)
+    rows = [F.step_scalars(grid, 20, 1.0)]
+    with pytest.raises(ValueError, match="window"):
+        FK.fluid_fused(st, co, rows, with_dft=False, extras=ex)
+    co.x_hi = False
+    with pytest.raises(ValueError, match="whole grid"):
+        FK.fluid_fused(st, co, rows, with_dft=True, extras=ex)
 
 
 # the halo sweep's cases: (K, volumetric drive, viscous, with the DFT,
@@ -1279,3 +1438,61 @@ def test_edge_ownership_kernels_match_plain(cuda, family, viscous, source,
     point = "_point" if source == "stress_point" else ""
     for key in (stem + point, stem + point + "_dft"):
         assert after[key] > before[key], key
+
+
+def _rayleigh_inputs(n_src, n_points, ki, seed=3):
+    """A CTX-500-sized bowl patch set and points through its focal region,
+    in the kernel's inputs (``sum_inputs``)."""
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0, 0.5, n_src)
+    phi = rng.uniform(0, 2 * np.pi, n_src)
+    centers = 0.064 * np.stack([np.sin(theta) * np.cos(phi),
+                                np.sin(theta) * np.sin(phi),
+                                -np.cos(theta)], 1)
+    u0 = 6e4 * np.exp(1j * rng.uniform(0, 0.3, n_src))
+    points = rng.uniform([-0.02, -0.02, -0.04], [0.02, 0.02, 0.02],
+                         (n_points, 3))
+    k = 2 * np.pi * F0 / 1500.0 + 1j * ki
+    return R.sum_inputs(k, centers, np.full(n_src, 2e-7), u0, points)
+
+
+@pytest.mark.parametrize("n_src, n_points, ki", [
+    (21893, 70001, 0.0), (255, 257, 0.0), (1, 1, 0.0), (4099, 9000, 30.0)])
+def test_rayleigh_kernel_matches_plain(cuda, n_src, n_points, ki):
+    """``rayleigh_kernel`` against its plain version on the card (source
+    counts off the 256-source tile, points off the 256-point block, with
+    and without attenuation), within chip_smoke's band of 2e-5 of the peak,
+    and against float64 no worse than the plain version does."""
+    kr, ki, c, w, pts = _rayleigh_inputs(n_src, n_points, ki)
+    args = [torch.as_tensor(a, device=cuda) for a in (c, w, pts)]
+    before = R.launches["rayleigh"]
+    got = R.rayleigh_sum(kr, ki, *args)
+    assert R.launches["rayleigh"] == before + 1
+    plain = R.rayleigh_sum_ref(kr, ki, *args)
+    scale = float(plain.abs().max())
+    assert float((got - plain).abs().max()) <= 2e-5 * scale
+    few = args[2][:: max(1, n_points // 64)]
+    exact = R.rayleigh_sum_ref(kr, ki, args[0].double(),
+                               args[1].to(torch.complex128), few.double())
+    step = max(1, n_points // 64)
+    e_kernel = float((got[::step] - exact).abs().max())
+    e_plain = float((plain[::step] - exact).abs().max())
+    assert e_kernel <= max(2 * e_plain, 1e-6 * scale)
+
+
+def test_rayleigh_kernel_values_do_not_depend_on_the_other_points(cuda):
+    """A point's value is the same whichever points share its launch, bit
+    for bit: the sharded ``rayleigh_field`` relies on it."""
+    kr, ki, c, w, pts = _rayleigh_inputs(3000, 5000, 0.0)
+    c, w, pts = (torch.as_tensor(a, device=cuda) for a in (c, w, pts))
+    whole = R.rayleigh_sum(kr, ki, c, w, pts)
+    for lo, hi in ((0, 1), (7, 300), (4095, 5000)):
+        part = R.rayleigh_sum(kr, ki, c, w, pts[lo:hi].contiguous())
+        assert torch.equal(part, whole[lo:hi])
+
+
+def test_rayleigh_wrapper_rejects_mixed_devices(cuda):
+    kr, ki, c, w, pts = _rayleigh_inputs(10, 10, 0.0)
+    with pytest.raises(ValueError, match="centers must be contiguous"):
+        R.rayleigh_sum(kr, ki, torch.as_tensor(c), torch.as_tensor(w,
+                       device=cuda), torch.as_tensor(pts, device=cuda))

@@ -229,6 +229,51 @@ def test_run_acoustic_sim_diagnostics_match_jax():
     assert np.abs(et["sensor_series"][0]).max() == et["Pressure_peak"][t]
 
 
+def test_run_acoustic_sim_pressure_sensors_match_jax(monkeypatch):
+    """The reference's own Step 2 selection: only ``Pressure_rms`` /
+    ``Pressure_peak`` and the beam-axis monitors, the port's FDTD pinned at
+    K = 3 so its window runs in the fluid sweep's extras instantiations
+    (B4's ``with_p2`` and monitor capture), against JAX's
+    ``run_acoustic_sim`` at the bands of the 14-map case; the window's
+    sweeps ran, and the target's largest |p| is the peak map there, bit
+    for bit."""
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+
+    dom_j, tx_j = _jax_domain_case()
+    fi, fj, fk = (int(v) for v in dom_j.focal_idx)
+    nz = dom_j.material_map.shape[2]
+    mon = np.array([[fi, fj, fk]] + [[fi, fj, k] for k in range(nz)])
+    names = ("Pressure_rms", "Pressure_peak")
+    kw = dict(sel_maps=names, monitor_ijk=mon)
+    pinned = TA.run_fdtd
+    monkeypatch.setattr(TA, "run_fdtd",
+                        lambda *a, **k: pinned(*a, fuse_steps=3, **k))
+    before = FK.plain_calls["fluid_fused_extras_dft"]
+    rj = JA.run_acoustic_sim(dom_j, tx_j, 60e3, **kw)
+    rt = TA.run_acoustic_sim(convert.domain_from_reference(dom_j),
+                             convert.transducer_from_reference(tx_j), 60e3,
+                             device="cpu", **kw)
+    n_win = dom_j.n_steps - dom_j.sensor_start
+    assert FK.plain_calls["fluid_fused_extras_dft"] - before == (
+        n_win // 3 + n_win % 3 // 2)
+    ej, et = rj.extra_maps, rt.extra_maps
+    assert set(et) == set(ej) == set(names) | {"sensor_series",
+                                               "sensor_times"}
+    for name in names:
+        assert et[name].shape == rt.p_amp.shape == ej[name].shape, name
+        scale = np.abs(ej[name]).max()
+        assert scale > 0, name
+        np.testing.assert_allclose(et[name], ej[name], atol=1e-4 * scale,
+                                   rtol=1e-3, err_msg=name)
+    assert et["sensor_series"].shape == (len(mon), n_win)
+    s = np.abs(ej["sensor_series"]).max()
+    np.testing.assert_allclose(et["sensor_series"], ej["sensor_series"],
+                               atol=1e-4 * s, rtol=1e-3)
+    np.testing.assert_array_equal(et["sensor_times"], ej["sensor_times"])
+    t = tuple(rt.data_for_sim["TargetLocation"])
+    assert np.abs(et["sensor_series"][0]).max() == et["Pressure_peak"][t]
+
+
 # ---------------------------------------------------------------------------
 # refocusing and dome transducers on JAX-built domains
 # ---------------------------------------------------------------------------

@@ -124,3 +124,40 @@ def test_mesh_is_outside_the_slice():
         with pytest.raises(err, match=match):
             T.rayleigh_field(K0, np.zeros((1, 3)), np.ones(1), np.ones(1),
                              np.ones((1, 3)), mesh=mesh, device="cpu")
+
+
+def test_plain_version_runs_on_the_cpu_and_is_counted():
+    """On CPU tensors ``rayleigh_sum`` runs its plain version (counted in
+    ``plain_calls``, never in ``launches``) and equals it; ``rayleigh_field``
+    hands it ``sum_inputs``'s arrays."""
+    tx = make_focused_bowl(F0, 63.2e-3, 64e-3, C0, ppw_surface=2)
+    u0 = np.full(tx.num_subelements, 6e4, np.complex64)
+    rng = np.random.default_rng(11)
+    pts = rng.uniform(-0.01, 0.01, (300, 3))
+    kr, ki, c, w, p = T.sum_inputs(K0, tx.centers, tx.areas, u0, pts)
+    assert (c.dtype, w.dtype, p.dtype) == (np.float32, np.complex64,
+                                           np.float32)
+    args = [torch.as_tensor(a) for a in (c, w, p)]
+    launches, plain = T.launches["rayleigh"], T.plain_calls["rayleigh"]
+    got = T.rayleigh_sum(kr, ki, *args)
+    assert T.plain_calls["rayleigh"] == plain + 1
+    assert torch.equal(got, T.rayleigh_sum_ref(kr, ki, *args))
+    field = T.rayleigh_field(K0, tx.centers, tx.areas, u0, pts, device="cpu")
+    np.testing.assert_array_equal(field, got.numpy())
+    assert T.launches["rayleigh"] == launches
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device"])
+def test_rayleigh_sum_refuses_bad_inputs(bad):
+    c = torch.zeros((4, 3))
+    w = torch.zeros(4, dtype=torch.complex64)
+    p = torch.zeros((5, 3))
+    if bad == "dtype":
+        with pytest.raises(ValueError, match="points must be contiguous"):
+            T.rayleigh_sum(1.0, 0.0, c, w, p.double())
+    elif bad == "shape":
+        with pytest.raises(ValueError, match="expected"):
+            T.rayleigh_sum(1.0, 0.0, c, w[:3].contiguous(), p)
+    else:
+        with pytest.raises(ValueError, match="unsupported device"):
+            T.rayleigh_sum(1.0, 0.0, *(t.to("meta") for t in (c, w, p)))
