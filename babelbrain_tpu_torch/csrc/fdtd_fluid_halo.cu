@@ -1,14 +1,13 @@
-// Fluid (shear-free) FDTD: K leapfrog steps a launch in independent blocks
-// that recompute a halo, for NVIDIA Hopper (sm_90a). CT mode, indexed
-// materials, a plane or a volumetric (dome) source.
+// Fluid (shear-free) FDTD: K leapfrog steps a launch in thread-block
+// clusters that recompute a halo, for NVIDIA Hopper (sm_90a). CT mode,
+// indexed materials, a plane or a volumetric (dome) source.
 //
 // Replaces (TPU kernel of the JAX package, babelbrain_tpu/ops/fdtd_pallas.py):
 //   build_fluid_fusedK_step (B4) with its volumetric drive (volume_src,
 //   :1815, the injection at :2108-2114 and its rings at :2191-2199), and
 //   the volume branch of its sharded driver (:2677-2690): K velocity and
 //   pressure half-steps of a dome run in one launch. The plane source is
-//   compiled too (B4's plane drive), for the comparison with the lockstep
-//   sweep of fdtd_fluid_fused.cu. Each cell's arithmetic is the pair's
+//   compiled too (B4's plane drive). Each cell's arithmetic is the pair's
 //   (fdtd_fluid.cu) and the scatter's (fdtd_sources.cu
 //   velocity_volume_source_kernel), in their order, so K steps of this
 //   kernel equal K steps of pair + scatter bit for bit.
@@ -17,72 +16,104 @@
 // step (22 in the sensor window), device-memory bound. A launch here reads
 // p, v, r, the index and the slot volume once and writes p, v, r once (12
 // volumes, 18 with the DFT sums and the peak), K steps for the price of
-// one, plus the halo each block reads again (L2 mostly) and recomputes:
-// 1.7-7.7 cells computed per cell owned at K = 1..3 (ops/
-// fdtd_halo_kernels.py HaloGeometry.computed). Measured on an H100
-// (PERF.md): slower than pair + scatter at every K, 1.7x at K = 1 and
-// 2.2x at K = 2 at the dome's grid; the recompute, the shared-memory
-// neighbour loads (12 a cell a step) and one ~880-thread block an SM hold
-// it, so run_fdtd keeps pair + scatter unless fuse_steps pins K.
+// one, plus the halo each cluster reads again (L2 mostly) and recomputes
+// (ops/fdtd_halo_kernels.py HaloGeometry.computed: cells computed per cell
+// owned). The first design (independent blocks of one thread a column
+// recomputing a 3K ring around a 256-512 column tile) computed
+// 1.7-6.7 cells per cell owned and lost to pair + scatter at every K; time
+// followed the cells computed, and the loads each thread issued after each
+// block barrier (the index, then the table rows through it) held every
+// step. This design answers both:
 //
-// Design (the BHTE sweep's, bhte.cu bhte_fused_kernel, carried over to the
-// fluid stencil):
-//   - No cooperative launch and no grid barrier, so neither K nor the plane
-//     size is bounded by how many blocks the card holds at once (the
-//     lockstep sweep fits 792 blocks, so K = 1 at the dome's 392x337 planes).
-//   - Tiles and halo. A block owns a (y, z) tile of HaloTile<K>::TZ x TY
-//     columns and a segment of x-planes [x0, x1). A step reaches 3 cells
-//     along each axis (d_plus reads -1..+2, d_minus -2..+1), so the block
-//     computes its tile extended by H = 3K cells a side, one thread a
-//     column, and marches from H planes below its segment to H above it.
-//     Neighbouring blocks recompute each other's halo (overlap and discard);
-//     only owned cells reach the output state.
-//   - The march. At march step f the thread takes p of plane f (stage 0's
-//     input), then for s = 0..K-1 the velocity of step s at plane
-//     a = f - 2 - 3s and the pressure of step s at plane a - 1. The
-//     velocity of plane a needs p of plane a + 2 (its x-window), which the
-//     previous step's pressure produced earlier in this march step; the
-//     pressure of plane a - 1 needs vx of plane a (its x-window), produced
-//     just before. x-windows live in registers (p for the velocity, the new
-//     vx for the pressure). The y/z neighbours come from shared memory:
-//     rings of 4 planes per step of p (written where produced, read 2 march
-//     steps later), vy and vz (read by the neighbours' pressure 1 march step
-//     later, by the own next velocity 3 later). One __syncthreads() a march
-//     step: every cross-thread read is of an earlier march step, and no
-//     slot is rewritten before its last read (ops/fdtd_halo_kernels.py
-//     march models the schedule; tests/test_torch_fused_volume.py checks
-//     every read).
-//   - Per-cell state between steps: r in a 3-deep register ring per step
-//     (produced 3 march steps before the next step's pressure reads it);
-//     the own old vx from the previous step's pressure window, vy and vz
-//     from the rings. The CPML psi values live only in the slabs: step s
-//     reads the psi of stage s and writes that of stage s + 1 to device
-//     memory (stage 0 the input state's, stage K the output's, stages
-//     1..K-1 scratch copies of the slabs). A scratch value is written only
-//     where this block's step s is exact; every block that writes a cell
-//     writes the same bits, and a block reads a scratch cell only after it
-//     wrote it itself, or where its own result is discarded anyway.
-//   - State is out of place. Neighbours read this launch's input p, v, r
-//     and psi of their halo cells, so the input stays unchanged: the kernel
-//     reads an input copy and writes an output copy (which must not alias
-//     it), as bhte_fused_kernel does. The DFT sums and the peak belong to
-//     owned cells only and are updated in place, step after step.
-//   - Volume drive (VOLUME). Every velocity stage applies it, at halo cells
-//     too, so that a halo evolves as its owner's interior does (JAX's
-//     sharded rule, :2677-2682): after the CPML update, where the dense
-//     int32 slot volume (ops/fdtd_sources.py VolumeSource.slot_volume: -1,
-//     or the voxel's index in the sparse list) holds a source, the three
-//     velocities are set from its six floats (read through __ldg). The slot
-//     of a cell is read once a launch, when the march first reaches its
-//     plane, and stays in a register ring for the K steps that use it.
-//   - x decomposition: the x_lo / x_hi flags of Geo with an XALL twin, as
-//     the other FDTD kernels have.
-// Registers, not shared memory, bound the tile: each column keeps two
-// 4-plane windows a step, the r ring and the slot ring. Shared memory: 12
-// planes a step of the extended tile (dynamic, above 48 KB at K >= 2).
+//   1. The cluster, not the block, recomputes the halo. A cluster of
+//      HaloTile<K>::C blocks stacked along y owns TZ x TY columns and
+//      computes them extended by H = 3K a side (EZ x EY columns, one thread
+//      a column); each block computes a slab of BY rows of it. The rows of
+//      a neighbour block that the y stencils reach (2 a side) cross
+//      through distributed shared memory instead of being recomputed: each
+//      thread of a block's two edge rows stores its ring values into the
+//      neighbour's two ghost rows as well, so every stencil read is local.
+//      Those stores are st.async, each signalling its 4 bytes on an
+//      mbarrier of the receiving block (two, by march step parity), and a
+//      step's edge rows wait for the neighbours' bytes of the step before;
+//      a block barrier orders the block's own rings. Two other exchanges
+//      measured slower at the dome's grid (PERF.md) and were dropped: one
+//      cluster barrier a march step (barrier.cluster.arrive.release /
+//      wait.acquire, 19% / 15% slower at K = 1 / 2: it compiles to
+//      MEMBAR.ALL.GPU and an L1 invalidation, CCTL.IVALL, every step), and
+//      reading the neighbour's rings with ld.shared::cluster instead of
+//      pushing (3-14% slower).
+//      Only the cluster's outer edge carries the halo, and the exactness
+//      rule (`exact`) applies there. 1.4-2.0 cells computed per cell owned
+//      at K = 1..3 on the dome's grid, against 1.7-6.7.
+//   2. The march's loads come off the barrier's critical path.
+//      After a march step's work each thread issues cp.async copies of what
+//      its column needs at the next step (p of the next plane, v and r of
+//      the planes stage 0 updates, the material index and the slot) into
+//      its own shared-memory slots, so that they fly while the block
+//      gathers at the step's barrier; the next step waits on the block's
+//      mbarrier for them (fdtd_stencil.cuh cp_async4z, cp_async_arrive,
+//      mbar_wait). The index and the slot stay in a per-column ring of D
+//      planes for the later stages, so a table row is gathered from an
+//      index already in shared memory (the table itself is small and
+//      L1-resident). Plain loads after the barrier, where the values are
+//      used, measured 1.1-5.8% slower at the dome's grid (0.9% faster only
+//      at K = 1 in the quiet phase; PERF.md) and were dropped.
+//   3. The in-between state stays on chip: the p, vy, vz rings (shared
+//      memory), the x-windows and the r ring (registers), as before. Only
+//      the CPML psi of the stages in between goes through device memory
+//      (scratch slabs): it exists only in the slabs along the faces, and a
+//      column's share of it is not known until the march reaches it.
+//   4. Registers and occupancy: the tile is the fastest of the shapes
+//      measured at the dome's grid (PERF.md): at K = 1, 2
+//      clusters of 2 blocks of 988 / 968 threads (26 / 22 rows), one block
+//      an SM and 66 clusters at once (8-block clusters left 12 SMs idle);
+//      at K = 3 clusters of 8 blocks of 500 threads. 56-64 registers at
+//      K = 1, 2 and 80-111 at K = 3, no spills (ptxas -v).
+//
+// The march. At march step f a thread takes p of plane f (stage 0's
+// input), then for s = 0..K-1 the velocity of step s at plane
+// a = f - 2 - 3s and the pressure of step s at plane a - 1. The velocity of
+// plane a needs p of plane a + 2 (its x-window), which the previous step's
+// pressure produced earlier in this march step; the pressure of plane a - 1
+// needs vx of plane a (its x-window), produced just before. x-windows live
+// in registers (p for the velocity, the new vx for the pressure). The y/z
+// neighbours come from shared memory: rings of 4 planes per step of p
+// (written where produced, read 2 march steps later), vy and vz (read by the
+// neighbours' pressure 1 march step later, by the own next velocity 3
+// later). Every cross-thread read is of an earlier march step, so the
+// step's barrier orders it (the block barrier for the block's own rows, the
+// mbarrier wait for the ghost rows), and no slot is rewritten before its
+// last read. A neighbour waits only for this block's rows of the step
+// before its own, so it may run a march step ahead and store its rows of
+// step f + 1 into the ghost slots while this block reads those of step f:
+// a ring of 4 planes keeps them apart (ops/fdtd_halo_kernels.py march
+// models the schedule, the neighbour's early stores included;
+// tests/test_torch_fused_volume.py checks every read, and that ghost rows
+// of 3 planes would not do).
+// Per-cell state between steps: r in a 3-deep register ring per step; the
+// own old vx from the previous step's pressure window, vy and vz from the
+// rings. The CPML psi values live only in the slabs: step s reads the psi of
+// stage s and writes that of stage s + 1 to device memory (stage 0 the
+// input state's, stage K the output's, stages 1..K-1 scratch copies of the
+// slabs). A scratch value is written only where this cluster's step s is
+// exact; every cluster that writes a cell writes the same bits, and a
+// thread reads a scratch cell only after it wrote it itself, or where its
+// own result is discarded anyway.
+// State is out of place. Neighbours read this launch's input p, v, r and psi
+// of their halo cells, so the input stays unchanged: the kernel reads an
+// input copy and writes an output copy (which must not alias it). The DFT
+// sums and the peak belong to owned cells only and are updated in place.
+// Volume drive (VOLUME): every velocity stage applies it, at halo cells too,
+// so that a halo evolves as its owner's interior does (JAX's sharded rule,
+// :2677-2682): after the CPML update, where the dense int32 slot volume
+// (ops/fdtd_sources.py VolumeSource.slot_volume) holds a source, the three
+// velocities are set from its six floats (read through __ldg).
+// x decomposition: the x_lo / x_hi flags of Geo with an XALL twin.
 // ops/fdtd_halo_kernels.py halo_launch_geometry takes HaloTile<K> (checked
-// through bb_fluid_halo_tile_k<K> before a depth's first launch) and cuts
-// x into segments. Each depth is a translation unit of its own
+// through bb_fluid_halo_tile_k<K> before a depth's first launch, with the
+// clusters the card holds at once, bb_fluid_halo_clusters_k<K>) and cuts x
+// into segments. Each depth is a translation unit of its own
 // (-DBB_HALO_K=K, ops/_build.py), compiled in parallel.
 //
 // Rounding: built with --fmad=false; the operation order of the pair, the
@@ -110,24 +141,48 @@ constexpr int kRing = 4;      // planes a shared-memory ring holds
 constexpr int kFar = 1 << 24; // distance to an edge beyond the grid's
 // the rings of a step: p (its input), vy and vz (its output)
 constexpr int kP = 0, kVY = 1, kVZ = 2;
+// the staged values of a march step: p of plane f, v of plane f - 2, r of
+// plane f - 3
+constexpr int kStP = 0, kStVX = 1, kStVY = 2, kStVZ = 3, kStR = 4;
+constexpr int kStaged = 5;
 
 static_assert(BB_HALO_K >= 1 && BB_HALO_K <= kMaxSteps, "depth 1..3");
 
 // table rows (ops/fdtd.py _build_indexed_materials)
 constexpr int kRhoInv = 0, kPiU = 1, kCRp = 3, kBR = 5;
 
-// The block of a K-step launch: an owned tile of TZ x TY (z, y) columns
-// extended by H = 3K a side, one thread a column (at most 1024 threads, and
-// as many registers as the SM holds: one block an SM)
+// The cluster of a K-step launch: C blocks stacked along y own TZ x TY (z,
+// y) columns, computed extended by H = 3K a side (EZ x EY); each block
+// computes BY rows of the extended tile, one thread a column. Shared memory
+// (words): the mbarrier (4), the rings, the staged values and the index and
+// slot rings of D planes (ops/fdtd_halo_kernels.py HALO_TILES).
 template <int K>
 struct HaloTile {
-  static constexpr int TZ = (K <= 2) ? 32 : 16;
-  static constexpr int TY = (K == 1) ? 16 : 8;
+  static constexpr int TZ = 32;
+  static constexpr int BY = (K == 1) ? 26 : (K == 2) ? 22 : 10;
+  static constexpr int C = (K <= 2) ? 2 : 8;
   static constexpr int H = kReach * K;
   static constexpr int EZ = TZ + 2 * H;
-  static constexpr int EY = TY + 2 * H;
-  static constexpr int THREADS = EZ * EY;
-  static constexpr int SMEM = K * 3 * kRing * THREADS * (int)sizeof(float);
+  static constexpr int EY = C * BY;
+  static constexpr int TY = EY - 2 * H;
+  static constexpr int THREADS = EZ * BY;
+  // planes the index and slot rings hold: stage 0's velocity plane, the
+  // planes of the later stages down to stage K - 1's pressure plane, and
+  // the plane staged a step ahead (3K, a power of two)
+  static constexpr int D = (3 * K <= 8) ? 8 : 16;
+  // a ring plane: the block's rows and two ghost rows below and above
+  // that the neighbours store into (those of the cluster's outer edge stay
+  // 0), with ZPAD also two zero columns each side (no bounds check a
+  // stencil tap: taken at the depths where it measured faster, K = 1, 3)
+  static constexpr bool ZPAD = K != 2;
+  static constexpr int RW = ZPAD ? EZ + 4 : EZ;
+  static constexpr int RP = RW * (BY + 4);
+  static constexpr int RINGS = 8;  // after the mbarriers (3 x 8 bytes)
+  static constexpr int RINGS_END = RINGS + K * 3 * kRing * RP;
+  static constexpr int STAGED = RINGS_END;
+  static constexpr int IDX = STAGED + kStaged * THREADS;
+  static constexpr int SLOT = IDX + D * THREADS;
+  static constexpr int SMEM = (SLOT + D * THREADS) * (int)sizeof(float);
 };
 
 struct In5 {
@@ -147,7 +202,7 @@ struct HaloRows {
 };
 
 // K steps of fluid_velocity_kernel, velocity_volume_source_kernel (VOLUME)
-// and fluid_pressure_kernel in one march of independent blocks
+// and fluid_pressure_kernel in one march of clusters
 template <int K, bool VISCOUS, bool WITH_DFT, bool VOLUME, bool XALL>
 __global__ void __launch_bounds__(HaloTile<K>::THREADS, 1)
     fluid_halo_kernel(In5 in, Out5 out, const int* __restrict__ idx,
@@ -163,11 +218,15 @@ __global__ void __launch_bounds__(HaloTile<K>::THREADS, 1)
                       HaloRows rows) {
   using T = HaloTile<K>;
   constexpr int E = T::THREADS;
-  constexpr int kSlots = VOLUME ? kReach * (K - 1) + 1 : 1;
-  extern __shared__ float sm[];  // [K][3][kRing][E]
+  extern __shared__ __align__(16) float sm[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(sm);
+  int* const smi = reinterpret_cast<int*>(sm);
   const int tid = threadIdx.x;
-  const int ey = tid / T::EZ, ez = tid - ey * T::EZ;
-  const int y0 = blockIdx.y * T::TY - T::H, z0 = blockIdx.x * T::TZ - T::H;
+  const int rank = cluster_rank();
+  const int ry = tid / T::EZ, ez = tid - ry * T::EZ;
+  const int ey = rank * T::BY + ry;  // row of the cluster's extended tile
+  const int y0 = (blockIdx.y / T::C) * T::TY - T::H;
+  const int z0 = blockIdx.x * T::TZ - T::H;
   const int y = y0 + ey, z = z0 + ez;
   const bool inside = y >= 0 && y < g.n2 && z >= 0 && z < g.n3;
   const bool owned_col = inside && ey >= T::H && ey < T::H + T::TY &&
@@ -179,26 +238,68 @@ __global__ void __launch_bounds__(HaloTile<K>::THREADS, 1)
   const int x1 = min(g.n1, x0 + g.seg);
   const int xs = max(0, x0 - T::H);
   const int xe = min(g.n1 - 1, x1 - 1 + T::H);
-  // distance to the nearest edge of the extended tile that lies inside the
-  // grid, below and above (what lies beyond such an edge is not known here:
-  // the values it reaches are discarded); an edge at the grid's is exact
+  // distance to the nearest edge of the cluster's extended tile that lies
+  // inside the grid, below and above (what lies beyond such an edge is not
+  // known here: the values it reaches are discarded); an edge at the grid's
+  // is exact
   const int lat_lo = min(y0 <= 0 ? kFar : ey, z0 <= 0 ? kFar : ez);
   const int lat_hi = min(y0 + T::EY >= g.n2 ? kFar : T::EY - 1 - ey,
                          z0 + T::EZ >= g.n3 ? kFar : T::EZ - 1 - ez);
+  // whether this column lies in a y or z CPML slab (else those derivatives
+  // pass through unchanged, as cpml_io would leave them)
+  const bool in_y = y < g.ns || y >= g.n2 - g.ns;
+  const bool in_z = z < g.ns || z >= g.n3 - g.ns;
   const int lo_x = XALL ? g.ns : g.xlo;
   const int hi_x = XALL ? g.n1 - g.ns : g.xhi;
   const int ns = g.ns;
+  // this block's shared memory in the windows of the ranks below and above
+  const unsigned own_base = smem_u32(sm);
+  const unsigned below = rank > 0 ? map_rank(own_base, rank - 1) : 0u;
+  const unsigned above = rank + 1 < T::C ? map_rank(own_base, rank + 1) : 0u;
+  // the two mbarriers (by step parity) of the ghost rows the
+  // neighbours push, here and in the neighbours' windows; the bytes a step
+  // brings (each of its 2 * K ring stores that a y stencil reads, from
+  // the two edge rows of each neighbour); the rows that read ghost rows
+  unsigned long long* const xbar = bar + 1;
+  const unsigned xb_below = rank > 0 ? map_rank(smem_u32(xbar), rank - 1) : 0u;
+  const unsigned xb_above =
+      rank + 1 < T::C ? map_rank(smem_u32(xbar), rank + 1) : 0u;
+  const unsigned x_bytes = (2 * K) * 2 * T::EZ * 4 *
+                           ((rank > 0 ? 1 : 0) + (rank + 1 < T::C ? 1 : 0));
+  const bool edge = ry < 2 || ry >= T::BY - 2;
+  unsigned xpar = 0;  // the parity of the current march step
 
-  auto ring = [&](int s, int f, int i) -> float* {
-    return sm + ((s * 3 + f) * kRing + (i & (kRing - 1))) * E;
+  // word offset of step s's ring f at plane i
+  auto ring = [&](int s, int f, int i) -> int {
+    return T::RINGS + ((s * 3 + f) * kRing + (i & (kRing - 1))) * T::RP;
   };
-  // a y/z neighbour in a ring plane (0 outside the extended tile; threads
-  // off the grid store 0)
-  auto lat = [&](const float* r, int dy, int dz) -> float {
-    return ((unsigned)(ey + dy) < (unsigned)T::EY &&
-            (unsigned)(ez + dz) < (unsigned)T::EZ)
-               ? r[tid + dy * T::EZ + dz]
-               : 0.0f;
+  // this thread's word in a ring plane
+  const int lw = (ry + 2) * T::RW + ez + (T::ZPAD ? 2 : 0);
+  // a y/z neighbour in a ring plane: this block's, a neighbour block's
+  // (stored here by it through distributed shared memory) or 0 outside the
+  // cluster's extended tile (threads off the grid store 0)
+  auto lat = [&](int r, int dy, int dz) -> float {
+    const int w = r + lw + dy * T::RW + dz;
+    if constexpr (T::ZPAD) {
+      return sm[w];  // 0 in the pads and the cluster's outer ghost rows
+    } else {
+      return (unsigned)(ez + dz) < (unsigned)T::EZ ? sm[w] : 0.0f;
+    }
+  };
+  // this thread's value in a ring plane
+  auto mine = [&](int r) -> float& { return sm[r + lw]; };
+  // store this thread's value into a ring plane, and into the ghost rows
+  // of the neighbour whose stencils reach it
+  auto put = [&](int r, float v) {
+    sm[r + lw] = v;
+    if (ry < 2 && rank > 0) {
+      st_async(below + 4u * (r + lw + T::BY * T::RW), v,
+               xb_below + 8u * xpar);
+    }
+    if (ry >= T::BY - 2 && rank + 1 < T::C) {
+      st_async(above + 4u * (r + lw - T::BY * T::RW), v,
+               xb_above + 8u * xpar);
+    }
   };
   auto marched = [&](int i) { return inside && i >= xs && i <= xe; };
   auto own = [&](int i) { return owned_col && i >= x0 && i < x1; };
@@ -208,10 +309,36 @@ __global__ void __launch_bounds__(HaloTile<K>::THREADS, 1)
     return min(lat_lo, xs == 0 ? kFar : i - xs) >= lo &&
            min(lat_hi, xe == g.n1 - 1 ? kFar : xe - i) >= hi;
   };
+  auto idx_of = [&](int i) -> int& {
+    return smi[T::IDX + (i & (T::D - 1)) * E + tid];
+  };
+  auto slot_of = [&](int i) -> int& {
+    return smi[T::SLOT + (i & (T::D - 1)) * E + tid];
+  };
+  // the values march step f takes from global memory: p of plane f, v, the
+  // index and the slot of plane f - 2, r of plane f - 3 (0 off the marched
+  // planes), copied a step ahead
+  auto stage = [&](int f) {
+    const int ci = f * plane + jk, cv = (f - 2) * plane + jk;
+    const int cr = (f - 3) * plane + jk;
+    const bool mi = marched(f), mv = marched(f - 2), mr = marched(f - 3);
+    float* st = sm + T::STAGED + tid;
+    cp_async4z(st + kStP * E, in.p + (mi ? ci : 0), mi);
+    cp_async4z(st + kStVX * E, in.vx + (mv ? cv : 0), mv);
+    cp_async4z(st + kStVY * E, in.vy + (mv ? cv : 0), mv);
+    cp_async4z(st + kStVZ * E, in.vz + (mv ? cv : 0), mv);
+    if constexpr (VISCOUS) {
+      cp_async4z(st + kStR * E, in.r + (mr ? cr : 0), mr);
+    }
+    cp_async4z(&idx_of(f - 2), idx + (mv ? cv : 0), mv);
+    if constexpr (VOLUME) {
+      cp_async4z(&slot_of(f - 2), vs.slot + (mv ? cv : 0), mv);
+    }
+    cp_async_arrive(bar);
+  };
 
   float pw[K][4], vw[K][4];     // x-windows: p at a-1..a+2, vx at b-2..b+1
   float rr[K > 1 ? K - 1 : 1][3];  // step s's r of the last 3 march steps
-  int sl[kSlots];                  // slots of planes a_0, a_0 - 1, ...
 #pragma unroll
   for (int s = 0; s < K; ++s) {
 #pragma unroll
@@ -221,45 +348,43 @@ __global__ void __launch_bounds__(HaloTile<K>::THREADS, 1)
   for (int s = 0; s < (K > 1 ? K - 1 : 1); ++s) {
     rr[s][0] = rr[s][1] = rr[s][2] = 0.0f;
   }
-#pragma unroll
-  for (int m = 0; m < kSlots; ++m) sl[m] = -1;
-  // the next march step's input loads: p of plane f + 1, v and the slot of
-  // plane f - 1, r of plane f - 2
-  float p_nx = marched(xs) ? in.p[xs * plane + jk] : 0.0f;
-  float vx_nx = 0.0f, vy_nx = 0.0f, vz_nx = 0.0f, r_nx = 0.0f;
-  int sl_nx = -1;
+  if (tid == 0) {
+    mbar_init(bar, E);
+    mbar_init(xbar, 1);
+    mbar_init(xbar + 1, 1);
+  }
+  // the pads and ghost rows start at 0
+  for (int w = tid; w < T::RINGS_END - T::RINGS; w += E) {
+    sm[T::RINGS + w] = 0.0f;
+  }
+  // every block of the cluster has started (its shared memory may be
+  // written) and the mbarriers are initialised
+  cluster_arrive();
+  cluster_wait();
+  if (tid == 0) mbar_expect(xbar, x_bytes);  // the first step's
+  stage(xs);
 
   const int f_end = x1 - 1 + T::H;
   for (int f = xs; f <= f_end; ++f) {
-    const float p_f = p_nx;
-    const float vx0 = vx_nx, vy0 = vy_nx, vz0 = vz_nx, r0 = r_nx;
-    if constexpr (VOLUME) {
-#pragma unroll
-      for (int m = kSlots - 1; m >= 1; --m) sl[m] = sl[m - 1];
-      sl[0] = sl_nx;
+    // the ghost rows of the step before have landed; this step's phase
+    // expects the neighbours' bytes (its mbarrier's phase two steps back
+    // completed: this thread waited on it a step ago)
+    const int j = f - xs;
+    xpar = (unsigned)j & 1u;
+    if (j > 0) {
+      if (edge) mbar_wait(xbar + ((j - 1) & 1), ((j - 1) >> 1) & 1);
+      if (tid == 0) mbar_expect(xbar + (j & 1), x_bytes);
     }
-    // the loads of the next march step, before this one's work
-    p_nx = marched(f + 1) ? in.p[(f + 1) * plane + jk] : 0.0f;
-    if (marched(f - 1)) {
-      const int c = (f - 1) * plane + jk;
-      vx_nx = in.vx[c];
-      vy_nx = in.vy[c];
-      vz_nx = in.vz[c];
-      if constexpr (VOLUME) sl_nx = __ldg(vs.slot + c);
-    } else {
-      vx_nx = vy_nx = vz_nx = 0.0f;
-      sl_nx = -1;
-    }
-    if constexpr (VISCOUS) {
-      r_nx = marched(f - 2) ? in.r[(f - 2) * plane + jk] : 0.0f;
-    }
+    mbar_wait(bar, (unsigned)j & 1u);
+    const float* st = sm + T::STAGED + tid;
     // stage 0's input: p of plane f
-    ring(0, kP, f)[tid] = p_f;
+    const float p_f = st[kStP * E];
+    put(ring(0, kP, f), p_f);
     pw[0][0] = pw[0][1];
     pw[0][1] = pw[0][2];
     pw[0][2] = pw[0][3];
     pw[0][3] = p_f;
-    float r_hand = r0;  // r of step s - 1 at step s's pressure plane
+    float r_hand = VISCOUS ? st[kStR * E] : 0.0f;  // step s - 1's r at b
 #pragma unroll
     for (int s = 0; s < K; ++s) {
       const int a = f - 2 - kReach * s;  // velocity plane of step s
@@ -270,20 +395,20 @@ __global__ void __launch_bounds__(HaloTile<K>::THREADS, 1)
         const int c = a * plane + jk;
         float vxo, vyo, vzo;
         if (s == 0) {
-          vxo = vx0;
-          vyo = vy0;
-          vzo = vz0;
+          vxo = st[kStVX * E];
+          vyo = st[kStVY * E];
+          vzo = st[kStVZ * E];
         } else {  // step s - 1's: its pressure window, its rings
           vxo = vw[s - 1][0];
-          vyo = ring(s - 1, kVY, a)[tid];
-          vzo = ring(s - 1, kVZ, a)[tid];
+          vyo = mine(ring(s - 1, kVY, a));
+          vzo = mine(ring(s - 1, kVZ, a));
         }
-        const float* pr = ring(s, kP, a);
-        const float dpy =
-            stencil(lat(pr, -1, 0), pw[s][1], lat(pr, 1, 0), lat(pr, 2, 0));
-        const float dpz =
-            stencil(lat(pr, 0, -1), pw[s][1], lat(pr, 0, 1), lat(pr, 0, 2));
-        const int mi = __ldg(idx + c);
+        const int pr = ring(s, kP, a);
+        const float dpy = stencil(lat(pr, -1, 0), pw[s][1], lat(pr, 1, 0),
+                                  lat(pr, 2, 0));
+        const float dpz = stencil(lat(pr, 0, -1), pw[s][1], lat(pr, 0, 1),
+                                  lat(pr, 0, 2));
+        const int mi = idx_of(a);
         const float ri = __ldg(table + kRhoInv * n_mat + mi);
         const bool keep =
             (s == K - 1) ? own(a) : exact(a, kReach * s + 1, kReach * s + 2);
@@ -292,13 +417,15 @@ __global__ void __launch_bounds__(HaloTile<K>::THREADS, 1)
             ns, prof_half, psi.q[s][0], psi.q[s][1], psi.q[s + 1][0],
             psi.q[s + 1][1], jk, plane, keep);
         const float dy =
-            cpml_io(dpy, y, ns, g.n2 - ns, ns, prof_half + 4 * ns,
-                    psi.q[s][2], psi.q[s][3], psi.q[s + 1][2],
-                    psi.q[s + 1][3], a * ns * g.n3 + z, g.n3, keep);
+            !in_y ? dpy
+                  : cpml_io(dpy, y, ns, g.n2 - ns, ns, prof_half + 4 * ns,
+                            psi.q[s][2], psi.q[s][3], psi.q[s + 1][2],
+                            psi.q[s + 1][3], a * ns * g.n3 + z, g.n3, keep);
         const float dz =
-            cpml_io(dpz, z, ns, g.n3 - ns, ns, prof_half + 8 * ns,
-                    psi.q[s][4], psi.q[s][5], psi.q[s + 1][4],
-                    psi.q[s + 1][5], (a * g.n2 + y) * ns, 1, keep);
+            !in_z ? dpz
+                  : cpml_io(dpz, z, ns, g.n3 - ns, ns, prof_half + 8 * ns,
+                            psi.q[s][4], psi.q[s][5], psi.q[s + 1][4],
+                            psi.q[s + 1][5], (a * g.n2 + y) * ns, 1, keep);
         vzn = vzo - dt_dx * ri * dz;
         if (z == zsrc) {
           const int ij = a * g.n2 + y;
@@ -311,7 +438,7 @@ __global__ void __launch_bounds__(HaloTile<K>::THREADS, 1)
         vxn = vxo - dt_dx * ri * dx;
         vyn = vyo - dt_dx * ri * dy;
         if constexpr (VOLUME) {
-          const int qv = sl[kReach * s];
+          const int qv = slot_of(a);
           if (qv >= 0) {
             const float sv =
                 __ldg(vs.amp + qv) * (rows.s_sin[s] * __ldg(vs.cph + qv) +
@@ -327,8 +454,8 @@ __global__ void __launch_bounds__(HaloTile<K>::THREADS, 1)
           out.vz[c] = vzn;
         }
       }
-      ring(s, kVY, a)[tid] = vyn;
-      ring(s, kVZ, a)[tid] = vzn;
+      put(ring(s, kVY, a), vyn);
+      mine(ring(s, kVZ, a)) = vzn;  // read across z only
       vw[s][0] = vw[s][1];
       vw[s][1] = vw[s][2];
       vw[s][2] = vw[s][3];
@@ -339,13 +466,13 @@ __global__ void __launch_bounds__(HaloTile<K>::THREADS, 1)
       if (marched(b)) {
         const int c = b * plane + jk;
         const float po = pw[s][0];
-        const float* vyr = ring(s, kVY, b);
-        const float* vzr = ring(s, kVZ, b);
-        const float dvy =
-            stencil(lat(vyr, -2, 0), lat(vyr, -1, 0), vyr[tid], lat(vyr, 1, 0));
-        const float dvz =
-            stencil(lat(vzr, 0, -2), lat(vzr, 0, -1), vzr[tid], lat(vzr, 0, 1));
-        const int mi = __ldg(idx + c);
+        const int vyr = ring(s, kVY, b);
+        const int vzr = ring(s, kVZ, b);
+        const float dvy = stencil(lat(vyr, -2, 0), lat(vyr, -1, 0),
+                                  mine(vyr), lat(vyr, 1, 0));
+        const float dvz = stencil(lat(vzr, 0, -2), lat(vzr, 0, -1),
+                                  mine(vzr), lat(vzr, 0, 1));
+        const int mi = idx_of(b);
         const float pi_u = __ldg(table + kPiU * n_mat + mi);
         const bool keep =
             (s == K - 1) ? own(b) : exact(b, kReach * s + 3, kReach * s + 3);
@@ -354,13 +481,15 @@ __global__ void __launch_bounds__(HaloTile<K>::THREADS, 1)
             ns, prof_int, psi.q[s][6], psi.q[s][7], psi.q[s + 1][6],
             psi.q[s + 1][7], jk, plane, keep);
         const float dy =
-            cpml_io(dvy, y, ns, g.n2 - ns, ns, prof_int + 4 * ns,
-                    psi.q[s][8], psi.q[s][9], psi.q[s + 1][8],
-                    psi.q[s + 1][9], b * ns * g.n3 + z, g.n3, keep);
+            !in_y ? dvy
+                  : cpml_io(dvy, y, ns, g.n2 - ns, ns, prof_int + 4 * ns,
+                            psi.q[s][8], psi.q[s][9], psi.q[s + 1][8],
+                            psi.q[s + 1][9], b * ns * g.n3 + z, g.n3, keep);
         const float dz =
-            cpml_io(dvz, z, ns, g.n3 - ns, ns, prof_int + 8 * ns,
-                    psi.q[s][10], psi.q[s][11], psi.q[s + 1][10],
-                    psi.q[s + 1][11], (b * g.n2 + y) * ns, 1, keep);
+            !in_z ? dvz
+                  : cpml_io(dvz, z, ns, g.n3 - ns, ns, prof_int + 8 * ns,
+                            psi.q[s][10], psi.q[s][11], psi.q[s + 1][10],
+                            psi.q[s + 1][11], (b * g.n2 + y) * ns, 1, keep);
         const float theta = dx + dy + dz;
         if constexpr (VISCOUS) {
           const float c_rp = __ldg(table + kCRp * n_mat + mi);
@@ -383,7 +512,7 @@ __global__ void __launch_bounds__(HaloTile<K>::THREADS, 1)
         }
       }
       if (s + 1 < K) {  // step s + 1's input p, and its r ring
-        ring(s + 1, kP, b)[tid] = pn;
+        put(ring(s + 1, kP, b), pn);
         pw[s + 1][0] = pw[s + 1][1];
         pw[s + 1][1] = pw[s + 1][2];
         pw[s + 1][2] = pw[s + 1][3];
@@ -397,9 +526,16 @@ __global__ void __launch_bounds__(HaloTile<K>::THREADS, 1)
       }
     }
     // this march step's ring planes written and its reads of earlier ones
-    // done: the next step reads the former and rewrites older slots
+    // done: the next step reads the former and rewrites older slots. The
+    // next step's copies fly while the block gathers at the barrier.
+    if (f < f_end) stage(f + 1);
     __syncthreads();
   }
+  // the last step's ghost rows have landed before any block leaves
+  const int j = f_end - xs;
+  if (edge) mbar_wait(xbar + (j & 1), (j >> 1) & 1);
+  cluster_arrive();
+  cluster_wait();
 }
 
 // the kernel's arguments, as the entry point gathers them
@@ -420,28 +556,46 @@ struct Args {
 };
 
 template <int I>
+auto kernel_of() {
+  return &fluid_halo_kernel<BB_HALO_K, bool(I & 8), bool(I & 4), bool(I & 2),
+                            bool(I & 1)>;
+}
+
+template <int I>
 cudaError_t go(const Args& a, dim3 grid, cudaStream_t st) {
-  constexpr int K = BB_HALO_K;
-  using T = HaloTile<K>;
-  auto kern = &fluid_halo_kernel<K, bool(I & 8), bool(I & 4), bool(I & 2),
-                                 bool(I & 1)>;
+  using T = HaloTile<BB_HALO_K>;
+  auto kern = kernel_of<I>();
   static int allowed[64] = {0};
   const cudaError_t e = allow_smem(kern, allowed, T::SMEM);
   if (e != cudaSuccess) return e;
-  kern<<<grid, T::THREADS, T::SMEM, st>>>(
-      a.in, a.out, a.idx, a.table, a.n_mat, a.acc_c, a.acc_s, a.peak, a.psi,
-      a.prof_half, a.prof_int, a.amp, a.cph, a.sph, a.vs, a.dt_dx, a.inv_dx,
-      a.half_dt, a.g, a.zsrc, a.rows);
-  return cudaGetLastError();
+  const cudaError_t l = launch_cluster(
+      kern, grid, T::THREADS, T::SMEM, T::C, st, a.in, a.out, a.idx, a.table,
+      a.n_mat, a.acc_c, a.acc_s, a.peak, a.psi, a.prof_half, a.prof_int,
+      a.amp, a.cph, a.sph, a.vs, a.dt_dx, a.inv_dx, a.half_dt, a.g, a.zsrc,
+      a.rows);
+  const cudaError_t last = cudaGetLastError();
+  return l != cudaSuccess ? l : last;
+}
+
+// the clusters of the instantiation (viscous, volume, whole grid) the card
+// holds at once
+template <int I>
+cudaError_t clusters(int* n) {
+  using T = HaloTile<BB_HALO_K>;
+  auto kern = kernel_of<I>();
+  static int allowed[64] = {0};
+  const cudaError_t e = allow_smem(kern, allowed, T::SMEM);
+  if (e != cudaSuccess) return e;
+  return active_clusters(kern, T::THREADS, T::SMEM, T::C, n);
 }
 
 using Go = cudaError_t (*)(const Args&, dim3, cudaStream_t);
 
 // the instantiation of (viscous, with_dft, volume, xall)
 Go instantiation(int viscous, int with_dft, int volume, int xall) {
-  static const Go table[16] = {go<0>,  go<1>,  go<2>,  go<3>, go<4>,  go<5>,
-                               go<6>,  go<7>,  go<8>,  go<9>, go<10>, go<11>,
-                               go<12>, go<13>, go<14>, go<15>};
+  static const Go table[16] = {
+      go<0>, go<1>, go<2>,  go<3>,  go<4>,  go<5>,  go<6>,  go<7>,
+      go<8>, go<9>, go<10>, go<11>, go<12>, go<13>, go<14>, go<15>};
   return table[(viscous ? 8 : 0) | (with_dft ? 4 : 0) | (volume ? 2 : 0) |
                (xall ? 1 : 0)];
 }
@@ -450,12 +604,21 @@ Go instantiation(int viscous, int with_dft, int volume, int xall) {
 
 extern "C" {
 
-// *tz, *ty: the owned (z, y) tile of this depth (HaloTile<K>), which
+// *tz, *by, *cluster: the owned z columns of a cluster, the rows of a block
+// and the blocks of a cluster at this depth (HaloTile<K>), which
 // ops/fdtd_halo_kernels.py's launch geometry must match
-int BB_CAT(bb_fluid_halo_tile_k, BB_HALO_K)(int* tz, int* ty) {
+int BB_CAT(bb_fluid_halo_tile_k, BB_HALO_K)(int* tz, int* by, int* cluster) {
   *tz = HaloTile<BB_HALO_K>::TZ;
-  *ty = HaloTile<BB_HALO_K>::TY;
+  *by = HaloTile<BB_HALO_K>::BY;
+  *cluster = HaloTile<BB_HALO_K>::C;
   return 0;
+}
+
+// *n: the clusters of this depth's viscous volumetric whole-grid
+// instantiation the current device holds at once
+int BB_CAT(bb_fluid_halo_clusters_k, BB_HALO_K)(int* n) {
+  *n = 0;
+  return (int)clusters<11>(n);
 }
 
 // K = BB_HALO_K steps in one launch, from the input state (p, vx, vy, vz,
@@ -466,7 +629,7 @@ int BB_CAT(bb_fluid_halo_tile_k, BB_HALO_K)(int* tz, int* ty) {
 // sources, else null) and src6 a host array of the sparse source's amp,
 // cph, sph, ox, oy, oz; rows: host array of K x (s_sin, s_cos, cosw, sinw);
 // seg and the grid (gz, gy, gx): ops/fdtd_halo_kernels.py
-// halo_launch_geometry.
+// halo_launch_geometry (gy: y-tiles of clusters times the cluster).
 int BB_CAT(bb_fluid_halo_k, BB_HALO_K)(
     const float* p, const float* vx, const float* vy, const float* vz,
     const float* r, float* p_o, float* vx_o, float* vy_o, float* vz_o,
@@ -481,8 +644,8 @@ int BB_CAT(bb_fluid_halo_k, BB_HALO_K)(
   constexpr int K = BB_HALO_K;
   using T = HaloTile<K>;
   if (k_steps != K || seg < 1 || (long long)n1 * n2 * n3 >= (1LL << 31) ||
-      !covers(gz, T::TZ, n3) || !covers(gy, T::TY, n2) ||
-      !covers(gx, seg, n1)) {
+      gy % T::C != 0 || !covers(gz, T::TZ, n3) ||
+      !covers(gy / T::C, T::TY, n2) || !covers(gx, seg, n1)) {
     return (int)cudaErrorInvalidValue;
   }
   const void* ins[5] = {p, vx, vy, vz, r};
@@ -506,6 +669,8 @@ int BB_CAT(bb_fluid_halo_k, BB_HALO_K)(
     }
   }
   if (slot != nullptr && src6 == nullptr) return (int)cudaErrorInvalidValue;
+  const Go fn = instantiation(viscous, with_dft, slot != nullptr,
+                              x_lo && x_hi);
   a.in = In5{p, vx, vy, vz, r};
   a.out = Out5{p_o, vx_o, vy_o, vz_o, r_o};
   a.idx = idx;
@@ -533,9 +698,7 @@ int BB_CAT(bb_fluid_halo_k, BB_HALO_K)(
     a.rows.cosw[s] = rows[4 * s + 2];
     a.rows.sinw[s] = rows[4 * s + 3];
   }
-  return (int)instantiation(viscous, with_dft, slot != nullptr,
-                            x_lo && x_hi)(a, dim3(gz, gy, gx),
-                                          (cudaStream_t)stream);
+  return (int)fn(a, dim3(gz, gy, gx), (cudaStream_t)stream);
 }
 
 }  // extern "C"

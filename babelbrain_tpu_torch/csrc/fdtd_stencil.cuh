@@ -3,7 +3,8 @@
 // sweeps fdtd_fluid_halo.cu, fdtd_visco_halo.cu): the
 // x-marching tile geometry, the 4th-order staggered differences from
 // register windows (x) and L1 loads (y, z), the CPML slab correction (and
-// their L2-loading twins for the fused sweeps), and the check of the launch
+// their L2-loading twins for the fused sweeps), the halo sweeps' cluster
+// exchange, staged loads and cluster launch, and the check of the launch
 // grid the wrapper chose. Everything is written in
 // the operation order of the plain PyTorch versions (ops/fdtd_kernels.py
 // d_plus, d_minus, _cpml), so kernel and plain version round alike.
@@ -359,6 +360,164 @@ struct VolSrc {
   const int* slot;
   const float *amp, *cph, *sph, *ox, *oy, *oz;
 };
+
+// The halo sweeps' clusters (Hopper thread-block clusters, launched by
+// launch_cluster below): the blocks of a cluster are stacked along y, each
+// computing a slab of rows of the cluster's extended tile, and exchange the
+// rows their neighbours' stencils reach (ranks rank - 1 and rank + 1)
+// through distributed shared memory: an address of this block's shared
+// window is mapped onto another rank's with mapa, then stored to with
+// st_async, signalled on the receiving block's mbarrier, which the receiver
+// waits on. The cluster barrier (cluster_arrive / cluster_wait) only
+// brackets a launch: every block has started before any stores into it,
+// and none leaves while others may still store into it. A cluster barrier
+// a march step instead measured slower: its release and acquire compile to
+// a GPU-scope fence and an L1 invalidation (sm_90a).
+
+// this block's rank in its cluster
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+
+// the shared-memory (shared::cta) address of p
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// address `a` of this block's shared memory, in the window of cluster rank r
+__device__ __forceinline__ unsigned map_rank(unsigned a, int r) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(a), "r"(r));
+  return out;
+}
+
+// store a float into another block of the cluster (address `a` from
+// map_rank) and signal its 4 bytes on that block's mbarrier (`bar`, an
+// address from map_rank too: complete_tx); the writer does not wait
+__device__ __forceinline__ void st_async(unsigned a, float v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];" ::"r"(a),
+      "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+
+// this thread's arrival on bar, expecting `bytes` more to land in the phase
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// the cluster barrier, split: arrive releases this thread's earlier shared
+// memory writes to the cluster, wait acquires everyone's
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// The halo sweeps' staged loads: each thread copies the global values its
+// own column needs at the next march step into its own shared-memory slots
+// with cp.async (4 bytes, zero-filled where `valid` is false: "0 outside
+// the grid"), and one mbarrier of the block, initialised with a count of
+// the block's threads, completes a phase when every thread's copies of that
+// step have landed (cp.async.mbarrier.arrive.noinc: the arrival is the
+// copies' completion). No thread reads another's slots, so the mbarrier
+// wait, not a block barrier, is what a step waits on.
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// copy 4 bytes from src (global) to dst (this block's shared memory), or
+// store 0 there if !valid (src is then not read)
+__device__ __forceinline__ void cp_async4z(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// this thread's arrival on bar: when all its cp.async copies so far land
+__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// wait until bar's phase of the given parity has completed; a phase that
+// never completes (a miscounted exchange) traps after ~2^26 tries instead
+// of hanging the card
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done = 0;
+  for (unsigned tries = 0;; ++tries) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries > (1u << 26)) __trap();
+  }
+}
+
+// The launch of a halo sweep: grid (z-tiles, y-tiles x cluster, x
+// segments) in clusters of (1, cluster, 1) blocks, through
+// cudaLaunchKernelEx (a shape the card cannot schedule is refused there and
+// reported by the caller's cudaGetLastError check)
+template <typename Kern, typename... Args>
+cudaError_t launch_cluster(Kern kern, dim3 grid, int threads, int smem,
+                           int cluster, cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
+// the clusters of that shape the current device holds at once (0: none fit)
+template <typename Kern>
+cudaError_t active_clusters(Kern kern, int threads, int smem, int cluster,
+                            int* n) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, cluster, 1);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(n, kern, &cfg);
+}
 
 // raise an instantiation's dynamic shared memory limit once per device
 template <typename Kern>

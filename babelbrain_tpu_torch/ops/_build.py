@@ -80,10 +80,12 @@ _SIGNATURES = {
     "bb_extras_accumulate": [_P, _P, _I, _I, _L, _P],
     **{f"bb_fluid_halo_k{k}": [_P] * 24 + [_I] + [_F] * 3 + [_I] * 14 + [_P]
        for k in HALO_DEPTHS},
-    **{f"bb_fluid_halo_tile_k{k}": [_P, _P] for k in HALO_DEPTHS},
+    **{f"bb_fluid_halo_tile_k{k}": [_P] * 3 for k in HALO_DEPTHS},
+    **{f"bb_fluid_halo_clusters_k{k}": [_P] for k in HALO_DEPTHS},
     **{f"bb_visco_halo_k{k}": [_P] * 14 + [_I] + [_F] * 3 + [_I] * 12 + [_P]
        for k in VISCO_HALO_DEPTHS},
-    **{f"bb_visco_halo_tile_k{k}": [_P, _P] for k in VISCO_HALO_DEPTHS},
+    **{f"bb_visco_halo_tile_k{k}": [_P] * 3 for k in VISCO_HALO_DEPTHS},
+    **{f"bb_visco_halo_clusters_k{k}": [_P] for k in VISCO_HALO_DEPTHS},
     "bb_stream": [_P, _P, _L, _P],
     "bb_fma_chain": [_P, _P, _P, _I, _I, _P],
     "bb_table_gather": [_P, _P, _P, _I, _I, _L, _I, _P],

@@ -1,4 +1,4 @@
-"""Fluid FDTD halo sweep: K leapfrog steps a launch in independent blocks
+"""Fluid FDTD halo sweep: K leapfrog steps a launch in thread-block clusters
 that recompute a halo, its wrapper and plain version.
 
 ``fluid_halo`` runs K steps of the fluid pair (``ops.fdtd_kernels``:
@@ -10,17 +10,21 @@ the JAX package's Pallas kernel B4 (``build_fluid_fusedK_step``,
 ``babelbrain_tpu/ops/fdtd_pallas.py:1815``) and the volume branch of its
 sharded driver (``:2677-2690``).
 
-Launch (``csrc/fdtd_fluid_halo.cu``): blocks of (z-tile, y-tile,
-x-segment), each computing its tile and segment extended by ``3K`` cells
-(``CONTAMINATION`` a step) on every side, one thread a column, and writing
-only the cells it owns; no grid barrier, so no bound on K or on the plane
-size from what the card holds at once (``halo_launch_geometry``; ``march``
-models a block's schedule for the CPU tests). The kernel reads the state
-and writes a second copy of it: the wrapper keeps that twin (and the
-scratch copies of the CPML slabs the steps in between write) in a pool per
-shape and device, swaps the twin's tensors into the caller's
-``FluidState`` after each launch, and ``release`` frees the pool at the
-end of a run. The DFT sums and the peak are updated in place.
+Launch (``csrc/fdtd_fluid_halo.cu``): clusters of ``cluster`` blocks
+stacked along y, each cluster owning a (z, y) tile of columns and an
+x-segment, computing them extended by ``3K`` cells (``CONTAMINATION`` a
+step) on every side of the cluster, one thread a column; each block
+computes ``rows`` rows of the cluster's extended tile, and the rows its y
+stencils need of a neighbour block cross between the blocks through
+distributed shared memory; only owned cells are written. No grid barrier,
+so no bound on K or on the plane size from what the card holds at once
+(``halo_launch_geometry``; ``march`` models a block's schedule for the CPU
+tests). The kernel reads the state and writes a second copy of it: the
+wrapper keeps that twin (and the scratch copies of the CPML slabs the steps
+in between write) in a pool per shape and device, swaps the twin's tensors
+into the caller's ``FluidState`` after each launch, and ``release`` frees
+the pool at the end of a run. The DFT sums and the peak are updated in
+place.
 
 The wrapper dispatches on the device of the state as the pair's do: a CPU
 state runs the plain version (``fluid_halo_ref``: K steps of the pair's
@@ -62,19 +66,30 @@ HALO_K_CAP = 3
 CONTAMINATION = 3
 # planes a shared-memory ring holds (csrc kRing)
 RING = 4
-# (TZ, TY) owned by a block at each depth (csrc HaloTile<K>): one thread a
-# column of the tile extended by 3K a side, at most 1024 threads
-HALO_TILES = {1: (32, 16), 2: (32, 8), 3: (16, 8)}
+# the rings a y stencil reads, whose edge rows a block also stores into its
+# cluster neighbours' ghost rows (csrc put)
+EXCHANGED = ("p", "vy")
+# (TZ, rows, cluster) at each depth (csrc HaloTile<K>): a cluster of
+# ``cluster`` blocks stacked along y owns TZ z-columns and
+# cluster * rows - 6K y-rows, one thread a column of its block's ``rows``
+# rows of the extended tile
+HALO_TILES = {1: (32, 26, 2), 2: (32, 22, 2), 3: (32, 10, 8)}
 # the depth run_fdtd(fuse_steps=None) takes for a volumetric drive
-# (ops/fdtd.py volume_plan): the K whose sweeps measured fastest on an H100
-# at the dome's 392x392x337 grid, 0 where none beat pair + scatter. None
-# does: K = 1 2.5252, K = 2 3.2928, K = 3 7.2230 ms a step against 1.5079
-# (PERF.md), so the default keeps pair + scatter.
+# (ops/fdtd.py volume_plan): the K whose sweeps measured faster than pair +
+# scatter on an H100 at the dome's 392x392x337 grid in both the quiet phase
+# and the window, 0 where none did (PERF.md)
 VOLUME_FUSE_BEST = 0
-# blocks a launch aims at (one resident on each of an H100's 132 SMs,
-# several waves): halo_launch_geometry cuts x into segments until the grid
-# has about as many
+# blocks a launch aims at (several waves of clusters over an H100's 132
+# SMs): halo_launch_geometry cuts x into segments until the grid has about
+# as many
 HALO_BLOCKS = 1024
+
+
+def index_ring(k: int) -> int:
+    """Planes the kernel's per-column index and slot rings hold (csrc
+    HaloTile<K>::D): the 3K planes in use or staged, as a power of two."""
+    return 8 if 3 * k <= 8 else 16
+
 
 _KEYS = ("fluid_halo", "fluid_halo_dft", "fluid_halo_volume",
          "fluid_halo_volume_dft")
@@ -90,24 +105,29 @@ def halo_key(volume: bool, with_dft: bool) -> str:
 
 @dataclass(frozen=True)
 class HaloGeometry:
-    """A K-step launch: ``tile`` = (TZ, TY) owned columns a block,
-    ``halo`` = 3K cells a side, ``segment`` owned x-planes a block, ``grid``
-    the blocks along (z, y, x)."""
+    """A K-step launch: ``tile`` = (TZ, TY) owned columns a cluster,
+    ``halo`` = 3K cells a side of a cluster, ``segment`` owned x-planes a
+    cluster, ``grid`` the blocks along (z, y, x), ``rows`` the y-rows of the
+    extended tile a block computes and ``cluster`` the blocks of a cluster
+    (along y; ``grid[1]`` is a multiple of it)."""
 
     tile: tuple
     halo: int
     segment: int
     grid: tuple
+    rows: int
+    cluster: int
 
     @property
     def threads(self) -> int:
-        """Threads a block: one per column of the extended tile."""
-        tz, ty = self.tile
-        return (tz + 2 * self.halo) * (ty + 2 * self.halo)
+        """Threads a block: one per column of its rows of the extended
+        tile."""
+        return (self.tile[0] + 2 * self.halo) * self.rows
 
     def computed(self, shape) -> float:
-        """Cell-updates a launch computes per cell it owns, a step (its
-        extended tiles and segments, clipped to the grid, over the grid)."""
+        """Cell-updates a launch computes per cell it owns, a step (the
+        clusters' extended tiles and segments, clipped to the grid, over the
+        grid)."""
         n1, n2, n3 = shape
         tz, ty = self.tile
         h, seg = self.halo, self.segment
@@ -117,16 +137,17 @@ class HaloGeometry:
             return sum(min(n, (b + 1) * tile + h) - max(0, b * tile - h)
                        for b in range(blocks))
 
-        return (span(n1, seg, gx) * span(n2, ty, gy) * span(n3, tz, gz)
-                / float(n1 * n2 * n3))
+        return (span(n1, seg, gx) * span(n2, ty, gy // self.cluster)
+                * span(n3, tz, gz) / float(n1 * n2 * n3))
 
 
 def halo_launch_geometry(shape, k: int, tiles=None,
                          name: str = "fluid_halo") -> HaloGeometry:
-    """The launch of K steps on an (N1, N2, N3) grid: ``tiles[K]`` (by
-    default ``HALO_TILES``) over (z, y) and the x-segment length that gives
-    about ``HALO_BLOCKS`` blocks. Refuses K outside the depths ``tiles``
-    has (1..``HALO_K_CAP``) and grids of 2^31 cells or more (the kernels'
+    """The launch of K steps on an (N1, N2, N3) grid: clusters of
+    ``tiles[K]`` = (TZ, rows, cluster) (by default ``HALO_TILES``) over
+    (z, y) and the x-segment length that gives about ``HALO_BLOCKS``
+    blocks. Refuses K outside the depths ``tiles`` has
+    (1..``HALO_K_CAP``) and grids of 2^31 cells or more (the kernels'
     32-bit offsets)."""
     tiles = HALO_TILES if tiles is None else tiles
     if isinstance(k, bool) or int(k) != k or int(k) not in tiles:
@@ -134,46 +155,92 @@ def halo_launch_geometry(shape, k: int, tiles=None,
                          "taken")
     _check_size(shape, name)
     n1, n2, n3 = (int(n) for n in shape)
-    tz, ty = tiles[int(k)]
-    gz, gy = _cdiv(n3, tz), _cdiv(n2, ty)
+    h = CONTAMINATION * int(k)
+    tz, rows, cluster = tiles[int(k)]
+    ty = cluster * rows - 2 * h
+    gz, gy = _cdiv(n3, tz), _cdiv(n2, ty) * cluster
     seg = max(1, min(n1, _cdiv(n1 * gz * gy, HALO_BLOCKS)))
     seg = _cdiv(n1, _cdiv(n1, seg))  # the shortest for that many segments
-    return HaloGeometry((tz, ty), CONTAMINATION * int(k), seg,
-                        (gz, gy, _cdiv(n1, seg)))
+    return HaloGeometry((tz, ty), h, seg, (gz, gy, _cdiv(n1, seg)), rows,
+                        cluster)
 
 
 def march(n_planes: int, k: int):
     """A block's march over planes [0, n_planes) (its marched planes, from
     the bottom of the grid), as ``fluid_halo_kernel`` runs it: per march
-    step f, its events in program order: ("w", ring, step, plane) a store
-    into step ``step``'s shared-memory ring ("p": its input pressure, "vy",
-    "vz": its velocities) at slot plane % ``RING``; ("r", ring, step,
-    plane, "lateral" | "own") a load of a neighbour's or the own column's
-    value there; ("V", step, plane) / ("P", step, plane) a step's velocity
-    or pressure of a plane, with ("xwin", "p" | "vx", step, planes) the
-    x-window (registers) it reads and ("r_in", step, plane) the SLS memory
-    of the previous step it takes from the register ring."""
+    step f, its events in program order. ("load", plane) the values the
+    step takes from global memory reaching the thread's own slots (p of
+    plane f, v, the index and the slot of f - 2, r of f - 3: copied a step
+    ahead and waited on); ("w", ring, step, plane) a store into step
+    ``step``'s shared-memory ring ("p": its input pressure, "vy", "vz": its
+    velocities) at slot plane % ``RING``; ("r", ring, step, plane, "own" |
+    "lateral" | "ghost") a load there of the own column's value, of a
+    neighbour's in this block, or of a neighbour's across the cluster's
+    inner edge (the ghost rows, which the next block stores into);
+    ("ghost_w", ring, step, plane, f') a store of the next block's march
+    step f' into this block's ghost rows of an ``EXCHANGED`` ring; ("V",
+    step, plane) / ("P", step, plane) a step's velocity or pressure of a
+    plane, with ("xwin", "p" | "vx", step, planes) the x-window (registers)
+    it reads, ("idx", plane) the index it reads from the index ring,
+    ("stage_in", field, plane) a staged value of stage 0 and ("r_in", step,
+    plane) the SLS memory of the previous step it takes from the register
+    ring; ("arrive",) and ("wait",) the end of the step's work and the
+    step's barrier passed (the block barrier, and for the rows that read
+    ghost rows the wait for the next block's rows of the step before),
+    with the next step's ("copy", plane) issued between them.
+    The next block marches the same planes and waits only for this block's
+    rows of the step before its own, so it may run one march step ahead:
+    its stores of step f + 1 (and of f) may land in the ghost rows before
+    any read of step f. Each step's list opens with them."""
+    return _with_ghost_stores(_march_steps(n_planes, k), EXCHANGED)
+
+
+def _with_ghost_stores(steps, exchanged):
+    """Prefix each march step f of ``steps`` with the ("ghost_w", ...)
+    events of the next block's stores of steps up to f + 1 into the
+    ``exchanged`` rings not listed before: the earliest they may land."""
+    out = []
+    for f, ev in enumerate(steps):
+        early = [("ghost_w",) + e[1:] + (g,)
+                 for g in range(0 if f == 0 else f + 1, min(f + 2, len(steps)))
+                 for e in steps[g] if e[0] == "w" and e[1] in exchanged]
+        out.append(early + ev)
+    return out
+
+
+def _march_steps(n_planes: int, k: int):
+    """``march`` without the next block's stores."""
     out = []
     for f in range(n_planes + CONTAMINATION * k):
-        ev = [("w", "p", 0, f)]
+        ev = [("copy", f)] if f == 0 else []
+        ev += [("load", f), ("w", "p", 0, f)]
         for s in range(k):
             a = f - 2 - CONTAMINATION * s
             b = a - 1
             if 0 <= a < n_planes:
                 ev.append(("xwin", "p", s, (a - 1, a, a + 1, a + 2)))
-                ev.append(("r", "p", s, a, "lateral"))
+                ev += [("r", "p", s, a, how) for how in ("lateral", "ghost")]
                 if s:
                     ev.append(("xwin", "vx", s - 1, (a,)))
                     ev += [("r", r, s - 1, a, "own") for r in ("vy", "vz")]
+                else:
+                    ev.append(("stage_in", "v", a))
+                ev.append(("idx", a))
                 ev.append(("V", s, a))
             ev += [("w", r, s, a) for r in ("vy", "vz")]
             if 0 <= b < n_planes:
                 ev.append(("xwin", "vx", s, (b - 2, b - 1, b, b + 1)))
                 ev += [("r", r, s, b, "lateral") for r in ("vy", "vz")]
-                ev.append(("r_in", s, b))
+                ev.append(("r", "vy", s, b, "ghost"))
+                ev.append(("stage_in", "r", b) if s == 0 else ("r_in", s, b))
+                ev.append(("idx", b))
                 ev.append(("P", s, b))
             if s + 1 < k:
                 ev.append(("w", "p", s + 1, b))
+        ev.append(("arrive",))
+        if f + 1 < n_planes + CONTAMINATION * k:
+            ev.append(("copy", f + 1))
+        ev.append(("wait",))
         out.append(ev)
     return out
 
@@ -252,6 +319,7 @@ def fluid_halo(st: FluidState, co: FluidCoeffs, rows,
         return
     geo = halo_launch_geometry((n1, n2, n3), k)
     check_tile(k)
+    check_clusters(k)
     twin, scratch = _twin(st, k)
     stages = ([st.psi_p + st.psi_v] + scratch[:k - 1]
               + [twin.psi_p + twin.psi_v])
@@ -279,9 +347,11 @@ def fluid_halo(st: FluidState, co: FluidCoeffs, rows,
     launches[halo_key(vsrc is not None, with_dft)] += 1
 
 
-# (TZ, TY) of each halo sweep's tile at each depth as the built library
-# reports it, by (entry point stem, K)
+# (TZ, rows, cluster) of each halo sweep's tile at each depth as the built
+# library reports it, by (entry point stem, K); the clusters the card holds
+# at once, by (stem, K, device)
 _KERNEL_TILES: dict = {}
+_CLUSTERS: dict = {}
 
 
 def check_tile(k: int, tiles=None, stem: str = "fluid_halo") -> None:
@@ -290,15 +360,39 @@ def check_tile(k: int, tiles=None, stem: str = "fluid_halo") -> None:
     reports through ``bb_<stem>_tile_k<K>``."""
     tiles = HALO_TILES if tiles is None else tiles
     if (stem, k) not in _KERNEL_TILES:
-        tz, ty = ctypes.c_int(0), ctypes.c_int(0)
+        got = [ctypes.c_int(0) for _ in range(3)]
         rc = getattr(_build.library(), f"bb_{stem}_tile_k{k}")(
-            ctypes.byref(tz), ctypes.byref(ty))
+            *(ctypes.byref(v) for v in got))
         _build.check(rc, f"{stem}_kernel tile")
-        _KERNEL_TILES[(stem, k)] = (tz.value, ty.value)
-    if _KERNEL_TILES[(stem, k)] != tiles[k]:
+        _KERNEL_TILES[(stem, k)] = tuple(v.value for v in got)
+    if _KERNEL_TILES[(stem, k)] != tuple(tiles[k]):
         raise RuntimeError(
-            f"{stem}: the kernel's (TZ, TY) at K = {k} is "
+            f"{stem}: the kernel's (TZ, rows, cluster) at K = {k} is "
             f"{_KERNEL_TILES[(stem, k)]}, its launch geometry's {tiles[k]}")
+
+
+def active_clusters(k: int, stem: str = "fluid_halo") -> int:
+    """The clusters of the depth-K kernel (its viscous volumetric whole-grid
+    instantiation) the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``, through
+    ``bb_<stem>_clusters_k<K>``)."""
+    dev = torch.cuda.current_device()
+    key = (stem, k, dev)
+    if key not in _CLUSTERS:
+        n = ctypes.c_int(0)
+        rc = getattr(_build.library(), f"bb_{stem}_clusters_k{k}")(
+            ctypes.byref(n))
+        _build.check(rc, f"{stem}_kernel clusters")
+        _CLUSTERS[key] = n.value
+    return _CLUSTERS[key]
+
+
+def check_clusters(k: int, stem: str = "fluid_halo") -> None:
+    """Refuse a depth whose cluster shape the card cannot schedule (no
+    cluster fits: the launch would be refused)."""
+    if active_clusters(k, stem) < 1:
+        raise RuntimeError(f"{stem}: the card holds no cluster of the "
+                           f"depth-{k} kernel")
 
 
 def fluid_halo_ref(st: FluidState, co: FluidCoeffs, rows,

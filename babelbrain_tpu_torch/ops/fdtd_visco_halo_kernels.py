@@ -1,6 +1,6 @@
 """Viscoelastic FDTD halo sweep with a volumetric (dome) drive: K leapfrog
-steps a launch in independent blocks that recompute a halo, its wrapper and
-plain version.
+steps a launch in thread-block clusters that recompute a halo, its wrapper
+and plain version.
 
 ``visco_halo`` runs K steps of the visco pair (``ops.fdtd_visco_kernels``:
 velocity, the volumetric scatter of ``ops.fdtd_sources``, stress) in one
@@ -11,17 +11,19 @@ Pallas kernel B8 (``build_visco_fusedK_step``,
 ``babelbrain_tpu/ops/fdtd_pallas.py:4905``) and B6's K = 1 form of it
 (``:3666-3675``).
 
-Launch (``csrc/fdtd_visco_halo.cu``): blocks of (z-tile, y-tile,
-x-segment), each computing its tile and segment extended by ``3K`` cells
-(``CONTAMINATION`` a step) on every side, one thread a column, and writing
-only the cells it owns; no grid barrier, so no bound on K or on the plane
-size from what the card holds at once (``visco_halo_launch_geometry``;
-``march`` models a block's schedule for the CPU tests). Within a block
-step s's velocity runs ``LAG`` planes behind step s - 1's, its stress
-``STRESS_LAG`` planes behind its velocity. The kernel reads the state and
-writes a second copy of it; the steps in between go through scratch copies
-of the state. The wrapper keeps the twin and the scratch in a pool per
-shape and device, swaps the twin's tensors into the caller's
+Launch (``csrc/fdtd_visco_halo.cu``): clusters of blocks stacked along y
+(as the fluid halo sweep's, ``ops.fdtd_halo_kernels``), each cluster
+computing its tile and segment extended by ``3K`` cells (``CONTAMINATION``
+a step) on every side, one thread a column, each block a slab of rows
+whose edge rows cross to its neighbours through distributed shared
+memory, writing only the cells it owns (``visco_halo_launch_geometry``; ``march`` models a block's
+schedule for the CPU tests). Within a block step s's velocity runs ``LAG``
+planes behind step s - 1's, its stress ``STRESS_LAG`` planes behind its
+velocity; a step's own old values come from the step before through shared
+memory, and only the CPML psi slabs of the steps in between go through
+scratch slabs in device memory. The kernel reads the state and writes a
+second copy of it. The wrapper keeps the twin and the scratch slabs in a
+pool per shape and device, swaps the twin's tensors into the caller's
 ``ViscoState`` after each launch, and ``release`` frees the pool at the end
 of a run. The DFT sums and the peak are updated in place. Whole grids only
 (``co.x_lo`` and ``co.x_hi``): sharded shear runs with a volumetric drive
@@ -44,7 +46,13 @@ import torch
 
 from . import _build
 from .fdtd_fused_kernels import check_rows
-from .fdtd_halo_kernels import HaloGeometry, check_tile, halo_launch_geometry
+from .fdtd_halo_kernels import (
+    HaloGeometry,
+    _with_ghost_stores,
+    check_clusters,
+    check_tile,
+    halo_launch_geometry,
+)
 from .fdtd_kernels import _ptr, _ptrs
 from .fdtd_sources import VolumeSource, velocity_volume_source_ref
 from .fdtd_sources import _check as _check_source
@@ -67,15 +75,21 @@ VISCO_HALO_K_CAP = 2
 CONTAMINATION = 3
 LAG = 4
 STRESS_LAG = 2
-# planes a shared-memory ring holds (csrc kRing)
+# planes a shared-memory ring holds (csrc kRing); planes the per-column
+# index and slot rings hold (csrc ViscoHaloTile<K>::D)
 RING = 4
-# (TZ, TY) owned by a block at each depth (csrc ViscoHaloTile<K>)
-VISCO_HALO_TILES = {1: (32, 8), 2: (16, 8)}
+# the rings a y stencil reads, whose edge rows a block also stores into its
+# cluster neighbours' ghost rows (csrc put)
+EXCHANGED = ("sxy", "syy", "syz", "vx", "vy", "vz")
+INDEX_RING = 8
+# (TZ, rows, cluster) at each depth (csrc ViscoHaloTile<K>): a cluster of
+# ``cluster`` blocks stacked along y owns TZ z-columns and
+# cluster * rows - 6K y-rows
+VISCO_HALO_TILES = {1: (32, 12, 2), 2: (32, 8, 8)}
 # the depth run_fdtd(fuse_steps=None) takes for a volumetric drive in shear
-# media (ops/fdtd.py visco_volume_plan): the K whose sweeps measured
-# fastest on an H100 at the dome's 392x392x337 grid, 0 where none beat
-# pair + scatter. None does: K = 1 10.1173, K = 2 20.9857 ms a step against
-# 4.6797 (PERF.md), so the default keeps pair + scatter.
+# media (ops/fdtd.py visco_volume_plan): the K whose sweeps measured faster
+# than pair + scatter on an H100 at the dome's 392x392x337 grid in both the
+# quiet phase and the window, 0 where none did (PERF.md)
 VISCO_VOLUME_FUSE_BEST = 0
 # the fields of a stage's state, in the kernel's order (then psi_s, psi_v)
 FIELDS = ("vx", "vy", "vz") + STRESSES + MEMORIES
@@ -91,9 +105,9 @@ def halo_key(with_dft: bool) -> str:
 
 
 def visco_halo_launch_geometry(shape, k: int) -> HaloGeometry:
-    """The launch of K steps on an (N1, N2, N3) grid: ``VISCO_HALO_TILES[K]``
-    tiles over (z, y), a halo of 3K, and x-segments as the fluid halo
-    sweep's (``ops.fdtd_halo_kernels.halo_launch_geometry``). Refuses K
+    """The launch of K steps on an (N1, N2, N3) grid: clusters of
+    ``VISCO_HALO_TILES[K]`` over (z, y), a halo of 3K a side of a cluster,
+    and x-segments as the fluid halo sweep's (``ops.fdtd_halo_kernels.halo_launch_geometry``). Refuses K
     outside 1..``VISCO_HALO_K_CAP`` and grids of 2^31 cells or more."""
     return halo_launch_geometry(shape, k, VISCO_HALO_TILES, "visco_halo")
 
@@ -101,28 +115,54 @@ def visco_halo_launch_geometry(shape, k: int) -> HaloGeometry:
 def march(n_planes: int, k: int):
     """A block's march over planes [0, n_planes) (its marched planes, from
     the bottom of the grid), as ``visco_halo_kernel`` runs it: per march
-    step f, its events in program order: ("w", ring, step, plane) a store
-    into step ``step``'s shared-memory ring (its velocity's input "sxy",
-    "sxz", "syy", "syz", "szz", its velocities "vx", "vy", "vz") at slot
-    plane % ``RING``; ("r", ring, step, plane) a load of the neighbours'
-    values there; ("push", window, step, plane) a plane entering one of the
-    step's x-windows (registers: "sxx", "sxy", "sxz" for its velocity, "vx",
-    "vy", "vz" for its stress); ("xwin", window, step, planes) the planes
-    read from a window; ("own", step, plane, "v" | "s") the cell's own old
-    velocities or stresses and memories, from the step's input state in
-    device memory (the input, or the scratch the step before wrote); ("V",
-    step, plane) / ("S", step, plane) a step's velocity or stress of a
-    plane."""
+    step f, its events in program order. ("copy", plane) the copies of what
+    step ``plane`` takes from global memory issued (between the step
+    before's work and its barrier): the index and slot of plane - 2 into
+    their rings at slot (plane - 2) % ``INDEX_RING``; ("load", plane) those values ready (the
+    stresses of plane f, v of f - 2, the memories of f - 4); ("w", ring,
+    step, plane) a store into step ``step``'s shared-memory ring (its
+    velocity's input "sxy", "sxz", "syy", "syz", "szz", its velocities
+    "vx", "vy", "vz", the memories' "stash") at slot plane % ``RING``;
+    ("r", ring, step, plane, "own" | "lateral" | "ghost") a load there of
+    the own column's value, of a neighbour's in this block, or of a
+    neighbour's across the cluster's inner edge (the ghost rows, which the
+    next block stores into); ("ghost_w", ring, step, plane, f') a store of
+    the next block's march step f' into this block's ghost rows of an
+    ``EXCHANGED`` ring, listed at the start of the earliest step it may
+    land in (as ``ops.fdtd_halo_kernels.march``'s: the next block may run
+    one march step ahead); ("push",
+    window, step, plane) a plane entering one of the step's x-windows
+    (registers: "sxx", "sxy", "sxz" for its velocity, "vx", "vy", "vz" for
+    its stress); ("xwin", window, step, planes) the planes read from a
+    window and ("xold", window, step, plane) its oldest plane read; ("idx",
+    plane) an index read from the index ring; ("stage_in", "v" | "r",
+    plane) stage 0's own old velocities or memories from the loaded values;
+    ("V", step, plane) / ("S", step, plane) a step's velocity or stress of
+    a plane; ("arrive",) and ("wait",) the end of the step's work and the
+    step's barrier passed (as ``ops.fdtd_halo_kernels.march``'s).
+    A step's own old stresses of plane b are read ("r" ... "own", "xold")
+    from its input rings before plane b + 4 takes their slot, its
+    velocities from the step before's rings, its memories from that step's
+    stash."""
+    return _with_ghost_stores(_march_steps(n_planes, k), EXCHANGED)
+
+
+def _march_steps(n_planes: int, k: int):
+    """``march`` without the next block's stores."""
     stress_rings = ("sxy", "sxz", "syy", "syz", "szz")
     velocity_rings = ("vx", "vy", "vz")
 
     def take_stress(s, pl):
-        return ([("push", w, s, pl) for w in ("sxx", "sxy", "sxz")]
-                + [("w", r, s, pl) for r in stress_rings])
+        old = ([("xold", "sxx", s, pl - LAG)]
+               + [("r", r, s, pl - LAG, "own") for r in stress_rings])
+        return old + ([("push", w, s, pl) for w in ("sxx", "sxy", "sxz")]
+                      + [("w", r, s, pl) for r in stress_rings])
 
+    n_steps = n_planes + LAG * k
     out = []
-    for f in range(n_planes + LAG * k):
-        ev = take_stress(0, f)
+    for f in range(n_steps):
+        ev = [("copy", f)] if f == 0 else []
+        ev += [("load", f)] + take_stress(0, f)
         for s in range(k):
             a = f - 2 - LAG * s
             b = a - STRESS_LAG
@@ -130,24 +170,41 @@ def march(n_planes: int, k: int):
                 ev += [("xwin", "sxx", s, (a - 1, a, a + 1, a + 2)),
                        ("xwin", "sxy", s, (a - 2, a - 1, a, a + 1)),
                        ("xwin", "sxz", s, (a - 2, a - 1, a, a + 1))]
-                ev += [("r", r, s, a) for r in stress_rings]
-                ev += [("own", s, a, "v"), ("V", s, a)]
+                ev += [("r", r, s, a, "lateral") for r in stress_rings]
+                ev += [("r", r, s, a, "ghost") for r in stress_rings
+                       if r in EXCHANGED]
+                ev += [("idx", a)]
+                if s == 0:
+                    ev.append(("stage_in", "v", a))
+                ev.append(("V", s, a))
+            if s + 1 < k:
+                ev += [("r", r, s, a - LAG, "own") for r in velocity_rings]
             ev += [("w", r, s, a) for r in velocity_rings]
             ev += [("push", w, s, a) for w in velocity_rings]
             if 0 <= b < n_planes:
                 ev += [("xwin", "vx", s, (b - 2, b - 1, b, b + 1)),
                        ("xwin", "vy", s, (b - 1, b, b + 1, b + 2)),
                        ("xwin", "vz", s, (b - 1, b, b + 1, b + 2))]
-                ev += [("r", r, s, b) for r in velocity_rings]
-                ev += [("own", s, b, "s"), ("S", s, b)]
+                ev += [("r", r, s, b, how) for r in velocity_rings
+                       for how in ("lateral", "ghost")]
+                ev += [("idx", b)]
+                if s == 0:
+                    ev.append(("stage_in", "r", b))
+                ev.append(("S", s, b))
             if s + 1 < k:
+                ev += [("r", "stash", s, b - LAG, "own"),
+                       ("w", "stash", s, b)]
                 ev += take_stress(s + 1, b)
+        ev.append(("arrive",))
+        if f + 1 < n_steps:
+            ev.append(("copy", f + 1))
+        ev.append(("wait",))
         out.append(ev)
     return out
 
 
-# the twin state and the scratch states of the runs in flight, by (shape,
-# ns, device): freed by release()
+# the twin state and the scratch psi slabs of the runs in flight, by
+# (shape, ns, device): freed by release()
 _POOL: dict = {}
 
 
@@ -162,19 +219,20 @@ def _blank(st: ViscoState) -> ViscoState:
 
 def _twin(st: ViscoState, k: int):
     """(twin, scratch): a second state for the launch's output and K - 1
-    scratch states for the steps in between, from the pool."""
+    sets of psi slabs (psi_s then psi_v) for the steps in between, from the
+    pool."""
     key = (tuple(st.vx.shape), st.psi_s[2].shape[1], str(st.vx.device))
     twin, scratch = _POOL.get(key, (None, []))
     if twin is None:
         twin = _blank(st)
     while len(scratch) < k - 1:
-        scratch.append(_blank(st))
+        scratch.append([torch.empty_like(t) for t in st.psi_s + st.psi_v])
     _POOL[key] = (twin, scratch)
     return twin, scratch
 
 
 def release() -> None:
-    """Free the twins and scratch states of the pool (the end of a run)."""
+    """Free the twins and scratch slabs of the pool (the end of a run)."""
     _POOL.clear()
 
 
@@ -221,14 +279,18 @@ def visco_halo(st: ViscoState, co: ViscoCoeffs, rows, vsrc: VolumeSource,
         return
     geo = visco_halo_launch_geometry((n1, n2, n3), k)
     check_tile(k, VISCO_HALO_TILES, "visco_halo")
+    check_clusters(k, "visco_halo")
     twin, scratch = _twin(st, k)
-    stages = [st] + scratch[:k - 1] + [twin]
+    q = ([t.data_ptr() for t in st.fields(FIELDS) + st.psi_s + st.psi_v]
+         + [p for psi in scratch[:k - 1]
+            for p in [None] * len(FIELDS) + [t.data_ptr() for t in psi]]
+         + [t.data_ptr() for t in twin.fields(FIELDS) + twin.psi_s
+            + twin.psi_v])
     flat = (ctypes.c_float * (4 * k))(*(float(v) for r in rows
                                         for v in r[:4]))
     _build.launch(
         f"bb_visco_halo_k{k}", "visco_halo_kernel", st.vx.device,
-        _ptrs([t for s in stages
-               for t in s.fields(FIELDS) + s.psi_s + s.psi_v]),
+        (ctypes.c_void_p * len(q))(*q),
         _ptr(co.mat_idx), _ptr(co.table), _ptr(st.acc_cos), _ptr(st.acc_sin),
         _ptr(st.peak), _ptr(co.cpml_half), _ptr(co.cpml_int),
         _ptr(co.src_amp), _ptr(co.src_cph), _ptr(co.src_sph),

@@ -64,24 +64,27 @@ Phases (each prints its own lines; any failed check exits nonzero):
              and inviscid); each admitted K timed a launch and a step
              against its bound and the pair. Then the halo sweep
              (``check_fused_volume``): ``fluid_halo`` (K steps a launch in
-             independent blocks that recompute a 3K halo, with the
-             volumetric drive) against its plain version and K steps of
-             pair + scatter, bit for bit, K = 1..3 at 192x192x240 and at
-             the dome's 392x392x337, viscous and inviscid, quiet and
-             window, with a shell of source voxels; at 27x45x47 with
-             voxels on the tiles' corners and halo edges; on the 50-plane
-             shard with each x_lo / x_hi pair; each K timed a launch and a
-             step against its bound and pair + scatter. Then the visco
+             thread-block clusters that recompute a 3K halo at their
+             outer edge and share their inner edges through distributed
+             shared memory, with the volumetric drive) against its plain
+             version and K steps of pair + scatter, bit for bit, K = 1..3
+             at 192x192x240 and at the dome's 392x392x337, viscous and
+             inviscid, quiet and window, with a shell of source voxels; at
+             27x45x47 with voxels on the clusters' corners, their inner
+             edges and the halos' edges; on the 50-plane shard with each
+             x_lo / x_hi pair; each K timed a launch and a step against
+             its bound and pair + scatter (timed
+             in the same run), with its cluster shape, the clusters active
+             at once and its cells computed per cell owned. Then the visco
              halo sweep
-             (``check_visco_volume``): ``visco_halo`` (K visco steps a
-             launch in independent blocks that recompute a 3K halo, with
-             the volumetric drive) against its plain version and K steps
+             (``check_visco_volume``): ``visco_halo`` (the same design for
+             the 15 visco fields) against its plain version and K steps
              of the visco pair + scatter, bit for bit, K = 1, 2 at
              192x192x240 and 392x392x337 with the 5 label materials and
              the shell, viscous and inviscid, quiet and window, and at
-             27x45x47 with voxels on tile corners and halo edges; each K
-             timed a launch and a step against its bound and pair +
-             scatter at both shapes. Then the BHTE sweep:
+             27x45x47 with voxels on the clusters' corners, inner edges
+             and halo edges; each K timed as the fluid one's at both
+             shapes. Then the BHTE sweep:
              ``bhte_fused`` (K steps a launch) against its plain version
              and against K launches of
              ``bhte_step`` (and those against the plain version), max abs
@@ -550,7 +553,7 @@ FUSED_WORK.update({"visco_fused_point": FUSED_WORK["visco_fused"],
 # operations (the pair's). With a volumetric drive (``work``'s
 # "fluid_halo_volume" rows) also the int32 slot volume (12 volumes, 18)
 # and each source voxel's six floats read once, and the scatter's 6
-# operations a voxel a step. The halo a block recomputes is read again
+# operations a voxel a step. The halo a cluster recomputes is read again
 # from L2, not counted.
 FUSED_WORK.update({"fluid_halo": FUSED_WORK["fluid_fused"],
                    "fluid_halo_dft": FUSED_WORK["fluid_fused_dft"]})
@@ -560,9 +563,9 @@ FUSED_WORK.update({"fluid_halo": FUSED_WORK["fluid_fused"],
 # planes; the pair's operations a step), and with its volumetric drive
 # (``work``'s "visco_halo_volume" rows) the slot volume (32 volumes, 38)
 # and each source voxel's six floats read once, and the scatter's 6
-# operations a voxel a step. The scratch state of the steps in between is
-# written and read again (L2 mostly), and the halo a block recomputes read
-# again: neither is counted.
+# operations a voxel a step. The scratch psi slabs of the steps in between
+# are written and read again (L2 mostly), and the halo a cluster recomputes
+# read again: neither is counted.
 FUSED_WORK.update({"visco_halo": FUSED_WORK["visco_fused"],
                    "visco_halo_dft": FUSED_WORK["visco_fused_dft"]})
 # The BHTE sweep of K steps (csrc/bhte.cu bhte_fused_kernel), per launch:
@@ -1662,33 +1665,81 @@ def shell_vsrc(shape, device):
 
 
 def corner_vsrc(shape, k, device, geometry=None):
-    """Source voxels where a halo sweep's blocks meet: on the corners of
-    the depth-``k`` owned tiles of ``geometry`` (the fluid halo sweep's
-    ``halo_launch_geometry`` by default) and on the outer edge of their
-    halos (3K cells beyond a tile), in every x-segment's first and last
-    plane and in between (seeded amplitudes, phases and directions)."""
+    """Source voxels where a halo sweep's clusters and blocks meet: on the
+    corners of the depth-``k`` clusters' owned tiles of ``geometry`` (the
+    fluid halo sweep's ``halo_launch_geometry`` by default), on the inner
+    edges between a cluster's blocks (the last row of one block's slab and
+    the first of the next, read across through distributed shared memory)
+    and on the outer edge of the clusters' halos (3K cells beyond a tile),
+    in every x-segment's first and last plane and in between (seeded
+    amplitudes, phases and directions)."""
     from babelbrain_tpu_torch.ops import fdtd_halo_kernels as HK
     from babelbrain_tpu_torch.ops.fdtd_sources import VolumeSource
 
     geo = (geometry or HK.halo_launch_geometry)(shape, k)
     tz, ty = geo.tile
-    cells = set()
-    for i in sorted({0, geo.segment - 1, geo.segment, shape[0] // 2,
-                     shape[0] - 1}):
-        for j in range(0, shape[1] + ty, ty):
-            for z in range(0, shape[2] + tz, tz):
-                for dj, dz in ((0, 0), (-1, -1), (geo.halo, 0),
-                               (0, -geo.halo - 1)):
-                    if 0 <= j + dj < shape[1] and 0 <= z + dz < shape[2] \
-                            and 0 <= i < shape[0]:
-                        cells.add((i, j + dj, z + dz))
-    idx = np.ravel_multi_index(np.array(sorted(cells)).T, shape)
+    h = geo.halo
+    ys, zs = set(), set()
+    for j in range(0, shape[1] + ty, ty):
+        ys |= {j, j - 1, j + h, j - h - 1}
+        ys |= {j - h + r * geo.rows + d for r in range(1, geo.cluster)
+               for d in (-1, 0)}
+    for z in range(0, shape[2] + tz, tz):
+        zs |= {z, z - 1, z + h, z - h - 1}
+    xs = {0, geo.segment - 1, geo.segment, shape[0] // 2, shape[0] - 1}
+    cells = [(i, j, z) for i in sorted(xs) for j in sorted(ys)
+             for z in sorted(zs) if 0 <= i < shape[0] and 0 <= j < shape[1]
+             and 0 <= z < shape[2]]
+    idx = np.ravel_multi_index(np.array(cells).T, shape)
     rng = np.random.default_rng(9)
     n = len(idx)
     return VolumeSource.from_sparse(dict(
         index=idx, amp=rng.uniform(3e4, 6e4, n), phase=rng.uniform(-2, 2, n),
         ox=rng.uniform(-1, 1, n), oy=rng.uniform(-1, 1, n),
         oz=rng.uniform(-1, 1, n)), shape, device)
+
+
+# the halo sweeps' time a step over pair + scatter's at DOME_SHAPE in the
+# quiet phase, by (family, K), of the independent-block design the
+# clusters replaced (PERF.md, rows B4v / B8v), printed beside this run's
+OLD_HALO_RATIOS = {("fluid", 1): 1.675, ("fluid", 2): 2.184,
+                   ("fluid", 3): 4.790, ("visco", 1): 2.162,
+                   ("visco", 2): 4.484}
+
+
+def time_halo(tag, family, run, k, shape, step, key, n_src, geo, clusters,
+              beats):
+    """Time one halo sweep launch ``run()`` of ``k`` steps from a CUDA graph
+    and print it against its bound, pair + scatter's ``step`` ms timed in
+    the same call, the old design's ratio, its cluster and its cells
+    computed per cell owned; record in ``beats`` whether the sweep beats
+    pair + scatter a step. Returns the ms."""
+    ms = _timed_graph(run, 5)
+    b_ms, b_by = bound(key, shape, n_src=n_src, k=k)
+    cells = float(np.prod(shape))
+    old = OLD_HALO_RATIOS.get((family, k)) if shape == DOME_SHAPE else None
+    print(f"[{tag}] {key} K={k} at {shape}: {ms:.4f} ms a launch, "
+          f"{ms / k:.4f} ms a step ({cells * k / ms / 1e3:.1f} "
+          f"Mcell-updates/s); bound {b_ms:.4f} ms ({b_by}), {b_ms / k:.4f} a "
+          f"step ({b_ms / ms:.0%}); pair + scatter {step:.4f} ms a step: "
+          f"{ms / k / step:.3f}x"
+          + (f" (the independent-block design's {old:.3f}x quiet)" if old
+             else "")
+          + f"; clusters of (1, "
+          f"{geo.cluster}, 1) blocks of {geo.threads} threads ({geo.rows} "
+          f"rows), owning {geo.tile[0]}x{geo.tile[1]}, {clusters} active "
+          f"at once; grid {geo.grid}, segment {geo.segment}, "
+          f"{geo.computed(shape):.3f} cells computed per cell owned a step")
+    beats.setdefault((shape, k), []).append(ms / k < step)
+    return ms
+
+
+def fuse_best(beats, ks):
+    """The depth the default should take by the rule: the K whose sweep beat
+    pair + scatter at DOME_SHAPE in both the quiet phase and the window
+    (the fewest launches a step of those: the deepest), else 0."""
+    won = [k for k in ks if beats.get((DOME_SHAPE, k)) == [True, True]]
+    return max(won) if won else 0
 
 
 def _halo_start(shape, viscous, device, vsrc):
@@ -1743,11 +1794,13 @@ def check_fused_volume(times, device="cuda"):
     0 in every field: every K it takes (1..HALO_K_CAP) at 192x192x240 and
     at the dome's 392x392x337 (which the lockstep sweep holds only at
     K = 1), quiet and window, viscous and inviscid, with ``shell_source``;
-    at 27x45x47 with source voxels on the tiles' corners and halo edges; on
-    the 50-plane shard with each x_lo / x_hi pair. Then each K timed a
-    launch and a step at both shapes (CUDA graphs of captured launches)
-    against its bound and pair + scatter, its cells computed per cell
-    owned. Returns (errors, times, bounds) keyed by kernel row, the rows at
+    at 27x45x47 with source voxels on the clusters' corners, inner edges
+    and halo edges; on the 50-plane shard with each x_lo / x_hi pair. Then
+    each K timed a launch and a step at both shapes (CUDA graphs of
+    captured launches, ``time_halo``), against
+    its bound and pair + scatter, with its cluster and its cells computed
+    per cell owned; the depth the rule gives ``VOLUME_FUSE_BEST``
+    (``fuse_best``) printed. Returns (errors, times, bounds) keyed by kernel row, the rows at
     the dome's shape and the depth its slice runs."""
     from babelbrain_tpu_torch.ops import fdtd as F
     from babelbrain_tpu_torch.ops import fdtd_halo_kernels as HK
@@ -1786,8 +1839,9 @@ def check_fused_volume(times, device="cuda"):
         start = _halo_start(RAGGED_SHAPE, True, device, vsrc)
         for dft in (False, True):
             st, bad = _halo_case(*start, k, dft, vsrc)
-            report(f"{RAGGED_SHAPE} K={k} {vsrc.n_src} voxels on tile corners "
-                   f"and halo edges {'window' if dft else 'quiet'}", bad, st)
+            report(f"{RAGGED_SHAPE} K={k} {vsrc.n_src} voxels on cluster "
+                   f"corners, inner edges and halo edges "
+                   f"{'window' if dft else 'quiet'}", bad, st)
     vsrc = shell_vsrc(FUSED_SHARD, device)
     grid, co, oz, st0 = _halo_start(FUSED_SHARD, True, device, vsrc)
     for x_lo, x_hi in ((True, True), (True, False), (False, True),
@@ -1805,6 +1859,7 @@ def check_fused_volume(times, device="cuda"):
     if device != "cuda":
         return errs, out_t, out_b
     k_main = DOME_PIN_K
+    beats = {}
     for shape in (KERNEL_SHAPE, DOME_SHAPE):
         grid, co, oz, st = starts.pop(shape)
         vsrc = shell_vsrc(shape, device)
@@ -1828,20 +1883,14 @@ def check_fused_volume(times, device="cuda"):
             for k in ks:
                 rows = [F.step_scalars(grid, FUSED_PRE_STEPS + m, oz)
                         for m in range(k)]
-                ms = _timed_graph(lambda: HK.fluid_halo(
-                    st, co, rows, vsrc, with_dft=dft, checked=True), 5)
-                b_ms, b_by = bound(key, shape, n_src=vsrc.n_src, k=k)
                 geo = HK.halo_launch_geometry(shape, k)
-                print(f"[fused-volume] {key} K={k} at {shape}: {ms:.4f} ms a "
-                      f"launch, {ms / k:.4f} ms a step "
-                      f"({cells * k / ms / 1e3:.1f} Mcell-updates/s); bound "
-                      f"{b_ms:.4f} ms ({b_by}), {b_ms / k:.4f} a step "
-                      f"({b_ms / ms:.0%}); pair + scatter {step:.4f} ms a "
-                      f"step ({ms / k / step:.3f}x); {geo.threads} threads a "
-                      f"block, grid {geo.grid}, segment {geo.segment}, "
-                      f"{geo.computed(shape):.3f} cells computed per cell "
-                      f"owned a step")
+                ms = time_halo(
+                    "fused-volume", "fluid", lambda: HK.fluid_halo(
+                        st, co, rows, vsrc, with_dft=dft, checked=True),
+                    k, shape, step, key, vsrc.n_src, geo,
+                    HK.active_clusters(k), beats)
                 if shape == DOME_SHAPE and k == k_main:
+                    b_ms, b_by = bound(key, shape, n_src=vsrc.n_src, k=k)
                     plain = _timed(lambda: HK.fluid_halo_ref(
                         st, co, rows, vsrc, with_dft=dft), 1, warm=1)
                     out_t[key] = (ms, plain)
@@ -1850,6 +1899,12 @@ def check_fused_volume(times, device="cuda"):
                           f"{shape}; plain version {plain:.4f} ms a launch")
         del st
         HK.release()
+    best = fuse_best(beats, ks)
+    print(f"[fused-volume] the rule's default at {DOME_SHAPE}: K = {best} "
+          f"(VOLUME_FUSE_BEST = {HK.VOLUME_FUSE_BEST})")
+    if best != HK.VOLUME_FUSE_BEST:
+        print("[fused-volume] WARNING: VOLUME_FUSE_BEST does not follow "
+              "this run's measurement")
     print(f"[fused-volume] phase {time.time() - t_phase:.2f} s")
     return errs, out_t, out_b
 
@@ -1908,13 +1963,14 @@ def check_visco_volume(times, device="cuda"):
     192x192x240 and at the dome's 392x392x337 (where the lockstep visco
     sweep holds not even K = 1), with the 5 label materials and
     ``shell_source``, quiet and window, viscous and inviscid; at 27x45x47
-    with source voxels on the tiles' corners and halo edges. Then each K
-    timed a launch and a step at both shapes (CUDA graphs of captured
-    launches) against its bound and pair + scatter, with its cells
-    computed per cell owned. Returns (errors, times, bounds) keyed by
+    with source voxels on the clusters' corners, inner edges and halo
+    edges. Then each K timed as ``check_fused_volume`` times the fluid
+    one's, and the depth the rule gives ``VISCO_VOLUME_FUSE_BEST``
+    printed. Returns (errors, times, bounds) keyed by
     kernel row, the rows at the dome's shape and the depth its label slice
     runs."""
     from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops import fdtd_halo_kernels as HK
     from babelbrain_tpu_torch.ops import fdtd_sources as S
     from babelbrain_tpu_torch.ops import fdtd_visco_halo_kernels as VH
     from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
@@ -1952,8 +2008,9 @@ def check_visco_volume(times, device="cuda"):
         start = _visco_halo_start(RAGGED_SHAPE, True, device, vsrc)
         for dft in (False, True):
             st, bad = _visco_halo_case(*start, k, dft, vsrc)
-            report(f"{RAGGED_SHAPE} K={k} {vsrc.n_src} voxels on tile corners "
-                   f"and halo edges {'window' if dft else 'quiet'}", bad, st)
+            report(f"{RAGGED_SHAPE} K={k} {vsrc.n_src} voxels on cluster "
+                   f"corners, inner edges and halo edges "
+                   f"{'window' if dft else 'quiet'}", bad, st)
     VH.release()
     print(f"[visco-volume] checks {time.time() - t_phase:.2f} s")
 
@@ -1961,6 +2018,7 @@ def check_visco_volume(times, device="cuda"):
     if device != "cuda":
         return errs, out_t, out_b
     k_main = DOME_PIN_K
+    beats = {}
     for shape in (KERNEL_SHAPE, DOME_SHAPE):
         grid, co, oz, st = starts.pop(shape)
         vsrc = shell_vsrc(shape, device)
@@ -1989,20 +2047,14 @@ def check_visco_volume(times, device="cuda"):
             for k in ks:
                 rows = [F.step_scalars(grid, FUSED_PRE_STEPS + m, oz)
                         for m in range(k)]
-                ms = _timed_graph(lambda: VH.visco_halo(
-                    st, co, rows, vsrc, with_dft=dft, checked=True), 5)
-                b_ms, b_by = bound(key, shape, n_src=vsrc.n_src, k=k)
                 geo = VH.visco_halo_launch_geometry(shape, k)
-                print(f"[visco-volume] {key} K={k} at {shape}: {ms:.4f} ms a "
-                      f"launch, {ms / k:.4f} ms a step "
-                      f"({cells * k / ms / 1e3:.1f} Mcell-updates/s); bound "
-                      f"{b_ms:.4f} ms ({b_by}), {b_ms / k:.4f} a step "
-                      f"({b_ms / ms:.0%}); pair + scatter {step:.4f} ms a "
-                      f"step ({ms / k / step:.3f}x); {geo.threads} threads a "
-                      f"block, grid {geo.grid}, segment {geo.segment}, "
-                      f"{geo.computed(shape):.3f} cells computed per cell "
-                      f"owned a step")
+                ms = time_halo(
+                    "visco-volume", "visco", lambda: VH.visco_halo(
+                        st, co, rows, vsrc, with_dft=dft, checked=True),
+                    k, shape, step, key, vsrc.n_src, geo,
+                    HK.active_clusters(k, "visco_halo"), beats)
                 if shape == DOME_SHAPE and k == k_main:
+                    b_ms, b_by = bound(key, shape, n_src=vsrc.n_src, k=k)
                     plain = _timed(lambda: VH.visco_halo_ref(
                         st, co, rows, vsrc, with_dft=dft), 1, warm=1)
                     out_t[key] = (ms, plain)
@@ -2011,6 +2063,12 @@ def check_visco_volume(times, device="cuda"):
                           f"{shape}; plain version {plain:.4f} ms a launch")
         del st
         VH.release()
+    best = fuse_best(beats, ks)
+    print(f"[visco-volume] the rule's default at {DOME_SHAPE}: K = {best} "
+          f"(VISCO_VOLUME_FUSE_BEST = {VH.VISCO_VOLUME_FUSE_BEST})")
+    if best != VH.VISCO_VOLUME_FUSE_BEST:
+        print("[visco-volume] WARNING: VISCO_VOLUME_FUSE_BEST does not follow "
+              "this run's measurement")
     print(f"[visco-volume] phase {time.time() - t_phase:.2f} s")
     return errs, out_t, out_b
 
@@ -2999,11 +3057,10 @@ def run_stages(cfg, labels, aff, ct, target, direction, params, mask_shape,
             "tx": tx, "coreg": coreg}
 
 
-# the FDTD steps the dome slices run (the DFT window kept whole): dome-ct a
-# third of its domain's 6750, dome-label 2250 of its 4125; all of them
-# would not fit the time limit
-DOME_CT_STEPS = 2250
-DOME_STEPS = {"dome-ct": DOME_CT_STEPS, "dome-label": 2250}
+# the FDTD steps the dome slices run: their domains' own (DomeTx at 220
+# kHz, 6 PPW: 6750 in CT mode, 4125 in label mode)
+DOME_CT_STEPS = 6750
+DOME_STEPS = {"dome-ct": DOME_CT_STEPS, "dome-label": 4125}
 # the slices of phase 4: (CT volume given?, transducer, frequency,
 # refocusing?, 1 W calibrated drive?); a "diag" slice asks for every
 # diagnostic (the 14 maps and the beam-axis series)

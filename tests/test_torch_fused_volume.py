@@ -16,10 +16,13 @@ the CPU:
   scatter step by step;
 * the schedule against the JAX driver's own split (its scans recorded, not
   run), and its one deliberate divergence (2-step sweeps);
-* a plain-torch emulation of the kernel's blocks (each extended tile and
-  x-segment stepped alone, everything beyond it zero, the owned cells
-  stitched): bit-equal to the whole grid with a 3K halo, not with 3K - 1;
-* the kernel's march, read by read;
+* a plain-torch emulation of the kernel's clusters (each cluster's
+  extended tile and x-segment stepped alone, everything beyond it zero, its
+  blocks' slabs of rows splitting it without overlap, the owned cells
+  stitched): bit-equal to the whole grid with a 3K halo at the cluster's
+  outer edge and none at its inner edges, not with 3K - 1;
+* the kernel's march, read by read, and its cluster geometry's cells
+  computed per cell owned at the dome's grid;
 * the sharded volumetric run on ``["cpu"] * 4``, bit-equal to the
   unsharded run;
 * the refusals.
@@ -293,13 +296,19 @@ def _slab_cells(shape, ns):
     return out + out
 
 
-def _emulate(st0, co, rows, vsrc, tile, seg, halo):
-    """The kernel's blocks in plain torch: for each (z-tile, y-tile,
-    x-segment) block, K steps of pair + scatter with every field beyond the
-    block's tile and segment extended by ``halo`` cells set to 0 before
-    each half-step reads it (the kernel computes only its extended tile and
-    reads 0 beyond it), then the block's owned cells copied into the
-    result."""
+def _emulate(st0, co, rows, vsrc, tile, seg, halo, cluster_rows):
+    """The kernel's clusters in plain torch: for each (z-tile, y-tile,
+    x-segment) cluster, K steps of pair + scatter with every field beyond
+    the cluster's tile and segment extended by ``halo`` cells set to 0
+    before each half-step reads it (the kernel computes only its extended
+    tile and reads 0 beyond it); each block's owned cells (the
+    ``cluster_rows`` rows of the extended tile it holds) are copied into
+    the result. The blocks' slabs are row slices of the one computation
+    of their cluster's extended tile, so what a block reads across the
+    cluster's inner edge is exact here by construction: the exchange
+    itself is tested on the card (``test_torch_kernels.py``
+    ``test_halo_kernel_cluster_edges``) and its ordering by
+    ``test_march_read_by_read``."""
     shape = tuple(st0.p.shape)
     ns = st0.psi_p[2].shape[1]
     tz, ty = tile
@@ -330,16 +339,20 @@ def _emulate(st0, co, rows, vsrc, tile, seg, halo):
                     cut("vx", "vy", "vz")
                     K.fluid_pressure_ref(st, co, cosw, sinw)
                     cut("p", "r")
-                mine = torch.zeros(shape, dtype=torch.bool)
-                mine[own] = True
-                for f in ("p", "vx", "vy", "vz", "r", "acc_cos", "acc_sin",
-                          "peak"):
-                    getattr(out, f)[mine] = getattr(st, f)[mine]
-                for q, (a, b) in enumerate(zip(st.psi_p + st.psi_v,
-                                               out.psi_p + out.psi_v)):
-                    i, j, k = cells[q]
-                    m = torch.as_tensor(mine.numpy()[i, j, k])
-                    b[m] = a[m]
+                ey0 = y0 - halo  # the extended tile's first row
+                for b0 in range(ey0, y0 + ty + halo, cluster_rows):
+                    rows_b = slice(max(b0, y0), min(b0 + cluster_rows,
+                                                    y0 + ty))
+                    mine = torch.zeros(shape, dtype=torch.bool)
+                    mine[own[0], rows_b, own[2]] = True
+                    for f in ("p", "vx", "vy", "vz", "r", "acc_cos",
+                              "acc_sin", "peak"):
+                        getattr(out, f)[mine] = getattr(st, f)[mine]
+                    for q, (a, b) in enumerate(zip(st.psi_p + st.psi_v,
+                                                   out.psi_p + out.psi_v)):
+                        i, j, k = cells[q]
+                        m = torch.as_tensor(mine.numpy()[i, j, k])
+                        b[m] = a[m]
     return out
 
 
@@ -352,28 +365,33 @@ def _state_diff(a, b):
 
 @pytest.mark.parametrize("k", [2, 3])
 def test_block_emulation_needs_a_3k_halo(k):
-    """(c) The blocks stepped alone and stitched are bit-equal to K steps of
-    the whole grid with a 3K halo and differ with 3K - 1; source voxels sit
-    on a tile corner and on a halo's outer edge, and the state is large on
-    that edge's cells (the farthest a step's stencils reach: what they
-    carry inward shrinks ~1e-4 a step, so it must be large to survive
-    rounding)."""
-    tile, seg = (8, 6), 7
+    """(c) The clusters stepped alone and stitched are bit-equal to K steps
+    of the whole grid with a 3K halo at the cluster's outer edge (the
+    blocks' slabs are stitched from their cluster's one computation: no
+    halo at the inner edges between them) and differ with 3K - 1; source
+    voxels sit on a cluster corner, on the inner edges between its blocks
+    and on a halo's outer edge, and the state is large on that edge's cells
+    (the farthest a step's stencils reach: what they carry inward shrinks
+    ~1e-4 a step, so it must be large to survive rounding)."""
+    h = HK.CONTAMINATION * k
+    blocks = 2  # blocks a cluster: rows of (10 + 2h) / 2 each
+    tile, seg = (8, 10), 7
+    rows_b = (tile[1] + 2 * h) // blocks
     shape = (28, 30, 40)
     ns = 6
     g = _grid(shape, k, 0, npml=ns - 2)
     grid = T.FDTDGrid(**g)
-    h = HK.CONTAMINATION * k
     rng = np.random.default_rng(7)
-    # a block in the middle: its owned box and the cells 3K beyond it
-    x0, y0, z0 = 2 * seg, 2 * tile[1], 2 * tile[0]
+    # a cluster in the middle: its owned box and the cells 3K beyond it
+    x0, y0, z0 = 2 * seg, tile[1], 2 * tile[0]
     edge = [(x0 - h, y0 + 2, z0 + 3), (x0 + 3, y0 + tile[1] - 1 + h, z0 + 1),
             (x0 + 1, y0 + 1, z0 - h), (x0 + 2, y0 + 3, z0 + tile[0] - 1 + h),
             (x0 + seg - 1 + h, y0, z0 + 2), (x0 + 1, y0 - h, z0 + 4)]
+    inner = [(x0 + 1, y0 - h + rows_b + d, z0 + 2) for d in (-1, 0)]
     corner = [(x0, y0, z0), (0, tile[1], tile[0]), (x0 + seg - 1,
                                                     y0 + tile[1] - 1,
                                                     z0 + tile[0] - 1)]
-    voxels = [v for v in edge + corner
+    voxels = [v for v in edge + inner + corner
               if all(0 <= c < n for c, n in zip(v, shape))]
     lin = np.ravel_multi_index(np.array(voxels).T, shape)
     sparse = dict(index=lin, amp=rng.uniform(0.5, 1.0, len(lin)) * 1e-3,
@@ -391,29 +409,75 @@ def test_block_emulation_needs_a_3k_halo(k):
     rows = [T.step_scalars(grid, 40 + m, 1.0) for m in range(k)]
     whole = _copy(st0)
     HK.fluid_halo_ref(whole, co, rows, vsrc, with_dft=True)
-    ok = _emulate(st0, co, rows, vsrc, tile, seg, h)
+    ok = _emulate(st0, co, rows, vsrc, tile, seg, h, rows_b)
     assert _state_diff(ok, whole) == []
-    short = _emulate(st0, co, rows, vsrc, tile, seg, h - 1)
+    short = _emulate(st0, co, rows, vsrc, tile, seg, h - 1, rows_b - 1)
     assert "p" in _state_diff(short, whole)
 
 
-def _march_errors(n, k, ring=HK.RING):
+def test_cluster_geometry_computes_less():
+    """At the dome's 392x392x337 grid the clusters compute at most 0.6x
+    the cells per cell owned of the independent blocks they replaced
+    (3.451 at K = 2: at most 2.07), and every K's launch covers the grid
+    once in whole clusters."""
+    shape = (392, 392, 337)
+    geo = HK.halo_launch_geometry(shape, 2)
+    assert geo.computed(shape) <= 0.6 * 3.451
+    for k in range(1, HK.HALO_K_CAP + 1):
+        geo = HK.halo_launch_geometry(shape, k)
+        tz, ty = geo.tile
+        gz, gy, gx = geo.grid
+        assert gy % geo.cluster == 0
+        assert ty == geo.cluster * geo.rows - 2 * geo.halo
+        assert (gz - 1) * tz < shape[2] <= gz * tz
+        assert (gy // geo.cluster - 1) * ty < shape[1] <= gy // geo.cluster \
+            * ty
+        assert (gx - 1) * geo.segment < shape[0] <= gx * geo.segment
+        assert geo.threads <= 1024
+
+
+def _march_errors(n, k, ring=HK.RING, depth=None, ghost=None):
     """Every read of ``march(n, k)`` against the rings (``ring`` planes a
-    slot set) and register windows it implies: a ring read finds the plane
-    it wants, a neighbour's written at an earlier march step and not
-    rewritten in this one; an x-window holds the planes its step wants;
-    the SLS memory handed on is the plane's; every plane of every step is
-    computed once."""
-    slots, wins, rlist = {}, {}, {}
+    slot set, their ghost rows ``ghost``, by default as many), the index
+    ring (``depth`` planes, the kernel's by default) and register windows
+    it implies: a ring read finds the plane it wants, a neighbour's in the
+    block written at an earlier march step, so ordered by the step's
+    barrier between them, and not rewritten in this one; a ghost-row read
+    finds its plane stored by the next block at an earlier march step (its
+    rows of the step before are what the read waits on) and not rewritten
+    by any store of the next block that may land before it (those of this
+    step and the next); every ring store and read lies between the step's
+    wait and its arrive; an index read finds its plane, copied in at an
+    earlier step; the values stage 0 takes are the ones loaded for the
+    step; an x-window holds the planes its step wants; the SLS memory
+    handed on is the plane's; every plane of every step is computed once."""
+    depth = HK.index_ring(k) if depth is None else depth
+    ghost = ring if ghost is None else ghost
+    slots, wins, rlist, index, ghosts = {}, {}, {}, {}, {}
     done = {("V", s): [] for s in range(k)}
     done.update({("P", s): [] for s in range(k)})
     errs = []
+    loaded = None
+    open_ = True  # the prologue's barrier precedes step 0
     for f, ev in enumerate(HK.march(n, k)):
         written = {(e[1], e[2], e[3] % ring) for e in ev if e[0] == "w"}
         for e in ev:
             kind = e[0]
-            if kind == "w":
+            if kind == "ghost_w":
+                _, r, s, pl, g = e
+                ghosts[(r, s, pl % ghost)] = (pl, g)
+            elif kind == "wait":
+                open_ = True
+            elif kind == "arrive":
+                open_ = False
+            elif kind == "copy":
+                index[(e[1] - 2) % depth] = e[1] - 2
+            elif kind == "load":
+                loaded = e[1]
+            elif kind == "w":
                 _, r, s, pl = e
+                if not open_:
+                    errs.append(("outside the barrier", f, e))
                 slots[(r, s, pl % ring)] = (pl, f)
                 key = ("p", s) if r == "p" else ("vx", s) if r == "vy" \
                     else None
@@ -424,11 +488,24 @@ def _march_errors(n, k, ring=HK.RING):
             elif kind == "r":
                 _, r, s, pl, how = e
                 got = slots.get((r, s, pl % ring))
-                if got is None or got[0] != pl:
+                if not open_:
+                    errs.append(("outside the barrier", f, e))
+                if how == "ghost":
+                    got = ghosts.get((r, s, pl % ghost))
+                    if got is None or got[0] != pl or got[1] >= f:
+                        errs.append(("ghost", f, e, got))
+                elif got is None or got[0] != pl:
                     errs.append((f, e, got))
                 elif how == "lateral" and (got[1] >= f or (
                         r, s, pl % ring) in written):
                     errs.append(("race", f, e, got))
+            elif kind == "idx":
+                if index.get(e[1] % depth) != e[1]:
+                    errs.append((f, e, index.get(e[1] % depth)))
+            elif kind == "stage_in":
+                _, what, pl = e
+                if loaded != f or pl != f - {"v": 2, "r": 3}[what]:
+                    errs.append((f, e, loaded))
             elif kind == "xwin":
                 _, w, s, planes = e
                 # registers start at 0: the planes below the march's first
@@ -449,17 +526,28 @@ def _march_errors(n, k, ring=HK.RING):
     return errs
 
 
+@pytest.mark.parametrize("n", [1, 7, 30])
 @pytest.mark.parametrize("k", [1, 2, 3])
-def test_march_read_by_read(k):
-    """(d) ``march``: every shared-memory read finds the plane and step it
-    needs, a neighbour's written a march step earlier or more (one barrier
-    a step orders it) and not rewritten within the step; the x-windows and
-    the r ring hand each step what it reads; every plane of every step is
-    computed once. Rings of 2 planes would not do."""
-    for n in (1, 7, 30):
-        assert _march_errors(n, k) == []
-    if k > 1:
-        assert _march_errors(30, k, ring=2)
+def test_march_read_by_read(k, n):
+    """(d) ``march`` over n planes: every shared-memory read finds the
+    plane and step it needs, a neighbour's in the block written a march
+    step earlier or more (the step's barrier orders it) and not rewritten
+    within the step, a neighbour's across the cluster's inner edge stored
+    into the ghost rows a march step earlier or more (the mbarrier wait
+    orders it) and not rewritten by the next block running a step ahead,
+    and every ring access lies between the barrier's wait and its arrive;
+    the index ring holds each plane from its copy a step ahead to its last
+    reader; the x-windows and the r ring hand each step what it reads;
+    every plane of every step is computed once. At 30 planes: rings of 2
+    planes, ghost rows of 3 (at K = 1 the own rows would do with 3, but
+    the next block's stores of a step ahead land on a slot still read) or
+    an index ring of 3K - 2 would not do."""
+    assert _march_errors(n, k) == []
+    if n == 30:
+        if k > 1:
+            assert _march_errors(n, k, ring=2)
+        assert _march_errors(n, k, ghost=HK.RING - 1)
+        assert _march_errors(n, k, depth=3 * k - 2)
 
 
 @functools.cache

@@ -483,6 +483,73 @@ def test_halo_entry_point_refuses_aliasing(cuda):
         HK.release()
 
 
+def _cluster_edge_vsrc(shape, geo, device):
+    """Source voxels where a halo sweep's clusters and blocks meet: on the
+    corners of the clusters' owned tiles, on the inner edges between the
+    blocks of a cluster (the last row of one block's slab and the first of
+    the next), and on the outer edge of the clusters' halos, in every
+    x-segment's first and last plane and in between."""
+    tz, ty = geo.tile
+    h, rows = geo.halo, geo.rows
+    ys, zs = set(), set()
+    for y0 in range(0, shape[1] + ty, ty):
+        ys |= {y0 - 1, y0, y0 + h, y0 - h - 1}
+        ys |= {y0 - h + r * rows + d for r in range(1, geo.cluster)
+               for d in (-1, 0)}
+    for z0 in range(0, shape[2] + tz, tz):
+        zs |= {z0 - 1, z0, z0 + h, z0 - h - 1}
+    xs = {0, geo.segment - 1, geo.segment, shape[0] // 2, shape[0] - 1}
+    cells = [(i, j, z) for i in sorted(xs) for j in sorted(ys)
+             for z in sorted(zs) if 0 <= i < shape[0] and 0 <= j < shape[1]
+             and 0 <= z < shape[2]]
+    idx = np.ravel_multi_index(np.array(cells).T, shape)
+    rng = np.random.default_rng(9)
+    n = len(idx)
+    return S.VolumeSource.from_sparse(dict(
+        index=idx, amp=rng.uniform(3e4, 6e4, n), phase=rng.uniform(-2, 2, n),
+        ox=rng.uniform(-1, 1, n), oy=rng.uniform(-1, 1, n),
+        oz=rng.uniform(-1, 1, n)), shape, device)
+
+
+# a grid of two clusters along y (the second not filled) and three z-tiles
+# (the last not filled) at every depth
+CLUSTER_SHAPE = (20, 150, 70)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_halo_kernel_cluster_edges(cuda, k):
+    """``fluid_halo`` with source voxels on the clusters' corners, on the
+    inner edges between a cluster's blocks (read across through distributed
+    shared memory) and on the halos' outer edges, on a grid whose last
+    cluster and z-tile the grid does not fill, against its plain version
+    and K steps of pair + scatter, bit for bit."""
+    from babelbrain_tpu_torch.ops import fdtd_halo_kernels as HK
+
+    grid, co = _fluid_setup(cuda, shape=CLUSTER_SHAPE)
+    vsrc = _cluster_edge_vsrc(grid.shape,
+                              HK.halo_launch_geometry(grid.shape, k), cuda)
+    oz = 1.0 / (1000.0 * 1500.0)
+    st = K.FluidState.zeros(grid.shape, 14, cuda)
+    for n in range(20):
+        F.fluid_step(st, co, grid, n, oz, 0.0, vsrc)
+    halo, plain, pair = (_copy(st) for _ in range(3))
+    rows = [F.step_scalars(grid, n, oz) for n in range(20, 20 + k)]
+    HK.fluid_halo(halo, co, rows, vsrc, with_dft=True)
+    HK.fluid_halo_ref(plain, co, rows, vsrc, with_dft=True)
+    for s_sin, s_cos, cosw, sinw, _ in rows:
+        K.fluid_velocity(pair, co, s_sin, s_cos)
+        S.velocity_volume_source(pair.vx, pair.vy, pair.vz, vsrc, s_sin,
+                                 s_cos)
+        K.fluid_pressure(pair, co, cosw, sinw)
+    torch.cuda.synchronize()
+    assert float(halo.p.abs().max()) > 0
+    fields = ("p", "vx", "vy", "vz", "r", "acc_cos", "acc_sin", "peak")
+    _fields_equal(halo, plain, fields, ("psi_p", "psi_v"))
+    _fields_equal(halo, pair, fields, ("psi_p", "psi_v"))
+    assert HK.active_clusters(k) >= 1
+    HK.release()
+
+
 def test_fused_wrapper_rejects_mixed_devices(cuda):
     from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
 
@@ -1075,6 +1142,40 @@ def test_visco_halo_run_fdtd_matches_pair_and_scatter(cuda, k, n_steps):
     ref = F._carrier(st, grid)
     for name in ("p_amp", "p_phase", "peak"):
         np.testing.assert_array_equal(out[name], ref[name], err_msg=name)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_visco_halo_kernel_cluster_edges(cuda, k):
+    """``visco_halo`` with source voxels on the clusters' corners, on the
+    inner edges between a cluster's blocks and on the halos' outer edges,
+    on a grid whose last cluster and z-tile the grid does not fill, against
+    its plain version and K steps of the visco pair + scatter, bit for
+    bit."""
+    from babelbrain_tpu_torch.ops import fdtd_visco_halo_kernels as VH
+
+    grid, co = _visco_source_setup(cuda, CLUSTER_SHAPE, "velocity_volume")
+    vsrc = _cluster_edge_vsrc(
+        grid.shape, VH.visco_halo_launch_geometry(grid.shape, k), cuda)
+    oz = 1.0 / (1000.0 * 1500.0)
+    st = V.ViscoState.zeros(grid.shape, 14, cuda)
+    for n in range(20):
+        F.visco_step(st, co, grid, n, oz, 0.0, vsrc)
+    halo, plain, pair = (_copy(st) for _ in range(3))
+    rows = [F.step_scalars(grid, n, oz) for n in range(20, 20 + k)]
+    VH.visco_halo(halo, co, rows, vsrc, with_dft=True)
+    VH.visco_halo_ref(plain, co, rows, vsrc, with_dft=True)
+    for s_sin, s_cos, cosw, sinw, _ in rows:
+        V.visco_velocity(pair, co, s_sin, s_cos)
+        S.velocity_volume_source(pair.vx, pair.vy, pair.vz, vsrc, s_sin,
+                                 s_cos)
+        V.visco_stress(pair, co, cosw, sinw)
+    torch.cuda.synchronize()
+    assert float(halo.sxx.abs().max()) > 0
+    fields = (VH.FIELDS + ("acc_cos", "acc_sin", "peak"))
+    _fields_equal(halo, plain, fields, ("psi_s", "psi_v"))
+    _fields_equal(halo, pair, fields, ("psi_s", "psi_v"))
+    VH.check_clusters(k, "visco_halo")
+    VH.release()
 
 
 def test_visco_halo_entry_point_refuses_aliasing(cuda):
