@@ -23,76 +23,89 @@
 // (16 float volumes a step, 22 inside the sensor window). A sweep reads p,
 // vx, vy, vz, r, the index (and the DFT sums) once and writes them once: 11
 // volumes (17) a sweep, 11/K (17/K) a step, if the planes in flight stay in
-// the 50 MB L2 between the stages that touch them (K stages x 4 planes x the
-// five state fields: 11 MB at 216x216 planes and K = 4).
+// the 50 MB L2 between the stages that touch them.
 //
 // Design (the card's, not the TPU's): the TPU keeps whole (N2, N3) planes
-// in VMEM rings and recomputes nothing. A Hopper block holds 227 KB of shared
-// memory, not the rings of several 35 MB volumes, and a (y, z) tile that
-// marched alone would have to recompute a halo that widens by 3 cells a side
-// every step (d_plus reads -1..+2, d_minus -2..+1): 32x8 owned cells are
-// 56x32 cells to compute at K = 4, with their own copies of r and the y/z
-// psi slabs. Here nothing is recomputed: the whole grid marches along x in
-// lockstep.
+// in VMEM rings and recomputes nothing. A Hopper block holds 227 KB of
+// shared memory, not the rings of several 35 MB volumes, and a (y, z) tile
+// that marched alone would have to recompute a halo that widens by 3 cells
+// a side every step. Here nothing is recomputed: the whole grid marches
+// along x in lockstep.
 //   - The launch is cooperative: blocks (z-tile, y-tile, stage s), all
-//     resident at once. Stage s's threads own the same columns as the pair's
-//     (32x8 tiles, ops/fdtd_fused_kernels.py fused_launch_geometry) and do
-//     step s of the sweep: at march step t the velocity of plane
-//     i = t - kLag s and the pressure of plane i - 1.
-//   - After each march step a grid-wide barrier (cooperative_groups
-//     grid.sync). Stage s + 1 runs kLag = 4 planes behind stage s, so every
-//     value a thread reads from another thread was written at an earlier
-//     march step and is overwritten only at a later one: the y/z neighbours
-//     of p (velocity) and of vy, vz (pressure) of the same or the previous
-//     stage, and the previous stage's own-cell p, v, r, psi and DFT sums.
-//     Three planes would make stage s + 1's velocity read the pressure stage s
-//     writes in the same march step. ops/fdtd_fused_kernels.py march()
-//     mirrors this schedule; tests/test_torch_fused.py checks every read
-//     against it.
+//     resident at once. A block's 32x8 threads own a tile of 32 (z) x 16
+//     (y) columns, kCells = 2 cells a thread kTileY rows apart (their work
+//     is independent, so one thread keeps two chains in flight, and half as
+//     many blocks meet at the barrier), and do step s of the sweep: at
+//     march step t the velocity of plane i = t - kLead - kLag s and the
+//     pressure of plane i - kPLag. After each march step a grid-wide
+//     barrier (cooperative_groups grid.sync).
+//   - The loads come off the dependency chain: every value a thread reads
+//     at march step t + 1 was written at march step t - 1 or before, and no
+//     thread writes it at step t or t + 1 (but a cell's owner, which waits
+//     for the copies first). So each block stages all of step t + 1's loads
+//     during step t as asynchronous copies into shared memory, completed on
+//     the mbarrier of t + 1: at the start of step t the (y, z) ring of p's
+//     plane i + 1 the velocity's y/z differences read (rows -1..+2, columns
+//     -1..+2 around the tile) and the rings of vy and vz of plane i - 1 the
+//     pressure's differences read, into the other half of a double buffer;
+//     after step t's arithmetic (the slots are single) each cell's own
+//     values: p of plane i + 3 (the newest of its x-window), the old vx,
+//     vy, vz, r, the DFT sums, the peak, the p^2 sum, the material index
+//     and the psi value of each derivative's CPML slab; the table is
+//     gathered through __ldg at use. The stencils then read shared memory,
+//     not eight L2 loads a derivative. That needs the pressure kPLag = 2
+//     planes behind its velocity (its vy, vz rings written at t - 2) and
+//     stage s + 1 kLag = 6 planes behind stage s (the newest plane of its
+//     p window, p of plane i + 2 at step t, is written by stage s at step
+//     t + 4 - kLag).
+//     ops/fdtd_fused_kernels.py march() mirrors the schedule, the staged
+//     loads included; tests/test_torch_fused.py checks every read against
+//     it (kLag = 5, or a copy issued a step earlier, fail).
+//   - Where N3 is a multiple of 4 and every staged field starts on 16
+//     bytes (the VEC instantiations, which bb_fluid_fused picks: the main
+//     path's grids) the copies move whole 16-byte
+//     chunks of z (the rings span z0 - 4 .. z0 + 35, a cell's slot is in
+//     its row's chunk, one copy serves four cells: ~7 copies a thread a
+//     step) through L2 only (cp.async.cg), and each step waits for its
+//     copies at its top: they are in flight across the grid barrier. Else
+//     the copies move 4 bytes (cp.async.ca, through L1), and each thread
+//     waits for its block's copies before the barrier: a copy still in
+//     flight at the barrier could fill an L1 line after the barrier's fence
+//     dropped the stale ones, and a line that straddles two planes would
+//     then carry a value another SM writes in the next step. The psi values
+//     (4 bytes, only the CPML shell's) are written by their owner alone and
+//     read again kLag steps later, past a barrier's fence either way.
+//     The cells' own x-windows stay in registers (p at planes i - 2..i + 2,
+//     the new vx at i - 4..i - 1): p of the pressure's plane is the
+//     window's oldest entry.
 //   - The state is updated in place in device memory: one copy of every
-//     field, no halo, no scratch. Each thread keeps its column's x-windows in
-//     registers (p for the velocity, the new vx for the pressure), loading
-//     the window's newest plane each march step. Values another block wrote
-//     in this launch are loaded with ld.global.cg (L2), never through L1 or
-//     the read-only path (the L2 helpers of fdtd_stencil.cuh); the index,
-//     table, profiles and source planes through __ldg.
-//   - Per-step scalars: the K rows (s_sin, s_cos, cosw, sinw, s_point) of
-//     ops/fdtd.py step_scalars, passed by value as float32, the values the
-//     pair takes as arguments.
-// The price: a grid-wide barrier every march step (N1 + 4 (K - 1) + 1 of
-// them a sweep), and only K N2 N3 threads in flight, each walking its
-// column through all N1 planes. The depth is bounded by co-residency: K x
-// tiles blocks must fit on the card at once (bb_fluid_fused_capacity: 792
-// blocks of this kernel on an H100, so K <= 4 at 192x192 and 216x216
-// planes); ops/fdtd_fused_kernels.py admitted_depth takes the deepest K
-// that fits, and ops/fdtd.py fused_plan caps it at the depth measured
-// fastest (PERF.md).
-// Measured on an H100 (PERF.md): slower than the pair at every K. What
-// holds it is each thread's chain of dependent L2 loads, one plane after
-// the other, not the barrier (a variant marching up to 16 planes between
-// barriers was no faster than the pair either) and not device memory; a
-// variant loading the pressure's inputs ahead of the velocity's stores
-// spilled at 40 registers and was slower. More independent loads in
-// flight per thread, point-to-point flags between neighbouring blocks
-// instead of the grid barrier, and thread-block clusters sharing halos in
-// distributed shared memory are later work.
+//     field, no halo, no scratch. Per-step scalars: the K rows (s_sin,
+//     s_cos, cosw, sinw, s_point) of ops/fdtd.py step_scalars, passed by
+//     value as float32, the values the pair takes as arguments.
+// The depth is bounded by co-residency: K x tiles blocks must fit on the
+// card at once (bb_fluid_fused_capacity: 3 blocks an SM, kSmem = 49.7 KB of
+// shared memory and at most 80 registers a thread, 396 blocks on an H100,
+// so K <= 4 on 192x192x240 and 216x216x224 grids); ops/fdtd_fused_kernels.py
+// admitted_depth takes the deepest K that fits, and ops/fdtd.py fused_plan
+// caps it at the depth measured fastest (PERF.md).
 //
 // EXTRAS (only with WITH_DFT and XALL: JAX sends sharded extras runs to its
 // XLA path, and the port's sharded diagnostic runs keep the pair): where the
-// stage writes a cell's new pressure it also adds pn * pn to acc_p2 (a load,
-// an add, a store; nothing live across the march), and samples pn at the
-// listed monitor voxels into its step's row of the series (rows.mon_row[s],
-// -1: not sampled, no store). The sample is taken from the register at the
-// write: stage s + 1 overwrites the plane kLag march steps later, so a read
-// of p after the march (the pair's copy_listed) would see only the last
-// stage's value. The voxels are sorted by the warp that writes them, keyed
-// by (z-tile, y-tile, row) whatever the stage, and within a warp by cell
-// (ops/fdtd_extras.py sweep_csr); each stage walks its warp's entries plane
-// by plane with one cursor (e, e_end: two registers), every lane of the warp
-// through the same entries, the lane that owns the cell storing it. A warp
-// with no listed voxel does one compare a plane. A null acc_p2 or monitor
-// list skips its part (uniform across the grid), so one instantiation
-// serves maps, monitors or both.
+// stage writes a cell's new pressure it also adds pn * pn to acc_p2 (its old
+// value staged like the DFT sums), and samples pn at the listed monitor
+// voxels into its step's row of the series (rows.mon_row[s], -1: not
+// sampled, no store). The sample is taken from the register at the write:
+// stage s + 1 overwrites the plane kLag march steps later, so a read of p
+// after the march (the pair's copy_listed) would see only the last stage's
+// value. The voxels are sorted by the tile row that writes them, keyed by
+// (z-tile, y-tile, row of the 16) whatever the stage, and within a row by
+// cell (ops/fdtd_extras.py sweep_csr); each stage walks a cell's row's
+// entries plane by plane with one cursor (a register a cell; the rows'
+// ends in shared memory), every lane of the warp through the same
+// entries, the lane that owns the cell storing it. A row with no listed
+// voxel does one compare a plane. A null acc_p2 or monitor list skips its
+// part (uniform across the grid), so one instantiation serves maps,
+// monitors or both.
 //
 // Stateful cells: r, the psi slabs (x, y, z) and the DFT sums are per-cell
 // state; at each stage only the thread that owns the cell reads and writes
@@ -107,6 +120,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <initializer_list>
+
 #include "fdtd_stencil.cuh"
 
 namespace {
@@ -114,10 +129,50 @@ namespace {
 using namespace bb;
 namespace cg = cooperative_groups;
 
-constexpr int kLag = 4;       // planes between stage s and s + 1
+constexpr int kLag = 6;       // planes between stage s and s + 1
+constexpr int kPLag = 2;      // planes the pressure runs behind its velocity
+constexpr int kLead = 2;      // steps a stage loads its x-window before
+                              // its first velocity plane
 constexpr int kMaxSteps = 8;  // rows a launch takes (K_CAP in Python)
-// 1536 threads an SM (40 registers): the co-resident blocks bound K
-constexpr int kMinBlocksFused = 6;
+constexpr int kCells = 2;     // cells a thread, kTileY rows apart
+constexpr int kRows = kTileY * kCells;  // rows of a block's tile
+// 768 threads an SM (80 registers, 3 x kSmem of shared memory): the
+// co-resident blocks bound K
+constexpr int kMinBlocksFused = 3;
+
+// the staged rings a ring buffer holds, in whole 16-byte chunks of z: p of
+// the velocity's plane, rows y0 - 1 .. y0 + kRows + 1 x columns z0 - 4 ..
+// z0 + kTileZ + 3 (kZ0: the column of z0); vy of the pressure's plane,
+// rows y0 - 2 .. y0 + kRows, the tile's columns; vz of the pressure's
+// plane, the tile's rows, columns z0 - 4 .. z0 + kTileZ + 3
+constexpr int kZ0 = 4;
+constexpr int kPW = kTileZ + 2 * kZ0, kPH = kRows + 3, kPRing = kPH * kPW;
+constexpr int kVYH = kRows + 3, kVYRing = kVYH * kTileZ;
+constexpr int kVZW = kTileZ + 2 * kZ0, kVZRing = kRows * kVZW;
+constexpr int kRing = kPRing + kVYRing + kVZRing;
+// each cell's staged own values, a slot of kBlockCells floats each, the
+// cells in the tile's row-major order (row * kTileZ + column)
+enum Slot {
+  kPn,      // p of plane i + 2, the newest of the x-window
+  kVx,      // the old velocity of plane i
+  kVy,
+  kVz,
+  kIdxV,    // the material index of plane i (int)
+  kR,       // the pressure's plane i - 2: the SLS memory
+  kAccC,    // the DFT sums and the peak
+  kAccS,
+  kPeak,
+  kP2,      // EXTRAS: the p^2 sum
+  kIdxP,    // the material index of plane i - 2 (int)
+  kPsiP,    // kPsiP + axis: the velocity's psi value of its CPML slab
+  kPsiV = kPsiP + 3,  // kPsiV + axis: the pressure's
+  kSlots = kPsiV + 3
+};
+constexpr int kBlockCells = kThreads * kCells;
+// dynamic shared memory: two mbarriers, two ring buffers (the next step's
+// rings land in one while the step reads the other), one set of own slots
+constexpr int kSmem =
+    16 + (2 * kRing + kSlots * kBlockCells) * (int)sizeof(float);
 
 // table rows (ops/fdtd.py _build_indexed_materials)
 constexpr int kRhoInv = 0, kPiU = 1, kCRp = 3, kBR = 5;
@@ -131,7 +186,7 @@ struct Rows {
 };
 
 // the listed monitor voxels of an EXTRAS sweep (ops/fdtd_extras.py
-// sweep_csr): warp w's entries are [start[w], start[w + 1]) of (cell[e],
+// sweep_csr): row w's entries are [start[w], start[w + 1]) of (cell[e],
 // slot[e]), sorted by cell; the series is (n_samples, n_mon); cell null:
 // no monitor
 struct SweepMon {
@@ -142,10 +197,93 @@ struct SweepMon {
   int n_mon;
 };
 
+// Where the CPML of a derivative along AXIS applies at cell (i, j, k):
+// its position pos along the axis, the lo slab below lo_end, the hi slab
+// from hi_start, the psi value of slab plane q at base + q * stride (the
+// indexing of fdtd_stencil.cuh CpmlL2)
+struct Slab {
+  int pos, lo_end, hi_start, base, stride;
+};
+
+template <int AXIS, bool XALL>
+__device__ __forceinline__ Slab slab(const Geo& g, int i, int j, int k,
+                                     int jk, int plane) {
+  if (AXIS == 0) {
+    return XALL ? Slab{i, g.ns, g.n1 - g.ns, jk, plane}
+                : Slab{i, g.xlo, g.xhi, jk, plane};
+  }
+  if (AXIS == 1) return Slab{j, g.ns, g.n2 - g.ns, i * g.ns * g.n3 + k, g.n3};
+  return Slab{k, g.ns, g.n3 - g.ns, (i * g.n2 + j) * g.ns, 1};
+}
+
+// the psi value the first slab that applies holds (lo, then hi; null: none)
+__device__ __forceinline__ const float* slab_src(const Slab& b,
+                                                 const float* lo,
+                                                 const float* hi) {
+  if (b.pos < b.lo_end) return lo + (b.base + b.pos * b.stride);
+  if (b.pos >= b.hi_start) {
+    return hi + (b.base + (b.pos - b.hi_start) * b.stride);
+  }
+  return nullptr;
+}
+
+// cpml2 (fdtd_stencil.cuh) with the old psi value of the first slab that
+// applies staged at *staged; the second (both apply only when the axis is
+// shorter than 2 ns) is loaded here
+__device__ __forceinline__ float cpml_staged(float d, const Slab& b, int ns,
+                                             const float* prof, float* lo,
+                                             float* hi, const float* staged) {
+  bool first = true;
+  if (b.pos < b.lo_end) {
+    const int s = b.base + b.pos * b.stride;
+    const float nw = prof[b.pos] * *staged + prof[ns + b.pos] * d;
+    lo[s] = nw;
+    d = d + nw;
+    first = false;
+  }
+  const int q = b.pos - b.hi_start;
+  if (q >= 0) {
+    const int s = b.base + q * b.stride;
+    const float old = first ? *staged : ld2(hi, s);
+    const float nw = prof[2 * ns + q] * old + prof[3 * ns + q] * d;
+    hi[s] = nw;
+    d = d + nw;
+  }
+  return d;
+}
+
+// stage the psi values of the three derivatives of one half-step at cell
+// (i, j, k) into slots slot0 + axis (prof-free: only where a slab applies)
+template <bool XALL>
+__device__ __forceinline__ void stage_psi(const Ptr6& psi, const Geo& g,
+                                          int i, int j, int k, int jk,
+                                          int plane, float* slot0) {
+  const Slab b0 = slab<0, XALL>(g, i, j, k, jk, plane);
+  const Slab b1 = slab<1, XALL>(g, i, j, k, jk, plane);
+  const Slab b2 = slab<2, XALL>(g, i, j, k, jk, plane);
+  const float* s0 = slab_src(b0, psi.p[0], psi.p[1]);
+  const float* s1 = slab_src(b1, psi.p[2], psi.p[3]);
+  const float* s2 = slab_src(b2, psi.p[4], psi.p[5]);
+  if (s0) cp_async4z(slot0, s0, true);
+  if (s1) cp_async4z(slot0 + kBlockCells, s1, true);
+  if (s2) cp_async4z(slot0 + 2 * kBlockCells, s2, true);
+}
+
+// copy 16 bytes from src (global, through L2 only: cp.async.cg) to dst
+// (this block's shared memory), or store 16 zero bytes there if !valid
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
 // K steps of fluid_velocity_kernel then fluid_pressure_kernel (fdtd_fluid.cu)
 // in one march; psi_p / psi_v: [lo, hi] of p_x, p_y, p_z / vx_x, vy_y, vz_z;
 // EXTRAS: with acc_p2 and the monitor list (see above)
-template <bool VISCOUS, bool WITH_DFT, bool POINT, bool XALL, bool EXTRAS>
+template <bool VISCOUS, bool WITH_DFT, bool POINT, bool XALL, bool EXTRAS,
+          bool VEC>
 __global__ void __launch_bounds__(kThreads, kMinBlocksFused)
     fluid_fused_kernel(float* __restrict__ p, Ptr3 v, float* __restrict__ r,
                        const int* __restrict__ idx,
@@ -161,169 +299,406 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksFused)
                        Rows rows, float* __restrict__ acc_p2, SweepMon mon) {
   static_assert(!EXTRAS || (WITH_DFT && XALL),
                 "the extras sweep runs in the sensor window on whole grids");
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
+  float* const rings = reinterpret_cast<float*>(smem + 16);
+  float* const slots = rings + 2 * kRing;
   cg::grid_group grid = cg::this_grid();
   const int s = blockIdx.z;  // this block's step of the sweep
-  Col q;
-  q.k = blockIdx.x * kTileZ + threadIdx.x;
-  q.j = blockIdx.y * kTileY + threadIdx.y;
-  q.jk = q.j * g.n3 + q.k;
-  q.plane = g.n2 * g.n3;
-  q.i0 = 0;
-  q.i1 = g.n1;
-  // threads off the volume march too: every thread meets every barrier
-  const bool inside = q.j < g.n2 && q.k < g.n3;
+  const int tid = threadIdx.y * kTileZ + threadIdx.x;
+  const int y0 = blockIdx.y * kRows, z0 = blockIdx.x * kTileZ;
+  const int k = z0 + threadIdx.x;
+  const int plane = g.n2 * g.n3;
   const float s_sin = rows.s_sin[s], s_cos = rows.s_cos[s];
   const float cosw = rows.cosw[s], sinw = rows.sinw[s], sval = rows.s_pt[s];
   float* vx = v.p[0];
   float* vy = v.p[1];
   float* vz = v.p[2];
-  // x-windows: p at planes i-1..i+2 (velocity, forward), the new vx at
-  // planes i-3..i (pressure of plane i-1, backward)
-  float wp0 = 0.0f, wp1 = 0.0f, wp2 = 0.0f, wp3 = 0.0f;
-  float wv0 = 0.0f, wv1 = 0.0f, wv2 = 0.0f, wv3 = 0.0f;
-  // EXTRAS: the cursor over this warp's listed voxels, keyed by its
-  // (z-tile, y-tile, row), the same for every stage
-  int e = 0, e_end = 0;
-  if (EXTRAS && mon.cell != nullptr && inside) {
-    const int w = (blockIdx.x + gridDim.x * blockIdx.y) * kTileY + threadIdx.y;
-    e = __ldg(mon.start + w);
-    e_end = __ldg(mon.start + w + 1);
+  // this thread's cells: rows j[c] of the tile (lr[c] in it)
+  int j[kCells], lr[kCells];
+  bool in[kCells];
+#pragma unroll
+  for (int c = 0; c < kCells; ++c) {
+    lr[c] = threadIdx.y + c * kTileY;
+    j[c] = y0 + lr[c];
+    in[c] = j[c] < g.n2 && k < g.n3;
   }
-  const int n_march = g.n1 + kLag * ((int)gridDim.z - 1) + 1;
-  for (int t = 0; t < n_march; ++t) {
-    const int i = t - kLag * s;  // this stage's velocity plane
-    if (inside && i >= 0 && i <= g.n1) {
-      // --- velocity of plane i (fluid_velocity_kernel) ---
-      float vxn = 0.0f;
-      if (i < g.n1) {
-        const int c = i * q.plane + q.jk;
-        if (i == 0) {
-          wp0 = 0.0f;
-          wp1 = at_x2(p, 0, q, g.n1);
-          wp2 = at_x2(p, 1, q, g.n1);
-          wp3 = at_x2(p, 2, q, g.n1);
-        } else {
-          wp0 = wp1;
-          wp1 = wp2;
-          wp2 = wp3;
-          wp3 = at_x2(p, i + 2, q, g.n1);
+  // x-windows: p at planes i-2..i+2 (velocity, forward: i-1..i+2; the
+  // pressure's own p at i-2), the new vx at planes i-4..i-1 (pressure of
+  // plane i-2, backward)
+  float wpm[kCells], wp0[kCells], wp1[kCells], wp2[kCells], wp3[kCells];
+  float wv0[kCells], wv1[kCells], wv2[kCells], wv3[kCells];
+  // EXTRAS: the series row of this stage's step; each cell's cursor over
+  // its tile row's listed voxels (keyed by (z-tile, y-tile, row), the same
+  // for every stage), the rows' ends in shared memory
+  const int mon_row = EXTRAS ? rows.mon_row[s] : -1;
+  __shared__ int mon_end[EXTRAS ? kRows : 1];
+  int e[kCells];
+#pragma unroll
+  for (int c = 0; c < kCells; ++c) {
+    wpm[c] = wp0[c] = wp1[c] = wp2[c] = wp3[c] = 0.0f;
+    wv0[c] = wv1[c] = wv2[c] = wv3[c] = 0.0f;
+    e[c] = 0;
+  }
+  if (EXTRAS && mon.cell != nullptr) {
+    const int w = (blockIdx.x + gridDim.x * blockIdx.y) * kRows;
+    if (tid < kRows) mon_end[tid] = __ldg(mon.start + w + tid + 1);
+#pragma unroll
+    for (int c = 0; c < kCells; ++c) e[c] = __ldg(mon.start + w + lr[c]);
+  }
+  if (tid == 0) {
+    mbar_init(&bar[0], kThreads);
+    mbar_init(&bar[1], kThreads);
+  }
+  __syncthreads();
+
+  // the rings of march step t1 into ring buffer t1 & 1: 16-byte chunks
+  // where the rows are aligned (vec), else float by float
+  auto issue_rings = [&](int t1) {
+    float* const P = rings + (t1 & 1) * kRing;
+    float* const VY = P + kPRing;
+    float* const VZ = VY + kVYRing;
+    const int i1 = t1 - kLead - kLag * s;
+    const int ip1 = i1 - kPLag;
+    if (i1 >= 0 && i1 < g.n1) {
+      const float* src = p + i1 * plane;
+      if (VEC) {
+        for (int a = tid; a < kPH * kPW / 4; a += kThreads) {
+          const int row = a / (kPW / 4), ch = a % (kPW / 4);
+          const int jj = y0 - 1 + row, kk = z0 - kZ0 + 4 * ch;
+          const bool ok = (unsigned)jj < (unsigned)g.n2 &&
+                          (unsigned)kk < (unsigned)g.n3;
+          cp_async16z(P + row * kPW + 4 * ch,
+                      ok ? src + (jj * g.n3 + kk) : src, ok);
         }
-        const int mi = __ldg(idx + c);
-        const float vxo = ld2(vx, c), vyo = ld2(vy, c), vzo = ld2(vz, c);
-        const PlaneL2 pp{p, c, q.j, q.k, g.n2, g.n3};
-        const float dpy = diff_yz2<1, true>(pp);
-        const float dpz = diff_yz2<2, true>(pp);
-        const float ri = __ldg(table + kRhoInv * n_mat + mi);
-        const CpmlL2<Ptr6, XALL> cp{psi_p, prof_half, nullptr, g, q, i};
-        const float dx = cp.template apply<0, true, 0>(
-            stencil(wp0, wp1, wp2, wp3));
-        const float dy = cp.template apply<1, true, 1>(dpy);
-        const float dz = cp.template apply<2, true, 2>(dpz);
-        float vzn = vzo - dt_dx * ri * dz;
-        if (q.k == zsrc) {
-          const int ij = i * g.n2 + q.j;
-          const float a = __ldg(amp + ij);
-          if (a > 0.0f) {
-            vzn = a * (s_sin * __ldg(cph + ij) + s_cos * __ldg(sph + ij));
-          }
-        }
-        vxn = vxo - dt_dx * ri * dx;
-        vx[c] = vxn;
-        vy[c] = vyo - dt_dx * ri * dy;
-        vz[c] = vzn;
-      }
-      wv0 = wv1;
-      wv1 = wv2;
-      wv2 = wv3;
-      wv3 = vxn;  // 0 past the last plane
-      // --- pressure of plane i - 1 (fluid_pressure_kernel) ---
-      const int ip = i - 1;
-      if (ip >= 0) {
-        const int c = ip * q.plane + q.jk;
-        const int mi = __ldg(idx + c);
-        const float po = ld2(p, c);
-        const float ro = VISCOUS ? ld2(r, c) : 0.0f;
-        const float dvy = diff_yz2<1, false>(PlaneL2{vy, c, q.j, q.k, g.n2,
-                                                    g.n3});
-        const float dvz = diff_yz2<2, false>(PlaneL2{vz, c, q.j, q.k, g.n2,
-                                                    g.n3});
-        const float pi_u = __ldg(table + kPiU * n_mat + mi);
-        const CpmlL2<Ptr6, XALL> cp{psi_v, nullptr, prof_int, g, q, ip};
-        const float dx = cp.template apply<0, false, 0>(
-            stencil(wv0, wv1, wv2, wv3));
-        const float dy = cp.template apply<1, false, 1>(dvy);
-        const float dz = cp.template apply<2, false, 2>(dvz);
-        const float theta = dx + dy + dz;
-        float pn;
-        if (VISCOUS) {
-          const float c_rp = __ldg(table + kCRp * n_mat + mi);
-          const float b_r = __ldg(table + kBR * n_mat + mi);
-          const float rn = b_r * ro - c_rp * theta * inv_dx;
-          pn = po - dt_dx * pi_u * theta - half_dt * (rn + ro);
-          r[c] = rn;
-        } else {
-          pn = po - dt_dx * pi_u * theta;
-        }
-        if (POINT && c == pt) pn = pn - sval;
-        p[c] = pn;
-        if (WITH_DFT) {
-          acc_c[c] = ld2(acc_c, c) + pn * cosw;
-          acc_s[c] = ld2(acc_s, c) + pn * sinw;
-          peak[c] = fmaxf(ld2(peak, c), fabsf(pn));
-        }
-        if (EXTRAS) {
-          // extras_accumulate_kernel's Pressure_rms sum, in its order
-          if (acc_p2 != nullptr) acc_p2[c] = ld2(acc_p2, c) + pn * pn;
-          // the warp's listed voxels in plane ip (uniform across the warp)
-          const int end = (ip + 1) * q.plane;
-          for (; e < e_end; ++e) {
-            const int cell = __ldg(mon.cell + e);
-            if (cell >= end) break;
-            const int row = rows.mon_row[s];
-            if (cell == c && row >= 0) {
-              mon.series[(long long)row * mon.n_mon + __ldg(mon.slot + e)] =
-                  pn;
-            }
-          }
+      } else {
+        for (int a = tid; a < kPH * (kTileZ + 3); a += kThreads) {
+          const int row = a / (kTileZ + 3), col = a % (kTileZ + 3) + kZ0 - 1;
+          const int jj = y0 - 1 + row, kk = z0 - kZ0 + col;
+          const bool ok = (unsigned)jj < (unsigned)g.n2 &&
+                          (unsigned)kk < (unsigned)g.n3;
+          cp_async4z(P + row * kPW + col, ok ? src + (jj * g.n3 + kk) : src,
+                     ok);
         }
       }
     }
-    if (t + 1 < n_march) grid.sync();
+    if (ip1 >= 0 && ip1 < g.n1) {
+      const float* sy = vy + ip1 * plane;
+      const float* sz = vz + ip1 * plane;
+      if (VEC) {
+        for (int a = tid; a < kVYRing / 4; a += kThreads) {
+          const int row = a / (kTileZ / 4), ch = a % (kTileZ / 4);
+          const int jj = y0 - 2 + row, kk = z0 + 4 * ch;
+          const bool ok = (unsigned)jj < (unsigned)g.n2 &&
+                          (unsigned)kk < (unsigned)g.n3;
+          cp_async16z(VY + row * kTileZ + 4 * ch,
+                      ok ? sy + (jj * g.n3 + kk) : sy, ok);
+        }
+        for (int a = tid; a < kVZRing / 4; a += kThreads) {
+          const int row = a / (kVZW / 4), ch = a % (kVZW / 4);
+          const int jj = y0 + row, kk = z0 - kZ0 + 4 * ch;
+          const bool ok = (unsigned)jj < (unsigned)g.n2 &&
+                          (unsigned)kk < (unsigned)g.n3;
+          cp_async16z(VZ + row * kVZW + 4 * ch,
+                      ok ? sz + (jj * g.n3 + kk) : sz, ok);
+        }
+      } else {
+        for (int a = tid; a < kVYRing; a += kThreads) {
+          const int jj = y0 - 2 + a / kTileZ, kk = z0 + a % kTileZ;
+          const bool ok = (unsigned)jj < (unsigned)g.n2 &&
+                          (unsigned)kk < (unsigned)g.n3;
+          cp_async4z(VY + a, ok ? sy + (jj * g.n3 + kk) : sy, ok);
+        }
+        for (int a = tid; a < kRows * (kTileZ + 3); a += kThreads) {
+          const int row = a / (kTileZ + 3), col = a % (kTileZ + 3) + kZ0 - 2;
+          const int jj = y0 + row, kk = z0 - kZ0 + col;
+          const bool ok = (unsigned)jj < (unsigned)g.n2 &&
+                          (unsigned)kk < (unsigned)g.n3;
+          cp_async4z(VZ + row * kVZW + col, ok ? sz + (jj * g.n3 + kk) : sz,
+                     ok);
+        }
+      }
+    }
+  };
+
+  // the cells' own values of march step t1 into the slots (the step before
+  // has read them) and their psi values; then this thread's arrival on the
+  // mbarrier of t1. vec: half the threads copy the velocity's fields, half
+  // the pressure's, a 16-byte chunk of four cells of a row each
+  auto issue_own = [&](int t1) {
+    const int i1 = t1 - kLead - kLag * s;
+    const int ip1 = i1 - kPLag;
+    const bool win = i1 >= -kLead && i1 < g.n1 + kPLag;
+    const bool vel = i1 >= 0 && i1 < g.n1;
+    const bool prs = ip1 >= 0 && ip1 < g.n1;
+    if (VEC) {
+      constexpr int kChunks = kBlockCells / 4;
+      const int ch = tid % kChunks;
+      const int row = ch / (kTileZ / 4), col = 4 * (ch % (kTileZ / 4));
+      const bool ok = y0 + row < g.n2 && z0 + col < g.n3;
+      const int off = (y0 + row) * g.n3 + z0 + col;
+      float* const d = slots + row * kTileZ + col;
+      if (tid < kChunks) {
+        if (win) {
+          const bool in_x = i1 + 2 < g.n1;  // 0 past the last plane
+          cp_async16z(d + kPn * kBlockCells,
+                      p + (ok && in_x ? (i1 + 2) * plane + off : 0),
+                      ok && in_x);
+        }
+        if (vel) {
+          const int at = ok ? i1 * plane + off : 0;
+          cp_async16z(d + kVx * kBlockCells, vx + at, ok);
+          cp_async16z(d + kVy * kBlockCells, vy + at, ok);
+          cp_async16z(d + kVz * kBlockCells, vz + at, ok);
+          cp_async16z(d + kIdxV * kBlockCells, idx + at, ok);
+        }
+      } else if (prs) {
+        const int at = ok ? ip1 * plane + off : 0;
+        if (VISCOUS) cp_async16z(d + kR * kBlockCells, r + at, ok);
+        if (WITH_DFT) {
+          cp_async16z(d + kAccC * kBlockCells, acc_c + at, ok);
+          cp_async16z(d + kAccS * kBlockCells, acc_s + at, ok);
+          cp_async16z(d + kPeak * kBlockCells, peak + at, ok);
+        }
+        if (EXTRAS && acc_p2 != nullptr) {
+          cp_async16z(d + kP2 * kBlockCells, acc_p2 + at, ok);
+        }
+        cp_async16z(d + kIdxP * kBlockCells, idx + at, ok);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kCells; ++c) {
+      if (!in[c]) continue;
+      float* const S = slots + lr[c] * kTileZ + threadIdx.x;
+      const int jk = j[c] * g.n3 + k;
+      if (!VEC && win) {
+        const bool in_x = i1 + 2 < g.n1;
+        cp_async4z(S + kPn * kBlockCells,
+                   p + (in_x ? (i1 + 2) * plane + jk : 0), in_x);
+      }
+      if (vel) {
+        const int at = i1 * plane + jk;
+        if (!VEC) {
+          cp_async4z(S + kVx * kBlockCells, vx + at, true);
+          cp_async4z(S + kVy * kBlockCells, vy + at, true);
+          cp_async4z(S + kVz * kBlockCells, vz + at, true);
+          cp_async4z(S + kIdxV * kBlockCells, idx + at, true);
+        }
+        stage_psi<XALL>(psi_p, g, i1, j[c], k, jk, plane,
+                        S + kPsiP * kBlockCells);
+      }
+      if (prs) {
+        const int at = ip1 * plane + jk;
+        if (!VEC) {
+          if (VISCOUS) cp_async4z(S + kR * kBlockCells, r + at, true);
+          if (WITH_DFT) {
+            cp_async4z(S + kAccC * kBlockCells, acc_c + at, true);
+            cp_async4z(S + kAccS * kBlockCells, acc_s + at, true);
+            cp_async4z(S + kPeak * kBlockCells, peak + at, true);
+          }
+          if (EXTRAS && acc_p2 != nullptr) {
+            cp_async4z(S + kP2 * kBlockCells, acc_p2 + at, true);
+          }
+          cp_async4z(S + kIdxP * kBlockCells, idx + at, true);
+        }
+        stage_psi<XALL>(psi_v, g, ip1, j[c], k, jk, plane,
+                        S + kPsiV * kBlockCells);
+      }
+    }
+    cp_async_arrive(&bar[t1 & 1]);
+  };
+
+  issue_rings(0);
+  issue_own(0);
+  mbar_wait(&bar[0], 0);
+  const int n_march = g.n1 + kLead + kPLag + kLag * ((int)gridDim.z - 1);
+  for (int t = 0; t < n_march; ++t) {
+    const int i = t - kLead - kLag * s;  // this stage's velocity plane
+    const int ip = i - kPLag;           // and its pressure plane
+    // vec: this step's copies were left in flight across the barrier
+    if (VEC && t > 0) mbar_wait(&bar[t & 1], (t >> 1) & 1);
+    const bool more = t + 1 < n_march;
+    if (more) issue_rings(t + 1);
+    const float* const P = rings + (t & 1) * kRing;
+    const float* const VY = P + kPRing;
+    const float* const VZ = VY + kVYRing;
+    if (i >= -kLead && i < g.n1 + kPLag) {
+#pragma unroll
+      for (int c = 0; c < kCells; ++c) {
+        if (!in[c]) continue;
+        const float* const S = slots + lr[c] * kTileZ + threadIdx.x;
+        const int jk = j[c] * g.n3 + k;
+        wpm[c] = wp0[c];
+        wp0[c] = wp1[c];
+        wp1[c] = wp2[c];
+        wp2[c] = wp3[c];
+        wp3[c] = S[kPn * kBlockCells];
+        // --- velocity of plane i (fluid_velocity_kernel) ---
+        float vxn = 0.0f;
+        if (i >= 0 && i < g.n1) {
+          const int c0 = i * plane + jk;
+          const int mi = reinterpret_cast<const int*>(S)[kIdxV *
+                                                         kBlockCells];
+          const float vxo = S[kVx * kBlockCells], vyo = S[kVy * kBlockCells],
+                      vzo = S[kVz * kBlockCells];
+          const int pc = (lr[c] + 1) * kPW + threadIdx.x + kZ0;
+          const float dpy = stencil(P[pc - kPW], P[pc], P[pc + kPW],
+                                    P[pc + 2 * kPW]);
+          const float dpz = stencil(P[pc - 1], P[pc], P[pc + 1], P[pc + 2]);
+          const float ri = __ldg(table + kRhoInv * n_mat + mi);
+          const float* ph = prof_half;
+          const float dx = cpml_staged(
+              stencil(wp0[c], wp1[c], wp2[c], wp3[c]),
+              slab<0, XALL>(g, i, j[c], k, jk, plane), g.ns, ph, psi_p.p[0],
+              psi_p.p[1], S + kPsiP * kBlockCells);
+          const float dy = cpml_staged(
+              dpy, slab<1, XALL>(g, i, j[c], k, jk, plane), g.ns,
+              ph + 4 * g.ns, psi_p.p[2], psi_p.p[3],
+              S + (kPsiP + 1) * kBlockCells);
+          const float dz = cpml_staged(
+              dpz, slab<2, XALL>(g, i, j[c], k, jk, plane), g.ns,
+              ph + 8 * g.ns, psi_p.p[4], psi_p.p[5],
+              S + (kPsiP + 2) * kBlockCells);
+          float vzn = vzo - dt_dx * ri * dz;
+          if (k == zsrc) {
+            const int ij = i * g.n2 + j[c];
+            const float a = __ldg(amp + ij);
+            if (a > 0.0f) {
+              vzn = a * (s_sin * __ldg(cph + ij) + s_cos * __ldg(sph + ij));
+            }
+          }
+          vxn = vxo - dt_dx * ri * dx;
+          vx[c0] = vxn;
+          vy[c0] = vyo - dt_dx * ri * dy;
+          vz[c0] = vzn;
+        }
+        // --- pressure of plane ip (fluid_pressure_kernel) ---
+        if (ip >= 0 && ip < g.n1) {
+          const int c1 = ip * plane + jk;
+          const int mi = reinterpret_cast<const int*>(S)[kIdxP *
+                                                         kBlockCells];
+          const float po = wpm[c];
+          const float ro = VISCOUS ? S[kR * kBlockCells] : 0.0f;
+          const int yc = lr[c] * kTileZ + threadIdx.x;
+          const float dvy = stencil(VY[yc], VY[yc + kTileZ],
+                                    VY[yc + 2 * kTileZ], VY[yc + 3 * kTileZ]);
+          const int zc = lr[c] * kVZW + threadIdx.x + kZ0 - 2;
+          const float dvz = stencil(VZ[zc], VZ[zc + 1], VZ[zc + 2], VZ[zc + 3]);
+          const float pi_u = __ldg(table + kPiU * n_mat + mi);
+          const float* pn_ = prof_int;
+          const float dx = cpml_staged(
+              stencil(wv0[c], wv1[c], wv2[c], wv3[c]),
+              slab<0, XALL>(g, ip, j[c], k, jk, plane), g.ns, pn_,
+              psi_v.p[0], psi_v.p[1], S + kPsiV * kBlockCells);
+          const float dy = cpml_staged(
+              dvy, slab<1, XALL>(g, ip, j[c], k, jk, plane), g.ns,
+              pn_ + 4 * g.ns, psi_v.p[2], psi_v.p[3],
+              S + (kPsiV + 1) * kBlockCells);
+          const float dz = cpml_staged(
+              dvz, slab<2, XALL>(g, ip, j[c], k, jk, plane), g.ns,
+              pn_ + 8 * g.ns, psi_v.p[4], psi_v.p[5],
+              S + (kPsiV + 2) * kBlockCells);
+          const float theta = dx + dy + dz;
+          float pn;
+          if (VISCOUS) {
+            const float c_rp = __ldg(table + kCRp * n_mat + mi);
+            const float b_r = __ldg(table + kBR * n_mat + mi);
+            const float rn = b_r * ro - c_rp * theta * inv_dx;
+            pn = po - dt_dx * pi_u * theta - half_dt * (rn + ro);
+            r[c1] = rn;
+          } else {
+            pn = po - dt_dx * pi_u * theta;
+          }
+          if (POINT && c1 == pt) pn = pn - sval;
+          p[c1] = pn;
+          if (WITH_DFT) {
+            acc_c[c1] = S[kAccC * kBlockCells] + pn * cosw;
+            acc_s[c1] = S[kAccS * kBlockCells] + pn * sinw;
+            peak[c1] = fmaxf(S[kPeak * kBlockCells], fabsf(pn));
+          }
+          if (EXTRAS) {
+            // extras_accumulate_kernel's Pressure_rms sum, in its order
+            if (acc_p2 != nullptr) {
+              acc_p2[c1] = S[kP2 * kBlockCells] + pn * pn;
+            }
+            // the row's listed voxels in plane ip (uniform across the warp)
+            if (mon.cell != nullptr) {
+              const int end = (ip + 1) * plane;
+              for (; e[c] < mon_end[lr[c]]; ++e[c]) {
+                const int cell = __ldg(mon.cell + e[c]);
+                if (cell >= end) break;
+                if (cell == c1 && mon_row >= 0) {
+                  mon.series[(long long)mon_row * mon.n_mon +
+                             __ldg(mon.slot + e[c])] = pn;
+                }
+              }
+            }
+          }
+        }
+        wv0[c] = wv1[c];
+        wv1[c] = wv2[c];
+        wv2[c] = wv3[c];
+        wv3[c] = vxn;  // 0 past the last plane
+      }
+    }
+    if (more) {
+      if (VEC) __syncthreads();  // every cell's slots read: the chunks cross
+      issue_own(t + 1);
+      // float by float, each copy lands before the barrier (see above)
+      if (!VEC) mbar_wait(&bar[(t + 1) & 1], ((t + 1) >> 1) & 1);
+      grid.sync();
+    }
   }
 }
 
-// the instantiation of (viscous, with_dft, point, xall), as a launchable
-// function pointer
-template <int I>
-const void* fused_at() {
-  return reinterpret_cast<const void*>(
-      &fluid_fused_kernel<bool(I & 8), bool(I & 4), bool(I & 2), bool(I & 1),
-                          false>);
+// an instantiation as a launchable function pointer, its dynamic shared
+// memory limit raised on the current device
+template <bool V, bool D, bool P, bool X, bool E, bool VEC>
+cudaError_t prepared(const void** kernel) {
+  static int allowed[64] = {0};
+  auto kern = &fluid_fused_kernel<V, D, P, X, E, VEC>;
+  *kernel = reinterpret_cast<const void*>(kern);
+  return allow_smem(kern, allowed, kSmem);
 }
 
-// the EXTRAS instantiation of (viscous, point): with the DFT, whole grids
+using Prep = cudaError_t (*)(const void**);
+
+// the instantiation of (vec, viscous, with_dft, point, xall)
 template <int I>
-const void* extras_at() {
-  return reinterpret_cast<const void*>(
-      &fluid_fused_kernel<bool(I & 2), true, bool(I & 1), true, true>);
+constexpr Prep fused_at() {
+  return &prepared<bool(I & 8), bool(I & 4), bool(I & 2), bool(I & 1),
+                   false, bool(I & 16)>;
 }
 
-// null for an EXTRAS request outside the window or on a shard
-const void* fused_kernel(int viscous, int with_dft, int point, int xall,
-                         int extras) {
-  static const void* const kernels[16] = {
+// the EXTRAS instantiation of (vec, viscous, point): with the DFT, whole
+// grids
+template <int I>
+constexpr Prep extras_at() {
+  return &prepared<bool(I & 2), true, bool(I & 1), true, true, bool(I & 4)>;
+}
+
+// the instantiation's preparation (vec: 16-byte copies); null for an
+// EXTRAS request outside the window or on a shard
+Prep fused_kernel(int viscous, int with_dft, int point, int xall, int extras,
+                  int vec) {
+  static const Prep kernels[32] = {
       fused_at<0>(),  fused_at<1>(),  fused_at<2>(),  fused_at<3>(),
       fused_at<4>(),  fused_at<5>(),  fused_at<6>(),  fused_at<7>(),
       fused_at<8>(),  fused_at<9>(),  fused_at<10>(), fused_at<11>(),
-      fused_at<12>(), fused_at<13>(), fused_at<14>(), fused_at<15>()};
-  static const void* const with_extras[4] = {extras_at<0>(), extras_at<1>(),
-                                             extras_at<2>(), extras_at<3>()};
+      fused_at<12>(), fused_at<13>(), fused_at<14>(), fused_at<15>(),
+      fused_at<16>(), fused_at<17>(), fused_at<18>(), fused_at<19>(),
+      fused_at<20>(), fused_at<21>(), fused_at<22>(), fused_at<23>(),
+      fused_at<24>(), fused_at<25>(), fused_at<26>(), fused_at<27>(),
+      fused_at<28>(), fused_at<29>(), fused_at<30>(), fused_at<31>()};
+  static const Prep with_extras[8] = {
+      extras_at<0>(), extras_at<1>(), extras_at<2>(), extras_at<3>(),
+      extras_at<4>(), extras_at<5>(), extras_at<6>(), extras_at<7>()};
   if (extras) {
     if (!with_dft || !xall) return nullptr;
-    return with_extras[(viscous ? 2 : 0) | (point ? 1 : 0)];
+    return with_extras[(vec ? 4 : 0) | (viscous ? 2 : 0) | (point ? 1 : 0)];
   }
-  return kernels[(viscous ? 8 : 0) | (with_dft ? 4 : 0) | (point ? 2 : 0) |
-                 (xall ? 1 : 0)];
+  return kernels[(vec ? 16 : 0) | (viscous ? 8 : 0) | (with_dft ? 4 : 0) |
+                 (point ? 2 : 0) | (xall ? 1 : 0)];
 }
 
 }  // namespace
@@ -335,9 +710,30 @@ extern "C" {
 // not exceed it)
 int bb_fluid_fused_capacity(int viscous, int with_dft, int point, int xall,
                             int extras, int* blocks) {
-  const void* kernel = fused_kernel(viscous, with_dft, point, xall, extras);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)cooperative_capacity(kernel, blocks);
+  *blocks = 1 << 30;
+  for (int vec = 0; vec < 2; ++vec) {
+    const Prep prep =
+        fused_kernel(viscous, with_dft, point, xall, extras, vec);
+    if (prep == nullptr) return (int)cudaErrorInvalidValue;
+    const void* kernel = nullptr;
+    int n = 0;
+    cudaError_t e = prep(&kernel);
+    if (e == cudaSuccess) e = cooperative_capacity(kernel, &n, kSmem);
+    if (e != cudaSuccess) return (int)e;
+    *blocks = n < *blocks ? n : *blocks;
+  }
+  return 0;
+}
+
+// the tile of the launch: threads along z and y, rows a block, dynamic
+// shared memory a block (ops/fdtd_fused_kernels.py checks its geometry
+// against it)
+int bb_fluid_fused_tile(int* tile_z, int* tile_y, int* rows, int* smem) {
+  *tile_z = kTileZ;
+  *tile_y = kTileY;
+  *rows = kRows;
+  *smem = kSmem;
+  return 0;
 }
 
 // K = k_steps steps in one cooperative launch. v3, psi_p6, psi_v6: host
@@ -362,11 +758,21 @@ int bb_fluid_fused(float* p, float* const* v3, float* r, const int* idx,
                    float* acc_p2, const int* mon_start, const int* mon_cell,
                    const int* mon_slot, float* series, int n_mon,
                    const int* mon_rows, void* stream) {
-  const void* kernel =
-      fused_kernel(viscous, with_dft, point, x_lo && x_hi, extras);
-  if (kernel == nullptr || k_steps < 1 || k_steps > kMaxSteps ||
+  float* p2 = extras ? acc_p2 : nullptr;
+  // 16-byte copies where every row of every staged field starts on 16 bytes
+  int vec = n3 % 4 == 0;
+  for (const void* f : {(const void*)p, (const void*)v3[0],
+                        (const void*)v3[1], (const void*)v3[2],
+                        (const void*)r, (const void*)idx,
+                        (const void*)acc_c, (const void*)acc_s,
+                        (const void*)peak, (const void*)p2}) {
+    if (reinterpret_cast<unsigned long long>(f) % 16 != 0) vec = 0;
+  }
+  const Prep prep =
+      fused_kernel(viscous, with_dft, point, x_lo && x_hi, extras, vec);
+  if (prep == nullptr || k_steps < 1 || k_steps > kMaxSteps ||
       (long long)n1 * n2 * n3 >= (1LL << 31) || !covers(gz, kTileZ, n3) ||
-      !covers(gy, kTileY, n2) ||
+      !covers(gy, kRows, n2) ||
       (extras && mon_cell != nullptr &&
        (mon_start == nullptr || mon_slot == nullptr || series == nullptr ||
         mon_rows == nullptr || n_mon < 1))) {
@@ -384,7 +790,6 @@ int bb_fluid_fused(float* p, float* const* v3, float* r, const int* idx,
   }
   SweepMon mon{mon_start, extras ? mon_cell : nullptr, mon_slot, series,
                n_mon};
-  float* p2 = extras ? acc_p2 : nullptr;
   Ptr3 v = gather<3, Ptr3>(v3);
   Ptr6 pp = gather<6, Ptr6>(psi_p6);
   Ptr6 pv = gather<6, Ptr6>(psi_v6);
@@ -394,8 +799,11 @@ int bb_fluid_fused(float* p, float* const* v3, float* r, const int* idx,
                   &pv,       &prof_half, &prof_int, &amp,   &cph,
                   &sph,      &dt_dx,     &inv_dx, &half_dt, &g,
                   &zsrc,     &pti,       &rw,     &p2,      &mon};
+  const void* kernel = nullptr;
+  const cudaError_t ready = prep(&kernel);
+  if (ready != cudaSuccess) return (int)ready;
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      kernel, dim3(gz, gy, k_steps), dim3(kTileZ, kTileY), args, 0,
+      kernel, dim3(gz, gy, k_steps), dim3(kTileZ, kTileY), args, kSmem,
       (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -3,8 +3,9 @@
 // sweeps fdtd_fluid_halo.cu, fdtd_visco_halo.cu): the
 // x-marching tile geometry, the 4th-order staggered differences from
 // register windows (x) and L1 loads (y, z), the CPML slab correction (and
-// their L2-loading twins for the fused sweeps), the halo sweeps' cluster
-// exchange, staged loads and cluster launch, and the check of the launch
+// their L2-loading twins for the visco fused sweep), the halo sweeps' and
+// the fluid fused sweep's staged loads, the halo sweeps' cluster exchange
+// and cluster launch, and the check of the launch
 // grid the wrapper chose. Everything is written in
 // the operation order of the plain PyTorch versions (ops/fdtd_kernels.py
 // d_plus, d_minus, _cpml), so kernel and plain version round alike.
@@ -227,7 +228,8 @@ struct Cpml {
 };
 
 // The helpers above for state that other blocks of the same launch write
-// (the fused sweeps, fdtd_fluid_fused.cu and fdtd_visco_fused.cu): every
+// (the visco fused sweep, fdtd_visco_fused.cu; the fluid one stages its
+// loads in shared memory and keeps only ld2 for a second CPML slab): every
 // load of such a field goes through L2 (ld.global.cg), since another SM may
 // have written the cell since this SM's L1 cached its line; the arithmetic
 // is theirs, in their order. They are separate functions, not the helpers
@@ -533,8 +535,10 @@ cudaError_t allow_smem(Kern kern, int* allowed, int bytes) {
   return e;
 }
 
-// the co-resident blocks of a cooperative kernel on the current device
-inline cudaError_t cooperative_capacity(const void* kernel, int* blocks) {
+// the co-resident blocks of a cooperative kernel on the current device, with
+// `smem` bytes of dynamic shared memory a block
+inline cudaError_t cooperative_capacity(const void* kernel, int* blocks,
+                                        int smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
@@ -542,7 +546,7 @@ inline cudaError_t cooperative_capacity(const void* kernel, int* blocks) {
   }
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0);
+                                                      kThreads, smem);
   }
   *blocks = per_sm * sms;
   return e;

@@ -67,6 +67,7 @@ _SIGNATURES = {
     "bb_fluid_fused": [_P] * 16 + [_I] + [_F] * 3 + [_I] * 11 + [_L]
     + [_I] * 2 + [_P],
     "bb_fluid_fused_capacity": [_I] * 4 + [_P],
+    "bb_fluid_fused_tile": [_P] * 4,
     "bb_visco_fused": [_P] * 16 + [_I] + [_F] * 3 + [_I] * 11 + [_L]
     + [_I] * 2 + [_P],
     "bb_visco_fused_capacity": [_I] * 4 + [_P],
@@ -90,6 +91,7 @@ _SIGNATURES = {
     "bb_fma_chain": [_P, _P, _P, _I, _I, _P],
     "bb_table_gather": [_P, _P, _P, _I, _I, _L, _I, _P],
     "bb_rayleigh": [_P] * 4 + [_F, _F, _L, _I, _P],
+    "bb_rayleigh_grid": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_F, _F, _I, _P],
 }
 
 

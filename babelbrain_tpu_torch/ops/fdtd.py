@@ -507,13 +507,14 @@ def fused_plan(shape, device, viscous: bool, point: bool,
     phase the deepest K the kernel admits on ``shape`` (``admitted_depth``,
     at most ``FUSE_BEST``); an int pins K in both and is refused when the
     card cannot hold K >= 3 steps a launch. 2-step sweeps run where both
-    phases admit them."""
+    phases admit them, and with ``None`` only while ``FUSE_BEST`` >= 2
+    (0: the pair for every step, the card's measurement)."""
     fk = fdtd_fused_kernels
     quiet = fk.admitted_depth(shape, device, viscous, False, point)
     window = fk.admitted_depth(shape, device, viscous, True, point)
     if fuse_steps is None:
         return FusedPlan(min(quiet, FUSE_BEST), min(window, FUSE_BEST),
-                         min(quiet, window) >= 2)
+                         FUSE_BEST >= 2 and min(quiet, window) >= 2)
     k = _pinned(fuse_steps, quiet, window, fk.K_CAP, 3, shape, device)
     return FusedPlan(k, k, min(quiet, window) >= 2)
 
@@ -625,12 +626,15 @@ def extras_plan(shape, device, viscous: bool, point: bool,
 def fused_schedule(grid: FDTDGrid, plan: FusedPlan):
     """[(first step, K, with_dft)] of a fused run: the quiet phase
     [0, sensor_start), then the window, each split by ``phase_schedule``
-    (K = 1: a step of the pair); K-step sweeps only where the quiet phase's
-    K reaches ``plan.k_min``, as JAX's ``use_fusedK``."""
+    (K = 1: a step of the pair); K-step sweeps only where the phase's K
+    reaches ``plan.k_min``, as JAX's ``use_fusedK`` (whose two phases share
+    one K; an extras run's window may sweep after a quiet phase on the
+    pair)."""
     n_quiet = max(0, min(grid.sensor_start, grid.n_steps))
     out = []
     for n0, n1, dft in ((0, n_quiet, False), (n_quiet, grid.n_steps, True)):
-        k = (plan.k_dft if dft else plan.k) if plan.k >= plan.k_min else 0
+        k = plan.k_dft if dft else plan.k
+        k = k if k >= plan.k_min else 0
         sweeps, tail = phase_schedule(n0, n1, k, plan.fused2, plan.k_min)
         out += [(n, m, dft) for n, m in sweeps] + [(n, 1, dft) for n in tail]
     return out

@@ -51,11 +51,9 @@ import torch
 
 from . import _build
 from .fdtd_kernels import (
-    TILE_Y,
     TILE_Z,
     FluidState,
     LaunchGeometry,
-    _cdiv,
     fluid_launch_geometry,
 )
 from .fdtd_visco_kernels import ViscoState, visco_launch_geometry
@@ -326,18 +324,20 @@ class Monitor:
 def sweep_geometry(shape) -> LaunchGeometry:
     """The (z-tile, y-tile) columns of the fluid sweep's launch
     (``ops.fdtd_fused_kernels.fused_launch_geometry``) as one x-segment of
-    all N1 planes: its warps, keyed as the EXTRAS instantiations key them
-    whatever the stage."""
-    n1, n2, n3 = (int(n) for n in shape)
-    return LaunchGeometry(TILE_Y, n1, (_cdiv(n3, TILE_Z), _cdiv(n2, TILE_Y),
-                                       1))
+    all N1 planes: its tile rows (a thread's cells are ``CELLS`` rows of it
+    apart), keyed as the EXTRAS instantiations key them whatever the
+    stage."""
+    from .fdtd_fused_kernels import fused_launch_geometry
+
+    return fused_launch_geometry(tuple(int(n) for n in shape), 1)
 
 
 def sweep_csr(lin, shape):
     """``monitor_csr`` of the voxels ``lin`` for the fluid sweep
-    (``sweep_geometry``), each warp's entries sorted by voxel (a repeated
-    voxel's slots in their order): each stage of an extras sweep walks its
-    warp's entries plane by plane as it writes them."""
+    (``sweep_geometry``: a list a tile row), each row's entries sorted by
+    voxel (a repeated voxel's slots in their order): each stage of an
+    extras sweep walks its rows' entries plane by plane as it writes
+    them."""
     start, (cell, slot) = monitor_csr(lin, shape, sweep_geometry(shape))
     warp = np.repeat(np.arange(len(start) - 1), np.diff(start))
     order = np.lexsort((slot, cell, warp))
@@ -363,11 +363,12 @@ class SweepMonitor:
         whose fields are like ``field``."""
         s = self.series
         n = int(self.index.shape[0])
-        gz, gy, _ = sweep_geometry(field.shape).grid
+        geo = sweep_geometry(field.shape)
+        gz, gy, _ = geo.grid
         if (s.device != field.device or s.dtype != torch.float32
                 or not s.is_contiguous() or s.dim() != 2 or s.shape[1] != n
                 or self.start.device != field.device
-                or self.start.shape[0] != gz * gy * TILE_Y + 1
+                or self.start.shape[0] != gz * gy * geo.tile_y + 1
                 or len(self.rows) != k
                 or not all(-1 <= r < s.shape[0] for r in self.rows)):
             raise ValueError(

@@ -16,12 +16,16 @@ at the listed voxels into its row of the series (the monitor capture of
 B4's driver, at every sampled step: ``ops.fdtd_extras.SweepMonitor``).
 
 Launch (``csrc/fdtd_fluid_fused.cu``): a cooperative grid of blocks
-(z-tile, y-tile, stage), 32x8 columns a block as the pair's, every block
-resident at once; stage s marches ``LAG`` planes behind stage s - 1 with a
-grid-wide barrier after each march step (``march`` mirrors the schedule).
-So K is bounded by how many blocks the card holds at once:
-``admitted_depth`` is the deepest K that fits, and ``ops.fdtd.fused_plan``
-caps it at ``FUSE_BEST``, the depth the card measured fastest.
+(z-tile, y-tile, stage) of 32x8 threads, each thread ``CELLS`` cells
+``TILE_Y`` rows apart (a tile of ``TILE_Z`` x ``ROWS`` columns), every block
+resident at once; stage s marches ``LAG`` planes behind stage s - 1, its
+pressure ``PLAG`` planes behind its velocity, with a grid-wide barrier after
+each march step; each step's loads are issued a step ahead (``PREFETCH``)
+into a shared-memory double buffer (``march`` mirrors the schedule, the
+staged loads included; ``SMEM_BYTES`` a block). So K is bounded by how many
+blocks the card holds at once: ``admitted_depth`` is the deepest K that
+fits, and ``ops.fdtd.fused_plan`` caps it at ``FUSE_BEST``, the depth the
+card measured fastest.
 
 The wrapper dispatches on the device of the state as the pair's do: a CPU
 state runs the plain version (``fluid_fused_ref``: K steps of the pair's
@@ -57,12 +61,31 @@ from .fdtd_kernels import (
 
 # steps a launch takes at most (csrc/fdtd_fluid_fused.cu kMaxSteps)
 K_CAP = 8
-# planes between stage s's and stage s + 1's velocity planes (kLag)
-LAG = 4
-# the depth fuse_steps=None takes at most: the fastest K a step measured on
-# an H100 at 192x192x240, of K = 1..4, the depths the card holds there and
-# at the CT slice's 216x216x224 (PERF.md)
-FUSE_BEST = 4
+# planes between stage s's and stage s + 1's velocity planes (kLag), the
+# planes a stage's pressure runs behind its velocity (kPLag), the march
+# steps a stage loads its x-window before its first plane (kLead) and how
+# many march steps ahead a load is issued (the double buffer's depth)
+LAG = 6
+PLAG = 2
+LEAD = 2
+PREFETCH = 1
+# a thread's cells (kCells), TILE_Y rows apart: a block's tile is TILE_Z x
+# ROWS columns
+CELLS = 2
+ROWS = TILE_Y * CELLS
+# the kernel's dynamic shared memory a block (kSmem): two mbarriers, two
+# ring buffers of whole 16-byte chunks along z (p: ROWS + 3 rows x TILE_Z + 8
+# columns, vy: ROWS + 3 x TILE_Z, vz: ROWS x TILE_Z + 8) and one set of 17
+# staged values a cell
+SLOTS = 17
+RING = ((ROWS + 3) * (TILE_Z + 8) + (ROWS + 3) * TILE_Z
+        + ROWS * (TILE_Z + 8))
+SMEM_BYTES = 16 + 4 * (2 * RING + SLOTS * CELLS * TILE_Y * TILE_Z)
+# the depth fuse_steps=None takes at most: the fastest K >= 2 a step
+# measured on an H100 against the pair, quiet and window, at 192x192x240 and
+# at the CT slice's 216x216x224 (K = 1..4, the depths the card holds there);
+# 0: no K was faster, so such runs keep the pair for every step (PERF.md)
+FUSE_BEST = 0
 # the window depth an unsharded run with Pressure_rms / Pressure_peak maps
 # and / or monitors takes with fuse_steps=None (ops.fdtd.extras_plan): the
 # fastest K a step of the extras sweep measured on an H100 at the CT slice's
@@ -80,24 +103,76 @@ launches = dict.fromkeys(_KEYS, 0)
 plain_calls = dict.fromkeys(_KEYS, 0)
 
 
-def fused_launch_geometry(shape, k: int) -> LaunchGeometry:
+def fused_launch_geometry(shape, k: int, rows: int = ROWS) -> LaunchGeometry:
     """The launch of K steps on an (N1, N2, N3) grid: blocks of TILE_Z x
-    TILE_Y columns over (z-tiles, y-tiles, K stages), each marching all
-    N1 planes."""
+    ``rows`` columns (the fluid sweep's ROWS; the visco sweep's TILE_Y)
+    over (z-tiles, y-tiles, K stages), each marching all N1 planes."""
     n1, n2, n3 = shape
-    return LaunchGeometry(TILE_Y, n1, (_cdiv(n3, TILE_Z), _cdiv(n2, TILE_Y),
-                                       int(k)))
+    return LaunchGeometry(rows, n1, (_cdiv(n3, TILE_Z), _cdiv(n2, rows),
+                                     int(k)))
+
+
+def march_steps(n1: int, k: int) -> int:
+    """March steps of a launch of K steps over N1 planes."""
+    return n1 + LEAD + PLAG + LAG * (k - 1)
 
 
 def march(n1: int, k: int):
-    """The kernel's march: per march step t, the (stage, velocity plane,
-    pressure plane) each stage updates (None where it updates none), as
-    ``fluid_fused_kernel`` computes them."""
-    return [[(s, t - LAG * s if 0 <= t - LAG * s < n1 else None,
-              t - LAG * s - 1 if 1 <= t - LAG * s <= n1 else None)
-             for s in range(k)] for t in range(n1 + LAG * (k - 1) + 1)]
+    """The kernel's march: for each march step t (from -``PREFETCH``: the
+    loads issued before the first step), the (stage, velocity plane,
+    pressure plane, loads) of each stage, the planes None where it updates
+    none, ``loads`` the (field, plane, role) it issues at step t for step
+    t + ``PREFETCH``, as ``fluid_fused_kernel`` computes them: "p" is p's
+    family (p, r, the DFT sums, the p^2 sum, the pressure's psi), "v" the
+    velocities' (vx, vy, vz, the velocity's psi); role "ring" is the (y,
+    z) ring around the block's tile, "own" a cell's own values, "window"
+    the newest p of its x-window (plane i + 2)."""
+    n_march = march_steps(n1, k)
+    out = []
+    for t in range(-PREFETCH, n_march):
+        row = []
+        for s in range(k):
+            i = t - LEAD - LAG * s
+            ip = i - PLAG
+            loads = []
+            t1 = t + PREFETCH
+            if 0 <= t1 < n_march:
+                i1 = t1 - LEAD - LAG * s
+                ip1 = i1 - PLAG
+                if 0 <= i1 < n1:
+                    loads += [("p", i1, "ring"), ("v", i1, "own")]
+                if -LEAD <= i1 < n1 + PLAG and 0 <= i1 + 2 < n1:
+                    loads.append(("p", i1 + 2, "window"))
+                if 0 <= ip1 < n1:
+                    loads += [("v", ip1, "ring"), ("p", ip1, "own")]
+            live = t >= 0
+            row.append((s, i if live and 0 <= i < n1 else None,
+                        ip if live and 0 <= ip < n1 else None, tuple(loads)))
+        out.append((t, row))
+    return out
 
 
+def check_tile(device) -> None:
+    """Raise unless the kernel was compiled with this module's tile (TILE_Z,
+    TILE_Y, ROWS, SMEM_BYTES), before a device's first launch."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index in _TILE_CHECKED:
+        return
+    out = [ctypes.c_int(0) for _ in range(4)]
+    _build.check(_build.library().bb_fluid_fused_tile(
+        *(ctypes.byref(o) for o in out)), "fluid_fused_kernel tile")
+    got = tuple(o.value for o in out)
+    if got != (TILE_Z, TILE_Y, ROWS, SMEM_BYTES):
+        raise RuntimeError(
+            f"fluid_fused_kernel: compiled tile (z, y, rows, smem) {got}, "
+            f"ops/fdtd_fused_kernels.py expects "
+            f"{(TILE_Z, TILE_Y, ROWS, SMEM_BYTES)}")
+    _TILE_CHECKED.add(index)
+
+
+# the devices whose build check_tile has checked
+_TILE_CHECKED: set = set()
 # co-resident blocks of a cooperative kernel's instantiation on a device
 # (the kernel's occupancy does not change while the process runs)
 _CAPACITY: dict = {}
@@ -145,6 +220,7 @@ def admitted_depth(shape, device, viscous: bool, with_dft: bool,
     dev = torch.device(device)
     if dev.type != "cuda":
         return K_CAP
+    check_tile(dev)
     gz, gy, _ = fused_launch_geometry(shape, 1).grid
     return min(K_CAP, capacity(dev, viscous, with_dft, point, extras)
                // (gz * gy))
@@ -221,6 +297,7 @@ def fluid_fused(st: FluidState, co: FluidCoeffs, rows, point=None, *,
         fluid_fused_ref(st, co, rows, point, with_dft=with_dft, extras=extras,
                         monitor=monitor)
         return
+    check_tile(st.p.device)
     geo = fused_launch_geometry((n1, n2, n3), k)
     flat = (ctypes.c_float * (5 * k))(*(float(v) for r in rows for v in r))
     mon = monitor

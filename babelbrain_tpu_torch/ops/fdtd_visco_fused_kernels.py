@@ -35,8 +35,9 @@ import ctypes
 import torch
 
 from . import _build
-from .fdtd_fused_kernels import check_rows, fused_launch_geometry, resident
-from .fdtd_kernels import _ptr, _ptrs, pressure_key
+from . import fdtd_fused_kernels as FK
+from .fdtd_fused_kernels import check_rows, resident
+from .fdtd_kernels import TILE_Y, LaunchGeometry, _ptr, _ptrs, pressure_key
 from .fdtd_visco_kernels import (
     MEMORIES,
     STRESSES,
@@ -46,6 +47,12 @@ from .fdtd_visco_kernels import (
     visco_stress_ref,
     visco_velocity_ref,
 )
+
+def fused_launch_geometry(shape, k: int) -> LaunchGeometry:
+    """The launch of K steps on an (N1, N2, N3) grid: the fluid sweep's
+    tiling with TILE_Y rows a block (one cell a thread)."""
+    return FK.fused_launch_geometry(shape, k, rows=TILE_Y)
+
 
 # steps a launch takes at most (csrc/fdtd_visco_fused.cu kMaxSteps; the
 # JAX package's visco K_cap)

@@ -37,6 +37,7 @@ from ..ops.fdtd_sources import VolumeSource
 from ..ops.rayleigh import (
     expand_element_weights,
     rayleigh_field,
+    rayleigh_field_grid,
     steering_phases,
 )
 from ..parallel.halo import mesh_devices
@@ -59,22 +60,17 @@ class AcousticResult:
     extra_maps: dict = field(default_factory=dict)  # sel_maps / sensor series
 
 
-def _volume_points(dom: Domain):
-    xp, yp, zp = np.meshgrid(dom.x_vec, dom.y_vec, dom.z_vec, indexing="ij")
-    return np.stack([xp.ravel(), yp.ravel(), zp.ravel()], 1).astype(np.float32)
-
-
 def forward_rayleigh(dom: Domain, tx, u0, attenuated_water=0.0, *,
                      device="cuda"):
-    """Rayleigh field over the whole domain grid (S2)."""
+    """Rayleigh field over the whole domain grid (S2), its points built on
+    the device from the grid's axes (``rayleigh_field_grid``)."""
     k = (
         2 * np.pi * dom.frequency / dom.materials[0, 1]
         + 1j * attenuated_water
     )
-    pts = _volume_points(dom)
-    field_flat = rayleigh_field(k, tx.centers, tx.areas, u0, pts,
-                                device=device)
-    return np.asarray(field_flat).reshape(dom.material_map.shape)
+    field = rayleigh_field_grid(k, tx.centers, tx.areas, u0, dom.x_vec,
+                                dom.y_vec, dom.z_vec, device=device)
+    return field.reshape(dom.material_map.shape)
 
 
 def source_plane_from_field(dom: Domain, u2: np.ndarray):

@@ -15,8 +15,10 @@ versions on the CPU:
 * the schedule, a list of (first step, K) sweeps and a tail, against the
   JAX driver's own split (its scans recorded, not run);
 * the kernel's march: every cell of every stage is written once, by one
-  block, and every value a thread reads from another was written at an
-  earlier march step and is overwritten only at a later one;
+  block, and every load, staged a march step ahead, finds a value written
+  at an earlier march step that nobody writes while the copy is in
+  flight (a stage lag of 5 or a load two steps ahead fail); its tile of
+  two cells a thread and its shared memory, three blocks an SM;
 * the sharded plan against the JAX one with ``fuse_steps`` pinned (and
   its H <= L - (npml + 2) refusal), the overlap-and-discard run on
   ``["cpu"] * 4`` bit-equal to the unsharded run, H = 3K ghost planes the
@@ -208,12 +210,17 @@ def test_schedule_matches_jax_run_phase(monkeypatch, k, quiet, n_steps):
     assert all(dft == (n >= quiet) for n, _, dft in ours)
 
 
-def test_fuse_steps_none_and_refusals():
+def test_fuse_steps_none_and_refusals(monkeypatch):
     """``fuse_steps=None`` takes min(admitted, FUSE_BEST) in both phases
-    (on the CPU nothing bounds the depth); pinned depths beyond the launch's
-    K_CAP are refused."""
+    (on the CPU nothing bounds the depth), with 2-step sweeps only while
+    FUSE_BEST >= 2 (0: the pair for every step); pinned depths beyond the
+    launch's K_CAP are refused."""
     plan = T.fused_plan((40, 40, 40), "cpu", True, False)
-    assert plan == T.FusedPlan(FK.FUSE_BEST, FK.FUSE_BEST, True)
+    assert plan == T.FusedPlan(FK.FUSE_BEST, FK.FUSE_BEST, FK.FUSE_BEST >= 2)
+    for best, fused2 in ((0, False), (4, True)):
+        monkeypatch.setattr(T, "FUSE_BEST", best)
+        assert T.fused_plan((40, 40, 40), "cpu", True, False) == T.FusedPlan(
+            best, best, fused2)
     with pytest.raises(ValueError):
         T.fused_plan((40, 40, 40), "cpu", True, False, FK.K_CAP + 1)
     g = _water((24, 24, 40), 2, n_steps=12, sensor_start=5)
@@ -224,39 +231,52 @@ def test_fuse_steps_none_and_refusals():
 
 
 def _march_errors(n1, k):
-    """Read-before-write violations of ``march(n1, k)``: every read of a
-    value another thread wrote (the y/z neighbours of p for the velocity,
-    of vy / vz for the pressure; the previous stage's own-cell p, v, r,
-    psi) must find it at the stage it needs, written at an earlier march
-    step, and no other thread may write what is read in the same step."""
+    """Read-before-write violations of ``march(n1, k)``. A stage's loads are
+    issued a step ahead of the step that reads them and land before the
+    barrier that ends their own step; each must find its value at the
+    version the stage needs (its own input: version s of p's and of the
+    velocities' family; the vy / vz ring of its pressure plane: version
+    s + 1, the new velocities), written at an earlier march step than the
+    one that issues the load, and nobody may write it in the step that
+    issues it nor, but for a cell's own values, in the next (the copy is in
+    flight; with 16-byte copies it may land after the barrier). The
+    register windows must still hold
+    the current version when they are read: p at planes i - 1..i + 2 for
+    the velocity, p at the pressure's plane, the new vx at ip - 2..ip + 1
+    written by this stage at the steps before."""
     ver = {f: [0] * n1 for f in ("p", "v")}  # updates applied to a plane
-    when = {f: [-1] * n1 for f in ("p", "v")}  # march step of the last one
+    when = {f: [-n1 - 9] * n1 for f in ("p", "v")}  # step of the last one
+    vx_at = {}  # (stage, plane) -> march step of this stage's new vx
+    in_flight = set()  # the copies issued in the step before
     errs = []
-    for t, row in enumerate(FK.march(n1, k)):
-        reads, writes = [], []
-        for s, i, ip in row:
+    for t, row in FK.march(n1, k):
+        writes = []
+        for s, i, ip, loads in row:
+            for f, x, role in loads:
+                need = s + 1 if (f, role) == ("v", "ring") else s
+                if ver[f][x] != need or when[f][x] >= t:
+                    errs.append(("load", t, s, f, x, role, ver[f][x], need))
             if i is not None:
-                reads.append(("p", i, s, s, "neighbour"))
-                reads += [("p", x, s, s, "own") for x in range(i - 1, i + 3)
-                          if 0 <= x < n1]
-                reads.append(("v", i, s, s, "own"))
+                errs += [("window", t, s, "p", x) for x in range(i - 1, i + 3)
+                         if 0 <= x < n1 and ver["p"][x] != s]
                 writes.append(("v", i, s))
+                vx_at[(s, i)] = t
             if ip is not None:
-                # the vx window: this thread's own velocities, the newest
-                # written earlier in this march step
-                errs += [(t, s, "vx", x) for x in range(ip - 2, ip + 2)
-                         if 0 <= x < n1 and not (ver["v"][x] == s + 1
-                                                 or x == i)]
-                reads.append(("v", ip, s, s + 1, "neighbour"))
-                reads.append(("p", ip, s, s, "own"))
+                if ver["p"][ip] != s:
+                    errs.append(("window", t, s, "p", ip))
+                errs += [("vx", t, s, x) for x in range(ip - 2, ip + 2)
+                         if 0 <= x < n1 and not vx_at.get((s, x), t) < t]
                 writes.append(("p", ip, s))
-        for f, x, s, need, _ in reads:
-            if ver[f][x] != need or (need > 0 and when[f][x] >= t):
-                errs.append((t, s, f, x, ver[f][x], need))
-        written = {(f, x): s for f, x, s in writes}
-        errs += [("race", t, s, f, x) for f, x, s, _, kind in reads
-                 if (f, x) in written
-                 and (written[(f, x)] != s or kind == "neighbour")]
+        issued = {(f, x) for _, _, _, loads in row for f, x, _ in loads}
+        errs += [("race", t, s, f, x) for f, x, s in writes
+                 if (f, x) in issued
+                 or any(x == y and f == g and (role != "own" or s != u)
+                        for u, g, y, role in in_flight)]
+        # a copy may land after the barrier: nobody writes it in the next
+        # step either, but a cell's owner (its stage), after it waits for
+        # the copies
+        in_flight = {(u, f, x, role) for u, _, _, loads in row
+                     for f, x, role in loads}
         for f, x, s in writes:
             ver[f][x] += 1
             when[f][x] = t
@@ -267,34 +287,57 @@ def _march_errors(n1, k):
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
 def test_march_and_launch_geometry(k):
     """The kernel's march at ragged plane counts: every plane of every
-    stage updated once, every cross-thread read ordered by a barrier
-    (``LAG`` = 4; at 3 stage s + 1 would read what stage s writes in the
-    same march step); the launch's blocks cover every (y, z) column of
-    every stage once on ragged grids."""
+    stage updated once, every staged load and register window ordered by a
+    barrier (``LAG`` = 6, ``PLAG`` = 2); the launch's blocks cover every
+    (y, z) column of every stage once on ragged grids, a thread's
+    ``CELLS`` cells ``TILE_Y`` rows apart in its block's ``ROWS`` rows."""
     for n1 in (27, 37, 50):
         assert _march_errors(n1, k) == []
     for shape in ((27, 45, 47), (37, 41, 57), (50, 192, 240)):
         geo = FK.fused_launch_geometry(shape, k)
         gz, gy, gs = geo.grid
         assert gs == k and geo.segment == shape[0]
+        assert geo.tile_y == FK.ROWS == FK.TILE_Y * FK.CELLS
         hits = np.zeros((k,) + shape[1:], int)
         for s in range(gs):
             for by in range(gy):
                 for bz in range(gz):
-                    hits[s, by * FK.TILE_Y:(by + 1) * FK.TILE_Y,
-                         bz * FK.TILE_Z:(bz + 1) * FK.TILE_Z] += 1
+                    for ty in range(FK.TILE_Y):
+                        rows = [j for c in range(FK.CELLS)
+                                if (j := by * FK.ROWS + ty + c * FK.TILE_Y)
+                                < shape[1]]
+                        hits[s, rows, bz * FK.TILE_Z:(bz + 1) * FK.TILE_Z] \
+                            += 1
         assert (hits == 1).all()
 
 
-def test_march_lag_is_the_least_that_orders():
-    """Three planes between the stages would let stage s + 1 read a
-    pressure stage s writes in the same march step."""
-    lag = FK.LAG
-    try:
-        FK.LAG = lag - 1
-        assert _march_errors(37, 3)
-    finally:
-        FK.LAG = lag
+@pytest.mark.parametrize("name,value", [("LAG", FK.LAG - 1),
+                                        ("PREFETCH", FK.PREFETCH + 1)])
+def test_march_lag_is_the_least_that_orders(monkeypatch, name, value):
+    """Five planes between the stages would let stage s load the newest
+    plane of its p window in the step stage s - 1 writes it; a load issued
+    two steps ahead would copy the vy / vz ring of its pressure plane in
+    the step that writes it."""
+    monkeypatch.setattr(FK, name, value)
+    assert _march_errors(37, 3)
+
+
+def test_fused_launch_fits_three_blocks_an_sm():
+    """The shared memory a block takes (two ring buffers of whole 16-byte
+    chunks, 17 staged values a cell, two mbarriers) and its 80 registers a
+    thread (``__launch_bounds__(256, 3)``) let three blocks share an H100
+    SM (228 KB of shared memory, 1 KB reserved a block; 64K registers):
+    396 blocks, so K = 4 on the 192x192x240 and 216x216x224 grids, as
+    ``admitted_depth`` would find from a capacity of 396."""
+    ring = ((FK.ROWS + 3) * (FK.TILE_Z + 8) + (FK.ROWS + 3) * FK.TILE_Z
+            + FK.ROWS * (FK.TILE_Z + 8))
+    assert ring == FK.RING == 2008 and ring % 4 == 0
+    assert FK.SMEM_BYTES == 16 + 4 * (2 * ring + FK.SLOTS * 512) == 50896
+    assert 3 * (FK.SMEM_BYTES + 1024) <= 233472
+    assert 3 * 256 * 80 <= 65536 < 4 * 256 * 80
+    for shape in ((192, 192, 240), (216, 216, 224)):
+        gz, gy, _ = FK.fused_launch_geometry(shape, 1).grid
+        assert 396 // (gz * gy) == 4
 
 
 def test_sharded_plan_matches_jax():
@@ -321,10 +364,16 @@ def test_sharded_plan_matches_jax():
     assert T.sharded_plan(24, T.FDTDGrid(**g), "cpu", True, 4) is None
     assert T.sharded_plan(24, T.FDTDGrid(**g), "cpu", True, 3) == (3, 9)
     assert JP._sharded_fusedK_plan(24, 2, npml, 3, J.FDTDGrid(**g)) is None
-    # None: the deepest K from FUSE_BEST down that fits
-    assert T.sharded_plan(24, T.FDTDGrid(**g), "cpu", True) == (3, 9)
-    assert T.sharded_plan(20, T.FDTDGrid(**g), "cpu", True) == (2, 6)
-    assert T.sharded_plan(16, T.FDTDGrid(**g), "cpu", True) is None
+    # None: the deepest K from FUSE_BEST down that fits (none below 2)
+    assert T.sharded_plan(24, T.FDTDGrid(**g), "cpu", True) == (
+        (3, 9) if T.FUSE_BEST >= 3 else None)
+    try:
+        best, T.FUSE_BEST = T.FUSE_BEST, 4
+        assert T.sharded_plan(24, T.FDTDGrid(**g), "cpu", True) == (3, 9)
+        assert T.sharded_plan(20, T.FDTDGrid(**g), "cpu", True) == (2, 6)
+        assert T.sharded_plan(16, T.FDTDGrid(**g), "cpu", True) is None
+    finally:
+        T.FUSE_BEST = best
 
 
 def _sharded_case():

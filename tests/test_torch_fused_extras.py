@@ -18,8 +18,8 @@ the monitor gather after each). Held here:
   a volumetric source keep the pair, ``EXTRAS_FUSE_BEST`` = 0 keeps every
   step on the pair, a larger one sweeps the window;
 * the sweep's voxel list (``sweep_csr``): a numpy walk of the kernel's
-  cursor visits each listed voxel once, at its plane, in the warp whose
-  lane writes it, for every stage.
+  cursor visits each listed voxel once, at its plane, in the tile row
+  whose lane writes it, for every stage.
 """
 
 import functools
@@ -246,9 +246,10 @@ def test_route(monkeypatch, case):
         # the quiet phase as fused_plan gives it, the window K = 4 sweeps
         # (21 = 5 x 4 + a tail step on the pair with the maps' pass)
         plan = T.fused_plan(g["shape"], "cpu", True, False)
-        quiet = T.phase_schedule(0, g["sensor_start"], plan.k)
-        assert swept == {"fluid_fused": len(quiet[0]),
-                         "fluid_fused_extras_dft": 5}
+        quiet = T.phase_schedule(0, g["sensor_start"], plan.k, plan.fused2)
+        assert swept == {k: v for k, v in (("fluid_fused", len(quiet[0])),
+                                           ("fluid_fused_extras_dft", 5))
+                         if v}
         assert grew["extras_fluid"] == 21 and grew["monitor_fluid"] == 21
     else:
         assert swept == {}
@@ -317,11 +318,11 @@ def _warp_of(shape, geo):
 @pytest.mark.parametrize("shape", [(27, 45, 47), (216, 216, 224)])
 def test_sweep_csr_walk(shape):
     """A numpy copy of the EXTRAS instantiations' cursor: each stage's
-    warp walks its entries plane by plane and stores the entry whose cell
-    its lane writes. Every listed voxel (repeats, the first and last cells
-    and tile corners on the stages' hand-over planes included) is stored
-    once a stage, at its own plane, by a lane of the warp that writes it;
-    the list is ``monitor_csr`` under the sweep's geometry."""
+    cell walks its tile row's entries plane by plane and stores the entry
+    whose cell it writes. Every listed voxel (repeats, the first and last
+    cells and tile corners on the stages' hand-over planes included) is
+    stored once a stage, at its own plane, by a lane of the row that
+    writes it; the list is ``monitor_csr`` under the sweep's geometry."""
     n1, n2, n3 = shape
     geo = E.sweep_geometry(shape)
     assert geo == FK.fused_launch_geometry(shape, 1)
@@ -329,8 +330,8 @@ def test_sweep_csr_walk(shape):
     lin = rng.integers(0, n1 * n2 * n3, 300)
     corners = [np.ravel_multi_index((i, j, k), shape)
                for i in (0, FK.LAG - 1, FK.LAG, n1 - 1)
-               for j in (K.TILE_Y - 1, K.TILE_Y) for k in (K.TILE_Z - 1,
-                                                           K.TILE_Z)]
+               for j in (K.TILE_Y - 1, K.TILE_Y, FK.ROWS - 1, FK.ROWS)
+               for k in (K.TILE_Z - 1, K.TILE_Z)]
     lin = np.concatenate([lin, lin[[4, 4, 17]], corners, [0, n1 * n2 * n3
                                                           - 1]])
     start, (cell, slot) = E.sweep_csr(lin, shape)

@@ -164,6 +164,16 @@ def test_fluid_kernels_match_plain_large_table(cuda, viscous):
     _fluid_run_matches_plain(cuda, grid, co)
 
 
+# a grid whose rows start on 16 bytes (N3 a multiple of 4, ragged against
+# the 32 x 16 tile): the fused sweep's 16-byte copies in flight across the
+# barrier (the ragged grids above take its 4-byte ones)
+FUSED_VEC_GRID = ((29, 43, 52), 13)
+
+# launches of the same fused sweep from the same state a case compares (the
+# staged loads of csrc/fdtd_fluid_fused.cu: an ordering fault would show
+# as runs that differ)
+FUSED_REPEATS = 3
+
 # the fused sweep's cases: (K, source, viscous, with the DFT, x_lo, x_hi),
 # on the tiling's ragged grids; the x-slab flags as a shard's launch sets
 # them (one global edge, or none)
@@ -176,7 +186,7 @@ FUSED_CASES = (
        for lo, hi in ((True, False), (False, True), (False, False))])
 
 
-@pytest.mark.parametrize("shape,zsrc", VISCO_GRIDS[1:])
+@pytest.mark.parametrize("shape,zsrc", VISCO_GRIDS[1:] + [FUSED_VEC_GRID])
 @pytest.mark.parametrize("k,source,viscous,dft,x_lo,x_hi", FUSED_CASES)
 def test_fused_kernel_matches_plain(cuda, k, source, viscous, dft, x_lo,
                                     x_hi, shape, zsrc):
@@ -194,11 +204,13 @@ def test_fused_kernel_matches_plain(cuda, k, source, viscous, dft, x_lo,
     st = K.FluidState.zeros(grid.shape, 14, cuda)
     for n in range(20):
         F.fluid_step(st, co, grid, n, oz, pamp)
-    fused, plain, pair = (_copy(st) for _ in range(3))
+    runs = [_copy(st) for _ in range(FUSED_REPEATS)]
+    fused, plain, pair = runs[0], _copy(st), _copy(st)
     pt = F.point_index(grid)
     rows = [F.step_scalars(grid, n, oz, pamp) for n in range(20, 20 + k)]
     before = dict(FK.launches)
-    FK.fluid_fused(fused, co, rows, pt, with_dft=dft)
+    for run in runs:
+        FK.fluid_fused(run, co, rows, pt, with_dft=dft)
     FK.fluid_fused_ref(plain, co, rows, pt, with_dft=dft)
     for s_sin, s_cos, cosw, sinw, s_pt in rows:
         K.fluid_velocity(pair, co, s_sin, s_cos)
@@ -209,11 +221,13 @@ def test_fused_kernel_matches_plain(cuda, k, source, viscous, dft, x_lo,
             K.fluid_pressure(pair, co, point=point)
     torch.cuda.synchronize()
     key = K.pressure_key("fluid_fused", dft, pt)
-    assert FK.launches[key] - before[key] == 1
+    assert FK.launches[key] - before[key] == FUSED_REPEATS
     assert float(fused.p.abs().max()) > 0
     fields = ("p", "vx", "vy", "vz", "r", "acc_cos", "acc_sin", "peak")
     _fields_equal(fused, plain, fields, ("psi_p", "psi_v"))
     _fields_equal(fused, pair, fields, ("psi_p", "psi_v"))
+    for run in runs[1:]:  # a race would show as a run that differs
+        _fields_equal(fused, run, fields, ("psi_p", "psi_v"))
 
 
 def test_fused_run_fdtd_matches_the_pair(cuda):
@@ -237,13 +251,15 @@ def test_fused_run_fdtd_matches_the_pair(cuda):
 def _handover_monitors(shape):
     """Monitor voxels where the extras sweep's stages and warps meet: the
     planes where stage s + 1 follows stage s (0, 1, LAG - 1, LAG, LAG + 1,
-    the last two) on (y, z) tile corners and at the centre, four repeated."""
-    from babelbrain_tpu_torch.ops.fdtd_fused_kernels import LAG
+    the last two) on (y, z) tile corners (a thread's rows and its block's)
+    and at the centre, four repeated."""
+    from babelbrain_tpu_torch.ops.fdtd_fused_kernels import LAG, ROWS
 
     n1, n2, n3 = shape
     planes = sorted({0, 1, LAG - 1, LAG, LAG + 1, n1 - 2, n1 - 1})
     ijk = [[i, j, k] for i in planes for j in sorted({0, K.TILE_Y - 1,
-                                                      K.TILE_Y, n2 - 1})
+                                                      K.TILE_Y, ROWS - 1,
+                                                      ROWS, n2 - 1})
            for k in sorted({0, K.TILE_Z - 1, K.TILE_Z, n3 - 1})]
     ijk += [[i, n2 // 2, n3 // 2] for i in planes]
     return np.array(ijk + [ijk[0], ijk[5], ijk[5], ijk[-1]])
@@ -251,9 +267,10 @@ def _handover_monitors(shape):
 
 def _extras_sweep(cuda, shape, zsrc, k, source, viscous, maps, monitors):
     """One extras sweep of ``k`` window steps from the state 20 quiet pair
-    steps leave (every step but the second sampled), its plain version and
-    ``k`` steps of pair + extras + MONITOR: the three states and their
-    ``Diagnostics``, and the launch counts the sweep added."""
+    steps leave (every step but the second sampled), its plain version,
+    ``k`` steps of pair + extras + MONITOR and the sweep again: the four
+    states and their ``Diagnostics``, and the launch counts the sweeps
+    added."""
     from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
 
     grid, co = _fluid_setup(cuda, shape=shape, viscous=viscous,
@@ -265,19 +282,21 @@ def _extras_sweep(cuda, shape, zsrc, k, source, viscous, maps, monitors):
     st = K.FluidState.zeros(grid.shape, 14, cuda)
     for n in range(20):
         F.fluid_step(st, co, grid, n, oz, pamp)
-    states = [_copy(st) for _ in range(3)]
+    states = [_copy(st) for _ in range(4)]
     index = (E.monitor_index(_handover_monitors(shape), shape, cuda)
              if monitors else None)
     sampled = [n for n in range(20, 20 + k) if n != 21] if monitors else ()
     diags = [E.Diagnostics.create(x, 20, maps, sample_steps=sampled,
                                   index=index, sweep=sweep)
-             for x, sweep in zip(states, (True, True, False))]
+             for x, sweep in zip(states, (True, True, False, True))]
     pt = F.point_index(grid)
     rows = [F.step_scalars(grid, n, oz, pamp) for n in range(20, 20 + k)]
     before = dict(FK.launches)
-    for fn, x, d in zip((FK.fluid_fused, FK.fluid_fused_ref), states, diags):
-        fn(x, co, rows, pt, with_dft=True, extras=d.extras,
-           monitor=d.sweep_monitor(20, k))
+    for fn, x, d in zip((FK.fluid_fused, FK.fluid_fused_ref, None,
+                         FK.fluid_fused), states, diags):
+        if fn is not None:
+            fn(x, co, rows, pt, with_dft=True, extras=d.extras,
+               monitor=d.sweep_monitor(20, k))
     grew = {key: FK.launches[key] - before[key] for key in FK.launches}
     for n in range(20, 20 + k):
         F.fluid_step(states[2], co, grid, n, oz, pamp, None,
@@ -288,8 +307,8 @@ def _extras_sweep(cuda, shape, zsrc, k, source, viscous, maps, monitors):
 
 
 def _extras_equal(states, diags, k):
-    """The sweep's state, maps and series against its plain version's and
-    the pair's, bit for bit."""
+    """The sweep's state, maps and series against its plain version's, the
+    pair's and its own second run's, bit for bit."""
     fields = ("p", "vx", "vy", "vz", "r", "acc_cos", "acc_sin", "peak")
     maps = [d.extras.read(k) if d.extras is not None else {} for d in diags]
     for x, m, d in zip(states[1:], maps[1:], diags[1:]):
@@ -308,7 +327,7 @@ EXTRAS_CASES = [(k, src, viscous) for k in (1, 2, 3, 4)
                 for viscous in (True, False)]
 
 
-@pytest.mark.parametrize("shape,zsrc", VISCO_GRIDS[1:])
+@pytest.mark.parametrize("shape,zsrc", VISCO_GRIDS[1:] + [FUSED_VEC_GRID])
 @pytest.mark.parametrize("k,source,viscous", EXTRAS_CASES)
 def test_fused_extras_kernel_matches_plain(cuda, k, source, viscous, shape,
                                            zsrc):
@@ -323,7 +342,7 @@ def test_fused_extras_kernel_matches_plain(cuda, k, source, viscous, shape,
         cuda, shape, zsrc, k, source, viscous,
         ("Pressure_rms", "Pressure_peak"), True)
     key = FK.fused_key(True, 0 if source == "stress_point" else None, True)
-    assert grew[key] == 1 and sum(grew.values()) == 1
+    assert grew[key] == 2 and sum(grew.values()) == 2
     assert float(diags[0].series.abs().max()) > 0
     _extras_equal(states, diags, k)
 
@@ -338,7 +357,7 @@ def test_fused_extras_maps_or_monitors_alone(cuda, maps, monitors):
     states, diags, grew = _extras_sweep(cuda, (27, 45, 47), K.TILE_Z, 3,
                                         "velocity_plane", True, maps,
                                         monitors)
-    assert grew["fluid_fused_extras_dft"] == 1
+    assert grew["fluid_fused_extras_dft"] == 2
     _extras_equal(states, diags, 3)
 
 
@@ -1597,3 +1616,71 @@ def test_rayleigh_wrapper_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError, match="centers must be contiguous"):
         R.rayleigh_sum(kr, ki, torch.as_tensor(c), torch.as_tensor(w,
                        device=cuda), torch.as_tensor(pts, device=cuda))
+
+
+@pytest.mark.parametrize("ki", [0.0, 30.0])
+def test_rayleigh_grid_kernel_matches_the_point_list(cuda, ki):
+    """``rayleigh_kernel<GRID>`` (the points built on the card from three
+    axes, a grid whose point count is off the block's) equals the point-list
+    launch at the same points bit for bit, and its plain version within
+    2e-5 of the peak."""
+    kr, ki, c, w, pts = _rayleigh_inputs(4099, 8, ki)
+    rng = np.random.default_rng(5)
+    axes = [np.sort(rng.uniform(lo, hi, n)).astype(np.float32)
+            for lo, hi, n in ((-0.02, 0.02, 13), (-0.02, 0.02, 17),
+                              (-0.04, 0.02, 29))]
+    c, w = torch.as_tensor(c, device=cuda), torch.as_tensor(w, device=cuda)
+    x, y, z = (torch.as_tensor(a, device=cuda) for a in axes)
+    before = dict(R.launches)
+    grid = R.rayleigh_sum_grid(kr, ki, c, w, x, y, z)
+    pts = R.grid_points(x, y, z).contiguous()
+    flat = R.rayleigh_sum(kr, ki, c, w, pts)
+    assert R.launches["rayleigh_grid"] == before["rayleigh_grid"] + 1
+    assert R.launches["rayleigh"] == before["rayleigh"] + 1
+    assert torch.equal(grid, flat)
+    plain = R.rayleigh_sum_ref(kr, ki, c, w, pts)
+    assert float((grid - plain).abs().max()) <= 2e-5 * float(
+        plain.abs().max())
+
+
+def test_rayleigh_grid_split_over_one_card_is_bit_equal(cuda):
+    """``rayleigh_field_grid(mesh=)`` over 4 devices of one card (runs of
+    whole x planes) equals the unsharded call bit for bit."""
+    from babelbrain_tpu_torch.parallel.halo import make_mesh
+
+    rng = np.random.default_rng(8)
+    n = 3000
+    centers = 0.064 * np.stack([rng.uniform(-0.4, 0.4, n),
+                                rng.uniform(-0.4, 0.4, n),
+                                -np.ones(n)], 1)
+    u0 = 6e4 * np.exp(1j * rng.uniform(0, 0.3, n))
+    x, y, z = (np.linspace(-0.01, 0.01, m) for m in (11, 23, 37))
+    k = 2 * np.pi * F0 / 1500.0
+    whole = R.rayleigh_field_grid(k, centers, np.full(n, 2e-7), u0, x, y, z)
+    split = R.rayleigh_field_grid(k, centers, np.full(n, 2e-7), u0, x, y, z,
+                                  mesh=make_mesh(4, devices=["cuda:0"] * 4))
+    np.testing.assert_array_equal(split, whole)
+
+
+def test_fused_tile_matches_the_kernel(cuda, monkeypatch):
+    """The fluid sweep's compiled tile (threads, rows, shared memory) is
+    the one ``ops/fdtd_fused_kernels.py`` lays the launch out for, the card
+    holds three of its blocks an SM (K = 4 on the 192x192x240 and
+    216x216x224 grids), and a module that disagrees is refused before a
+    launch."""
+    from babelbrain_tpu_torch.ops import fdtd_fused_kernels as FK
+
+    out = [ctypes.c_int(0) for _ in range(4)]
+    _build.check(_build.library().bb_fluid_fused_tile(
+        *(ctypes.byref(o) for o in out)), "tile")
+    assert tuple(o.value for o in out) == (FK.TILE_Z, FK.TILE_Y, FK.ROWS,
+                                           FK.SMEM_BYTES)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for extras in (False, True):
+        assert FK.capacity(cuda, True, True, False, extras) == 3 * sms
+    for shape in ((192, 192, 240), (216, 216, 224)):
+        assert FK.admitted_depth(shape, cuda, True, True) == 4
+    monkeypatch.setattr(FK, "SMEM_BYTES", FK.SMEM_BYTES + 4)
+    monkeypatch.setattr(FK, "_TILE_CHECKED", set())
+    with pytest.raises(RuntimeError, match="compiled tile"):
+        FK.check_tile(cuda)
