@@ -197,61 +197,6 @@ struct SweepMon {
   int n_mon;
 };
 
-// Where the CPML of a derivative along AXIS applies at cell (i, j, k):
-// its position pos along the axis, the lo slab below lo_end, the hi slab
-// from hi_start, the psi value of slab plane q at base + q * stride (the
-// indexing of fdtd_stencil.cuh CpmlL2)
-struct Slab {
-  int pos, lo_end, hi_start, base, stride;
-};
-
-template <int AXIS, bool XALL>
-__device__ __forceinline__ Slab slab(const Geo& g, int i, int j, int k,
-                                     int jk, int plane) {
-  if (AXIS == 0) {
-    return XALL ? Slab{i, g.ns, g.n1 - g.ns, jk, plane}
-                : Slab{i, g.xlo, g.xhi, jk, plane};
-  }
-  if (AXIS == 1) return Slab{j, g.ns, g.n2 - g.ns, i * g.ns * g.n3 + k, g.n3};
-  return Slab{k, g.ns, g.n3 - g.ns, (i * g.n2 + j) * g.ns, 1};
-}
-
-// the psi value the first slab that applies holds (lo, then hi; null: none)
-__device__ __forceinline__ const float* slab_src(const Slab& b,
-                                                 const float* lo,
-                                                 const float* hi) {
-  if (b.pos < b.lo_end) return lo + (b.base + b.pos * b.stride);
-  if (b.pos >= b.hi_start) {
-    return hi + (b.base + (b.pos - b.hi_start) * b.stride);
-  }
-  return nullptr;
-}
-
-// cpml2 (fdtd_stencil.cuh) with the old psi value of the first slab that
-// applies staged at *staged; the second (both apply only when the axis is
-// shorter than 2 ns) is loaded here
-__device__ __forceinline__ float cpml_staged(float d, const Slab& b, int ns,
-                                             const float* prof, float* lo,
-                                             float* hi, const float* staged) {
-  bool first = true;
-  if (b.pos < b.lo_end) {
-    const int s = b.base + b.pos * b.stride;
-    const float nw = prof[b.pos] * *staged + prof[ns + b.pos] * d;
-    lo[s] = nw;
-    d = d + nw;
-    first = false;
-  }
-  const int q = b.pos - b.hi_start;
-  if (q >= 0) {
-    const int s = b.base + q * b.stride;
-    const float old = first ? *staged : ld2(hi, s);
-    const float nw = prof[2 * ns + q] * old + prof[3 * ns + q] * d;
-    hi[s] = nw;
-    d = d + nw;
-  }
-  return d;
-}
-
 // stage the psi values of the three derivatives of one half-step at cell
 // (i, j, k) into slots slot0 + axis (prof-free: only where a slab applies)
 template <bool XALL>
@@ -267,16 +212,6 @@ __device__ __forceinline__ void stage_psi(const Ptr6& psi, const Geo& g,
   if (s0) cp_async4z(slot0, s0, true);
   if (s1) cp_async4z(slot0 + kBlockCells, s1, true);
   if (s2) cp_async4z(slot0 + 2 * kBlockCells, s2, true);
-}
-
-// copy 16 bytes from src (global, through L2 only: cp.async.cg) to dst
-// (this block's shared memory), or store 16 zero bytes there if !valid
-__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
 }
 
 // K steps of fluid_velocity_kernel then fluid_pressure_kernel (fdtd_fluid.cu)

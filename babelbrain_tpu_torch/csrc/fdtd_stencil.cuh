@@ -2,9 +2,8 @@
 // the fused sweeps fdtd_fluid_fused.cu, fdtd_visco_fused.cu and the halo
 // sweeps fdtd_fluid_halo.cu, fdtd_visco_halo.cu): the
 // x-marching tile geometry, the 4th-order staggered differences from
-// register windows (x) and L1 loads (y, z), the CPML slab correction (and
-// their L2-loading twins for the visco fused sweep), the halo sweeps' and
-// the fluid fused sweep's staged loads, the halo sweeps' cluster exchange
+// register windows (x) and L1 loads (y, z), the CPML slab correction, the
+// halo and lockstep sweeps' staged loads, the halo sweeps' cluster exchange
 // and cluster launch, and the check of the launch
 // grid the wrapper chose. Everything is written in
 // the operation order of the plain PyTorch versions (ops/fdtd_kernels.py
@@ -227,104 +226,13 @@ struct Cpml {
   }
 };
 
-// The helpers above for state that other blocks of the same launch write
-// (the visco fused sweep, fdtd_visco_fused.cu; the fluid one stages its
-// loads in shared memory and keeps only ld2 for a second CPML slab): every
-// load of such a field goes through L2 (ld.global.cg), since another SM may
-// have written the cell since this SM's L1 cached its line; the arithmetic
-// is theirs, in their order. They are separate functions, not the helpers
-// above made generic over the load: that changed the pairs' code
-// (scripts/ab_fdtd_kernels.py: visco stress 1.6-3.1% slower, two MONITOR
-// instantiations spilling).
-
-// a field another block may have written in this launch
+// A field another block of the same launch may have written (the lockstep
+// sweeps' second CPML slab, cpml_staged below): loaded through L2
+// (ld.global.cg), since another SM may have written the cell since this
+// SM's L1 cached its line.
 __device__ __forceinline__ float ld2(const float* f, int c) {
   return __ldcg(f + c);
 }
-
-// at_x: f at plane i of column q, 0 outside [0, n1)
-__device__ __forceinline__ float at_x2(const float* f, int i, const Col& q,
-                                       int n1) {
-  return (unsigned)i < (unsigned)n1 ? ld2(f, i * q.plane + q.jk) : 0.0f;
-}
-
-// Plane: a field around cell c in its plane (0 outside the grid)
-struct PlaneL2 {
-  const float* f;
-  int c, j, k, n2, n3;
-  __device__ __forceinline__ float operator()(int dy, int dz) const {
-    return ((unsigned)(j + dy) < (unsigned)n2 &&
-            (unsigned)(k + dz) < (unsigned)n3)
-               ? ld2(f, c + dy * n3 + dz)
-               : 0.0f;
-  }
-};
-
-// diff_yz: the difference along y (AXIS 1) or z (AXIS 2)
-template <int AXIS, bool PLUS>
-__device__ __forceinline__ float diff_yz2(const PlaneL2& f) {
-  constexpr int lo = PLUS ? -1 : -2;
-  constexpr int dy = AXIS == 1 ? 1 : 0;
-  constexpr int dz = AXIS == 2 ? 1 : 0;
-  return stencil(f(lo * dy, lo * dz), f((lo + 1) * dy, (lo + 1) * dz),
-                 f((lo + 2) * dy, (lo + 2) * dz),
-                 f((lo + 3) * dy, (lo + 3) * dz));
-}
-
-// cpml: the CPML correction of derivative d (lo slab, then hi slab)
-__device__ __forceinline__ float cpml2(float d, int pos, int lo_end,
-                                       int hi_start, int ns,
-                                       const float* __restrict__ prof,
-                                       float* __restrict__ psi_lo,
-                                       float* __restrict__ psi_hi, int base,
-                                       int stride) {
-  if (pos < lo_end) {
-    const int s = base + pos * stride;
-    const float nw = prof[pos] * ld2(psi_lo, s) + prof[ns + pos] * d;
-    psi_lo[s] = nw;
-    d = d + nw;
-  }
-  const int q = pos - hi_start;
-  if (q >= 0) {
-    const int s = base + q * stride;
-    const float nw = prof[2 * ns + q] * ld2(psi_hi, s) + prof[3 * ns + q] * d;
-    psi_hi[s] = nw;
-    d = d + nw;
-  }
-  return d;
-}
-
-// Cpml: the CPML'd derivative number Q of a psi list along AXIS at cell
-// (i, q.j, q.k)
-template <typename PSI, bool XALL>
-struct CpmlL2 {
-  const PSI& psi;
-  const float* prof_half;  // forward differences
-  const float* prof_int;   // backward differences
-  const Geo& g;
-  const Col& q;
-  int i;
-  template <int AXIS, bool PLUS, int Q>
-  __device__ __forceinline__ float apply(float d) const {
-    const float* prof = (PLUS ? prof_half : prof_int) + AXIS * 4 * g.ns;
-    float* lo = psi.p[2 * Q];
-    float* hi = psi.p[2 * Q + 1];
-    if constexpr (AXIS == 0) {
-      if constexpr (XALL) {
-        return cpml2(d, i, g.ns, g.n1 - g.ns, g.ns, prof, lo, hi, q.jk,
-                     q.plane);
-      } else {
-        return cpml2(d, i, g.xlo, g.xhi, g.ns, prof, lo, hi, q.jk, q.plane);
-      }
-    } else if constexpr (AXIS == 1) {
-      return cpml2(d, q.j, g.ns, g.n2 - g.ns, g.ns, prof, lo, hi,
-                   i * g.ns * g.n3 + q.k, g.n3);
-    } else {
-      return cpml2(d, q.k, g.ns, g.n3 - g.ns, g.ns, prof, lo, hi,
-                   (i * g.n2 + q.j) * g.ns, 1);
-    }
-  }
-};
 
 // The halo sweeps (fdtd_fluid_halo.cu, fdtd_visco_halo.cu): their
 // out-of-place CPML, the volumetric drive they read, and their dynamic
@@ -481,6 +389,76 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
   }
 }
 
+// The lockstep sweeps' staged CPML (fdtd_fluid_fused.cu,
+// fdtd_visco_fused.cu): the old psi value of a derivative's first slab is
+// loaded ahead of its use, the second (both apply only on an axis shorter
+// than 2 ns) at use.
+
+// Where the CPML of a derivative along AXIS applies at cell (i, j, k):
+// its position pos along the axis, the lo slab below lo_end, the hi slab
+// from hi_start, the psi value of slab plane q at base + q * stride (the
+// indexing of Cpml above)
+struct Slab {
+  int pos, lo_end, hi_start, base, stride;
+};
+
+template <int AXIS, bool XALL>
+__device__ __forceinline__ Slab slab(const Geo& g, int i, int j, int k,
+                                     int jk, int plane) {
+  if (AXIS == 0) {
+    return XALL ? Slab{i, g.ns, g.n1 - g.ns, jk, plane}
+                : Slab{i, g.xlo, g.xhi, jk, plane};
+  }
+  if (AXIS == 1) return Slab{j, g.ns, g.n2 - g.ns, i * g.ns * g.n3 + k, g.n3};
+  return Slab{k, g.ns, g.n3 - g.ns, (i * g.n2 + j) * g.ns, 1};
+}
+
+// the psi value the first slab that applies holds (lo, then hi; null: none)
+__device__ __forceinline__ const float* slab_src(const Slab& b,
+                                                 const float* lo,
+                                                 const float* hi) {
+  if (b.pos < b.lo_end) return lo + (b.base + b.pos * b.stride);
+  if (b.pos >= b.hi_start) {
+    return hi + (b.base + (b.pos - b.hi_start) * b.stride);
+  }
+  return nullptr;
+}
+
+// cpml with the old psi value of the first slab that applies staged at
+// *staged; the second (both apply only when the axis is shorter than 2 ns)
+// is loaded here, through L2
+__device__ __forceinline__ float cpml_staged(float d, const Slab& b, int ns,
+                                             const float* prof, float* lo,
+                                             float* hi, const float* staged) {
+  bool first = true;
+  if (b.pos < b.lo_end) {
+    const int s = b.base + b.pos * b.stride;
+    const float nw = prof[b.pos] * *staged + prof[ns + b.pos] * d;
+    lo[s] = nw;
+    d = d + nw;
+    first = false;
+  }
+  const int q = b.pos - b.hi_start;
+  if (q >= 0) {
+    const int s = b.base + q * b.stride;
+    const float old = first ? *staged : ld2(hi, s);
+    const float nw = prof[2 * ns + q] * old + prof[3 * ns + q] * d;
+    hi[s] = nw;
+    d = d + nw;
+  }
+  return d;
+}
+
+// copy 16 bytes from src (global, through L2 only: cp.async.cg) to dst
+// (this block's shared memory), or store 16 zero bytes there if !valid
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
 // The launch of a halo sweep: grid (z-tiles, y-tiles x cluster, x
 // segments) in clusters of (1, cluster, 1) blocks, through
 // cudaLaunchKernelEx (a shape the card cannot schedule is refused there and
@@ -536,9 +514,9 @@ cudaError_t allow_smem(Kern kern, int* allowed, int bytes) {
 }
 
 // the co-resident blocks of a cooperative kernel on the current device, with
-// `smem` bytes of dynamic shared memory a block
+// `smem` bytes of dynamic shared memory a block of `threads` threads
 inline cudaError_t cooperative_capacity(const void* kernel, int* blocks,
-                                        int smem = 0) {
+                                        int smem = 0, int threads = kThreads) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
@@ -546,7 +524,7 @@ inline cudaError_t cooperative_capacity(const void* kernel, int* blocks,
   }
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
+                                                      threads, smem);
   }
   *blocks = per_sm * sms;
   return e;

@@ -32,12 +32,14 @@ SOURCES = ("fdtd_fluid.cu", "fdtd_fluid_fused.cu", "fdtd_fluid_halo.cu",
            "fdtd_sources.cu", "bhte.cu", "fdtd_extras.cu", "probes.cu",
            "rayleigh.cu")
 # the halo sweeps are compiled once per depth (-DBB_HALO_K=K,
-# -DBB_VHALO_K=K), each depth a translation unit of its own, so that they
+# -DBB_VHALO_K=K) and the visco lockstep sweep once per copy width
+# (-DBB_VFUSED_VEC=0, 1), each a translation unit of its own, so that they
 # compile in parallel
 HALO_DEPTHS = (1, 2, 3)
 VISCO_HALO_DEPTHS = (1, 2)
 DEPTH_UNITS = {"fdtd_fluid_halo.cu": ("BB_HALO_K", HALO_DEPTHS),
-               "fdtd_visco_halo.cu": ("BB_VHALO_K", VISCO_HALO_DEPTHS)}
+               "fdtd_visco_halo.cu": ("BB_VHALO_K", VISCO_HALO_DEPTHS),
+               "fdtd_visco_fused.cu": ("BB_VFUSED_VEC", (0, 1))}
 HEADERS = ("fdtd_stencil.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --fmad=false: no multiply-add contraction, so each kernel rounds exactly
@@ -71,6 +73,7 @@ _SIGNATURES = {
     "bb_visco_fused": [_P] * 16 + [_I] + [_F] * 3 + [_I] * 11 + [_L]
     + [_I] * 2 + [_P],
     "bb_visco_fused_capacity": [_I] * 4 + [_P],
+    "bb_visco_fused_tile": [_P] * 4,
     "bb_bhte_step": [_P] * 13 + [_F] + [_I] * 3 + [_P],
     "bb_bhte_fused": [_P] * 13 + [_F] + [_I] * 8 + [_P],
     "bb_bhte_fused_tile": [_I, _P, _P],

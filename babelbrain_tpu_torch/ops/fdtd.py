@@ -528,14 +528,16 @@ def visco_plan(shape, device, viscous: bool, point: bool,
     card cannot hold K >= 2 steps a launch (JAX refuses an x-extent too
     short for its VMEM blocks, which has no counterpart here). K-step
     sweeps run from K = 2, 2-step sweeps after them only for a plane
-    source."""
+    source, and with ``None`` only while ``VISCO_FUSE_BEST`` >= 2 (0: the
+    pair for every step, the card's measurement)."""
     vk = fdtd_visco_fused_kernels
     quiet = vk.admitted_depth(shape, device, viscous, False, point)
     window = vk.admitted_depth(shape, device, viscous, True, point)
     fused2 = not point and min(quiet, window) >= 2
     if fuse_steps is None:
         return FusedPlan(min(quiet, VISCO_FUSE_BEST),
-                         min(window, VISCO_FUSE_BEST), fused2, 2)
+                         min(window, VISCO_FUSE_BEST),
+                         fused2 and VISCO_FUSE_BEST >= 2, 2)
     k = _pinned(fuse_steps, quiet, window, vk.K_CAP, 2, shape, device)
     return FusedPlan(k, k, fused2, 2)
 

@@ -12,13 +12,19 @@ of ``babelbrain_tpu/ops/fdtd_pallas.py``, without their volumetric drive
 this kernel's cooperative launch may).
 
 Launch (``csrc/fdtd_visco_fused.cu``): a cooperative grid of blocks
-(z-tile, y-tile, stage), 32x8 columns a block as the pair's, every block
-resident at once; within a stage the stress trails the velocity by
-``STRESS_LAG`` planes, and stage s marches ``LAG`` planes behind stage
-s - 1, with a grid-wide barrier after each march step (``march`` mirrors
-the schedule). So K is bounded by how many blocks the card holds at once:
-``admitted_depth`` is the deepest K that fits, and ``ops.fdtd.visco_plan``
-caps it at ``VISCO_FUSE_BEST``.
+(z-tile, y-tile, stage) of ``TILE_Z`` x ``THREADS_Y`` threads, each thread
+``CELLS`` cells ``THREADS_Y`` rows apart (a tile of ``TILE_Z`` x ``ROWS``
+columns), every block resident at once; within a stage the stress trails
+the velocity by ``STRESS_LAG`` planes, and stage s marches ``LAG`` planes
+behind stage s - 1, with a grid-wide barrier after each march step. The
+stress's y/z
+differences read a shared ring of the velocities its block has just
+computed (``VELOCITY_RING`` planes); every other load of a march step is
+issued a step ahead (``PREFETCH``) into shared memory (``march`` mirrors
+the schedule, the staged loads included; ``SMEM_BYTES`` a block). So K is
+bounded by how many blocks the card holds at once: ``admitted_depth`` is
+the deepest K that fits, and ``ops.fdtd.visco_plan`` caps it at
+``VISCO_FUSE_BEST``.
 
 The wrapper dispatches on the device of the state as the pair's do: a CPU
 state runs the plain version (``visco_fused_ref``: K steps of the pair's
@@ -37,7 +43,7 @@ import torch
 from . import _build
 from . import fdtd_fused_kernels as FK
 from .fdtd_fused_kernels import check_rows, resident
-from .fdtd_kernels import TILE_Y, LaunchGeometry, _ptr, _ptrs, pressure_key
+from .fdtd_kernels import TILE_Z, LaunchGeometry, _ptr, _ptrs, pressure_key
 from .fdtd_visco_kernels import (
     MEMORIES,
     STRESSES,
@@ -48,23 +54,46 @@ from .fdtd_visco_kernels import (
     visco_velocity_ref,
 )
 
-def fused_launch_geometry(shape, k: int) -> LaunchGeometry:
-    """The launch of K steps on an (N1, N2, N3) grid: the fluid sweep's
-    tiling with TILE_Y rows a block (one cell a thread)."""
-    return FK.fused_launch_geometry(shape, k, rows=TILE_Y)
-
-
 # steps a launch takes at most (csrc/fdtd_visco_fused.cu kMaxSteps; the
 # JAX package's visco K_cap)
 K_CAP = 4
-# planes between stage s's and stage s + 1's velocity planes (kLag), and
-# planes a stage's stress trails its velocity (kStressLag)
-LAG = 5
+# planes between stage s's and stage s + 1's velocity planes (kLag), planes
+# a stage's stress trails its velocity (kStressLag), the march steps a stage
+# loads its x-windows before its first plane (kLead) and how many march
+# steps ahead a load is issued (the double buffer's depth)
+LAG = 6
 STRESS_LAG = 2
+LEAD = 2
+PREFETCH = 1
+# a block's threads along y (kTY) and a thread's cells (kCells), THREADS_Y
+# rows apart: a block's tile is TILE_Z x ROWS columns. 12 rows: 128 tiles
+# on a 192x240 plane put K = 2's 256 blocks two on nearly every SM of an
+# H100 (264 slots), where 16 rows (96 tiles) put two on 60 SMs and one on
+# the rest, and the barrier waits for the SMs holding twice the cells
+THREADS_Y = 6
+CELLS = 2
+ROWS = THREADS_Y * CELLS
+# planes of the block's own velocity ring (kVDepth): the stress of plane
+# i - STRESS_LAG reads one while the velocity writes plane i
+VELOCITY_RING = STRESS_LAG + 1
+# the kernel's dynamic shared memory a block (kSmem): two mbarriers; two
+# buffers of the five stress rings in whole 16-byte chunks along z (sxy,
+# syy: ROWS + 3 rows x TILE_Z; syz: ROWS + 3 x TILE_Z + 8; sxz, szz: ROWS x
+# TILE_Z + 8); the velocity ring (vx, vy, vz x VELOCITY_RING planes of
+# ROWS + 4 rows x TILE_Z + 8); one set of SLOTS staged values a cell (23
+# fields and planes, the 18 derivatives' psi values)
+SLOTS = 41
+STRESS_RING = (2 * (ROWS + 3) * TILE_Z + (ROWS + 3) * (TILE_Z + 8)
+               + 2 * ROWS * (TILE_Z + 8))
+V_RING = 3 * VELOCITY_RING * (ROWS + 4) * (TILE_Z + 8)
+SMEM_BYTES = 16 + 4 * (2 * STRESS_RING + V_RING
+                       + SLOTS * CELLS * THREADS_Y * TILE_Z)
 # the depth fuse_steps=None takes at most: the fastest K >= 2 a step
-# measured on an H100 at 192x192x240 of the depths the card holds there
-# (K = 2, the only one; PERF.md)
-VISCO_FUSE_BEST = 2
+# measured on an H100 against the visco pair, quiet and window, at
+# 192x192x240 and at the label slices' 216x216x224 (K = 1, 2: the depths
+# the card holds there); 0: no K was faster at both (K = 2 1.55-1.74x the
+# pair), so such runs keep the pair for every step (PERF.md)
+VISCO_FUSE_BEST = 0
 # ghost planes a step of the overlap-and-discard halo: JAX's visco plan
 # (H >= 4K, "2 per half-step"). What the array's edge contaminates reaches
 # 3 planes a step, as in the fluid (the chains of fields alternate forward
@@ -78,25 +107,83 @@ launches = dict.fromkeys(_KEYS, 0)
 plain_calls = dict.fromkeys(_KEYS, 0)
 
 
+def fused_launch_geometry(shape, k: int) -> LaunchGeometry:
+    """The launch of K steps on an (N1, N2, N3) grid: the fluid sweep's
+    tiling, TILE_Z x ROWS columns a block."""
+    return FK.fused_launch_geometry(shape, k, rows=ROWS)
+
+
+def march_steps(n1: int, k: int) -> int:
+    """March steps of a launch of K steps over N1 planes."""
+    return n1 + LEAD + STRESS_LAG + LAG * (k - 1)
+
+
 def march(n1: int, k: int):
-    """The kernel's march: per march step t, the (stage, velocity plane,
-    stress plane) each stage updates (None where it updates none), as
-    ``visco_fused_kernel`` computes them."""
+    """The kernel's march: for each march step t (from -``PREFETCH``: the
+    loads issued before the first step), the (stage, velocity plane, stress
+    plane, loads) of each stage, the planes None where it updates none,
+    ``loads`` the (field, plane, role) it issues at step t for step
+    t + ``PREFETCH``, as ``visco_fused_kernel`` computes them: "s" is the
+    stresses' family (sigma, r, the DFT sums, the stress's psi), "v" the
+    velocities' (v, the velocity's psi); role "ring" is the (y, z) rings of
+    the five stresses the velocity differentiates, around the block's tile;
+    "halo" the rows and columns around the tile of the velocity ring (the
+    block writes the tile's cells itself); "own" a cell's own values;
+    "window" the newest planes of its x-windows (sxx of plane i + 2, sxy
+    and sxz of plane i + 1)."""
+    n_march = march_steps(n1, k)
     out = []
-    for t in range(n1 + STRESS_LAG + LAG * (k - 1)):
+    for t in range(-PREFETCH, n_march):
         row = []
         for s in range(k):
-            i = t - LAG * s
-            row.append((s, i if 0 <= i < n1 else None,
-                        i - STRESS_LAG if 0 <= i - STRESS_LAG < n1 else None))
-        out.append(row)
+            i = t - LEAD - LAG * s
+            js = i - STRESS_LAG
+            loads = []
+            t1 = t + PREFETCH
+            if 0 <= t1 < n_march:
+                i1 = t1 - LEAD - LAG * s
+                js1 = i1 - STRESS_LAG
+                if 0 <= i1 < n1:
+                    loads += [("s", i1, "ring"), ("v", i1, "own")]
+                if -LEAD <= i1 < n1 + STRESS_LAG:
+                    loads += [("s", x, "window") for x in (i1 + 2, i1 + 1)
+                              if 0 <= x < n1]
+                if 0 <= js1 < n1:
+                    loads += [("v", js1, "halo"), ("s", js1, "own")]
+            live = t >= 0
+            row.append((s, i if live and 0 <= i < n1 else None,
+                        js if live and 0 <= js < n1 else None, tuple(loads)))
+        out.append((t, row))
     return out
+
+
+def check_tile(device) -> None:
+    """Raise unless the kernel was compiled with this module's tile (TILE_Z,
+    THREADS_Y, ROWS, SMEM_BYTES), before a device's first launch."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index in _TILE_CHECKED:
+        return
+    out = [ctypes.c_int(0) for _ in range(4)]
+    _build.check(_build.library().bb_visco_fused_tile(
+        *(ctypes.byref(o) for o in out)), "visco_fused_kernel tile")
+    got = tuple(o.value for o in out)
+    if got != (TILE_Z, THREADS_Y, ROWS, SMEM_BYTES):
+        raise RuntimeError(
+            f"visco_fused_kernel: compiled tile (z, y, rows, smem) {got}, "
+            f"ops/fdtd_visco_fused_kernels.py expects "
+            f"{(TILE_Z, THREADS_Y, ROWS, SMEM_BYTES)}")
+    _TILE_CHECKED.add(index)
+
+
+# the devices whose build check_tile has checked
+_TILE_CHECKED: set = set()
 
 
 def capacity(device, viscous: bool, with_dft: bool, point: bool) -> int:
     """How many blocks of the fused kernel's instantiation the CUDA
     ``device`` holds at once: the fewer of its whole-grid and its shards'
-    twin."""
+    twin (each the fewer of its two copy widths)."""
     return resident("bb_visco_fused_capacity", "visco_fused_kernel", device,
                     viscous, with_dft, point)
 
@@ -106,10 +193,12 @@ def admitted_depth(shape, device, viscous: bool, with_dft: bool,
     """The deepest K (at most ``K_CAP``) a launch on ``shape`` may take on
     ``device``: on a CUDA device the K whose K x tiles blocks the card holds
     at once (0 when not even one stage fits); on the CPU ``K_CAP``."""
-    if torch.device(device).type != "cuda":
+    dev = torch.device(device)
+    if dev.type != "cuda":
         return K_CAP
+    check_tile(dev)
     gz, gy, _ = fused_launch_geometry(shape, 1).grid
-    return min(K_CAP, capacity(device, viscous, with_dft, point) // (gz * gy))
+    return min(K_CAP, capacity(dev, viscous, with_dft, point) // (gz * gy))
 
 
 def visco_fused(st: ViscoState, co: ViscoCoeffs, rows, point=None, *,
@@ -127,6 +216,7 @@ def visco_fused(st: ViscoState, co: ViscoCoeffs, rows, point=None, *,
     if st.vx.device.type == "cpu":
         visco_fused_ref(st, co, rows, point, with_dft=with_dft)
         return
+    check_tile(st.vx.device)
     geo = fused_launch_geometry((n1, n2, n3), k)
     flat = (ctypes.c_float * (5 * k))(*(float(v) for r in rows for v in r))
     _build.launch(

@@ -61,8 +61,11 @@ Phases (each prints its own lines; any failed check exits nonzero):
              admits (plane and point, quiet and window), on the 50-plane
              shard with each x_lo / x_hi combination, and at 27x45x47 for
              K = 1..4 (a plane on a z-tile edge, a point on a tile corner,
-             and inviscid); each admitted K timed a launch and a step
-             against its bound and the pair. Then the halo sweep
+             and inviscid: the 4-byte copies); each admitted K timed a
+             step, quiet and window, at 192x192x240 and 216x216x224
+             against the pair timed there (the figures behind
+             ``VISCO_FUSE_BEST``), the kernel's registers, spills and
+             shared memory printed. Then the halo sweep
              (``check_fused_volume``): ``fluid_halo`` (K steps a launch in
              thread-block clusters that recompute a 3K halo at their
              outer edge and share their inner edges through distributed
@@ -136,7 +139,9 @@ Phases (each prints its own lines; any failed check exits nonzero):
              zte-ct and coreg-zte slices' FDTD runs go through the fused
              sweeps
              (``run_fdtd``'s default: ``fluid_fused`` in CT mode,
-             ``visco_fused`` in label mode), the dome slices' volumetric
+             ``visco_fused`` in label mode; refocus-ct pinned at
+             ``fused_depth``, refocus-label at ``visco_depth``, while a
+             default keeps its family on the pair), the dome slices' volumetric
              passes through the halo sweeps (``fuse_steps`` pinned at
              ``DOME_PIN_K`` while the default keeps pair + scatter:
              ``fluid_halo`` in fluid media, dome-label's tissue pass in
@@ -1235,7 +1240,7 @@ def check_fused(times, device="cuda"):
                                                 dft) + 1):
                 per_step[KERNEL_SHAPE][(k, dft)] = fused_step_ms[(k, dft)]
         per_step[SLICE_SHAPE] = time_fused_steps(SLICE_SHAPE, device)
-        best = fluid_fuse_best(per_step)
+        best = lockstep_fuse_best(per_step)
         for shape, t in per_step.items():
             print(f"[fused] a step at {shape}, quiet / window: " + "; ".join(
                 f"K={k} {t[(k, False)]:.4f} / {t[(k, True)]:.4f} ms "
@@ -1285,8 +1290,9 @@ def time_fused_steps(shape, device="cuda"):
     return out
 
 
-def fluid_fuse_best(per_step):
-    """The fluid sweep's depth ``fuse_steps=None`` should take: of K >= 2,
+def lockstep_fuse_best(per_step):
+    """The depth ``fuse_steps=None`` should take in a lockstep sweep (the
+    fluid's, and the visco one's, ``check_visco_fused``): of K >= 2,
     the one whose worst ratio to the pair over the shapes of ``per_step``,
     quiet and window, is the least, if that ratio is below 1; else 0."""
     ratios = {}
@@ -1596,19 +1602,23 @@ def _visco_fused_case(shape, k, source, dft, device, x_lo=True, x_hi=True,
     return fused, co, rows, pt, bad
 
 
-def check_visco_fused(times, device="cuda"):
+def check_visco_fused(device="cuda"):
     """The visco fused phase: ``visco_fused`` against its plain version and
     against K launches of the visco pair, max abs difference 0 in every
     field: at 192x192x240 (5 label materials) for every K the card admits
     there, plane and point, quiet and window; on a 50-plane shard with each
     x_lo / x_hi combination (the shards' instantiation beside the XALL
     twin); at the ragged 27x45x47 for K = 1..4, plane (on a z-tile edge)
-    and point (on a tile corner), and inviscid; then each admitted K's time
-    at 192x192x240 from a CUDA graph of captured launches, a launch and a
-    step, against its bound and the pair's ``times``. Returns (errors,
-    times, bounds) keyed by kernel row, the rows at the depth the main
-    path takes there."""
-    from babelbrain_tpu_torch.ops import fdtd as F
+    and point (on a tile corner), and inviscid (N3 % 4 != 0: the 4-byte
+    copies; the other grids take the 16-byte ones). Then each admitted K's
+    time a step, quiet and window, at 192x192x240 and at the label slices'
+    216x216x224 against the visco pair timed there (``time_visco_steps``,
+    the figures behind ``VISCO_FUSE_BEST``), and the point rows at the
+    depth the main path takes, each against its bound; the kernel's
+    registers, spills and shared memory a block are printed. Returns
+    (errors, times, bounds) keyed by kernel row, the rows at the depth the
+    main path takes (``visco_depth``)."""
+    from babelbrain_tpu_torch.ops import _build
     from babelbrain_tpu_torch.ops import fdtd_kernels as K
     from babelbrain_tpu_torch.ops import fdtd_visco_fused_kernels as VF
     from babelbrain_tpu_torch.ops.fdtd_kernels import pressure_key
@@ -1618,15 +1628,22 @@ def check_visco_fused(times, device="cuda"):
                for d in (False, True) for p in (False, True))
     kshard = min(2, VF.admitted_depth(FUSED_SHARD, device, True, True))
     print(f"[visco-fused] admitted depth at {KERNEL_SHAPE}: K = {kmax}; at "
+          f"{SLICE_SHAPE}: "
+          f"{VF.admitted_depth(SLICE_SHAPE, device, True, True)}; at "
           f"{FUSED_SHARD}: "
           f"{VF.admitted_depth(FUSED_SHARD, device, True, True)}; at "
           f"{RAGGED_SHAPE}: "
           f"{VF.admitted_depth(RAGGED_SHAPE, device, True, True)}"
-          + (f"; capacity {VF.capacity(device, True, True, False)} blocks"
+          + (f"; capacity {VF.capacity(device, True, True, False)} blocks, "
+             f"{VF.SMEM_BYTES} bytes of shared memory a block"
              if device == "cuda" else ""))
+    if device == "cuda":
+        for name, res in fdtd_resources(_build.build_log):
+            if name.startswith("visco_fused_kernel"):
+                print(f"[visco-fused] {name}: {res}")
     if kmax < 1:
         fail(f"visco_fused: not one stage fits at {KERNEL_SHAPE}")
-    corner = (RAGGED_SHAPE[0] // 2, K.TILE_Y, K.TILE_Z)
+    corner = (RAGGED_SHAPE[0] // 2, VF.ROWS, K.TILE_Z)
     cases = []  # (shape, k, source, dft, x_lo, x_hi, viscous)
     for k in range(1, kmax + 1):
         for source in ("plane", "point"):
@@ -1665,41 +1682,118 @@ def check_visco_fused(times, device="cuda"):
                           0 if source == "point" else None)] = 0.0
     out_t, out_b = {}, {}
     if device == "cuda":
+        per_step = {shape: time_visco_steps(shape, device)
+                    for shape in (KERNEL_SHAPE, SLICE_SHAPE)}
+        best = lockstep_fuse_best(per_step)
+        for shape, t in per_step.items():
+            for (k, dft), ms in sorted(t.items(), key=str):
+                if k == "pair":
+                    continue
+                key = pressure_key("visco_fused", dft, None)
+                b_ms, b_by = bound(key, shape, k=k)
+                print(f"[visco-fused] {key} K={k} at {shape}: {ms * k:.4f} "
+                      f"ms a launch, {ms:.4f} ms a step "
+                      f"({float(np.prod(shape)) / ms / 1e3:.1f} "
+                      f"Mcell-updates/s); bound {b_ms:.4f} ms ({b_by}), "
+                      f"{b_ms / k:.4f} a step ({b_ms / (ms * k):.0%}); the "
+                      f"pair {t[('pair', dft)]:.4f} ms a step "
+                      f"({ms / t[('pair', dft)]:.3f}x)")
+            print(f"[visco-fused] a step at {shape}, quiet / window: "
+                  + "; ".join(
+                      f"K={k} {t[(k, False)]:.4f} / {t[(k, True)]:.4f} ms "
+                      f"({t[(k, False)] / t[('pair', False)]:.3f}x / "
+                      f"{t[(k, True)] / t[('pair', True)]:.3f}x the pair)"
+                      for k in sorted({k for k, _ in t if k != "pair"}))
+                  + f"; the pair {t[('pair', False)]:.4f} / "
+                  f"{t[('pair', True)]:.4f} ms")
+        print(f"[visco-fused] the depth measured fastest against the pair at "
+              f"both shapes, quiet and window: {best} (VISCO_FUSE_BEST = "
+              f"{VF.VISCO_FUSE_BEST})")
+        if best != VF.VISCO_FUSE_BEST:
+            print("[visco-fused] WARNING: VISCO_FUSE_BEST does not follow "
+                  "this run's measurement")
         shape = KERNEL_SHAPE
-        cells = float(np.prod(shape))
+        k_main = visco_depth(shape, device)
         for source in ("plane", "point"):
             point = source == "point"
-            pk = "_point" if point else ""
-            plan = F.visco_plan(shape, device, True, point)
             for dft in (False, True):
                 key = pressure_key("visco_fused", dft, 0 if point else None)
-                pair = (times["visco_velocity"][0]
-                        + times[pressure_key("visco_stress", dft,
-                                             0 if point else None)][0])
-                k_main = plan.k_dft if dft else plan.k
-                st, co, rows_max, pt, _ = _visco_fused_case(
-                    shape, kmax, source, dft, device)
-                for k in range(1, kmax + 1):
-                    rows = rows_max[:k]
-                    ms = _timed_graph(lambda: VF.visco_fused(
-                        st, co, rows, pt, with_dft=dft, checked=True), 5)
-                    b_ms, b_by = bound(key, shape, k=k)
-                    print(f"[visco-fused] {key} K={k} at {shape}: {ms:.4f} "
-                          f"ms a launch, {ms / k:.4f} ms a step "
-                          f"({cells * k / ms / 1e3:.1f} Mcell-updates/s); "
-                          f"bound {b_ms:.4f} ms ({b_by}), {b_ms / k:.4f} a "
-                          f"step ({b_ms / ms:.0%}); the pair{pk} "
-                          f"{pair:.4f} ms a step ({ms / k / pair:.3f}x)")
-                    if k == k_main:
-                        plain = _timed(lambda: VF.visco_fused_ref(
-                            st, co, rows, pt, with_dft=dft), 2, warm=1)
-                        out_t[key] = (ms, plain)
-                        out_b[key] = (b_ms, b_by)
-                        print(f"[visco-fused]   {key}: the main path's K={k} "
-                              f"at {shape} (fuse_steps=None); plain version "
-                              f"{plain:.4f} ms a launch")
+                st, co, rows, pt, _ = _visco_fused_case(shape, k_main, source,
+                                                        dft, device)
+                ms = _timed_graph(lambda: VF.visco_fused(
+                    st, co, rows, pt, with_dft=dft, checked=True), 5)
+                plain = _timed(lambda: VF.visco_fused_ref(
+                    st, co, rows, pt, with_dft=dft), 2, warm=1)
+                out_t[key] = (ms, plain)
+                out_b[key] = bound(key, shape, k=k_main)
+                print(f"[visco-fused]   {key}: the main path's K={k_main} at "
+                      f"{shape} (visco_depth): {ms:.4f} ms a launch, bound "
+                      f"{out_b[key][0]:.4f} ms ({out_b[key][0] / ms:.0%}); "
+                      f"plain version {plain:.4f} ms a launch")
+                del st
     print(f"[visco-fused] phase {time.time() - t_phase:.2f} s")
     return errs, out_t, out_b
+
+
+def time_visco_steps(shape, device="cuda"):
+    """{(K, dft): ms a step} of the viscous plane sweep at every K the card
+    admits on ``shape``, and {("pair", dft): ms} of one step of the visco
+    pair (velocity + stress), timed in the same way (CUDA graphs) on the
+    same state, before and after the sweeps (their mean). The state is
+    ``_visco_fused_case``'s at the deepest K, which holds that launch to
+    its plain version and to the pair bit for bit first."""
+    from babelbrain_tpu_torch.ops import fdtd_visco_fused_kernels as VF
+    from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
+
+    out = {}
+    for dft in (False, True):
+        kmax = VF.admitted_depth(shape, device, True, dft)
+        st, co, rows_max, pt, bad = _visco_fused_case(shape, kmax, "plane",
+                                                      dft, device)
+        if bad:
+            fail(f"visco fused kernel differs ({shape}, K={kmax}, plane, "
+                 f"dft={dft}): {bad}")
+        s_sin, s_cos, cosw, sinw, _ = rows_max[0]
+
+        def pair_step():
+            V.visco_velocity(st, co, s_sin, s_cos)
+            if dft:
+                V.visco_stress(st, co, cosw, sinw)
+            else:
+                V.visco_stress(st, co)
+
+        pair = [_timed_graph(pair_step, 10)]
+        for k in range(1, kmax + 1):
+            rows = rows_max[:k]
+            out[(k, dft)] = _timed_graph(lambda: VF.visco_fused(
+                st, co, rows, pt, with_dft=dft, checked=True), 5) / k
+        pair.append(_timed_graph(pair_step, 10))
+        out[("pair", dft)] = sum(pair) / 2
+        print(f"[visco-fused] the pair at {shape} "
+              f"{'window' if dft else 'quiet'}: {pair[0]:.4f} / "
+              f"{pair[1]:.4f} ms a step (before / after the sweeps)")
+        del st
+    return out
+
+
+# the depth of the visco sweep chip_smoke pins the refocus-label slice's
+# run_fdtd calls at (pinned_fuse_steps) while VISCO_FUSE_BEST = 0 keeps
+# label-mode runs on the pair, so that the sweep stays on a path and
+# check_fused_runs holds it to the pair: its fastest K against the pair on
+# the card (check_visco_fused, PERF.md)
+VISCO_PIN_K = 2
+
+
+def visco_depth(shape, device="cuda"):
+    """The depth of the visco sweep the main path takes on ``shape``: the
+    default's where it sweeps, else ``VISCO_PIN_K``, at most what the card
+    admits there."""
+    from babelbrain_tpu_torch.ops import fdtd_visco_fused_kernels as VF
+
+    best = VF.VISCO_FUSE_BEST
+    admitted = min(VF.admitted_depth(shape, device, True, d, p)
+                   for d in (False, True) for p in (False, True))
+    return min(best if best >= 2 else VISCO_PIN_K, admitted)
 
 
 # the dome slices' FDTD grid (DomeTx at 220 kHz, 6 PPW), for the halo
@@ -1722,8 +1816,10 @@ def pinned_fuse_steps(mode: str):
     sensors-ct runs, ``sensors_depth`` of its grid (the extras sweeps'
     depth: pinned while ``EXTRAS_FUSE_BEST`` keeps such runs on the pair);
     while refocus-ct runs, ``fused_depth`` (its plane and point runs: pinned
-    while ``FUSE_BEST`` keeps such runs on the pair); nothing changes for
-    another slice."""
+    while ``FUSE_BEST`` keeps such runs on the pair); while refocus-label
+    runs, ``visco_depth`` (likewise, while ``VISCO_FUSE_BEST`` keeps
+    label-mode runs on the pair; the default's own depth otherwise, which
+    pinning does not change); nothing changes for another slice."""
     from babelbrain_tpu_torch.ops import fdtd as F
     from babelbrain_tpu_torch.pipeline import acoustic as A
 
@@ -1732,6 +1828,10 @@ def pinned_fuse_steps(mode: str):
     def call(*args, **kwargs):
         if mode.startswith("dome"):
             kwargs.setdefault("fuse_steps", DOME_PIN_K)
+        elif mode == "refocus-label":
+            grid, = _bound(F.run_fdtd, args, kwargs, "grid")
+            kwargs.setdefault("fuse_steps", visco_depth(
+                grid.shape, kwargs.get("device", "cuda")))
         else:
             grid, = _bound(F.run_fdtd, args, kwargs, "grid")
             kwargs.setdefault("fuse_steps", fused_depth(
@@ -1739,7 +1839,7 @@ def pinned_fuse_steps(mode: str):
                 extras=mode.startswith("sensors")))
         return saved(*args, **kwargs)
 
-    if mode.startswith(("dome", "sensors", "refocus-ct")):
+    if mode.startswith(("dome", "sensors", "refocus")):
         A.run_fdtd = call
     try:
         yield
@@ -3359,9 +3459,11 @@ def run_slice(have_h5py: bool, mode="ct", mask_shape=MASK_SHAPE,
                          sel_maps=SENSOR_MAPS, monitors=True)
     elif not diag:
         # plane and point runs: the fused sweeps by default (refocus-ct's
-        # pinned at fused_depth, pinned_fuse_steps)
-        pin = (fused_depth(dom.material_map.shape, device)
-               if mode == "refocus-ct" else None)
+        # pinned at fused_depth, refocus-label's at visco_depth,
+        # pinned_fuse_steps)
+        pin = {"refocus-ct": fused_depth,
+               "refocus-label": visco_depth}.get(mode)
+        pin = pin and pin(dom.material_map.shape, device)
         expect_fused_run(expect, _make_grid(dom), dom.materials, n=runs,
                          device=device, fuse_steps=pin)
         if refocus:  # the backward run from a stress point at the target
@@ -4456,10 +4558,13 @@ def run_anchors(device="cuda"):
     full-width anchors through ``run_fdtd`` (and the benchmark helper) on
     the card, the CTX-500 calibration and a spawned Step 1, with the kernel
     counts set to 0 before and read after: both FDTD families must have
-    launched on the route ``fuse_steps=None`` takes (the visco sweep; the
-    fluid pair while ``FUSE_BEST`` = 0, else the fluid sweep) and no plain
-    version run. Returns the launch counts."""
+    launched on the route ``fuse_steps=None`` takes (each family's pair
+    while its default depth, ``FUSE_BEST`` / ``VISCO_FUSE_BEST``, is 0, else
+    its sweep) and no plain version run. Returns the launch counts."""
     from babelbrain_tpu_torch.ops.fdtd_fused_kernels import FUSE_BEST
+    from babelbrain_tpu_torch.ops.fdtd_visco_fused_kernels import (
+        VISCO_FUSE_BEST,
+    )
 
     t0 = time.time()
     reset_counts()
@@ -4474,7 +4579,8 @@ def run_anchors(device="cuda"):
     launches, plain = read_counts()
     print(f"[slice anchors] {time.time() - t0:.2f} s; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
-    need = ("visco_fused", "visco_fused_dft") + (
+    need = (("visco_fused", "visco_fused_dft") if VISCO_FUSE_BEST >= 2
+            else ("visco_velocity", "visco_stress", "visco_stress_dft")) + (
         ("fluid_fused", "fluid_fused_dft") if FUSE_BEST >= 2
         else ("fluid_velocity", "fluid_pressure", "fluid_pressure_dft"))
     if device == "cuda" and (any(plain.values())
@@ -5027,13 +5133,19 @@ def check_mesh_overlap(mesh, grid, mats, idx, amp, ph, device="cuda"):
     plane-source case (fluid or shear media) on the mesh's shards against
     their plain versions, every field of every shard bit for bit, and the
     own planes' carrier against the unsharded run's; the fluid sweeps at
-    ``FUSED_PIN_K`` while ``FUSE_BEST`` = 0 keeps such runs on the pair."""
+    ``FUSED_PIN_K`` while ``FUSE_BEST`` = 0 keeps such runs on the pair,
+    the visco ones at ``VISCO_PIN_K`` while ``VISCO_FUSE_BEST`` = 0."""
     from babelbrain_tpu_torch.ops import fdtd as F
     from babelbrain_tpu_torch.ops.fdtd_fused_kernels import FUSE_BEST
+    from babelbrain_tpu_torch.ops.fdtd_visco_fused_kernels import (
+        VISCO_FUSE_BEST,
+    )
 
     visco = bool(np.any(np.asarray(mats)[:, 2] > 0))
-    plan = F.overlap_plan(mesh, mats, grid, fuse_steps=(
-        None if visco or FUSE_BEST >= 2 else FUSED_PIN_K))
+    best, pin = ((VISCO_FUSE_BEST, VISCO_PIN_K) if visco
+                 else (FUSE_BEST, FUSED_PIN_K))
+    plan = F.overlap_plan(mesh, mats, grid,
+                          fuse_steps=None if best >= 2 else pin)
     if plan is None:
         fail(f"mesh: no overlap plan for {grid.shape} on {mesh.size} shards")
     runs = []
@@ -5567,7 +5679,7 @@ def main():
                       if k != "pair")
           + f"; pair + extras + MONITOR {per_step['pair']:.4f} ms; "
           f"EXTRAS_FUSE_BEST = {EXTRAS_FUSE_BEST}")
-    # the rule of fluid_fuse_best: the fastest K >= 2 if it beats the pair
+    # the rule of lockstep_fuse_best: the fastest K >= 2 if it beats the pair
     best = min((k for k in per_step if k != "pair" and k >= 2),
                key=per_step.get, default=0)
     if best and per_step[best] >= per_step["pair"]:
@@ -5575,7 +5687,7 @@ def main():
     if best != EXTRAS_FUSE_BEST:
         print(f"[fused extras] WARNING: EXTRAS_FUSE_BEST does not follow "
               f"this run's measurement (K = {best})")
-    for e, t, b in (check_fused(times), check_visco_fused(times),
+    for e, t, b in (check_fused(times), check_visco_fused(),
                     check_fused_volume(times), check_visco_volume(times),
                     check_bhte_fused(times),
                     check_diagnostics("fluid"),

@@ -1014,21 +1014,33 @@ VISCO_FUSED_CASES = (
        for lo, hi in ((True, False), (False, True), (False, False))])
 
 
-@pytest.mark.parametrize("shape,zsrc", VISCO_GRIDS[1:])
+# the sweep's grids: two ragged ones (N3 % 4 != 0: 4-byte copies), then
+# two whose N3 is a multiple of 4 (16-byte copies: the VEC instantiations),
+# the second with the label slices' 216x224 planes
+VISCO_FUSED_GRIDS = VISCO_GRIDS[1:] + [VISCO_GRIDS[0], ((30, 216, 224), 13)]
+
+
+@pytest.mark.parametrize("shape,zsrc", VISCO_FUSED_GRIDS)
 @pytest.mark.parametrize("k,source,viscous,dft,x_lo,x_hi", VISCO_FUSED_CASES)
 def test_visco_fused_kernel_matches_plain(cuda, k, source, viscous, dft,
                                           x_lo, x_hi, shape, zsrc):
     """``visco_fused`` (K steps a launch) against its plain version and
     against K steps of the visco pair, every field and psi slab bit-equal,
     from the state 20 pair steps leave; a stress point on a (y, z) tile
-    corner."""
+    corner. K beyond what the card holds on the grid is refused by
+    ``visco_plan`` and not launched (the 216x224 planes: K <= 2)."""
     import dataclasses
 
     from babelbrain_tpu_torch.ops import fdtd_visco_fused_kernels as VF
 
+    if k > VF.admitted_depth(shape, cuda, viscous, dft, source != "velocity"
+                             "_plane"):
+        with pytest.raises(ValueError, match="holds"):
+            F.visco_plan(shape, cuda, viscous, source != "velocity_plane", k)
+        return
     grid, co = _visco_setup(cuda, shape)
     grid = dataclasses.replace(grid, source_plane_z=zsrc, source_type=source,
-                               source_ijk=(shape[0] // 2, K.TILE_Y, K.TILE_Z))
+                               source_ijk=(shape[0] // 2, VF.ROWS, K.TILE_Z))
     co.zsrc = zsrc
     co.x_lo, co.x_hi = x_lo, x_hi
     co.viscous = co.viscous and viscous
@@ -1062,9 +1074,10 @@ def test_visco_fused_kernel_matches_plain(cuda, k, source, viscous, dft,
 
 @pytest.mark.parametrize("source", ["velocity_plane", "stress_point"])
 def test_visco_fused_run_fdtd_matches_the_pair(cuda, source):
-    """``run_fdtd`` in shear media through the visco sweeps by default (its
-    schedule's sweeps, 2-step sweeps and tails) equals the pair step by
-    step."""
+    """``run_fdtd`` in shear media through the visco sweeps (its schedule's
+    sweeps, 2-step sweeps and tails; pinned at K = 2 while
+    ``VISCO_FUSE_BEST`` = 0 keeps the default on the pair) equals the pair
+    step by step."""
     import dataclasses
 
     from babelbrain_tpu_torch.ops import fdtd_visco_fused_kernels as VF
@@ -1080,7 +1093,8 @@ def test_visco_fused_run_fdtd_matches_the_pair(cuda, source):
     ph = np.random.default_rng(0).uniform(-1, 1, grid.shape[:2])
     pamp = 60e3 if source == "stress_point" else 0.0
     before = sum(VF.launches.values())
-    out = F.run_fdtd(idx, mats, grid, amp, ph, pamp, device="cuda")
+    out = F.run_fdtd(idx, mats, grid, amp, ph, pamp, device="cuda",
+                     fuse_steps=None if VF.VISCO_FUSE_BEST >= 2 else 2)
     assert sum(VF.launches.values()) > before
     step, st, co2, oz, _ = F.fdtd_setup(idx, mats, grid, amp, ph,
                                         device="cuda")

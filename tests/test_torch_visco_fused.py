@@ -224,14 +224,20 @@ def test_schedule_matches_jax_run_phase(monkeypatch, source, k, quiet,
 def test_fuse_steps_none_and_refusals(monkeypatch):
     """``fuse_steps=None`` takes min(admitted, VISCO_FUSE_BEST) in both
     phases (on the CPU nothing bounds the depth), 2-step sweeps for a plane
-    source only; a pinned K beyond ``K_CAP``, or beyond what the card holds
+    source only and only while VISCO_FUSE_BEST >= 2 (0: the pair for every
+    step); a pinned K beyond ``K_CAP``, or beyond what the card holds
     (``admitted_depth``), is refused, K = 1 never; the wrapper refuses more
     than ``K_CAP`` rows."""
     best = VF.VISCO_FUSE_BEST
     assert T.visco_plan((40, 40, 40), "cpu", True, False) == T.FusedPlan(
-        best, best, True, 2)
+        best, best, best >= 2, 2)
     assert T.visco_plan((40, 40, 40), "cpu", True, True) == T.FusedPlan(
         best, best, False, 2)
+    for pinned_best in (0, 2):
+        monkeypatch.setattr(T, "VISCO_FUSE_BEST", pinned_best)
+        assert T.visco_plan((40, 40, 40), "cpu", True, False) == T.FusedPlan(
+            pinned_best, pinned_best, pinned_best >= 2, 2)
+    monkeypatch.undo()
     for k in (VF.K_CAP + 1, -1):
         with pytest.raises(ValueError):
             T.visco_plan((40, 40, 40), "cpu", True, False, k)
@@ -241,7 +247,7 @@ def test_fuse_steps_none_and_refusals(monkeypatch):
     assert T.visco_plan((40, 40, 40), "cpu", True, False, 1) == T.FusedPlan(
         1, 1, False, 2)
     assert T.visco_plan((40, 40, 40), "cpu", True, False) == T.FusedPlan(
-        1, 1, False, 2)
+        min(1, best), min(1, best), False, 2)
     monkeypatch.undo()
     g = _grid((24, 24, 40), 2, n_steps=12, sensor_start=5)
     st = T.fdtd_setup(_layers(g["shape"]), MATS, T.FDTDGrid(**g),
@@ -251,16 +257,17 @@ def test_fuse_steps_none_and_refusals(monkeypatch):
 
 
 def test_cpu_run_counts_plain_calls():
-    """``run_fdtd`` in shear media (plane source, ``fuse_steps=None``) runs
-    ``visco_fused``'s plain version a sweep and the pair's for the tails:
-    12 quiet steps at K = 2 and a 5-step window (two sweeps, one tail);
-    the pair's plain versions count the sweeps' steps too, and nothing is
-    launched."""
+    """``run_fdtd`` in shear media (plane source) runs ``visco_fused``'s
+    plain version a sweep and the pair's for the tails: pinned at K = 2,
+    12 quiet steps and a 5-step window (two sweeps, one tail); the pair's
+    plain versions count the sweeps' steps too, and nothing is launched.
+    ``fuse_steps=None`` takes ``VISCO_FUSE_BEST`` = 0 (the card's
+    measurement): the pair for every step."""
     g = _grid((20, 20, 48), 2, n_steps=17, sensor_start=12)
     _counts()
     out = T.run_fdtd(_layers(g["shape"]), MATS, T.FDTDGrid(**g),
-                     source_amp=np.full((20, 20), 1e3), device="cpu")
-    assert VF.VISCO_FUSE_BEST == 2
+                     source_amp=np.full((20, 20), 1e3), device="cpu",
+                     fuse_steps=2)
     assert VF.plain_calls == {"visco_fused": 6, "visco_fused_dft": 2,
                               "visco_fused_point": 0,
                               "visco_fused_point_dft": 0}
@@ -270,6 +277,14 @@ def test_cpu_run_counts_plain_calls():
     assert all(v == 0 for v in VF.launches.values())
     assert all(v == 0 for v in V.launches.values())
     assert np.isfinite(out["p_amp"]).all() and out["p_amp"].max() > 0
+    _counts()
+    default = T.run_fdtd(_layers(g["shape"]), MATS, T.FDTDGrid(**g),
+                         source_amp=np.full((20, 20), 1e3), device="cpu")
+    assert VF.VISCO_FUSE_BEST == 0
+    assert all(v == 0 for v in VF.plain_calls.values())
+    assert V.plain_calls["visco_velocity"] == 17
+    for k in ("p_amp", "p_phase", "peak"):
+        np.testing.assert_array_equal(default[k], out[k], err_msg=k)
 
 
 # ---------------------------------------------------------------------------
@@ -279,47 +294,62 @@ def test_cpu_run_counts_plain_calls():
 
 def _march_errors(n1, k):
     """Read-before-write violations of ``march(n1, k)``. Per field family
-    ("v": the velocities; "s": the stresses, with each cell's SLS memories,
-    psi and DFT sums) and plane, the updates applied and the march step of
-    the last one. A velocity of plane i at stage s reads the stresses as
-    stage s - 1 left them: its neighbours' in plane i, and along x its own
-    column's as each plane enters its window (sxx at i + 2, sxy / sxz at
-    i + 1; at i = 0 planes 0..2), and its own v. A stress of plane i reads
-    the velocities of stage s: its neighbours' in plane i, and along x this
-    thread's own new values of planes i - 2..i + 2 (held in registers, so
-    written by this stage at this step or before); and its own cell's
-    stress state. A value another thread wrote must have been written at an
-    earlier march step, and no other thread may write what is read in the
-    same step."""
+    ("v": the velocities with their psi; "s": the stresses, with each
+    cell's SLS memories, psi and DFT sums) and plane, the updates applied
+    and the march step of the last one. A stage's copies are issued a step
+    ahead of the step that reads them and land before the barrier that ends
+    their own step; each must find its value at the version the stage
+    needs (its velocity's stress rings, x-window entries and own values:
+    version s; its stress's own values: version s; the halo of its stress's
+    velocity ring: version s + 1, the neighbours' new velocities), written
+    at an earlier march step than the one that issues it, and nobody may
+    write it in the step that issues it nor, but for a cell's own values,
+    in the next (the copy is in flight; with 16-byte copies it may land
+    after the barrier). The register windows must still hold the current
+    version when they are read: sxx at planes i - 1..i + 2, sxy and sxz at
+    i - 2..i + 1 for the velocity; this stage's new vx at is - 2..is + 1,
+    vy and vz at is - 1..is + 2 for the stress of plane is, written by this
+    thread at this march step or before. The tile's own cells of the
+    stress's velocity ring were written by its block at an earlier step and
+    their ring plane (one of ``VELOCITY_RING``) not reused since."""
     ver = {f: [0] * n1 for f in ("v", "s")}  # updates applied to a plane
-    when = {f: [-1] * n1 for f in ("v", "s")}  # march step of the last one
+    when = {f: [-n1 - 9] * n1 for f in ("v", "s")}  # step of the last one
+    v_at = {}  # (stage, plane) -> march step of this stage's new velocity
+    in_flight = set()  # the copies issued in the step before
     errs = []
-    for t, row in enumerate(VF.march(n1, k)):
-        reads, writes = [], []
-        for s, i, js in row:
+    for t, row in VF.march(n1, k):
+        writes = []
+        for s, i, js, loads in row:
+            for f, x, role in loads:
+                need = s + 1 if role == "halo" else s
+                if ver[f][x] != need or when[f][x] >= t:
+                    errs.append(("load", t, s, f, x, role, ver[f][x], need))
             if i is not None:
-                reads.append(("s", i, s, s, "neighbour"))
-                enter = range(0, 3) if i == 0 else (i + 1, i + 2)
-                reads += [("s", x, s, s, "own") for x in enter if x < n1]
-                reads.append(("v", i, s, s, "own"))
+                errs += [("window", t, s, "s", x) for x in range(i - 2, i + 3)
+                         if 0 <= x < n1 and ver["s"][x] != s]
                 writes.append(("v", i, s))
+                v_at[(s, i)] = t
             if js is not None:
-                # the x-windows: this thread's own velocities, the newest
-                # (vy, vz at js + 2) written earlier in this march step
-                errs += [(t, s, "v window", x)
-                         for x in range(js - 2, js + 3)
-                         if 0 <= x < n1 and not (ver["v"][x] == s + 1
-                                                 or x == i)]
-                reads.append(("v", js, s, s + 1, "neighbour"))
-                reads.append(("s", js, s, s, "own"))
+                errs += [("v window", t, s, x) for x in range(js - 2, js + 3)
+                         if 0 <= x < n1 and not v_at.get((s, x), t + 1) <= t]
+                # the ring's tile cells: this block's own velocities of
+                # plane js, in a ring plane no later plane has taken yet
+                w = v_at.get((s, js))
+                if (w is None or w >= t or ver["v"][js] != s + 1
+                        or any((js + m) % VF.VELOCITY_RING
+                               == js % VF.VELOCITY_RING
+                               for m in range(1, t - w + 1))):
+                    errs.append(("ring", t, s, js))
+                if ver["s"][js] != s:
+                    errs.append(("stress", t, s, js))
                 writes.append(("s", js, s))
-        for f, x, s, need, _ in reads:
-            if ver[f][x] != need or (need > 0 and when[f][x] >= t):
-                errs.append((t, s, f, x, ver[f][x], need))
-        written = {(f, x): s for f, x, s in writes}
-        errs += [("race", t, s, f, x) for f, x, s, _, kind in reads
-                 if (f, x) in written
-                 and (written[(f, x)] != s or kind == "neighbour")]
+        issued = {(f, x) for _, _, _, loads in row for f, x, _ in loads}
+        errs += [("race", t, s, f, x) for f, x, s in writes
+                 if (f, x) in issued
+                 or any(x == y and f == g and (role != "own" or s != u)
+                        for u, g, y, role in in_flight)]
+        in_flight = {(u, f, x, role) for u, _, _, loads in row
+                     for f, x, role in loads}
         for f, x, s in writes:
             ver[f][x] += 1
             when[f][x] = t
@@ -330,25 +360,101 @@ def _march_errors(n1, k):
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
 def test_march_orders_every_read(k):
     """The kernel's march at ragged plane counts: every plane of every
-    stage updated once, every cross-thread read ordered by a barrier; the
+    stage updated once, every staged load and register window ordered by a
+    barrier (``LAG`` = 6, ``STRESS_LAG`` = 2, loads a step ahead); the
     launch's blocks cover every (y, z) column of every stage once."""
     for n1 in (27, 37, 50):
         assert _march_errors(n1, k) == []
     for shape in ((27, 45, 47), (50, 192, 240)):
         gz, gy, gs = VF.fused_launch_geometry(shape, k).grid
         assert gs == k and gz * 32 >= shape[2] > (gz - 1) * 32
-        assert gy * 8 >= shape[1] > (gy - 1) * 8
+        assert gy * VF.ROWS >= shape[1] > (gy - 1) * VF.ROWS
 
 
-@pytest.mark.parametrize("name", ["LAG", "STRESS_LAG"])
+@pytest.mark.parametrize("name", ["LAG", "STRESS_LAG", "PREFETCH",
+                                  "VELOCITY_RING"])
 def test_march_lags_are_the_least_that_order(monkeypatch, name):
-    """Four planes between the stages would let stage s + 1's velocity read
-    an sxx stage s writes in the same march step (it reads 2 planes ahead,
-    stage s's stress writes 2 planes behind its velocity); a stress one
-    plane behind its velocity would read a vy, vz its thread has not
-    computed yet."""
-    monkeypatch.setattr(VF, name, getattr(VF, name) - 1)
+    """Five planes between the stages would let stage s + 1 copy the
+    newest sxx of its x-window (2 planes ahead) in the step stage s writes
+    it; a stress one plane behind its velocity would read a vy, vz its
+    thread has not computed yet and copy its ring's halo in the step the
+    neighbours write it; a copy issued two steps ahead would copy that halo
+    in the step it is written; a velocity ring of 2 planes would be
+    overwritten by the velocity before the stress read it."""
+    delta = {"PREFETCH": 1}.get(name, -1)
+    monkeypatch.setattr(VF, name, getattr(VF, name) + delta)
     assert _march_errors(37, 3)
+
+
+@pytest.mark.parametrize("shape", [(27, 45, 47), (37, 41, 57),
+                                   (50, 192, 240), (24, 216, 224)])
+def test_launch_geometry_two_cells_a_thread(shape):
+    """The launch covers every (y, z) column of every stage once: blocks of
+    TILE_Z x THREADS_Y = 32 x 6 threads, a thread's ``CELLS`` = 2 cells
+    ``THREADS_Y`` rows apart in its block's ``ROWS`` = 12 rows (32 x 12
+    tiles), on ragged grids and the main path's planes."""
+    k = 2
+    geo = VF.fused_launch_geometry(shape, k)
+    gz, gy, gs = geo.grid
+    assert gs == k and geo.segment == shape[0]
+    assert (VF.TILE_Z, VF.THREADS_Y, VF.CELLS) == (32, 6, 2)
+    assert geo.tile_y == VF.ROWS == 12
+    hits = np.zeros((k,) + shape[1:], int)
+    for s in range(gs):
+        for by in range(gy):
+            for bz in range(gz):
+                for ty in range(VF.THREADS_Y):
+                    rows = [j for c in range(VF.CELLS)
+                            if (j := by * VF.ROWS + ty + c * VF.THREADS_Y)
+                            < shape[1]]
+                    hits[s, rows, bz * VF.TILE_Z:(bz + 1) * VF.TILE_Z] += 1
+    assert (hits == 1).all()
+
+
+def test_launch_fits_two_blocks_an_sm():
+    """The shared memory a block takes (two buffers of the five stress
+    rings, the 3-plane velocity ring, 41 staged values a cell, two
+    mbarriers; whole 16-byte chunks along z) and its 168 registers a
+    thread (``__launch_bounds__(192, 2)``) let two blocks share an H100 SM
+    (228 KB of shared memory, 1 KB reserved a block; 64K registers), not
+    three: 264 blocks, so K = 2 on the 192x192x240 grid (128 tiles) and on
+    the label slices' 216x216x224 (126 tiles), all but 8 or 12 SMs holding
+    two blocks (2 x 384 cells a march step, as the first design's 3 x
+    256 of 32 x 8 tiles), as ``admitted_depth`` finds from a capacity of
+    264; K = 4 on a 96x96 plane."""
+    assert VF.STRESS_RING == 2520 and VF.STRESS_RING % 4 == 0
+    assert VF.V_RING == 3 * 3 * 16 * 40
+    assert VF.SMEM_BYTES == 16 + 4 * (2 * 2520 + 5760 + 41 * 384) == 106192
+    assert 2 * (VF.SMEM_BYTES + 1024) <= 233472 < 3 * (VF.SMEM_BYTES + 1024)
+    assert 2 * 192 * 168 <= 65536
+    tiles = {}
+    for shape in ((192, 192, 240), (216, 216, 224), (192, 96, 96)):
+        gz, gy, _ = VF.fused_launch_geometry(shape, 1).grid
+        tiles[shape] = gz * gy
+    assert tiles == {(192, 192, 240): 128, (216, 216, 224): 126,
+                     (192, 96, 96): 24}
+    assert [min(VF.K_CAP, 2 * 132 // n) for n in tiles.values()] == [2, 2, 4]
+
+
+@pytest.mark.parametrize("best", [0, 2])
+@pytest.mark.parametrize("point", [False, True])
+@pytest.mark.parametrize("admitted", [1, 2, 4])
+def test_visco_plan_under_the_default(monkeypatch, best, point, admitted):
+    """``visco_plan`` with ``fuse_steps=None`` under ``VISCO_FUSE_BEST``
+    (the chosen 0 or 2): min(admitted, best) in both phases; 2-step sweeps
+    only for a plane source, only where both phases admit K = 2 and only
+    while the default sweeps at all (best >= 2); a pinned K keeps the
+    2-step sweeps of JAX's schedule whatever the default."""
+    monkeypatch.setattr(T, "VISCO_FUSE_BEST", best)
+    monkeypatch.setattr(VF, "admitted_depth", lambda *a, **kw: admitted)
+    plan = T.visco_plan((40, 40, 40), "cuda", True, point)
+    assert (plan.k, plan.k_dft, plan.k_min) == (min(admitted, best),
+                                                min(admitted, best), 2)
+    assert plan.fused2 == (not point and admitted >= 2 and best >= 2)
+    if admitted >= 2:
+        pinned = T.visco_plan((40, 40, 40), "cuda", True, point, 2)
+        assert pinned == T.FusedPlan(2, 2, not point, 2)
+    assert T.VISCO_FUSE_BEST == best and VF.VISCO_FUSE_BEST in (0, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -360,8 +466,9 @@ def test_sharded_plan_matches_jax():
     """``sharded_plan(visco=True)`` with ``fuse_steps`` pinned against
     ``_sharded_fusedK_plan(..., K_cap=4)``: the same (K, H = 4K) wherever
     JAX finds a plan, and both refuse a halo that would reach an edge
-    neighbour's x-PML slab (H > L - (npml + 2)); ``None`` takes
-    ``VISCO_FUSE_BEST``."""
+    neighbour's x-PML slab (H > L - (npml + 2)); ``None`` takes the
+    deepest K from ``VISCO_FUSE_BEST`` down that fits (none below 2: 0
+    keeps sharded runs on the pair as unsharded ones)."""
     npml = 12
     ns = npml + 2
     g = _grid((128, 16, 24), 2)
@@ -377,11 +484,17 @@ def test_sharded_plan_matches_jax():
                           visco=True) == (4, 16)
     assert T.sharded_plan(29, T.FDTDGrid(**g), "cpu", True, 4,
                           visco=True) is None
-    best = VF.VISCO_FUSE_BEST
+    assert VF.VISCO_FUSE_BEST == T.VISCO_FUSE_BEST == 0
     assert T.sharded_plan(32, T.FDTDGrid(**g), "cpu", True,
-                          visco=True) == (best, 4 * best)
-    assert T.sharded_plan(21, T.FDTDGrid(**g), "cpu", True,
                           visco=True) is None
+    try:
+        best, T.VISCO_FUSE_BEST = T.VISCO_FUSE_BEST, 2
+        assert T.sharded_plan(32, T.FDTDGrid(**g), "cpu", True,
+                              visco=True) == (2, 8)
+        assert T.sharded_plan(21, T.FDTDGrid(**g), "cpu", True,
+                              visco=True) is None
+    finally:
+        T.VISCO_FUSE_BEST = best
 
 
 def _sharded_case(n_steps=None):
@@ -403,18 +516,20 @@ def _sharded_case(n_steps=None):
 def _sharded_runs():
     idx, g, amp, ph = _sharded_case()
     mesh = H.make_mesh(4, devices=["cpu"] * 4)
-    plan = T.overlap_plan(mesh, MATS, T.FDTDGrid(**g))
+    plan = T.overlap_plan(mesh, MATS, T.FDTDGrid(**g), fuse_steps=2)
     _counts()
-    sharded = T.run_fdtd(idx, MATS, T.FDTDGrid(**g), amp, ph, mesh=mesh)
+    sharded = T.run_fdtd(idx, MATS, T.FDTDGrid(**g), amp, ph, mesh=mesh,
+                         fuse_steps=2)
     calls = dict(VF.plain_calls)
     whole = T.run_fdtd(idx, MATS, T.FDTDGrid(**g), amp, ph, device="cpu")
     return plan, calls, sharded, whole
 
 
 def test_overlap_and_discard_is_bit_equal():
-    """On ``["cpu"] * 4`` the shear plane-source run goes overlap and
-    discard with (K, H) = (2, 8): one ``visco_fused`` launch a shard a
-    sweep, equal to the unsharded run bit for bit."""
+    """On ``["cpu"] * 4`` the shear plane-source run pinned at K = 2 goes
+    overlap and discard with (K, H) = (2, 8): one ``visco_fused`` launch a
+    shard a sweep, equal to the unsharded run (the pair's, by default) bit
+    for bit."""
     plan, calls, sharded, whole = _sharded_runs()
     g = _sharded_case()[1]
     assert plan == (2, 8)
@@ -505,7 +620,7 @@ def test_indexed_materials_carry_over():
         co = T.make_visco_coeffs(i, t, prof, amp, ph, grid, True, "cpu")
         st = V.ViscoState.zeros(shape, 14, "cpu")
         T._fused_loop([(st, co)], grid, 1.0 / (1000.0 * C), 0.0,
-                      T.visco_plan(shape, "cpu", True, False))
+                      T.visco_plan(shape, "cpu", True, False, 2))
         out.append(T._carrier(st, grid))
     for k in ("p_amp", "peak"):
         np.testing.assert_array_equal(out[0][k], out[1][k])
