@@ -60,22 +60,24 @@
 // because its accumulators leave the kernel before the injection.
 // POINT=false compiles to the plane-source code.
 //
-// x decomposition (ops/fdtd.py run_fdtd(mesh=)): a launch on one shard's
-// planes applies the x CPML's lo and hi slabs only where the shard holds
-// that global edge (x_lo / x_hi, fdtd_stencil.cuh Geo). It replaces the
-// x-CPML shift edge_offset and its xcoef_scale mask of B2
-// (build_fluid_fused_step, fdtd_pallas.py:530,598) and B4
-// (build_fluid_fusedK_step, :1755,1850): the TPU's shards carry their
-// ghost planes on both sides, so a shard's slab sits at an offset and is
-// masked where the shard owns no edge; here the first shard carries no
-// ghost planes below it and the last none above, so an edge shard's slab
-// sits at its array's end and two flags say which slabs apply. Every kernel
-// is instantiated twice: XALL (both slabs, at the array's ends: a whole
-// grid, or a mesh of one shard) compiles the code an unsharded launch ran
-// before, and the shards' twin reads the slabs' planes from Geo (xlo,
-// xhi). Reading them from Geo in the one instantiation cost the viscous
-// pressure kernel 8% at its 40-register cap (and 10.7% as two predicates),
-// on an H100 (scripts/ab_fdtd_kernels.py, PERF.md).
+// (x, y) decomposition (ops/fdtd.py run_fdtd(mesh=)): a launch on one
+// shard's block applies the x and y CPMLs' lo and hi slabs only where the
+// shard holds that global edge (x_lo / x_hi / y_lo / y_hi,
+// fdtd_stencil.cuh Geo). It replaces the x-CPML shift edge_offset and its
+// xcoef_scale mask of B2 (build_fluid_fused_step, fdtd_pallas.py:530,598)
+// and B4 (build_fluid_fusedK_step, :1755,1850), and the y masks of the XLA
+// step (edge_masks_y, babelbrain_tpu/ops/fdtd.py:792): the TPU's shards
+// carry their ghost planes on both sides, so a shard's slab sits at an
+// offset and is masked where the shard owns no edge; here the first shard
+// along an axis carries no ghost planes below it and the last none above,
+// so an edge shard's slab sits at its array's end and four flags say which
+// slabs apply. Every kernel is instantiated twice: XALL (all four slabs, at
+// the array's ends: a whole grid, or a mesh of one shard) compiles the code
+// an unsharded launch ran before, and the shards' twin reads the slabs'
+// planes from Geo (xlo, xhi, ylo, yhi). Reading them from Geo in the one
+// instantiation cost the viscous pressure kernel 8% at its 40-register cap
+// (and 10.7% as two predicates), on an H100 (scripts/ab_fdtd_kernels.py,
+// PERF.md).
 //
 // Rounding: built with --fmad=false and written in the operation order of
 // the plain PyTorch versions (ops/fdtd_kernels.py fluid_velocity_ref /
@@ -259,9 +261,10 @@ __global__ void __launch_bounds__(
 
 extern "C" {
 
-// v3, psi6: host arrays of device pointers (see the kernels); x_lo, x_hi:
-// whether this launch applies the x CPML's lo / hi slab (both for a whole
-// grid; see Geo); tile_y, seg and the grid (gz, gy, gx) blocks along
+// v3, psi6: host arrays of device pointers (see the kernels); x_lo, x_hi,
+// y_lo, y_hi: whether this launch applies the x / y CPML's lo / hi slab
+// (all four for a whole grid, which takes the XALL instantiation; see
+// Geo); tile_y, seg and the grid (gz, gy, gx) blocks along
 // (z, y, x): the launch geometry (ops/fdtd_kernels.py
 // fluid_launch_geometry; tile_y must be the compiled 8)
 int bb_fluid_velocity(const float* p, float* const* v3, const int* idx,
@@ -269,10 +272,11 @@ int bb_fluid_velocity(const float* p, float* const* v3, const int* idx,
                       const float* prof_half, const float* amp,
                       const float* cph, const float* sph, float s_sin,
                       float s_cos, float dt_dx, int n_mat, int n1, int n2,
-                      int n3, int ns, int x_lo, int x_hi, int zsrc,
+                      int n3, int ns, int x_lo, int x_hi, int y_lo,
+                      int y_hi, int zsrc,
                       int tile_y, int seg, int gz, int gy, int gx,
                       void* stream) {
-  const Geo g = make_geo(n1, n2, n3, ns, seg, x_lo, x_hi);
+  const Geo g = make_geo(n1, n2, n3, ns, seg, x_lo, x_hi, y_lo, y_hi);
   dim3 grid;
   if (!launch_grid(g, tile_y, gz, gy, gx, grid)) {
     return (int)cudaErrorInvalidValue;
@@ -282,7 +286,7 @@ int bb_fluid_velocity(const float* p, float* const* v3, const int* idx,
                              (cudaStream_t)stream>>>(                      \
       p, gather<3, Ptr3>(v3), idx, table, n_mat, gather<6, Ptr6>(psi6),    \
       prof_half, amp, cph, sph, s_sin, s_cos, dt_dx, g, zsrc)
-  if (x_lo && x_hi) {
+  if (x_lo && x_hi && y_lo && y_hi) {
     BB_VELOCITY(true);
   } else {
     BB_VELOCITY(false);
@@ -300,13 +304,13 @@ int bb_fluid_pressure(float* const* v3, float* p, float* r, const int* idx,
                       float* peak, float* const* psi6, const float* prof_int,
                       float dt_dx, float inv_dx, float half_dt, float cosw,
                       float sinw, int n_mat, int n1, int n2, int n3, int ns,
-                      int x_lo, int x_hi, int viscous, int with_dft,
-                      int point, long long pt, float sval,
+                      int x_lo, int x_hi, int y_lo, int y_hi, int viscous,
+                      int with_dft, int point, long long pt, float sval,
                       const int* mon_start, const int* mon_cell,
                       const int* mon_slot, float* mon_out, int monitor,
                       int tile_y, int seg, int gz, int gy, int gx,
                       void* stream) {
-  const Geo g = make_geo(n1, n2, n3, ns, seg, x_lo, x_hi);
+  const Geo g = make_geo(n1, n2, n3, ns, seg, x_lo, x_hi, y_lo, y_hi);
   dim3 grid;
   if (!launch_grid(g, tile_y, gz, gy, gx, grid) ||
       !monitor_args_valid(monitor, mon_start, mon_cell, mon_slot, mon_out)) {
@@ -321,7 +325,7 @@ int bb_fluid_pressure(float* const* v3, float* p, float* r, const int* idx,
       g, (int)pt, sval, mon
 #define BB_GO(V, D, P, M)                                                   \
   do {                                                                      \
-    if (x_lo && x_hi) {                                                     \
+    if (x_lo && x_hi && y_lo && y_hi) {                                     \
       fluid_pressure_kernel<V, D, P, M, true>                               \
           <<<grid, block, 0, st>>>(BB_PRESSURE_ARGS);                       \
     } else {                                                                \

@@ -713,7 +713,7 @@ int bb_fluid_fused(float* p, float* const* v3, float* r, const int* idx,
         mon_rows == nullptr || n_mon < 1))) {
     return (int)cudaErrorInvalidValue;
   }
-  Geo g = make_geo(n1, n2, n3, ns, n1, x_lo, x_hi);
+  Geo g = make_geo(n1, n2, n3, ns, n1, x_lo, x_hi, 1, 1);
   Rows rw{};
   for (int s = 0; s < k_steps; ++s) {
     rw.s_sin[s] = rows[5 * s];

@@ -42,17 +42,23 @@ T gather(float* const* host) {
 
 // The grid, the CPML slab depth, the x-segment length, and where this
 // launch applies the x CPML: its lo slab at planes [0, xlo) and its hi slab
-// at [xhi, n1). A whole grid applies both (xlo = ns, xhi = n1 - ns); a
-// shard of an x decomposition applies a slab only where it holds that
-// global edge (xlo = 0 or xhi = n1 otherwise: ops/fdtd.py, parallel/halo.py).
+// at [xhi, n1), and the y CPML: rows [0, ylo) and [yhi, n2). A whole grid
+// applies all four (xlo = ns, xhi = n1 - ns, ylo = ns, yhi = n2 - ns); a
+// shard of an (x, y) decomposition applies a slab only where it holds that
+// global edge (xlo = 0, xhi = n1, ylo = 0 or yhi = n2 otherwise:
+// ops/fdtd.py, parallel/halo.py). Only the pairs' shards' instantiations
+// read ylo / yhi (Cpml, XALL = false); the sweeps, which decompose x only,
+// pass y flags of both slabs and apply both y slabs (slab below).
 struct Geo {
-  int n1, n2, n3, ns, seg, xlo, xhi;
+  int n1, n2, n3, ns, seg, xlo, xhi, ylo, yhi;
 };
 
-// the Geo of a launch; x_lo / x_hi: whether it applies the x lo / hi slab
+// the Geo of a launch; x_lo / x_hi / y_lo / y_hi: whether it applies the
+// x / y lo / hi slab
 inline Geo make_geo(int n1, int n2, int n3, int ns, int seg, int x_lo,
-                    int x_hi) {
-  return Geo{n1, n2, n3, ns, seg, x_lo ? ns : 0, x_hi ? n1 - ns : n1};
+                    int x_hi, int y_lo, int y_hi) {
+  return Geo{n1, n2, n3, ns, seg, x_lo ? ns : 0, x_hi ? n1 - ns : n1,
+             y_lo ? ns : 0, y_hi ? n2 - ns : n2};
 }
 
 // This thread's column (j, k) and the x-planes [i0, i1) of its block
@@ -193,9 +199,9 @@ __device__ __forceinline__ float cpml(float d, int pos, int lo_end,
 // (i, q.j, q.k): psi slabs (ns, N2, N3), (N1, ns, N3) or (N1, N2, ns).
 // Forward differences take the "half" profiles, backward ones the "int"
 // profiles (a kernel without one of the two passes nullptr for it). Along
-// y and z both slabs; along x both at the array's ends with XALL (a whole
+// z both slabs; along x and y both at the array's ends with XALL (a whole
 // grid: the code of an unsharded launch), else the slabs this launch owns
-// (Geo xlo, xhi).
+// (Geo xlo, xhi, ylo, yhi).
 template <typename PSI, bool XALL>
 struct Cpml {
   const PSI& psi;
@@ -217,8 +223,13 @@ struct Cpml {
         return cpml(d, i, g.xlo, g.xhi, g.ns, prof, lo, hi, q.jk, q.plane);
       }
     } else if constexpr (AXIS == 1) {
-      return cpml(d, q.j, g.ns, g.n2 - g.ns, g.ns, prof, lo, hi,
-                  i * g.ns * g.n3 + q.k, g.n3);
+      if constexpr (XALL) {
+        return cpml(d, q.j, g.ns, g.n2 - g.ns, g.ns, prof, lo, hi,
+                    i * g.ns * g.n3 + q.k, g.n3);
+      } else {
+        return cpml(d, q.j, g.ylo, g.yhi, g.ns, prof, lo, hi,
+                    i * g.ns * g.n3 + q.k, g.n3);
+      }
     } else {
       return cpml(d, q.k, g.ns, g.n3 - g.ns, g.ns, prof, lo, hi,
                   (i * g.n2 + q.j) * g.ns, 1);
@@ -409,6 +420,9 @@ __device__ __forceinline__ Slab slab(const Geo& g, int i, int j, int k,
     return XALL ? Slab{i, g.ns, g.n1 - g.ns, jk, plane}
                 : Slab{i, g.xlo, g.xhi, jk, plane};
   }
+  // along y both slabs: the sweeps decompose x only (reading Geo's y flags
+  // here changed the registers and spills of their shards' twins on an
+  // H100, PERF.md)
   if (AXIS == 1) return Slab{j, g.ns, g.n2 - g.ns, i * g.ns * g.n3 + k, g.n3};
   return Slab{k, g.ns, g.n3 - g.ns, (i * g.n2 + j) * g.ns, 1};
 }

@@ -62,11 +62,13 @@
 // injection of B6/B8 (build_visco_fused_step, build_visco_fusedK_step).
 // POINT=false compiles to the plane-source code.
 //
-// x decomposition: as the fluid pair (fdtd_fluid.cu), a launch applies the
-// x CPML's lo / hi slab only where its shard holds that global edge
-// (x_lo / x_hi, Geo; the XALL instantiations for a whole grid). It replaces
-// the edge_offset and xcoef_scale of B6 (build_visco_fused_step,
-// fdtd_pallas.py:3439,3491) and B8 (build_visco_fusedK_step, :4844,4945).
+// (x, y) decomposition: as the fluid pair (fdtd_fluid.cu), a launch
+// applies the x and y CPMLs' lo / hi slabs only where its shard holds that
+// global edge (x_lo / x_hi / y_lo / y_hi, Geo; the XALL instantiations for
+// a whole grid). It replaces the edge_offset and xcoef_scale of B6
+// (build_visco_fused_step, fdtd_pallas.py:3439,3491) and B8
+// (build_visco_fusedK_step, :4844,4945) and the y masks of the XLA step
+// (edge_masks_y, babelbrain_tpu/ops/fdtd.py:523).
 //
 // Rounding: built with --fmad=false and written in the operation order of
 // the plain PyTorch versions (ops/fdtd_visco_kernels.py visco_velocity_ref /
@@ -319,8 +321,9 @@ __global__ void __launch_bounds__(kThreads, kStressMinBlocks)
 extern "C" {
 
 // s6, v3, psi18: host arrays of device pointers (see the kernels); x_lo,
-// x_hi: whether this launch applies the x CPML's lo / hi slab (both for a
-// whole grid; see Geo); tile_y, seg and the grid (gz, gy, gx) blocks along
+// x_hi, y_lo, y_hi: whether this launch applies the x / y CPML's lo / hi
+// slab (all four for a whole grid, which takes the XALL instantiation; see
+// Geo); tile_y, seg and the grid (gz, gy, gx) blocks along
 // (z, y, x): the launch geometry (ops/fdtd_visco_kernels.py
 // visco_launch_geometry; tile_y must be the compiled 8)
 int bb_visco_velocity(float* const* s6, float* const* v3, const int* idx,
@@ -329,9 +332,9 @@ int bb_visco_velocity(float* const* s6, float* const* v3, const int* idx,
                       const float* amp, const float* cph, const float* sph,
                       float s_sin, float s_cos, float dt_dx, int n_mat,
                       int n1, int n2, int n3, int ns, int x_lo, int x_hi,
-                      int zsrc, int tile_y, int seg, int gz, int gy, int gx,
-                      void* stream) {
-  const Geo g = make_geo(n1, n2, n3, ns, seg, x_lo, x_hi);
+                      int y_lo, int y_hi, int zsrc, int tile_y, int seg,
+                      int gz, int gy, int gx, void* stream) {
+  const Geo g = make_geo(n1, n2, n3, ns, seg, x_lo, x_hi, y_lo, y_hi);
   dim3 grid;
   if (!launch_grid(g, tile_y, gz, gy, gx, grid)) {
     return (int)cudaErrorInvalidValue;
@@ -342,7 +345,7 @@ int bb_visco_velocity(float* const* s6, float* const* v3, const int* idx,
       gather<6, Ptr6>(s6), gather<3, Ptr3>(v3), idx, table, n_mat,        \
       gather<18, Ptr18>(psi18), prof_half, prof_int, amp, cph, sph, s_sin, \
       s_cos, dt_dx, g, zsrc)
-  if (x_lo && x_hi) {
+  if (x_lo && x_hi && y_lo && y_hi) {
     BB_VELOCITY(true);
   } else {
     BB_VELOCITY(false);
@@ -360,13 +363,13 @@ int bb_visco_stress(float* const* v3, float* const* s6, float* const* r6,
                     const float* prof_half, const float* prof_int,
                     float dt_dx, float inv_dx, float half_dt, float cosw,
                     float sinw, int n_mat, int n1, int n2, int n3, int ns,
-                    int x_lo, int x_hi, int viscous, int with_dft,
-                    int point, long long pt, float sval,
+                    int x_lo, int x_hi, int y_lo, int y_hi, int viscous,
+                    int with_dft, int point, long long pt, float sval,
                     const int* mon_start, const int* mon_cell,
                     const int* mon_slot, float* mon_out, int monitor,
                     int tile_y, int seg, int gz, int gy, int gx,
                     void* stream) {
-  const Geo g = make_geo(n1, n2, n3, ns, seg, x_lo, x_hi);
+  const Geo g = make_geo(n1, n2, n3, ns, seg, x_lo, x_hi, y_lo, y_hi);
   dim3 grid;
   if (!launch_grid(g, tile_y, gz, gy, gx, grid) ||
       !monitor_args_valid(monitor, mon_start, mon_cell, mon_slot, mon_out)) {
@@ -383,7 +386,7 @@ int bb_visco_stress(float* const* v3, float* const* s6, float* const* r6,
       sval, mon
 #define BB_GO(V, D, P, M)                                                   \
   do {                                                                      \
-    if (x_lo && x_hi) {                                                     \
+    if (x_lo && x_hi && y_lo && y_hi) {                                     \
       visco_stress_kernel<V, D, P, M, true>                                 \
           <<<grid, block, smem, st>>>(BB_STRESS_ARGS);                      \
     } else {                                                                \

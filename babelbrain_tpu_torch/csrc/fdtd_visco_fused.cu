@@ -842,7 +842,7 @@ int bb_visco_fused(float* const* v3, float* const* s6, float* const* r6,
   for (const void* f : staged) {
     if (reinterpret_cast<unsigned long long>(f) % 16 != 0) vec = 0;
   }
-  Geo g = make_geo(n1, n2, n3, ns, n1, x_lo, x_hi);
+  Geo g = make_geo(n1, n2, n3, ns, n1, x_lo, x_hi, 1, 1);
   Rows rw{};
   for (int s = 0; s < k_steps; ++s) {
     rw.s_sin[s] = rows[5 * s];

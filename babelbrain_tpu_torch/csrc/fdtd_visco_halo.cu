@@ -770,7 +770,7 @@ int BB_CAT(bb_visco_halo_k, BB_VHALO_K)(
   a.dt_dx = dt_dx;
   a.inv_dx = inv_dx;
   a.half_dt = half_dt;
-  a.g = make_geo(n1, n2, n3, ns, seg, 1, 1);
+  a.g = make_geo(n1, n2, n3, ns, seg, 1, 1, 1, 1);
   a.zsrc = zsrc;
   for (int s = 0; s < K; ++s) {
     a.rows.s_sin[s] = rows[4 * s];

@@ -63,8 +63,8 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C entry points: argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
-    "bb_fluid_velocity": [_P] * 9 + [_F] * 3 + [_I] * 13 + [_P],
-    "bb_fluid_pressure": [_P] * 10 + [_F] * 5 + [_I] * 10 + [_L, _F]
+    "bb_fluid_velocity": [_P] * 9 + [_F] * 3 + [_I] * 15 + [_P],
+    "bb_fluid_pressure": [_P] * 10 + [_F] * 5 + [_I] * 12 + [_L, _F]
     + [_P] * 4 + [_I] * 6 + [_P],
     "bb_fluid_fused": [_P] * 16 + [_I] + [_F] * 3 + [_I] * 11 + [_L]
     + [_I] * 2 + [_P],
@@ -77,8 +77,8 @@ _SIGNATURES = {
     "bb_bhte_step": [_P] * 13 + [_F] + [_I] * 3 + [_P],
     "bb_bhte_fused": [_P] * 13 + [_F] + [_I] * 8 + [_P],
     "bb_bhte_fused_tile": [_I, _P, _P],
-    "bb_visco_velocity": [_P] * 10 + [_F] * 3 + [_I] * 13 + [_P],
-    "bb_visco_stress": [_P] * 11 + [_F] * 5 + [_I] * 10 + [_L, _F]
+    "bb_visco_velocity": [_P] * 10 + [_F] * 3 + [_I] * 15 + [_P],
+    "bb_visco_stress": [_P] * 11 + [_F] * 5 + [_I] * 12 + [_L, _F]
     + [_P] * 4 + [_I] * 6 + [_P],
     "bb_velocity_volume_source": [_P] * 10 + [_F, _F, _I, _P],
     "bb_extras_accumulate": [_P, _P, _I, _I, _L, _P],

@@ -39,23 +39,27 @@ The port compiles no executable per grid, so it keeps no counterpart of the
 JAX package's executable memo.
 
 Domain decomposition (``run_fdtd(mesh=)``, ``parallel.halo``): the grid is
-cut into equal shards along x over the devices of a 1-D ``DeviceMesh``;
-each shard holds its own copy of the setup, its planes and ghost planes
-on each side that has a neighbour, and its launches apply the x CPML only
-where it holds a global edge. A plane-source run without diagnostics goes
+cut into equal blocks of columns over the devices of a ``DeviceMesh`` on
+axis "x", axis "y" or both (``make_mesh_2d``: ``Blocks``, shard s =
+sx * ny + sy); each shard holds its own copy of the setup, its block and
+ghost planes on each side that has a neighbour along each axis, and its
+launches apply the x and y CPMLs only where it holds a global edge. An
+x-mesh plane-source run without diagnostics goes
 overlap-and-discard (``sharded_plan``, the JAX package's
 ``_simulate_fluid_pallas_sharded_fused`` and
 ``_simulate_visco_pallas_sharded_fused``): H = 3K (fluid) or JAX's 4K
 (visco) ghost planes a side, one bundled refresh of each group of the state's
 ghost planes (``XSlabs.refresh_group``) and one fused K-step launch per
 shard a sweep; what the array's edge contaminates stays inside the ghost
-planes. Every other run keeps 2 ghost
-planes and, after each half-step, copies those of the fields the next
-half-step reads across x from the neighbours (``XSlabs.refresh``). Either
-way a sharded run equals the unsharded one bit for bit.
-``run_fdtd_batch(mesh=)`` spreads its cases over a mesh's devices
-(``make_case_mesh``). 2-D (x, y) meshes raise ``NotImplementedError``
-naming ROADMAP Queue A item 6.
+planes. Every other run, and every run on a mesh cut along y (the JAX
+package's Pallas drivers decompose x only, so its 2-D runs go through its
+XLA step), keeps 2 ghost planes and, after each half-step, copies those of
+the fields the next half-step reads across x and across y from the
+neighbours (``Blocks.refresh``, ``HALO_FIELDS``). Either way a sharded run
+equals the unsharded one bit for bit. ``run_fdtd_batch(mesh=)`` spreads its
+cases over a mesh's devices (``make_case_mesh``, or any mesh). A mesh on
+other axes than x and y raises ``NotImplementedError`` naming ROADMAP Queue
+A item 6b / 6c.
 """
 
 from __future__ import annotations
@@ -66,7 +70,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..parallel.halo import XSlabs, mesh_axis_sizes, mesh_devices
+from ..parallel.halo import (
+    ROADMAP_ITEM,
+    Blocks,
+    XSlabs,
+    mesh_axis_sizes,
+    mesh_devices,
+)
 from ..parallel.halo import make_mesh as _make_mesh
 from ..utils.timing import stage_timer
 from . import fdtd_kernels, fdtd_visco_kernels
@@ -757,17 +767,20 @@ def run_fdtd(
     its per-step monitor samples. Fused or not, the result is the
     step-by-step run's bit for bit.
 
-    ``mesh``: a 1-D ``DeviceMesh`` on axis "x" (``parallel.halo.make_mesh``)
-    decomposes the grid along x over its devices (``device`` is then not
-    used): N1 must divide by the mesh size into shards of at least
-    npml + 2 planes, as in the JAX package. A plane-source run without
-    diagnostics, and a fluid run with a volumetric source, run
-    overlap-and-discard fused sweeps where ``sharded_plan`` finds a K >= 2
-    (``fuse_steps`` as above; the volumetric ones through ``fluid_halo``,
-    by default only where ``VOLUME_FUSE_BEST`` >= 2), every other run (a
-    volumetric source in shear media too: JAX sends it to XLA) the pair
-    with 2 ghost planes. The result equals the
-    unsharded run's bit for bit.
+    ``mesh``: a ``DeviceMesh`` on axis "x" (``parallel.halo.make_mesh``),
+    on axis "y" (``make_mesh(n, "y")``) or on both (``make_mesh_2d(nx,
+    ny)``) decomposes the grid along those axes over its devices
+    (``device`` is then not used): N1 and N2 must divide by the mesh's
+    shard counts into shards of at least npml + 2 planes, as in the JAX
+    package. On an x mesh a plane-source run without diagnostics, and a
+    fluid run with a volumetric source, run overlap-and-discard fused
+    sweeps where ``sharded_plan`` finds a K >= 2 (``fuse_steps`` as above;
+    the volumetric ones through ``fluid_halo``, by default only where
+    ``VOLUME_FUSE_BEST`` >= 2); every other run (a volumetric source in
+    shear media too: JAX sends it to XLA; and every run on a mesh cut along
+    y, whatever ``fuse_steps`` says, as JAX keeps its XLA step) the pair
+    with 2 ghost planes. The result equals the unsharded run's bit for
+    bit.
 
     ``sel_maps``: extra maps named ``<Field>_rms`` / ``<Field>_peak``, Field
     in Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy, Sigmazz, accumulated over
@@ -1024,14 +1037,19 @@ def fdtd_setup(mat_idx, materials, grid: FDTDGrid, source_amp=None,
 
 
 # ---------------------------------------------------------------------------
-# x decomposition over a device mesh
+# (x, y) decomposition over a device mesh
 # ---------------------------------------------------------------------------
 
-# the fields each half-step's successor reads across x: their ghost planes
-# are refreshed after (velocity half, pressure / stress half)
+# the fields each half-step's successor differences across x and across y:
+# their ghost planes along that axis are refreshed after (velocity half,
+# pressure / stress half). Fluid: vx = D+x p, vy = D+y p, vz = D+z p, then
+# theta = D-x vx + D-y vy + D-z vz. Visco (ops.fdtd_visco_kernels
+# VELOCITY_DERIVS, STRESS_DERIVS): the velocities read sxx, sxy, sxz along
+# x and sxy, syy, syz along y; the stresses read vx, vy, vz along both.
 HALO_FIELDS = {
-    FluidState: (("vx",), ("p",)),
-    ViscoState: (("vx", "vy", "vz"), ("sxx", "sxy", "sxz")),
+    FluidState: {0: (("vx",), ("p",)), 1: (("vy",), ("p",))},
+    ViscoState: {0: (("vx", "vy", "vz"), ("sxx", "sxy", "sxz")),
+                 1: (("vx", "vy", "vz"), ("sxy", "syy", "syz"))},
 }
 # (velocity, pressure / stress) of each family: the kernels' wrappers and
 # their plain versions; the wrappers' one-time check
@@ -1060,40 +1078,45 @@ class Shard:
     slots: np.ndarray | None = None
 
 
-def _x_slabs(mesh, grid: FDTDGrid, halo: int = 2) -> XSlabs:
-    """The x decomposition of ``grid`` over a 1-D x mesh with ``halo`` ghost
+def _blocks(mesh, grid: FDTDGrid, halo: int = 2) -> Blocks:
+    """The (x, y) decomposition of ``grid`` over a mesh on axes ("x",),
+    ("y",) or ("x", "y") (its devices in C order) with ``halo`` ghost
     planes, with the JAX package's refusals
     (`babelbrain_tpu/ops/fdtd.py:1477-1485`)."""
     mesh_devices(mesh, "run_fdtd")
-    nx, ny = mesh_axis_sizes(mesh)
-    if ny > 1 or "x" not in mesh.axis_names:
+    if tuple(mesh.axis_names) not in (("x",), ("y",), ("x", "y")):
         raise NotImplementedError(
-            f"run_fdtd: the port decomposes along x only (mesh axes "
-            f"{mesh.axis_names} {mesh.shape}); 2-D (x, y) meshes are ROADMAP "
-            "Queue A item 6"
+            f"run_fdtd: the port decomposes over mesh axes ('x',), ('y',) or "
+            f"('x', 'y') (mesh axes {mesh.axis_names} {mesh.shape}); other "
+            f"meshes are {ROADMAP_ITEM}"
         )
+    nx, ny = mesh_axis_sizes(mesh)
     if grid.shape[0] % nx or grid.shape[1] % ny:
         raise ValueError(
             f"grid {grid.shape[:2]} not divisible by mesh ({nx}, {ny})"
         )
     if grid.shape[0] // nx < grid.npml + 2 or grid.shape[1] // ny < grid.npml + 2:
         raise ValueError("shard too thin for the PML slab; reduce mesh size")
-    return XSlabs(grid.shape[0], nx, halo)
+    return Blocks(XSlabs(grid.shape[0], nx, halo),
+                  XSlabs(grid.shape[1], ny, halo, axis=1))
 
 
-def _split_source(vs: VolumeSource, xs: XSlabs, s: int, plane: int, device):
-    """The source voxels of shard s's planes, its ghost planes included,
-    re-indexed to its local planes, on ``device`` (the values copied, not
+def _split_source(vs: VolumeSource, dd: Blocks, s: int, n2: int, n3: int,
+                  device):
+    """The source voxels of shard s's block, its ghost planes included,
+    re-indexed to its local cells, on ``device`` (the values copied, not
     recomputed). The overlap-and-discard sweeps drive the ghost planes as
     their owner drives them, zero beyond the global edges (JAX extends its
     sharded drive so, `babelbrain_tpu/ops/fdtd_pallas.py:2677-2690`); in
     the pair's steps a driven ghost plane is refreshed from its owner or
     never read."""
-    i = vs.index.long() // plane
-    lo = xs.start(s)
-    sel = torch.nonzero((i >= lo) & (i < lo + xs.planes(s))).reshape(-1)
-    index = vs.index.index_select(0, sel) - xs.start(s) * plane
-    return VolumeSource(index=index.to(device), **{
+    (a, b), (m1, m2) = dd.start(s), dd.planes(s)
+    v = vs.index.long()
+    i, j, z = v // (n2 * n3), v // n3 % n2, v % n3
+    sel = torch.nonzero((i >= a) & (i < a + m1) & (j >= b)
+                        & (j < b + m2)).reshape(-1)
+    index = (((i - a) * m2 + (j - b)) * n3 + z).index_select(0, sel)
+    return VolumeSource(index=index.to(torch.int32).to(device), **{
         k: getattr(vs, k).index_select(0, sel).to(device)
         for k in ("amp", "cph", "sph", "ox", "oy", "oz")})
 
@@ -1101,13 +1124,13 @@ def _split_source(vs: VolumeSource, xs: XSlabs, s: int, plane: int, device):
 def shard_setup(mesh, mat_idx, materials, grid: FDTDGrid, source_amp=None,
                 source_phase=None, reflector_mask=None, volume_source=None,
                 sel_maps=(), monitor_ijk=None, sample_steps=(), halo=2):
-    """What ``run_fdtd(mesh=)`` steps with: (``XSlabs``, the ``Shard`` of
+    """What ``run_fdtd(mesh=)`` steps with: (``Blocks``, the ``Shard`` of
     each mesh device, the pressure->velocity scale). Each shard holds its
-    copy of the setup, a zero state of its planes and ``halo`` ghost planes
-    a side, its part of the sources and, with ``sel_maps`` or
-    ``monitor_ijk``, its ``Diagnostics`` (monitor samples at
-    ``sample_steps``)."""
-    xs = _x_slabs(mesh, grid, halo)
+    copy of the setup, a zero state of its block and ``halo`` ghost planes
+    a side along each cut axis, its part of the sources and, with
+    ``sel_maps`` or ``monitor_ijk``, its ``Diagnostics`` (monitor samples at
+    ``sample_steps``) over the voxels it owns."""
+    dd = _blocks(mesh, grid, halo)
     h = _host_setup(mat_idx, materials, grid, source_amp, source_phase,
                     reflector_mask)
     vsrc = _volume_source(grid, volume_source, mesh.devices[0])
@@ -1119,33 +1142,33 @@ def shard_setup(mesh, mat_idx, materials, grid: FDTDGrid, source_amp=None,
         monitor_index(mon, grid.shape, "cpu")  # refuses voxels off the grid
     shards = []
     for s, dev in enumerate(mesh.devices):
-        a, n1 = xs.start(s), xs.planes(s)
-        shape = (n1, n2, n3)
-        co = make(h.idx[a:a + n1], h.table, h.profiles,
-                  *(np.asarray(v)[a:a + n1] for v in h.src), grid,
-                  h.viscous, dev)
-        co.x_lo, co.x_hi = s == 0, s == xs.n_shards - 1
+        (a, b), (m1, m2) = dd.start(s), dd.planes(s)
+        box = (slice(a, a + m1), slice(b, b + m2))
+        shape = (m1, m2, n3)
+        co = make(h.idx[box], h.table, h.profiles,
+                  *(np.asarray(v)[box] for v in h.src), grid, h.viscous, dev)
+        co.x_lo, co.x_hi, co.y_lo, co.y_hi = dd.edges(s)
         sh = Shard(dev, state.zeros(shape, grid.npml + 2, dev), co)
         _CHECK[state](sh.st, sh.co)  # once: the loop passes checked=True
         if vsrc is not None:
-            sh.vsrc = _split_source(vsrc, xs, s, n2 * n3, dev)
-        own = range(s * xs.width, (s + 1) * xs.width)
-        if grid.source_type == "stress_point" and grid.source_ijk[0] in own:
+            sh.vsrc = _split_source(vsrc, dd, s, n2, n3, dev)
+        if (grid.source_type == "stress_point"
+                and dd.owner(*(int(v) for v in grid.source_ijk[:2])) == s):
             i, j, k = (int(v) for v in grid.source_ijk)
-            sh.point = ((i - a) * n2 + j) * n3 + k
+            sh.point = ((i - a) * m2 + j - b) * n3 + k
         if sel_maps or mon is not None:
             index = None
             if mon is not None:
-                sh.slots = np.flatnonzero((mon[:, 0] >= own.start)
-                                          & (mon[:, 0] < own.stop))
-                local = mon[sh.slots] - np.array([a, 0, 0])
+                sh.slots = np.flatnonzero(
+                    [dd.owner(i, j) == s for i, j in mon[:, :2]])
+                local = mon[sh.slots] - np.array([a, b, 0])
                 index = monitor_index(local, shape, dev)
             sh.diag = Diagnostics.create(
                 sh.st, grid.sensor_start, sel_maps,
                 sample_steps=sample_steps if mon is not None else (),
                 index=index)
         shards.append(sh)
-    return xs, shards, h.oz_scale
+    return dd, shards, h.oz_scale
 
 
 def _shard_range(sh: Shard, s: int):
@@ -1155,27 +1178,34 @@ def _shard_range(sh: Shard, s: int):
     return torch.cuda.nvtx.range(f"shard {s}")
 
 
-def step_shards(shards, xs: XSlabs, grid: FDTDGrid, n: int, oz_scale: float,
+def _refresh(shards, dd: Blocks, half: int) -> None:
+    """The ghost planes of half-step ``half``'s fields (``HALO_FIELDS`` of
+    the state) along each cut axis."""
+    for axis, names in HALO_FIELDS[type(shards[0].st)].items():
+        for k in names[half]:
+            dd.refresh([getattr(sh.st, k) for sh in shards], axis)
+
+
+def step_shards(shards, dd: Blocks, grid: FDTDGrid, n: int, oz_scale: float,
                 point_amp: float = 0.0, plain: bool = False) -> None:
     """Step ``n`` of ``_advance`` over the shards: every shard's velocity
     half-step and volumetric scatter, the velocity ghost planes, every
     shard's pressure / stress half-step (its point source and monitor
-    sample, then its maps), the pressure / stress ghost planes. ``plain``
-    runs the plain versions (to check the kernels against). The shards'
-    states and coefficients were validated by ``shard_setup``: the
-    wrappers skip their per-call checks."""
+    sample, then its maps), the pressure / stress ghost planes; each
+    refresh along x, then along y. ``plain`` runs the plain versions (to
+    check the kernels against). The shards' states and coefficients were
+    validated by ``shard_setup``: the wrappers skip their per-call
+    checks."""
     state = type(shards[0].st)
     velocity, stress = _STEPS[state][plain]
     scatter = velocity_volume_source_ref if plain else velocity_volume_source
     kw = {} if plain else {"checked": True}
-    after_v, after_s = HALO_FIELDS[state]
     scalars = step_scalars(grid, n, oz_scale, point_amp)
     for s, sh in enumerate(shards):
         with _shard_range(sh, s):
             _velocity_half(velocity, sh.st, sh.co, scalars, sh.vsrc, scatter,
                            **kw)
-    for k in after_v:
-        xs.refresh([getattr(sh.st, k) for sh in shards])
+    _refresh(shards, dd, 0)
     for s, sh in enumerate(shards):
         with _shard_range(sh, s):
             mon = sh.diag.monitor(n) if sh.diag is not None else None
@@ -1183,8 +1213,7 @@ def step_shards(shards, xs: XSlabs, grid: FDTDGrid, n: int, oz_scale: float,
                          mon, **kw)
             if sh.diag is not None:
                 sh.diag.record(sh.st, n, plain=plain)
-    for k in after_s:
-        xs.refresh([getattr(sh.st, k) for sh in shards])
+    _refresh(shards, dd, 1)
 
 
 def sharded_plan(width: int, grid: FDTDGrid, device, viscous: bool,
@@ -1266,16 +1295,16 @@ def state_groups(st) -> tuple:
     return fields, slabs[1], slabs[2]
 
 
-def sweep_shards(shards, xs: XSlabs, grid: FDTDGrid, n: int, k: int,
+def sweep_shards(shards, dd: Blocks, grid: FDTDGrid, n: int, k: int,
                  with_dft: bool, oz_scale: float, plain: bool = False) -> None:
-    """Steps n..n+k-1 over the shards, overlap and discard: one bundled
-    refresh of each group of ``state_groups``, then one fused launch
-    (``fluid_fused`` or ``visco_fused``; with a volumetric drive
+    """Steps n..n+k-1 over the shards of an x mesh, overlap and discard:
+    one bundled refresh of each group of ``state_groups``, then one fused
+    launch (``fluid_fused`` or ``visco_fused``; with a volumetric drive
     ``fluid_halo``) per shard over its planes and ghost planes (``plain``:
     the plain version)."""
     groups = [state_groups(sh.st) for sh in shards]
     for g in range(len(groups[0])):
-        xs.refresh_group([gr[g] for gr in groups])
+        dd.refresh_group([gr[g] for gr in groups])
     rows = [step_scalars(grid, m, oz_scale) for m in range(n, n + k)]
     fused, ref, *_ = FUSED[type(shards[0].st)]
     for s, sh in enumerate(shards):
@@ -1293,63 +1322,69 @@ def sweep_shards(shards, xs: XSlabs, grid: FDTDGrid, n: int, k: int,
                 fused(sh.st, sh.co, rows, with_dft=with_dft, checked=True)
 
 
-def own_planes(xs: XSlabs, parts) -> np.ndarray:
-    """The global volume from each shard's (planes, N2, N3) part (numpy
-    arrays or tensors): the planes each shard owns, in order."""
-    return np.concatenate([
-        (p.cpu().numpy() if torch.is_tensor(p) else p)[xs.own(s)]
-        for s, p in enumerate(parts)])
+def own_planes(dd: Blocks, parts) -> np.ndarray:
+    """The global volume from each shard's (planes, rows, N3) part (numpy
+    arrays or tensors): the block each shard owns, in place."""
+    own = [(p.cpu().numpy() if torch.is_tensor(p) else p)[dd.own(s)]
+           for s, p in enumerate(parts)]
+    ny = dd.y.n_shards
+    return np.concatenate([np.concatenate(own[sx * ny:(sx + 1) * ny], axis=1)
+                           for sx in range(dd.x.n_shards)])
 
 
 def overlap_plan(mesh, materials, grid: FDTDGrid, sel_maps=(),
                  monitor_ijk=None, fuse_steps=None):
     """``sharded_plan`` of a ``run_fdtd(mesh=)`` call (fluid or shear
     media), or None where that run keeps the pair: anything but a plane
-    source or a fluid run's volumetric drive without diagnostics, or no
-    K >= 2 that fits."""
+    source or a fluid run's volumetric drive without diagnostics, a mesh
+    cut along y (the sweeps decompose x only, as the JAX package's Pallas
+    drivers: `babelbrain_tpu/ops/fdtd.py:1161`), or no K >= 2 that fits."""
     mats = np.asarray(materials, np.float64)
     visco = bool(np.any(mats[:, 2] > 0))
     volume = grid.source_type == "velocity_volume" and not visco
     if ((grid.source_type != "velocity_plane" and not volume) or sel_maps
             or monitor_ijk is not None):
         return None
-    xs = _x_slabs(mesh, grid)
+    dd = _blocks(mesh, grid)
+    if dd.y.n_shards > 1:
+        return None
     viscous = sls_coefficients(mats, grid.frequency, grid.dt)["viscous"]
-    return sharded_plan(xs.width, grid, mesh.devices[0], viscous, fuse_steps,
-                        visco=visco, volume=volume)
+    return sharded_plan(dd.x.width, grid, mesh.devices[0], viscous,
+                        fuse_steps, visco=visco, volume=volume)
 
 
 def _run_fdtd_sharded(mesh, mat_idx, materials, grid: FDTDGrid, source_amp,
                       source_phase, point_amp, reflector_mask, volume_source,
                       sel_maps, monitor_ijk, sub: int,
                       fuse_steps=None) -> dict:
-    """``run_fdtd`` decomposed along x over ``mesh``: overlap-and-discard
-    fused sweeps where ``overlap_plan`` finds one, else the pair step by
-    step."""
+    """``run_fdtd`` decomposed along x and / or y over ``mesh``:
+    overlap-and-discard fused sweeps where ``overlap_plan`` finds one, else
+    the pair step by step; the maps and the monitor series assembled from
+    what each shard owns."""
     sel = np.arange(grid.sensor_start, grid.n_steps, sub)
     plan = overlap_plan(mesh, materials, grid, sel_maps, monitor_ijk,
                         fuse_steps)
     with stage_timer("FDTD setup", level=3, step=2):
-        xs, shards, oz_scale = shard_setup(
+        dd, shards, oz_scale = shard_setup(
             mesh, mat_idx, materials, grid, source_amp, source_phase,
             reflector_mask, volume_source, sel_maps, monitor_ijk, sel,
             halo=2 if plan is None else plan[1])
     with stage_timer("FDTD time loop", level=3, step=2):
         if plan is None:
             for n in range(grid.n_steps):
-                step_shards(shards, xs, grid, n, oz_scale, point_amp)
+                step_shards(shards, dd, grid, n, oz_scale, point_amp)
         else:
             for n, k, dft in overlap_schedule(grid, plan[0]):
-                sweep_shards(shards, xs, grid, n, k, dft, oz_scale)
+                sweep_shards(shards, dd, grid, n, k, dft, oz_scale)
         _synchronize([sh.st.peak for sh in shards])
     fdtd_halo_kernels.release()
 
-    result = _carrier_of(*(own_planes(xs, [getattr(sh.st, k) for sh in shards])
+    result = _carrier_of(*(own_planes(dd, [getattr(sh.st, k) for sh in shards])
                            for k in ("acc_cos", "acc_sin", "peak")), grid)
     n_win = grid.n_steps - grid.sensor_start
     if sel_maps:
         maps = [sh.diag.extras.read(n_win) for sh in shards]
-        result.update({k: own_planes(xs, [m[k] for m in maps])
+        result.update({k: own_planes(dd, [m[k] for m in maps])
                        for k in sel_maps})
     if monitor_ijk is not None:
         k = len(np.asarray(monitor_ijk).reshape(-1, 3))
@@ -1394,10 +1429,11 @@ def run_fdtd_batch(
     with plane b bit for bit.
 
     ``source_amps``, ``source_phases``: (B, N1, N2) per-case planes.
-    ``mesh``: a 1-D ``DeviceMesh`` (``make_case_mesh``) whose devices take
-    contiguous blocks of the cases (the JAX package's case-axis fan-out,
-    without its padding), stepped in lockstep so that several cards work at
-    once; without it every case runs on ``device``. Returns the stacked
+    ``mesh``: a ``DeviceMesh`` (``make_case_mesh``, or a mesh of any axes:
+    ``make_mesh_2d`` too, as the JAX package takes one) whose devices, in C
+    order, take contiguous blocks of the cases (the JAX package's case-axis
+    fan-out, without its padding), stepped in lockstep so that several
+    cards work at once; without it every case runs on ``device``. Returns the stacked
     (B, N1, N2, N3) 'p_amp', 'p_phase' and 'peak' of ``run_fdtd``.
     """
     devices = ((torch.device(device),) if mesh is None

@@ -57,6 +57,7 @@ from .fdtd_kernels import (
     fluid_pressure_ref,
     fluid_velocity_ref,
     pressure_key,
+    whole_y,
 )
 
 # steps a launch takes at most (csrc/fdtd_fluid_fused.cu kMaxSteps)
@@ -288,6 +289,7 @@ def fluid_fused(st: FluidState, co: FluidCoeffs, rows, point=None, *,
     (st, co) already."""
     (n1, n2, n3), ns = _shape(st, co, checked)
     k = check_rows(rows)
+    whole_y(co, "fluid_fused")
     if point is not None and not 0 <= int(point) < n1 * n2 * n3:
         raise ValueError(f"point source index {point} outside {(n1, n2, n3)}")
     with_extras = extras is not None or monitor is not None

@@ -54,6 +54,7 @@ from .fdtd_kernels import (
     _shape,
     fluid_pressure_ref,
     fluid_velocity_ref,
+    whole_y,
 )
 from .fdtd_sources import VolumeSource, velocity_volume_source_ref
 from .fdtd_sources import _check as _check_source
@@ -311,6 +312,7 @@ def fluid_halo(st: FluidState, co: FluidCoeffs, rows,
     twin). ``checked``: ``check_step`` validated (st, co) already."""
     (n1, n2, n3), ns = _shape(st, co, checked)
     k = check_rows(rows, HALO_K_CAP, "fluid_halo")
+    whole_y(co, "fluid_halo")
     _check_state(st)
     if vsrc is not None:
         _check_source(st.vx, st.vy, st.vz, vsrc)

@@ -30,10 +30,12 @@ Launch geometry (both FDTD families, ``launch_geometry``): blocks of
 x over segments of planes; the wrappers pass the grid to the C entry
 points, which refuse one that does not cover the volume once.
 
-x decomposition (``ops.fdtd.run_fdtd(mesh=)``): the coefficients of one
-shard say whether its launches apply the x CPML's lo and hi slabs
-(``x_lo`` / ``x_hi``: where the shard holds that global edge), the port of
-the ``edge_offset`` of B2/B4.
+(x, y) decomposition (``ops.fdtd.run_fdtd(mesh=)``): the coefficients of
+one shard say whether its launches apply the x and y CPMLs' lo and hi
+slabs (``x_lo`` / ``x_hi`` / ``y_lo`` / ``y_hi``: where the shard holds
+that global edge), the port of the ``edge_offset`` of B2/B4 and of the XLA
+step's ``edge_masks_y``. The kernels' whole-grid instantiations (XALL) run
+where all four hold.
 
 The wrappers dispatch on the device of the state: a CPU state runs the plain
 version (``fluid_velocity_ref`` / ``fluid_pressure_ref``), a CUDA state
@@ -116,7 +118,8 @@ class FluidCoeffs:
     a_hi] of the ns-plane slabs. ``src_*``: (N1, N2) source amplitude and
     cos/sin of its phase. ``x_lo`` / ``x_hi``: whether the step applies the
     x CPML's lo slab (first ns planes) / hi slab (last ns planes); both for
-    a whole grid, on a shard of an x decomposition only at a global edge.
+    a whole grid, on a shard of a decomposition only at a global edge.
+    ``y_lo`` / ``y_hi``: the same along y.
     """
 
     mat_idx: torch.Tensor
@@ -133,6 +136,8 @@ class FluidCoeffs:
     viscous: bool
     x_lo: bool = True
     x_hi: bool = True
+    y_lo: bool = True
+    y_hi: bool = True
 
 
 @dataclass
@@ -262,6 +267,21 @@ def check_point(point, shape) -> None:
             raise ValueError(f"point source index {index} outside {shape}")
 
 
+def edge_flags(co) -> tuple:
+    """The pair kernels' CPML slab flags (x_lo, x_hi, y_lo, y_hi) as
+    ints."""
+    return int(co.x_lo), int(co.x_hi), int(co.y_lo), int(co.y_hi)
+
+
+def whole_y(co, what: str) -> None:
+    """Refuse coefficients of a shard that does not hold both y edges: the
+    fused and halo sweeps run whole y extents only (x decompositions, as
+    the JAX package's Pallas drivers)."""
+    if not (co.y_lo and co.y_hi):
+        raise ValueError(f"{what}: the sweep runs whole y extents only "
+                         "(y_lo and y_hi); a y-sharded run keeps the pair")
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
@@ -294,8 +314,8 @@ def fluid_velocity(st: FluidState, co: FluidCoeffs, s_sin: float,
         _ptr(st.p), _ptrs([st.vx, st.vy, st.vz]), _ptr(co.mat_idx),
         _ptr(co.table), _ptrs(st.psi_p), _ptr(co.cpml_half),
         _ptr(co.src_amp), _ptr(co.src_cph), _ptr(co.src_sph), s_sin, s_cos,
-        co.dt_dx, co.table.shape[1], n1, n2, n3, ns, int(co.x_lo),
-        int(co.x_hi), co.zsrc, geo.tile_y, geo.segment, *geo.grid,
+        co.dt_dx, co.table.shape[1], n1, n2, n3, ns, *edge_flags(co),
+        co.zsrc, geo.tile_y, geo.segment, *geo.grid,
     )
     launches["fluid_velocity"] += 1
 
@@ -344,7 +364,7 @@ def fluid_pressure(st: FluidState, co: FluidCoeffs, cosw: float | None = None,
         _ptr(st.peak), _ptrs(st.psi_v), _ptr(co.cpml_int), co.dt_dx,
         co.inv_dx, co.half_dt, cosw if with_dft else 0.0,
         sinw if with_dft else 0.0, co.table.shape[1], n1, n2, n3, ns,
-        int(co.x_lo), int(co.x_hi), int(co.viscous), int(with_dft),
+        *edge_flags(co), int(co.viscous), int(with_dft),
         int(point is not None), pt, sval, *mon, geo.tile_y, geo.segment,
         *geo.grid,
     )
@@ -387,8 +407,9 @@ def d_minus(f, axis):
 
 def _cpml(D, axis, prof, psi_lo, psi_hi, lo=True, hi=True):
     """Update the psi slabs in place and correct D in place (lo, then hi);
-    ``lo`` / ``hi`` False leave that slab (and its psi) alone: the x slabs
-    of a shard that holds no such global edge (the kernels' Geo xlo, xhi)."""
+    ``lo`` / ``hi`` False leave that slab (and its psi) alone: the x or y
+    slabs of a shard that holds no such global edge (the kernels' Geo xlo,
+    xhi, ylo, yhi)."""
     ns = prof.shape[-1]
     shape = [1, 1, 1]
     shape[axis] = ns
@@ -407,9 +428,11 @@ def _cpml(D, axis, prof, psi_lo, psi_hi, lo=True, hi=True):
 
 
 def _edges(co, axis) -> dict:
-    """The slabs ``_cpml`` applies along ``axis``: x as the coefficients
-    say, y and z both."""
-    return dict(lo=co.x_lo, hi=co.x_hi) if axis == 0 else {}
+    """The slabs ``_cpml`` applies along ``axis``: x and y as the
+    coefficients say, z both."""
+    if axis == 0:
+        return dict(lo=co.x_lo, hi=co.x_hi)
+    return dict(lo=co.y_lo, hi=co.y_hi) if axis == 1 else {}
 
 
 def _gather(co, row: int) -> torch.Tensor:

@@ -43,7 +43,14 @@ import torch
 from . import _build
 from . import fdtd_fused_kernels as FK
 from .fdtd_fused_kernels import check_rows, resident
-from .fdtd_kernels import TILE_Z, LaunchGeometry, _ptr, _ptrs, pressure_key
+from .fdtd_kernels import (
+    TILE_Z,
+    LaunchGeometry,
+    _ptr,
+    _ptrs,
+    pressure_key,
+    whole_y,
+)
 from .fdtd_visco_kernels import (
     MEMORIES,
     STRESSES,
@@ -211,6 +218,7 @@ def visco_fused(st: ViscoState, co: ViscoCoeffs, rows, point=None, *,
     (st, co) already."""
     (n1, n2, n3), ns = _shape(st, co, checked)
     k = check_rows(rows, K_CAP, "visco_fused")
+    whole_y(co, "visco_fused")
     if point is not None and not 0 <= int(point) < n1 * n2 * n3:
         raise ValueError(f"point source index {point} outside {(n1, n2, n3)}")
     if st.vx.device.type == "cpu":

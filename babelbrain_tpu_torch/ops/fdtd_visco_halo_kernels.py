@@ -257,8 +257,8 @@ def _check_state(st: ViscoState, co: ViscoCoeffs) -> None:
     ptrs = [t.data_ptr() for t in vols]
     if len(set(ptrs)) != len(ptrs):
         raise ValueError("visco_halo: fields of the state alias each other")
-    if not (co.x_lo and co.x_hi):
-        raise ValueError("visco_halo: whole grids only (a shard's x-CPML "
+    if not (co.x_lo and co.x_hi and co.y_lo and co.y_hi):
+        raise ValueError("visco_halo: whole grids only (a shard's CPML "
                          "flags given)")
 
 

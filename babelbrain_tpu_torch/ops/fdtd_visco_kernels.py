@@ -26,9 +26,10 @@ runs end in one-step tails of this pair. The math is the XLA step of
 ``babelbrain_tpu/ops/fdtd.py:_make_step_fn``; a volumetric (dome) source is
 ``ops.fdtd_sources``, launched between the two.
 
-x decomposition: as the fluid step, ``x_lo`` / ``x_hi`` of the
-coefficients say which x-CPML slabs a shard's launches apply (the port of
-the ``edge_offset`` of B6/B8).
+(x, y) decomposition: as the fluid step, ``x_lo`` / ``x_hi`` / ``y_lo`` /
+``y_hi`` of the coefficients say which x- and y-CPML slabs a shard's
+launches apply (the port of the ``edge_offset`` of B6/B8 and of the XLA
+step's ``edge_masks_y``).
 
 The wrappers dispatch on the device of the state: a CPU state runs the plain
 version (``visco_velocity_ref`` / ``visco_stress_ref``), a CUDA state
@@ -52,6 +53,7 @@ from .fdtd_kernels import (
     _ptr,
     _edges,
     _ptrs,
+    edge_flags,
     check_point,
     d_minus,
     d_plus,
@@ -102,8 +104,8 @@ class ViscoCoeffs:
     (6, M) rows [rho_inv, pi_u, mu_u, c_rp, c_rs, b_r]. ``cpml_half`` /
     ``cpml_int``: (3, 4, ns) profiles, per axis the rows [b_lo, a_lo, b_hi,
     a_hi] of the ns-plane slabs. ``src_*``: (N1, N2) source amplitude and
-    cos/sin of its phase. ``x_lo`` / ``x_hi``: which x-CPML slabs the step
-    applies (``ops.fdtd_kernels.FluidCoeffs``).
+    cos/sin of its phase. ``x_lo`` / ``x_hi`` / ``y_lo`` / ``y_hi``: which
+    x- and y-CPML slabs the step applies (``ops.fdtd_kernels.FluidCoeffs``).
     """
 
     mat_idx: torch.Tensor
@@ -120,6 +122,8 @@ class ViscoCoeffs:
     viscous: bool
     x_lo: bool = True
     x_hi: bool = True
+    y_lo: bool = True
+    y_hi: bool = True
 
 
 @dataclass
@@ -252,7 +256,7 @@ def visco_velocity(st: ViscoState, co: ViscoCoeffs, s_sin: float,
         _ptr(co.mat_idx), _ptr(co.table), _ptrs(st.psi_s),
         _ptr(co.cpml_half), _ptr(co.cpml_int), _ptr(co.src_amp),
         _ptr(co.src_cph), _ptr(co.src_sph), s_sin, s_cos, co.dt_dx,
-        co.table.shape[1], n1, n2, n3, ns, int(co.x_lo), int(co.x_hi),
+        co.table.shape[1], n1, n2, n3, ns, *edge_flags(co),
         co.zsrc, geo.tile_y, geo.segment, *geo.grid,
     )
     launches["visco_velocity"] += 1
@@ -283,7 +287,7 @@ def visco_stress(st: ViscoState, co: ViscoCoeffs, cosw: float | None = None,
         _ptr(st.acc_cos), _ptr(st.acc_sin), _ptr(st.peak), _ptrs(st.psi_v),
         _ptr(co.cpml_half), _ptr(co.cpml_int), co.dt_dx, co.inv_dx,
         co.half_dt, cosw if with_dft else 0.0, sinw if with_dft else 0.0,
-        co.table.shape[1], n1, n2, n3, ns, int(co.x_lo), int(co.x_hi),
+        co.table.shape[1], n1, n2, n3, ns, *edge_flags(co),
         int(co.viscous), int(with_dft), int(point is not None), pt, sval,
         *mon, geo.tile_y, geo.segment, *geo.grid,
     )

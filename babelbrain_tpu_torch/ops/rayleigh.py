@@ -252,9 +252,10 @@ def rayleigh_field(
     areas : (M,) patch areas (m^2).
     u0 : (M,) complex surface pressure amplitudes (Pa).
     points : (P, 3) field points (m).
-    mesh : optional 1-D ``DeviceMesh`` (``parallel.halo.make_mesh``): the
-        points are split over its devices in contiguous runs of whole
-        ``point_block`` blocks (``device`` is then not used).
+    mesh : optional ``DeviceMesh`` (``parallel.halo.make_mesh``, or
+        ``make_mesh_2d``): the points are split over all its devices, in C
+        order, in contiguous runs of whole ``point_block`` blocks
+        (``device`` is then not used).
     device : where the evaluation runs.
 
     Returns

@@ -21,8 +21,8 @@ Counterpart of ``babelbrain_tpu/pipeline/acoustic.py``: the plane-source
 path with optional refocusing (S4b-S8), multipoint steering
 (``run_multipoint``) and dome transducers driven volumetrically
 (``run_dome_sim``); Rayleigh and FDTD run in PyTorch on ``device``, the
-FDTD decomposed over a ``mesh`` (``parallel.halo.make_mesh``) where one is
-given.
+FDTD decomposed over a ``mesh`` (``parallel.halo.make_mesh`` along x, or
+``make_mesh_2d`` along x and y) where one is given.
 """
 
 from __future__ import annotations
@@ -445,7 +445,7 @@ def run_multipoint(
     runs ``run_acoustic_sim``, its FDTD decomposed over ``mesh`` if given.
     """
     if mesh is not None:
-        mesh_devices(mesh, "run_multipoint")  # refused before any Rayleigh
+        mesh_devices(mesh, "run_multipoint")  # checked before any Rayleigh
     targets = [np.asarray(t) for t in steering_targets]
     use_fanout, case_mesh = fanout_mesh(fanout, mesh, do_refocus,
                                         len(targets), device)

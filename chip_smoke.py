@@ -221,10 +221,20 @@ Phases (each prints its own lines; any failed check exits nonzero):
              under ``torch.profiler`` (CT, label); the CT slice's forward
              Rayleigh over 4 devices (within 2e-5 of its peak, the
              difference printed); sweep-ct's ``run_fdtd_batch`` on a
-             2-device case mesh, bit-equal. Counts are set to 0 before
-             the replays: the FDTD rows must count the shards' launches.
-             With more than one card, the CT run across cards and the
-             peer-copy rate;
+             2-device case mesh, bit-equal. Then its 2-D part (the
+             (x, y) decomposition, ``make_mesh_2d(nx, ny, devices=
+             ["cuda:0"] * (nx * ny))``): the four pair kernels' shards'
+             instantiations on 192x192x240 cut (2, 4) and (1, 2), plane and
+             a point on a y-interior shard, 40 steps against their plain
+             versions bit for bit, each shard's launch timed; the label
+             slice's run_fdtd on (4, 2), diag-ct's on (2, 2), refocus-ct's
+             backward point run on (2, 4) and dome-ct's pair + scatter
+             pass on (2, 2), each bit-equal to its slice's; the CT slice's
+             ``run_acoustic_sim`` on (2, 4) at its own steps, its
+             DataForSim maps bit-equal to the slice's; the CT loop's idle
+             share. Counts are set to 0 before the replays: the FDTD rows
+             must count the shards' launches. With more than one card,
+             the CT run across cards and the peer-copy rate;
 6. probes  — ``babelbrain_tpu_torch.probes.run_probes``: the card's stream
              rate, FP32 FMA rate and table-gather cost (P1, P2).
 
@@ -4615,19 +4625,30 @@ DOME_CT_PAIR_REPLAY = 1
 # not fit the time limit
 DOME_CT_REPLAY_STEPS = 450
 MESH_CHECK_STEPS = 40
+# the mesh phase's 2-D part, every shard on one card: the (nx, ny) cuts the
+# kernels are checked on (corner, x-edge and y-interior shards; shards that
+# hold both x edges and one y edge), the recorded run_fdtd calls replayed on
+# (nx, ny) meshes (of the refocus slice its backward point run, of dome-ct
+# its pair + scatter pass), and the cut of the CT slice's run_acoustic_sim
+MESH_2D_KERNELS = ((2, 4), (1, 2))
+MESH_2D_REPLAYS = {"label": (4, 2), "diag-ct": (2, 2), "refocus-ct": (2, 4),
+                   "dome-ct": (2, 2)}
+MESH_2D_CT = (2, 4)
 # mode -> [(function name, args, kwargs, result, loop seconds)] of the
 # pipeline calls a slice made (``recording``)
 RECORDED: dict = {}
-RECORDED_FUNCTIONS = ("run_fdtd", "run_fdtd_batch", "rayleigh_field_grid")
+RECORDED_FUNCTIONS = ("run_fdtd", "run_fdtd_batch", "rayleigh_field_grid",
+                      "run_acoustic_sim")
 
 
 @contextlib.contextmanager
 def recording(mode):
     """While slice ``mode`` runs, keep the arguments and results of the
     calls the Step 2 pipeline makes (``pipeline.acoustic``'s names):
-    every ``run_fdtd`` and ``run_fdtd_batch``, and in the ``RAYLEIGH_SLICES``
+    every ``run_fdtd`` and ``run_fdtd_batch``, in the ``RAYLEIGH_SLICES``
     their first forward Rayleigh over the whole grid, for the Rayleigh
-    kernel's check and the mesh phase to replay."""
+    kernel's check and the mesh phase to replay, and the CT slice's
+    ``run_acoustic_sim`` (its result's DataForSim arrays)."""
     from babelbrain_tpu_torch.pipeline import acoustic as A
     from babelbrain_tpu_torch.utils.timing import recorded_spans
 
@@ -4641,11 +4662,14 @@ def recording(mode):
                     mode not in RAYLEIGH_SLICES
                     or any(c[0] == name for c in calls)):
                 return out
+            if name == "run_acoustic_sim" and mode != "ct":
+                return out
             loop = next((dt for label, dt in reversed(recorded_spans())
                          if label.endswith("FDTD time loop")), None)
+            res = out.data_for_sim if name == "run_acoustic_sim" else out
             kept = ({k: np.array(v) if isinstance(v, np.ndarray) else v
-                     for k, v in out.items()} if isinstance(out, dict)
-                    else np.array(out))
+                     for k, v in res.items()} if isinstance(res, dict)
+                    else np.array(res))
             calls.append((name, args, kwargs, kept, loop))
             return out
         return call
@@ -5057,17 +5081,22 @@ def mesh_case(family, source, shape=KERNEL_SHAPE):
 
 
 def check_mesh_kernels(mesh, times, device="cuda"):
-    """The four FDTD kernels with their x-CPML edge ownership on
-    ``MESH_SHARDS`` shards of the kernel phase's grid, against their plain
-    versions: 40 steps of ``ops.fdtd.step_shards`` with a plane and with a
-    point (on an inner shard), every field of every shard bit-equal; then
+    """The four FDTD kernels with their CPML edge ownership on the shards
+    of ``mesh`` (``MESH_SHARDS`` along x, or an (x, y) mesh) of the kernel
+    phase's grid, against their plain versions: 40 steps of
+    ``ops.fdtd.step_shards`` with a plane and with a point (on an inner
+    shard), every field of every shard bit-equal; on an x mesh the
+    overlap-and-discard sweeps of the plane (``check_mesh_overlap``); then
     each shard's launches timed from CUDA graphs, their sum against the
     unsharded launch (``times``) per cell. Returns the errors by row."""
     from babelbrain_tpu_torch.ops import fdtd as F
     from babelbrain_tpu_torch.ops import fdtd_kernels as K
     from babelbrain_tpu_torch.ops import fdtd_visco_kernels as V
+    from babelbrain_tpu_torch.parallel.halo import mesh_axis_sizes
 
     errs = {}
+    cut = mesh_axis_sizes(mesh)
+    tag = "[mesh]" if cut[1] == 1 else "[mesh 2d]"
     for family in ("fluid", "visco"):
         stem = "fluid_pressure" if family == "fluid" else "visco_stress"
         vel, stress = ((K.fluid_velocity, K.fluid_pressure)
@@ -5087,23 +5116,26 @@ def check_mesh_kernels(mesh, times, device="cuda"):
             bad = [(s, name, e) for s, (a, b) in enumerate(zip(*runs))
                    for name, e in state_diff(a.st, b.st)]
             pmax = max(float(sh.st.acc_cos.abs().max()) for sh in runs[1])
-            inner = [s for s, sh in enumerate(runs[0]) if sh.point is not None]
-            print(f"[mesh] {family} kernels on {MESH_SHARDS} shards of "
+            inner = [(s, xs.coords(s)) for s, sh in enumerate(runs[0])
+                     if sh.point is not None]
+            print(f"{tag} {family} kernels on {mesh.size} shards {cut} of "
                   f"{grid.shape} ({[xs.planes(s) for s in range(xs.n_shards)]}"
-                  f" planes with ghosts), {source} source"
-                  + (f" on shard {inner}" if inner else "")
+                  f" (x, y) with ghosts; edges held (x_lo, x_hi, y_lo, y_hi) "
+                  f"{[tuple(int(e) for e in xs.edges(s)) for s in range(xs.n_shards)]}"
+                  f"), {source} source"
+                  + (f" on shard (s, (sx, sy)) {inner}" if inner else "")
                   + f", {grid.n_steps} steps (window from "
                   f"{grid.sensor_start}) against the plain versions: max "
                   f"|DFT sum| {pmax:.6g}; fields differing {bad}")
             if bad or not np.isfinite(pmax) or pmax <= 0:
-                fail(f"mesh: the {family} kernels on shards disagree with "
-                     f"their plain versions ({source} source): {bad}")
+                fail(f"mesh: the {family} kernels on shards {cut} disagree "
+                     f"with their plain versions ({source} source): {bad}")
             point = "_point" if source == "point" else ""
             keys = ((f"{family}_velocity",) if source == "plane" else ()) + (
                 stem + point, stem + point + "_dft")
             for k in keys:
                 errs[k] = 0.0
-            if source == "plane":
+            if source == "plane" and cut[1] == 1:
                 check_mesh_overlap(mesh, grid, mats, idx, amp, ph, device)
             if source != "plane" or device != "cuda":
                 continue
@@ -5113,14 +5145,14 @@ def check_mesh_kernels(mesh, times, device="cuda"):
                 stem: lambda sh: stress(sh.st, sh.co),
                 f"{stem}_dft": lambda sh: stress(sh.st, sh.co, s[2], s[3]),
             }
-            cells = [xs.planes(i) * grid.shape[1] * grid.shape[2]
+            cells = [int(np.prod(xs.planes(i))) * grid.shape[2]
                      for i in range(xs.n_shards)]
             whole = float(np.prod(grid.shape))
             for k, fn in calls.items():
                 per = [_timed_graph(lambda sh=sh: fn(sh), 20)
                        for sh in runs[0]]
                 ratio = (sum(per) / sum(cells)) / (times[k][0] / whole)
-                print(f"[mesh]   {k}: shards {[round(t, 4) for t in per]} "
+                print(f"{tag}   {k}: shards {[round(t, 4) for t in per]} "
                       f"ms, sum {sum(per):.4f} ms over {sum(cells)} cells "
                       f"(+{sum(cells) / whole - 1:.2%} ghost planes); the "
                       f"unsharded launch {times[k][0]:.4f} ms; time per "
@@ -5351,10 +5383,15 @@ def run_mesh(times, device="cuda"):
             fail(f"mesh: make_mesh({MESH_SHARDS}) made a mesh on {cards} "
                  "card(s)")
     errs = check_mesh_kernels(mesh, times, device)
+    t_2d = time.time()
+    for cut in MESH_2D_KERNELS:
+        errs.update(check_mesh_kernels(mesh_2d(cut, one), times, device))
+    t_2d = time.time() - t_2d
 
     reset_counts()
     launches0, _ = read_counts()
     expect = dict.fromkeys(launches0, 0)
+    replayed = {}  # (mode, call) -> what the 2-D part replays again
     for mode in MESH_SLICES:
         calls = [c for c in RECORDED.get(mode, ()) if c[0] == "run_fdtd"]
         for j, (name, args, kw, ref, loop) in enumerate(calls):
@@ -5374,6 +5411,7 @@ def run_mesh(times, device="cuda"):
             wall = time.time() - t0
             loop_mesh = next(dt for label, dt in recorded_spans()
                              if label.endswith("FDTD time loop"))
+            replayed[mode, j] = (args, kw, grid, mats, ref, loop, loop_mesh)
             bad = _maps_differ(ref, out)
             extra = [k for k in ref if k not in ("p_amp", "p_phase", "peak")
                      and isinstance(ref[k], np.ndarray)]
@@ -5413,6 +5451,7 @@ def run_mesh(times, device="cuda"):
                       f"share): unsharded {whole}; {MESH_SHARDS} shards "
                       f"{shard}; {copies}")
             del out
+    t_2d += run_mesh_2d(replayed, expect, one, device)
     # the CT slice's forward Rayleigh, its x planes over 4 devices
     for name, args, kw, ref, _ in RECORDED.get("ct", ()):
         if name != "rayleigh_field_grid":
@@ -5461,8 +5500,129 @@ def run_mesh(times, device="cuda"):
              f"velocity and pressure / stress rows), plain calls {plain}")
     if cards > 1:
         check_mesh_cards(cards)
-    print(f"[mesh] phase {time.time() - t_phase:.2f} s")
+    print(f"[mesh] phase {time.time() - t_phase:.2f} s, its 2-D part "
+          f"{t_2d:.2f} s of it")
     return errs, launches
+
+
+def mesh_2d(cut, one):
+    """An (nx, ny) mesh of every shard on device ``one``."""
+    from babelbrain_tpu_torch.parallel.halo import make_mesh_2d
+
+    return make_mesh_2d(*cut, devices=[one] * (cut[0] * cut[1]))
+
+
+def run_mesh_2d(replayed, expect, one, device="cuda"):
+    """The mesh phase's 2-D replays, every shard on device ``one``: the
+    recorded ``run_fdtd`` calls of ``MESH_2D_REPLAYS`` (as the x part
+    replayed them, ``replayed``) on their (nx, ny) meshes, each equal to
+    its slice's result bit for bit, and the CT slice's ``run_acoustic_sim``
+    on ``MESH_2D_CT``, its DataForSim maps equal to the slice's; each
+    loop's seconds beside the x mesh's and the unsharded one's, and the CT
+    loop's idle share. Adds the shards' launches to ``expect``. Returns its
+    seconds."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.ops.fdtd import run_fdtd
+    from babelbrain_tpu_torch.pipeline import acoustic as A
+    from babelbrain_tpu_torch.utils.timing import clear_spans, recorded_spans
+
+    def loop_span():
+        return next(dt for label, dt in recorded_spans()
+                    if label.endswith("FDTD time loop"))
+
+    t_part = time.time()
+    for (mode, j), (args, kw, grid, mats, ref, loop, loop_x) in \
+            replayed.items():
+        cut = MESH_2D_REPLAYS.get(mode)
+        if cut is None or (mode == "dome-ct" and j != DOME_CT_PAIR_REPLAY):
+            continue
+        mesh = mesh_2d(cut, one)
+        clear_spans()
+        t0 = time.time()
+        out = run_fdtd(*args, mesh=mesh, **kw)
+        wall = time.time() - t0
+        loop_2d = loop_span()
+        bad = _maps_differ(ref, out)
+        extra = [k for k in ref if k not in ("p_amp", "p_phase", "peak")
+                 and isinstance(ref[k], np.ndarray)]
+        where = ""
+        if grid.source_type == "stress_point":
+            dd = F._blocks(mesh, grid)
+            s = dd.owner(*(int(v) for v in grid.source_ijk[:2]))
+            sx, sy = dd.coords(s)
+            where = (f", the point {tuple(int(v) for v in grid.source_ijk)} "
+                     f"on shard {s} (sx, sy) = ({sx}, {sy})"
+                     + (", y-interior" if 0 < sy < cut[1] - 1 else ""))
+        print(f"[mesh 2d] {mode} run_fdtd {grid.shape} {grid.n_steps} steps "
+              f"({grid.source_type}"
+              + (f", {len(extra)} maps and series" if extra else "")
+              + f"{where}) on {cut} shards: wall {wall:.3f} s, loop "
+              f"{loop_2d:.3f} s against {MESH_SHARDS} x shards' {loop_x:.3f} "
+              f"s and the unsharded {loop:.3f} s; halo "
+              f"{halo_bytes_2d(grid, mats, mesh) / 1e6:.3f} MB a step; "
+              f"fields differing from the slice's result {bad}")
+        if bad:
+            fail(f"mesh 2d: {mode} run_fdtd on {cut} shards differs from the "
+                 f"unsharded run in {bad}")
+        _expect_shard_launches(expect, grid, mats, mesh.size, mesh, kw)
+        del out
+    calls = [c for c in RECORDED.get("ct", ()) if c[0] == "run_acoustic_sim"]
+    if not calls or ("ct", 0) not in replayed:
+        fail("mesh 2d: the CT slice's run_acoustic_sim and run_fdtd were "
+             "not recorded")
+    _, args, kw, ref, _ = calls[0]
+    fargs, fkw, grid, mats, _, loop, loop_x = replayed["ct", 0]
+    mesh = mesh_2d(MESH_2D_CT, one)
+    clear_spans()
+    t0 = time.time()
+    res = A.run_acoustic_sim(*args, mesh=mesh, **kw)
+    wall = time.time() - t0
+    loop_2d = loop_span()
+    bad = _maps_differ(ref, res.data_for_sim)
+    print(f"[mesh 2d] ct run_acoustic_sim ({grid.shape}, {grid.n_steps} "
+          f"steps) on {MESH_2D_CT} shards: wall {wall:.3f} s, FDTD loop "
+          f"{loop_2d:.3f} s against {MESH_SHARDS} x shards' {loop_x:.3f} s "
+          f"and the unsharded {loop:.3f} s; halo "
+          f"{halo_bytes_2d(grid, mats, mesh) / 1e6:.3f} MB a step; "
+          f"DataForSim arrays compared {len([k for k in ref if isinstance(ref[k], np.ndarray)])}, "
+          f"differing from the slice's {bad}")
+    if bad:
+        fail(f"mesh 2d: the CT slice's run_acoustic_sim on {MESH_2D_CT} "
+             f"shards differs in {bad}")
+    _expect_shard_launches(expect, grid, mats, mesh.size, mesh, {})
+    if device == "cuda":
+        saved = read_counts()
+        idle = idle_share(fargs, fkw, mesh)
+        restore_counts(*saved)
+        nx, ny = MESH_2D_CT
+        fx, fy = (sum(len(h) for h in F.HALO_FIELDS[F.FluidState][axis])
+                  for axis in (0, 1))
+        copies = 2 * ((nx - 1) * ny * fx + nx * (ny - 1) * fy)
+        print(f"[mesh 2d] ct loop over {IDLE_STEPS} window steps under "
+              f"torch.profiler (device busy ms, wall ms, idle share) on "
+              f"{MESH_2D_CT} shards: {idle}; {mesh.size * 2} launches and "
+              f"{copies} ghost-slab copies a step")
+    return time.time() - t_part
+
+
+def halo_bytes_2d(grid, materials, mesh):
+    """Bytes the ghost-plane refresh of one step copies on an (x, y)
+    ``mesh``: along each cut axis, at each boundary of each line of the
+    mesh, 2 planes each way of the fields ``ops.fdtd.HALO_FIELDS`` lists
+    for that axis (a plane spans the shard's other axis, its ghosts
+    included)."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+
+    dd = F._blocks(mesh, grid)
+    state = (F.ViscoState if np.any(np.asarray(materials)[:, 2] > 0)
+             else F.FluidState)
+    total = 0
+    for axis, cut, other in ((0, dd.x, dd.y), (1, dd.y, dd.x)):
+        n_fields = sum(len(h) for h in F.HALO_FIELDS[state][axis])
+        planes = sum(other.planes(o) for o in range(other.n_shards))
+        total += ((cut.n_shards - 1) * 2 * cut.halo * planes * grid.shape[2]
+                  * 4 * n_fields)
+    return total
 
 
 def halo_bytes(grid, materials, n_shards, plan=None):

@@ -180,7 +180,7 @@ int bb_visco_probe(int mode, float* const* v3, float* const* s6,
                    float* const* psi_v18, int n1, int n2, int n3, int ns,
                    int viscous, int dft, int k_steps, float* sink,
                    void* stream) {
-  Geo g = make_geo(n1, n2, n3, ns, n1, 1, 1);
+  Geo g = make_geo(n1, n2, n3, ns, n1, 1, 1, 1, 1);
   Ptr3 v = gather<3, Ptr3>(v3);
   Ptr6 s = gather<6, Ptr6>(s6);
   Ptr6 r = gather<6, Ptr6>(r6);

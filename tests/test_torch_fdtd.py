@@ -227,27 +227,36 @@ def test_cpu_run_counts_plain_calls_not_launches():
 
 @pytest.mark.parametrize("case", ["mesh", "rayleigh_mesh"])
 def test_paths_outside_the_slice_raise(case):
-    """A mesh that is not a ``DeviceMesh`` is refused, and a 2-D (x, y)
-    mesh (ROADMAP Queue A item 6)."""
+    """A mesh that is not a ``DeviceMesh`` is refused; a 2-D (x, y) mesh
+    runs (ROADMAP Queue A item 6a) and gives the unsharded result bit for
+    bit."""
     from babelbrain_tpu_torch.parallel.halo import make_mesh_2d
 
     idx, mats, g, amp, ph = _config("water_plane")
-    g = dict(g, shape=(20, 20, 40), n_steps=4, sensor_start=2)
+    g = dict(g, shape=(20, 20, 40), n_steps=12, sensor_start=6, npml=4,
+             source_plane_z=6)
     mesh_2d = make_mesh_2d(2, 2, devices=["cpu"] * 4)
     if case == "rayleigh_mesh":
         from babelbrain_tpu_torch.ops.rayleigh import rayleigh_field
 
+        rng = np.random.default_rng(2)
+        pts = rng.uniform(0.01, 0.02, (9, 3))
+
         def run(mesh):
-            rayleigh_field(1e3, np.zeros((1, 3)), np.ones(1), np.ones(1),
-                           np.ones((2, 3)), mesh=mesh, device="cpu")
+            return {"p": rayleigh_field(1e3, np.zeros((1, 3)), np.ones(1),
+                                        np.ones(1), pts, point_block=2,
+                                        mesh=mesh, device="cpu")}
     else:
         def run(mesh):
-            T.run_fdtd(np.zeros(g["shape"], np.uint8), mats,
-                       T.FDTDGrid(**g), device="cpu", mesh=mesh)
+            return T.run_fdtd(np.zeros(g["shape"], np.uint8), mats,
+                              T.FDTDGrid(**g), np.full((20, 20), 1e3),
+                              device="cpu", mesh=mesh)
     with pytest.raises(TypeError, match="DeviceMesh"):
         run(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
-        run(mesh_2d)
+    whole, cut = run(None), run(mesh_2d)
+    for k, v in whole.items():
+        assert np.abs(v).max() > 0, k
+        np.testing.assert_array_equal(cut[k], v, err_msg=k)
 
 
 # ---------------------------------------------------------------------------

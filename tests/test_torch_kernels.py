@@ -1496,16 +1496,19 @@ def _edge_case(family, shape, npml, source, viscous=True):
 
 
 def _edge_runs(cuda, family, shape, npml, n_shards, source, monitor,
-               flags=None, viscous=True):
+               flags=None, viscous=True, mesh_shape=None):
     """The kernels and their plain versions through ``F.step_shards`` on
-    ``n_shards`` shards of one card (``flags``: the x-slab flags of a
-    single shard instead of its own), every monitor sample taken (listed
-    voxels or every voxel); both runs' shards."""
+    ``n_shards`` shards of one card, cut along x (or over the (nx, ny)
+    ``mesh_shape``); ``flags``: the x-slab flags of a single shard instead
+    of its own; every monitor sample taken (listed voxels or every voxel);
+    both runs' shards."""
     grid, mats, idx, amp, ph = _edge_case(family, shape, npml, source,
                                           viscous)
-    from babelbrain_tpu_torch.parallel.halo import make_mesh
+    from babelbrain_tpu_torch.parallel.halo import make_mesh, make_mesh_2d
 
-    mesh = make_mesh(n_shards, devices=[cuda] * n_shards)
+    mesh = (make_mesh(n_shards, devices=[cuda] * n_shards)
+            if mesh_shape is None
+            else make_mesh_2d(*mesh_shape, devices=[cuda] * n_shards))
     steps = range(grid.sensor_start, grid.n_steps)
     mon = np.argwhere(idx[:, ::5, ::7] >= 0)[::11] * [1, 5, 7]
     runs = []
@@ -1571,6 +1574,60 @@ def test_edge_ownership_kernels_match_plain(cuda, family, viscous, source,
     stem = "fluid_pressure" if family == "fluid" else "visco_stress"
     point = "_point" if source == "stress_point" else ""
     for key in (stem + point, stem + point + "_dft"):
+        assert after[key] > before[key], key
+
+
+def _psi_axis(st, axis):
+    """The psi slabs of a state's derivatives along ``axis``, as (lo list,
+    hi list)."""
+    if isinstance(st, K.FluidState):
+        pairs = [(st.psi_p, axis), (st.psi_v, axis)]
+    else:
+        pairs = [(psi, q) for psi, derivs in ((st.psi_s, V.VELOCITY_DERIVS),
+                                              (st.psi_v, V.STRESS_DERIVS))
+                 for q, d in enumerate(derivs) if d[1] == axis]
+    return ([psi[2 * q] for psi, q in pairs],
+            [psi[2 * q + 1] for psi, q in pairs])
+
+
+@pytest.mark.parametrize("monitor", ["listed", "every"])
+@pytest.mark.parametrize("source", ["velocity_plane", "stress_point"])
+@pytest.mark.parametrize("family,viscous", [("fluid", True),
+                                            ("fluid", False),
+                                            ("visco", True)])
+def test_xy_edge_ownership_kernels_match_plain(cuda, family, viscous, source,
+                                               monitor):
+    """A 3 x 3 mesh of a 48x48x40 grid on one card (npml 6: 16 x 16 columns
+    a shard; the nine (x, y) edge-ownership combinations: four corners,
+    four edges, the interior, which holds the stress point) and a 1 x 2 cut
+    of a ragged 27x44x47 grid (shards that hold both x edges but one y edge
+    each, so they must not take the whole-grid XALL instantiation): the
+    pair kernels' shards' instantiations (POINT, DFT and MONITOR) against
+    their plain versions, every field, psi slab, map and sample bit-equal.
+    A shard that holds no y edge leaves its y psi slabs at zero, and an
+    edge shard the slab of the edge it does not hold."""
+    before = dict(K.launches, **V.launches)
+    kernel, plain = _edge_runs(cuda, family, (48, 48, 40), 6, 9, source,
+                               monitor, viscous=viscous, mesh_shape=(3, 3))
+    _shards_equal(kernel, plain)
+    assert kernel[4].point is not None or source == "velocity_plane"
+    for s in (1, 4, 7):  # sy = 1: no y edge
+        lo, hi = _psi_axis(kernel[s].st, 1)
+        assert not any(t.any() for t in lo + hi), s
+    for s in (3, 4, 5):  # sx = 1: no x edge
+        lo, hi = _psi_axis(kernel[s].st, 0)
+        assert not any(t.any() for t in lo + hi), s
+    kernel, plain = _edge_runs(cuda, family, (27, 44, 47), 12, 2, source,
+                               monitor, viscous=viscous, mesh_shape=(1, 2))
+    _shards_equal(kernel, plain)
+    (lo0, hi0), (lo1, hi1) = (_psi_axis(sh.st, 1) for sh in kernel)
+    assert not any(t.any() for t in hi0 + lo1)
+    if source == "velocity_plane":  # the plane reaches both y slabs
+        assert any(t.any() for t in lo0) and any(t.any() for t in hi1)
+    after = dict(K.launches, **V.launches)
+    stem = "fluid_pressure" if family == "fluid" else "visco_stress"
+    point = "_point" if source == "stress_point" else ""
+    for key in (f"{family}_velocity", stem + point, stem + point + "_dft"):
         assert after[key] > before[key], key
 
 

@@ -120,16 +120,25 @@ def test_steering_and_weights_match_jax():
 
 
 def test_mesh_is_outside_the_slice():
-    """``mesh`` takes a 1-D ``DeviceMesh``: another object, or a 2-D mesh
-    (ROADMAP Queue A item 6), is refused."""
+    """``mesh`` takes a ``DeviceMesh``: another object is refused; a 2-D
+    mesh splits the points over its four devices, as the JAX package takes
+    one, and gives the unsharded field bit for bit (whole blocks a
+    device)."""
     from babelbrain_tpu_torch.parallel.halo import make_mesh_2d
 
-    for mesh, err, match in ((object(), TypeError, "DeviceMesh"),
-                             (make_mesh_2d(2, 2, devices=["cpu"] * 4),
-                              NotImplementedError, "ROADMAP Queue A item 6")):
-        with pytest.raises(err, match=match):
-            T.rayleigh_field(K0, np.zeros((1, 3)), np.ones(1), np.ones(1),
-                             np.ones((1, 3)), mesh=mesh, device="cpu")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        T.rayleigh_field(K0, np.zeros((1, 3)), np.ones(1), np.ones(1),
+                         np.ones((1, 3)), mesh=object(), device="cpu")
+    rng = np.random.default_rng(4)
+    centers = rng.uniform(-0.02, 0.02, (40, 3)) * [1, 1, 0]
+    pts = rng.uniform(-0.02, 0.02, (37, 3)) + [0, 0, 0.03]
+    u0 = np.exp(1j * rng.uniform(-3, 3, 40)).astype(np.complex64)
+    args = (K0, centers, np.full(40, 1e-6), u0, pts)
+    whole = T.rayleigh_field(*args, point_block=8, device="cpu")
+    cut = T.rayleigh_field(*args, point_block=8, device="cpu",
+                           mesh=make_mesh_2d(2, 2, devices=["cpu"] * 4))
+    assert np.abs(whole).max() > 0
+    np.testing.assert_array_equal(cut, whole)
 
 
 def test_plain_version_runs_on_the_cpu_and_is_counted():

@@ -363,8 +363,9 @@ def test_edge_ownership_matches_jax_pallas_sharded(family):
 
 def test_shard_constraints_raise():
     """`tests/test_sharded.py:284` twin, with JAX's messages: N1 not
-    divisible by the mesh, a shard thinner than npml + 2, a mesh on
-    another axis than x and a 2-D mesh."""
+    divisible by the mesh, a shard thinner than npml + 2 and a mesh on
+    another axis than x or y are refused; a 2-D mesh runs (ROADMAP Queue A
+    item 6a) and equals the unsharded run bit for bit."""
     mats = np.array(SHEAR)
     g = _grid((126, 48, 80), 1)
     idx = np.zeros(g["shape"], np.uint8)
@@ -378,9 +379,13 @@ def test_shard_constraints_raise():
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         T.run_fdtd(idx, mats, T.FDTDGrid(**g), source_amp=amp,
                    mesh=cpu_mesh(2, axis="case"))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        T.run_fdtd(idx, mats, T.FDTDGrid(**g), source_amp=amp,
-                   mesh=H.make_mesh_2d(1, 2, devices=["cpu"] * 2))
+    amp[8:-8, 8:-8] = 60e3
+    g = _grid((126, 48, 80), 2)
+    o1 = T.run_fdtd(idx, mats, T.FDTDGrid(**g), source_amp=amp, device="cpu")
+    o2 = T.run_fdtd(idx, mats, T.FDTDGrid(**g), source_amp=amp,
+                    mesh=H.make_mesh_2d(1, 2, devices=["cpu"] * 2))
+    assert o1["p_amp"].max() > 0
+    _equal(o1, o2)
 
 
 def test_make_mesh_names_only_devices_that_exist(monkeypatch):

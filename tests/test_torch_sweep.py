@@ -409,14 +409,17 @@ def test_run_fdtd_batch_matches_jax_and_run_fdtd():
         for k in ("p_amp", "p_phase", "peak"):
             np.testing.assert_array_equal(bt[k][b], single[k],
                                           err_msg=f"{k}[{b}]")
-    # a mesh that is not a DeviceMesh, and a 2-D mesh, are refused
+    # a mesh that is not a DeviceMesh is refused; a 2-D mesh spreads the
+    # cases over its devices (JAX's run_fdtd_batch runs on one too, equal
+    # to its unsharded batch) and gives the unsharded batch bit for bit
     with pytest.raises(TypeError, match="DeviceMesh"):
         TF.run_fdtd_batch(idx, mats, TF.FDTDGrid(**kw), amps, phases,
                           mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        TF.run_fdtd_batch(idx, mats, TF.FDTDGrid(**kw), amps, phases,
-                          mesh=make_mesh_2d(2, 2, devices=["cpu"] * 4),
-                          device="cpu")
+    b2 = TF.run_fdtd_batch(idx, mats, TF.FDTDGrid(**kw), amps, phases,
+                           mesh=make_mesh_2d(2, 2, devices=["cpu"] * 4),
+                           device="cpu")
+    for k in ("p_amp", "p_phase", "peak"):
+        np.testing.assert_array_equal(b2[k], bt[k], err_msg=k)
 
 
 def test_run_multipoint_matches_jax():
@@ -467,12 +470,17 @@ def test_run_multipoint_matches_jax():
         assert np.abs(dphi).max() < 1e-3
     # the two points are steered apart
     assert not np.array_equal(ct["p_amp_all"][0], ct["p_amp_all"][1])
-    # the spatial mesh of each point's run_fdtd: not a DeviceMesh, or 2-D
+    # the spatial mesh of each point's run_fdtd: not a DeviceMesh is
+    # refused; a 2-D (x, y) mesh gives the unsharded results bit for bit
     with pytest.raises(TypeError, match="DeviceMesh"):
         TA.run_multipoint(dom_t, tx_t, points, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        TA.run_multipoint(dom_t, tx_t, points, device="cpu",
-                          mesh=make_mesh_2d(2, 2, devices=["cpu"] * 4))
+    r2, c2 = TA.run_multipoint(dom_t, tx_t, points, device="cpu",
+                               mesh=make_mesh_2d(2, 2, devices=["cpu"] * 4))
+    for a, b in zip(r2, rs):
+        for k in ("p_amp", "p_complex_re", "p_complex_im", "p_amp_water"):
+            np.testing.assert_array_equal(a.data_for_sim[k],
+                                          b.data_for_sim[k], err_msg=k)
+    np.testing.assert_array_equal(c2["p_amp_all"], cs["p_amp_all"])
 
 
 # ---------------------------------------------------------------------------
