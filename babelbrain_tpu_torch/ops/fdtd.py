@@ -49,31 +49,41 @@ overlap-and-discard (``sharded_plan``, the JAX package's
 ``_simulate_fluid_pallas_sharded_fused`` and
 ``_simulate_visco_pallas_sharded_fused``): H = 3K (fluid) or JAX's 4K
 (visco) ghost planes a side, one bundled refresh of each group of the state's
-ghost planes (``XSlabs.refresh_group``) and one fused K-step launch per
+ghost planes (``Blocks.refresh_group``) and one fused K-step launch per
 shard a sweep; what the array's edge contaminates stays inside the ghost
 planes. Every other run, and every run on a mesh cut along y (the JAX
 package's Pallas drivers decompose x only, so its 2-D runs go through its
 XLA step), keeps 2 ghost planes and, after each half-step, copies those of
 the fields the next half-step reads across x and across y from the
 neighbours (``Blocks.refresh``, ``HALO_FIELDS``). Either way a sharded run
-equals the unsharded one bit for bit. ``run_fdtd_batch(mesh=)`` spreads its
-cases over a mesh's devices (``make_case_mesh``, or any mesh). A mesh on
-other axes than x and y raises ``NotImplementedError`` naming ROADMAP Queue
-A item 6b / 6c.
+equals the unsharded one bit for bit. A mesh with other axes than x and y
+runs replicated over them, as the JAX package does, except that only the
+shards at index 0 of those axes compute (``parallel.halo.
+decomposition_mesh``). A mesh over several processes (``make_mesh(...,
+group=)``, ``parallel.distributed``) runs in each of them: every process
+sets up the whole grid, steps its own shards, exchanges the ghost planes
+that cross processes and returns the whole result (``own_planes``: the
+owned blocks all-gathered). ``run_fdtd_batch(mesh=)`` spreads its cases
+over a mesh's devices (``make_case_mesh``, or any mesh of one process).
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import ctypes.util
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..parallel import distributed
 from ..parallel.halo import (
-    ROADMAP_ITEM,
     Blocks,
     XSlabs,
+    check_mesh,
+    decomposition_mesh,
     mesh_axis_sizes,
     mesh_devices,
 )
@@ -388,8 +398,9 @@ def step_scalars(grid: FDTDGrid, n: int, oz_scale: float,
 
     s_sin / s_cos are sin(wt) / cos(wt) times the half-cosine source ramp
     and the pressure->velocity scale; cosw / sinw are the carrier DFT
-    weights; s_point = point_amp sin(wt) ramp is the stress-point value.
-    Evaluated in float64 (the kernels take them as float32).
+    weights, all evaluated in float64 (the kernels take them as float32);
+    s_point = point_amp sin(wt) ramp is the stress-point value, float32 as
+    the JAX package's step computes it (``point_value``).
     """
     omega = 2.0 * np.pi * grid.frequency
     wt = omega * (n * grid.dt)
@@ -398,7 +409,40 @@ def step_scalars(grid: FDTDGrid, n: int, oz_scale: float,
     scale = ramp * oz_scale
     return (float(np.sin(wt) * scale), float(np.cos(wt) * scale),
             float(np.cos(wt)), float(np.sin(wt)),
-            float(point_amp * np.sin(wt) * ramp))
+            point_value(grid, n, point_amp))
+
+
+@functools.cache
+def _libm():
+    """The C library's float32 ``sinf`` / ``cosf`` (ctypes)."""
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name in ("sinf", "cosf"):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    return lib
+
+
+def point_value(grid: FDTDGrid, n: int, point_amp: float) -> float:
+    """The stress-point drive of step ``n`` in float32, operation by
+    operation as the JAX package's XLA step computes ``sval``
+    (`babelbrain_tpu/ops/fdtd.py:521, :557-562, :855`) on the CPU: XLA
+    folds the constants of ``omega * (n * dt)`` into ``n * (dt * omega)``
+    and of ``pi * n / ramp_steps`` into ``n * (pi / ramp_steps)``, each
+    constant product rounded to float32, and takes sin and cos from the C
+    library's ``sinf`` / ``cosf``; the products run left to right. A float64
+    drive cast to float32 misses it by an ulp of omega t (3.8e-6 rad at 40
+    rad) on a fraction of the steps."""
+    if not point_amp:
+        return 0.0
+    f = np.float32
+    m = _libm()
+    nf = f(n)
+    s = f(m.sinf(nf * (f(grid.dt) * f(2.0 * np.pi * grid.frequency))))
+    ramp_steps = f(grid.ramp_cycles / grid.frequency / grid.dt)
+    ramp = f(1.0)
+    if nf < ramp_steps:
+        ramp = f(0.5) * (f(1.0) - f(m.cosf(nf * (f(np.pi) / ramp_steps))))
+    return float(f(point_amp) * s * ramp)
 
 
 def point_index(grid: FDTDGrid) -> int | None:
@@ -779,8 +823,10 @@ def run_fdtd(
     ``VOLUME_FUSE_BEST`` >= 2); every other run (a volumetric source in
     shear media too: JAX sends it to XLA; and every run on a mesh cut along
     y, whatever ``fuse_steps`` says, as JAX keeps its XLA step) the pair
-    with 2 ghost planes. The result equals the unsharded run's bit for
-    bit.
+    with 2 ghost planes. A mesh with other axes too is cut along its x and
+    y axes at index 0 of the others. A mesh over several processes runs
+    in each of them, each stepping its own shards and returning the whole
+    result. The result equals the unsharded run's bit for bit.
 
     ``sel_maps``: extra maps named ``<Field>_rms`` / ``<Field>_peak``, Field
     in Pressure, Vx, Vy, Vz, Sigmaxx, Sigmayy, Sigmazz, accumulated over
@@ -1078,18 +1124,14 @@ class Shard:
     slots: np.ndarray | None = None
 
 
-def _blocks(mesh, grid: FDTDGrid, halo: int = 2) -> Blocks:
-    """The (x, y) decomposition of ``grid`` over a mesh on axes ("x",),
-    ("y",) or ("x", "y") (its devices in C order) with ``halo`` ghost
-    planes, with the JAX package's refusals
+def _decomposition(mesh, grid: FDTDGrid, halo: int = 2):
+    """(``Blocks``, the device of each shard) of ``grid`` over ``mesh``
+    with ``halo`` ghost planes: cut along the mesh's "x" and "y" axes (the
+    shards in (x, y) C order), replicated over any other axis, of which
+    index 0 computes (``parallel.halo.decomposition_mesh``); across
+    processes the shards' processes. The JAX package's refusals
     (`babelbrain_tpu/ops/fdtd.py:1477-1485`)."""
-    mesh_devices(mesh, "run_fdtd")
-    if tuple(mesh.axis_names) not in (("x",), ("y",), ("x", "y")):
-        raise NotImplementedError(
-            f"run_fdtd: the port decomposes over mesh axes ('x',), ('y',) or "
-            f"('x', 'y') (mesh axes {mesh.axis_names} {mesh.shape}); other "
-            f"meshes are {ROADMAP_ITEM}"
-        )
+    check_mesh(mesh, "run_fdtd")
     nx, ny = mesh_axis_sizes(mesh)
     if grid.shape[0] % nx or grid.shape[1] % ny:
         raise ValueError(
@@ -1097,8 +1139,17 @@ def _blocks(mesh, grid: FDTDGrid, halo: int = 2) -> Blocks:
         )
     if grid.shape[0] // nx < grid.npml + 2 or grid.shape[1] // ny < grid.npml + 2:
         raise ValueError("shard too thin for the PML slab; reduce mesh size")
-    return Blocks(XSlabs(grid.shape[0], nx, halo),
-                  XSlabs(grid.shape[1], ny, halo, axis=1))
+    sub = decomposition_mesh(mesh)
+    across = ((sub.ranks, mesh.group, mesh.rank) if mesh.spans_processes
+              else ())
+    return (Blocks(XSlabs(grid.shape[0], nx, halo),
+                   XSlabs(grid.shape[1], ny, halo, axis=1), *across),
+            sub.devices)
+
+
+def _blocks(mesh, grid: FDTDGrid, halo: int = 2) -> Blocks:
+    """The ``Blocks`` of ``_decomposition``."""
+    return _decomposition(mesh, grid, halo)[0]
 
 
 def _split_source(vs: VolumeSource, dd: Blocks, s: int, n2: int, n3: int,
@@ -1125,23 +1176,29 @@ def shard_setup(mesh, mat_idx, materials, grid: FDTDGrid, source_amp=None,
                 source_phase=None, reflector_mask=None, volume_source=None,
                 sel_maps=(), monitor_ijk=None, sample_steps=(), halo=2):
     """What ``run_fdtd(mesh=)`` steps with: (``Blocks``, the ``Shard`` of
-    each mesh device, the pressure->velocity scale). Each shard holds its
-    copy of the setup, a zero state of its block and ``halo`` ghost planes
-    a side along each cut axis, its part of the sources and, with
-    ``sel_maps`` or ``monitor_ijk``, its ``Diagnostics`` (monitor samples at
+    each shard, None for one of another process, the pressure->velocity
+    scale). Every process runs the host setup on the full arrays (as each
+    JAX process supplies them) and builds its own shards only. Each shard
+    holds its copy of the setup, a zero state of its block and ``halo``
+    ghost planes a side along each cut axis, its part of the sources (the
+    point source only on its owner) and, with ``sel_maps`` or
+    ``monitor_ijk``, its ``Diagnostics`` (monitor samples at
     ``sample_steps``) over the voxels it owns."""
-    dd = _blocks(mesh, grid, halo)
+    dd, devices = _decomposition(mesh, grid, halo)
     h = _host_setup(mat_idx, materials, grid, source_amp, source_phase,
                     reflector_mask)
-    vsrc = _volume_source(grid, volume_source, mesh.devices[0])
+    local = [s for s in range(dd.n_shards) if dd.is_local(s)]
+    vsrc = _volume_source(grid, volume_source,
+                          devices[local[0]] if local else "cpu")
     make, state, _ = h.family()
     n2, n3 = grid.shape[1:]
     mon = (None if monitor_ijk is None
            else np.asarray(monitor_ijk, np.int64).reshape(-1, 3))
     if mon is not None:
         monitor_index(mon, grid.shape, "cpu")  # refuses voxels off the grid
-    shards = []
-    for s, dev in enumerate(mesh.devices):
+    shards = [None] * dd.n_shards
+    for s in local:
+        dev = devices[s]
         (a, b), (m1, m2) = dd.start(s), dd.planes(s)
         box = (slice(a, a + m1), slice(b, b + m2))
         shape = (m1, m2, n3)
@@ -1167,7 +1224,7 @@ def shard_setup(mesh, mat_idx, materials, grid: FDTDGrid, source_amp=None,
                 sh.st, grid.sensor_start, sel_maps,
                 sample_steps=sample_steps if mon is not None else (),
                 index=index)
-        shards.append(sh)
+        shards[s] = sh
     return dd, shards, h.oz_scale
 
 
@@ -1178,12 +1235,21 @@ def _shard_range(sh: Shard, s: int):
     return torch.cuda.nvtx.range(f"shard {s}")
 
 
+def _local(shards) -> list:
+    """(s, shard) of the shards of this process (``shard_setup`` puts None
+    for another process's)."""
+    return [(s, sh) for s, sh in enumerate(shards) if sh is not None]
+
+
 def _refresh(shards, dd: Blocks, half: int) -> None:
     """The ghost planes of half-step ``half``'s fields (``HALO_FIELDS`` of
-    the state) along each cut axis."""
-    for axis, names in HALO_FIELDS[type(shards[0].st)].items():
-        for k in names[half]:
-            dd.refresh([getattr(sh.st, k) for sh in shards], axis)
+    the state) along each cut axis; each field's place in that list tags
+    its messages across processes."""
+    state = type(_local(shards)[0][1].st)
+    for axis, names in HALO_FIELDS[state].items():
+        for j, k in enumerate(names[half]):
+            dd.refresh([None if sh is None else getattr(sh.st, k)
+                        for sh in shards], axis, tag=4 * half + j)
 
 
 def step_shards(shards, dd: Blocks, grid: FDTDGrid, n: int, oz_scale: float,
@@ -1195,18 +1261,21 @@ def step_shards(shards, dd: Blocks, grid: FDTDGrid, n: int, oz_scale: float,
     refresh along x, then along y. ``plain`` runs the plain versions (to
     check the kernels against). The shards' states and coefficients were
     validated by ``shard_setup``: the wrappers skip their per-call
-    checks."""
-    state = type(shards[0].st)
-    velocity, stress = _STEPS[state][plain]
+    checks. Across processes each steps its own shards (none: nothing to
+    do, no slab of it crosses)."""
+    mine = _local(shards)
+    if not mine:
+        return
+    velocity, stress = _STEPS[type(mine[0][1].st)][plain]
     scatter = velocity_volume_source_ref if plain else velocity_volume_source
     kw = {} if plain else {"checked": True}
     scalars = step_scalars(grid, n, oz_scale, point_amp)
-    for s, sh in enumerate(shards):
+    for s, sh in mine:
         with _shard_range(sh, s):
             _velocity_half(velocity, sh.st, sh.co, scalars, sh.vsrc, scatter,
                            **kw)
     _refresh(shards, dd, 0)
-    for s, sh in enumerate(shards):
+    for s, sh in mine:
         with _shard_range(sh, s):
             mon = sh.diag.monitor(n) if sh.diag is not None else None
             _stress_half(stress, sh.st, sh.co, grid, n, scalars, sh.point,
@@ -1301,13 +1370,19 @@ def sweep_shards(shards, dd: Blocks, grid: FDTDGrid, n: int, k: int,
     one bundled refresh of each group of ``state_groups``, then one fused
     launch (``fluid_fused`` or ``visco_fused``; with a volumetric drive
     ``fluid_halo``) per shard over its planes and ghost planes (``plain``:
-    the plain version)."""
-    groups = [state_groups(sh.st) for sh in shards]
-    for g in range(len(groups[0])):
-        dd.refresh_group([gr[g] for gr in groups])
+    the plain version). Across processes each sweeps its own shards, the
+    ghost planes that cross exchanged (a group's place in
+    ``state_groups`` tags its messages)."""
+    mine = _local(shards)
+    if not mine:
+        return
+    groups = [None if sh is None else state_groups(sh.st) for sh in shards]
+    for g in range(len(state_groups(mine[0][1].st))):
+        dd.refresh_group([None if gr is None else gr[g] for gr in groups],
+                         tag=g)
     rows = [step_scalars(grid, m, oz_scale) for m in range(n, n + k)]
-    fused, ref, *_ = FUSED[type(shards[0].st)]
-    for s, sh in enumerate(shards):
+    fused, ref, *_ = FUSED[type(mine[0][1].st)]
+    for s, sh in mine:
         with _shard_range(sh, s):
             if sh.vsrc is not None:  # a volumetric drive: the halo sweep
                 if plain:
@@ -1322,14 +1397,36 @@ def sweep_shards(shards, dd: Blocks, grid: FDTDGrid, n: int, k: int,
                 fused(sh.st, sh.co, rows, with_dft=with_dft, checked=True)
 
 
-def own_planes(dd: Blocks, parts) -> np.ndarray:
+def own_planes(dd: Blocks, parts, n3: int | None = None) -> np.ndarray:
     """The global volume from each shard's (planes, rows, N3) part (numpy
-    arrays or tensors): the block each shard owns, in place."""
-    own = [(p.cpu().numpy() if torch.is_tensor(p) else p)[dd.own(s)]
+    arrays or tensors): the block each shard owns, in place. Across
+    processes (None for another process's part; ``n3`` = N3) every process
+    gets the whole volume, the owned float32 blocks all-gathered (the JAX
+    package's ``process_allgather(tiled=True)``)."""
+    own = [None if p is None else
+           (p.cpu().numpy() if torch.is_tensor(p) else p)[dd.own(s)]
            for s, p in enumerate(parts)]
+    if dd.ranks is not None:
+        own = _gather_owned(dd, own, (dd.x.width, dd.y.width, n3))
     ny = dd.y.n_shards
     return np.concatenate([np.concatenate(own[sx * ny:(sx + 1) * ny], axis=1)
                            for sx in range(dd.x.n_shards)])
+
+
+def _gather_owned(dd: Blocks, own, shape) -> list:
+    """Every shard's owned block (``own``: this process's, None for the
+    others) on every process: one all-gather of each process's blocks in
+    ascending shard order."""
+    counts = [dd.ranks.count(r)
+              for r in range(distributed.process_count(dd.group))]
+    got = distributed.all_gather_blocks(
+        [torch.from_numpy(np.ascontiguousarray(b, np.float32))
+         for b in own if b is not None], shape, counts, dd.group)
+    order = sorted(range(dd.n_shards), key=lambda s: (dd.ranks[s], s))
+    out = [None] * dd.n_shards
+    for s, b in zip(order, got):
+        out[s] = b.numpy()
+    return out
 
 
 def overlap_plan(mesh, materials, grid: FDTDGrid, sel_maps=(),
@@ -1345,12 +1442,26 @@ def overlap_plan(mesh, materials, grid: FDTDGrid, sel_maps=(),
     if ((grid.source_type != "velocity_plane" and not volume) or sel_maps
             or monitor_ijk is not None):
         return None
-    dd = _blocks(mesh, grid)
+    dd, devices = _decomposition(mesh, grid)
     if dd.y.n_shards > 1:
         return None
     viscous = sls_coefficients(mats, grid.frequency, grid.dt)["viscous"]
-    return sharded_plan(dd.x.width, grid, mesh.devices[0], viscous,
-                        fuse_steps, visco=visco, volume=volume)
+    mine = [devices[s] for s in range(dd.n_shards) if dd.is_local(s)]
+    plan = (sharded_plan(dd.x.width, grid, mine[0], viscous, fuse_steps,
+                         visco=visco, volume=volume) if mine else None)
+    if dd.ranks is None:
+        return plan
+    # every process must take the same plan (ghost depth, refresh calls):
+    # those with shards each propose theirs from their first device
+    plans = {tuple(p) if p else None for has, p in
+             distributed.all_gather_object((bool(mine), plan), dd.group)
+             if has}
+    if len(plans) > 1:
+        raise ValueError(
+            f"run_fdtd: the processes of the mesh reach different sweep "
+            f"plans {sorted(plans, key=str)} on their devices; give every "
+            f"process devices of one kind")
+    return plans.pop()
 
 
 def _run_fdtd_sharded(mesh, mat_idx, materials, grid: FDTDGrid, source_amp,
@@ -1376,22 +1487,34 @@ def _run_fdtd_sharded(mesh, mat_idx, materials, grid: FDTDGrid, source_amp,
         else:
             for n, k, dft in overlap_schedule(grid, plan[0]):
                 sweep_shards(shards, dd, grid, n, k, dft, oz_scale)
-        _synchronize([sh.st.peak for sh in shards])
+        _synchronize([sh.st.peak for _, sh in _local(shards)])
     fdtd_halo_kernels.release()
 
-    result = _carrier_of(*(own_planes(dd, [getattr(sh.st, k) for sh in shards])
+    n3 = grid.shape[2]
+    result = _carrier_of(*(own_planes(dd, [None if sh is None else
+                                           getattr(sh.st, k) for sh in shards],
+                                      n3)
                            for k in ("acc_cos", "acc_sin", "peak")), grid)
     n_win = grid.n_steps - grid.sensor_start
     if sel_maps:
-        maps = [sh.diag.extras.read(n_win) for sh in shards]
-        result.update({k: own_planes(dd, [m[k] for m in maps])
+        maps = [None if sh is None else sh.diag.extras.read(n_win)
+                for sh in shards]
+        result.update({k: own_planes(dd, [None if m is None else m[k]
+                                          for m in maps], n3)
                        for k in sel_maps})
     if monitor_ijk is not None:
-        k = len(np.asarray(monitor_ijk).reshape(-1, 3))
-        series = np.zeros((len(sel), k), np.float32)
-        for sh in shards:
+        mon = np.asarray(monitor_ijk).reshape(-1, 3)
+        series = np.zeros((len(sel), len(mon)), np.float32)
+        for _, sh in _local(shards):
             if sh.diag.series is not None:  # the monitor's psum, by owner
                 series[:, sh.slots] = sh.diag.series.cpu().numpy()
+        if dd.ranks is not None:  # each voxel's column from its owner
+            world = distributed.process_count(dd.group)
+            got = [g.numpy() for g in distributed.all_gather_blocks(
+                [torch.from_numpy(series)], series.shape, [1] * world,
+                dd.group)]
+            for j, (i, jj, _) in enumerate(mon):
+                series[:, j] = got[dd.ranks[dd.owner(int(i), int(jj))]][:, j]
         result.update(_series(series, sel, grid))
     return result
 
@@ -1433,8 +1556,11 @@ def run_fdtd_batch(
     ``make_mesh_2d`` too, as the JAX package takes one) whose devices, in C
     order, take contiguous blocks of the cases (the JAX package's case-axis
     fan-out, without its padding), stepped in lockstep so that several
-    cards work at once; without it every case runs on ``device``. Returns the stacked
-    (B, N1, N2, N3) 'p_amp', 'p_phase' and 'peak' of ``run_fdtd``.
+    cards work at once; without it every case runs on ``device``. A mesh
+    over several processes raises ``NotImplementedError`` (ROADMAP Queue A
+    item 6c: the JAX package runs only ``run_fdtd`` across processes).
+    Returns the stacked (B, N1, N2, N3) 'p_amp', 'p_phase' and 'peak' of
+    ``run_fdtd``.
     """
     devices = ((torch.device(device),) if mesh is None
                else mesh_devices(mesh, "run_fdtd_batch"))

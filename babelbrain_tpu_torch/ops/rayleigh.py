@@ -255,7 +255,8 @@ def rayleigh_field(
     mesh : optional ``DeviceMesh`` (``parallel.halo.make_mesh``, or
         ``make_mesh_2d``): the points are split over all its devices, in C
         order, in contiguous runs of whole ``point_block`` blocks
-        (``device`` is then not used).
+        (``device`` is then not used); one over several processes raises
+        ``NotImplementedError`` (ROADMAP Queue A item 6c).
     device : where the evaluation runs.
 
     Returns

@@ -442,7 +442,9 @@ def run_multipoint(
     ``fanout='auto'`` fans out when several cards are available, no spatial
     ``mesh`` was given and no refocusing is asked for (``fanout_mesh``,
     JAX's rule); ``True`` / ``False`` force it. Without fan-out each point
-    runs ``run_acoustic_sim``, its FDTD decomposed over ``mesh`` if given.
+    runs ``run_acoustic_sim``, its FDTD decomposed over ``mesh`` if given;
+    a ``mesh`` over several processes raises ``NotImplementedError``
+    (ROADMAP Queue A item 6c).
     """
     if mesh is not None:
         mesh_devices(mesh, "run_multipoint")  # checked before any Rayleigh

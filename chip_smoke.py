@@ -235,7 +235,14 @@ Phases (each prints its own lines; any failed check exits nonzero):
              share. Counts are set to 0 before the replays: the FDTD rows
              must count the shards' launches. With more than one card,
              the CT run across cards and the peer-copy rate;
-6. probes  — ``babelbrain_tpu_torch.probes.run_probes``: the card's stream
+6. multiprocess — the CT slice's ``run_fdtd`` again in two worker
+             processes of this script (``--mp-worker``), each holding two
+             shards of cuda:0 of a 4-way x mesh laid out over a gloo
+             process group, the ghost planes that cross the processes
+             staged through pinned host memory; each worker's whole result
+             must equal the slice's bit for bit, and rank 0 prints its loop
+             and its host time a step in the cross-process exchange;
+7. probes  — ``babelbrain_tpu_torch.probes.run_probes``: the card's stream
              rate, FP32 FMA rate and table-gather cost (P1, P2).
 
 The last lines are the kernel table (JSON), the card's name and power limit
@@ -251,6 +258,7 @@ import importlib.util
 import inspect
 import json
 import os
+import pickle
 import resource
 import subprocess
 import sys
@@ -5358,7 +5366,8 @@ def run_mesh(times, device="cuda"):
     batch. Counts are set to 0 before the replays and read after: every
     FDTD kernel's launches must be those of the shards, and no plain
     version may run. With more than one card, the CT run again across real
-    cards and the peer-copy rate. Returns (errors, launches)."""
+    cards and the peer-copy rate. Returns (errors, launches, the CT
+    run's loop seconds on the shards)."""
     from babelbrain_tpu_torch.ops import fdtd as F
     from babelbrain_tpu_torch.ops.fdtd import make_case_mesh
     from babelbrain_tpu_torch.ops.fdtd import run_fdtd, run_fdtd_batch
@@ -5502,7 +5511,8 @@ def run_mesh(times, device="cuda"):
         check_mesh_cards(cards)
     print(f"[mesh] phase {time.time() - t_phase:.2f} s, its 2-D part "
           f"{t_2d:.2f} s of it")
-    return errs, launches
+    ct = replayed.get(("ct", 0))
+    return errs, launches, None if ct is None else ct[-1]
 
 
 def mesh_2d(cut, one):
@@ -5670,6 +5680,150 @@ def check_mesh_cards(cards):
     ms = _timed(lambda: b.copy_(a, non_blocking=True), 10)
     print(f"[mesh] peer copy cuda:0 -> cuda:1: {a.numel() * 4 / ms / 1e6:.1f}"
           f" GB/s ({ms:.4f} ms for {a.numel() * 4 / 2**20:.0f} MiB)")
+
+
+# ---------------------------------------------------------------------------
+# the multi-process phase
+# ---------------------------------------------------------------------------
+
+# the CT slice's run_fdtd over MP_PROCS processes of MP_SHARDS shards each,
+# every shard on one card: a 4-way x mesh whose middle boundary crosses the
+# processes, its ghost planes host-staged through gloo
+MP_PROCS = 2
+MP_SHARDS = 2
+MP_TIMEOUT = 300  # seconds for the workers, their start included
+
+
+def run_multiprocess(mesh_loop=None, device="cuda"):
+    """The CT slice's recorded ``run_fdtd`` call (``RECORDED["ct"]``) in
+    ``MP_PROCS`` worker processes of this script (``--mp-worker``), each
+    holding ``MP_SHARDS`` shards of one ``device`` in a mesh laid out over
+    a gloo process group (``parallel.distributed``); each worker returns
+    the whole result, which must equal the slice's unsharded result bit
+    for bit. The library is built already (``build``), so the workers only
+    load it. Rank 0 prints its loop and the host time a step spent in the
+    cross-process exchange; ``mesh_loop`` is the loop of the same run on as
+    many shards in one process (the mesh phase's). Returns the workers'
+    summed launch counts, which must be those of the shards."""
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.parallel.halo import make_mesh
+
+    t_phase = time.time()
+    name, args, kw, ref, loop = next(c for c in RECORDED["ct"]
+                                     if c[0] == "run_fdtd")
+    kw = {k: v for k, v in kw.items() if k not in ("device", "mesh")}
+    grid, mats = _bound(F.run_fdtd, args, kw, "grid", "materials")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "case.pkl"), "wb") as f:
+            pickle.dump({"args": args, "kw": kw, "ref": ref}, f)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mp-worker",
+             str(r), str(MP_PROCS), tmp, device],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(MP_PROCS)]
+        outs = []
+        for p in procs:
+            try:
+                out, _ = p.communicate(
+                    timeout=max(1.0, MP_TIMEOUT - (time.time() - t_phase)))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                    q.communicate()
+                fail(f"multiprocess: workers still running after "
+                     f"{MP_TIMEOUT} s")
+            outs.append(out)
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            for line in out.splitlines():
+                if line.startswith("[multiprocess]"):
+                    print(line)
+            if p.returncode != 0:
+                fail(f"multiprocess: worker {r} exited {p.returncode}:\n"
+                     f"{out[-3000:]}")
+        res = []
+        for r in range(MP_PROCS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    for r in res:
+        if r["differing"]:
+            fail(f"multiprocess: rank {r['rank']}'s result differs from the "
+                 f"unsharded run in {r['differing']}")
+    n_shards = MP_PROCS * MP_SHARDS
+    expect = dict.fromkeys(res[0]["launches"], 0)
+    one = "cuda:0" if device == "cuda" else device
+    _expect_shard_launches(expect, grid, mats, n_shards,
+                           make_mesh(n_shards, devices=[one] * n_shards), kw)
+    launches = {k: sum(r["launches"][k] for r in res) for k in expect}
+    plain = {k: sum(r["plain"][k] for r in res) for k in expect}
+    r0 = res[0]
+    step = r0["exchange"]["seconds"] / grid.n_steps
+    print(f"[multiprocess] ct run_fdtd {grid.shape} {grid.n_steps} steps on "
+          f"{MP_PROCS} processes x {MP_SHARDS} shards of {one} (gloo, "
+          f"host-staged): rank 0 loop {r0['loop']:.3f} s, wall "
+          f"{r0['wall']:.3f} s; cross-process exchange {step * 1e3:.4f} ms "
+          f"a step of host time (staging the sends and waiting for the "
+          f"device {r0['exchange']['staging'] / grid.n_steps * 1e3:.4f} ms, "
+          f"on the wire {r0['exchange']['wire'] / grid.n_steps * 1e3:.4f} "
+          f"ms; {r0['exchange']['exchanges']} exchanges, "
+          f"{r0['exchange']['bytes'] / grid.n_steps / 1e6:.4f} MB sent a "
+          f"step); unsharded loop {loop:.3f} s"
+          + ("" if mesh_loop is None else
+             f", {n_shards} shards in one process {mesh_loop:.3f} s")
+          + f"; both results bit-equal to the unsharded run; phase "
+          f"{time.time() - t_phase:.2f} s")
+    print(f"[multiprocess] launches "
+          f"{ {k: v for k, v in launches.items() if v} }; plain calls "
+          f"{ {k: v for k, v in plain.items() if v} }")
+    if device == "cuda" and (any(plain.values()) or any(
+            launches[k] != expect[k] for k in expect)):
+        fail(f"multiprocess: launches {launches} (expected {expect}), plain "
+             f"calls {plain}")
+    return launches
+
+
+def mp_worker(rank: int, world: int, tmp: str, device: str) -> None:
+    """One process of ``run_multiprocess``: joins the gloo group on a
+    ``file://`` store in ``tmp``, names ``MP_SHARDS`` shards of ``device``
+    (cuda:0 on a card) and runs the case, its counts set to 0 just before;
+    writes ``rank<r>.json`` (the fields that differ from the slice's
+    result, loop, exchange figures, counts)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from babelbrain_tpu_torch.ops import fdtd as F
+    from babelbrain_tpu_torch.parallel import distributed as D
+    from babelbrain_tpu_torch.parallel.halo import make_mesh
+    from babelbrain_tpu_torch.utils.timing import clear_spans, recorded_spans
+
+    if device == "cuda" and not torch.cuda.is_available():
+        fail("multiprocess worker: no CUDA device")
+    group = D.initialize(f"file://{os.path.join(tmp, 'store')}", world,
+                         rank, timeout=MP_TIMEOUT)
+    with open(os.path.join(tmp, "case.pkl"), "rb") as f:
+        case = pickle.load(f)
+    one = "cuda:0" if device == "cuda" else device
+    mesh = make_mesh(world * MP_SHARDS, devices=[one] * MP_SHARDS,
+                     group=group)
+    reset_counts()
+    D.reset_stats()
+    clear_spans()
+    t0 = time.time()
+    out = F.run_fdtd(*case["args"], mesh=mesh, **case["kw"])
+    wall = time.time() - t0
+    loop = next(dt for label, dt in recorded_spans()
+                if label.endswith("FDTD time loop"))
+    launches, plain = read_counts()
+    bad = _maps_differ(case["ref"], out) + sorted(
+        set(case["ref"]) ^ set(out))
+    if rank == 0:
+        print(f"[multiprocess] rank 0: loop {loop:.3f} s, cross-process "
+              f"exchange {D.stats['seconds']:.3f} s of host time "
+              f"({D.stats['exchanges']} exchanges, {D.stats['bytes']} bytes "
+              f"sent); fields differing {bad}", flush=True)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "wall": wall, "loop": loop,
+                   "differing": bad, "exchange": dict(D.stats),
+                   "launches": launches, "plain": plain}, f)
+    torch.distributed.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -5888,10 +6042,12 @@ def main():
         for k, v in run_sweep(have["h5py"]).items():
             launches[k] += v
     finish_background()
-    mesh_errs, counts = run_mesh(times)
-    RECORDED.clear()
+    mesh_errs, counts, mesh_loop = run_mesh(times)
     for k, v in counts.items():
         launches[k] += v
+    for k, v in run_multiprocess(mesh_loop).items():
+        launches[k] += v
+    RECORDED.clear()
     for k, v in mesh_errs.items():
         errs[k] = max(errs[k], v)
     for k, v in run_probes().items():
@@ -5926,4 +6082,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mp-worker"]:
+        mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  sys.argv[5])
+    else:
+        main()

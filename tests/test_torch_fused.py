@@ -448,17 +448,18 @@ def test_overlap_halo_covers_the_contamination():
 
 
 def test_refresh_group_moves_each_group_once():
-    """``XSlabs.refresh_group`` fills the ghost planes of every tensor of a
+    """``Blocks.refresh_group`` fills the ghost planes of every tensor of a
     group as ``refresh`` does one by one."""
     xs = H.XSlabs(24, 3, halo=3)
+    dd = H.Blocks(xs, H.XSlabs(4, 1, axis=1))
     rng = np.random.default_rng(0)
     groups = [[torch.as_tensor(rng.standard_normal((xs.planes(s), 4, 5)),
                                dtype=torch.float32) for _ in range(3)]
               for s in range(3)]
     ref = [[t.clone() for t in g] for g in groups]
-    xs.refresh_group(groups)
+    dd.refresh_group(groups)
     for f in range(3):
-        xs.refresh([g[f] for g in ref])
+        dd.refresh([g[f] for g in ref], 0)
     for a, b in zip(groups, ref):
         for x, y in zip(a, b):
             assert torch.equal(x, y)

@@ -363,9 +363,10 @@ def test_edge_ownership_matches_jax_pallas_sharded(family):
 
 def test_shard_constraints_raise():
     """`tests/test_sharded.py:284` twin, with JAX's messages: N1 not
-    divisible by the mesh, a shard thinner than npml + 2 and a mesh on
-    another axis than x or y are refused; a 2-D mesh runs (ROADMAP Queue A
-    item 6a) and equals the unsharded run bit for bit."""
+    divisible by the mesh and a shard thinner than npml + 2 are refused; a
+    2-D mesh runs (ROADMAP Queue A item 6a), and a mesh on another axis
+    than x or y runs replicated (item 6d: JAX's ``mesh_axis_sizes`` gives
+    it (1, 1)), each equal to the unsharded run bit for bit."""
     mats = np.array(SHEAR)
     g = _grid((126, 48, 80), 1)
     idx = np.zeros(g["shape"], np.uint8)
@@ -376,16 +377,32 @@ def test_shard_constraints_raise():
     with pytest.raises(ValueError, match="shard too thin for the PML slab"):
         T.run_fdtd(idx, mats, T.FDTDGrid(**g), source_amp=amp,
                    mesh=cpu_mesh(14))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        T.run_fdtd(idx, mats, T.FDTDGrid(**g), source_amp=amp,
-                   mesh=cpu_mesh(2, axis="case"))
     amp[8:-8, 8:-8] = 60e3
     g = _grid((126, 48, 80), 2)
     o1 = T.run_fdtd(idx, mats, T.FDTDGrid(**g), source_amp=amp, device="cpu")
     o2 = T.run_fdtd(idx, mats, T.FDTDGrid(**g), source_amp=amp,
                     mesh=H.make_mesh_2d(1, 2, devices=["cpu"] * 2))
+    o3 = T.run_fdtd(idx, mats, T.FDTDGrid(**g), source_amp=amp,
+                    mesh=cpu_mesh(2, axis="case"))
     assert o1["p_amp"].max() > 0
     _equal(o1, o2)
+    _equal(o1, o3)
+
+
+@pytest.mark.parametrize("axes,shape", [(("case", "x"), (2, 4)),
+                                        (("x", "case"), (4, 2))])
+def test_replicated_mesh_axes_bit_equal(axes, shape):
+    """A mesh with an axis besides x (ROADMAP Queue A item 6d) cuts the
+    grid along x over index 0 of the other axis, the shards in x order
+    whatever the axes' order, and equals the unsharded run bit for bit."""
+    idx, mats, g, kw, o1 = _fluid_case()
+    mesh = H.DeviceMesh((torch.device("cpu"),) * 8, axes, shape)
+    # the ranks as labels of the mesh's places: which ones compute
+    sub = H.decomposition_mesh(dataclasses.replace(mesh, ranks=tuple(range(8))))
+    assert sub.shape == (4, 1) and sub.axis_names == ("x", "y")
+    assert sub.ranks == ((0, 1, 2, 3) if axes[0] == "case" else (0, 2, 4, 6))
+    assert T._blocks(mesh, T.FDTDGrid(**g)).x.n_shards == 4
+    _equal(o1, T.run_fdtd(idx, mats, T.FDTDGrid(**g), mesh=mesh, **kw))
 
 
 def test_make_mesh_names_only_devices_that_exist(monkeypatch):
@@ -421,7 +438,7 @@ def test_x_slabs_refresh_ghost_planes():
     parts = [torch.full((xs.planes(s), 1), -1.0) for s in range(3)]
     for s, p in enumerate(parts):
         p[xs.own(s)] = full[s * 8:(s + 1) * 8]
-    xs.refresh(parts)
+    H.Blocks(xs, H.XSlabs(1, 1, axis=1)).refresh(parts, 0)
     for s, p in enumerate(parts):
         a = xs.start(s)
         assert torch.equal(p, full[a:a + xs.planes(s)])

@@ -177,25 +177,75 @@ def _jax(name, mesh):
     ("volume", VOLUME, 0.0)])
 def test_2d_mesh_matches_jax_xla(name, band, rtol):
     """Against JAX's XLA run on the same (nx, ny) mesh of CPU devices, at
-    the band of the source type. The point run's 'peak' at the source cell
-    is an instantaneous value of the drive itself, which carries JAX's
-    float32 source scalar (omega t rounded in float32) against the port's
-    float64 one: it is held at the band of an instantaneous sample
-    (`tests/test_torch_fdtd.py` ``series_band``, 1e-5), every other cell
-    at the point band (the port's unsharded run misses JAX's unsharded one
-    there by the same 2.5e-6 of the peak)."""
+    the band of the source type, every cell: the point run's source cell
+    too, whose 'peak' is an instantaneous value of the drive itself, since
+    the port computes the drive in float32 as JAX's step does
+    (``test_point_drive_is_jax_float32_drive``)."""
     ot, oj = _sharded(name), _jax(name, j_make_mesh_2d(*MESHES[name]))
-    if name != "point":
-        _band(ot, oj, band, rtol)
-        return
-    _band(ot, oj, band, keys=("p_amp",))
-    cell = tuple(_case(name)[2]["source_ijk"])
+    _band(ot, oj, band, rtol)
+
+
+def _jax_point_drive(g, amp):
+    """JAX's stress-point ``sval`` of every step, by the expressions of its
+    XLA step (`babelbrain_tpu/ops/fdtd.py:521, :557-562, :855`), jitted in
+    a scan as the step is."""
+    import jax
+    import jax.numpy as jnp
+
+    grid = J.FDTDGrid(**g)
+    omega = 2.0 * np.pi * grid.frequency
+
+    def step(carry, n):
+        t = n.astype(jnp.float32) * grid.dt
+        ramp_steps = grid.ramp_cycles / grid.frequency / grid.dt
+        ramp = jnp.where(n < ramp_steps,
+                         0.5 * (1.0 - jnp.cos(np.pi * n / ramp_steps)),
+                         1.0).astype(jnp.float32)
+        return carry, carry * jnp.sin(omega * t) * ramp * jnp.float32(1.0)
+
+    _, sval = jax.jit(lambda a: jax.lax.scan(
+        step, a, jnp.arange(grid.n_steps, dtype=jnp.int32)))(
+            jnp.float32(amp))
+    return np.asarray(sval)
+
+
+def test_point_drive_is_jax_float32_drive(monkeypatch):
+    """ROADMAP C1: the port's stress-point drive (``step_scalars``' s_point,
+    ``point_value``) equals JAX's float32 ``sval`` at every step of the
+    point case, where the float64 drive cast to float32 misses it on most
+    steps; and the source cell's 'peak' follows it: the unsharded run
+    with the float64 drive misses JAX's unsharded XLA run there by more
+    than the point band, the run with the float32 drive meets it (as every
+    other cell does either way)."""
+    idx, mats, g, kw, o1 = _case("point")
+    grid = T.FDTDGrid(**g)
+    amp = kw["point_amp"]
+    sval = _jax_point_drive(g, amp)
+    ours = np.array([T.step_scalars(grid, n, 1.0, amp)[4]
+                     for n in range(grid.n_steps)], np.float32)
+    np.testing.assert_array_equal(ours, sval)
+
+    def float64_drive(grid, n, point_amp):
+        omega = 2.0 * np.pi * grid.frequency
+        ramp_steps = grid.ramp_cycles / grid.frequency / grid.dt
+        ramp = (0.5 * (1.0 - np.cos(np.pi * n / ramp_steps))
+                if n < ramp_steps else 1.0)
+        return float(point_amp * np.sin(omega * (n * grid.dt)) * ramp)
+
+    wide = np.array([float64_drive(grid, n, amp)
+                     for n in range(grid.n_steps)], np.float32)
+    assert (wide != sval).sum() > grid.n_steps // 2
+    oj = _jax("point", None)
+    cell = tuple(g["source_ijk"])
     scale = oj["peak"].max()
+    _band(o1, oj, POINT)
+    monkeypatch.setattr(T, "point_value", float64_drive)
+    o64 = T.run_fdtd(idx, mats, grid, device="cpu", **kw)
     other = np.ones(oj["peak"].shape, bool)
     other[cell] = False
-    np.testing.assert_allclose(ot["peak"][other], oj["peak"][other],
-                               atol=band * scale)
-    assert abs(ot["peak"][cell] - oj["peak"][cell]) <= 1e-5 * scale
+    np.testing.assert_allclose(o64["peak"][other], oj["peak"][other],
+                               atol=POINT * scale)
+    assert abs(o64["peak"][cell] - oj["peak"][cell]) > POINT * scale
 
 
 def test_maps_and_monitors_match_jax_xla():

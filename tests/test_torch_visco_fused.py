@@ -574,6 +574,7 @@ def test_refresh_group_over_the_visco_groups():
     fills every ghost plane of each group as ``refresh`` does one tensor at
     a time."""
     xs = H.XSlabs(60, 3, halo=4)
+    dd = H.Blocks(xs, H.XSlabs(16, 1, axis=1))
     rng = np.random.default_rng(0)
     states = []
     for s in range(3):
@@ -588,9 +589,9 @@ def test_refresh_group_over_the_visco_groups():
         {(16, 18)}, {(14, 18)}, {(16, 14)}]
     ref = [[[t.clone() for t in gr] for gr in g] for g in groups]
     for g in range(3):
-        xs.refresh_group([gr[g] for gr in groups])
+        dd.refresh_group([gr[g] for gr in groups])
         for f in range(len(groups[0][g])):
-            xs.refresh([r[g][f] for r in ref])
+            dd.refresh([r[g][f] for r in ref], 0)
     for a, b in zip(groups, ref):
         for ga, gb in zip(a, b):
             for x, y in zip(ga, gb):
