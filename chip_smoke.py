@@ -182,6 +182,15 @@ Phases (each prints its own lines; any failed check exits nonzero):
              (the CPU registration and the export in spawned processes
              beside the anchors and sweep-ct, joined before the mesh
              phase).
+             After the slices, the golden phase (``run_golden``): the
+             reference's digital head (``build_head`` of
+             `tests/test_torch_digital_head.py`, loaded by path) in CT
+             mode at the configuration of `tests/golden/digital_head_ct.npz`
+             (HeadTest bowl, 500 kHz, 6 PPW, mask 84x84x192, no Step 3),
+             through ``run_case`` (its HDF5 writes kept in memory where
+             h5py is missing); peak within 1% and 1e-4, crop L2 below
+             0.05 and 1e-3, focus within one grid step of the golden's,
+             launch counts as a slice's.
              Last, sweep-ct (``run_sweep``, after the anchors below): two
              shape-bucketed targets 5 mm
              apart (one grid signature), each with a 3-entry thermal
@@ -3690,6 +3699,100 @@ def check_registration(tag, res, zte, aff, t1, device):
                   check=compare)
 
 
+# the golden phase's own bands beside the reference's (tol_1 0.01, tol_5
+# 0.05): peak relative error and crop L2, ~20x and ~12x above the port's
+# readings on an H100 (4.3e-6 and 8.2e-5), so that a drift of orders of
+# magnitude (a wrong material table, a lower-precision field) fails here
+GOLDEN_BANDS = (1e-4, 1e-3)
+
+
+def golden_test_module():
+    """``tests/test_torch_digital_head.py`` loaded by path: the one copy of
+    the reference's digital head, the golden's configuration and the golden
+    figures (it imports nothing of JAX)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_digital_head.py")
+    spec = importlib.util.spec_from_file_location("bb_digital_head_test",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_golden(device="cuda"):
+    """The golden phase: the reference's digital head (96^3 at 2 mm, its
+    ``build_head``) in CT mode at the golden's configuration (the HeadTest
+    bowl, 500 kHz, 6 PPW, target (0, 0, 20) mm, mask 84x84x192, no Step 3)
+    through ``run_case``, its HDF5 writes kept in memory where h5py is
+    missing (``run_case_without`` of the test file), with the kernel counts
+    set to 0 before and read after. The field must meet
+    `tests/golden/digital_head_ct.npz` at the reference's bands (peak within
+    1%, L2 of the central 32x32x48 crop below 0.05) and at ``GOLDEN_BANDS``,
+    and its focus must lie within one grid step of the golden's. Returns the
+    launch counts."""
+    import pytest
+
+    from babelbrain_tpu_torch.pipeline import io as pio
+    from babelbrain_tpu_torch.pipeline.acoustic import _make_grid
+    from babelbrain_tpu_torch.pipeline.profiles import TRANSDUCER_REGISTRY
+    from babelbrain_tpu_torch.pipeline.runner import CaseConfig, run_case
+
+    dh = golden_test_module()
+    labels, ct, *_, aff = dh.build_head()
+    TRANSDUCER_REGISTRY["HeadTest"] = dh.HEAD_TX
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                pytest.MonkeyPatch.context() as mp, \
+                dh.run_case_without(mp) as (cap, made):
+            print(f"[golden] driving run_case; replaced: {made or 'nothing'}")
+            cfg = CaseConfig(tx_system="HeadTest", frequency=500e3, ppw=6.0,
+                             ct_type="CT", output_dir=tmp, prefix="dh_ct",
+                             device=device)
+            reset_counts()
+            t0 = time.time()
+            with counting_rayleigh() as n_ray:
+                res = run_case(cfg, labels, aff, dh.TARGET, dh.DIRECTION,
+                               ct_data=ct, ct_affine=aff,
+                               mask_shape=dh.MASK_SHAPE)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches, plain = read_counts()
+            path = res["files"]["acoustic"]
+            data = (cap.files[path] if cap is not None
+                    else pio.load_dict_h5(path))
+    finally:
+        TRANSDUCER_REGISTRY.pop("HeadTest", None)
+    dom = res["domain"]
+    pa, pos, peak, _ = dh.focal_metrics(data)
+    f = dh.golden_figures(pa, pos, peak)
+    dx = float(np.asarray(data["SpatialStep"]))
+    print(f"[golden] FDTD grid {dom.material_map.shape} n_steps "
+          f"{dom.n_steps}, {len(dom.materials)} materials; wall {wall:.2f} s")
+    print(f"[golden] peak {peak:.6g} Pa, relative error "
+          f"{f['peak_rel_err']:.6g} (tol_1: < 0.01); focus "
+          f"{tuple(float(v) for v in pos)} m, {f['pos_err_m']:.6g} m from "
+          f"the golden's (grid step {dx:.6g} m); crop L2 {f['crop_l2']:.6g} "
+          "(tol_5: < 0.05)")
+    peak_band, crop_band = GOLDEN_BANDS
+    if not (f["peak_rel_err"] < min(0.01, peak_band)
+            and f["crop_l2"] < min(0.05, crop_band)
+            and f["pos_err_m"] <= dx * (1 + 1e-6)):
+        fail(f"golden: the CT field misses tests/golden/digital_head_ct.npz "
+             f"(peak < 0.01 and < {peak_band}, crop L2 < 0.05 and < "
+             f"{crop_band}, focus within {dx} m): {f}")
+    expect = dict.fromkeys(launches, 0)
+    expect["rayleigh"], expect["rayleigh_grid"] = n_ray
+    expect_fused_run(expect, _make_grid(dom), dom.materials, device=device)
+    print(f"[golden] launches { {k: v for k, v in launches.items() if v} }")
+    if device == "cuda":
+        if launches != expect:
+            fail(f"golden: launch counts {launches} != expected {expect}")
+        if any(plain.values()):
+            fail(f"golden: plain versions ran on the main path: {plain}")
+    return launches
+
+
 # slice sweep-ct: two targets 5 mm apart on the beam axis, shape-bucketed to
 # one grid signature; a 3-entry thermal profile per cell (the slices'
 # sonication at three duty cycles, chained); multipoint steering +-5 mm in z
@@ -6034,6 +6137,9 @@ def main():
             launches[k] += v
         for k, v in slice_errs.items():
             errs[k] = max(errs[k], v)
+    background_note("the golden phase")
+    for k, v in run_golden().items():
+        launches[k] += v
     background_note("the anchors")
     for k, v in run_anchors().items():
         launches[k] += v

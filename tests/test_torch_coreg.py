@@ -51,8 +51,8 @@ from test_torch_sweep import (
     _Stop,
     _explain_index_differences,
     _record_quantize,
-    _resample64,
     _step1_of,
+    _use_resample64,
 )
 
 torch.set_num_threads(2)
@@ -387,14 +387,7 @@ def test_run_case_zte_coregistered_to_t1_matches_jax(phantom, tmp_path,
         q = {}
         _record_quantize(s1, monkeypatch, q)
         if name == "f64":
-            real = TI.resample_from_to
-
-            def resample(vol, a_from, a_to, shape, order=1, *, device="cuda"):
-                if order == 3:
-                    return _resample64(vol, a_from, a_to, shape)
-                return real(vol, a_from, a_to, shape, order, device=device)
-
-            monkeypatch.setattr(TI, "resample_from_to", resample)
+            _use_resample64(monkeypatch)
         out[name] = _step1_of(mod, monkeypatch, cfg, labels, aff, zte,
                               t1_data=t1, t1_affine=aff)
         out[name].update(q)

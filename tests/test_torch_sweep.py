@@ -587,7 +587,9 @@ class _Stop(Exception):
     pass
 
 
-def _step1_of(runner_mod, monkeypatch, cfg, labels, aff, image, **kw):
+def _step1_of(runner_mod, monkeypatch, cfg, labels, aff, image,
+              target=TARGET, direction=DIRECTION, mask_shape=MASK_SHAPE,
+              **kw):
     """``run_case`` up to ``build_domain``: (mask, CT index, material
     table) that Step 1 and the material build gave it."""
     seen = {}
@@ -599,9 +601,9 @@ def _step1_of(runner_mod, monkeypatch, cfg, labels, aff, image, **kw):
 
     monkeypatch.setattr(runner_mod, "build_domain", stop)
     with pytest.raises(_Stop):
-        runner_mod.run_case(cfg, labels, aff, TARGET, DIRECTION,
+        runner_mod.run_case(cfg, labels, aff, target, direction,
                             ct_data=image, ct_affine=aff,
-                            mask_shape=MASK_SHAPE, **kw)
+                            mask_shape=mask_shape, **kw)
     return seen
 
 
@@ -630,6 +632,21 @@ def _resample64(volume, from_affine, to_affine, to_shape):
                 val = coeff[tuple(np.where(ok, ijk, 0))]
                 out += w[0][a] * w[1][b] * w[2][c] * np.where(ok, val, 0.0)
     return out.reshape(to_shape)
+
+
+def _use_resample64(monkeypatch):
+    """The port's order-3 resamples in float64 (``_resample64``) for the
+    rest of the test; the other orders as they are."""
+    from babelbrain_tpu_torch.ops import imaging as tim
+
+    real = tim.resample_from_to
+
+    def resample(vol, a_from, a_to, shape, order=1, *, device="cuda"):
+        if order == 3:
+            return _resample64(vol, a_from, a_to, shape)
+        return real(vol, a_from, a_to, shape, order, device=device)
+
+    monkeypatch.setattr(tim, "resample_from_to", resample)
 
 
 def _record_quantize(step1_mod, monkeypatch, seen):
@@ -671,7 +688,6 @@ def test_mri_and_density_inputs_match_jax(head, tmp_path, monkeypatch,
                                           ct_type):
     from babelbrain_tpu.pipeline import step1 as JS1
     from babelbrain_tpu_torch.materials.ct_mapping import quantize_hu
-    from babelbrain_tpu_torch.ops import imaging as tim
     from babelbrain_tpu_torch.pipeline import step1 as TS1
 
     labels, aff = head
@@ -687,14 +703,7 @@ def test_mri_and_density_inputs_match_jax(head, tmp_path, monkeypatch,
         _record_quantize(s1, monkeypatch, q)
         if name == "f64":
             # the port's Step 1 with the CT resample in float64
-            real = tim.resample_from_to
-
-            def resample(vol, a_from, a_to, shape, order=1, *, device="cuda"):
-                if order == 3:
-                    return _resample64(vol, a_from, a_to, shape)
-                return real(vol, a_from, a_to, shape, order, device=device)
-
-            monkeypatch.setattr(tim, "resample_from_to", resample)
+            _use_resample64(monkeypatch)
         out[name] = _step1_of(mod, monkeypatch, cfg, labels, aff, image)
         out[name].update(dir=d, **q)
     sj, st, s64 = out["jax"], out["port"], out["f64"]
